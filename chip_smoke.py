@@ -10,9 +10,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 byte for byte (tolerance 0): gf_matmul with a parity, a
                 3-missing decode and a recover matrix at S in {0, 1, 17,
                 16384, 87382} and at the main path's B=8, S=349,526; hh256
-                on rows of every length 0..64, of 349,526 bytes inside
-                longer rows (shard_len < S), and on the main path's
-                8 x (12 + r) rows of 349,526 bytes for r = 0..4.
+                (also against the scalar HighwayHash on one row of each
+                case) on rows of every length 0..64, rows starting at
+                every offset mod 16 (strides 1031 and 349,526, views that
+                start mid-word, a sliced view made contiguous), lengths
+                around each ring chunk size, 1 to 9000 rows, 349,526 bytes
+                inside longer rows, length == row stride on the tensor's
+                last row, and the main path's 8 x (12 + r) rows of 349,526
+                bytes for r = 0..4.
   3. main path — one 16-drive erasure set at EC 12+4, 4 MiB blocks,
                 highwayhash256S streaming bitrot: PUT eight 64 MiB objects,
                 one of 64 MiB + 12,345 bytes and one of 1 KiB; GET them all
@@ -22,10 +27,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 launch counters must rise in the PUT and degraded-GET runs.
                 Prints the host seconds the codec spent in its device
                 steps (copy onto the card; launches and copy back).
-  4. timings  — at BASELINE.json's shape (B=32, 12+4, 1 MiB blocks,
-                S=87,382): put_step, each kernel alone and each plain version,
-                timed with CUDA events after warm-up, beside each kernel's
-                bound (bytes moved / 3.35 TB/s).
+  4. timings  — with CUDA events after warm-up: at BASELINE.json's shape
+                (B=32, 12+4, 1 MiB blocks, S=87,382) put_step, each kernel
+                and each plain version; hh256 alone also at the main
+                path's launch shapes, 128 rows (PUT) and 96 rows (degraded
+                GET) of 349,526 bytes. Beside each: the byte bound (bytes
+                moved / 3.35 TB/s), the operation bound (32-bit operations
+                / the INT32 rate) and, for hh256, the chain floor: packet
+                rounds x the cycles of one trip of the kernel's packet loop
+                (its longest dependency chain, read from cuobjdump -sass)
+                at the SM clock nvidia-smi reports under load.
 
 Then it prints the kernel table as one JSON line, the card's name and power
 limit, and the device line last. It needs one CUDA card and the repo's
@@ -45,6 +56,14 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+# H100 SXM integer rate: 132 SMs x 64 INT32 lanes at the 1,980 MHz boost
+# clock (Hopper architecture white paper)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# 32-bit operations of one HighwayHash packet round of one row: per state
+# lane three u64 adds (2 each), two 32x32->64 products (2 each) and two
+# u64 xors (2 each) = 14, x 4 lanes; four zipper merges of five byte
+# permutes and two u64 adds (2 each) = 9 each
+HH256_OPS_PER_ROUND = 4 * 14 + 4 * 9
 SEED = 20240601
 
 
@@ -77,6 +96,7 @@ def main() -> int:
                                      kernels, rs_cuda, rs_matrix)
     from minio_tpu_torch.bitrot import MAGIC_HIGHWAYHASH_KEY as KEY
     from minio_tpu_torch.models import pipeline
+    from minio_tpu_torch.utils import sass
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
@@ -126,38 +146,58 @@ def main() -> int:
             if err:
                 fail(f"gf_matmul {name} B={b} S={s}: max abs err {err}")
             gf_err = max(gf_err, err)
-    hh_err = 0
-    for length in range(65):
-        rows = rand_u8(16, length + 7)
+    hh_err, hh_cases = 0, 0
+
+    def check_hh(what, rows, length, plain=None):
+        """Kernel == plain version on every row (tolerance 0) and == the
+        scalar HighwayHash on the last row, which may end the tensor."""
+        nonlocal hh_err, hh_cases
         got = highwayhash_cuda.hh256(rows, length, KEY)
         torch.cuda.synchronize()
-        err = max_err(got, highwayhash_cuda.hh256_plain(rows, length, KEY))
+        if plain is None:
+            plain = highwayhash_cuda.hh256_plain(rows, length, KEY)
+        err = max_err(got, plain)
         h = highwayhash_py.HighwayHash(KEY)
-        h.update(rows[0, :length].cpu().numpy().tobytes())
-        if err or got[0].cpu().numpy().tobytes() != h.digest256():
-            fail(f"hh256 length {length}: kernel disagrees")
+        h.update(rows[-1, :length].cpu().numpy().tobytes())
+        if err or got[-1].cpu().numpy().tobytes() != h.digest256():
+            fail(f"hh256 {what}: kernel disagrees (max abs err {err})")
         hh_err = max(hh_err, err)
-    rows = rand_u8(4, 349526 + 64)
-    got = highwayhash_cuda.hh256(rows, 349526, KEY)
-    torch.cuda.synchronize()
-    err = max_err(got, highwayhash_cuda.hh256_plain(rows, 349526, KEY))
-    h = highwayhash_py.HighwayHash(KEY)
-    h.update(rows[3, :349526].cpu().numpy().tobytes())
-    if err or got[3].cpu().numpy().tobytes() != h.digest256():
-        fail("hh256 length 349526 in 349590-byte rows: kernel disagrees")
+        hh_cases += 1
+
+    for length in range(65):
+        check_hh(f"length {length}", rand_u8(16, length + 7), length)
+    # row starts at every offset mod 16 (1031 = 7 mod 16); at length ==
+    # row_stride the last row ends the tensor
+    rows = rand_u8(16, 1031)
+    for length in (1031, 1030, 1014):
+        check_hh(f"16 rows of 1031, length {length}", rows, length)
+    flat = rand_u8(16 + 9 * 1031)
+    for base in range(1, 16):
+        check_hh(f"view from byte {base}",
+                 flat[base:base + 9 * 1031].view(9, 1031), 1031)
+    check_hh("sliced view made contiguous",
+             rand_u8(9, 1040)[:, 5:].contiguous(), 1035)
+    # around each ring chunk size tried (512 B is the one built)
+    for chunk in (256, 512, 1024, 2048):
+        for length in (chunk - 31, chunk - 1, chunk, chunk + 1, chunk + 31):
+            check_hh(f"length {length}", rand_u8(5, length + 3), length)
+    # row counts off the rows-per-warp grid; 1100 packs 3 rows per warp,
+    # 9000 packs 16 and needs more than 48 KB of shared memory per block
+    for n_rows in (1, 2, 15, 17, 33, 96, 128, 512, 1100, 9000):
+        check_hh(f"{n_rows} rows of 1031", rand_u8(n_rows, 1031), 1031)
+    check_hh("349526 in rows of 349590", rand_u8(4, 349526 + 64), 349526)
     # the main path's launch shapes: 8 blocks x (12 + 4) rows in a PUT,
-    # 8 x (12 + r) rows in a degraded GET with r data shards missing
+    # 8 x 12 survivor rows in a degraded GET, 8 x (12 + r) in a heal with
+    # r shards lost. S = 349,526 = 6 mod 16 puts rows at every even
+    # offset, and the 128-row tensor's last row ends the allocation.
     rows = rand_u8(8 * (k + m), 349526)
     plain = highwayhash_cuda.hh256_plain(rows, 349526, KEY)
     for r in range(m + 1):
-        got = highwayhash_cuda.hh256(rows[:8 * (k + r)], 349526, KEY)
-        torch.cuda.synchronize()
-        e = max_err(got, plain[:8 * (k + r)])
-        if e:
-            fail(f"hh256 {8 * (k + r)} rows of 349526: max abs err {e}")
-        err = max(err, e)
+        check_hh(f"{8 * (k + r)} rows of 349526", rows[:8 * (k + r)], 349526,
+                 plain[:8 * (k + r)])
     emit({"phase": "kernels", "gf_matmul_max_abs_err": gf_err,
-          "hh256_max_abs_err": max(hh_err, err), "tolerance": 0,
+          "hh256_max_abs_err": hh_err, "hh256_cases": hh_cases,
+          "tolerance": 0,
           "seconds": round(time.perf_counter() - t0, 3), "card": card})
 
     # -- 3. the main path --------------------------------------------------
@@ -170,13 +210,18 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # -- 4. timings at the BASELINE.json shape -----------------------------
+    # -- 4. timings -------------------------------------------------------
     b, s = 32, -(-(1 << 20) // k)
     timing = run_timings(torch, dev, rand_u8, max_err, pipeline, rs_cuda,
-                         highwayhash_cuda, rs_matrix, KEY, b, k, m, s)
+                         highwayhash_cuda, rs_matrix, kernels, sass, KEY, b,
+                         k, m, s)
     timing.update({"phase": "timings", "B": b, "k": k, "m": m, "S": s,
                    "card": card})
     emit(timing)
+
+    def bound_by(t, name):
+        return "bytes" if t[f"{name}_byte_bound_ms"] >= \
+            t[f"{name}_op_bound_ms"] else "operations"
 
     emit({"kernels": [
         {"name": "gf_matmul", "route": "cuda",
@@ -185,16 +230,16 @@ def main() -> int:
          "launches": main_path["gf_matmul_launches"],
          "max_abs_err": max(gf_err, timing["gf_matmul_max_abs_err"]),
          "ms": timing["gf_matmul_ms"], "plain_ms": timing["gf_plain_ms"],
-         "bound_ms": timing["gf_matmul_bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "bound_ms": timing["gf_matmul_bound_ms"],
+         "bound_by": bound_by(timing, "gf_matmul"), "library_ms": None},
         {"name": "hh256", "route": "cuda",
          "source": "minio_tpu_torch/csrc/hh256.cu",
          "replaces": "minio_tpu/ops/highwayhash_jax.py:336",
          "launches": main_path["hh256_launches"],
-         "max_abs_err": max(hh_err, err, timing["hh256_max_abs_err"]),
+         "max_abs_err": max(hh_err, timing["hh256_max_abs_err"]),
          "ms": timing["hh256_ms"], "plain_ms": timing["hh_plain_ms"],
-         "bound_ms": timing["hh256_bound_ms"], "bound_by": "bytes",
-         "library_ms": None}]})
+         "bound_ms": timing["hh256_bound_ms"],
+         "bound_by": bound_by(timing, "hh256"), "library_ms": None}]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -281,14 +326,39 @@ def run_main_path(eng_mod, hash_order, tmp, card, rs_cuda, hh, np) -> dict:
     return out
 
 
+def hh256_rounds(length: int) -> int:
+    """Packet rounds of one row: full packets, the remainder packet, and
+    the ten finalisation rounds."""
+    return length // 32 + (1 if length % 32 else 0) + 10
+
+
+def sm_clocks(torch, launch) -> dict:
+    """The SM clock nvidia-smi reports while hh256 runs, and its maximum:
+    200 launches are queued first so the card is busy when it is read."""
+    for i in range(200):
+        launch(i)
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.splitlines()[0]
+    torch.cuda.synchronize()
+    busy, top = (float(v) for v in out.split(","))
+    return {"sm_clock_mhz": busy, "sm_clock_max_mhz": top}
+
+
 def run_timings(torch, dev, rand_u8, max_err, pipeline, rs_cuda, hh,
-                rs_matrix, key, b, k, m, s) -> dict:
+                rs_matrix, kernels, sass, key, b, k, m, s) -> dict:
+    """put_step, each kernel and each plain version at BASELINE.json's
+    shape (B blocks at k+m, S bytes per shard), and hh256 alone at the
+    main path's own launch shapes, each beside its bounds."""
     # four input sets (4 x 45 MB) cycled so repeated launches do not run
     # out of the 50 MB L2 cache
     datas = [rand_u8(b, k, s) for _ in range(4)]
     m2 = rs_cuda.matrix_bits(rs_matrix.parity_matrix(k, m), dev)
     rows = [torch.cat([d, rs_cuda.gf_matmul_plain(m2, d)], 1).reshape(
         b * (k + m), s) for d in datas]
+    shard = 349526                          # 4 MiB blocks at 12+4
+    put_rows = [rand_u8(8 * (k + m), shard) for _ in range(4)]
 
     def timed(fn, iters: int) -> float:
         for i in range(2):
@@ -303,8 +373,12 @@ def run_timings(torch, dev, rand_u8, max_err, pipeline, rs_cuda, hh,
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
+    loop = sass.packet_loop(kernels.library("hh256"))    # raises if unread
+    clocks = sm_clocks(torch, lambda i: hh.hh256(put_rows[i % 4], shard, key))
     gf_bytes = b * (k + m) * s
-    hh_bytes = b * (k + m) * (s + 32)
+    # bit-sliced GF(2) product: one 32-bit XOR per set matrix bit per 32
+    # byte columns
+    gf_ops = b * s * int(m2.sum()) / 32
     out = {
         "put_step_ms": timed(lambda i: pipeline.put_step(datas[i % 4], k, m),
                              20),
@@ -312,13 +386,38 @@ def run_timings(torch, dev, rand_u8, max_err, pipeline, rs_cuda, hh,
                               50),
         "gf_plain_ms": timed(
             lambda i: rs_cuda.gf_matmul_plain(m2, datas[i % 4]), 5),
-        "hh256_ms": timed(lambda i: hh.hh256(rows[i % 4], s, key), 20),
         "hh_plain_ms": timed(lambda i: hh.hh256_plain(rows[i % 4], s, key),
                              1),
-        "gf_matmul_bound_ms": gf_bytes / HBM_BYTES_PER_S * 1e3,
-        "hh256_bound_ms": hh_bytes / HBM_BYTES_PER_S * 1e3,
-        "gf_matmul_bytes": gf_bytes, "hh256_bytes": hh_bytes,
+        "gf_matmul_bytes": gf_bytes, "gf_matmul_ops": gf_ops,
+        "gf_matmul_byte_bound_ms": gf_bytes / HBM_BYTES_PER_S * 1e3,
+        "gf_matmul_op_bound_ms": gf_ops / INT32_OPS_PER_S * 1e3,
+        "hh256_hot_loop": loop, **clocks,
+        "int32_ops_per_s": INT32_OPS_PER_S,
+        "hh256_ops_per_round": HH256_OPS_PER_ROUND,
     }
+    out["gf_matmul_bound_ms"] = max(out["gf_matmul_byte_bound_ms"],
+                                    out["gf_matmul_op_bound_ms"])
+    shapes = {"baseline": (b * (k + m), s, rows),
+              "put": (8 * (k + m), shard, put_rows),
+              "degraded_get": (8 * k, shard, [x[:8 * k] for x in put_rows])}
+    for name, (n, length, sets) in shapes.items():
+        nbytes = n * (length + 32)
+        ops = n * hh256_rounds(length) * HH256_OPS_PER_ROUND
+        out[f"hh256_{name}"] = {
+            "rows": n, "length": length,
+            "ms": timed(lambda i: hh.hh256(sets[i % 4], length, key), 20),
+            "byte_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "op_bound_ms": ops / INT32_OPS_PER_S * 1e3,
+            "rounds": hh256_rounds(length),
+            "chain_floor_ms": hh256_rounds(length) * loop["chain_cycles"]
+            / (clocks["sm_clock_mhz"] * 1e3),
+            "bytes": nbytes, "ops": ops}
+    base = out["hh256_baseline"]
+    out.update({"hh256_ms": base["ms"],
+                "hh256_byte_bound_ms": base["byte_bound_ms"],
+                "hh256_op_bound_ms": base["op_bound_ms"],
+                "hh256_bound_ms": max(base["byte_bound_ms"],
+                                      base["op_bound_ms"])})
     out["gf_matmul_max_abs_err"] = max_err(
         rs_cuda.gf_matmul(m2, datas[0]), rs_cuda.gf_matmul_plain(m2, datas[0]))
     out["hh256_max_abs_err"] = max_err(hh.hh256(rows[0], s, key),

@@ -3,8 +3,8 @@
 Counterpart of minio_tpu/models/pipeline.py:114-153 (put_step) and
 :243-326 (get_step, heal_step): the same signatures, shapes and return
 order, as launch sequences on the current CUDA stream — the GF(2^8) kernel
-(ops/rs_cuda.gf_matmul) followed by one HighwayHash-256 launch over every
-row (ops/highwayhash_cuda.hh256). On CPU tensors both run their plain
+(ops/rs_cuda.gf_matmul) followed by one HighwayHash-256 launch
+(ops/highwayhash_cuda.hh256) over the rows whose digests are returned. On CPU tensors both run their plain
 PyTorch versions.
 """
 
@@ -91,21 +91,16 @@ def put_step(data: torch.Tensor, k: int, m: int, shard_len: int = 0,
     return parity, digests.reshape(b, k + m, 32)
 
 
-def _reconstruct_and_hash(survivors, matrix_bits, r, k, shard_len, key,
-                          algo):
-    """Shared core of get_step/heal_step: apply the (8r, 8k) matrix, then
-    ONE hash launch over [survivors ‖ reconstructed]. Returns
-    (reconstructed (B, r, S), digests (B, k+r, 32) — survivors first)."""
+def _reconstruct(survivors, matrix_bits, r, k):
+    """Shared core of get_step/heal_step: apply the (8r, 8k) matrix to the
+    (B, k, S) survivors -> (B, r, S)."""
     b, k_, s = survivors.shape
     if k_ != k:
         raise ValueError(f"survivors have {k_} shards, expected k={k}")
     m2 = _as_bits(matrix_bits, survivors.device)
     if tuple(m2.shape) != (8 * r, 8 * k):
         raise ValueError(f"matrix_bits {tuple(m2.shape)} != {(8 * r, 8 * k)}")
-    out = rs_cuda.gf_matmul(m2, survivors)
-    rows = torch.cat([survivors, out], dim=-2).reshape(b * (k + r), s)
-    digests = _hash_rows(rows, shard_len or s, key, algo)
-    return out, digests.reshape(b, k + r, 32)
+    return rs_cuda.gf_matmul(m2, survivors)
 
 
 def get_step(survivors: torch.Tensor, matrix_bits, r: int, k: int,
@@ -124,9 +119,12 @@ def get_step(survivors: torch.Tensor, matrix_bits, r: int, k: int,
     digests (B, k, 32) uint8 of the survivors, for the host to compare
     against the frame digests read from disk).
     """
-    missing, digests = _reconstruct_and_hash(
-        survivors, matrix_bits, r, k, shard_len, key, algo)
-    return missing, digests[:, :k]
+    missing = _reconstruct(survivors, matrix_bits, r, k)
+    b, _, s = survivors.shape
+    # only the survivors' digests are checked: hash the k rows, not k + r
+    digests = _hash_rows(survivors.reshape(b * k, s).contiguous(),
+                         shard_len or s, key, algo)
+    return missing, digests.reshape(b, k, 32)
 
 
 def heal_step(survivors: torch.Tensor, matrix_bits, r: int, k: int,
@@ -142,6 +140,10 @@ def heal_step(survivors: torch.Tensor, matrix_bits, r: int, k: int,
     Returns (recovered (B, r, S), survivor_digests (B, k, 32),
     recovered_digests (B, r, 32)).
     """
-    recovered, digests = _reconstruct_and_hash(
-        survivors, matrix_bits, r, k, shard_len, key, algo)
+    recovered = _reconstruct(survivors, matrix_bits, r, k)
+    # ONE hash launch over [survivors | recovered]
+    b, _, s = survivors.shape
+    rows = torch.cat([survivors, recovered], dim=-2).reshape(b * (k + r), s)
+    digests = _hash_rows(rows, shard_len or s, key, algo).reshape(
+        b, k + r, 32)
     return recovered, digests[:, :k], digests[:, k:]

@@ -32,7 +32,8 @@ _libs: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """Path of the CUDA toolkit's nvcc; raises when there is none."""
     for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
                  "/usr/local/cuda/bin/nvcc"):
         if os.path.isfile(cand):
@@ -60,12 +61,12 @@ def build(names=None) -> float:
     if not todo:
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
+    cc = nvcc()
     procs = {}
     for n in todo:
         tmp = f"{_target(n)}.{os.getpid()}.tmp"
         procs[n] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, SOURCES[n])],
+            [cc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, SOURCES[n])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for n, (tmp, p) in procs.items():
@@ -94,6 +95,12 @@ def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def library(name: str) -> str:
+    """Path of kernel library `name`, built if needed."""
+    build([name])
+    return _target(name)
 
 
 def check(err: int, what: str) -> None:
