@@ -8,8 +8,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 source, all at once) and report nvcc's register/spill lines.
   2. kernels  — each kernel against its plain PyTorch version on the card,
                 byte for byte (tolerance 0): gf_matmul with a parity, a
-                3-missing decode and a recover matrix at S in {0, 1, 17,
-                16384, 87382} and at the main path's B=8, S=349,526; hh256
+                3-missing decode and a recover matrix at 16 ragged widths
+                S from 0 to 349,526 and at the main path's B=8,
+                S=349,526 (the parity launch three times: a store race
+                shows only sometimes), random 0/1 matrices at r in {1, 2,
+                3, 4, 5, 8, 12, 16} x k in {1, 3, 12, 16}, and input and
+                output views starting at every byte offset 1..15 (the
+                bytes around the output must stay as they were), and input
+                and output at each end of a mapping between unmapped
+                address ranges (utils/guard_pages.py: a read or store
+                outside the tensors faults), as for hh256's main-path rows;
+                hh256
                 (also against the scalar HighwayHash on one row of each
                 case) on rows of every length 0..64, rows starting at
                 every offset mod 16 (strides 1031 and 349,526, views that
@@ -29,8 +38,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 steps (copy onto the card; launches and copy back).
   4. timings  — with CUDA events after warm-up: at BASELINE.json's shape
                 (B=32, 12+4, 1 MiB blocks, S=87,382) put_step, each kernel
-                and each plain version; hh256 alone also at the main
-                path's launch shapes, 128 rows (PUT) and 96 rows (degraded
+                and each plain version; each kernel alone also at the main
+                path's launch shapes: gf_matmul for PUT parity (B=8, 4x12,
+                S=349,526) and degraded-GET decode (B=8, S=349,526, r=1
+                and r=3), hh256 over 128 rows (PUT) and 96 rows (degraded
                 GET) of 349,526 bytes. Beside each: the byte bound (bytes
                 moved / 3.35 TB/s), the operation bound (32-bit operations
                 / the INT32 rate) and, for hh256, the chain floor: packet
@@ -96,7 +107,7 @@ def main() -> int:
                                      kernels, rs_cuda, rs_matrix)
     from minio_tpu_torch.bitrot import MAGIC_HIGHWAYHASH_KEY as KEY
     from minio_tpu_torch.models import pipeline
-    from minio_tpu_torch.utils import sass
+    from minio_tpu_torch.utils import guard_pages, sass
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
@@ -132,20 +143,75 @@ def main() -> int:
     mats = {"parity": rs_matrix.parity_matrix(k, m),
             "decode3": rs_matrix.missing_data_matrix(k, m, mask)[0],
             "recover3": rs_matrix.recover_matrix(k, m, mask)[0]}
-    gf_err = 0
-    # (B, S): ragged widths, and the main path's own launch shape — batches
-    # of 8 blocks of 4 MiB, S = 349,526
+    gf_err, gf_cases = 0, 0
+
+    def check_gf(what, m2, x, out_at=None):
+        """Kernel == plain version (tolerance 0). With out_at = (flat, o),
+        the C entry point writes into flat[o:] and the bytes around its
+        output must stay as they were."""
+        nonlocal gf_err, gf_cases
+        if out_at is None:
+            got = rs_cuda.gf_matmul(m2, x)
+        else:
+            flat, o = out_at
+            b, r, s = x.shape[0], m2.shape[0] // 8, x.shape[-1]
+            end = o + b * r * s
+            before = flat.clone()
+            got = flat[o:end].view(b, r, s)
+            kernels.check(rs_cuda._launcher()(
+                m2.data_ptr(), x.data_ptr(), got.data_ptr(), b, r,
+                m2.shape[1] // 8, s, torch.cuda.current_stream().cuda_stream),
+                "gf_matmul_launch")
+        torch.cuda.synchronize()
+        if out_at is not None and not (
+                torch.equal(flat[:o], before[:o])
+                and torch.equal(flat[end:], before[end:])):
+            fail(f"gf_matmul {what}: wrote outside its output")
+        err = max_err(got, rs_cuda.gf_matmul_plain(m2, x))
+        if err:
+            fail(f"gf_matmul {what}: max abs err {err}")
+        gf_err = max(gf_err, err)
+        gf_cases += 1
+
+    # GF matrices at ragged widths; the main path's own launch shape
+    # (batches of 8 blocks of 4 MiB, S = 349,526) three times for the
+    # parity matrix, since a store race at a tile edge shows only sometimes
     for name, mat in mats.items():
         m2 = rs_cuda.matrix_bits(mat, dev)
-        for b, s in ((2, 0), (2, 1), (2, 17), (2, 16384), (2, 87382),
-                     (8, 349526)):
-            x = rand_u8(b, k, s)
-            got = rs_cuda.gf_matmul(m2, x)
-            torch.cuda.synchronize()
-            err = max_err(got, rs_cuda.gf_matmul_plain(m2, x))
-            if err:
-                fail(f"gf_matmul {name} B={b} S={s}: max abs err {err}")
-            gf_err = max(gf_err, err)
+        for s in (0, 1, 2, 3, 5, 15, 16, 17, 31, 33, 4095, 4097, 16384,
+                  87382, 100003, 349526):
+            check_gf(f"{name} B=2 S={s}", m2, rand_u8(2, k, s))
+        x = rand_u8(8, k, 349526)
+        for _ in range(3 if name == "parity" else 1):
+            check_gf(f"{name} B=8 S=349526", m2, x)
+    # random 0/1 matrices, which are not GF expansions, at every (r, k)
+    for r in (1, 2, 3, 4, 5, 8, 12, 16):
+        for kk in (1, 3, 12, 16):
+            m2 = torch.randint(0, 2, (8 * r, 8 * kk), dtype=torch.uint8,
+                               device=dev, generator=gen)
+            for s in (33, 4097):
+                check_gf(f"random {r}x{kk} S={s}", m2, rand_u8(2, kk, s))
+    # input and output starting at every byte offset mod 16
+    m2 = rs_cuda.matrix_bits(mats["parity"], dev)
+    for base in range(1, 16):
+        x = rand_u8(base + 3 * k * 4097)[base:].view(3, k, 4097)
+        check_gf(f"input at offset {base}", m2, x)
+        o = (3 * base) % 16
+        check_gf(f"input at {base}, output at {o}", m2, x,
+                 (rand_u8(o + 3 * m * 4097 + 16), o))
+    # input and output at each end of a mapping between unmapped ranges: a
+    # read of a word without an input byte, or a store past the output,
+    # stops the kernel with an illegal-address error
+    for b, s in ((2, 17), (2, 4097), (8, 349526)):
+        n_in, n_out = b * k * s, b * m * s
+        with guard_pages.guarded(n_in, dev) as src, \
+                guard_pages.guarded(n_out, dev) as dst:
+            for at, x in (("start", src[:n_in]), ("end", src[-n_in:])):
+                x = x.view(b, k, s)
+                x.copy_(rand_u8(b, k, s))
+                for o in (0, dst.numel() - n_out):
+                    check_gf(f"B={b} S={s} input at the {at} of a mapping, "
+                             f"output at {o}", m2, x, (dst, o))
     hh_err, hh_cases = 0, 0
 
     def check_hh(what, rows, length, plain=None):
@@ -195,7 +261,16 @@ def main() -> int:
     for r in range(m + 1):
         check_hh(f"{8 * (k + r)} rows of 349526", rows[:8 * (k + r)], 349526,
                  plain[:8 * (k + r)])
+    # the same rows at each end of a mapping between unmapped ranges
+    with guard_pages.guarded(rows.numel(), dev) as buf:
+        for at, g in (("start", buf[:rows.numel()]),
+                      ("end", buf[-rows.numel():])):
+            g = g.view_as(rows)
+            g.copy_(rows)
+            check_hh(f"{len(rows)} rows of 349526 at the {at} of a mapping",
+                     g, 349526, plain)
     emit({"phase": "kernels", "gf_matmul_max_abs_err": gf_err,
+          "gf_matmul_cases": gf_cases,
           "hh256_max_abs_err": hh_err, "hh256_cases": hh_cases,
           "tolerance": 0,
           "seconds": round(time.perf_counter() - t0, 3), "card": card})
@@ -375,28 +450,49 @@ def run_timings(torch, dev, rand_u8, max_err, pipeline, rs_cuda, hh,
 
     loop = sass.packet_loop(kernels.library("hh256"))    # raises if unread
     clocks = sm_clocks(torch, lambda i: hh.hh256(put_rows[i % 4], shard, key))
-    gf_bytes = b * (k + m) * s
-    # bit-sliced GF(2) product: one 32-bit XOR per set matrix bit per 32
-    # byte columns
-    gf_ops = b * s * int(m2.sum()) / 32
     out = {
         "put_step_ms": timed(lambda i: pipeline.put_step(datas[i % 4], k, m),
                              20),
-        "gf_matmul_ms": timed(lambda i: rs_cuda.gf_matmul(m2, datas[i % 4]),
-                              50),
         "gf_plain_ms": timed(
             lambda i: rs_cuda.gf_matmul_plain(m2, datas[i % 4]), 5),
         "hh_plain_ms": timed(lambda i: hh.hh256_plain(rows[i % 4], s, key),
                              1),
-        "gf_matmul_bytes": gf_bytes, "gf_matmul_ops": gf_ops,
-        "gf_matmul_byte_bound_ms": gf_bytes / HBM_BYTES_PER_S * 1e3,
-        "gf_matmul_op_bound_ms": gf_ops / INT32_OPS_PER_S * 1e3,
         "hh256_hot_loop": loop, **clocks,
         "int32_ops_per_s": INT32_OPS_PER_S,
         "hh256_ops_per_round": HH256_OPS_PER_ROUND,
     }
-    out["gf_matmul_bound_ms"] = max(out["gf_matmul_byte_bound_ms"],
-                                    out["gf_matmul_op_bound_ms"])
+    # gf_matmul at BASELINE.json's shape and at the main path's own launch
+    # shapes: PUT parity and degraded-GET decode with 1 and 3 data shards
+    # lost, over batches of 8 blocks of 4 MiB
+    survivors = [x[:8 * k].view(8, k, shard) for x in put_rows]
+    full = (1 << (k + m)) - 1
+    gf_shapes = {
+        "baseline": (m2, datas),
+        "put": (m2, survivors),
+        "decode_r1": (rs_cuda.matrix_bits(rs_matrix.missing_data_matrix(
+            k, m, full & ~(1 << 1))[0], dev), survivors),
+        "decode_r3": (rs_cuda.matrix_bits(rs_matrix.missing_data_matrix(
+            k, m, full & ~(1 << 0 | 1 << 5 | 1 << 9))[0], dev), survivors)}
+    for name, (bits, sets) in gf_shapes.items():
+        nb, _, width = sets[0].shape
+        nbytes = nb * (k + bits.shape[0] // 8) * width
+        # bit-sliced GF(2) product: one 32-bit XOR per set matrix bit per
+        # 32 byte columns, the lower bound on operations for any design
+        ops = nb * width * int(bits.sum()) / 32
+        t = {"B": nb, "r": bits.shape[0] // 8, "k": k, "S": width,
+             "ms": timed(lambda i: rs_cuda.gf_matmul(bits, sets[i % 4]), 50),
+             "bytes": nbytes, "ops": ops,
+             "byte_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "op_bound_ms": ops / INT32_OPS_PER_S * 1e3}
+        t["bound_ms"] = max(t["byte_bound_ms"], t["op_bound_ms"])
+        t["bound_by"] = ("bytes" if t["byte_bound_ms"] >= t["op_bound_ms"]
+                         else "operations")
+        out[f"gf_matmul_{name}"] = t
+    base = out["gf_matmul_baseline"]
+    out.update({"gf_matmul_ms": base["ms"],
+                "gf_matmul_byte_bound_ms": base["byte_bound_ms"],
+                "gf_matmul_op_bound_ms": base["op_bound_ms"],
+                "gf_matmul_bound_ms": base["bound_ms"]})
     shapes = {"baseline": (b * (k + m), s, rows),
               "put": (8 * (k + m), shard, put_rows),
               "degraded_get": (8 * k, shard, [x[:8 * k] for x in put_rows])}
@@ -418,8 +514,10 @@ def run_timings(torch, dev, rand_u8, max_err, pipeline, rs_cuda, hh,
                 "hh256_op_bound_ms": base["op_bound_ms"],
                 "hh256_bound_ms": max(base["byte_bound_ms"],
                                       base["op_bound_ms"])})
-    out["gf_matmul_max_abs_err"] = max_err(
-        rs_cuda.gf_matmul(m2, datas[0]), rs_cuda.gf_matmul_plain(m2, datas[0]))
+    out["gf_matmul_max_abs_err"] = max(
+        max_err(rs_cuda.gf_matmul(bits, sets[0]),
+                rs_cuda.gf_matmul_plain(bits, sets[0]))
+        for bits, sets in gf_shapes.values())
     out["hh256_max_abs_err"] = max_err(hh.hh256(rows[0], s, key),
                                        hh.hh256_plain(rows[0], s, key))
     torch.cuda.synchronize()

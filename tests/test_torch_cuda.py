@@ -11,6 +11,7 @@ from minio_tpu_torch.bitrot import MAGIC_HIGHWAYHASH_KEY as KEY
 from minio_tpu_torch.models import pipeline
 from minio_tpu_torch.ops import (highwayhash_cuda, highwayhash_py, rs_cuda,
                                  rs_matrix)
+from minio_tpu_torch.utils import guard_pages
 
 pytestmark = pytest.mark.cuda
 
@@ -27,15 +28,99 @@ def _rand(shape, seed, dev):
         0, 256, shape, dtype=np.uint8)).to(dev)
 
 
-@pytest.mark.parametrize("s", [0, 1, 17, 16384, 87382])
+GF_WIDTHS = [0, 1, 2, 3, 5, 15, 16, 17, 31, 33, 4095, 4097, 16384, 87382,
+             100003, 349526]
+
+
+def _random_bits(r, k, seed, dev):
+    """A random (8r, 8k) 0/1 matrix: not the expansion of a GF matrix."""
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 2, (8 * r, 8 * k), dtype=np.uint8)).to(dev)
+
+
+@pytest.mark.parametrize("s", GF_WIDTHS)
 def test_gf_matmul_kernel_equals_plain(dev, s):
     for k, m in ((4, 2), (12, 4), (16, 16)):
         m2 = rs_cuda.matrix_bits(rs_matrix.parity_matrix(k, m), dev)
-        x = _rand((3, k, s), s, dev)
+        x = _rand((3 if s < 100000 else 1, k, s), s, dev)
         before = rs_cuda.gf_matmul.launches
         got = rs_cuda.gf_matmul(m2, x)
         assert torch.equal(got, rs_cuda.gf_matmul_plain(m2, x))
         assert rs_cuda.gf_matmul.launches == before + (1 if s else 0)
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 8, 12, 16])
+@pytest.mark.parametrize("k", [1, 3, 12, 16])
+def test_gf_matmul_random_matrices(dev, r, k):
+    m2 = _random_bits(r, k, 16 * r + k, dev)
+    for s in (33, 4097):
+        x = _rand((2, k, s), r * s + k, dev)
+        assert torch.equal(rs_cuda.gf_matmul(m2, x),
+                           rs_cuda.gf_matmul_plain(m2, x))
+
+
+def _launch_into(m2, x, out):
+    """The C entry point on `x` into `out`, both at any byte address."""
+    r, k = m2.shape[0] // 8, m2.shape[1] // 8
+    err = rs_cuda._launcher()(
+        m2.data_ptr(), x.data_ptr(), out.data_ptr(), x.shape[0], r, k,
+        x.shape[-1], torch.cuda.current_stream(x.device).cuda_stream)
+    assert err == 0
+
+
+@pytest.mark.parametrize("base", range(1, 16))
+def test_gf_matmul_offset_views(dev, base):
+    # input and output start at every byte offset mod 16; the bytes around
+    # the output must stay as they were
+    k, r, s = 12, 4, 4097
+    m2 = _random_bits(r, k, base, dev)
+    flat = _rand((base + 3 * k * s,), base, dev)
+    x = flat[base:].view(3, k, s)
+    assert x.data_ptr() % 16 == base
+    assert torch.equal(rs_cuda.gf_matmul(m2, x),
+                       rs_cuda.gf_matmul_plain(m2, x))
+    o = (3 * base) % 16
+    out_flat = _rand((o + 3 * r * s + 16,), base + 1, dev)
+    before = out_flat.clone()
+    out = out_flat[o:o + 3 * r * s].view(3, r, s)
+    _launch_into(m2, x, out)
+    assert torch.equal(out, rs_cuda.gf_matmul_plain(m2, x))
+    assert torch.equal(out_flat[:o], before[:o])
+    assert torch.equal(out_flat[o + 3 * r * s:], before[o + 3 * r * s:])
+
+
+@pytest.mark.parametrize("b,s", [(3, 17), (2, 4097), (1, 87382)])
+def test_gf_matmul_touches_only_its_tensors(dev, b, s):
+    # input and output at each end of a mapping between unmapped ranges: a
+    # read of a word without an input byte, or a store past the output,
+    # stops the kernel with an illegal-address error
+    k = 12
+    for m2 in (rs_cuda.matrix_bits(rs_matrix.parity_matrix(k, 4), dev),
+               _random_bits(3, k, s, dev)):
+        r = m2.shape[0] // 8
+        n_in, n_out = b * k * s, b * r * s
+        with guard_pages.guarded(n_in, dev) as src, \
+                guard_pages.guarded(n_out, dev) as dst:
+            for x in (src[:n_in], src[-n_in:]):
+                x = x.view(b, k, s)
+                x.copy_(_rand((b, k, s), s, dev))
+                want = rs_cuda.gf_matmul_plain(m2, x)
+                for out in (dst[:n_out], dst[-n_out:]):
+                    out = out.view(b, r, s)
+                    _launch_into(m2, x, out)
+                    torch.cuda.synchronize()
+                    assert torch.equal(out, want)
+
+
+def test_gf_matmul_main_shape_repeated(dev):
+    # the main path's PUT launch, three times: a store race at a tile edge
+    # shows only sometimes
+    k, m, s = 12, 4, 349526
+    m2 = rs_cuda.matrix_bits(rs_matrix.parity_matrix(k, m), dev)
+    x = _rand((8, k, s), 11, dev)
+    want = rs_cuda.gf_matmul_plain(m2, x)
+    for _ in range(3):
+        assert torch.equal(rs_cuda.gf_matmul(m2, x), want)
 
 
 @pytest.mark.parametrize("length", [0, 1, 3, 16, 21, 31, 32, 33, 1000])
@@ -94,6 +179,21 @@ def test_hh256_row_counts(dev, n_rows):
     rows = _rand((n_rows, 1031), n_rows, dev)
     _check_hh256(rows, 1031)
     _check_hh256(rows, 999, row=0)
+
+
+@pytest.mark.parametrize("n_rows,length", [(3, 17), (16, 1031), (2, 4102)])
+def test_hh256_reads_only_its_rows(dev, n_rows, length):
+    # rows at each end of a mapping between unmapped ranges: a read of a
+    # word without a row byte stops the kernel with an illegal-address error
+    n = n_rows * length
+    with guard_pages.guarded(n, dev) as buf:
+        for rows in (buf[:n], buf[-n:]):
+            rows = rows.view(n_rows, length)
+            rows.copy_(_rand((n_rows, length), length, dev))
+            got = highwayhash_cuda.hh256(rows, length, KEY)
+            torch.cuda.synchronize()
+            assert torch.equal(
+                got, highwayhash_cuda.hh256_plain(rows, length, KEY))
 
 
 def test_hh256_shard_inside_longer_rows(dev):

@@ -102,6 +102,46 @@ def test_bit_expand_and_plain_kernel_math():
     assert torch.equal(rs_cuda.pack_bits(rs_cuda.unpack_bits(x)), x)
 
 
+def _bit_plane_product(m2: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """Numpy restatement of csrc/gf_matmul.cu's arithmetic on packed
+    little-endian uint32 words: acc_j ^= ((X_i >> p) & 0x01010101) *
+    c(j, i, p), with c(j, i, p) = sum_q m2[8j+q, 8i+p] << q built as the
+    kernel's prologue builds it. It rehearses the kernel's q/p orientation
+    and is not coverage of the kernel, which runs only on the card."""
+    r, k = m2.shape[0] // 8, m2.shape[1] // 8
+    c = np.zeros((r, k, 8), np.uint32)
+    for q in range(8):
+        c |= (m2[q::8].reshape(r, k, 8).astype(np.uint32) & 1) << q
+    s = data.shape[-1]
+    pad = np.zeros((*data.shape[:-1], -s % 4), np.uint8)
+    x = np.concatenate([data, pad], axis=-1).view("<u4")
+    acc = np.zeros((*data.shape[:-2], r, x.shape[-1]), np.uint32)
+    for i in range(k):
+        for p in range(8):
+            t = (x[..., i, :] >> np.uint32(p)) & np.uint32(0x01010101)
+            acc ^= t[..., None, :] * c[:, i, p][:, None]
+    return acc.view(np.uint8)[..., :s]
+
+
+@pytest.mark.parametrize("r", [1, 4, 12, 16])
+@pytest.mark.parametrize("k", [1, 4, 12, 16])
+def test_bit_plane_identity_equals_plain_and_reference(r, k):
+    import jax.numpy as jnp
+    rng = np.random.default_rng(100 * r + k)
+    data = _shards((2, k, 37), r + k)
+    m2_random = rng.integers(0, 2, (8 * r, 8 * k), dtype=np.uint8)
+    mat = _shards((r, k), r * k)
+    for m2, want in (
+            (m2_random, rs_tpu.gf_matmul_xla(
+                jnp.asarray(m2_random, dtype=jnp.bfloat16), data)),
+            (gf256.expand_to_gf2(mat),
+             rs_tpu.apply_matrix(mat, data, use_pallas=False))):
+        got = _bit_plane_product(m2, data)
+        plain = rs_cuda.gf_matmul_plain(torch.from_numpy(m2),
+                                        torch.from_numpy(data)).numpy()
+        assert (got == plain).all() and (got == np.asarray(want)).all()
+
+
 def test_gf_matmul_wrapper_rejects_bad_input():
     m2 = torch.zeros((32, 96), dtype=torch.uint8)
     with pytest.raises(ValueError):
