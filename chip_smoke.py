@@ -34,24 +34,47 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 drives missing (one holds a data shard) and GET them all
                 again through the fused verify+decode step. Both kernels'
                 launch counters must rise in the PUT and degraded-GET runs.
-                Prints the host seconds the codec spent in its device
-                steps (copy onto the card; launches and copy back).
+                Prints the codec's transfer/compute/fetch seconds per
+                verb and the per-stage timer report.
+  5. concurrent PUT — BASELINE.json config 2: 32 threads each PUT one
+                16 MiB object at once into a 16-drive 12+4 set with 1 MiB
+                blocks, through the batch former (parallel/scheduler.py)
+                and the pipelined PUT loop; every object read back (bytes,
+                MD5 ETag). Fails unless the former coalesced, declined
+                nothing and routed nothing to the host, and each kernel's
+                launches equal the encode dispatches exactly. Prints the
+                aggregate GiB/s, the stage report (seconds, p50/p99, the
+                pipeline overlap) and the codec's stage seconds.
+  6. heal     — BASELINE.json config 4 on the phase-3 set: one drive's
+                bucket dir deleted (format.json kept), every object healed
+                through the former's recover verb; rebuilt part and xl.meta
+                files byte-identical to the deleted ones, recover dispatches
+                on the card exactly those the size gate sends there, and a
+                second pass with a flipped survivor byte that heal must find
+                by its digest. Prints heal GiB/s.
+  7. MRF      — four 64 MiB PUTs with one drive offline queue on the MRF
+                healer; the drive returns, the queue drains, and its shard
+                files equal those of a healthy PUT of the same bytes.
   4. timings  — with CUDA events after warm-up: at BASELINE.json's shape
                 (B=32, 12+4, 1 MiB blocks, S=87,382) put_step, each kernel
                 and each plain version; each kernel alone also at the main
                 path's launch shapes: gf_matmul for PUT parity (B=8, 4x12,
-                S=349,526) and degraded-GET decode (B=8, S=349,526, r=1
-                and r=3), hh256 over 128 rows (PUT) and 96 rows (degraded
-                GET) of 349,526 bytes. Beside each: the byte bound (bytes
-                moved / 3.35 TB/s), the operation bound (32-bit operations
-                / the INT32 rate) and, for hh256, the chain floor: packet
-                rounds x the cycles of one trip of the kernel's packet loop
-                (its longest dependency chain, read from cuobjdump -sass)
-                at the SM clock nvidia-smi reports under load.
+                S=349,526), degraded-GET decode (B=8, S=349,526, r=1 and
+                r=3) and heal's recover (B=8, r=1), hh256 over 128 rows
+                (PUT), 96 rows (degraded GET) and 104 rows (heal) of
+                349,526 bytes. Beside each: the byte bound (bytes moved /
+                3.35 TB/s), the operation bound (32-bit operations / the
+                INT32 rate) and, for hh256, the chain floor: packet rounds
+                x the cycles of one trip of the kernel's packet loop (its
+                longest dependency chain, read from cuobjdump -sass) at the
+                SM clock nvidia-smi reports under load.
 
-Then it prints the kernel table as one JSON line, the card's name and power
-limit, and the device line last. It needs one CUDA card and the repo's
-minio_tpu_torch package beside it; it imports nothing of JAX or minio_tpu.
+Phases run in the order 1, 2, 3, 5, 6, 7, 4. Each path's launch counters
+are set to 0 just before it runs and read just after. Then it prints the
+kernel table as one JSON line (with each kernel's launches on every path),
+the card's name and power limit, and the device line last. It needs one
+CUDA card and the repo's minio_tpu_torch package beside it; it imports
+nothing of JAX or minio_tpu.
 """
 
 from __future__ import annotations
@@ -76,6 +99,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # permutes and two u64 adds (2 each) = 9 each
 HH256_OPS_PER_ROUND = 4 * 14 + 4 * 9
 SEED = 20240601
+# object sizes of phases 3, 5 and 7
+MAIN_OBJECT = 64 << 20              # eight of these, one 12,345 B longer
+CONCURRENT = (32, 16 << 20)         # streams, bytes each (config 2)
+MRF_OBJECTS = (4, 64 << 20)
 
 
 def fail(msg: str) -> None:
@@ -275,15 +302,31 @@ def main() -> int:
           "tolerance": 0,
           "seconds": round(time.perf_counter() - t0, 3), "card": card})
 
-    # -- 3. the main path --------------------------------------------------
+    # -- 3. the main path; 5-7. concurrent PUT, heal, MRF ------------------
     from minio_tpu_torch.object import engine as eng_mod
+    from minio_tpu_torch.parallel.scheduler import BatchScheduler
     from minio_tpu_torch.storage.datatypes import hash_order
+    from minio_tpu_torch.utils import stagetimer
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    counts = LaunchCounts(rs_cuda, highwayhash_cuda)
     try:
-        main_path = run_main_path(eng_mod, hash_order, tmp, card,
-                                  rs_cuda, highwayhash_cuda, np)
+        main_path, state = run_main_path(eng_mod, hash_order, tmp, card,
+                                         counts, stagetimer, np)
+        # one batch former for phases 5-7, closed only after them: a
+        # closed former would send its waiters to the host
+        sched = BatchScheduler()
+        try:
+            concurrent = run_concurrent_put(eng_mod, sched, stagetimer,
+                                            tmp, card, counts, np)
+            heal = run_heal(sched, state, tmp, card, counts, np)
+            mrf = run_mrf(sched, tmp, card, counts, np)
+        finally:
+            sched.close()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    paths_launches = {"main_path": main_path["launches"],
+                      "concurrent_put": concurrent["launches"],
+                      "heal": heal["launches"], "mrf": mrf["launches"]}
 
     # -- 4. timings -------------------------------------------------------
     b, s = 32, -(-(1 << 20) // k)
@@ -303,6 +346,8 @@ def main() -> int:
          "source": "minio_tpu_torch/csrc/gf_matmul.cu",
          "replaces": "minio_tpu/ops/rs_pallas.py:52",
          "launches": main_path["gf_matmul_launches"],
+         "launches_by_path": {p: n["gf_matmul"]
+                              for p, n in paths_launches.items()},
          "max_abs_err": max(gf_err, timing["gf_matmul_max_abs_err"]),
          "ms": timing["gf_matmul_ms"], "plain_ms": timing["gf_plain_ms"],
          "bound_ms": timing["gf_matmul_bound_ms"],
@@ -311,6 +356,8 @@ def main() -> int:
          "source": "minio_tpu_torch/csrc/hh256.cu",
          "replaces": "minio_tpu/ops/highwayhash_jax.py:336",
          "launches": main_path["hh256_launches"],
+         "launches_by_path": {p: n["hh256"]
+                              for p, n in paths_launches.items()},
          "max_abs_err": max(hh_err, timing["hh256_max_abs_err"]),
          "ms": timing["hh256_ms"], "plain_ms": timing["hh_plain_ms"],
          "bound_ms": timing["hh256_bound_ms"],
@@ -322,12 +369,78 @@ def main() -> int:
     return 0
 
 
-def run_main_path(eng_mod, hash_order, tmp, card, rs_cuda, hh, np) -> dict:
+class LaunchCounts:
+    """Both kernels' launch counters: set to 0 just before a path is
+    driven, read just after."""
+
+    def __init__(self, rs_cuda, hh):
+        self.rs_cuda, self.hh = rs_cuda, hh
+
+    def zero(self) -> None:
+        self.rs_cuda.gf_matmul.launches = 0
+        self.hh.hh256.launches = 0
+
+    def read(self) -> dict:
+        return {"gf_matmul": self.rs_cuda.gf_matmul.launches,
+                "hh256": self.hh.hh256.launches}
+
+
+def stage_report(stagetimer) -> dict:
+    """Per stage: seconds and calls, p50/p99 ms; and the pipeline
+    overlap (summed stage seconds over wall seconds per stream)."""
+    pct = stagetimer.percentiles()
+    return {"stages": {name: {**v, **pct.get(name, {})}
+                       for name, v in stagetimer.report().items()},
+            "overlap": stagetimer.overlap_report()}
+
+
+def codec_steps(codec) -> dict:
+    return {verb: {k: (round(x, 4) if isinstance(x, float) else x)
+                   for k, x in v.items()}
+            for verb, v in codec.step_seconds().items()}
+
+
+def read_all_back(e, bucket, objects) -> float:
+    """GET every object; bytes and the MD5 ETag must match."""
+    t0 = time.perf_counter()
+    for name, data in objects.items():
+        info, it = e.get_object(bucket, name)
+        if b"".join(it) != data:
+            fail(f"GET {bucket}/{name}: bytes differ")
+        if info.etag != hashlib.md5(data).hexdigest():
+            fail(f"GET {bucket}/{name}: ETag {info.etag} is not the MD5")
+    return time.perf_counter() - t0
+
+
+def tree_files(root) -> dict:
+    """relative path -> bytes of every file under root."""
+    out = {}
+    for dirpath, _dirs, files in os.walk(root):
+        for f in files:
+            p = os.path.join(dirpath, f)
+            with open(p, "rb") as fh:
+                out[os.path.relpath(p, root)] = fh.read()
+    return out
+
+
+def part_files(root) -> dict:
+    """object/part.N -> bytes under one drive's bucket dir (the data-dir
+    uuid, which differs per write, left out of the key)."""
+    out = {}
+    for rel, data in tree_files(root).items():
+        parts = rel.split(os.sep)
+        if parts[-1].startswith("part."):
+            out[os.sep.join(parts[:-2] + [parts[-1]])] = data
+    return out
+
+
+def run_main_path(eng_mod, hash_order, tmp, card, counts, stagetimer,
+                  np) -> tuple[dict, dict]:
+    from minio_tpu_torch.object import codec
     k, m = 12, 4
-    mib = 1 << 20
     rng = np.random.default_rng(SEED)
-    sizes = {f"obj-{i}": 64 * mib for i in range(8)}
-    sizes["obj-ragged"] = 64 * mib + 12345
+    sizes = {f"obj-{i}": MAIN_OBJECT for i in range(8)}
+    sizes["obj-ragged"] = MAIN_OBJECT + 12345
     sizes["obj-small"] = 1024                       # below the size gate
     objects = {name: rng.bytes(n) for name, n in sizes.items()}
     total = sum(sizes.values())
@@ -335,24 +448,10 @@ def run_main_path(eng_mod, hash_order, tmp, card, rs_cuda, hh, np) -> dict:
     eng = eng_mod.from_reference_layout(paths, k, m)   # device: the card
     eng.make_bucket("smoke")
 
-    def counts():
-        return rs_cuda.gf_matmul.launches, hh.hh256.launches
-
-    def get_all(e) -> float:
-        t0 = time.perf_counter()
-        for name, data in objects.items():
-            info, it = e.get_object("smoke", name)
-            got = b"".join(it)
-            if got != data:
-                fail(f"GET {name}: bytes differ")
-            if info.etag != hashlib.md5(data).hexdigest():
-                fail(f"GET {name}: ETag {info.etag} is not the MD5")
-        return time.perf_counter() - t0
-
-    from minio_tpu_torch.object import codec
     codec.reset_step_seconds()
-    rs_cuda.gf_matmul.launches = 0
-    hh.hh256.launches = 0
+    stagetimer.reset()
+    stagetimer.enable()
+    counts.zero()
     t0 = time.perf_counter()
     for name, data in objects.items():
         info = eng.put_object("smoke", name, data)
@@ -360,12 +459,12 @@ def run_main_path(eng_mod, hash_order, tmp, card, rs_cuda, hh, np) -> dict:
                 info.size != len(data):
             fail(f"PUT {name}: bad ObjectInfo")
     put_s = time.perf_counter() - t0
-    put_counts = counts()
-    if min(put_counts) <= 0:
+    put_counts = counts.read()
+    if min(put_counts.values()) <= 0:
         fail(f"PUT did not launch both kernels: {put_counts}")
 
-    get_s = get_all(eng)
-    healthy_counts = counts()
+    get_s = read_all_back(eng, "smoke", objects)
+    healthy = counts.read()
 
     # 3 drives gone; the first one holds data shard 0 of obj-0
     dist = hash_order("smoke/obj-0", k + m)
@@ -373,10 +472,11 @@ def run_main_path(eng_mod, hash_order, tmp, card, rs_cuda, hh, np) -> dict:
     gone += [i for i in range(k + m) if i not in gone][:2]
     disks = [None if i in gone else d for i, d in enumerate(eng.disks)]
     degraded = eng_mod.ErasureObjects(disks, k, m)
-    deg_s = get_all(degraded)
-    final = counts()
-    deg_counts = (final[0] - healthy_counts[0], final[1] - healthy_counts[1])
-    if min(deg_counts) <= 0:
+    deg_s = read_all_back(degraded, "smoke", objects)
+    final = counts.read()
+    stagetimer.disable()
+    deg_counts = {n: final[n] - healthy[n] for n in final}
+    if min(deg_counts.values()) <= 0:
         fail(f"degraded GET did not launch both kernels: {deg_counts}")
     gib = total / (1 << 30)
     out = {"phase": "main_path", "objects": len(objects),
@@ -386,16 +486,316 @@ def run_main_path(eng_mod, hash_order, tmp, card, rs_cuda, hh, np) -> dict:
            "get_s": round(get_s, 3), "get_gib_s": round(gib / get_s, 4),
            "degraded_get_s": round(deg_s, 3),
            "degraded_get_gib_s": round(gib / deg_s, 4),
-           "codec_step_s": {name: round(v, 4)
-                            for name, v in codec.STEP_SECONDS.items()},
-           "put_launches": {"gf_matmul": put_counts[0],
-                            "hh256": put_counts[1]},
+           "codec_step_s": codec_steps(codec),
+           "put_launches": put_counts,
            "healthy_get_launches": {
-               "gf_matmul": healthy_counts[0] - put_counts[0],
-               "hh256": healthy_counts[1] - put_counts[1]},
-           "degraded_get_launches": {"gf_matmul": deg_counts[0],
-                                     "hh256": deg_counts[1]},
-           "gf_matmul_launches": final[0], "hh256_launches": final[1],
+               n: healthy[n] - put_counts[n] for n in healthy},
+           "degraded_get_launches": deg_counts,
+           "gf_matmul_launches": final["gf_matmul"],
+           "hh256_launches": final["hh256"], "launches": final,
+           "stagetimer": stage_report(stagetimer), "card": card}
+    emit(out)
+    return out, {"paths": paths, "objects": objects, "drive": gone[0]}
+
+
+def device_busy(torch, run) -> dict:
+    """Run `run()` under torch.profiler (device activity only) and return
+    its wall seconds, the device seconds the profiler recorded (summed by
+    name; two streams' overlapping work counts twice, so the idle share
+    derived from it is a lower bound), and that idle share. Device fields
+    are None when the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us:
+            by_name[e.key] = round(us / 1e6, 6)
+    busy = sum(by_name.values())
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    return {"wall_s": round(wall, 3),
+            "device_s": round(busy, 6) if by_name else None,
+            "idle_share_at_least": round(1 - busy / wall, 6)
+            if by_name else None,
+            "device_s_by_name": top}
+
+
+def run_concurrent_put(eng_mod, sched, stagetimer, tmp, card, counts,
+                       np) -> dict:
+    """BASELINE.json config 2: 32 streams each PUT one 16 MiB object at
+    once into a 16-drive 12+4 set with 1 MiB blocks, through the batch
+    former and the pipelined PUT loop."""
+    import threading
+
+    import torch
+    from minio_tpu_torch.object import codec
+    from minio_tpu_torch.parallel import pipeline as pl
+    k, m = 12, 4
+    streams, size = CONCURRENT
+    rng = np.random.default_rng(SEED + 5)
+    objects = {f"put-{i:02d}": rng.bytes(size) for i in range(streams)}
+    root = os.path.join(tmp, "concurrent")
+    paths = [os.path.join(root, f"drive{i}") for i in range(k + m)]
+    eng = eng_mod.from_reference_layout(paths, k, m, block_size=1 << 20,
+                                        scheduler=sched)
+    eng.make_bucket("smoke")
+    before = sched.stats()
+    codec.reset_step_seconds()
+    stagetimer.reset()
+    stagetimer.enable()
+    counts.zero()
+    errors, infos = [], {}
+
+    def put_all(prefix="") -> float:
+        """All streams at once; returns the wall seconds from the start
+        barrier to the last PUT's return."""
+        start = threading.Barrier(streams + 1)
+
+        def put(name, data):
+            try:
+                start.wait()
+                infos[prefix + name] = eng.put_object("smoke", prefix + name,
+                                                      data)
+            except Exception as e:  # noqa: BLE001 — failed below
+                errors.append(f"{name}: {e!r}")
+
+        threads = [threading.Thread(target=put, args=kv)
+                   for kv in objects.items()]
+        for t in threads:
+            t.start()
+        start.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join()
+        return time.perf_counter() - t0
+
+    wall = put_all()
+    stagetimer.disable()
+    stages = stage_report(stagetimer)
+    launched = counts.read()
+    after = sched.stats()
+    steps = codec_steps(codec)
+    if errors:
+        fail(f"concurrent PUT: {errors[:3]}")
+    for name, data in objects.items():
+        if infos[name].etag != hashlib.md5(data).hexdigest():
+            fail(f"concurrent PUT {name}: ETag is not the MD5")
+    enc = {key: after["verbs"]["encode"][key]
+           - before["verbs"]["encode"][key]
+           for key in after["verbs"]["encode"]}
+    declined = after["declined"] - before["declined"]
+    on_card = enc["batches"] - enc["host_routed"]
+    if declined or enc["host_routed"]:
+        fail(f"concurrent PUT: {declined} declined, {enc['host_routed']} "
+             "dispatches routed to the host")
+    if enc["coalesced"] <= 0:
+        fail(f"concurrent PUT: the former never coalesced: {enc}")
+    # each encode dispatch on the card is one put_step: one launch of
+    # each kernel, counted exactly under the two dispatch threads
+    if launched != {"gf_matmul": on_card, "hh256": on_card} \
+            or steps["encode"]["calls"] != on_card:
+        fail(f"concurrent PUT: launches {launched}, codec calls "
+             f"{steps['encode']['calls']} != {on_card} dispatches")
+    if enc["blocks"] != streams * size // (1 << 20):
+        fail(f"concurrent PUT: {enc['blocks']} blocks dispatched")
+    ring = pl.pool_pressure()
+    get_s = read_all_back(eng, "smoke", objects)
+    # the same PUTs again under the profiler: the device's idle share
+    profiled = device_busy(torch, lambda: put_all("again/"))
+    if errors:
+        fail(f"concurrent PUT under the profiler: {errors[:3]}")
+    gib = streams * size / (1 << 30)
+    out = {"phase": "concurrent_put", "config": "BASELINE.json config 2",
+           "streams": streams, "object_bytes": size, "ec": f"{k}+{m}",
+           "block_size": 1 << 20, "wall_s": round(wall, 3),
+           "put_gib_s": round(gib / wall, 4),
+           "get_back_s": round(get_s, 3),
+           "encode": enc, "declined": declined,
+           "codec_step_s": steps, "launches": launched,
+           "staging_ring": {"buffers": pl.POOL_BUFFERS, **ring},
+           "profiled_again": profiled, "stagetimer": stages, "card": card}
+    emit(out)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def expected_recover_dispatches(objects, k, block_size) -> tuple[int, int]:
+    """(dispatches on the card, dispatches the size gate keeps on the
+    host) of healing each object once: heal groups of HEAL_BATCH_BLOCKS
+    blocks, one dispatch per shard length in a group, on the card when
+    its survivors pass DEVICE_MIN_BYTES."""
+    from minio_tpu_torch.object import codec, healing
+    card = host = 0
+    for data in objects.values():
+        lens = [min(block_size, len(data) - off)
+                for off in range(0, len(data), block_size)]
+        for g in range(0, len(lens), healing.HEAL_BATCH_BLOCKS):
+            by_len: dict[int, int] = {}
+            for n in lens[g:g + healing.HEAL_BATCH_BLOCKS]:
+                sl = -(-n // k)
+                by_len[sl] = by_len.get(sl, 0) + 1
+            for sl, nb in by_len.items():
+                if nb * k * sl >= codec.DEVICE_MIN_BYTES:
+                    card += 1
+                else:
+                    host += 1
+    return card, host
+
+
+def run_heal(sched, state, tmp, card, counts, np) -> dict:
+    """BASELINE.json config 4: heal one drive of the phase-3 set. The
+    drive's bucket dir is deleted (its format.json stays) and every object
+    is healed through the batch former's recover verb; the rebuilt part
+    and xl.meta files must equal the deleted ones byte for byte. A second
+    pass flips one byte of a survivor shard: heal must find it by its
+    digest and still write the right bytes."""
+    from minio_tpu_torch.object import open_erasure_set
+    k, m = 12, 4
+    paths, objects = state["paths"], state["objects"]
+    drive = paths[state["drive"]]
+    bucket_dir = os.path.join(drive, "smoke")
+    saved = tree_files(bucket_dir)
+    if not any(f.endswith("part.1") for f in saved):
+        fail("heal: the chosen drive holds no shard files")
+    shutil.rmtree(bucket_dir)
+    eng = open_erasure_set(paths, k, m, scheduler=sched)
+    rebuilt = []
+    real_rebuild = eng._host_rebuild_block
+    eng._host_rebuild_block = lambda *a, **kw: rebuilt.append(a[2]) or \
+        real_rebuild(*a, **kw)
+    before = sched.stats()
+    counts.zero()
+    t0 = time.perf_counter()
+    healed = 0
+    for name in objects:
+        res = eng.heal_object("smoke", name)
+        healed += res.disks_healed
+    wall = time.perf_counter() - t0
+    launched = counts.read()
+    after = sched.stats()
+    rec = {key: after["verbs"]["recover"][key]
+           - before["verbs"]["recover"][key]
+           for key in after["verbs"]["recover"]}
+    want_card, want_host = expected_recover_dispatches(
+        objects, k, eng.block_size)
+    got = tree_files(bucket_dir)
+    if got != saved:
+        diff = sorted(set(got) ^ set(saved)) or \
+            [f for f in saved if got[f] != saved[f]]
+        fail(f"heal: rebuilt files differ from the deleted ones: {diff[:4]}")
+    if healed != len(objects):
+        fail(f"heal: {healed} drives healed for {len(objects)} objects")
+    on_card = rec["batches"] - rec["host_routed"]
+    if after["declined"] != before["declined"] or \
+            (on_card, rec["host_routed"]) != (want_card, want_host):
+        fail(f"heal: recover dispatches {rec} (card {on_card}), expected "
+             f"{want_card} on the card and {want_host} by the size gate")
+    if launched != {"gf_matmul": on_card, "hh256": on_card}:
+        fail(f"heal: launches {launched} != {on_card} recover dispatches")
+    if rebuilt:
+        fail("heal: a host rebuild ran without bitrot")
+
+    # second pass: a survivor with one flipped byte, and the drive's copy
+    # of obj-0 gone again
+    from minio_tpu_torch.storage.datatypes import hash_order
+    name = "obj-0"
+    dist = hash_order(f"smoke/{name}", k + m)
+    survivor = dist.index(2)            # holds data shard 1 of obj-0
+    if survivor == state["drive"]:
+        fail("heal: the survivor is the healed drive")
+    part = [p for p in tree_files(os.path.join(paths[survivor], "smoke",
+                                               name))
+            if p.endswith("part.1")][0]
+    part = os.path.join(paths[survivor], "smoke", name, part)
+    with open(part, "r+b") as fh:
+        fh.seek(32 + 1000)              # a payload byte of block 0
+        byte = fh.read(1)
+        fh.seek(32 + 1000)
+        fh.write(bytes([byte[0] ^ 0xFF]))
+    shutil.rmtree(os.path.join(bucket_dir, name))
+    counts.zero()
+    eng.heal_object("smoke", name)
+    second = counts.read()
+    with open(part, "r+b") as fh:      # restore the survivor
+        fh.seek(32 + 1000)
+        fh.write(byte)
+    again = tree_files(bucket_dir)
+    if again != saved:
+        fail("heal: with a flipped survivor byte the rebuilt files differ")
+    if rebuilt != [0]:
+        fail(f"heal: the flipped survivor byte was not found by its "
+             f"digest (host rebuilds of blocks {rebuilt})")
+    if min(second.values()) <= 0:
+        fail(f"heal: second pass launched {second}")
+    total = sum(len(d) for d in objects.values())
+    out = {"phase": "heal", "config": "BASELINE.json config 4",
+           "objects": len(objects), "bytes": total,
+           "healed_drive": state["drive"], "files": len(saved),
+           "wall_s": round(wall, 3),
+           "heal_gib_s": round(total / (1 << 30) / wall, 4),
+           "recover": rec, "launches": launched,
+           "flipped_byte_found": True, "second_pass_launches": second,
+           "card": card}
+    emit(out)
+    return out
+
+
+def run_mrf(sched, tmp, card, counts, np) -> dict:
+    """PUT 4 objects of 64 MiB with one drive offline: the degraded-write
+    hook queues each on the MRF healer; the drive comes back, the queue
+    drains, and the drive's shard files equal a healthy PUT's."""
+    from minio_tpu_torch.object import open_erasure_set
+    k, m = 12, 4
+    rng = np.random.default_rng(SEED + 7)
+    count, size = MRF_OBJECTS
+    objects = {f"mrf-{i}": rng.bytes(size) for i in range(count)}
+    mk = lambda tag: [os.path.join(tmp, tag, f"drive{i}")  # noqa: E731
+                      for i in range(k + m)]
+    eng = open_erasure_set(mk("mrf"), k, m, scheduler=sched, mrf=True,
+                           mrf_kw={"max_retries": 100})
+    ref = open_erasure_set(mk("healthy"), k, m, scheduler=sched)
+    try:
+        for e in (eng, ref):
+            e.make_bucket("smoke")
+        slot = 5
+        drive, eng.disks[slot] = eng.disks[slot], None
+        counts.zero()
+        for name, data in objects.items():
+            eng.put_object("smoke", name, data)
+        queued = eng.mrf.stats()["queued"]
+        if queued != len(objects):
+            fail(f"MRF: {queued} degraded PUTs queued, not {len(objects)}")
+        eng.disks[slot] = drive
+        eng.mrf.kick()
+        t0 = time.perf_counter()
+        if not eng.mrf.drain(timeout=300):
+            fail(f"MRF: the queue did not drain: {eng.mrf.stats()}")
+        drain_s = time.perf_counter() - t0
+        launched = counts.read()
+        st = eng.mrf.stats()
+        if st["healed"] != len(objects) or st["failed"]:
+            fail(f"MRF: {st}")
+        for name, data in objects.items():
+            ref.put_object("smoke", name, data)
+        got = part_files(os.path.join(mk("mrf")[slot], "smoke"))
+        want = part_files(os.path.join(mk("healthy")[slot], "smoke"))
+        if len(want) != len(objects) or got != want:
+            fail("MRF: the returned drive's shard files differ from a "
+                 "healthy PUT's")
+        if min(launched.values()) <= 0:
+            fail(f"MRF: launches {launched}")
+        read_all_back(eng, "smoke", objects)
+    finally:
+        eng.mrf.close()
+    out = {"phase": "mrf", "objects": len(objects),
+           "object_bytes": size, "offline_slot": slot,
+           "mrf": st, "drain_s": round(drain_s, 3), "launches": launched,
            "card": card}
     emit(out)
     return out
@@ -472,7 +872,10 @@ def run_timings(torch, dev, rand_u8, max_err, pipeline, rs_cuda, hh,
         "decode_r1": (rs_cuda.matrix_bits(rs_matrix.missing_data_matrix(
             k, m, full & ~(1 << 1))[0], dev), survivors),
         "decode_r3": (rs_cuda.matrix_bits(rs_matrix.missing_data_matrix(
-            k, m, full & ~(1 << 0 | 1 << 5 | 1 << 9))[0], dev), survivors)}
+            k, m, full & ~(1 << 0 | 1 << 5 | 1 << 9))[0], dev), survivors),
+        # heal of one drive: one lost row rebuilt from 12 survivors
+        "recover_r1": (rs_cuda.matrix_bits(rs_matrix.recover_rows(
+            k, m, full & ~(1 << 1), {1})[0], dev), survivors)}
     for name, (bits, sets) in gf_shapes.items():
         nb, _, width = sets[0].shape
         nbytes = nb * (k + bits.shape[0] // 8) * width
@@ -495,7 +898,10 @@ def run_timings(torch, dev, rand_u8, max_err, pipeline, rs_cuda, hh,
                 "gf_matmul_bound_ms": base["bound_ms"]})
     shapes = {"baseline": (b * (k + m), s, rows),
               "put": (8 * (k + m), shard, put_rows),
-              "degraded_get": (8 * k, shard, [x[:8 * k] for x in put_rows])}
+              "degraded_get": (8 * k, shard, [x[:8 * k] for x in put_rows]),
+              # heal: 8 blocks x (12 survivors + 1 rebuilt row)
+              "heal": (8 * (k + 1), shard,
+                       [x[:8 * (k + 1)] for x in put_rows])}
     for name, (n, length, sets) in shapes.items():
         nbytes = n * (length + 32)
         ops = n * hh256_rounds(length) * HH256_OPS_PER_ROUND

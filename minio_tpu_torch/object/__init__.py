@@ -1,0 +1,43 @@
+"""Object engine: erasure-coded object CRUD and healing on one erasure set
+(counterpart of minio_tpu/object/__init__.py; multipart joins in a later
+slice)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from .engine import ErasureObjects, from_reference_layout
+from .healing import HealMixin, HealResultItem  # noqa: F401
+
+
+class ErasureSetObjects(HealMixin):
+    """The per-set object engine: CRUD + heal. `mrf` is the MRF heal
+    queue wired to the degraded-read and degraded-write hooks, when
+    open_erasure_set built one."""
+
+    mrf = None
+
+
+def open_erasure_set(disk_paths: list[str], k: int, m: int,
+                     scheduler=None, mrf: bool = False,
+                     mrf_kw: Optional[dict] = None,
+                     **engine_kw) -> ErasureSetObjects:
+    """Open (formatting fresh drives) one erasure set of local drives as
+    an ErasureSetObjects (engine.from_reference_layout), with an optional
+    batch former and, with `mrf`, an MRFHealer (kwargs `mrf_kw`) that
+    heals through this set's heal_object: on_degraded_write and
+    on_degraded_read queue the object. Close the healer with
+    `obj.mrf.close()`."""
+    obj = from_reference_layout(disk_paths, k, m, cls=ErasureSetObjects,
+                                scheduler=scheduler, **engine_kw)
+    if mrf:
+        from .background import MRFHealer
+        obj.mrf = MRFHealer(
+            lambda b, o, v: obj.heal_object(b, o, v), **(mrf_kw or {}))
+        obj.on_degraded_write = obj.mrf.enqueue
+        obj.on_degraded_read = lambda b, o: obj.mrf.enqueue(b, o, "")
+    return obj
+
+
+__all__ = ["ErasureObjects", "ErasureSetObjects", "HealResultItem",
+           "open_erasure_set"]

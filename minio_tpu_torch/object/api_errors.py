@@ -57,6 +57,13 @@ class InsufficientWriteQuorum(ObjectApiError):
     """Not enough live drives to write (errErasureWriteQuorum)."""
 
 
+class HealFailed(ObjectApiError):
+    """A heal attempt made no progress (target drives offline or every
+    repair write failed) — the object is still degraded; retry later
+    (the MRF queue's backoff). An ObjectApiError so per-object heal
+    sweeps skip it instead of aborting."""
+
+
 class InvalidRange(ObjectApiError):
     def __init__(self, start: int = 0, length: int = 0, size: int = 0):
         super().__init__(f"invalid range {start}+{length} of {size}")

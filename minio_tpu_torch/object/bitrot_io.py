@@ -51,6 +51,11 @@ class StreamingBitrotWriter:
         # (per-drive faults must surface inside the write fan-out)
         self._file = None
 
+    def write(self, block) -> None:
+        """Frame a block, digesting it on the host."""
+        self.write_with_digest(
+            block, bitrot_mod.hash_shard(bytes(block), self.algo))
+
     def write_with_digest(self, block, digest) -> None:
         """Frame a block whose digest was already computed (by the batched
         device or native hasher)."""

@@ -1,8 +1,9 @@
 """Host-side erasure codec: split/join + encode/reconstruct routing.
 
 The engine-facing seam shaped like the reference's codec wrapper
-(cmd/erasure-coding.go:28-112). Two routes, picked per call by batch size
-(minio_tpu/object/codec.py:140-145):
+(cmd/erasure-coding.go:28-112; counterpart of minio_tpu/object/codec.py).
+Two routes, picked per call by batch size (minio_tpu/object/codec.py:
+140-145):
 
   * the device (ops/rs_cuda.py, models/pipeline.py) for batches of at
     least DEVICE_MIN_BYTES, where launch and transfer costs amortize;
@@ -11,10 +12,28 @@ The engine-facing seam shaped like the reference's codec wrapper
 
 Both produce byte-identical shards. A batch routed to the device that
 fails there raises: there is no silent host retry.
+
+In-flight slots. Each device dispatch on the card holds one of
+MINIO_TPU_SCHED_INFLIGHT slots of its device: a CUDA stream, pinned input
+and output staging, and CUDA events. The batch is copied to the card from
+pinned memory with a non-blocking copy on the slot's stream (straight
+from the caller's array when that is already pinned, as the PUT's staging
+ring is; else assembled into the slot's pinned input), the kernels run on
+that stream, and the results come back into the slot's pinned output. The
+dispatch then waits on the slot's own event, never on the whole device, so
+two dispatches' copies and kernels overlap. Every tensor of a dispatch is
+allocated and used on its slot's stream (none crosses streams, so none
+needs ``record_stream``); the cached coding matrices are written once by
+a blocking copy before any stream reads them.
+
+Left out: the mesh routes (parallel/mesh.py) and the SSE cipher steps.
 """
 
 from __future__ import annotations
 
+import contextlib
+import queue
+import threading
 import time
 from typing import Optional
 
@@ -24,27 +43,103 @@ import torch
 from .. import bitrot as bitrot_mod
 from .. import device as device_mod
 from ..ops import gf256, rs_cuda, rs_matrix
-from ..utils import native
+from ..parallel import bpool
+from ..utils import knobs, native
 from . import api_errors
 
-# Batches at least this large go to the device (reference knob
-# MINIO_TPU_DEVICE_MIN_BYTES).
-DEVICE_MIN_BYTES = 8 << 20
+# Batches at least this large go to the device.
+DEVICE_MIN_BYTES = knobs.get_int("MINIO_TPU_DEVICE_MIN_BYTES")
+# dispatches in flight per device: one slot each
+INFLIGHT = max(1, knobs.get_int("MINIO_TPU_SCHED_INFLIGHT"))
 
-# Host wall seconds inside the fused device steps, summed over calls:
-# "*_h2d" is the copy of the batch onto the card; "*_step" is the launches
-# plus the copy of the results back, which waits for the kernels.
-STEP_SECONDS = dict.fromkeys(("put_h2d", "put_step", "get_h2d", "get_step"),
-                             0.0)
+# Seconds inside the codec's device dispatches, per verb, summed over
+# calls: "transfer" is the host's assembly of the batch plus its copy onto
+# the device, "compute" the launches to completion, "fetch" the copy of
+# the results back to the host (device time from CUDA events on the
+# card; host wall time on CPU tensors).
+STEP_STAGES = ("transfer", "compute", "fetch")
+_steps_mu = threading.Lock()
+STEP_SECONDS: dict[str, dict] = {}
 
 
 def reset_step_seconds() -> None:
-    for name in STEP_SECONDS:
-        STEP_SECONDS[name] = 0.0
+    with _steps_mu:
+        for verb in ("encode", "decode", "recover"):
+            STEP_SECONDS[verb] = {"calls": 0,
+                                  **dict.fromkeys(STEP_STAGES, 0.0)}
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
+reset_step_seconds()
+
+
+def step_seconds() -> dict:
+    """A consistent copy of STEP_SECONDS."""
+    with _steps_mu:
+        return {verb: dict(v) for verb, v in STEP_SECONDS.items()}
+
+
+def _record_step(verb: str, stages: dict) -> None:
+    with _steps_mu:
+        acc = STEP_SECONDS[verb]
+        acc["calls"] += 1
+        for name, sec in stages.items():
+            acc[name] += sec
+
+
+class _Slot:
+    """One in-flight dispatch's resources on one card: its stream,
+    pinned staging (grown on demand, reused by the slot's next dispatch
+    only after the slot's event has completed) and four timing events
+    (start, input copied, steps done, outputs copied)."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.events = [torch.cuda.Event(enable_timing=True)
+                       for _ in range(4)]
+        self._pinned: dict[str, torch.Tensor] = {}
+
+    def pinned(self, which: str, nbytes: int) -> torch.Tensor:
+        buf = self._pinned.get(which)
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            self._pinned[which] = buf
+        return buf[:nbytes]
+
+
+_slots: dict[torch.device, "queue.Queue[_Slot]"] = {}
+_slots_mu = threading.Lock()
+
+
+@contextlib.contextmanager
+def _slot(device: torch.device):
+    """Hold one of the device's INFLIGHT slots, with its stream current
+    on this thread (PyTorch's current stream is per thread)."""
+    with _slots_mu:
+        q = _slots.get(device)
+        if q is None:
+            q = _slots[device] = queue.Queue()
+            for _ in range(INFLIGHT):
+                q.put(_Slot(device))
+    slot = q.get()
+    try:
+        with torch.cuda.stream(slot.stream):
+            yield slot
+    except BaseException:
+        # a failed dispatch may have left copies out of the slot's staging
+        # queued: let them finish before another dispatch refills it
+        try:
+            slot.stream.synchronize()
+        except RuntimeError:
+            pass          # the device is in error: the original raises
+        raise
+    finally:
+        q.put(slot)
+
+
+def _parts(data) -> list[np.ndarray]:
+    """A batch given as one (B, ...) array or as a list of such arrays
+    stacked along the batch axis (the batch former's coalesced groups)."""
+    return list(data) if isinstance(data, (list, tuple)) else [data]
 
 
 class Codec:
@@ -59,7 +154,10 @@ class Codec:
         self.m = parity_shards
         self.block_size = block_size
         self.shard_size = -(-block_size // data_shards)
-        self.device = device_mod.resolve(device)
+        dev = device_mod.resolve(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
         self._parity_matrix = np.asarray(
             rs_matrix.parity_matrix(self.k, self.m), dtype=np.uint8)
 
@@ -90,8 +188,20 @@ class Codec:
             return "native"
         return "numpy"
 
-    def _on_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+    def fused_route(self, algo) -> bool:
+        """Whether this codec's device can run the fused steps for `algo`
+        at all: a device HighwayHash kernel and parity shards. A batch
+        that passes still takes the host route below the size gate."""
+        return self.m > 0 and self._device_hash_kernel(algo) is not None
+
+    @staticmethod
+    def _device_hash_kernel(algo) -> Optional[str]:
+        """Device kernel name for a bitrot algorithm, or None when the
+        algorithm has no device implementation."""
+        if algo in (bitrot_mod.BitrotAlgorithm.HIGHWAYHASH256,
+                    bitrot_mod.BitrotAlgorithm.HIGHWAYHASH256S):
+            return "highwayhash"
+        return None
 
     def _host_matmul(self, matrix: np.ndarray, stacked: np.ndarray,
                      path: str) -> np.ndarray:
@@ -102,14 +212,90 @@ class Codec:
             return np.stack([native.gf_matmul(matrix, s) for s in stacked])
         return np.stack([gf256.gf_matmul(matrix, s) for s in stacked])
 
-    @staticmethod
-    def _device_hash_kernel(algo) -> Optional[str]:
-        """Device kernel name for a bitrot algorithm, or None when the
-        algorithm has no device implementation."""
-        if algo in (bitrot_mod.BitrotAlgorithm.HIGHWAYHASH256,
-                    bitrot_mod.BitrotAlgorithm.HIGHWAYHASH256S):
-            return "highwayhash"
-        return None
+    # -- one device dispatch -----------------------------------------------
+
+    def _run_step(self, verb: str, parts: list, step, stage_cb=None
+                  ) -> tuple:
+        """Put the batch stacked from `parts` on the device, run
+        `step(tensor) -> tuple of uint8 tensors` on it, and return the
+        outputs as numpy arrays. Reports "transfer", "compute" and
+        "fetch" seconds to STEP_SECONDS[verb] and to stage_cb."""
+        if self.device.type == "cuda":
+            out, stages = self._run_on_card(parts, step)
+        else:
+            out, stages = self._run_on_host_tensors(parts, step)
+        _record_step(verb, stages)
+        if stage_cb is not None:
+            for name in STEP_STAGES:
+                stage_cb(name, stages[name])
+        return out
+
+    def _run_on_host_tensors(self, parts: list, step):
+        t0 = time.perf_counter()
+        x = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        t1 = time.perf_counter()
+        outs = step(x)
+        t2 = time.perf_counter()
+        res = tuple(o.cpu().numpy() for o in outs)
+        t3 = time.perf_counter()
+        return res, {"transfer": t1 - t0, "compute": t2 - t1,
+                     "fetch": t3 - t2}
+
+    def _run_on_card(self, parts: list, step):
+        shape = (sum(p.shape[0] for p in parts),) + tuple(parts[0].shape[1:])
+        nbytes = int(np.prod(shape))
+        with _slot(self.device) as slot:
+            t0 = time.perf_counter()
+            start, copied, stepped, fetched = slot.events
+            src = parts[0] if len(parts) == 1 else None
+            if src is not None and src.flags.c_contiguous \
+                    and torch.from_numpy(src).is_pinned():
+                host = torch.from_numpy(src)     # a pinned ring buffer
+            else:
+                src = None
+                host = slot.pinned("in", nbytes).view(shape)
+                view, at = host.numpy(), 0
+                for p in parts:
+                    view[at:at + p.shape[0]] = p
+                    at += p.shape[0]
+            assembled = time.perf_counter() - t0
+            start.record()
+            x = torch.empty(shape, dtype=torch.uint8, device=self.device)
+            x.copy_(host, non_blocking=True)
+            copied.record()
+            if src is not None:
+                # the ring buffer is recycled only after this copy
+                done = torch.cuda.Event()
+                done.record()
+                bpool.after_copy(src, done)
+            outs = step(x)
+            stepped.record()
+            pin = slot.pinned("out", sum(o.numel() for o in outs))
+            views, at = [], 0
+            for o in outs:
+                v = pin[at:at + o.numel()].view(o.shape)
+                v.copy_(o, non_blocking=True)
+                views.append(v)
+                at += o.numel()
+            fetched.record()
+            fetched.synchronize()
+            t1 = time.perf_counter()
+            # the slot's pinned output is reused by its next dispatch
+            res = tuple(v.numpy().copy() for v in views)
+            copied_out = time.perf_counter() - t1
+            stages = {"transfer": assembled
+                      + start.elapsed_time(copied) / 1e3,
+                      "compute": copied.elapsed_time(stepped) / 1e3,
+                      "fetch": stepped.elapsed_time(fetched) / 1e3
+                      + copied_out}
+        return res, stages
+
+    def _matmul_on_device(self, verb: str, matrix: np.ndarray, parts: list
+                          ) -> np.ndarray:
+        bits = rs_cuda.matrix_bits(matrix, self.device)
+        return self._run_step(
+            verb, parts, lambda x: (rs_cuda.gf_matmul(bits, x),))[0]
 
     # -- encode ------------------------------------------------------------
 
@@ -121,67 +307,97 @@ class Codec:
             return np.zeros((b, 0, s), dtype=np.uint8)
         path = self._route(data.nbytes)
         if path == "device":
-            return _to_host(rs_cuda.apply_matrix(self._parity_matrix,
-                                                 self._on_device(data)))
+            return self._matmul_on_device("encode", self._parity_matrix,
+                                          [data])
         return self._host_matmul(self._parity_matrix, data, path)
 
-    def encode_and_hash_batch(self, data: np.ndarray, algo):
+    def encode_and_hash_batch(self, data, algo, *, stage_cb=None):
         """The fused device path of the PUT loop: one device step computes
         parity AND every shard's HighwayHash-256 digest
         (models/pipeline.put_step).
 
-        data: (B, k, S). Returns (parity (B, m, S), digests (B, k+m, 32))
-        as numpy arrays, or None when the batch does not route to the
-        device or the bitrot algorithm has no device kernel. Only parity
-        and digests come back from the device; the data rows are the
-        caller's own bytes."""
-        kernel = self._device_hash_kernel(algo)
-        if kernel is None or self.m == 0:
+        data: (B, k, S), or a list of such groups stacked along B. Returns
+        (parity (B, m, S), digests (B, k+m, 32)) as numpy arrays, or None
+        when the batch does not route to the device or the bitrot
+        algorithm has no device kernel. Only parity and digests come back
+        from the device; the data rows are the caller's own bytes.
+        stage_cb(stage, seconds) receives "transfer", "compute" and
+        "fetch"."""
+        parts = _parts(data)
+        if not self.fused_route(algo):
             return None
-        if self._route(data.nbytes) != "device":
+        if self._route(sum(p.nbytes for p in parts)) != "device":
             return None
         from ..models.pipeline import put_step
-        t0 = time.perf_counter()
-        on_dev = self._on_device(data)
-        t1 = time.perf_counter()
-        parity, digests = put_step(on_dev, self.k, self.m, algo=kernel)
-        out = _to_host(parity), _to_host(digests)
-        STEP_SECONDS["put_h2d"] += t1 - t0
-        STEP_SECONDS["put_step"] += time.perf_counter() - t1
-        return out
+        k, m = self.k, self.m
+        kernel = self._device_hash_kernel(algo)
+        return self._run_step(
+            "encode", parts, lambda x: put_step(x, k, m, algo=kernel),
+            stage_cb)
 
-    # -- fused verify + decode (device) ------------------------------------
+    # -- fused verify + decode / recover (device) --------------------------
 
-    def verify_and_decode_batch(self, survivors: np.ndarray,
-                                present_mask: int, shard_len: int, algo):
+    def verify_and_decode_batch(self, survivors, present_mask: int,
+                                shard_len: int, algo, *, stage_cb=None):
         """The fused device path of the degraded GET: ONE device step
         bitrot-hashes every survivor shard AND reconstructs only the
         missing data rows (models/pipeline.get_step).
 
-        survivors: (B, k, S) stacked in missing_data_matrix `used` order.
-        Returns (missing (B, r, S), missing_idx, survivor_digests
-        (B, k, 32)) as numpy arrays, or None when the batch does not route
-        to the device, the algorithm has no device kernel, or nothing is
-        missing."""
+        survivors: (B, k, S) stacked in missing_data_matrix `used` order
+        (or a list of such groups). Returns (missing (B, r, S),
+        missing_idx, survivor_digests (B, k, 32)) as numpy arrays, or None
+        when the batch does not route to the device, the algorithm has no
+        device kernel, or nothing is missing."""
+        parts = _parts(survivors)
         kernel = self._device_hash_kernel(algo)
         if kernel is None:
             return None
-        if self._route(survivors.nbytes) != "device":
+        if self._route(sum(p.nbytes for p in parts)) != "device":
             return None
         dm, _used, missing = rs_matrix.missing_data_matrix(
             self.k, self.m, present_mask)
         if not missing:
             return None
         from ..models.pipeline import get_step
-        t0 = time.perf_counter()
-        on_dev = self._on_device(survivors)
-        t1 = time.perf_counter()
-        out, digests = get_step(on_dev, rs_cuda.matrix_bits(dm, self.device),
-                                dm.shape[0], self.k, shard_len, algo=kernel)
-        result = _to_host(out), missing, _to_host(digests)
-        STEP_SECONDS["get_h2d"] += t1 - t0
-        STEP_SECONDS["get_step"] += time.perf_counter() - t1
-        return result
+        bits = rs_cuda.matrix_bits(dm, self.device)
+        r, k = dm.shape[0], self.k
+        out, digests = self._run_step(
+            "decode", parts,
+            lambda x: get_step(x, bits, r, k, shard_len, algo=kernel),
+            stage_cb)
+        return out, missing, digests
+
+    def verify_and_recover_batch(self, survivors, present_mask: int,
+                                 rows: "set[int]", shard_len: int, algo, *,
+                                 stage_cb=None):
+        """The fused device path of heal: verify the survivors, rebuild
+        exactly the requested lost rows, and digest the rebuilt shards for
+        their new bitrot frames (models/pipeline.heal_step; reference
+        minio_tpu/object/codec.py:371-415).
+
+        survivors: (B, k, S) in recover_matrix `used` order (or a list of
+        such groups). Returns (out (B, R, S), idxs, survivor_digests
+        (B, k, 32), out_digests (B, R, 32)), or None when the batch does
+        not route to the device or nothing is to be rebuilt. A failure on
+        the card raises."""
+        parts = _parts(survivors)
+        kernel = self._device_hash_kernel(algo)
+        if kernel is None:
+            return None
+        if self._route(sum(p.nbytes for p in parts)) != "device":
+            return None
+        rec, idxs = rs_matrix.recover_rows(self.k, self.m, present_mask,
+                                           rows)
+        if not idxs:
+            return None
+        from ..models.pipeline import heal_step
+        bits = rs_cuda.matrix_bits(rec, self.device)
+        r, k = rec.shape[0], self.k
+        out, sdig, odig = self._run_step(
+            "recover", parts,
+            lambda x: heal_step(x, bits, r, k, shard_len, algo=kernel),
+            stage_cb)
+        return out, idxs, sdig, odig
 
     # -- batched decode / recover ------------------------------------------
 
@@ -192,8 +408,7 @@ class Codec:
         d, _used = rs_matrix.decode_matrix(self.k, self.m, present_mask)
         path = self._route(survivors.nbytes)
         if path == "device":
-            return _to_host(rs_cuda.apply_matrix(
-                d, self._on_device(survivors)))
+            return self._matmul_on_device("decode", d, [survivors])
         return self._host_matmul(d, survivors, path)
 
     def recover_stacked(self, survivors: np.ndarray, present_mask: int,
@@ -206,16 +421,18 @@ class Codec:
                                            rows)
         path = self._route(survivors.nbytes)
         if path == "device":
-            return _to_host(rs_cuda.apply_matrix(
-                rec, self._on_device(survivors))), idxs
+            return self._matmul_on_device("recover", rec,
+                                          [survivors]), idxs
         return self._host_matmul(rec, survivors, path), idxs
 
-    def reconstruct(self, shards: list, data_only: bool = False) -> list:
+    def reconstruct(self, shards: list, data_only: bool = False,
+                    rows: Optional[set] = None) -> list:
         """Fill in missing (None) shards from >= k survivors.
 
         shards: length k+m list in shard-index order; returns the full
         list with the missing entries rebuilt (only data shards when
-        data_only) — reference DecodeDataAndParityBlocks /
+        data_only; only the shard indices in `rows` when given, the heal
+        path's exact-rows form) — reference DecodeDataAndParityBlocks /
         DecodeDataBlocks (cmd/erasure-coding.go:89-112)."""
         n = self.k + self.m
         if len(shards) != n:
@@ -225,7 +442,8 @@ class Codec:
             raise api_errors.InsufficientReadQuorum(
                 f"{len(present)} shards < k={self.k}")
         wanted = {i for i in range(n) if shards[i] is None
-                  and (not data_only or i < self.k)}
+                  and (not data_only or i < self.k)
+                  and (rows is None or i in rows)}
         if not wanted:
             return list(shards)
         mask = sum(1 << i for i in present)

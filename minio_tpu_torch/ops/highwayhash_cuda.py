@@ -207,7 +207,7 @@ def hh256(rows: torch.Tensor, length: int, key: bytes) -> torch.Tensor:
                       *kw, out.data_ptr(),
                       torch.cuda.current_stream(rows.device).cuda_stream)
     kernels.check(err, "hh256 launch")
-    hh256.launches += 1
+    kernels.count_launch(hh256)
     return out
 
 

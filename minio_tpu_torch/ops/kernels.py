@@ -103,6 +103,17 @@ def library(name: str) -> str:
     return _target(name)
 
 
+_count_mu = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`, the count of a kernel's launches.
+    Dispatch threads launch at once, and a bare `+=` on the attribute can
+    lose counts between its read and its write."""
+    with _count_mu:
+        wrapper.launches += 1
+
+
 def check(err: int, what: str) -> None:
     """Raise when a launch returned a CUDA error (a refused launch never
     runs, and a later synchronize does not report it)."""

@@ -97,7 +97,7 @@ def gf_matmul(m2: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
                       r, k, s, torch.cuda.current_stream(
                           data.device).cuda_stream)
     kernels.check(err, "gf_matmul launch")
-    gf_matmul.launches += 1
+    kernels.count_launch(gf_matmul)
     return out
 
 

@@ -2,7 +2,7 @@
 
 The seam between the object engine and a drive (reference:
 cmd/storage-interface.go:25-82), trimmed to the verbs the erasure-coded
-PUT, GET and DELETE paths call. Synchronous methods; the object engine fans
+PUT, GET, DELETE and heal paths call. Synchronous methods; the object engine fans
 out over drives with a thread pool.
 """
 
@@ -47,6 +47,14 @@ class StorageAPI(abc.ABC):
     def rename_data(self, src_volume: str, src_path: str, data_dir: str,
                     dst_volume: str, dst_path: str) -> None:
         """Commit a staged write (2-phase commit finish)."""
+
+    @abc.abstractmethod
+    def check_parts(self, volume: str, path: str, fi: FileInfo) -> None:
+        """Every part file exists at its full shard-file size."""
+
+    @abc.abstractmethod
+    def verify_file(self, volume: str, path: str, fi: FileInfo) -> None:
+        """Every bitrot frame of every part verifies."""
 
     # -- files -------------------------------------------------------------
 

@@ -1,7 +1,8 @@
 """XLStorage — one local POSIX drive.
 
 The local implementation of StorageAPI (reference: cmd/xl-storage.go),
-trimmed to the verbs of the erasure-coded PUT, GET and DELETE. The on-disk
+trimmed to the verbs of the erasure-coded PUT, GET, DELETE and heal
+(check_parts, verify_file). The on-disk
 layout is the reference's, and minio_tpu's, exactly:
 
     <root>/.minio.sys/format.json          drive identity + topology
@@ -20,6 +21,7 @@ import os
 import shutil
 import threading
 
+from .. import bitrot as bitrot_mod
 from ..utils import atomicfile
 from . import errors
 from .api import StorageAPI
@@ -268,6 +270,62 @@ class XLStorage(StorageAPI):
             self.write_all(volume,
                            os.path.join(path, XL_STORAGE_FORMAT_FILE),
                            meta.dumps())
+
+    def check_parts(self, volume: str, path: str, fi: FileInfo) -> None:
+        """Every part file must exist with its exact shard-file size
+        (reference CheckParts, cmd/xl-storage.go)."""
+        for part in fi.parts:
+            pp = os.path.join(path, fi.data_dir, f"part.{part.number}")
+            csum = fi.erasure.get_checksum_info(part.number)
+            algo = (bitrot_mod.BitrotAlgorithm.from_string(csum.algorithm)
+                    if csum else bitrot_mod.DEFAULT_BITROT_ALGORITHM)
+            want = bitrot_mod.bitrot_shard_file_size(
+                fi.erasure.shard_file_size(part.size),
+                fi.erasure.shard_size(), algo)
+            try:
+                st = os.stat(self._file_path(volume, pp))
+            except FileNotFoundError:
+                raise errors.FileNotFound(pp) from None
+            except OSError as e:
+                raise errors.FaultyDisk(str(e)) from e
+            if st.st_size < want:
+                raise errors.FileCorrupt(
+                    f"{pp}: size {st.st_size} < expected {want}")
+
+    def verify_file(self, volume: str, path: str, fi: FileInfo) -> None:
+        """Full bitrot scan of every part (reference VerifyFile,
+        cmd/xl-storage.go:2410): each [digest||block] frame of the
+        streaming framing is hashed on the host."""
+        for part in fi.parts:
+            pp = os.path.join(path, fi.data_dir, f"part.{part.number}")
+            csum = fi.erasure.get_checksum_info(part.number)
+            algo = (bitrot_mod.BitrotAlgorithm.from_string(csum.algorithm)
+                    if csum else bitrot_mod.DEFAULT_BITROT_ALGORITHM)
+            if not algo.streaming:
+                raise NotImplementedError(
+                    f"bitrot algorithm {algo.value!r}: only streaming "
+                    "framing is ported")
+            try:
+                f = open(self._file_path(volume, pp), "rb")
+            except FileNotFoundError:
+                raise errors.FileNotFound(pp) from None
+            except OSError as e:
+                raise errors.FaultyDisk(str(e)) from e
+            shard_size = fi.erasure.shard_size()
+            remaining = fi.erasure.shard_file_size(part.size)
+            with f:
+                while remaining > 0:
+                    want = f.read(algo.digest_size)
+                    n = min(shard_size, remaining)
+                    block = f.read(n)
+                    if len(want) != algo.digest_size or len(block) != n:
+                        raise errors.FileCorrupt(
+                            f"{pp}: truncated bitrot frame")
+                    got = bitrot_mod.hash_shard(block, algo)
+                    if got != want:
+                        raise errors.BitrotHashMismatch(want.hex(),
+                                                        got.hex())
+                    remaining -= n
 
     def rename_data(self, src_volume: str, src_path: str, data_dir: str,
                     dst_volume: str, dst_path: str) -> None:

@@ -1,0 +1,132 @@
+"""Registry of the ``MINIO_TPU_*`` tuning knobs the port reads.
+
+Counterpart of minio_tpu/utils/knobs.py, trimmed to the knobs of the
+pipelined data path, the batch former, heal and the MRF queue, with the
+reference's names, types and defaults (minio_tpu/utils/knobs.py:160-197,
+:284-291). Left out: the README table renderer and every knob no ported
+module reads. No knob here is one the reference lacks.
+
+Getters read the environment at call time: tests flip knobs with
+``monkeypatch.setenv`` and modules that want an import-time snapshot call
+the getter at module scope. A value that does not parse falls back to the
+declared default. Booleans accept ``on/1/true/yes`` and ``off/0/false/no``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Dict, Union
+
+_TRUE = ("on", "1", "true", "yes")
+_FALSE = ("off", "0", "false", "no")
+
+Default = Union[str, int, float, bool, Callable[[], Union[int, float, str]]]
+
+
+class Knob:
+    """One declared knob: name, type, default, one-line doc."""
+
+    __slots__ = ("name", "type", "default", "doc")
+
+    def __init__(self, name: str, type_: str, default: Default, doc: str):
+        assert name.startswith("MINIO_TPU_"), name
+        assert type_ in ("str", "int", "float", "bool"), type_
+        self.name, self.type, self.default, self.doc = \
+            name, type_, default, doc
+
+    def resolve_default(self):
+        d = self.default
+        return d() if callable(d) else d
+
+
+KNOBS: Dict[str, Knob] = {}
+
+
+def define(name: str, type_: str, default: Default, doc: str) -> Knob:
+    assert name not in KNOBS, f"knob {name} declared twice"
+    KNOBS[name] = k = Knob(name, type_, default, doc)
+    return k
+
+
+def get(name: str) -> Knob:
+    try:
+        return KNOBS[name]
+    except KeyError:
+        raise KeyError(f"unregistered knob {name!r}") from None
+
+
+def is_set(name: str) -> bool:
+    get(name)
+    return name in os.environ
+
+
+def get_int(name: str) -> int:
+    k = get(name)
+    v = os.environ.get(name)
+    if v is not None:
+        try:
+            return int(v)
+        except ValueError:
+            pass
+    return int(k.resolve_default())
+
+
+def get_float(name: str) -> float:
+    k = get(name)
+    v = os.environ.get(name)
+    if v is not None:
+        try:
+            return float(v)
+        except ValueError:
+            pass
+    return float(k.resolve_default())
+
+
+def get_bool(name: str) -> bool:
+    k = get(name)
+    v = os.environ.get(name)
+    if v is not None:
+        s = v.strip().lower()
+        if s in _TRUE:
+            return True
+        if s in _FALSE:
+            return False
+    return bool(k.resolve_default())
+
+
+# -- data path ---------------------------------------------------------------
+define("MINIO_TPU_PIPELINE", "bool", True,
+       "`off` selects the serial PUT/GET hot loops")
+define("MINIO_TPU_PIPELINE_DEPTH", "int", 2,
+       "bounded queue depth between pipeline stages")
+define("MINIO_TPU_PIPELINE_POOL", "int",
+       lambda: 2 * (os.cpu_count() or 4),
+       "staging buffers per geometry ring (2 x cores)")
+define("MINIO_TPU_PIPELINE_POOL_TIMEOUT_S", "float", 60.0,
+       "staging-buffer wait before the PUT fails loudly")
+define("MINIO_TPU_ENCODE_BATCH", "int", 8,
+       "blocks fused per PUT encode+digest call")
+define("MINIO_TPU_GET_BATCH", "int", 8,
+       "blocks fused per GET verify/decode call")
+define("MINIO_TPU_HEAL_BATCH", "int", 8,
+       "blocks fused per heal recover call")
+define("MINIO_TPU_DEVICE_MIN_BYTES", "int", 8 << 20,
+       "batch bytes below which the codec stays on the host path")
+
+# -- batch former ------------------------------------------------------------
+define("MINIO_TPU_SCHED_MAX_BATCH", "int", 32,
+       "blocks per fused device dispatch")
+define("MINIO_TPU_SCHED_MAX_WAIT_MS", "float", 3.0,
+       "cross-request coalescing grace window, milliseconds")
+define("MINIO_TPU_SCHED_INFLIGHT", "int", 2,
+       "concurrent dispatches in flight (transfer/compute overlap)")
+
+# -- MRF heal queue ----------------------------------------------------------
+define("MINIO_TPU_MRF_QUEUE_SIZE", "int", 10000,
+       "bounded MRF heal-queue entries (overflow drops the hint)")
+define("MINIO_TPU_MRF_MAX_RETRIES", "int", 10,
+       "MRF heal attempts before an entry counts as failed")
+define("MINIO_TPU_MRF_BACKOFF_BASE", "float", 0.05,
+       "first MRF retry delay, seconds (doubles per attempt)")
+define("MINIO_TPU_MRF_BACKOFF_MAX", "float", 15.0,
+       "MRF retry delay cap, seconds")

@@ -221,3 +221,112 @@ def test_get_step_hashes_survivors_only(dev):
     assert dig.shape == (8, k, 32)
     cpu = pipeline.get_step(x.cpu(), bits.cpu(), len(missing), k, 1000)
     assert torch.equal(out.cpu(), cpu[0]) and torch.equal(dig.cpu(), cpu[1])
+
+
+def test_two_threads_launch_on_their_own_streams(dev):
+    # each thread launches both kernels on its own stream at (r, k)
+    # shapes no other test uses first: the first launch of a new shape
+    # sets the function's shared-memory opt-in and the resident-block
+    # cache, and two threads may be there at once
+    import threading
+    shapes = {0: [(7, 13), (9, 2)], 1: [(6, 11), (10, 5)]}
+    results, errors = {}, []
+    barrier = threading.Barrier(2)
+
+    def run(t):
+        try:
+            stream = torch.cuda.Stream(dev)
+            barrier.wait()
+            with torch.cuda.stream(stream):
+                for r, k in shapes[t]:
+                    m2 = _random_bits(r, k, 100 * r + k, dev)
+                    x = _rand((3, k, 4099), r + k, dev)
+                    rows = _rand((40, 1031), r * k, dev)
+                    results[(t, r, k)] = (
+                        m2, x, rows, rs_cuda.gf_matmul(m2, x),
+                        highwayhash_cuda.hh256(rows, 1031, KEY))
+            stream.synchronize()
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    gf0 = rs_cuda.gf_matmul.launches
+    hh0 = highwayhash_cuda.hh256.launches
+    threads = [threading.Thread(target=run, args=(t,)) for t in shapes]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert not errors, errors
+    assert rs_cuda.gf_matmul.launches == gf0 + 4
+    assert highwayhash_cuda.hh256.launches == hh0 + 4
+    for m2, x, rows, gf, hh in results.values():
+        assert torch.equal(gf, rs_cuda.gf_matmul_plain(m2, x))
+        assert torch.equal(hh, highwayhash_cuda.hh256_plain(rows, 1031, KEY))
+
+
+def test_pinned_buffer_recycled_only_after_its_copy(dev):
+    # a copy queued behind a long kernel is still reading the pinned ring
+    # buffer when it is returned: put() must wait for the copy's event
+    from minio_tpu_torch.parallel import bpool
+    pool = bpool.BytePool(64 << 20, 1, pinned=True)
+    buf = pool.get()
+    assert torch.from_numpy(buf).is_pinned()
+    buf[:] = 7
+    stream = torch.cuda.Stream(dev)
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(200_000_000)         # ~0.1 s of device time
+        out = torch.empty(buf.shape, dtype=torch.uint8, device=dev)
+        out.copy_(torch.from_numpy(buf), non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+    bpool.after_copy(buf, done)
+    assert not done.query()
+    pool.put(buf)
+    assert done.query()
+    assert pool.get(timeout=1) is buf
+    assert int(out.min()) == int(out.max()) == 7
+
+
+def test_codec_dispatches_overlap_threads_and_agree(dev, monkeypatch):
+    # concurrent fused dispatches through the codec's in-flight slots, on
+    # pinned and pageable inputs, equal the CPU codec's outputs
+    import threading
+    from minio_tpu_torch.bitrot import BitrotAlgorithm
+    from minio_tpu_torch.object import codec as codec_mod
+    from minio_tpu_torch.parallel import bpool
+    hh = BitrotAlgorithm.HIGHWAYHASH256S
+    k, m, s = 12, 4, 4099
+    monkeypatch.setattr(codec_mod, "DEVICE_MIN_BYTES", 0)
+    card = codec_mod.Codec(k, m, k * s, device=dev)
+    host = codec_mod.Codec(k, m, k * s, device="cpu")
+    pool = bpool.BytePool(8 * k * s, 4, pinned=True)
+    inputs = []
+    for i in range(6):
+        x = np.random.default_rng(i).integers(0, 256, (8, k, s),
+                                              dtype=np.uint8)
+        if i % 2:
+            buf = pool.get().reshape(8, k, s)
+            buf[:] = x
+            x = buf
+        inputs.append(x)
+    outs, errors = [None] * len(inputs), []
+
+    def run(i):
+        try:
+            outs[i] = card.encode_and_hash_batch(
+                inputs[i] if i < 4 else [inputs[i][:3], inputs[i][3:]], hh)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(inputs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert not errors, errors
+    for x, got in zip(inputs, outs):
+        want = host.encode_and_hash_batch(np.ascontiguousarray(x), hh)
+        assert (got[0] == want[0]).all() and (got[1] == want[1]).all()
