@@ -26,7 +26,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 around each ring chunk size, 1 to 9000 rows, 349,526 bytes
                 inside longer rows, length == row stride on the tensor's
                 last row, and the main path's 8 x (12 + r) rows of 349,526
-                bytes for r = 0..4.
+                bytes for r = 0..4;
+                sha256 against its plain version and hashlib (the third
+                witness) at lengths 0, 1, 55, 56, 63, 64, 65, 119, 120,
+                65,535 and 65,536 (length < S in all but the last) on
+                N = 1, 20, 160 and 640 rows of S = 65,536, rows at 4- and
+                1-byte alignments (strides 1,028 and 1,031, views from
+                bytes 1..3), and config 5's 640 rows at each end of a
+                guarded mapping; gf_matmul at config 5's shapes: encode
+                (B=32, 4x16, S=65,536) and decode with r = 1 and 4 of
+                k = 16 (B=8).
   3. main path — one 16-drive erasure set at EC 12+4, 4 MiB blocks,
                 highwayhash256S streaming bitrot: PUT eight 64 MiB objects,
                 one of 64 MiB + 12,345 bytes and one of 1 KiB; GET them all
@@ -67,9 +76,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 INT32 rate) and, for hh256, the chain floor: packet rounds
                 x the cycles of one trip of the kernel's packet loop (its
                 longest dependency chain, read from cuobjdump -sass) at the
-                SM clock nvidia-smi reports under load.
+                SM clock nvidia-smi reports under load. sha256 at config
+                5's encode launch shapes (640 and 160 rows of 65,536 B)
+                beside its byte and operation bounds and its chain floor
+                (compressions x the chain cycles of one trip of its block
+                loop, read the same way), its plain version and
+                hashlib.sha256 on the host over the same rows; gf_matmul
+                at k = 16: config 5's encode and degraded-GET decodes.
+  8. config 5 — BASELINE.json config 5, multipart upload over two server
+                sets with SHA-256 bitrot and cross-set shard batching (see
+                run_config5 for the cuts): 32 part uploads of 64 MiB in
+                flight at once into two pools of one 16+4 set each,
+                sharing one batch former; every object read back by bytes
+                and multipart ETag, healthy and with 4 of 20 drives gone
+                in each pool.
 
-Phases run in the order 1, 2, 3, 5, 6, 7, 4. Each path's launch counters
+Phases run in the order 1, 2, 3, 5, 6, 7, 8, 4. Each path's launch counters
 are set to 0 just before it runs and read just after. Then it prints the
 kernel table as one JSON line (with each kernel's launches on every path),
 the card's name and power limit, and the device line last. It needs one
@@ -98,11 +120,22 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # u64 xors (2 each) = 14, x 4 lanes; four zipper merges of five byte
 # permutes and two u64 adds (2 each) = 9 each
 HH256_OPS_PER_ROUND = 4 * 14 + 4 * 9
+# Hopper integer instructions one SHA-256 compression needs (not C
+# operators: a three-way xor, Ch or Maj is one LOP3, and three-input adds
+# are one IADD3). Per round (64): the two big sigmas are 3 funnel-shift
+# rotates (SHF) and one LOP3 each, Ch and Maj one LOP3 each, t1 = h + S1
+# + ch + K + W two IADD3, new a = t1 + S0 + maj one IADD3, new e = d + t1
+# one IADD = 14. Per scheduled word (48): the two small sigmas are 2
+# rotates, a shift (SHF) and one LOP3 each, the four-term sum two IADD3
+# = 10. Then 8 state adds and 16 byte permutes (PRMT) of the big-endian
+# loads. The built kernel issues more (utils/sass.block_loop reads it).
+SHA256_OPS_PER_COMPRESSION = 64 * 14 + 48 * 10 + 8 + 16
 SEED = 20240601
 # object sizes of phases 3, 5 and 7
 MAIN_OBJECT = 64 << 20              # eight of these, one 12,345 B longer
 CONCURRENT = (32, 16 << 20)         # streams, bytes each (config 2)
 MRF_OBJECTS = (4, 64 << 20)
+CONFIG5 = (8, 4, 64 << 20)          # objects, parts each, bytes per part
 
 
 def fail(msg: str) -> None:
@@ -131,7 +164,8 @@ def main() -> int:
         fail("torch.cuda.is_available() is False")
     sys.path.insert(0, HERE)
     from minio_tpu_torch.ops import (highwayhash_cuda, highwayhash_py,
-                                     kernels, rs_cuda, rs_matrix)
+                                     kernels, rs_cuda, rs_matrix,
+                                     sha256_cuda, sha256_ref)
     from minio_tpu_torch.bitrot import MAGIC_HIGHWAYHASH_KEY as KEY
     from minio_tpu_torch.models import pipeline
     from minio_tpu_torch.utils import guard_pages, sass
@@ -296,9 +330,26 @@ def main() -> int:
             g.copy_(rows)
             check_hh(f"{len(rows)} rows of 349526 at the {at} of a mapping",
                      g, 349526, plain)
+    # gf_matmul at config 5's shapes (k = 16: wider tiles than k = 12, a
+    # larger shared-memory opt-in): encode of a full dispatch and the
+    # degraded GET's decodes with 1 and 4 data shards lost
+    k5, m5, s5 = 16, 4, 65536
+    full5 = (1 << (k5 + m5)) - 1
+    m2 = rs_cuda.matrix_bits(rs_matrix.parity_matrix(k5, m5), dev)
+    check_gf("config 5 encode B=32 4x16 S=65536", m2,
+             rand_u8(32, k5, s5))
+    for lost in ((3,), (0, 5, 9, 15)):
+        mask = full5 & ~sum(1 << i for i in lost)
+        m2 = rs_cuda.matrix_bits(rs_matrix.missing_data_matrix(
+            k5, m5, mask)[0], dev)
+        check_gf(f"config 5 decode r={len(lost)} B=8", m2,
+                 rand_u8(8, k5, s5))
+    sha_err, sha_cases = check_sha256(torch, dev, rand_u8, max_err,
+                                      sha256_cuda, sha256_ref, guard_pages)
     emit({"phase": "kernels", "gf_matmul_max_abs_err": gf_err,
           "gf_matmul_cases": gf_cases,
           "hh256_max_abs_err": hh_err, "hh256_cases": hh_cases,
+          "sha256_max_abs_err": sha_err, "sha256_cases": sha_cases,
           "tolerance": 0,
           "seconds": round(time.perf_counter() - t0, 3), "card": card})
 
@@ -308,7 +359,7 @@ def main() -> int:
     from minio_tpu_torch.storage.datatypes import hash_order
     from minio_tpu_torch.utils import stagetimer
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    counts = LaunchCounts(rs_cuda, highwayhash_cuda)
+    counts = LaunchCounts(rs_cuda, highwayhash_cuda, sha256_cuda)
     try:
         main_path, state = run_main_path(eng_mod, hash_order, tmp, card,
                                          counts, stagetimer, np)
@@ -322,17 +373,24 @@ def main() -> int:
             mrf = run_mrf(sched, tmp, card, counts, np)
         finally:
             sched.close()
+        # -- 8. config 5: its own former, shared by both pools -----------
+        shutil.rmtree(os.path.join(tmp, "concurrent"), ignore_errors=True)
+        config5 = run_config5(tmp, card, counts, stagetimer, np)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths_launches = {"main_path": main_path["launches"],
                       "concurrent_put": concurrent["launches"],
-                      "heal": heal["launches"], "mrf": mrf["launches"]}
+                      "heal": heal["launches"], "mrf": mrf["launches"],
+                      "config5": config5["launches"]}
 
     # -- 4. timings -------------------------------------------------------
     b, s = 32, -(-(1 << 20) // k)
     timing = run_timings(torch, dev, rand_u8, max_err, pipeline, rs_cuda,
                          highwayhash_cuda, rs_matrix, kernels, sass, KEY, b,
                          k, m, s)
+    timing.update(run_config5_timings(
+        torch, dev, rand_u8, max_err, rs_cuda, rs_matrix, sha256_cuda,
+        sha256_ref, kernels, sass, timing["sm_clock_mhz"]))
     timing.update({"phase": "timings", "B": b, "k": k, "m": m, "S": s,
                    "card": card})
     emit(timing)
@@ -361,7 +419,19 @@ def main() -> int:
          "max_abs_err": max(hh_err, timing["hh256_max_abs_err"]),
          "ms": timing["hh256_ms"], "plain_ms": timing["hh_plain_ms"],
          "bound_ms": timing["hh256_bound_ms"],
-         "bound_by": bound_by(timing, "hh256"), "library_ms": None}]})
+         "bound_by": bound_by(timing, "hh256"), "library_ms": None},
+        {"name": "sha256", "route": "cuda",
+         "source": "minio_tpu_torch/csrc/sha256.cu",
+         "replaces": "minio_tpu/ops/sha256_jax.py:127",
+         "launches": config5["launches"]["sha256"],
+         "launches_by_path": {p: n["sha256"]
+                              for p, n in paths_launches.items()},
+         "max_abs_err": max(sha_err, timing["sha256_max_abs_err"]),
+         "ms": timing["sha256_ms"], "plain_ms": timing["sha256_plain_ms"],
+         "bound_ms": timing["sha256_bound_ms"],
+         "bound_by": bound_by(timing, "sha256"), "library_ms": None,
+         "hashlib_host_ms": timing["sha256_hashlib_ms"],
+         "chain_floor_ms": timing["sha256_chain_floor_ms"]}]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -369,20 +439,80 @@ def main() -> int:
     return 0
 
 
+def check_sha256(torch, dev, rand_u8, max_err, sha256_cuda, sha256_ref,
+                 guard_pages) -> tuple[int, int]:
+    """Phase 2 for sha256: the kernel against its plain version and
+    hashlib on every row (tolerance 0). Returns (max abs err, cases)."""
+    err, cases = 0, 0
+
+    def check(what, rows, length, plain=None, want=None):
+        nonlocal err, cases
+        got = sha256_cuda.sha256_rows(rows, length)
+        torch.cuda.synchronize()
+        if plain is None:
+            plain = sha256_ref.sha256_rows(rows, length)
+        e = max_err(got, plain)
+        host = rows[:, :length].cpu().numpy()
+        if want is None:
+            want = [hashlib.sha256(r.tobytes()).digest() for r in host]
+        got_np = got.cpu().numpy()
+        if e or any(got_np[i].tobytes() != want[i]
+                    for i in range(len(want))):
+            fail(f"sha256 {what}: kernel disagrees (max abs err {e})")
+        err = max(err, e)
+        cases += 1
+
+    # every padding branch, length < S in all but the last, on 1 to 640
+    # rows of config 5's shard length (the plain version runs once per
+    # length, on all 640 rows)
+    rows = rand_u8(640, 65536)
+    for length in (0, 1, 55, 56, 63, 64, 65, 119, 120, 65535, 65536):
+        plain = sha256_ref.sha256_rows(rows, length)
+        want = [hashlib.sha256(r.tobytes()).digest()
+                for r in rows[:, :length].cpu().numpy()]
+        for n in (1, 20, 160, 640):
+            check(f"{n} rows, length {length}", rows[:n], length,
+                  plain[:n], want[:n])
+    # rows on 4- and 1-byte boundaries, and views starting mid-word
+    for stride in (1028, 1031):
+        r = rand_u8(33, stride)
+        for length in (stride, stride - 5, 519):
+            check(f"33 rows of {stride}, length {length}", r, length)
+    flat = rand_u8(4 + 9 * 1031)
+    for base in (1, 2, 3):
+        check(f"view from byte {base}",
+              flat[base:base + 9 * 1031].view(9, 1031), 1031)
+    # config 5's rows, and a ragged small shape, at each end of a mapping
+    # between unmapped ranges: a read outside the rows faults
+    for n, s_len, length in ((640, 65536, 65536), (3, 1031, 1031)):
+        src = rand_u8(n, s_len)
+        plain = sha256_ref.sha256_rows(src, length)
+        with guard_pages.guarded(src.numel(), dev) as buf:
+            for at, g in (("start", buf[:src.numel()]),
+                          ("end", buf[-src.numel():])):
+                g = g.view_as(src)
+                g.copy_(src)
+                check(f"{n} rows of {s_len} at the {at} of a mapping", g,
+                      length, plain)
+    return err, cases
+
+
 class LaunchCounts:
-    """Both kernels' launch counters: set to 0 just before a path is
+    """Every kernel's launch counter: set to 0 just before a path is
     driven, read just after."""
 
-    def __init__(self, rs_cuda, hh):
-        self.rs_cuda, self.hh = rs_cuda, hh
+    def __init__(self, rs_cuda, hh, sha):
+        self.rs_cuda, self.hh, self.sha = rs_cuda, hh, sha
 
     def zero(self) -> None:
         self.rs_cuda.gf_matmul.launches = 0
         self.hh.hh256.launches = 0
+        self.sha.sha256_rows.launches = 0
 
     def read(self) -> dict:
         return {"gf_matmul": self.rs_cuda.gf_matmul.launches,
-                "hh256": self.hh.hh256.launches}
+                "hh256": self.hh.hh256.launches,
+                "sha256": self.sha.sha256_rows.launches}
 
 
 def stage_report(stagetimer) -> dict:
@@ -460,7 +590,7 @@ def run_main_path(eng_mod, hash_order, tmp, card, counts, stagetimer,
             fail(f"PUT {name}: bad ObjectInfo")
     put_s = time.perf_counter() - t0
     put_counts = counts.read()
-    if min(put_counts.values()) <= 0:
+    if min(put_counts["gf_matmul"], put_counts["hh256"]) <= 0:
         fail(f"PUT did not launch both kernels: {put_counts}")
 
     get_s = read_all_back(eng, "smoke", objects)
@@ -476,7 +606,7 @@ def run_main_path(eng_mod, hash_order, tmp, card, counts, stagetimer,
     final = counts.read()
     stagetimer.disable()
     deg_counts = {n: final[n] - healthy[n] for n in final}
-    if min(deg_counts.values()) <= 0:
+    if min(deg_counts["gf_matmul"], deg_counts["hh256"]) <= 0:
         fail(f"degraded GET did not launch both kernels: {deg_counts}")
     gib = total / (1 << 30)
     out = {"phase": "main_path", "objects": len(objects),
@@ -598,7 +728,7 @@ def run_concurrent_put(eng_mod, sched, stagetimer, tmp, card, counts,
         fail(f"concurrent PUT: the former never coalesced: {enc}")
     # each encode dispatch on the card is one put_step: one launch of
     # each kernel, counted exactly under the two dispatch threads
-    if launched != {"gf_matmul": on_card, "hh256": on_card} \
+    if launched != {"gf_matmul": on_card, "hh256": on_card, "sha256": 0} \
             or steps["encode"]["calls"] != on_card:
         fail(f"concurrent PUT: launches {launched}, codec calls "
              f"{steps['encode']['calls']} != {on_card} dispatches")
@@ -696,7 +826,7 @@ def run_heal(sched, state, tmp, card, counts, np) -> dict:
             (on_card, rec["host_routed"]) != (want_card, want_host):
         fail(f"heal: recover dispatches {rec} (card {on_card}), expected "
              f"{want_card} on the card and {want_host} by the size gate")
-    if launched != {"gf_matmul": on_card, "hh256": on_card}:
+    if launched != {"gf_matmul": on_card, "hh256": on_card, "sha256": 0}:
         fail(f"heal: launches {launched} != {on_card} recover dispatches")
     if rebuilt:
         fail("heal: a host rebuild ran without bitrot")
@@ -731,7 +861,7 @@ def run_heal(sched, state, tmp, card, counts, np) -> dict:
     if rebuilt != [0]:
         fail(f"heal: the flipped survivor byte was not found by its "
              f"digest (host rebuilds of blocks {rebuilt})")
-    if min(second.values()) <= 0:
+    if min(second["gf_matmul"], second["hh256"]) <= 0:
         fail(f"heal: second pass launched {second}")
     total = sum(len(d) for d in objects.values())
     out = {"phase": "heal", "config": "BASELINE.json config 4",
@@ -788,7 +918,7 @@ def run_mrf(sched, tmp, card, counts, np) -> dict:
         if len(want) != len(objects) or got != want:
             fail("MRF: the returned drive's shard files differ from a "
                  "healthy PUT's")
-        if min(launched.values()) <= 0:
+        if min(launched["gf_matmul"], launched["hh256"]) <= 0:
             fail(f"MRF: launches {launched}")
         read_all_back(eng, "smoke", objects)
     finally:
@@ -798,6 +928,259 @@ def run_mrf(sched, tmp, card, counts, np) -> dict:
            "mrf": st, "drain_s": round(drain_s, 3), "launches": launched,
            "card": card}
     emit(out)
+    return out
+
+
+def run_config5(tmp, card, counts, stagetimer, np) -> dict:
+    """BASELINE.json config 5: multipart upload, 16+4 across 2 server
+    sets, SHA-256 bitrot, cross-set shard batching. Two pools, each one
+    erasure set of 20 temp-dir drives at EC 16+4 with 1 MiB blocks (shard
+    blocks of 65,536 B, as bench.py:173-176) and sha256 bitrot, share one
+    batch former. Eight objects of 4 parts x 64 MiB are uploaded with all
+    32 part uploads in flight at once (the parts of one upload take its
+    session lock in turn, as in the reference), then completed; every
+    object is read back by bytes and multipart ETag, healthy and with 4
+    of 20 drives gone in each pool.
+
+    Cut from config 5: 2 GiB in 8 objects of 4 parts rather than one
+    8 GiB object in 128 parts. Kept: the 64 MiB part size, the 16+4
+    geometry, the 1 MiB block, the sha256 algorithm and the two pools.
+
+    The uploads then run again under torch.profiler for the device's idle
+    share. Fails unless nothing is declined or routed to the host, sha256
+    launches equal the encode dispatches, every shard file's whole-file
+    digest in xl.meta equals hashlib over that file, and a sample of each
+    dispatch's device digests (one data and one parity row of every
+    group) equals hashlib over those rows. Cross-pool coalescing is
+    reported; it must occur when both pools hold objects (pool choice is
+    random, weighted by free space, as in the reference)."""
+    import threading
+
+    import torch
+    from minio_tpu_torch.bitrot import BitrotAlgorithm
+    from minio_tpu_torch.object import codec, server_sets
+    from minio_tpu_torch.object.multipart import CompletePart
+    from minio_tpu_torch.parallel.scheduler import BatchScheduler
+    from minio_tpu_torch.storage.xl_storage import XLStorage
+    k, m = 16, 4
+    n_obj, n_parts, part_size = CONFIG5
+    rng = np.random.default_rng(SEED + 9)
+    objects = {f"mp-{i}": [rng.bytes(part_size) for _ in range(n_parts)]
+               for i in range(n_obj)}
+    root = os.path.join(tmp, "config5")
+    pools = [[os.path.join(root, f"pool{p}", f"drive{j}")
+              for j in range(k + m)] for p in range(2)]
+    sched = BatchScheduler()
+    layer = server_sets.open_server_sets(
+        pools, k + m, m, block_size=1 << 20,
+        bitrot_algo=BitrotAlgorithm.SHA256, scheduler=sched,
+        enable_mrf=False)
+    engines = [z.sets[0] for z in layer.server_sets]
+    pool_of = {id(e.codec(k, m)): p for p, e in enumerate(engines)}
+    dispatch_pools, samples = [], [0, 0]
+    real_run = sched._run_erasure
+
+    def run_erasure(key, group, stage_cb):
+        """The former's dispatch, watched: which pools' groups it holds,
+        and its digests of one data and one parity row of every group
+        against hashlib (the data is still the waiters' own: they are
+        released only after this returns)."""
+        out = real_run(key, group, stage_cb)
+        if key[0] == "encode" and out is not None:
+            dispatch_pools.append(sorted({pool_of[id(p.codec)]
+                                          for p in group}))
+            parity, digests = out
+            at = 0
+            for p in group:
+                for row, dig in ((p.data[0, 0], digests[at, 0]),
+                                 (parity[at, 0], digests[at, k])):
+                    if hashlib.sha256(row.tobytes()).digest() != \
+                            dig.tobytes():
+                        fail("config 5: a device sha256 digest differs "
+                             "from hashlib over its row")
+                    samples[0] += 1
+                at += p.blocks
+            samples[1] += 1
+        return out
+
+    def upload_all(prefix=""):
+        """Every object's session, all parts in flight at once, then the
+        commits; returns (parts wall s, commits s, ObjectInfo by name)."""
+        uploads = {name: layer.new_multipart_upload("smoke5",
+                                                    prefix + name)
+                   for name in objects}
+        errors, etags = [], {}
+        start = threading.Barrier(n_obj * n_parts + 1)
+
+        def put_part(name, i):
+            try:
+                start.wait()
+                etags[(name, i)] = layer.put_object_part(
+                    "smoke5", prefix + name, uploads[name], i + 1,
+                    objects[name][i]).etag
+            except Exception as e:  # noqa: BLE001 — failed below
+                errors.append(f"{name} part {i + 1}: {e!r}")
+
+        threads = [threading.Thread(target=put_part, args=(name, i))
+                   for name in objects for i in range(n_parts)]
+        for t in threads:
+            t.start()
+        start.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join()
+        parts_s = time.perf_counter() - t0
+        if errors:
+            fail(f"config 5 part uploads: {errors[:3]}")
+        t0 = time.perf_counter()
+        infos = {name: layer.complete_multipart_upload(
+            "smoke5", prefix + name, uploads[name],
+            [CompletePart(i + 1, etags[(name, i)])
+             for i in range(n_parts)]) for name in objects}
+        return parts_s, time.perf_counter() - t0, infos
+
+    sched._run_erasure = run_erasure
+    codec.reset_step_seconds()
+    stagetimer.reset()
+    stagetimer.enable()
+    try:
+        layer.make_bucket("smoke5")
+        before = sched.stats()
+        counts.zero()
+        parts_s, complete_s, infos = upload_all()
+        launched = counts.read()
+        after = sched.stats()
+        steps = codec_steps(codec)
+    finally:
+        stagetimer.disable()
+        sched._run_erasure = real_run
+    stages = stage_report(stagetimer)
+    enc = {key: after["verbs"]["encode"][key]
+           - before["verbs"]["encode"][key]
+           for key in after["verbs"]["encode"]}
+    declined = after["declined"] - before["declined"]
+    on_card = enc["batches"] - enc["host_routed"]
+    if declined or enc["host_routed"]:
+        fail(f"config 5: {declined} declined, {enc['host_routed']} "
+             "dispatches routed to the host")
+    if launched["sha256"] != on_card or launched["gf_matmul"] != on_card \
+            or launched["hh256"]:
+        fail(f"config 5: launches {launched} != {on_card} encode "
+             "dispatches")
+    if samples[1] != on_card:
+        fail(f"config 5: {samples[1]} dispatches watched, {on_card} made")
+    want_blocks = n_obj * n_parts * part_size // (1 << 20)
+    if enc["blocks"] != want_blocks:
+        fail(f"config 5: {enc['blocks']} blocks dispatched, "
+             f"{want_blocks} expected")
+    per_pool = [0, 0]
+    for name, parts in objects.items():
+        want = hashlib.md5(b"".join(
+            hashlib.md5(p).digest() for p in parts)).hexdigest() \
+            + f"-{n_parts}"
+        if infos[name].etag != want:
+            fail(f"config 5 {name}: ETag {infos[name].etag} != {want}")
+        holders = [p for p, e in enumerate(engines)
+                   if e.has_object_versions("smoke5", name)]
+        if len(holders) != 1:
+            fail(f"config 5 {name}: held by pools {holders}")
+        per_pool[holders[0]] += 1
+    cross = sum(1 for ps in dispatch_pools if len(ps) == 2)
+    if min(per_pool) > 0 and cross == 0:
+        fail("config 5: both pools hold objects, yet no dispatch held "
+             "groups of both")
+    # every shard file's whole-file digest in xl.meta, against hashlib
+    files = 0
+    for drives in pools:
+        for path in drives:
+            d = XLStorage(path)
+            for name in objects:
+                try:
+                    fi = d.read_version("smoke5", name)
+                except Exception:  # noqa: BLE001 — object in other pool
+                    continue
+                for part in fi.parts:
+                    csum = fi.erasure.get_checksum_info(part.number)
+                    with open(os.path.join(path, "smoke5", name,
+                                           fi.data_dir,
+                                           f"part.{part.number}"),
+                              "rb") as fh:
+                        got = hashlib.sha256(fh.read()).digest()
+                    if csum is None or csum.algorithm != "sha256" or \
+                            csum.hash != got:
+                        fail(f"config 5 {path} {name} part "
+                             f"{part.number}: xl.meta digest is not the "
+                             "file's sha256")
+                    files += 1
+    if files != n_obj * n_parts * (k + m):
+        fail(f"config 5: {files} shard files checked")
+
+    def read_back() -> float:
+        t0 = time.perf_counter()
+        for name, parts in objects.items():
+            info, it = layer.get_object("smoke5", name)
+            if b"".join(it) != b"".join(parts):
+                fail(f"config 5 GET {name}: bytes differ")
+            if info.etag != infos[name].etag:
+                fail(f"config 5 GET {name}: ETag {info.etag}")
+        return time.perf_counter() - t0
+
+    counts.zero()
+    get_s = read_back()
+    healthy = counts.read()
+    # 4 of 20 drives gone in each pool: the drives of data shards 1-4 of
+    # the pool's first object, so every degraded read reconstructs
+    from minio_tpu_torch.storage.datatypes import hash_order
+    gone = {}
+    for p, e in enumerate(engines):
+        name = next((n for n in objects
+                     if e.has_object_versions("smoke5", n)), None)
+        if name is None:
+            continue
+        dist = hash_order(f"smoke5/{name}", k + m)
+        gone[p] = [dist.index(j) for j in range(1, 5)]
+    saved = {p: list(engines[p].disks) for p in gone}
+    for p, slots in gone.items():
+        for i in slots:
+            engines[p].disks[i] = None
+    counts.zero()
+    try:
+        deg_s = read_back()
+    finally:
+        for p, disks in saved.items():
+            engines[p].disks[:] = disks
+    degraded = counts.read()
+    if degraded["gf_matmul"] <= 0:
+        fail(f"config 5 degraded GET launched {degraded}")
+    # the same uploads again under the profiler: the device's idle share
+    profiled = device_busy(torch, lambda: upload_all("again/"))
+    layer.close()
+    sched.close()
+    total = n_obj * n_parts * part_size
+    gib = total / (1 << 30)
+    out = {"phase": "config5", "config": "BASELINE.json config 5",
+           "objects": n_obj, "parts": n_parts, "part_bytes": part_size,
+           "bytes": total, "ec": f"{k}+{m}", "pools": 2,
+           "block_size": 1 << 20, "bitrot": "sha256",
+           "objects_per_pool": per_pool,
+           "parts_wall_s": round(parts_s, 3),
+           "upload_gib_s": round(gib / parts_s, 4),
+           "complete_s": round(complete_s, 3),
+           "get_s": round(get_s, 3), "get_gib_s": round(gib / get_s, 4),
+           "degraded_get_s": round(deg_s, 3),
+           "degraded_get_gib_s": round(gib / deg_s, 4),
+           "drives_gone": gone,
+           "encode": enc, "declined": declined,
+           "dispatches": on_card, "groups_coalesced": enc["coalesced"],
+           "cross_pool_dispatches": cross,
+           "digest_rows_sampled": samples[0],
+           "shard_digests_checked": files,
+           "launches": launched, "healthy_get_launches": healthy,
+           "degraded_get_launches": degraded,
+           "profiled_again": profiled,
+           "codec_step_s": steps, "stagetimer": stages, "card": card}
+    emit(out)
+    shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -819,6 +1202,106 @@ def sm_clocks(torch, launch) -> dict:
     torch.cuda.synchronize()
     busy, top = (float(v) for v in out.split(","))
     return {"sm_clock_mhz": busy, "sm_clock_max_mhz": top}
+
+
+def cuda_timed(torch, fn, iters: int) -> float:
+    """ms per call of fn(i) over `iters` calls, CUDA events around them,
+    after two warm-up calls."""
+    for i in range(2):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def sha256_compressions(length: int) -> int:
+    """64-byte blocks one row of `length` bytes compresses, padding
+    included."""
+    return (length + 8) // 64 + 1
+
+
+def run_config5_timings(torch, dev, rand_u8, max_err, rs_cuda, rs_matrix,
+                        sha256_cuda, sha256_ref, kernels, sass,
+                        sm_clock_mhz) -> dict:
+    """sha256 at config 5's encode launch shapes (a full dispatch of 32
+    blocks x 20 rows, and a quarter of one) beside its bounds and chain
+    floor, its plain version and hashlib on the host over the same rows;
+    gf_matmul at k = 16 for config 5's encode and degraded-GET decodes."""
+    k, m, s = 16, 4, 65536
+    loop = sass.block_loop(kernels.library("sha256"))    # raises if unread
+    out = {"sha256_block_loop": loop,
+           "sha256_ops_per_compression": SHA256_OPS_PER_COMPRESSION}
+    sets = [rand_u8(32 * (k + m), s) for _ in range(4)]
+    for name, n in (("640", 32 * (k + m)), ("160", 8 * (k + m))):
+        comp = sha256_compressions(s)
+        nbytes = n * (s + 32)
+        ops = n * comp * SHA256_OPS_PER_COMPRESSION
+        t = {"rows": n, "length": s,
+             "ms": cuda_timed(torch, lambda i: sha256_cuda.sha256_rows(
+                 sets[i % 4][:n], s), 20),
+             "bytes": nbytes, "ops": ops, "compressions": comp,
+             "byte_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "op_bound_ms": ops / INT32_OPS_PER_S * 1e3,
+             "chain_floor_ms": comp * loop["chain_cycles"]
+             / (sm_clock_mhz * 1e3)}
+        t["bound_ms"] = max(t["byte_bound_ms"], t["op_bound_ms"])
+        out[f"sha256_{name}"] = t
+    base = out["sha256_640"]
+    rows = sets[0]
+    t0 = time.perf_counter()
+    plain = sha256_ref.sha256_rows(rows, s)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    host = rows.cpu().numpy()
+    t0 = time.perf_counter()
+    want = [hashlib.sha256(r.tobytes()).digest() for r in host]
+    hashlib_ms = (time.perf_counter() - t0) * 1e3
+    got = sha256_cuda.sha256_rows(rows, s)
+    err = max_err(got, plain)
+    if err or any(g.tobytes() != w for g, w in zip(got.cpu().numpy(),
+                                                      want)):
+        fail("sha256 disagrees at the timing shape")
+    out.update({"sha256_ms": base["ms"],
+                "sha256_byte_bound_ms": base["byte_bound_ms"],
+                "sha256_op_bound_ms": base["op_bound_ms"],
+                "sha256_bound_ms": base["bound_ms"],
+                "sha256_chain_floor_ms": base["chain_floor_ms"],
+                "sha256_plain_ms": plain_ms,
+                "sha256_hashlib_ms": hashlib_ms,
+                "sha256_max_abs_err": err})
+    # gf_matmul at k = 16: a full encode dispatch (B=32), and the degraded
+    # GET's decodes of a GET group (B=8) with 1 and 4 data shards lost
+    full = (1 << (k + m)) - 1
+    datas = [rand_u8(32, k, s) for _ in range(4)]
+    shapes = {"encode": (rs_matrix.parity_matrix(k, m), 32)}
+    for lost in ((3,), (0, 5, 9, 15)):
+        shapes[f"decode_r{len(lost)}"] = (rs_matrix.recover_rows(
+            k, m, full & ~sum(1 << i for i in lost), set(lost))[0], 8)
+    for name, (mat, nb) in shapes.items():
+        bits = rs_cuda.matrix_bits(mat, dev)
+        r = bits.shape[0] // 8
+        nbytes = nb * (k + r) * s
+        ops = nb * s * int(bits.sum()) / 32
+        t = {"B": nb, "r": r, "k": k, "S": s,
+             "ms": cuda_timed(torch, lambda i: rs_cuda.gf_matmul(
+                 bits, datas[i % 4][:nb]), 50),
+             "bytes": nbytes, "ops": ops,
+             "byte_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "op_bound_ms": ops / INT32_OPS_PER_S * 1e3,
+             "max_abs_err": max_err(rs_cuda.gf_matmul(bits, datas[0][:nb]),
+                                    rs_cuda.gf_matmul_plain(
+                                        bits, datas[0][:nb]))}
+        if t["max_abs_err"]:
+            fail(f"gf_matmul config 5 {name} disagrees at the timing shape")
+        t["bound_ms"] = max(t["byte_bound_ms"], t["op_bound_ms"])
+        out[f"gf_matmul_config5_{name}"] = t
+    return out
 
 
 def run_timings(torch, dev, rand_u8, max_err, pipeline, rs_cuda, hh,

@@ -3,9 +3,10 @@
 Counterpart of minio_tpu/models/pipeline.py:114-153 (put_step) and
 :243-326 (get_step, heal_step): the same signatures, shapes and return
 order, as launch sequences on the current CUDA stream — the GF(2^8) kernel
-(ops/rs_cuda.gf_matmul) followed by one HighwayHash-256 launch
-(ops/highwayhash_cuda.hh256) over the rows whose digests are returned. On CPU tensors both run their plain
-PyTorch versions.
+(ops/rs_cuda.gf_matmul) followed by one hash launch over the rows whose
+digests are returned: HighwayHash-256 (ops/highwayhash_cuda.hh256) or,
+for the sha256 bitrot algorithm, SHA-256 (ops/sha256_cuda.sha256_rows).
+On CPU tensors the kernels run their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops import highwayhash_cuda, rs_cuda, rs_matrix
+from ..ops import highwayhash_cuda, rs_cuda, rs_matrix, sha256_cuda
 from ..storage.datatypes import ErasureInfo
 
 
@@ -52,7 +53,7 @@ def _hash_rows(rows: torch.Tensor, shard_len: int, key: bytes,
     bytes, on the rows' device (shared by put/get/heal steps)."""
     from ..bitrot import MAGIC_HIGHWAYHASH_KEY
     if algo == "sha256":
-        raise NotImplementedError("sha256 bitrot is not ported to the card")
+        return sha256_cuda.sha256_rows(rows, shard_len)
     if algo != "highwayhash":
         raise ValueError(f"unknown device bitrot algorithm {algo!r}")
     return highwayhash_cuda.hh256(rows, shard_len,

@@ -1,19 +1,25 @@
-"""Object engine: erasure-coded object CRUD and healing on one erasure set
-(counterpart of minio_tpu/object/__init__.py; multipart joins in a later
-slice)."""
+"""Object engine: erasure-coded object CRUD, multipart and healing on one
+erasure set (counterpart of minio_tpu/object/__init__.py); object/sets.py
+and object/server_sets.py route over many."""
 
 from __future__ import annotations
 
 from typing import Optional
 
-from .engine import ErasureObjects, from_reference_layout
+from . import api_errors  # noqa: F401
+from .codec import Codec  # noqa: F401
+from .engine import (ErasureObjects, GetOptions, PutOptions,  # noqa: F401
+                     from_reference_layout)
+from .hash_reader import HashReader  # noqa: F401
 from .healing import HealMixin, HealResultItem  # noqa: F401
+from .multipart import CompletePart, MultipartMixin, PartInfo  # noqa: F401
+from .nslock import NSLock, NSLockMap  # noqa: F401
 
 
-class ErasureSetObjects(HealMixin):
-    """The per-set object engine: CRUD + heal. `mrf` is the MRF heal
-    queue wired to the degraded-read and degraded-write hooks, when
-    open_erasure_set built one."""
+class ErasureSetObjects(MultipartMixin, HealMixin):
+    """The per-set object engine: CRUD + multipart + heal. `mrf` is the
+    MRF heal queue wired to the degraded-read and degraded-write hooks,
+    when open_erasure_set built one."""
 
     mrf = None
 
@@ -39,5 +45,6 @@ def open_erasure_set(disk_paths: list[str], k: int, m: int,
     return obj
 
 
-__all__ = ["ErasureObjects", "ErasureSetObjects", "HealResultItem",
-           "open_erasure_set"]
+__all__ = ["Codec", "CompletePart", "ErasureObjects", "ErasureSetObjects",
+           "GetOptions", "HashReader", "HealResultItem", "NSLock",
+           "NSLockMap", "PartInfo", "PutOptions", "open_erasure_set"]

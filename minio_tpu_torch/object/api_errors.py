@@ -86,12 +86,43 @@ class SignatureDoesNotMatch(ObjectApiError):
     pass
 
 
+class BucketNotEmpty(ObjectApiError):
+    def __init__(self, bucket: str = ""):
+        super().__init__(f"bucket not empty: {bucket}")
+        self.bucket = bucket
+
+
+class InvalidUploadID(ObjectApiError):
+    def __init__(self, upload_id: str = ""):
+        super().__init__(f"invalid upload id: {upload_id}")
+        self.upload_id = upload_id
+
+
+class InvalidPart(ObjectApiError):
+    def __init__(self, part_number: int = 0, exp: str = "", got: str = ""):
+        super().__init__(
+            f"invalid part {part_number}: expected etag {exp}, got {got}")
+        self.part_number = part_number
+
+
+class PartTooSmall(ObjectApiError):
+    def __init__(self, part_number: int = 0, part_size: int = 0):
+        super().__init__(f"part {part_number} too small: {part_size}")
+        self.part_number, self.part_size = part_number, part_size
+
+
+class PreConditionFailed(ObjectApiError):
+    pass
+
+
 def to_object_err(err: Exception, bucket: str = "",
                   object: str = "") -> Exception:
     """Map a per-drive/quorum StorageError to the object-level error the
     API returns (reference toObjectErr, cmd/object-api-errors.go:34-112)."""
     if isinstance(err, ObjectApiError):
         return err
+    if isinstance(err, storage_errors.VolumeNotEmpty):
+        return BucketNotEmpty(bucket)
     if isinstance(err, storage_errors.VolumeNotFound):
         return BucketNotFound(bucket)
     if isinstance(err, storage_errors.VolumeExists):

@@ -1,13 +1,18 @@
 """Bitrot-framed shard I/O over StorageAPI.
 
-The streaming algorithm (HighwayHash256S, the default) interleaves a digest
+Streaming algorithms (HighwayHash256S, the default) interleave a digest
 before every shard block inside the shard file — ``[h(block) || block]*`` —
 so reads verify incrementally without a separate checksum file (reference:
 cmd/bitrot-streaming.go:46-58 writer, :111-150 reader). Whole-file
-algorithms are not ported yet.
+algorithms (sha256, blake2b, highwayhash256) hash the entire shard file and
+store the digest in xl.meta's checksum list, one per drive
+(cmd/bitrot-whole.go; minio_tpu/object/bitrot_io.py:126-150, 231-256).
 """
 
 from __future__ import annotations
+
+import io
+from typing import Optional
 
 from .. import bitrot as bitrot_mod
 from ..storage import errors
@@ -16,27 +21,28 @@ from ..storage.api import StorageAPI
 BitrotAlgorithm = bitrot_mod.BitrotAlgorithm
 
 
-def _require_streaming(algo: BitrotAlgorithm) -> None:
-    if not algo.streaming:
-        raise NotImplementedError(
-            f"bitrot algorithm {algo.value!r}: only streaming framing is "
-            "ported")
-
-
 def new_bitrot_writer(disk: StorageAPI, volume: str, path: str,
-                      algo: BitrotAlgorithm, shard_size: int):
-    """Factory mirroring reference newBitrotWriter (cmd/bitrot.go:99)."""
-    _require_streaming(algo)
-    return StreamingBitrotWriter(disk, volume, path, shard_size, algo)
+                      length: int, algo: BitrotAlgorithm,
+                      shard_size: int):
+    """Factory mirroring reference newBitrotWriter (cmd/bitrot.go:99).
+    `length` is the shard file's expected size (-1: unknown), unused by
+    both writers, as in the reference."""
+    if algo.streaming:
+        return StreamingBitrotWriter(disk, volume, path, shard_size, algo)
+    return WholeBitrotWriter(disk, volume, path, algo)
 
 
 def new_bitrot_reader(disk: StorageAPI, volume: str, path: str,
                       till_offset: int, algo: BitrotAlgorithm,
-                      shard_size: int):
-    """Factory mirroring reference newBitrotReader (cmd/bitrot.go:105)."""
-    _require_streaming(algo)
-    return StreamingBitrotReader(disk, volume, path, till_offset, algo,
-                                 shard_size)
+                      expected_digest: bytes, shard_size: int):
+    """Factory mirroring reference newBitrotReader (cmd/bitrot.go:105).
+    `expected_digest` is the whole-file digest from xl.meta (ignored by
+    streaming readers, whose digests live in the frames)."""
+    if algo.streaming:
+        return StreamingBitrotReader(disk, volume, path, till_offset,
+                                     algo, shard_size)
+    return WholeBitrotReader(disk, volume, path, algo, expected_digest,
+                             shard_size)
 
 
 class StreamingBitrotWriter:
@@ -77,6 +83,39 @@ class StreamingBitrotWriter:
             raise errors.FaultyDisk(str(e)) from e
         finally:
             self._file = None
+
+    def digest(self) -> bytes:
+        return b""  # streaming: digests live in the frames
+
+
+class WholeBitrotWriter:
+    """Buffers the whole shard file, hashing it as it grows, and writes it
+    with one create_file at close; digest() is the whole-file digest the
+    commit stores in this drive's xl.meta."""
+
+    def __init__(self, disk: StorageAPI, volume: str, path: str,
+                 algo: BitrotAlgorithm):
+        self.disk, self.volume, self.path = disk, volume, path
+        self.algo = algo
+        self._hasher = bitrot_mod.new_hasher(algo)
+        self._buf = io.BytesIO()
+
+    def write(self, block) -> None:
+        self._hasher.update(block)
+        self._buf.write(block)
+
+    def write_with_digest(self, block, digest) -> None:
+        # a per-block digest from the batched hasher covers one block, not
+        # the file: rehash into the running state (reference :138-141)
+        self.write(block)
+
+    def close(self) -> None:
+        data = self._buf.getvalue()
+        self.disk.create_file(self.volume, self.path, len(data),
+                              io.BytesIO(data))
+
+    def digest(self) -> bytes:
+        return self._hasher.digest()
 
 
 class StreamingBitrotReader:
@@ -153,3 +192,29 @@ class StreamingBitrotReader:
             self._stream.close()
             self._stream = None
 
+
+class WholeBitrotReader:
+    """Reads the whole shard once, verifies the single digest, then serves
+    positional reads from memory (reference wholeBitrotReader)."""
+
+    def __init__(self, disk: StorageAPI, volume: str, path: str,
+                 algo: BitrotAlgorithm, expected_digest: bytes,
+                 shard_size: int):
+        self.disk, self.volume, self.path = disk, volume, path
+        self.algo, self.expected = algo, expected_digest
+        self.shard_size = shard_size
+        self._data: Optional[bytes] = None
+
+    def read_at(self, offset: int, length: int) -> bytes:
+        if self._data is None:
+            data = self.disk.read_all(self.volume, self.path)
+            if self.expected:
+                got = bitrot_mod.hash_shard(data, self.algo)
+                if got != self.expected:
+                    raise errors.BitrotHashMismatch(
+                        self.expected.hex(), got.hex())
+            self._data = data
+        return self._data[offset:offset + length]
+
+    def close(self) -> None:
+        self._data = None

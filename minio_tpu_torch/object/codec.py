@@ -53,11 +53,16 @@ DEVICE_MIN_BYTES = knobs.get_int("MINIO_TPU_DEVICE_MIN_BYTES")
 INFLIGHT = max(1, knobs.get_int("MINIO_TPU_SCHED_INFLIGHT"))
 
 # Seconds inside the codec's device dispatches, per verb, summed over
-# calls: "transfer" is the host's assembly of the batch plus its copy onto
-# the device, "compute" the launches to completion, "fetch" the copy of
-# the results back to the host (device time from CUDA events on the
-# card; host wall time on CPU tensors).
-STEP_STAGES = ("transfer", "compute", "fetch")
+# calls. They are spans, not device time: on the card each is the interval
+# between two CUDA events recorded on the slot's stream around the host's
+# launches, so it also holds the time the card waits for the host between
+# them (the dispatch thread waiting for the interpreter lock). Device time
+# is the profiler's. "transfer_span_s" is the host's assembly of the batch
+# plus the span of its copy onto the device, "compute_span_s" the span
+# from the copy's end to the last launch's end, "fetch_span_s" the span of
+# the copy back plus the host's copy out of pinned memory. On CPU tensors
+# they are host wall time.
+STEP_STAGES = ("transfer_span_s", "compute_span_s", "fetch_span_s")
 _steps_mu = threading.Lock()
 STEP_SECONDS: dict[str, dict] = {}
 
@@ -190,8 +195,9 @@ class Codec:
 
     def fused_route(self, algo) -> bool:
         """Whether this codec's device can run the fused steps for `algo`
-        at all: a device HighwayHash kernel and parity shards. A batch
-        that passes still takes the host route below the size gate."""
+        at all: a device hash kernel (HighwayHash-256 or SHA-256) and
+        parity shards. A batch that passes still takes the host route
+        below the size gate."""
         return self.m > 0 and self._device_hash_kernel(algo) is not None
 
     @staticmethod
@@ -201,6 +207,8 @@ class Codec:
         if algo in (bitrot_mod.BitrotAlgorithm.HIGHWAYHASH256,
                     bitrot_mod.BitrotAlgorithm.HIGHWAYHASH256S):
             return "highwayhash"
+        if algo is bitrot_mod.BitrotAlgorithm.SHA256:
+            return "sha256"
         return None
 
     def _host_matmul(self, matrix: np.ndarray, stacked: np.ndarray,
@@ -218,8 +226,8 @@ class Codec:
                   ) -> tuple:
         """Put the batch stacked from `parts` on the device, run
         `step(tensor) -> tuple of uint8 tensors` on it, and return the
-        outputs as numpy arrays. Reports "transfer", "compute" and
-        "fetch" seconds to STEP_SECONDS[verb] and to stage_cb."""
+        outputs as numpy arrays. Reports the STEP_STAGES spans to
+        STEP_SECONDS[verb] and to stage_cb."""
         if self.device.type == "cuda":
             out, stages = self._run_on_card(parts, step)
         else:
@@ -239,8 +247,8 @@ class Codec:
         t2 = time.perf_counter()
         res = tuple(o.cpu().numpy() for o in outs)
         t3 = time.perf_counter()
-        return res, {"transfer": t1 - t0, "compute": t2 - t1,
-                     "fetch": t3 - t2}
+        return res, {"transfer_span_s": t1 - t0,
+                     "compute_span_s": t2 - t1, "fetch_span_s": t3 - t2}
 
     def _run_on_card(self, parts: list, step):
         shape = (sum(p.shape[0] for p in parts),) + tuple(parts[0].shape[1:])
@@ -284,10 +292,10 @@ class Codec:
             # the slot's pinned output is reused by its next dispatch
             res = tuple(v.numpy().copy() for v in views)
             copied_out = time.perf_counter() - t1
-            stages = {"transfer": assembled
+            stages = {"transfer_span_s": assembled
                       + start.elapsed_time(copied) / 1e3,
-                      "compute": copied.elapsed_time(stepped) / 1e3,
-                      "fetch": stepped.elapsed_time(fetched) / 1e3
+                      "compute_span_s": copied.elapsed_time(stepped) / 1e3,
+                      "fetch_span_s": stepped.elapsed_time(fetched) / 1e3
                       + copied_out}
         return res, stages
 
@@ -313,16 +321,16 @@ class Codec:
 
     def encode_and_hash_batch(self, data, algo, *, stage_cb=None):
         """The fused device path of the PUT loop: one device step computes
-        parity AND every shard's HighwayHash-256 digest
-        (models/pipeline.put_step).
+        parity AND every shard's per-block digest (models/pipeline.put_step;
+        HighwayHash-256, or SHA-256 under the sha256 algorithm, whose
+        whole-file writers rehash on the host as the reference's do).
 
         data: (B, k, S), or a list of such groups stacked along B. Returns
         (parity (B, m, S), digests (B, k+m, 32)) as numpy arrays, or None
         when the batch does not route to the device or the bitrot
         algorithm has no device kernel. Only parity and digests come back
         from the device; the data rows are the caller's own bytes.
-        stage_cb(stage, seconds) receives "transfer", "compute" and
-        "fetch"."""
+        stage_cb(stage, seconds) receives the STEP_STAGES spans."""
         parts = _parts(data)
         if not self.fused_route(algo):
             return None

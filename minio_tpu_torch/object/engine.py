@@ -28,13 +28,20 @@ MRF hooks: on_degraded_write(bucket, object, version_id) fires when a
 write met quorum but some drives missed it; on_degraded_read(bucket,
 object) when a GET had to reconstruct or found bitrot.
 
-Left out: hedged reads and the drive health tracker, quarantine, the
-quorum-ack write lane, crash points, spans, SSE, versioned listing and
-the metacache hook.
+Whole-file bitrot algorithms (sha256, blake2b, highwayhash256) store one
+digest per drive in that drive's xl.meta: the commit takes each writer's
+digest, and readers verify the whole shard file against it.
+
+Left out: hedged reads and quarantine, the quorum-ack lane of PUT (its
+multipart form is ported), spans, SSE, transitions and stubs, and the
+namespace-change hook that feeds the metacache, replication and
+notification planes.
 """
 
 from __future__ import annotations
 
+import copy
+import heapq
 import io
 import threading
 import time
@@ -50,13 +57,14 @@ from .. import device as device_mod
 from ..storage import errors as serr
 from ..storage.api import StorageAPI
 from ..storage.datatypes import (BLOCK_SIZE_V1, ChecksumInfo, FileInfo,
-                                 ObjectInfo, new_file_info, now)
+                                 ObjectInfo, last_version_marker,
+                                 new_file_info, now)
 from ..storage.format import (FormatErasureV3, get_format_in_quorum,
                               new_format_erasure_v3, read_format_from,
                               write_format_to)
 from ..storage.xl_storage import (MINIO_META_BUCKET, MINIO_META_TMP_BUCKET,
                                   XLStorage)
-from ..utils import knobs, stagetimer
+from ..utils import crashpoint, healthtrack, knobs, stagetimer
 from . import api_errors, bitrot_io, metadata as meta
 from .codec import Codec
 from .hash_reader import HashReader
@@ -72,10 +80,22 @@ RESERVED_BUCKETS = (MINIO_META_BUCKET,)
 
 class PutOptions:
     def __init__(self, metadata: Optional[dict] = None,
-                 version_id: str = "", versioned: bool = False):
+                 version_id: str = "", versioned: bool = False,
+                 parity: Optional[int] = None,
+                 mod_time: Optional[float] = None,
+                 if_none_newer: bool = False):
         self.metadata = dict(metadata or {})
         self.version_id = version_id
         self.versioned = versioned
+        # parity shards of this object (default: the set's)
+        self.parity = parity
+        # explicit mod time (server-side copies keep the original
+        # Last-Modified instead of stamping the copy time)
+        self.mod_time = mod_time
+        # commit only when no existing version of the same slot is
+        # (mod_time, version_id, etag)-newer, evaluated inside the
+        # per-key write lock (the replication apply's last-writer-wins)
+        self.if_none_newer = if_none_newer
 
 
 class GetOptions:
@@ -96,7 +116,7 @@ class ErasureObjects:
                  ns_lock: Optional[NSLockMap] = None,
                  bitrot_algo: bitrot_mod.BitrotAlgorithm =
                  bitrot_mod.DEFAULT_BITROT_ALGORITHM,
-                 device=None, scheduler=None):
+                 set_index: int = 0, device=None, scheduler=None):
         if len(disks) != data_shards + parity_shards:
             raise ValueError(f"{len(disks)} drives for "
                              f"{data_shards}+{parity_shards}")
@@ -106,6 +126,7 @@ class ErasureObjects:
         self.block_size = block_size
         self.bitrot_algo = bitrot_algo
         self.ns = ns_lock or NSLockMap()
+        self.set_index = set_index
         self.device = device_mod.resolve(device)
         self.scheduler = scheduler
         self._codec_cache: dict[tuple[int, int], Codec] = {}
@@ -128,10 +149,11 @@ class ErasureObjects:
                     k, m, self.block_size, device=self.device)
             return c
 
-    def _default_quorums(self) -> tuple[int, int, int, int]:
+    def _default_quorums(self, parity: Optional[int] = None
+                         ) -> tuple[int, int, int, int]:
         """(data, parity, readQuorum, writeQuorum) for a fresh object
         (cmd/erasure-object.go:536-547)."""
-        m = self.parity_shards
+        m = self.parity_shards if parity is None else parity
         k = len(self.disks) - m
         return k, m, k, meta.write_quorum_for(k, m)
 
@@ -157,6 +179,69 @@ class ErasureObjects:
             raise api_errors.to_object_err(
                 err or api_errors.InsufficientWriteQuorum(), bucket)
 
+    def bucket_exists(self, bucket: str) -> bool:
+        try:
+            self.get_bucket_info(bucket)
+            return True
+        except api_errors.BucketNotFound:
+            return False
+
+    def get_bucket_info(self, bucket: str):
+        results, errs = meta.for_each_disk(
+            self.disks, lambda i, d: d.stat_vol(bucket))
+        read_quorum = len(self.disks) // 2
+        err = meta.reduce_read_quorum_errs(
+            errs, meta.OBJECT_OP_IGNORED_ERRS, read_quorum)
+        if err is not None:
+            raise api_errors.to_object_err(err, bucket)
+        for r in results:
+            if r is not None:
+                return r
+        raise api_errors.BucketNotFound(bucket)
+
+    def list_buckets(self):
+        """Quorum-merged bucket listing: a bucket counts when at least
+        read quorum (n//2) of the answering drives hold its volume, so a
+        drive that missed a make_bucket or kept a deleted bucket while
+        offline can neither hide nor resurrect it."""
+        counts: dict[str, int] = {}
+        infos: dict[str, object] = {}
+        answered = 0
+        for d in self.disks:
+            if d is None:
+                continue
+            try:
+                vols = d.list_vols()
+            except serr.StorageError:
+                continue
+            answered += 1
+            for v in vols:
+                if v.name.startswith("."):
+                    continue
+                counts[v.name] = counts.get(v.name, 0) + 1
+                prev = infos.get(v.name)
+                if prev is None or v.created < prev.created:
+                    infos[v.name] = v
+        if answered == 0:
+            return []
+        quorum = min(answered, max(1, len(self.disks) // 2))
+        return sorted((infos[n] for n, c in counts.items()
+                       if c >= quorum), key=lambda v: v.name)
+
+    def delete_bucket(self, bucket: str, force: bool = False) -> None:
+        def rm(i, d):
+            try:
+                d.delete_vol(bucket, force)
+            except serr.VolumeNotFound:
+                pass
+
+        _, errs = meta.for_each_disk(self.disks, rm)
+        write_quorum = len(self.disks) // 2 + 1
+        err = meta.reduce_write_quorum_errs(
+            errs, meta.OBJECT_OP_IGNORED_ERRS, write_quorum)
+        if err is not None:
+            raise api_errors.to_object_err(err, bucket)
+
     # ------------------------------------------------------------------
     # PUT (cmd/erasure-object.go:521-703 + cmd/erasure-encode.go)
     # ------------------------------------------------------------------
@@ -171,7 +256,7 @@ class ErasureObjects:
         elif not isinstance(reader, HashReader):
             reader = HashReader(reader, size)
 
-        k, m, _, write_quorum = self._default_quorums()
+        k, m, _, write_quorum = self._default_quorums(opts.parity)
         fi = new_file_info(f"{bucket}/{object_name}", k, m)
         fi.erasure.block_size = self.block_size
         fi.volume, fi.name = bucket, object_name
@@ -185,7 +270,7 @@ class ErasureObjects:
         codec = self.codec(k, m)
         writers: list = [
             None if d is None else bitrot_io.new_bitrot_writer(
-                d, MINIO_META_TMP_BUCKET, part_path, self.bitrot_algo,
+                d, MINIO_META_TMP_BUCKET, part_path, -1, self.bitrot_algo,
                 codec.shard_size)
             for d in shuffled]
 
@@ -200,7 +285,7 @@ class ErasureObjects:
             etag = opts.metadata.pop("etag", "") or reader.md5_current_hex()
 
             fi.size = total
-            fi.mod_time = now()
+            fi.mod_time = opts.mod_time if opts.mod_time else now()
             fi.metadata = dict(opts.metadata)
             fi.metadata["etag"] = etag
             fi.add_object_part(1, etag, total,
@@ -211,6 +296,8 @@ class ErasureObjects:
             with stagetimer.stage("put.lock+commit"):
                 with self.ns.new_lock(
                         f"{bucket}/{object_name}").write_locked():
+                    if opts.if_none_newer:
+                        self._check_none_newer(bucket, object_name, fi)
                     lost = self._commit(shuffled, writers, tmp_id, fi,
                                         bucket, object_name, write_quorum)
         except Exception:
@@ -221,6 +308,23 @@ class ErasureObjects:
             # heal so the object converges back to full redundancy
             self._notify_degraded(bucket, object_name, fi.version_id)
         return fi.to_object_info(bucket, object_name)
+
+    def _check_none_newer(self, bucket: str, object_name: str,
+                          fi: FileInfo) -> None:
+        """The if_none_newer commit gate (caller holds the write lock):
+        an existing version of the same slot that wins the
+        (mod_time, version_id, etag) order aborts the commit."""
+        for cur in self._merged_versions(bucket, object_name):
+            if (cur.version_id or "") != (fi.version_id or ""):
+                continue
+            cur_key = (cur.mod_time or 0, cur.version_id or "",
+                       cur.metadata.get("etag", ""))
+            new_key = (fi.mod_time or 0, fi.version_id or "",
+                       fi.metadata.get("etag", ""))
+            if cur_key >= new_key:
+                raise api_errors.PreConditionFailed(
+                    f"{bucket}/{object_name}: existing version is newer")
+            return
 
     def _encode_stream(self, reader, codec: Codec, writers,
                        write_quorum: int) -> int:
@@ -484,8 +588,12 @@ class ErasureObjects:
         def write(i: int, w) -> None:
             rows, digs, j = (data, dd, i) if i < k else \
                 (parity, dp, i - k)
+            t0 = time.perf_counter()
             for bi in range(B):
                 w.write_with_digest(rows[bi, j].data, digs[bi, j].data)
+            # the latencies multipart's quorum-ack grace is derived from
+            healthtrack.observe_disk(w.disk, "write",
+                                     time.perf_counter() - t0)
 
         _, errs = meta.for_each_disk(list(writers), write)
         for i, e in enumerate(errs):
@@ -515,14 +623,28 @@ class ErasureObjects:
                 writers[i] = None
 
         metas = [fi.light_copy() for _ in range(len(shuffled))]
+        if not self.bitrot_algo.streaming:
+            # whole-file digests are per drive (each shard differs)
+            for i, w in enumerate(writers):
+                if w is not None:
+                    for c in metas[i].erasure.checksums:
+                        c.hash = w.digest()
         disks_for_meta = [d if writers[i] is not None else None
                           for i, d in enumerate(shuffled)]
+        # shards staged in tmp, no metadata yet: a crash here leaves the
+        # previous version untouched and only tmp garbage
+        crashpoint.hit("put.shards.before_meta")
         with stagetimer.stage("put.commit.write_meta"):
             meta.write_unique_file_info(disks_for_meta,
                                         MINIO_META_TMP_BUCKET, tmp_id,
                                         metas, write_quorum)
+        # fully staged, uncommitted: the renames are the point of no
+        # return
+        crashpoint.hit("put.meta.before_rename")
 
         def rename(i, d):
+            # one hit per drive: arm :<nth> to die with n-1 drives renamed
+            crashpoint.hit("put.rename.partial", disk=i)
             d.rename_data(MINIO_META_TMP_BUCKET, tmp_id, fi.data_dir,
                           bucket, object_name)
 
@@ -545,6 +667,16 @@ class ErasureObjects:
             self.on_degraded_write(bucket, object_name, version_id)
         except Exception:  # noqa: BLE001 — heal queueing is best-effort
             pass
+
+    def _flag_degraded_delete(self, bucket: str, object_name: str,
+                              version_id: str, errs) -> None:
+        """Queue an MRF heal when a quorum-successful delete or marker
+        write left stale state on some drive; a drive answering
+        not-found has already converged."""
+        if any(e is not None
+               and not isinstance(e, serr.OBJECT_NOT_FOUND_ERRS)
+               for e in errs):
+            self._notify_degraded(bucket, object_name, version_id)
 
     def _cleanup_tmp(self, disks, tmp_id: str) -> None:
         def rm(i, d):
@@ -581,6 +713,54 @@ class ErasureObjects:
         fi = meta.pick_valid_file_info(metas, read_quorum)
         online, _ = meta.list_online_disks(self.disks, metas, errs)
         return fi, metas, online
+
+    def has_object_versions(self, bucket: str, object_name: str) -> bool:
+        """True when any version, a delete marker included, exists: the
+        pool-affinity probe (cmd/erasure-server-sets.go:195-220)."""
+        try:
+            self._object_file_info(bucket, object_name)
+            return True
+        except api_errors.ObjectApiError:
+            return False
+
+    def latest_file_info(self, bucket: str, object_name: str) -> FileInfo:
+        """The latest version's FileInfo, delete markers included: the
+        newest-wins probe across pools."""
+        fi, _, _ = self._object_file_info(bucket, object_name)
+        return fi
+
+    def update_object_metadata(self, bucket: str, object_name: str,
+                               metadata: dict, version_id: str = ""
+                               ) -> ObjectInfo:
+        """Metadata-only update of an existing version in place: no data
+        rewrite, no new version (the etag is kept)."""
+        with self.ns.new_lock(f"{bucket}/{object_name}").write_locked():
+            fi, metas, online = self._object_file_info(
+                bucket, object_name, version_id)
+            if fi.deleted:
+                raise api_errors.MethodNotAllowed(
+                    f"{bucket}/{object_name} is a delete marker")
+            new_meta = dict(metadata)
+            new_meta["etag"] = fi.metadata.get("etag", "")
+
+            def upd(i, d):
+                m = metas[i]
+                if m is None:
+                    raise serr.FileNotFound(object_name)
+                m.metadata = dict(new_meta)
+                d.write_metadata(bucket, object_name, m)
+
+            _, errs = meta.for_each_disk(online, upd)
+            _, write_quorum = meta.object_quorum_from_meta(
+                metas, [None] * len(metas), self.parity_shards)
+            err = meta.reduce_write_quorum_errs(
+                errs, meta.OBJECT_OP_IGNORED_ERRS, write_quorum)
+            if err is not None:
+                raise api_errors.to_object_err(err, bucket, object_name)
+            fi.metadata = new_meta
+        if any(e is not None for e in errs):
+            self._notify_degraded(bucket, object_name, version_id)
+        return fi.to_object_info(bucket, object_name)
 
     def get_object_info(self, bucket: str, object_name: str,
                         opts: Optional[GetOptions] = None) -> ObjectInfo:
@@ -691,6 +871,19 @@ class ErasureObjects:
         finally:
             for plan in plans:
                 plan.close()
+
+    def _read_part(self, bucket, object_name, fi: FileInfo, disks, smeta,
+                   codec: Codec, part, offset: int, length: int,
+                   suppress_heal_flag: bool = False) -> Iterator[bytes]:
+        """One part's verified (and, where shards are missing,
+        reconstructed) bytes: one read plan, no cross-part prefetch."""
+        plan = _PartReadPlan(self, bucket, object_name, fi, disks, smeta,
+                             codec, part, offset, length,
+                             suppress_heal_flag)
+        try:
+            yield from plan.stream()
+        finally:
+            plan.close()
 
     def _verify_and_reconstruct_group(self, codec: Codec, group, k: int,
                                       n: int, readers, shard_size: int,
@@ -922,7 +1115,10 @@ class ErasureObjects:
                     errs, meta.OBJECT_OP_IGNORED_ERRS, write_quorum)
                 if err is not None:
                     raise api_errors.to_object_err(err, bucket, object_name)
-                return fi.to_object_info(bucket, object_name)
+                oi = fi.to_object_info(bucket, object_name)
+                self._flag_degraded_delete(bucket, object_name,
+                                           fi.version_id, errs)
+                return oi
 
             fi = FileInfo(volume=bucket, name=object_name,
                           version_id=version_id)
@@ -935,8 +1131,256 @@ class ErasureObjects:
                 errs, meta.OBJECT_OP_IGNORED_ERRS, write_quorum)
             if err is not None:
                 raise api_errors.to_object_err(err, bucket, object_name)
+        self._flag_degraded_delete(bucket, object_name, version_id, errs)
         return ObjectInfo(bucket=bucket, name=object_name,
                           version_id=version_id)
+
+    def put_delete_marker(self, bucket: str, object_name: str,
+                          version_id: str = "",
+                          mod_time: Optional[float] = None,
+                          metadata: Optional[dict] = None) -> ObjectInfo:
+        """A delete marker with an explicit version id and mod time (the
+        copy path between pools keeps a marker's identity; delete_object
+        always mints fresh ones)."""
+        _k, _m, _, write_quorum = self._default_quorums()
+        fi = FileInfo(volume=bucket, name=object_name,
+                      version_id=version_id or str(_uuid.uuid4()),
+                      deleted=True, mod_time=mod_time or now(),
+                      metadata=dict(metadata or {}))
+        with self.ns.new_lock(f"{bucket}/{object_name}").write_locked():
+            _, errs = meta.for_each_disk(
+                self.disks,
+                lambda i, d: d.write_metadata(bucket, object_name, fi))
+            err = meta.reduce_write_quorum_errs(
+                errs, meta.OBJECT_OP_IGNORED_ERRS, write_quorum)
+            if err is not None:
+                raise api_errors.to_object_err(err, bucket, object_name)
+        self._flag_degraded_delete(bucket, object_name, fi.version_id,
+                                   errs)
+        return fi.to_object_info(bucket, object_name)
+
+    def delete_objects(self, bucket: str, objects: list[str]
+                       ) -> list[Optional[Exception]]:
+        """Bulk delete: one storage call per drive for the whole batch
+        (reference DeleteObjects, cmd/erasure-object.go:772), with a
+        quorum verdict per key."""
+        if not objects:
+            return []
+        _k, _m, _, write_quorum = self._default_quorums()
+        fis = [FileInfo(volume=bucket, name=o) for o in objects]
+        with self.ns.new_lock(
+                *[f"{bucket}/{o}" for o in objects]).write_locked():
+            results, disk_errs = meta.for_each_disk(
+                self.disks, lambda i, d: d.delete_versions(
+                    bucket, [copy.deepcopy(f) for f in fis]))
+        out: list[Optional[Exception]] = []
+        for j, o in enumerate(objects):
+            per_disk: list[Optional[Exception]] = []
+            for res, derr in zip(results, disk_errs):
+                if derr is not None:
+                    per_disk.append(derr)      # whole drive failed
+                elif res is not None and j < len(res):
+                    per_disk.append(res[j])
+                else:
+                    per_disk.append(serr.DiskNotFound("no result"))
+            err = meta.reduce_write_quorum_errs(
+                per_disk, meta.OBJECT_OP_IGNORED_ERRS, write_quorum)
+            out.append(None if err is None
+                       else api_errors.to_object_err(err, bucket, o))
+            if err is None:
+                self._flag_degraded_delete(bucket, o, "", per_disk)
+        return out
+
+    # ------------------------------------------------------------------
+    # LIST (merge-walk across drives; cmd/erasure-sets.go:888-1081)
+    # ------------------------------------------------------------------
+
+    def list_objects(self, bucket: str, prefix: str = "", marker: str = "",
+                     delimiter: str = "", max_keys: int = 1000
+                     ) -> tuple[list[ObjectInfo], list[str], bool]:
+        """Returns (objects, common_prefixes, is_truncated)."""
+        self.get_bucket_info(bucket)  # existence + quorum check
+
+        def read_latest(name: str):
+            try:
+                fi = self._read_one(bucket, name)
+            except api_errors.ObjectApiError:
+                return None
+            if fi.deleted:
+                return None
+            return fi.to_object_info(bucket, name)
+
+        return paginate_objects(self._merged_names(bucket, prefix, marker),
+                                read_latest, prefix, marker, delimiter,
+                                max_keys)
+
+    def list_object_versions(self, bucket: str, prefix: str = "",
+                             marker: str = "", max_keys: int = 1000,
+                             version_marker: str = "",
+                             delimiter: str = ""
+                             ) -> tuple[list[ObjectInfo], list[str],
+                                        str, str, bool]:
+        """One page of the bucket's version history: (versions,
+        common_prefixes, next_key_marker, next_version_id_marker,
+        is_truncated). `version_marker` resumes after that version of
+        `marker`."""
+        self.get_bucket_info(bucket)
+        names = self._merged_names(bucket, prefix, marker,
+                                   inclusive=bool(version_marker))
+        return paginate_versions(
+            names, lambda n: self.object_versions(bucket, n),
+            prefix, marker, version_marker, delimiter, max_keys)
+
+    def object_versions(self, bucket: str, name: str) -> list[ObjectInfo]:
+        """Quorum-merged versions of one object, newest first."""
+        return [fi.to_object_info(bucket, name)
+                for fi in self._merged_versions(bucket, name)]
+
+    def _merged_versions(self, bucket: str, name: str) -> list[FileInfo]:
+        """Quorum-merge the per-drive version journals of one object: a
+        version counts when at least read quorum (k) drives agree on its
+        (version id, mod time, kind). Newest first by (mod time, version
+        id)."""
+        results, _errs = meta.for_each_disk(
+            self.disks, lambda i, d: d.read_versions(bucket, name))
+        counts: dict[tuple, int] = {}
+        picks: dict[tuple, FileInfo] = {}
+        for vers in results:
+            if vers is None:
+                continue
+            for fi in vers:
+                key = (fi.version_id, fi.mod_time, fi.deleted)
+                counts[key] = counts.get(key, 0) + 1
+                picks.setdefault(key, fi)
+        merged = [picks[key] for key, c in counts.items()
+                  if c >= self.data_shards]
+        merged.sort(key=lambda fi: (fi.mod_time or 0, fi.version_id or ""),
+                    reverse=True)
+        return merged
+
+    def _merged_names(self, bucket: str, prefix: str,
+                      marker: str = "",
+                      inclusive: bool = False) -> Iterator[str]:
+        """Lazy lexical merge-walk of object names across the first three
+        live drives (the reference's startMergeWalks, which asks 3 drives
+        per set). Yields names > marker (>= marker when `inclusive`)
+        matching prefix, in order."""
+        # narrow the walk to the deepest directory of the prefix
+        dir_part = prefix.rsplit("/", 1)[0] if "/" in prefix else ""
+        # drive walks yield strictly > their marker; one char shorter
+        # re-admits the marker name itself
+        walk_marker = marker[:-1] if (inclusive and marker) else marker
+
+        def drive_names(d) -> Iterator[str]:
+            try:
+                for fi in d.walk(bucket, dir_part, walk_marker):
+                    yield fi.name
+            except serr.StorageError:
+                return              # drive died mid-walk: its names drop
+
+        iters = [drive_names(d) for d in self.disks if d is not None][:3]
+        last = None
+        for name in heapq.merge(*iters):
+            if name == last:
+                continue
+            last = name
+            if name.startswith(prefix):
+                yield name
+            elif name > prefix:
+                return              # sorted: nothing later can match
+
+    def _read_one(self, bucket: str, object_name: str) -> FileInfo:
+        fi, _, _ = self._object_file_info(bucket, object_name)
+        return fi
+
+
+def paginate_objects(names, read_latest, prefix: str, marker: str,
+                     delimiter: str, max_keys: int
+                     ) -> tuple[list[ObjectInfo], list[str], bool]:
+    """The object-listing page: delimiter grouping, marker skips and
+    max_keys truncation over a sorted prefix-matching name stream.
+    `read_latest(name)` returns the listable ObjectInfo or None (no
+    quorum, or a delete marker)."""
+    objects: list[ObjectInfo] = []
+    prefixes: list[str] = []
+    seen_prefix: set[str] = set()
+    truncated = False
+    for name in names:
+        if marker and name <= marker:
+            continue
+        if delimiter:
+            rest = name[len(prefix):]
+            di = rest.find(delimiter)
+            if di >= 0:
+                p = prefix + rest[:di + len(delimiter)]
+                if marker and p <= marker:
+                    continue  # prefix page already returned
+                if p not in seen_prefix:
+                    seen_prefix.add(p)
+                    prefixes.append(p)
+                    if len(objects) + len(prefixes) >= max_keys + 1:
+                        truncated = True
+                        prefixes = prefixes[:max_keys - len(objects)]
+                        break
+                continue
+        oi = read_latest(name)
+        if oi is None:
+            continue
+        objects.append(oi)
+        if len(objects) + len(prefixes) >= max_keys + 1:
+            truncated = True
+            objects = objects[:max_keys - len(prefixes)]
+            break
+    return objects, prefixes, truncated
+
+
+def paginate_versions(names, versions_of, prefix: str, marker: str,
+                      version_marker: str, delimiter: str, max_keys: int
+                      ) -> tuple[list[ObjectInfo], list[str], str, str,
+                                 bool]:
+    """The versions-listing page: delimiter grouping, key and version-id
+    marker resume, and max_keys truncation (versions and prefixes each
+    count one entry). Returns (versions, common_prefixes,
+    next_key_marker, next_version_id_marker, is_truncated); a cut may
+    fall inside one key's versions. `versions_of(name)` returns the key's
+    versions newest first."""
+    out: list[ObjectInfo] = []
+    prefixes: list[str] = []
+    seen_prefix: set[str] = set()
+    if max_keys <= 0:
+        return [], [], "", "", False
+    for name in names:
+        if marker:
+            if name < marker or (not version_marker and name == marker):
+                continue
+        if delimiter:
+            rest = name[len(prefix):]
+            di = rest.find(delimiter)
+            if di >= 0:
+                p = prefix + rest[:di + len(delimiter)]
+                if marker and p <= marker:
+                    continue  # prefix page already returned
+                if p not in seen_prefix:
+                    seen_prefix.add(p)
+                    if len(out) + len(prefixes) >= max_keys:
+                        nkm, nvm = last_version_marker(out, prefixes)
+                        return out, prefixes, nkm, nvm, True
+                    prefixes.append(p)
+                continue
+        vers = versions_of(name)
+        if version_marker and name == marker:
+            # "null" is the wire form of the empty version id
+            vm = "" if version_marker == "null" else version_marker
+            idx = next((i for i, v in enumerate(vers)
+                        if v.version_id == vm), None)
+            if idx is not None:
+                vers = vers[idx + 1:]
+        for oi in vers:
+            if len(out) + len(prefixes) >= max_keys:
+                nkm, nvm = last_version_marker(out, prefixes)
+                return out, prefixes, nkm, nvm, True
+            out.append(oi)
+    return out, prefixes, "", "", False
 
 
 class _UnlockOnClose:
@@ -1030,7 +1474,8 @@ class _PartReadPlan:
             algo = (bitrot_mod.BitrotAlgorithm.from_string(csum.algorithm)
                     if csum else self.eng.bitrot_algo)
             out[i] = bitrot_io.new_bitrot_reader(
-                d, self.bucket, self.path, self.till, algo, self.shard_size)
+                d, self.bucket, self.path, self.till, algo,
+                csum.hash if csum else b"", self.shard_size)
         return out
 
     def _ensure_readers(self) -> None:
@@ -1039,13 +1484,14 @@ class _PartReadPlan:
         self.readers = self._make_readers()
         # device-routed groups defer per-frame bitrot verification into
         # the fused verify+decode step; small groups verify inline at read
-        # time. Deferral needs every reader on one algorithm the device
-        # hashes (the digests must be compared under the algorithm the
-        # frames were written with).
+        # time. Deferral needs every reader on one streaming algorithm the
+        # device hashes (the digests must be compared under the algorithm
+        # the frames were written with; a whole-file reader verifies the
+        # whole shard file when it first reads it).
         algos = {r.algo for r in self.readers if r is not None}
         self.part_algo = algos.pop() if len(algos) == 1 else None
         self.defer_verify = (
-            self.part_algo is not None
+            self.part_algo is not None and self.part_algo.streaming
             and self.codec._device_hash_kernel(self.part_algo) is not None
             and self.codec._route(GET_BATCH_BLOCKS * self.k
                                   * self.shard_size) == "device")

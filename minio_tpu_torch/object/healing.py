@@ -21,6 +21,10 @@ The host rebuild stays only where a survivor's digest MISMATCHES (bitrot
 found): that block is re-read with inline verification and rebuilt on the
 host.
 
+Departure from the reference: under a whole-file bitrot algorithm a
+healed drive's xl.meta records the digests of its own rebuilt files;
+minio_tpu copies another drive's, so the healed shards read as bitrot.
+
 Left out: transitioned (tiered) objects, whose stubs are not ported.
 """
 
@@ -219,7 +223,7 @@ class HealMixin(ErasureObjects):
         tmp_id = str(_uuid.uuid4())
         codec = self.codec(k, m)
         try:
-            written = self._reconstruct_shards(
+            written, file_digests = self._reconstruct_shards(
                 bucket, object_name, fi, healthy, smeta, to_heal,
                 shuffled, tmp_id, codec)
             # write healed xl.meta + rename into place — only on drives
@@ -232,6 +236,11 @@ class HealMixin(ErasureObjects):
                     continue
                 f = copy.deepcopy(heal_fi)
                 f.erasure.index = i + 1
+                if not self.bitrot_algo.streaming:
+                    # the rebuilt files' own whole-file digests (the
+                    # reference keeps another drive's)
+                    for c in f.erasure.checksums:
+                        c.hash = file_digests.get((i, c.part_number), b"")
                 try:
                     # a wiped drive may have lost the bucket dir itself —
                     # recreate it before renaming in (reference heals the
@@ -265,17 +274,20 @@ class HealMixin(ErasureObjects):
 
     def _reconstruct_shards(self, bucket, object_name, fi: FileInfo,
                             healthy, smeta, to_heal, shuffled, tmp_id,
-                            codec) -> set[int]:
+                            codec) -> tuple[set[int], dict]:
         """Per part: batched recover-matrix matmul over all blocks,
         streaming results into bitrot writers for the outdated drives.
         Returns the indices whose shard files were fully written — a
         writer that errors (drive died again mid-heal) is dropped, not
         fatal (the reference heals with write quorum 1,
-        cmd/erasure-lowlevel-heal.go:28)."""
+        cmd/erasure-lowlevel-heal.go:28) — and each written file's
+        digest by (index, part number): the whole-file digest under a
+        whole-file algorithm, else b""."""
         n = len(shuffled)
         k = fi.erasure.data_blocks
         shard_size = fi.erasure.shard_size()
         written = set(to_heal)
+        file_digests: dict[tuple[int, int], bytes] = {}
 
         def drop(i: int, writers: dict) -> None:
             written.discard(i)
@@ -296,8 +308,9 @@ class HealMixin(ErasureObjects):
                             w = bitrot_io.new_bitrot_writer(
                                 d, MINIO_META_TMP_BUCKET,
                                 f"{tmp_id}/{fi.data_dir}/part.{part.number}",
-                                self.bitrot_algo, shard_size)
+                                -1, self.bitrot_algo, shard_size)
                             w.close()
+                            file_digests[(i, part.number)] = w.digest()
                         except serr.StorageError:
                             written.discard(i)
                 continue
@@ -311,7 +324,8 @@ class HealMixin(ErasureObjects):
                 algo = (bitrot_mod.BitrotAlgorithm.from_string(
                     csum.algorithm) if csum else self.bitrot_algo)
                 readers[i] = bitrot_io.new_bitrot_reader(
-                    d, bucket, path, till, algo, shard_size)
+                    d, bucket, path, till, algo,
+                    csum.hash if csum else b"", shard_size)
             writers: dict[int, object] = {}
             for i in to_heal:
                 d = shuffled[i]
@@ -321,7 +335,7 @@ class HealMixin(ErasureObjects):
                     writers[i] = bitrot_io.new_bitrot_writer(
                         d, MINIO_META_TMP_BUCKET,
                         f"{tmp_id}/{fi.data_dir}/part.{part.number}",
-                        self.bitrot_algo, shard_size)
+                        -1, self.bitrot_algo, shard_size)
                 except serr.StorageError:
                     written.discard(i)
 
@@ -492,9 +506,10 @@ class HealMixin(ErasureObjects):
             for i, w in list(writers.items()):
                 try:
                     w.close()
+                    file_digests[(i, part.number)] = w.digest()
                 except serr.StorageError:
                     drop(i, writers)
-        return written
+        return written, file_digests
 
     def _host_rebuild_block(self, readers, codec, block_num: int,
                             shard_size: int, shard_len: int, k: int,

@@ -107,6 +107,78 @@ def submit_disk_task(fn, *args):
     return _POOL.submit(fn, *args)
 
 
+def for_each_disk_quorum(disks: Sequence[Optional[StorageAPI]],
+                         fn: Callable[[int, StorageAPI], object],
+                         quorum: int, stall_s: float,
+                         stage: str = "write",
+                         on_settle: Optional[Callable[[int], None]]
+                         = None
+                         ) -> tuple[list, list[Optional[Exception]]]:
+    """for_each_disk with quorum-ack semantics: returns once every
+    drive finished OR `quorum` successes are in and the laggards have
+    outlived `stall_s` (measured from fan-out start). Stragglers keep
+    running on the drive-io pool — the bounded background lane — and
+    are reported as serr.StorageStalled so the caller's quorum reduce
+    counts them as missed writes (the MRF degraded-write feed).
+
+    `on_settle(i)` fires when an ABANDONED straggler finally completes
+    (however it ends). Namespace-mutating laggards (a rename) need it:
+    by the time the op lands, the commit lock is long released and a
+    NEWER write may have committed — the callback lets the caller
+    re-queue an MRF check so a late-landing stale op is healed back to
+    quorum state instead of silently de-replicating the newer version."""
+    import time as _time
+    from concurrent.futures import FIRST_COMPLETED
+    from concurrent.futures import wait as _fwait
+    from ..utils import healthtrack
+
+    results: list = [None] * len(disks)
+    errs: list[Optional[Exception]] = [None] * len(disks)
+    settled = [False] * len(disks)
+    futs: dict = {}
+    for i in range(len(disks)):
+        if disks[i] is None:
+            errs[i] = serr.DiskNotFound(f"drive {i}")
+            settled[i] = True
+            continue
+
+        def run(i=i):
+            return fn(i, disks[i])
+
+        futs[_POOL.submit(run)] = i
+    deadline = _time.monotonic() + stall_s
+    while futs:
+        ok = sum(1 for i in range(len(disks))
+                 if settled[i] and errs[i] is None)
+        remaining = deadline - _time.monotonic()
+        if ok >= quorum and remaining <= 0:
+            break
+        # below quorum the wait is unbounded — quorum durability is
+        # the correctness line; each task is itself bounded by its
+        # drive/RPC deadline, so this cannot hang past the slowest
+        # drive's own timeout
+        done, _ = _fwait(set(futs), return_when=FIRST_COMPLETED,
+                         timeout=remaining if ok >= quorum else None)
+        for f in done:
+            i = futs.pop(f)
+            settled[i] = True
+            try:
+                results[i] = f.result(timeout=0)
+            except Exception as e:  # noqa: BLE001 — per-drive isolation
+                errs[i] = e
+    for f, i in futs.items():
+        # abandoned to the background lane: the future keeps the
+        # task (and this slot's eventual completion) alive; nothing
+        # joins it — that is the point
+        errs[i] = serr.StorageStalled(
+            f"drive {i}: {stage} abandoned after {stall_s:.3f}s "
+            "(write quorum already durable)")
+        healthtrack.note_laggard(stage)
+        if on_settle is not None:
+            f.add_done_callback(lambda _f, i=i: on_settle(i))
+    return results, errs
+
+
 def read_all_file_info(disks: Sequence[Optional[StorageAPI]], bucket: str,
                        object_path: str, version_id: str = ""
                        ) -> tuple[list[Optional[FileInfo]],

@@ -1,0 +1,519 @@
+"""ErasureServerSets — pools ("server sets") for cluster expansion.
+
+Counterpart of minio_tpu/object/server_sets.py. The reference's top
+ObjectLayer (cmd/erasure-server-sets.go): several independent ErasureSets
+groups. A PUT goes to the pool already holding the object, else to a pool
+chosen at random weighted by its free space (getZoneIdx:195,
+getAvailableZoneIdx:122); GET/HEAD/DELETE scan the pools and the NEWEST
+version wins (delete markers included); listings merge across pools. A
+persisted topology map (object/topology.py) gives every pool a state:
+new writes route only to ``active`` pools.
+
+Every pool's sets may share one batch former, so the blocks of concurrent
+PUTs and part uploads in different pools coalesce into one fused device
+dispatch (BASELINE config 5's cross-set shard batching).
+
+Left out: live-session migration off a draining
+pool (``migrate_upload``: a part upload or complete of a session homed on
+a pool that no longer takes writes raises TopologyError), online
+expansion (``add_pool``), decommission and rebalance, and the attach hooks
+of the metacache, read cache, replication and notification planes.
+"""
+
+from __future__ import annotations
+
+import random
+import time
+from typing import Optional
+
+from . import api_errors
+from .sets import ErasureSets, merge_listings, merge_version_listings
+from .topology import TopologyError, TopologyMap, TopologyStore
+
+DISK_FILL_FRACTION = 0.95  # reference diskFillFraction
+
+
+class ErasureServerSets:
+    def __init__(self, server_sets: list[ErasureSets],
+                 topology: Optional[TopologyMap] = None,
+                 load_topology: bool = True):
+        if not server_sets:
+            raise ValueError("no server sets")
+        self.server_sets = server_sets
+        if topology is None and load_topology:
+            # recover the newest persisted map (highest epoch across
+            # pools); a fresh cluster starts all-active at epoch 0
+            topology = TopologyStore.load(self)
+        self.topology = topology or TopologyMap(len(server_sets))
+
+    def single_zone(self) -> bool:
+        return len(self.server_sets) == 1
+
+    # ------------------------------------------------------------------
+    # zone choice
+    # ------------------------------------------------------------------
+
+    def _available_space(self, size: int) -> list[int]:
+        """Per-zone available bytes after the write, 0 when it would cross
+        the fill watermark (getServerSetsAvailableSpace,
+        cmd/erasure-server-sets.go:143-190) — and 0 for every pool the
+        topology excludes from new writes (draining/suspended)."""
+        writable = set(self.topology.write_pools())
+        out = []
+        for i, z in enumerate(self.server_sets):
+            if i not in writable:
+                out.append(0)
+                continue
+            info = z.storage_info()
+            total, available = info["total"], info["free"]
+            if available < size:
+                available = 0
+            if available > 0:
+                available -= size
+                want_left = int(total * (1.0 - DISK_FILL_FRACTION))
+                if available <= want_left:
+                    available = 0
+            out.append(available)
+        return out
+
+    def get_available_zone_idx(self, size: int) -> int:
+        spaces = self._available_space(max(size, 0))
+        total = sum(spaces)
+        if total == 0:
+            return -1
+        choose = random.randrange(total)
+        at = 0
+        for i, a in enumerate(spaces):
+            at += a
+            if at > choose and a > 0:
+                return i
+        return -1
+
+    def get_zone_idx(self, bucket: str, object_name: str, size: int) -> int:
+        """Zone for a PUT: the ACTIVE zone holding ANY version of the
+        object (including a delete marker — version history must stay
+        together) wins; else weighted free space among active zones
+        (getZoneIdx, cmd/erasure-server-sets.go:195). A holder that is
+        draining or suspended does NOT get the write — new versions land
+        in an active pool and the newest-wins read keeps them visible
+        while the rebalancer catches the old ones up."""
+        if self.single_zone():
+            return 0
+        for i, z in enumerate(self.server_sets):
+            if self.topology.can_write(i) and \
+                    z.has_object_versions(bucket, object_name):
+                return i
+        idx = self.get_available_zone_idx(size * 2)  # ×2 for parity
+        if idx < 0:
+            raise api_errors.to_object_err(
+                api_errors.InsufficientWriteQuorum(), bucket, object_name)
+        return idx
+
+    # ------------------------------------------------------------------
+    # bucket ops
+    # ------------------------------------------------------------------
+
+    def make_bucket(self, bucket: str) -> None:
+        for z in self.server_sets:
+            z.make_bucket(bucket)
+
+    def delete_bucket(self, bucket: str, force: bool = False) -> None:
+        if not force:
+            objs, pfx, _ = self.list_objects(bucket, max_keys=1)
+            if objs or pfx:
+                raise api_errors.BucketNotEmpty(bucket)
+        for z in self.server_sets:
+            z.delete_bucket(bucket, force=True)
+
+    def bucket_exists(self, bucket: str) -> bool:
+        return self.server_sets[0].bucket_exists(bucket)
+
+    def get_bucket_info(self, bucket: str):
+        return self.server_sets[0].get_bucket_info(bucket)
+
+    def list_buckets(self):
+        return self.server_sets[0].list_buckets()
+
+    def heal_bucket(self, bucket: str) -> None:
+        for z in self.server_sets:
+            z.heal_bucket(bucket)
+
+    # ------------------------------------------------------------------
+    # object ops
+    # ------------------------------------------------------------------
+
+    def put_object(self, bucket, object_name, reader, size=-1, opts=None):
+        idx = self.get_zone_idx(bucket, object_name,
+                                max(size, 0) if size else 0)
+        return self.server_sets[idx].put_object(bucket, object_name,
+                                                reader, size, opts)
+
+    def _first_zone_with(self, fn, bucket, object_name):
+        last: Optional[Exception] = None
+        for z in self.server_sets:
+            try:
+                return fn(z)
+            except api_errors.ObjectNotFound as e:
+                last = e
+        raise last or api_errors.ObjectNotFound(bucket, object_name)
+
+    def _zone_for_read(self, bucket: str, object_name: str):
+        """(index, FileInfo) of the zone holding the NEWEST version
+        (delete markers included) — the dual-read rule that keeps GETs
+        correct while an object exists in two pools (mid-rebalance, or
+        overwritten while its old home drains). A pool that cannot
+        answer (offline mid-drain) is skipped so surviving pools still
+        serve; its error only surfaces when NO pool holds the object."""
+        best_i = -1
+        best_fi = None
+        nf: Optional[Exception] = None
+        hard: Optional[Exception] = None
+        for i, z in enumerate(self.server_sets):
+            try:
+                fi = z.latest_file_info(bucket, object_name)
+            except api_errors.ObjectNotFound as e:
+                nf = e
+                continue
+            except api_errors.ObjectApiError as e:
+                hard = e
+                continue
+            if best_fi is None or (fi.mod_time or 0) > \
+                    (best_fi.mod_time or 0):
+                best_i, best_fi = i, fi
+        if best_i < 0:
+            raise hard or nf or api_errors.ObjectNotFound(bucket,
+                                                          object_name)
+        return best_i, best_fi
+
+    def _read_newest(self, bucket, object_name, fn,
+                     marker_is_found: bool = False):
+        """Run `fn(zone)` on the newest-holding zone, re-picking when
+        the copy moved between the pick and the read (a rebalance
+        deletes the source copy only AFTER the target committed, so a
+        re-pick always lands on a live copy; a true concurrent delete
+        converges to ObjectNotFound)."""
+        last: Optional[Exception] = None
+        for _ in range(3):
+            idx, fi = self._zone_for_read(bucket, object_name)
+            if fi.deleted and not marker_is_found:
+                raise api_errors.ObjectNotFound(bucket, object_name)
+            try:
+                return fn(self.server_sets[idx])
+            except api_errors.ObjectNotFound as e:
+                last = e            # moved mid-read: re-pick
+        raise last or api_errors.ObjectNotFound(bucket, object_name)
+
+    def get_object(self, bucket, object_name, offset=0, length=-1,
+                   opts=None):
+        if not self.single_zone() and not getattr(opts, "version_id", ""):
+            return self._read_newest(
+                bucket, object_name,
+                lambda z: z.get_object(bucket, object_name, offset,
+                                       length, opts))
+        return self._first_zone_with(
+            lambda z: z.get_object(bucket, object_name, offset, length,
+                                   opts), bucket, object_name)
+
+    def get_object_info(self, bucket, object_name, opts=None):
+        if not self.single_zone() and not getattr(opts, "version_id", ""):
+            return self._read_newest(
+                bucket, object_name,
+                lambda z: z.get_object_info(bucket, object_name, opts))
+        return self._first_zone_with(
+            lambda z: z.get_object_info(bucket, object_name, opts),
+            bucket, object_name)
+
+    def delete_object(self, bucket, object_name, version_id="",
+                      versioned=False):
+        self.get_bucket_info(bucket)  # missing bucket must not 204
+        if self.single_zone():
+            return self.server_sets[0].delete_object(
+                bucket, object_name, version_id, versioned)
+        if versioned and not version_id:
+            # a versioned delete WRITES a marker: it must land in an
+            # ACTIVE pool (writes never target draining/suspended
+            # pools); when the newest holder is active, keep affinity
+            # so version history stays together
+            try:
+                idx, _ = self._zone_for_read(bucket, object_name)
+            except api_errors.ObjectNotFound:
+                idx = -1
+            if idx < 0 or not self.topology.can_write(idx):
+                idx = self.get_available_zone_idx(1 << 20)
+                if idx < 0:
+                    raise api_errors.InsufficientWriteQuorum()
+            return self.server_sets[idx].delete_object(
+                bucket, object_name, version_id, versioned)
+        if version_id:
+            # remove one specific version from whichever pool holds it
+            last: Optional[Exception] = None
+            for z in self.server_sets:
+                if not z.has_object_versions(bucket, object_name):
+                    continue
+                try:
+                    return z.delete_object(bucket, object_name,
+                                           version_id, versioned)
+                except (api_errors.ObjectNotFound,
+                        api_errors.VersionNotFound) as e:
+                    last = e
+            raise last or api_errors.ObjectNotFound(bucket, object_name)
+        # unversioned delete: purge EVERY pool's copy — an object that
+        # transiently exists in two pools (mid-rebalance) must not
+        # resurrect from the copy a single-zone delete missed
+        out = None
+        found = False
+        for z in self.server_sets:
+            if not z.has_object_versions(bucket, object_name):
+                continue
+            out = z.delete_object(bucket, object_name, version_id,
+                                  versioned)
+            found = True
+        if not found:
+            raise api_errors.ObjectNotFound(bucket, object_name)
+        return out
+
+    def delete_objects(self, bucket, objects):
+        if self.single_zone():
+            self.get_bucket_info(bucket)
+            return self.server_sets[0].delete_objects(bucket, objects)
+        out = []
+        for o in objects:
+            try:
+                self.delete_object(bucket, o)
+                out.append(None)
+            except Exception as e:  # noqa: BLE001 — per-key result list
+                out.append(e)
+        return out
+
+    def heal_object(self, bucket, object_name, version_id="",
+                    deep_scan=False, dry_run=False):
+        return self._first_zone_with(
+            lambda z: z.heal_object(bucket, object_name, version_id,
+                                    deep_scan, dry_run),
+            bucket, object_name)
+
+    def update_object_metadata(self, bucket, object_name, metadata,
+                               version_id=""):
+        if not self.single_zone() and not version_id:
+            # in-place update must hit the copy reads serve (newest),
+            # not the first zone that happens to hold a shadowed copy
+            # (marker_is_found: the engine answers MethodNotAllowed for
+            # markers itself, matching its single-zone semantics)
+            return self._read_newest(
+                bucket, object_name,
+                lambda z: z.update_object_metadata(bucket, object_name,
+                                                   metadata, version_id),
+                marker_is_found=True)
+        return self._first_zone_with(
+            lambda z: z.update_object_metadata(bucket, object_name,
+                                               metadata, version_id),
+            bucket, object_name)
+
+    # ------------------------------------------------------------------
+    # version-faithful writes (replication apply / rebalance copy)
+    # ------------------------------------------------------------------
+
+    def put_delete_marker(self, bucket, object_name, version_id="",
+                          mod_time=None, metadata=None):
+        """Write a delete marker with explicit identity into an ACTIVE
+        pool (affinity with the pool holding the object's history, like
+        every other write) — the replication-apply marker path."""
+        idx = self.get_zone_idx(bucket, object_name, 1 << 20)
+        return self.server_sets[idx].put_delete_marker(
+            bucket, object_name, version_id, mod_time, metadata)
+
+    def latest_file_info(self, bucket, object_name):
+        """Cross-pool newest version's FileInfo, markers included."""
+        _idx, fi = self._zone_for_read(bucket, object_name)
+        return fi
+
+    # ------------------------------------------------------------------
+    # multipart: session created in the chosen PUT zone; subsequent calls
+    # find the zone owning the uploadID
+    # ------------------------------------------------------------------
+
+    def new_multipart_upload(self, bucket, object_name, opts=None):
+        idx = self.get_zone_idx(bucket, object_name, 1 << 30)
+        return self.server_sets[idx].new_multipart_upload(
+            bucket, object_name, opts)
+
+    def _zone_of_upload(self, bucket, object_name, upload_id):
+        return self.server_sets[
+            self._zone_index_of_upload(bucket, object_name, upload_id)]
+
+    def _zone_index_of_upload(self, bucket, object_name,
+                              upload_id) -> int:
+        """Owning pool of a session. A crash mid-migration can leave
+        the session resolvable in TWO pools (the draining source and
+        its migration target); the first WRITABLE holder wins — at
+        most one exists, so the probe returns at the first writable
+        hit (the common all-active case keeps the old first-resolver
+        cost) and only a drained-out session scans the full list."""
+        first = -1
+        for i, z in enumerate(self.server_sets):
+            try:
+                z.list_object_parts(bucket, object_name, upload_id,
+                                    max_parts=1)
+            except api_errors.InvalidUploadID:
+                continue
+            if self.topology.can_write(i):
+                return i
+            if first < 0:
+                first = i
+        if first < 0:
+            raise api_errors.InvalidUploadID(upload_id)
+        return first
+
+    def _writable_upload_zone(self, bucket, object_name,
+                              upload_id) -> int:
+        """The session's pool, which must take writes. The reference
+        migrates a session homed on a draining or suspended pool to an
+        active one first (migrate_upload); that is not ported, so such
+        a session refuses new parts and its commit."""
+        idx = self._zone_index_of_upload(bucket, object_name, upload_id)
+        if self.topology.can_write(idx) or self.single_zone():
+            return idx
+        raise TopologyError(
+            f"upload {upload_id} lives in pool {idx}, which takes no "
+            f"writes ({self.topology.state(idx)}); session migration is "
+            "not ported")
+
+    def put_object_part(self, bucket, object_name, upload_id, part_number,
+                        reader, size=-1):
+        idx = self._writable_upload_zone(bucket, object_name, upload_id)
+        return self.server_sets[idx].put_object_part(
+            bucket, object_name, upload_id, part_number, reader, size)
+
+    def list_object_parts(self, bucket, object_name, upload_id,
+                          part_marker=0, max_parts=1000):
+        z = self._zone_of_upload(bucket, object_name, upload_id)
+        return z.list_object_parts(bucket, object_name, upload_id,
+                                   part_marker, max_parts)
+
+    def list_multipart_uploads(self, bucket, object_name=""):
+        out = []
+        for z in self.server_sets:
+            out.extend(z.list_multipart_uploads(bucket, object_name))
+        out.sort(key=lambda u: (u["object"], u["upload_id"]))
+        return out
+
+    def abort_multipart_upload(self, bucket, object_name, upload_id):
+        z = self._zone_of_upload(bucket, object_name, upload_id)
+        return z.abort_multipart_upload(bucket, object_name, upload_id)
+
+    def get_multipart_info(self, bucket, object_name, upload_id):
+        z = self._zone_of_upload(bucket, object_name, upload_id)
+        return z.get_multipart_info(bucket, object_name, upload_id)
+
+    def complete_multipart_upload(self, bucket, object_name, upload_id,
+                                  parts, version_id="", mod_time=None,
+                                  if_none_newer=False):
+        # a commit is a new write: it lands only in an ACTIVE pool
+        idx = self._writable_upload_zone(bucket, object_name, upload_id)
+        return self.server_sets[idx].complete_multipart_upload(
+            bucket, object_name, upload_id, parts, version_id, mod_time,
+            if_none_newer)
+
+    # ------------------------------------------------------------------
+    # listing (merge across pools)
+    # ------------------------------------------------------------------
+
+    def list_objects(self, bucket, prefix="", marker="", delimiter="",
+                     max_keys=1000):
+        per_zone = [z.list_objects(bucket, prefix, marker, delimiter,
+                                   max_keys)
+                    for z in self.server_sets]
+        return merge_listings(per_zone, max_keys)
+
+    def list_object_versions(self, bucket, prefix="", marker="",
+                             max_keys=1000, version_marker="",
+                             delimiter=""):
+        per_zone = [z.list_object_versions(bucket, prefix, marker,
+                                           max_keys, version_marker,
+                                           delimiter)
+                    for z in self.server_sets]
+        return merge_version_listings(per_zone, max_keys)
+
+    def object_versions(self, bucket, name):
+        """Cross-pool quorum-merged versions of one object (dedup by
+        version id, newest first)."""
+        out = []
+        seen = set()
+        for z in self.server_sets:
+            try:
+                for oi in z.object_versions(bucket, name):
+                    if oi.version_id not in seen:
+                        seen.add(oi.version_id)
+                        out.append(oi)
+            except api_errors.ObjectApiError:
+                continue
+        # (mod time, version id) newest first — the deterministic
+        # conflict order shared with the engine quorum merge
+        out.sort(key=lambda o: (o.mod_time or 0, o.version_id or ""),
+                 reverse=True)
+        return out
+
+    def storage_info(self) -> dict:
+        zones = [z.storage_info() for z in self.server_sets]
+        for i, z in enumerate(zones):
+            z["pool_state"] = self.topology.state(i)
+        return {"total": sum(z["total"] for z in zones),
+                "free": sum(z["free"] for z in zones),
+                "used": sum(z["used"] for z in zones),
+                "online_disks": sum(z["online_disks"] for z in zones),
+                "offline_disks": sum(z["offline_disks"] for z in zones),
+                "topology_epoch": self.topology.epoch,
+                "zones": zones}
+
+    def set_pool_state(self, pool: int, state: str) -> int:
+        """Persisted state transition (suspend/resume a pool for
+        writes). Durable BEFORE it takes effect: the epoch doc is
+        written first, so a crash mid-transition replays it."""
+        prev = self.topology.state(pool) \
+            if 0 <= pool < len(self.server_sets) else None
+        epoch = self.topology.set_state(pool, state)
+        try:
+            TopologyStore.save(self, self.topology)
+        except TopologyError:
+            if prev is not None:        # roll back the in-memory map
+                self.topology.set_state(pool, prev)
+            raise
+        return epoch
+
+    # ------------------------------------------------------------------
+    # MRF heal queue (per-zone queues, aggregated view)
+    # ------------------------------------------------------------------
+
+    def drain_mrf(self, timeout: float = 10.0) -> bool:
+        # one shared deadline: N wedged zones must not stack N timeouts
+        deadline = time.monotonic() + timeout
+        ok = True
+        for z in self.server_sets:
+            ok = z.drain_mrf(max(0.0, deadline - time.monotonic())) and ok
+        return ok
+
+    def mrf_stats(self) -> dict:
+        zones = [z.mrf_stats() for z in self.server_sets]
+        keys = ("pending", "queued", "healed", "requeued", "failed",
+                "dropped", "skipped")
+        out = {k: sum(z.get(k, 0) for z in zones) for k in keys}
+        out["zones"] = zones
+        return out
+
+    def close(self) -> None:
+        for z in self.server_sets:
+            z.close()
+
+
+def open_server_sets(pools: list[list[str]], set_drive_count: int,
+                     parity: int, **kw) -> ErasureServerSets:
+    """Open (formatting fresh drives, healing the format of fresh
+    replacements) one ErasureSets per list of local drive paths, each of
+    len(paths) // set_drive_count sets, as the pools of one
+    ErasureServerSets — the layout minio_tpu writes, so this opens its
+    pools too. kw reaches ErasureSets.from_drives (block_size,
+    enable_mrf) and every engine (bitrot_algo, device, scheduler)."""
+    return ErasureServerSets([
+        ErasureSets.from_drives(paths, len(paths) // set_drive_count,
+                                set_drive_count, parity, **kw)
+        for paths in pools])

@@ -12,9 +12,12 @@ cmd/handler-api.go:46-57). Verbs:
   * ``recover`` — fused verify + rebuild-rows + re-digest (heal).
 
 Concurrent callers hand (B_i, k, S) block groups to the submit_* methods;
-a collector thread coalesces groups with identical (verb, codec,
+a collector thread coalesces groups with identical (verb, device,
 geometry, algorithm, survivor pattern) into one fused (sum B_i, k, S)
-call through object/codec.py and scatters the results back. A bucket that
+call through object/codec.py and scatters the results back. The key holds
+no codec identity: the groups of every erasure set and pool that share
+one former (config 5's cross-set batching) merge into one dispatch, run on
+the first group's codec. A bucket that
 already holds >= max_batch blocks dispatches at once instead of sleeping
 the grace window. Up to MINIO_TPU_SCHED_INFLIGHT dispatches run at once,
 each on its own thread; on the card each holds one of the codec's
@@ -61,14 +64,15 @@ _COALESCED_TOTAL = telemetry.REGISTRY.counter(
     "minio_tpu_sched_coalesced_total",
     "Groups that shared another request's dispatch")
 # where a fused dispatch spends its time, per verb: "queue" (submit ->
-# dispatch start), "transfer" (batch assembly + copy onto the device),
-# "compute" (device steps to completion), "fetch" (copy back)
+# dispatch start) and the codec's spans (object/codec.py STEP_STAGES:
+# batch assembly + copy onto the device, launches to completion, copy
+# back; spans between CUDA events, which hold host gaps, not device time)
 _STAGE_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005,
                   0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 10.0)
 DISPATCH_STAGE_SECONDS = telemetry.REGISTRY.histogram(
     "minio_tpu_device_dispatch_seconds",
-    "Fused device dispatch stage timings (queue/transfer/compute/fetch) "
-    "per verb", buckets=_STAGE_BUCKETS)
+    "Fused device dispatch stage timings (queue and the codec's "
+    "transfer/compute/fetch spans) per verb", buckets=_STAGE_BUCKETS)
 
 
 class _Pending:
@@ -123,7 +127,10 @@ class BatchScheduler:
         self.max_batch = max_batch
         self.max_wait = max_wait
         self._mu = threading.Lock()
-        # (verb, codec id, k, m, S, algo value, extra) -> [_Pending]
+        # (verb, device, k, m, S, algo value, extra) -> [_Pending]: no
+        # codec identity, so groups of different engines (erasure sets,
+        # pools) of one geometry share a dispatch (reference
+        # minio_tpu/parallel/scheduler.py:202, 322-327)
         self._buckets: dict[tuple, list[_Pending]] = {}
         self._bucket_blocks: dict[tuple, int] = {}
         self._kick = threading.Condition(self._mu)
@@ -201,7 +208,7 @@ class BatchScheduler:
         returns an already-done future."""
         if self._declined(codec, algo):
             return DispatchFuture()
-        key = ("encode", id(codec), codec.k, codec.m, data.shape[-1],
+        key = ("encode", codec.device, codec.k, codec.m, data.shape[-1],
                algo.value, None)
         return self._enqueue(key, codec, data)
 
@@ -214,7 +221,8 @@ class BatchScheduler:
         None."""
         if self._declined(codec, algo):
             return DispatchFuture()
-        key = ("decode", id(codec), codec.k, codec.m, survivors.shape[-1],
+        key = ("decode", codec.device, codec.k, codec.m,
+               survivors.shape[-1],
                algo.value, (present_mask, shard_len))
         return self._enqueue(key, codec, survivors)
 
@@ -226,7 +234,7 @@ class BatchScheduler:
         Resolves to (out, idxs, survivor_digests, out_digests) or None."""
         if self._declined(codec, algo):
             return DispatchFuture()
-        key = ("recover", id(codec), codec.k, codec.m,
+        key = ("recover", codec.device, codec.k, codec.m,
                survivors.shape[-1], algo.value,
                (present_mask, frozenset(rows), shard_len))
         return self._enqueue(key, codec, survivors)
@@ -360,8 +368,10 @@ class BatchScheduler:
     @staticmethod
     def _run_erasure(key: tuple, group: list, stage_cb):
         from .. import bitrot as bitrot_mod
-        verb, _cid, _k, _m, _s, algo_value, extra = key
+        verb, _dev, _k, _m, _s, algo_value, extra = key
         algo = bitrot_mod.BitrotAlgorithm.from_string(algo_value)
+        # every group of the bucket has this geometry and device, so the
+        # first group's codec serves the merged batch
         codec = group[0].codec
         # the groups are stacked by the codec, straight into the pinned
         # input staging of the dispatch's slot on the card

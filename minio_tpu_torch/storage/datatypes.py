@@ -210,3 +210,37 @@ def new_file_info(object_name: str, data_blocks: int,
 
 def now() -> float:
     return _time.time()
+
+
+@dataclasses.dataclass
+class DiskInfo:
+    """Capacity/health snapshot of one drive (cmd/storage-datatypes.go
+    DiskInfo)."""
+    total: int = 0
+    free: int = 0
+    used: int = 0
+    fs_type: str = ""
+    root_disk: bool = False
+    healing: bool = False
+    endpoint: str = ""
+    mount_path: str = ""
+    disk_id: str = ""
+    error: str = ""
+
+
+def last_version_marker(versions, prefixes) -> tuple[str, str]:
+    """Resume markers at a versions-page cut — THE single home of the
+    rule (engine.paginate_versions, sets.merge_version_listings, and
+    single_version_page all derive their markers here): the lexically
+    LAST entry emitted (a version or a rolled-up CommonPrefix) is
+    where the next page re-enters. A prefix cut carries no version-id
+    marker — resume starts at the first key after the prefix (a
+    prefix-only page with an empty marker would loop the pager
+    forever). A null version id rides as the "null" sentinel: an
+    empty marker reads as NO marker on resume and would skip the
+    key's remaining versions."""
+    last_v = versions[-1].name if versions else ""
+    last_p = prefixes[-1] if prefixes else ""
+    if last_p > last_v:
+        return last_p, ""
+    return last_v, versions[-1].version_id or "null"

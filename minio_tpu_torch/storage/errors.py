@@ -86,3 +86,37 @@ class BitrotHashMismatch(StorageError):
 
 class UnexpectedError(StorageError):
     """Catch-all (errUnexpected)."""
+
+
+class StorageStalled(StorageError):
+    """Drive op abandoned by the quorum-ack lane: it outlived the
+    write-straggler grace after write quorum was already durable. The
+    op keeps running on the background lane — this error only records
+    that the commit stopped waiting (the caller's quorum reduce counts
+    it as a missed write, feeding the MRF degraded-write queue)."""
+
+
+class VolumeNotEmpty(StorageError):
+    """DeleteVol on a non-empty volume (errVolumeNotEmpty)."""
+
+
+class IsNotRegular(StorageError):
+    """Expected a regular file (errIsNotRegular)."""
+
+
+class LessData(StorageError):
+    """Reader gave fewer bytes than promised (errLessData)."""
+
+
+class MoreData(StorageError):
+    """Reader gave more bytes than promised (errMoreData)."""
+
+
+class DiskStale(StorageError):
+    """diskID in request doesn't match the drive (errDiskStale) — the
+    analog of xlStorageDiskIDCheck rejections."""
+
+
+# Errors counted as "object may exist elsewhere, keep looking" by the
+# quorum reducer (objectErrs in the reference).
+OBJECT_NOT_FOUND_ERRS = (FileNotFound, FileVersionNotFound, VolumeNotFound)

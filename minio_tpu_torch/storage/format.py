@@ -22,6 +22,7 @@ from . import errors
 
 FORMAT_CONFIG_FILE = "format.json"
 MINIO_META_BUCKET = ".minio.sys"
+DISTRIBUTION_ALGO_V2 = "CRCMOD"
 DISTRIBUTION_ALGO_V3 = "SIPMOD"
 
 
@@ -127,3 +128,7 @@ def write_format_to(disk, fmt: FormatErasureV3) -> None:
             pass
     disk.write_all(MINIO_META_BUCKET, FORMAT_CONFIG_FILE,
                    fmt.to_json().encode())
+    try:
+        disk.set_disk_id(fmt.this)
+    except errors.StorageError:
+        pass

@@ -215,6 +215,11 @@ class XLMetaV2:
                 return self._entry_to_fi(v, volume, path, is_latest=(i == 0))
         raise errors.FileVersionNotFound(version_id or path)
 
+    def list_file_infos(self, volume: str, path: str) -> list[FileInfo]:
+        """Every version, newest first."""
+        return [self._entry_to_fi(v, volume, path, is_latest=(i == 0))
+                for i, v in enumerate(self.sorted_versions())]
+
     def _entry_to_fi(self, v: dict, volume: str, path: str,
                      is_latest: bool) -> FileInfo:
         t = v.get("Type")

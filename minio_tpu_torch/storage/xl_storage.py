@@ -1,17 +1,20 @@
 """XLStorage — one local POSIX drive.
 
-The local implementation of StorageAPI (reference: cmd/xl-storage.go),
-trimmed to the verbs of the erasure-coded PUT, GET, DELETE and heal
-(check_parts, verify_file). The on-disk
-layout is the reference's, and minio_tpu's, exactly:
+The local implementation of StorageAPI (reference: cmd/xl-storage.go;
+counterpart of minio_tpu/storage/xl_storage.py). The on-disk layout is the
+reference's, and minio_tpu's, exactly:
 
     <root>/.minio.sys/format.json          drive identity + topology
     <root>/<bucket>/<object>/xl.meta       version journal (xl_meta.py)
     <root>/<bucket>/<object>/<dataDir>/part.N   bitrot-framed shards
     <root>/.minio.sys/tmp/<uuid>/...       staged writes (2-phase commit)
+    <root>/.minio.sys/multipart/<sha>/<uploadID>/  multipart sessions
 
 Writes are staged in tmp and committed with an atomic os.replace-based
 rename (reference RenameData, cmd/xl-storage.go:2041).
+
+Left out: O_DIRECT shard writes, append_file (shard frames go through
+open_appender), legacy xl.json migration and the telemetry spans.
 """
 
 from __future__ import annotations
@@ -20,17 +23,19 @@ import io
 import os
 import shutil
 import threading
+from typing import BinaryIO, Iterator, Optional
 
 from .. import bitrot as bitrot_mod
-from ..utils import atomicfile
+from ..utils import atomicfile, crashpoint
 from . import errors
-from .api import StorageAPI
-from .datatypes import FileInfo, VolInfo
+from .api import BitrotVerifier, StorageAPI
+from .datatypes import DiskInfo, FileInfo, VolInfo
 from .format import FORMAT_CONFIG_FILE, MINIO_META_BUCKET, FormatErasureV3
 from .xl_meta import XLMetaV2
 
 XL_STORAGE_FORMAT_FILE = "xl.meta"
 MINIO_META_TMP_BUCKET = MINIO_META_BUCKET + "/tmp"
+MINIO_META_MULTIPART_BUCKET = MINIO_META_BUCKET + "/multipart"
 MAX_PATH_LEN = 4096
 
 
@@ -84,9 +89,25 @@ class XLStorage(StorageAPI):
             raise errors.DiskAccessDenied(self.root)
         self._disk_id = ""
         self._lock = threading.Lock()
+        self._online = True
+        self._healing = False
+
+    # -- identity ----------------------------------------------------------
 
     def __str__(self) -> str:
         return self.root
+
+    def is_online(self) -> bool:
+        return self._online
+
+    def is_local(self) -> bool:
+        return True
+
+    def endpoint(self) -> str:
+        return self.root
+
+    def close(self) -> None:
+        pass
 
     def get_disk_id(self) -> str:
         """The drive UUID from format.json (cached)."""
@@ -104,6 +125,46 @@ class XLStorage(StorageAPI):
                 raise errors.FaultyDisk(str(e)) from e
             self._disk_id = fmt.this
             return self._disk_id
+
+    def set_disk_id(self, disk_id: str) -> None:
+        # a local drive's ID comes from its format.json (reference
+        # xlStorage.SetDiskID is a no-op too)
+        pass
+
+    def healing(self) -> bool:
+        return self._healing
+
+    def disk_info(self) -> DiskInfo:
+        try:
+            st = os.statvfs(self.root)
+        except OSError as e:
+            raise errors.FaultyDisk(str(e)) from e
+        total = st.f_blocks * st.f_frsize
+        free = st.f_bavail * st.f_frsize
+        disk_id = ""
+        try:
+            disk_id = self.get_disk_id()
+        except errors.StorageError:
+            pass
+        return DiskInfo(total=total, free=free, used=total - free,
+                        fs_type="posix", endpoint=self.root,
+                        mount_path=self.root, disk_id=disk_id,
+                        healing=self._healing)
+
+    # -- format ------------------------------------------------------------
+
+    def read_format(self) -> FormatErasureV3:
+        data = self.read_all(MINIO_META_BUCKET, FORMAT_CONFIG_FILE)
+        return FormatErasureV3.from_json(data)
+
+    def write_format(self, fmt: FormatErasureV3) -> None:
+        self.make_vol_bulk(MINIO_META_BUCKET, MINIO_META_TMP_BUCKET,
+                           MINIO_META_MULTIPART_BUCKET,
+                           MINIO_META_BUCKET + "/buckets")
+        self.write_all(MINIO_META_BUCKET, FORMAT_CONFIG_FILE,
+                       fmt.to_json().encode())
+        with self._lock:
+            self._disk_id = fmt.this
 
     # -- paths -------------------------------------------------------------
 
@@ -128,6 +189,36 @@ class XLStorage(StorageAPI):
         try:
             os.makedirs(vdir)
         except OSError as e:
+            raise errors.FaultyDisk(str(e)) from e
+
+    def make_vol_bulk(self, *volumes: str) -> None:
+        for v in volumes:
+            os.makedirs(self._vol_dir(v), exist_ok=True)
+
+    def list_vols(self) -> list[VolInfo]:
+        out = []
+        try:
+            for name in sorted(os.listdir(self.root)):
+                full = os.path.join(self.root, name)
+                if os.path.isdir(full) and name != MINIO_META_BUCKET:
+                    out.append(VolInfo(name=name,
+                                       created=os.stat(full).st_ctime))
+        except OSError as e:
+            raise errors.FaultyDisk(str(e)) from e
+        return out
+
+    def delete_vol(self, volume: str, force: bool = False) -> None:
+        vdir = self._vol_dir(volume)
+        try:
+            if force:
+                shutil.rmtree(vdir)
+            else:
+                os.rmdir(vdir)
+        except FileNotFoundError:
+            raise errors.VolumeNotFound(volume) from None
+        except OSError as e:
+            if os.path.isdir(vdir) and os.listdir(vdir):
+                raise errors.VolumeNotEmpty(volume) from e
             raise errors.FaultyDisk(str(e)) from e
 
     def stat_vol(self, volume: str) -> VolInfo:
@@ -160,6 +251,11 @@ class XLStorage(StorageAPI):
         fp = self._file_path(volume, path)
         try:
             os.makedirs(os.path.dirname(fp), exist_ok=True)
+            # torn-write injection for in-process crash tests: an armed
+            # action receives path= and data= and may commit a truncated
+            # copy to the final name before aborting
+            crashpoint.hit("storage.write_all.commit", path=fp,
+                           data=data)
             atomicfile.write_atomic(fp, data)
         except NotADirectoryError:
             raise errors.FileParentIsFile(fp) from None
@@ -184,6 +280,66 @@ class XLStorage(StorageAPI):
         except OSError as e:
             raise errors.FaultyDisk(str(e)) from e
 
+    def create_file(self, volume: str, path: str, size: int,
+                    reader: BinaryIO) -> None:
+        """Stream `size` bytes (exactly) from reader into a fresh file
+        (reference CreateFile, cmd/xl-storage.go:1664; errLessData /
+        errMoreData on a mismatch)."""
+        fp = self._file_path(volume, path)
+        if not os.path.isdir(self._vol_dir(volume)):
+            raise errors.VolumeNotFound(volume)
+        try:
+            os.makedirs(os.path.dirname(fp), exist_ok=True)
+            with open(fp, "wb") as f:
+                remaining = size
+                while True:
+                    chunk = reader.read(min(1 << 20, remaining)
+                                        if size >= 0 else 1 << 20)
+                    if not chunk:
+                        break
+                    if size >= 0 and len(chunk) > remaining:
+                        raise errors.MoreData(path)
+                    f.write(chunk)
+                    remaining -= len(chunk)
+                    if size >= 0 and remaining == 0:
+                        if reader.read(1):
+                            raise errors.MoreData(path)
+                        break
+                if size >= 0 and remaining > 0:
+                    raise errors.LessData(path)
+                atomicfile.fsync_file(f)
+        except NotADirectoryError:
+            raise errors.FileParentIsFile(fp) from None
+        except OSError as e:
+            raise errors.FaultyDisk(str(e)) from e
+
+    def read_file(self, volume: str, path: str, offset: int, length: int,
+                  verifier: Optional[BitrotVerifier] = None) -> bytes:
+        """`length` bytes at `offset`; with a verifier, the whole file is
+        hashed and checked against its expected digest first."""
+        fp = self._file_path(volume, path)
+        try:
+            with open(fp, "rb") as f:
+                if verifier is not None:
+                    whole = f.read()
+                    digest = bitrot_mod.hash_shard(
+                        whole, bitrot_mod.BitrotAlgorithm.from_string(
+                            verifier.algorithm))
+                    if digest != verifier.digest:
+                        raise errors.BitrotHashMismatch(
+                            verifier.digest.hex(), digest.hex())
+                    return whole[offset:offset + length]
+                f.seek(offset)
+                return f.read(length)
+        except FileNotFoundError:
+            if not os.path.isdir(self._vol_dir(volume)):
+                raise errors.VolumeNotFound(volume) from None
+            raise errors.FileNotFound(path) from None
+        except IsADirectoryError:
+            raise errors.IsNotRegular(path) from None
+        except OSError as e:
+            raise errors.FaultyDisk(str(e)) from e
+
     def read_file_stream(self, volume: str, path: str, offset: int,
                          length: int):
         fp = self._file_path(volume, path)
@@ -197,6 +353,20 @@ class XLStorage(StorageAPI):
             raise errors.FaultyDisk(str(e)) from e
         f.seek(offset)
         return _LimitedReader(f, length)
+
+    def rename_file(self, src_volume: str, src_path: str,
+                    dst_volume: str, dst_path: str) -> None:
+        src = self._file_path(src_volume, src_path)
+        dst = self._file_path(dst_volume, dst_path)
+        try:
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            os.replace(src, dst)
+        except FileNotFoundError:
+            raise errors.FileNotFound(src_path) from None
+        except OSError as e:
+            raise errors.FaultyDisk(str(e)) from e
+        atomicfile.fsync_dir(os.path.dirname(dst))
+        self._cleanup_empty_parents(src_volume, os.path.dirname(src))
 
     def delete_file(self, volume: str, path: str,
                     recursive: bool = False) -> None:
@@ -226,6 +396,33 @@ class XLStorage(StorageAPI):
                 return
             dirpath = os.path.dirname(dirpath)
 
+    def check_file(self, volume: str, path: str) -> None:
+        fp = self._file_path(volume, path)
+        if not os.path.isfile(os.path.join(fp, XL_STORAGE_FORMAT_FILE)):
+            raise errors.FileNotFound(path)
+
+    def list_dir(self, volume: str, dir_path: str,
+                 count: int = -1) -> list[str]:
+        """Sorted entries; directories get a trailing slash (reference
+        ListDir/readDirN semantics)."""
+        vdir = self._vol_dir(volume)
+        if not os.path.isdir(vdir):
+            raise errors.VolumeNotFound(volume)
+        full = os.path.join(vdir, dir_path) if dir_path else vdir
+        try:
+            names = sorted(os.listdir(full))
+        except (FileNotFoundError, NotADirectoryError):
+            raise errors.FileNotFound(dir_path) from None
+        except OSError as e:
+            raise errors.FaultyDisk(str(e)) from e
+        out = []
+        for n in names:
+            out.append(n + "/" if os.path.isdir(os.path.join(full, n))
+                       else n)
+            if 0 < count <= len(out):
+                break
+        return out
+
     # -- metadata ----------------------------------------------------------
 
     def _read_xl_meta(self, volume: str, path: str) -> XLMetaV2:
@@ -247,6 +444,10 @@ class XLStorage(StorageAPI):
                      version_id: str = "") -> FileInfo:
         meta = self._read_xl_meta(volume, path)
         return meta.to_file_info(volume, path, version_id)
+
+    def read_versions(self, volume: str, path: str) -> list[FileInfo]:
+        return self._read_xl_meta(volume, path).list_file_infos(volume,
+                                                                path)
 
     def delete_version(self, volume: str, path: str, fi: FileInfo) -> None:
         """Drop one version; purge its data dir; remove xl.meta (and the
@@ -294,46 +495,61 @@ class XLStorage(StorageAPI):
 
     def verify_file(self, volume: str, path: str, fi: FileInfo) -> None:
         """Full bitrot scan of every part (reference VerifyFile,
-        cmd/xl-storage.go:2410): each [digest||block] frame of the
-        streaming framing is hashed on the host."""
+        cmd/xl-storage.go:2410): streaming algorithms verify each
+        [digest||block] frame; whole-file algorithms hash the entire shard
+        against the digest in xl.meta."""
         for part in fi.parts:
             pp = os.path.join(path, fi.data_dir, f"part.{part.number}")
             csum = fi.erasure.get_checksum_info(part.number)
             algo = (bitrot_mod.BitrotAlgorithm.from_string(csum.algorithm)
                     if csum else bitrot_mod.DEFAULT_BITROT_ALGORITHM)
-            if not algo.streaming:
-                raise NotImplementedError(
-                    f"bitrot algorithm {algo.value!r}: only streaming "
-                    "framing is ported")
             try:
                 f = open(self._file_path(volume, pp), "rb")
             except FileNotFoundError:
                 raise errors.FileNotFound(pp) from None
             except OSError as e:
                 raise errors.FaultyDisk(str(e)) from e
-            shard_size = fi.erasure.shard_size()
-            remaining = fi.erasure.shard_file_size(part.size)
             with f:
-                while remaining > 0:
-                    want = f.read(algo.digest_size)
-                    n = min(shard_size, remaining)
-                    block = f.read(n)
-                    if len(want) != algo.digest_size or len(block) != n:
-                        raise errors.FileCorrupt(
-                            f"{pp}: truncated bitrot frame")
-                    got = bitrot_mod.hash_shard(block, algo)
-                    if got != want:
-                        raise errors.BitrotHashMismatch(want.hex(),
-                                                        got.hex())
-                    remaining -= n
+                if algo.streaming:
+                    self._verify_streaming(f, fi, part.size, algo, pp)
+                    continue
+                h = bitrot_mod.new_hasher(algo)
+                while True:
+                    chunk = f.read(1 << 20)
+                    if not chunk:
+                        break
+                    h.update(chunk)
+                if csum and csum.hash and h.digest() != csum.hash:
+                    raise errors.BitrotHashMismatch(csum.hash.hex(),
+                                                    h.digest().hex())
+
+    @staticmethod
+    def _verify_streaming(f, fi: FileInfo, part_size: int, algo,
+                          pp: str) -> None:
+        shard_size = fi.erasure.shard_size()
+        remaining = fi.erasure.shard_file_size(part_size)
+        while remaining > 0:
+            want = f.read(algo.digest_size)
+            n = min(shard_size, remaining)
+            block = f.read(n)
+            if len(want) != algo.digest_size or len(block) != n:
+                raise errors.FileCorrupt(f"{pp}: truncated bitrot frame")
+            got = bitrot_mod.hash_shard(block, algo)
+            if got != want:
+                raise errors.BitrotHashMismatch(want.hex(), got.hex())
+            remaining -= n
 
     def rename_data(self, src_volume: str, src_path: str, data_dir: str,
-                    dst_volume: str, dst_path: str) -> None:
+                    dst_volume: str, dst_path: str,
+                    version_id: str = "") -> None:
         """Commit a staged write: merge the staged version of src's
         xl.meta into dst's journal, move the data dir, drop src
-        (reference RenameData, cmd/xl-storage.go:2041)."""
+        (reference RenameData, cmd/xl-storage.go:2041). `version_id`
+        names the version committed: a multipart session's staged meta
+        also holds the session's own entry, so "latest" may be the wrong
+        one; without it the latest is taken."""
         src_meta = self._read_xl_meta(src_volume, src_path)
-        fi = src_meta.to_file_info(dst_volume, dst_path)
+        fi = src_meta.to_file_info(dst_volume, dst_path, version_id)
         try:
             dst_meta = self._read_xl_meta(dst_volume, dst_path)
         except errors.FileNotFound:
@@ -356,6 +572,9 @@ class XLStorage(StorageAPI):
                 raise errors.FaultyDisk(str(e)) from e
             atomicfile.fsync_dir(os.path.dirname(dst_data))
 
+        # the single-drive torn window: data dir in place, xl.meta not
+        # yet rewritten
+        crashpoint.hit("storage.rename_data.before_meta")
         self.write_all(dst_volume,
                        os.path.join(dst_path, XL_STORAGE_FORMAT_FILE),
                        dst_meta.dumps())
@@ -363,6 +582,61 @@ class XLStorage(StorageAPI):
             self.delete_file(src_volume, src_path, recursive=True)
         except errors.FileNotFound:
             pass
+
+
+    # -- walk --------------------------------------------------------------
+
+    def walk(self, volume: str, dir_path: str = "", marker: str = "",
+             recursive: bool = True) -> Iterator[FileInfo]:
+        """Lexically sorted stream of latest-version FileInfos under a
+        prefix (reference Walk, cmd/xl-storage.go:1015)."""
+        vdir = self._vol_dir(volume)
+        if not os.path.isdir(vdir):
+            raise errors.VolumeNotFound(volume)
+
+        def _walk(rel: str) -> Iterator[FileInfo]:
+            full = os.path.join(vdir, rel) if rel else vdir
+            try:
+                entries = sorted(os.listdir(full))
+            except OSError:
+                return
+            if XL_STORAGE_FORMAT_FILE in entries:
+                if rel and (not marker or rel > marker):
+                    try:
+                        yield self.read_version(volume, rel)
+                    except errors.StorageError:
+                        pass
+                return
+            for e in entries:
+                sub = os.path.join(rel, e) if rel else e
+                subfull = os.path.join(full, e)
+                if not os.path.isdir(subfull):
+                    continue
+                if recursive:
+                    yield from _walk(sub)
+                elif os.path.isfile(
+                        os.path.join(subfull, XL_STORAGE_FORMAT_FILE)):
+                    # flat object: yield it, not a pseudo-prefix
+                    if not marker or sub > marker:
+                        try:
+                            yield self.read_version(volume, sub)
+                        except errors.StorageError:
+                            pass
+                elif not marker or sub > marker:
+                    yield FileInfo(volume=volume, name=sub + "/")
+
+        yield from _walk(dir_path)
+
+    def walk_versions(self, volume: str, dir_path: str = "",
+                      marker: str = "", recursive: bool = True
+                      ) -> Iterator[list[FileInfo]]:
+        for fi in self.walk(volume, dir_path, marker, recursive):
+            if fi.name.endswith("/"):
+                continue
+            try:
+                yield self.read_versions(volume, fi.name)
+            except errors.StorageError:
+                pass
 
 
 class _LimitedReader(io.RawIOBase):

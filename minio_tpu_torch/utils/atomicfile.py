@@ -9,8 +9,10 @@ follow ``FSYNC`` (the reference's default: off).
 
 from __future__ import annotations
 
+import json
 import os
 import uuid as _uuid
+from typing import Optional
 
 # fsync barriers on commit paths (reference knob MINIO_TPU_FSYNC, default off)
 FSYNC = False
@@ -63,3 +65,16 @@ def write_atomic(path: str, data: bytes) -> None:
             pass
         raise
     fsync_dir(os.path.dirname(path) or ".")
+
+
+def load_json_doc(raw: bytes) -> Optional[dict]:
+    """Parse a persisted JSON document tolerantly: a torn/truncated
+    file (crash inside the write) or a valid-JSON-but-wrong-type
+    prefix (``b"12"`` from a truncated ``{"epoch": 12, ...}`` would
+    parse as an int) returns None — the caller falls back to its
+    previous copy — instead of raising into a boot path."""
+    try:
+        doc = json.loads(raw.decode())
+    except (ValueError, UnicodeDecodeError):
+        return None
+    return doc if isinstance(doc, dict) else None

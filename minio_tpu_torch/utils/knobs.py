@@ -1,9 +1,10 @@
 """Registry of the ``MINIO_TPU_*`` tuning knobs the port reads.
 
 Counterpart of minio_tpu/utils/knobs.py, trimmed to the knobs of the
-pipelined data path, the batch former, heal and the MRF queue, with the
+pipelined data path, the batch former, heal, the MRF queue, the
+quorum-ack write lane of multipart and the crash injector, with the
 reference's names, types and defaults (minio_tpu/utils/knobs.py:160-197,
-:284-291). Left out: the README table renderer and every knob no ported
+:284-291, :310-331, :360, :522). Left out: the README table renderer and every knob no ported
 module reads. No knob here is one the reference lacks.
 
 Getters read the environment at call time: tests flip knobs with

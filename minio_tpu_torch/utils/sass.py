@@ -7,7 +7,8 @@ the cycles per trip of its longest loop-carried dependency chain: the
 floor of a loop whose trips depend on each other, however many threads run
 it. The latencies are a model (``LATENCY``), not a measurement; they are
 printed beside every floor computed from them. ``packet_loop`` applies
-them to hh256's packet loop in a built kernel library.
+them to hh256's packet loop in a built kernel library, ``block_loop`` to
+sha256's loop over 64-byte blocks (one trip = one compression).
 """
 
 from __future__ import annotations
@@ -222,3 +223,12 @@ def packet_loop(lib: str) -> dict:
     listing cannot be read or holds no such loop."""
     return analyse(function_text(dump(lib), "hh256_kernel"),
                    need=("IMAD.WIDE", "LDS"), avoid=("SHFL", "LDGSTS"))
+
+
+def block_loop(lib: str) -> dict:
+    """``analyse`` of one trip of sha256's block loop (one compression of
+    64 rounds) in the kernel library at path `lib`: the loop with the
+    most funnel shifts (the rotates). Raises when the listing cannot be
+    read or holds no such loop."""
+    return analyse(function_text(dump(lib), "sha256_kernel"),
+                   need=("SHF",), avoid=("SHFL",))

@@ -3,6 +3,8 @@ versions, on the card (tolerance 0: exact bytes). Marked `cuda`: each test
 skips, with the reason, on a host without a card; CUDA kernels have no
 CPU mode."""
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -10,7 +12,7 @@ import torch
 from minio_tpu_torch.bitrot import MAGIC_HIGHWAYHASH_KEY as KEY
 from minio_tpu_torch.models import pipeline
 from minio_tpu_torch.ops import (highwayhash_cuda, highwayhash_py, rs_cuda,
-                                 rs_matrix)
+                                 rs_matrix, sha256_cuda, sha256_ref)
 from minio_tpu_torch.utils import guard_pages
 
 pytestmark = pytest.mark.cuda
@@ -221,6 +223,54 @@ def test_get_step_hashes_survivors_only(dev):
     assert dig.shape == (8, k, 32)
     cpu = pipeline.get_step(x.cpu(), bits.cpu(), len(missing), k, 1000)
     assert torch.equal(out.cpu(), cpu[0]) and torch.equal(dig.cpu(), cpu[1])
+
+
+def _check_sha256(rows, length):
+    got = sha256_cuda.sha256_rows(rows, length)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sha256_ref.sha256_rows(rows, length))
+    host = rows[:, :length].cpu().numpy()
+    for i, r in enumerate(host):
+        assert got[i].cpu().numpy().tobytes() == \
+            hashlib.sha256(r.tobytes()).digest()
+
+
+@pytest.mark.parametrize("length", [0, 1, 3, 55, 56, 57, 63, 64, 65, 119,
+                                    120, 127, 128, 1000, 4099])
+def test_sha256_kernel_equals_plain(dev, length):
+    before = sha256_cuda.sha256_rows.launches
+    _check_sha256(_rand((35, length + 5), length, dev), length)
+    assert sha256_cuda.sha256_rows.launches == before + 1
+
+
+@pytest.mark.parametrize("stride", [1024, 1028, 1030, 1031])
+def test_sha256_row_alignments(dev, stride):
+    # rows on 16-, 4-, 2- and 1-byte boundaries, every load path
+    _check_sha256(_rand((33, stride), stride, dev), stride)
+    _check_sha256(_rand((33, stride), stride + 1, dev), stride - 9)
+
+
+@pytest.mark.parametrize("n_rows,length", [(3, 17), (40, 1031),
+                                           (20, 8192)])
+def test_sha256_reads_only_its_rows(dev, n_rows, length):
+    # rows at each end of a mapping between unmapped ranges: a read
+    # outside the rows stops the kernel with an illegal-address error
+    n = n_rows * length
+    with guard_pages.guarded(n, dev) as buf:
+        for rows in (buf[:n], buf[-n:]):
+            rows = rows.view(n_rows, length)
+            rows.copy_(_rand((n_rows, length), length, dev))
+            _check_sha256(rows, length)
+
+
+def test_put_step_sha256_on_card_equals_cpu(dev):
+    x = _rand((2, 16, 4096), 6, dev)
+    before = sha256_cuda.sha256_rows.launches
+    on_card = pipeline.put_step(x, 16, 4, 4000, algo="sha256")
+    assert sha256_cuda.sha256_rows.launches == before + 1
+    on_cpu = pipeline.put_step(x.cpu(), 16, 4, 4000, algo="sha256")
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_two_threads_launch_on_their_own_streams(dev):

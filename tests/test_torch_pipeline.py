@@ -70,9 +70,17 @@ def test_get_and_heal_step_equal_reference():
 
 
 def test_sha256_and_bad_shapes_raise():
-    data = torch.from_numpy(_data((1, K, 8), 1))
-    with pytest.raises(NotImplementedError):
-        pipeline.put_step(data, K, M, algo="sha256")
+    # sha256 is ported (ops/sha256_cuda.py): put_step digests with it
+    # byte for byte as the reference does; an unknown algorithm and bad
+    # shapes raise
+    raw = _data((1, K, 70), 1)
+    data = torch.from_numpy(raw)
+    parity, digests = pipeline.put_step(data, K, M, 67, algo="sha256")
+    rp, rd = ref_pipeline.put_step(raw, K, M, 67, algo="sha256")
+    assert (parity.numpy() == np.asarray(rp)).all()
+    assert (digests.numpy() == np.asarray(rd)).all()
+    with pytest.raises(ValueError):
+        pipeline.put_step(data, K, M, algo="blake2b")
     with pytest.raises(ValueError):
         pipeline.put_step(data, K + 1, M)
 
