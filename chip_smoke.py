@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure exits non-zero:
+About 7 to 8 minutes on one H100, the kernels' builds included. Phases, each
+printing one JSON line; any failure exits non-zero:
 
   1. build    — compile every hand-written kernel (csrc/*.cu, one nvcc per
                 source, all at once) and report nvcc's register/spill lines.
@@ -35,7 +36,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 bytes 1..3), and config 5's 640 rows at each end of a
                 guarded mapping; gf_matmul at config 5's shapes: encode
                 (B=32, 4x16, S=65,536) and decode with r = 1 and 4 of
-                k = 16 (B=8).
+                k = 16 (B=8); chacha20 against its plain version, into a
+                new tensor and in place, at the RFC 8439 §2.4.2 vector,
+                packages of 64, 4,096 and 65,536 B x P = 1, 2, 16, spans
+                shorter than the row (the bytes past them must stay as
+                they were), the PUT's flat rows of 1,048,584 and
+                4,194,312 B, rows at 8-, 4- and 1-byte alignment, GET's
+                64 x 65,536 with a short padded last package, and input
+                and output at each end of a guarded mapping; and
+                sse_put_step / sse_get_step on the card against the same
+                steps on CPU tensors (config 2's block, B=2).
   3. main path — one 16-drive erasure set at EC 12+4, 4 MiB blocks,
                 highwayhash256S streaming bitrot: PUT eight 64 MiB objects,
                 one of 64 MiB + 12,345 bytes and one of 1 KiB; GET them all
@@ -90,8 +100,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 sharing one batch former; every object read back by bytes
                 and multipart ETag, healthy and with 4 of 20 drives gone
                 in each pool.
+  9. SSE      — BASELINE.json config 2 under SSE-S3 with ChaCha20-Poly1305
+                (see run_sse): 32 threads each PUT one 16 MiB object at
+                once through setup_put_transforms and the DeviceSSE spec,
+                the former and the pipelined loop; every object read back
+                through resolve_get_key and chacha_decrypt_ranged (bytes,
+                MD5 ETag), three ranged reads across a 64-package batch,
+                eight reads with 3 drives gone, the stored bytes against
+                ChaChaEncryptor and every tag under open_detached, a
+                flipped ciphertext byte found before any plaintext,
+                submit_decode(sse=) through sse_get_step, one SSE-C
+                object; chacha20 launches equal the encrypted encode
+                dispatches and the GET decipher batches, per path. Prints
+                the GiB/s, the host Poly1305 seconds for the phase's
+                packages (timed on one core) and the idle share.
+  4. timings  — (continued) chacha20 at the encode launch (8 rows, 1 MiB
+                span in 1,048,584-byte rows) and at GET's 64 x 65,536,
+                beside its byte and operation bounds, its plain version
+                and chacha20_ref.xor_stream on the host over the same
+                bytes; sse_put_step against put_step at config 2's shape,
+                and sse_put_step there and sse_get_step at a degraded-GET
+                group (B=8, 3 data shards lost) beside the sum of their
+                kernels' bounds and their plain composition on the card.
 
-Phases run in the order 1, 2, 3, 5, 6, 7, 8, 4. Each path's launch counters
+Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 4. Each path's launch counters
 are set to 0 just before it runs and read just after. Then it prints the
 kernel table as one JSON line (with each kernel's launches on every path),
 the card's name and power limit, and the device line last. It needs one
@@ -130,12 +162,18 @@ HH256_OPS_PER_ROUND = 4 * 14 + 4 * 9
 # = 10. Then 8 state adds and 16 byte permutes (PRMT) of the big-endian
 # loads. The built kernel issues more (utils/sass.block_loop reads it).
 SHA256_OPS_PER_COMPRESSION = 64 * 14 + 48 * 10 + 8 + 16
+# 32-bit operations of one ChaCha20 block of 64 bytes: 10 double rounds of
+# 8 quarter rounds, each 4 adds, 4 xors and 4 rotates (byte permutes or
+# funnel shifts, one instruction each) = 960, the 16 feed-forward adds and
+# the 16 xors with the data
+CHACHA20_OPS_PER_BLOCK = 10 * 8 * 12 + 16 + 16
 SEED = 20240601
-# object sizes of phases 3, 5 and 7
+# object sizes of phases 3, 5, 7 and 9
 MAIN_OBJECT = 64 << 20              # eight of these, one 12,345 B longer
 CONCURRENT = (32, 16 << 20)         # streams, bytes each (config 2)
 MRF_OBJECTS = (4, 64 << 20)
 CONFIG5 = (8, 4, 64 << 20)          # objects, parts each, bytes per part
+SSE_OBJECTS = (32, 16 << 20)        # streams, bytes each (config 2, SSE)
 
 
 def fail(msg: str) -> None:
@@ -163,9 +201,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
     sys.path.insert(0, HERE)
-    from minio_tpu_torch.ops import (highwayhash_cuda, highwayhash_py,
-                                     kernels, rs_cuda, rs_matrix,
-                                     sha256_cuda, sha256_ref)
+    from minio_tpu_torch.ops import (chacha20_cuda, chacha20_plain,
+                                     chacha20_ref, highwayhash_cuda,
+                                     highwayhash_py, kernels, rs_cuda,
+                                     rs_matrix, sha256_cuda, sha256_ref)
     from minio_tpu_torch.bitrot import MAGIC_HIGHWAYHASH_KEY as KEY
     from minio_tpu_torch.models import pipeline
     from minio_tpu_torch.utils import guard_pages, sass
@@ -346,10 +385,17 @@ def main() -> int:
                  rand_u8(8, k5, s5))
     sha_err, sha_cases = check_sha256(torch, dev, rand_u8, max_err,
                                       sha256_cuda, sha256_ref, guard_pages)
+    cc_err, cc_cases = check_chacha20(torch, dev, rand_u8, max_err,
+                                      chacha20_cuda, chacha20_plain,
+                                      chacha20_ref, guard_pages, np)
+    sse_err = check_sse_steps(torch, dev, rand_u8, max_err, pipeline,
+                              rs_cuda, rs_matrix, chacha20_cuda, np)
     emit({"phase": "kernels", "gf_matmul_max_abs_err": gf_err,
           "gf_matmul_cases": gf_cases,
           "hh256_max_abs_err": hh_err, "hh256_cases": hh_cases,
           "sha256_max_abs_err": sha_err, "sha256_cases": sha_cases,
+          "chacha20_max_abs_err": cc_err, "chacha20_cases": cc_cases,
+          "sse_steps_max_abs_err": sse_err,
           "tolerance": 0,
           "seconds": round(time.perf_counter() - t0, 3), "card": card})
 
@@ -359,7 +405,8 @@ def main() -> int:
     from minio_tpu_torch.storage.datatypes import hash_order
     from minio_tpu_torch.utils import stagetimer
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    counts = LaunchCounts(rs_cuda, highwayhash_cuda, sha256_cuda)
+    counts = LaunchCounts(rs_cuda, highwayhash_cuda, sha256_cuda,
+                          chacha20_cuda)
     try:
         main_path, state = run_main_path(eng_mod, hash_order, tmp, card,
                                          counts, stagetimer, np)
@@ -376,12 +423,15 @@ def main() -> int:
         # -- 8. config 5: its own former, shared by both pools -----------
         shutil.rmtree(os.path.join(tmp, "concurrent"), ignore_errors=True)
         config5 = run_config5(tmp, card, counts, stagetimer, np)
+        # -- 9. config 2 under SSE: its own former ------------------------
+        ssep = run_sse(tmp, card, counts, stagetimer, np)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths_launches = {"main_path": main_path["launches"],
                       "concurrent_put": concurrent["launches"],
                       "heal": heal["launches"], "mrf": mrf["launches"],
-                      "config5": config5["launches"]}
+                      "config5": config5["launches"],
+                      "sse": ssep["launches"]}
 
     # -- 4. timings -------------------------------------------------------
     b, s = 32, -(-(1 << 20) // k)
@@ -391,6 +441,10 @@ def main() -> int:
     timing.update(run_config5_timings(
         torch, dev, rand_u8, max_err, rs_cuda, rs_matrix, sha256_cuda,
         sha256_ref, kernels, sass, timing["sm_clock_mhz"]))
+    timing.update(run_sse_timings(torch, dev, rand_u8, max_err, pipeline,
+                                  chacha20_cuda, chacha20_plain,
+                                  chacha20_ref, rs_cuda, rs_matrix,
+                                  highwayhash_cuda, KEY, np))
     timing.update({"phase": "timings", "B": b, "k": k, "m": m, "S": s,
                    "card": card})
     emit(timing)
@@ -431,7 +485,28 @@ def main() -> int:
          "bound_ms": timing["sha256_bound_ms"],
          "bound_by": bound_by(timing, "sha256"), "library_ms": None,
          "hashlib_host_ms": timing["sha256_hashlib_ms"],
-         "chain_floor_ms": timing["sha256_chain_floor_ms"]}]})
+         "chain_floor_ms": timing["sha256_chain_floor_ms"]},
+        {"name": "chacha20", "route": "cuda",
+         "source": "minio_tpu_torch/csrc/chacha20.cu",
+         "replaces": "minio_tpu/ops/chacha20_jax.py:50",
+         "launches": ssep["launches"]["chacha20"],
+         "launches_by_path": {p: n["chacha20"]
+                              for p, n in paths_launches.items()},
+         "launches_by_sse_subpath": {
+             p: n["chacha20"]
+             for p, n in ssep["launches_by_subpath"].items()},
+         "max_abs_err": max(cc_err, sse_err,
+                            timing["chacha20_encode"]["max_abs_err"],
+                            timing["chacha20_get"]["max_abs_err"]),
+         "ms": timing["chacha20_encode"]["ms"],
+         "plain_ms": timing["chacha20_encode"]["plain_ms"],
+         "bound_ms": timing["chacha20_encode"]["bound_ms"],
+         "bound_by": timing["chacha20_encode"]["bound_by"],
+         "library_ms": None,
+         "get_batch_ms": timing["chacha20_get"]["ms"],
+         "get_batch_bound_ms": timing["chacha20_get"]["bound_ms"],
+         "host_xor_stream_ms": timing["chacha20_encode"][
+             "host_xor_stream_ms"]}]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -497,22 +572,172 @@ def check_sha256(torch, dev, rand_u8, max_err, sha256_cuda, sha256_ref,
     return err, cases
 
 
+def check_chacha20(torch, dev, rand_u8, max_err, chacha20_cuda,
+                   chacha20_plain, chacha20_ref, guard_pages, np
+                   ) -> tuple[int, int]:
+    """Phase 2 for chacha20: the kernel against its plain version on every
+    byte (tolerance 0), into a new tensor and in place (bytes at or past
+    the span must stay as they were). Returns (max abs err, cases)."""
+    rng = np.random.default_rng(SEED + 3)
+    err, cases = 0, 0
+
+    def words(*shape):
+        return chacha20_cuda.words(
+            rng.integers(0, 1 << 32, shape, dtype=np.uint32), dev)
+
+    def check(what, data, keys, nonces, pkg_bytes, span=None, out=None):
+        """Into a new tensor, into `out` when given (preset to data), and
+        in place (in `out`, or a copy of data)."""
+        nonlocal err, cases
+        want = chacha20_plain.keystream_xor(data, keys, nonces, pkg_bytes,
+                                            span)
+        results = [chacha20_cuda.keystream_xor(data, keys, nonces,
+                                               pkg_bytes, span)]
+        if out is not None:
+            out.copy_(data)
+            chacha20_cuda.keystream_xor(data, keys, nonces, pkg_bytes, span,
+                                        out=out)
+            torch.cuda.synchronize()
+            results.append(out.clone())
+        inplace = data.clone() if out is None else out
+        inplace.copy_(data)
+        chacha20_cuda.keystream_xor(inplace, keys, nonces, pkg_bytes, span,
+                                    out=inplace)
+        torch.cuda.synchronize()
+        results.append(inplace)
+        e = max(max_err(r, want) for r in results)
+        if e:
+            fail(f"chacha20 {what}: kernel disagrees (max abs err {e})")
+        err = max(err, e)
+        cases += 1
+
+    # RFC 8439 §2.4.2: the sunscreen plaintext, one 128-byte package
+    pt = (b"Ladies and Gentlemen of the class of '99: If I could offer "
+          b"you only one tip for the future, sunscreen would be it.")
+    key, nonce = bytes(range(32)), bytes.fromhex("000000000000004a00000000")
+    got = chacha20_cuda.keystream_xor(
+        torch.frombuffer(bytearray(pt), dtype=torch.uint8)[None].to(dev),
+        chacha20_cuda.words(np.frombuffer(key, "<u4")[None], dev),
+        chacha20_cuda.words(np.frombuffer(nonce, "<u4")[None, None], dev),
+        128).cpu().numpy().tobytes()
+    if got[:16] != bytes.fromhex("6e2e359a2568f98041ba0728dd0d6981") or \
+            got != chacha20_ref.xor_stream(pt, key, nonce):
+        fail("chacha20: the RFC 8439 §2.4.2 vector disagrees")
+    cases += 1
+    # package sizes and counts, and spans shorter than the row (a multiple
+    # of 64 and not): a wrong counter, nonce index or package shows at
+    # P > 1 and pkg_bytes < row length
+    for pkg in (64, 4096, 65536):
+        for p in (1, 2, 16):
+            data = rand_u8(3, p * pkg + 40)
+            keys, nonces = words(3, 8), words(3, p, 3)
+            for span in (None, p * pkg - 64, p * pkg - 1):
+                if span != 0:
+                    check(f"P={p} x {pkg} B, span {span}", data, keys,
+                          nonces, pkg, span)
+    # the PUT's flat (B, k*S) rows at 12+4: 1 MiB blocks (k*S = 1,048,584)
+    # and 4 MiB (4,194,312), 8-byte aligned; then rows at 8-, 4- and
+    # 1-byte alignment (views from bytes 8, 4 and 1 of a buffer)
+    for stride, span in ((1048584, 1 << 20), (4194312, 4 << 20)):
+        check(f"8 rows of {stride}, span {span}", rand_u8(8, stride),
+              words(8, 8), words(8, span // 65536, 3), 65536, span)
+    flat = rand_u8(8 + 8 * 1048584)
+    keys, nonces = words(8, 8), words(8, 16, 3)
+    for base in (8, 4, 1):
+        view = flat[base:base + 8 * 1048584].view(8, 1048584)
+        if view.data_ptr() % 16 != base % 16:
+            fail("chacha20: the view does not start where intended")
+        check(f"8 rows of 1048584 from byte {base}", view, keys, nonces,
+              65536, 1 << 20)
+    # GET's decipher batch: 64 packages of 65,536 B, a short last package
+    # zero-padded to a 64-byte multiple, and a lone short package
+    rows = rand_u8(64, 65536)
+    rows[-1, 1000:] = 0
+    keys, nonces = words(64, 8), words(64, 1, 3)
+    check("GET 64 x 65536, short last package", rows, keys, nonces, 65536)
+    got = chacha20_cuda.xor_packages(rows, keys, nonces[:, 0])
+    if max_err(got, chacha20_plain.keystream_xor(rows, keys, nonces,
+                                                 65536)):
+        fail("chacha20: xor_packages disagrees")
+    check("GET one padded package of 1024", rand_u8(1, 1024), keys[:1],
+          nonces[:1], 1024)
+    # input and output at each end of a mapping between unmapped ranges: a
+    # load or store outside the rows faults
+    for n_rows, length, span, pkg in ((8, 1048584, 1 << 20, 65536),
+                                      (64, 65536, 65536, 65536),
+                                      (3, 129, 100, 64)):
+        n = n_rows * length
+        src = rand_u8(n_rows, length)
+        keys, nonces = words(n_rows, 8), words(n_rows, -(-span // pkg), 3)
+        with guard_pages.guarded(n, dev) as a, \
+                guard_pages.guarded(n, dev) as b:
+            for at, x in (("start", a[:n]), ("end", a[-n:])):
+                x = x.view(n_rows, length)
+                x.copy_(src)
+                for o in (b[:n], b[-n:]):
+                    check(f"{n_rows} x {length} input at the {at} of a "
+                          "mapping", x, keys, nonces, pkg, span,
+                          out=o.view(n_rows, length))
+    return err, cases
+
+
+def check_sse_steps(torch, dev, rand_u8, max_err, pipeline, rs_cuda,
+                    rs_matrix, chacha20_cuda, np) -> int:
+    """Phase 2 for the fused cipher steps: sse_put_step and sse_get_step on
+    the card against the same steps on CPU tensors (the plain versions),
+    at config 2's block (1 MiB at 12+4, S = 87,382), B = 2. Returns the
+    max abs err."""
+    k, m, s, b = 12, 4, 87382, 2
+    rng = np.random.default_rng(SEED + 4)
+    x = torch.zeros((b, k * s), dtype=torch.uint8, device=dev)
+    x[:, :1 << 20] = rand_u8(b, 1 << 20)
+    x = x.view(b, k, s)
+    keys = chacha20_cuda.words(rng.integers(0, 1 << 32, (b, 8),
+                                            dtype=np.uint32), dev)
+    nonces = chacha20_cuda.words(rng.integers(0, 1 << 32, (b, 16, 3),
+                                              dtype=np.uint32), dev)
+    rows, dig = pipeline.sse_put_step(x, keys, nonces, k, m, 65536)
+    cpu_rows, cpu_dig = pipeline.sse_put_step(x.cpu(), keys.cpu(),
+                                              nonces.cpu(), k, m, 65536)
+    err = max(max_err(rows.cpu(), cpu_rows), max_err(dig.cpu(), cpu_dig))
+    mask = sum(1 << i for i in range(k + m) if i not in (1, 5, 14))
+    dm, used, missing = rs_matrix.missing_data_matrix(k, m, mask)
+    surv = rows[:, list(used)].contiguous()
+    data_src = tuple((0, used.index(j)) if j in used
+                     else (1, missing.index(j)) for j in range(k))
+    bits = rs_cuda.matrix_bits(dm, dev)
+    got = pipeline.sse_get_step(surv, bits, keys, nonces, dm.shape[0], k,
+                                data_src, 65536, s)
+    want = pipeline.sse_get_step(surv.cpu(), bits.cpu(), keys.cpu(),
+                                 nonces.cpu(), dm.shape[0], k, data_src,
+                                 65536, s)
+    err = max(err, *(max_err(g.cpu(), w) for g, w in zip(got, want)),
+              max_err(got[0], x))
+    if err:
+        fail(f"sse_put_step/sse_get_step on the card disagree with the CPU "
+             f"(max abs err {err})")
+    return err
+
+
 class LaunchCounts:
     """Every kernel's launch counter: set to 0 just before a path is
     driven, read just after."""
 
-    def __init__(self, rs_cuda, hh, sha):
-        self.rs_cuda, self.hh, self.sha = rs_cuda, hh, sha
+    def __init__(self, rs_cuda, hh, sha, chacha):
+        self.rs_cuda, self.hh, self.sha, self.chacha = rs_cuda, hh, sha, \
+            chacha
 
     def zero(self) -> None:
         self.rs_cuda.gf_matmul.launches = 0
         self.hh.hh256.launches = 0
         self.sha.sha256_rows.launches = 0
+        self.chacha.keystream_xor.launches = 0
 
     def read(self) -> dict:
         return {"gf_matmul": self.rs_cuda.gf_matmul.launches,
                 "hh256": self.hh.hh256.launches,
-                "sha256": self.sha.sha256_rows.launches}
+                "sha256": self.sha.sha256_rows.launches,
+                "chacha20": self.chacha.keystream_xor.launches}
 
 
 def stage_report(stagetimer) -> dict:
@@ -728,7 +953,8 @@ def run_concurrent_put(eng_mod, sched, stagetimer, tmp, card, counts,
         fail(f"concurrent PUT: the former never coalesced: {enc}")
     # each encode dispatch on the card is one put_step: one launch of
     # each kernel, counted exactly under the two dispatch threads
-    if launched != {"gf_matmul": on_card, "hh256": on_card, "sha256": 0} \
+    if launched != {"gf_matmul": on_card, "hh256": on_card, "sha256": 0,
+                    "chacha20": 0} \
             or steps["encode"]["calls"] != on_card:
         fail(f"concurrent PUT: launches {launched}, codec calls "
              f"{steps['encode']['calls']} != {on_card} dispatches")
@@ -826,7 +1052,8 @@ def run_heal(sched, state, tmp, card, counts, np) -> dict:
             (on_card, rec["host_routed"]) != (want_card, want_host):
         fail(f"heal: recover dispatches {rec} (card {on_card}), expected "
              f"{want_card} on the card and {want_host} by the size gate")
-    if launched != {"gf_matmul": on_card, "hh256": on_card, "sha256": 0}:
+    if launched != {"gf_matmul": on_card, "hh256": on_card, "sha256": 0,
+                    "chacha20": 0}:
         fail(f"heal: launches {launched} != {on_card} recover dispatches")
     if rebuilt:
         fail("heal: a host rebuild ran without bitrot")
@@ -1064,7 +1291,7 @@ def run_config5(tmp, card, counts, stagetimer, np) -> dict:
         fail(f"config 5: {declined} declined, {enc['host_routed']} "
              "dispatches routed to the host")
     if launched["sha256"] != on_card or launched["gf_matmul"] != on_card \
-            or launched["hh256"]:
+            or launched["hh256"] or launched["chacha20"]:
         fail(f"config 5: launches {launched} != {on_card} encode "
              "dispatches")
     if samples[1] != on_card:
@@ -1181,6 +1408,514 @@ def run_config5(tmp, card, counts, stagetimer, np) -> dict:
            "codec_step_s": steps, "stagetimer": stages, "card": card}
     emit(out)
     shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def run_sse(tmp, card, counts, stagetimer, np) -> dict:
+    """BASELINE.json config 2 under SSE-S3 with ChaCha20-Poly1305: 32
+    threads each PUT one 16 MiB object at once into a fresh 16-drive 12+4
+    set with 1 MiB blocks (highwayhash256S, the batch former and the
+    pipelined loop), wired as the S3 handlers wire it
+    (minio_tpu/s3/handlers.py:1392-1420): setup_put_transforms with the
+    ChaCha20 cipher and the set's device probe, then put_object with the
+    DeviceSSE spec; StaticKMS with a 32-byte master key from the seed.
+    Every object is read back through resolve_get_key and
+    chacha_decrypt_ranged over a fetch that calls get_object
+    (handlers.py:1529-1570, :1641-1650): bytes and MD5 ETag. Then three
+    ranged reads that start mid-package and cross a 64-package batch,
+    eight reads with 3 drives gone (one holds a data shard), the stored
+    bytes of one object against ChaChaEncryptor and every trailer tag
+    under open_detached, a fetch with one flipped ciphertext byte that
+    must fail authentication before any plaintext, submit_decode(sse=)
+    over survivors of an encrypted object's blocks, and one SSE-C object.
+    The PUTs then run again under torch.profiler for the idle share.
+
+    Cut: 512 MiB in 32 objects, as phase 5. Fails unless the former
+    coalesced, declined nothing and routed nothing to the host, and
+    chacha20 launched once per encrypted encode dispatch and once per GET
+    decipher batch, counted per path."""
+    import base64
+    import io
+    import threading
+
+    import torch
+    from minio_tpu_torch.bitrot import BitrotAlgorithm
+    from minio_tpu_torch.features import crypto as sse
+    from minio_tpu_torch.features import kms
+    from minio_tpu_torch.object import codec
+    from minio_tpu_torch.object.hash_reader import HashReader
+    from minio_tpu_torch.ops import chacha20_ref, rs_matrix, rs_ref
+    from minio_tpu_torch.parallel.scheduler import BatchScheduler
+    from minio_tpu_torch.s3.s3errors import S3Error
+    from minio_tpu_torch.storage.datatypes import hash_order
+    from minio_tpu_torch.object import engine as eng_mod
+    k, m, bs, pkg = 12, 4, 1 << 20, sse.PKG_SIZE
+    streams, size = SSE_OBJECTS
+    rng = np.random.default_rng(SEED + 11)
+    objects = {f"enc-{i:02d}": rng.bytes(size) for i in range(streams)}
+    store = kms.StaticKMS(rng.bytes(32))
+    root = os.path.join(tmp, "sse")
+    paths = [os.path.join(root, f"drive{i}") for i in range(k + m)]
+    sched = BatchScheduler()
+    eng = eng_mod.from_reference_layout(paths, k, m, block_size=bs,
+                                        scheduler=sched)
+    eng.make_bucket("smoke9")
+    no_headers = lambda name, default="": default      # noqa: E731
+    mixed, real_run = [], sched._run_erasure
+
+    def run_erasure(key, group, stage_cb):
+        """The former's dispatch, watched: the encrypted encode dispatches
+        holding rows of more than one object (told apart by key words)."""
+        if key[0] == "encode" and group[0].payload is not None:
+            mixed.append(len({p.payload[0][0].tobytes() for p in group}))
+        return real_run(key, group, stage_cb)
+
+    def put(name, data, prefix="", ssec=None):
+        md = {}
+        reader, stored, spec = sse.setup_put_transforms(
+            key_name=prefix + name,
+            raw_reader=HashReader(io.BytesIO(data), len(data)),
+            raw_size=len(data), metadata=md, ssec_key=ssec,
+            sse_s3=ssec is None, kms=store, compress=False,
+            cipher=sse.CIPHER_CHACHA, device_sse=eng.supports_sse_device)
+        if spec is None:
+            fail(f"SSE PUT {name}: no DeviceSSE spec (the fused path "
+                 "declined)")
+        return eng.put_object("smoke9", prefix + name, reader, stored,
+                              eng_mod.PutOptions(metadata=md, sse_spec=spec))
+
+    def put_all(prefix="") -> float:
+        start = threading.Barrier(streams + 1, timeout=600)
+        errors = []
+
+        def run(name, data):
+            try:
+                start.wait()
+                info = put(name, data, prefix)
+                if info.etag != hashlib.md5(data).hexdigest():
+                    errors.append(f"{name}: ETag is not the MD5")
+            except Exception as e:  # noqa: BLE001 — failed below
+                errors.append(f"{name}: {e!r}")
+
+        threads = [threading.Thread(target=run, args=kv)
+                   for kv in objects.items()]
+        for t in threads:
+            t.start()
+        start.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join()
+        if errors:
+            fail(f"SSE PUT: {errors[:3]}")
+        return time.perf_counter() - t0
+
+    def fetcher(layer, name, flip_at=None):
+        def fetch(off, ln):
+            _, it = layer.get_object("smoke9", name, off, ln)
+            if flip_at is None or not off <= flip_at < off + ln:
+                return it
+            buf = bytearray(b"".join(it))
+            buf[flip_at - off] ^= 0x01
+            return iter([bytes(buf)])
+        return fetch
+
+    def get(layer, name, offset=0, length=-1, headers=no_headers):
+        info = layer.get_object_info("smoke9", name)
+        oek, base = sse.resolve_get_key(info.user_defined, headers, store)
+        length = info.actual_size - offset if length < 0 else length
+        out = b"".join(sse.chacha_decrypt_ranged(
+            fetcher(layer, name), info.size, oek, base, offset, length))
+        skip = offset % pkg
+        return info, out[skip:skip + length]
+
+    def batches(offset, length) -> int:
+        """GET decipher batches of one ranged read."""
+        npkg = (offset + length - 1) // pkg - offset // pkg + 1
+        return -(-npkg // sse._GET_PKG_BATCH)
+
+    def read_back(layer, names) -> tuple[float, int]:
+        t0 = time.perf_counter()
+        want = 0
+        for name in names:
+            info, got = get(layer, name)
+            if got != objects[name]:
+                fail(f"SSE GET {name}: bytes differ")
+            if info.etag != hashlib.md5(objects[name]).hexdigest():
+                fail(f"SSE GET {name}: ETag {info.etag} is not the MD5")
+            want += batches(0, size)
+        return time.perf_counter() - t0, want
+
+    sched._run_erasure = run_erasure
+    codec.reset_step_seconds()
+    stagetimer.reset()
+    stagetimer.enable()
+    before = sched.stats()
+    counts.zero()
+    try:
+        put_s = put_all()
+    finally:
+        stagetimer.disable()
+        sched._run_erasure = real_run
+    launched = {"put": counts.read()}
+    after = sched.stats()
+    stages = stage_report(stagetimer)
+    steps = codec_steps(codec)
+    enc = {key: after["verbs"]["encode"][key]
+           - before["verbs"]["encode"][key]
+           for key in after["verbs"]["encode"]}
+    declined = after["declined"] - before["declined"]
+    on_card = enc["batches"] - enc["host_routed"]
+    if declined or enc["host_routed"]:
+        fail(f"SSE PUT: {declined} declined, {enc['host_routed']} "
+             "dispatches routed to the host")
+    if enc["coalesced"] <= 0:
+        fail(f"SSE PUT: the former never coalesced: {enc}")
+    if launched["put"] != {"gf_matmul": on_card, "hh256": on_card,
+                           "sha256": 0, "chacha20": on_card} \
+            or steps["encode"]["calls"] != on_card:
+        fail(f"SSE PUT: launches {launched['put']}, codec calls "
+             f"{steps['encode']['calls']} != {on_card} encode dispatches")
+    if enc["blocks"] != streams * size // bs:
+        fail(f"SSE PUT: {enc['blocks']} blocks dispatched")
+
+    counts.zero()
+    get_s, want = read_back(eng, objects)
+    launched["get"] = counts.read()
+    if launched["get"]["chacha20"] != want:
+        fail(f"SSE GET: {launched['get']['chacha20']} chacha20 launches, "
+             f"{want} decipher batches")
+    name0 = "enc-00"
+    ranges = ((5 * pkg + 777, 70 * pkg), (100 * pkg + 1, 64 * pkg),
+              (190 * pkg + 12345, 65 * pkg))
+    counts.zero()
+    for off, ln in ranges:
+        _, got = get(eng, name0, off, ln)
+        if got != objects[name0][off:off + ln]:
+            fail(f"SSE ranged GET {off}+{ln}: bytes differ")
+    launched["ranged"] = counts.read()
+    if launched["ranged"]["chacha20"] != sum(batches(*r) for r in ranges):
+        fail(f"SSE ranged GET: launches {launched['ranged']}")
+
+    # 3 drives gone; the first holds data shard 0 of enc-00
+    dist = hash_order(f"smoke9/{name0}", k + m)
+    gone = [dist.index(1)]
+    gone += [i for i in range(k + m) if i not in gone][:2]
+    degraded = eng_mod.ErasureObjects(
+        [None if i in gone else d for i, d in enumerate(eng.disks)], k, m,
+        block_size=bs, scheduler=sched)
+    counts.zero()
+    deg_names = list(objects)[:8]
+    deg_s, want = read_back(degraded, deg_names)
+    launched["degraded_get"] = counts.read()
+    if launched["degraded_get"]["chacha20"] != want or \
+            launched["degraded_get"]["gf_matmul"] <= 0:
+        fail(f"SSE degraded GET: launches {launched['degraded_get']}, "
+             f"{want} decipher batches")
+
+    # the stored bytes against the host ChaChaEncryptor, every tag opened
+    info = eng.get_object_info("smoke9", name0)
+    oek, base = sse.resolve_get_key(info.user_defined, no_headers, store)
+    stored = b"".join(eng.get_object("smoke9", name0)[1])
+    oracle = sse.ChaChaEncryptor(oek, base)
+    if stored != oracle.update(objects[name0]) + oracle.finalize():
+        fail("SSE: stored bytes differ from ChaChaEncryptor's")
+    ct_len, npkg = sse.chacha_ct_len(len(stored))
+    for seq in range(npkg):
+        got = chacha20_ref.open_detached(
+            oek, sse._pkg_nonce(base, seq), sse._pkg_aad(seq),
+            stored[seq * pkg:min((seq + 1) * pkg, ct_len)],
+            stored[ct_len + seq * 16:ct_len + (seq + 1) * 16])
+        if got != objects[name0][seq * pkg:(seq + 1) * pkg]:
+            fail(f"SSE: package {seq} opens to other bytes")
+    # one flipped ciphertext byte (package 10): an authentication error
+    # before any plaintext, and no decipher launch
+    counts.zero()
+    yielded = []
+    try:
+        for chunk in sse.chacha_decrypt_ranged(
+                fetcher(eng, name0, flip_at=10 * pkg + 99), info.size, oek,
+                base, 0, size):
+            yielded.append(chunk)
+        fail("SSE: a flipped ciphertext byte was not found")
+    except S3Error as e:
+        if "authentication" not in str(e) or yielded:
+            fail(f"SSE corruption: {e!r} after {len(yielded)} chunks")
+    if counts.read()["chacha20"]:
+        fail("SSE corruption: the batch was deciphered")
+
+    # sse_get_step through the former: survivors of enc-01's first 8
+    # encrypted blocks with 3 shards gone
+    name1 = "enc-01"
+    info1 = eng.get_object_info("smoke9", name1)
+    oek1, base1 = sse.resolve_get_key(info1.user_defined, no_headers, store)
+    ct = np.frombuffer(b"".join(eng.get_object("smoke9", name1, 0,
+                                               8 * bs)[1]), np.uint8)
+    cdc = eng.codec(k, m)
+    s_len = cdc.shard_size
+    full = np.stack([rs_ref.encode(cdc.split(ct[i * bs:(i + 1) * bs]), m)
+                     for i in range(8)])
+    mask = sum(1 << i for i in range(k + m) if i not in (1, 5, 14))
+    _dm, used, _missing = rs_matrix.missing_data_matrix(k, m, mask)
+    keys, nonces = sse.DeviceSSE(oek1, base1).batch_params(0, 8, bs)
+    counts.zero()
+    plain, _idx, _dig = sched.submit_decode(
+        cdc, np.ascontiguousarray(full[:, list(used)]), mask, s_len,
+        BitrotAlgorithm.HIGHWAYHASH256S, sse=(keys, nonces, pkg)).result()
+    launched["sse_get_step"] = counts.read()
+    if plain.reshape(8, -1)[:, :bs].tobytes() != objects[name1][:8 * bs]:
+        fail("sse_get_step: deciphered blocks differ from the plaintext")
+    if launched["sse_get_step"] != {"gf_matmul": 1, "hh256": 1,
+                                    "sha256": 0, "chacha20": 1}:
+        fail(f"sse_get_step: launches {launched['sse_get_step']}")
+
+    # SSE-C: one object with a short tail (ciphered on the host)
+    ckey = rng.bytes(32)
+    hdr = {"x-amz-server-side-encryption-customer-algorithm": "AES256",
+           "x-amz-server-side-encryption-customer-key":
+               base64.b64encode(ckey).decode(),
+           "x-amz-server-side-encryption-customer-key-md5":
+               base64.b64encode(hashlib.md5(ckey).digest()).decode()}
+    headers = lambda name, default="": hdr.get(name, default)  # noqa: E731
+    # one full encode batch (8 blocks, over the codec's size gate) and a
+    # short tail
+    data_c = rng.bytes(8 * bs + 12345)
+    before = sched.stats()["verbs"]["encode"]
+    counts.zero()
+    put("ssec", data_c, ssec=sse.parse_ssec_headers(headers))
+    info_c, got = get(eng, "ssec", headers=headers)
+    launched["ssec"] = counts.read()
+    after = sched.stats()["verbs"]["encode"]
+    enc_c = after["batches"] - before["batches"] \
+        - (after["host_routed"] - before["host_routed"])
+    if got != data_c or info_c.user_defined.get(sse.MK_SSE) != "C":
+        fail("SSE-C: GET differs")
+    if enc_c < 1 or launched["ssec"]["chacha20"] != \
+            enc_c + batches(0, len(data_c)):
+        fail(f"SSE-C: launches {launched['ssec']}, {enc_c} encode "
+             "dispatches on the card")
+
+    # Poly1305 on the host, timed apart on this thread (one core) over
+    # 64 packages, against the phase's package count
+    sample = [objects[name0][i * pkg:(i + 1) * pkg] for i in range(64)]
+    t0 = time.perf_counter()
+    for i, p in enumerate(sample):
+        chacha20_ref.tag_detached(oek, sse._pkg_nonce(base, i),
+                                  sse._pkg_aad(i), p)
+    tag_ms = (time.perf_counter() - t0) * 1e3 / len(sample)
+    put_pkgs = streams * size // pkg
+    get_pkgs = put_pkgs + len(deg_names) * size // pkg
+
+    profiled = device_busy(torch, lambda: put_all("again/"))
+    sched.close()
+    gib = streams * size / (1 << 30)
+    totals = {n: sum(v[n] for v in launched.values())
+              for n in launched["put"]}
+    out = {"phase": "sse", "config": "BASELINE.json config 2 under SSE-S3 "
+           "(ChaCha20-Poly1305 packages)",
+           "streams": streams, "object_bytes": size, "ec": f"{k}+{m}",
+           "block_size": bs, "package_bytes": pkg,
+           "put_wall_s": round(put_s, 3),
+           "upload_gib_s": round(gib / put_s, 4),
+           "get_s": round(get_s, 3), "get_gib_s": round(gib / get_s, 4),
+           "degraded_get_s": round(deg_s, 3),
+           "degraded_get_gib_s": round(len(deg_names) * size / (1 << 30)
+                                       / deg_s, 4),
+           "missing_drives": gone, "encode": enc, "declined": declined,
+           "dispatches": on_card,
+           "dispatches_with_several_objects": sum(1 for n in mixed
+                                                  if n > 1),
+           "objects_per_dispatch_max": max(mixed) if mixed else 0,
+           "launches": totals, "launches_by_subpath": launched,
+           "poly1305_ms_per_package_one_core": round(tag_ms, 4),
+           "poly1305_host_s_put_packages": round(tag_ms * put_pkgs / 1e3,
+                                                 3),
+           "poly1305_host_s_get_packages": round(tag_ms * get_pkgs / 1e3,
+                                                 3),
+           "put_packages": put_pkgs, "get_packages": get_pkgs,
+           "profiled_again": profiled, "codec_step_s": steps,
+           "stagetimer": stages, "card": card}
+    emit(out)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def run_sse_timings(torch, dev, rand_u8, max_err, pipeline, chacha20_cuda,
+                    chacha20_plain, chacha20_ref, rs_cuda, rs_matrix, hh,
+                    key, np) -> dict:
+    """chacha20 at its two launch shapes — the encode launch (8 rows of a
+    1 MiB span in 1,048,584-byte rows) and GET's 64 x 65,536 — beside its
+    byte and operation bounds, its plain version and the host
+    chacha20_ref.xor_stream over the same bytes; sse_put_step against
+    put_step at config 2's shape (B = 32, 12+4, S = 87,382), in turns; and
+    sse_put_step there and sse_get_step at a degraded-GET group (B = 8,
+    3 data shards lost) beside the sum of their kernels' bounds, their
+    plain composition (the kernels' plain versions, on the card, checked
+    against the step) and the host cipher over the same packages."""
+    rng = np.random.default_rng(SEED + 6)
+    out = {"chacha20_ops_per_block": CHACHA20_OPS_PER_BLOCK}
+    shapes = {"encode": (8, 1048584, 1 << 20), "get": (64, 65536, 65536)}
+    for name, (n, stride, span) in shapes.items():
+        pkg = 65536
+        p = span // pkg
+        # eight input sets (8 x 8.4 MB or 8 x 4.2 MB) cycled, so repeated
+        # launches find little of their rows in the 50 MB L2 cache
+        sets = [rand_u8(n, stride) for _ in range(8 if n == 8 else 16)]
+        kw = rng.integers(0, 1 << 32, (n, 8), dtype=np.uint32)
+        nw = rng.integers(0, 1 << 32, (n, p, 3), dtype=np.uint32)
+        keys, nonces = chacha20_cuda.words(kw, dev), \
+            chacha20_cuda.words(nw, dev)
+        ms = cuda_timed(torch, lambda i: chacha20_cuda.keystream_xor(
+            sets[i % len(sets)], keys, nonces, pkg, span,
+            out=sets[i % len(sets)]), 50)
+        x = sets[0]
+        t0 = time.perf_counter()
+        plain = chacha20_plain.keystream_xor(x, keys, nonces, pkg, span)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_err(chacha20_cuda.keystream_xor(x, keys, nonces, pkg,
+                                                  span), plain)
+        if err:
+            fail(f"chacha20 disagrees at the {name} timing shape")
+        host = x.cpu().numpy()
+        t0 = time.perf_counter()
+        for r in range(n):
+            for j in range(p):
+                chacha20_ref.xor_stream(
+                    host[r, j * pkg:(j + 1) * pkg],
+                    kw[r].astype("<u4").tobytes(),
+                    nw[r, j].astype("<u4").tobytes())
+        host_ms = (time.perf_counter() - t0) * 1e3
+        blocks = n * -(-span // 64)
+        nbytes = 2 * n * span
+        ops = blocks * CHACHA20_OPS_PER_BLOCK
+        t = {"rows": n, "row_bytes": stride, "span": span, "packages": n * p,
+             "ms": ms, "bytes": nbytes, "ops": ops,
+             "byte_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "op_bound_ms": ops / INT32_OPS_PER_S * 1e3,
+             "plain_ms": plain_ms, "host_xor_stream_ms": host_ms,
+             "max_abs_err": err, "library_ms": None}
+        t["bound_ms"] = max(t["byte_bound_ms"], t["op_bound_ms"])
+        t["bound_by"] = ("bytes" if t["byte_bound_ms"] >= t["op_bound_ms"]
+                         else "operations")
+        out[f"chacha20_{name}"] = t
+    # sse_put_step against put_step at config 2's shape, in turns
+    k, m, s, b = 12, 4, 87382, 32
+    datas = [rand_u8(b, k, s) for _ in range(2)]
+    keys = chacha20_cuda.words(rng.integers(0, 1 << 32, (b, 8),
+                                            dtype=np.uint32), dev)
+    nonces = chacha20_cuda.words(rng.integers(0, 1 << 32, (b, 16, 3),
+                                              dtype=np.uint32), dev)
+    runs = {"put_step": [], "sse_put_step": []}
+    for which in ("put_step", "sse_put_step", "sse_put_step", "put_step"):
+        if which == "put_step":
+            fn = lambda i: pipeline.put_step(datas[i % 2], k, m)  # noqa
+        else:
+            fn = lambda i: pipeline.sse_put_step(  # noqa: E731
+                datas[i % 2], keys, nonces, k, m, 65536)
+        runs[which].append(cuda_timed(torch, fn, 20))
+    out["config2_steps_ms"] = runs
+    out["sse_put_step_ms"] = sum(runs["sse_put_step"]) / 2
+    out["put_step_ms_beside_sse"] = sum(runs["put_step"]) / 2
+    out.update(time_sse_steps(torch, dev, rand_u8, max_err, pipeline,
+                              chacha20_cuda, chacha20_plain, chacha20_ref,
+                              rs_cuda, rs_matrix, hh, key, np, datas[0],
+                              keys, nonces))
+    return out
+
+
+def time_sse_steps(torch, dev, rand_u8, max_err, pipeline, chacha20_cuda,
+                   chacha20_plain, chacha20_ref, rs_cuda, rs_matrix, hh,
+                   key, np, x, keys, nonces) -> dict:
+    """The fused SSE steps beside the sum of their kernels' bounds (they
+    run in sequence), their plain composition on the card, and the host
+    chacha20_ref.xor_stream over their packages. x: (32, 12, 87,382)."""
+    k, m, s, pkg, span = 12, 4, 87382, 65536, 1 << 20
+
+    def cc_bound(n):
+        return max(2 * n * span / HBM_BYTES_PER_S, n * span // 64
+                   * CHACHA20_OPS_PER_BLOCK / INT32_OPS_PER_S) * 1e3
+
+    def gf_bound(bits, nb):
+        kk, r = bits.shape[1] // 8, bits.shape[0] // 8
+        return max(nb * (kk + r) * s / HBM_BYTES_PER_S,
+                   nb * s * int(bits.sum()) / 32 / INT32_OPS_PER_S) * 1e3
+
+    def hh_bound(n):
+        return max(n * (s + 32) / HBM_BYTES_PER_S,
+                   n * hh256_rounds(s) * HH256_OPS_PER_ROUND
+                   / INT32_OPS_PER_S) * 1e3
+
+    def host_ms(n, kc, nc) -> float:
+        rows = np.zeros((n, span), np.uint8)
+        kw = kc.cpu().numpy().view(np.uint32)
+        nw = nc.cpu().numpy().view(np.uint32)
+        t0 = time.perf_counter()
+        for r in range(n):
+            for j in range(span // pkg):
+                chacha20_ref.xor_stream(rows[r, j * pkg:(j + 1) * pkg],
+                                        kw[r].astype("<u4").tobytes(),
+                                        nw[r, j].astype("<u4").tobytes())
+        return (time.perf_counter() - t0) * 1e3
+
+    def plain_timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    out = {}
+    b = x.shape[0]
+    pbits = rs_cuda.matrix_bits(rs_matrix.parity_matrix(k, m), dev)
+
+    def put_plain():
+        ct = chacha20_plain.keystream_xor(x.reshape(b, k * s), keys, nonces,
+                                          pkg, span).view(b, k, s)
+        rows = torch.cat([ct, rs_cuda.gf_matmul_plain(pbits, ct)], 1)
+        return rows, hh.hh256_plain(rows.reshape(b * (k + m), s), s,
+                                    key).view(b, k + m, 32)
+
+    got = pipeline.sse_put_step(x, keys, nonces, k, m, pkg)
+    want, plain_ms = plain_timed(put_plain)
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    out["sse_put_step"] = {
+        "B": b, "ms": cuda_timed(torch, lambda i: pipeline.sse_put_step(
+            x, keys, nonces, k, m, pkg), 20),
+        "bound_ms": cc_bound(b) + gf_bound(pbits, b) + hh_bound(b * (k + m)),
+        "plain_ms": plain_ms, "host_xor_stream_ms": host_ms(b, keys, nonces),
+        "max_abs_err": err, "library_ms": None}
+    # a degraded-GET group: 8 blocks, data shards 0, 5 and 9 lost
+    nb = 8
+    mask = ((1 << (k + m)) - 1) & ~(1 << 0 | 1 << 5 | 1 << 9)
+    dm, used, missing = rs_matrix.missing_data_matrix(k, m, mask)
+    bits = rs_cuda.matrix_bits(dm, dev)
+    data_src = tuple((0, used.index(j)) if j in used
+                     else (1, missing.index(j)) for j in range(k))
+    surv = rand_u8(nb, k, s)
+    kg, ng = keys[:nb].contiguous(), nonces[:nb].contiguous()
+
+    def get_plain():
+        rec = rs_cuda.gf_matmul_plain(bits, surv)
+        dig = hh.hh256_plain(surv.reshape(nb * k, s), s, key).view(nb, k, 32)
+        st = torch.stack([surv[:, i] if src == 0 else rec[:, i]
+                          for src, i in data_src], 1)
+        plain = chacha20_plain.keystream_xor(st.reshape(nb, k * s), kg, ng,
+                                             pkg, span).view(nb, k, s)
+        return plain, rec, dig
+
+    got = pipeline.sse_get_step(surv, bits, kg, ng, dm.shape[0], k, data_src,
+                                pkg, s)
+    want, plain_ms = plain_timed(get_plain)
+    err = max(err, *(max_err(g, w) for g, w in zip(got, want)))
+    out["sse_get_step"] = {
+        "B": nb, "r": dm.shape[0], "ms": cuda_timed(
+            torch, lambda i: pipeline.sse_get_step(
+                surv, bits, kg, ng, dm.shape[0], k, data_src, pkg, s), 20),
+        "bound_ms": gf_bound(bits, nb) + hh_bound(nb * k) + cc_bound(nb),
+        "plain_ms": plain_ms, "host_xor_stream_ms": host_ms(nb, kg, ng),
+        "max_abs_err": err, "library_ms": None}
+    if err:
+        fail("an SSE step disagrees with its plain composition")
     return out
 
 

@@ -1,12 +1,15 @@
 """The fused device steps of the erasure data path.
 
-Counterpart of minio_tpu/models/pipeline.py:114-153 (put_step) and
-:243-326 (get_step, heal_step): the same signatures, shapes and return
-order, as launch sequences on the current CUDA stream — the GF(2^8) kernel
+Counterpart of minio_tpu/models/pipeline.py:114-153 (put_step),
+:156-240 (sse_put_step, sse_get_step) and :243-326 (get_step,
+heal_step): the same signatures, shapes and return order, as launch
+sequences on the current CUDA stream — the GF(2^8) kernel
 (ops/rs_cuda.gf_matmul) followed by one hash launch over the rows whose
 digests are returned: HighwayHash-256 (ops/highwayhash_cuda.hh256) or,
 for the sha256 bitrot algorithm, SHA-256 (ops/sha256_cuda.sha256_rows).
-On CPU tensors the kernels run their plain PyTorch versions.
+The SSE steps add one ChaCha20 launch (ops/chacha20_cuda.keystream_xor)
+before the encode or after the decode. On CPU tensors the kernels run
+their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops import highwayhash_cuda, rs_cuda, rs_matrix, sha256_cuda
+from ..ops import (chacha20_cuda, highwayhash_cuda, rs_cuda, rs_matrix,
+                   sha256_cuda)
 from ..storage.datatypes import ErasureInfo
 
 
@@ -90,6 +94,72 @@ def put_step(data: torch.Tensor, k: int, m: int, shard_len: int = 0,
     rows = torch.cat([data, parity], dim=-2).reshape(b * (k + m), s)
     digests = _hash_rows(rows, shard_len or s, key, algo)
     return parity, digests.reshape(b, k + m, 32)
+
+
+def sse_put_step(data: torch.Tensor, keys: torch.Tensor,
+                 nonces: torch.Tensor, k: int, m: int, pkg_bytes: int,
+                 shard_len: int = 0, key: bytes = b"",
+                 algo: str = "highwayhash"
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One ENCRYPTED PUT device step: ChaCha20-cipher each block, RS-encode
+    the ciphertext, and digest every shard. The host's only cipher work
+    left is the Poly1305 tag trailer over the ciphertext this step returns.
+
+    data:   (B, k, S) uint8 staged shards whose flat (B, k·S) view holds the
+            plaintext block in its first P·pkg_bytes bytes, zeros after.
+            Only that span is ciphered, so pad columns stay zero and the
+            stored stream equals the host ChaChaEncryptor's.
+    keys:   (B, 8) and nonces (B, P, 3) u32 words (int32 bit patterns or
+            int64 values) on data's device, per row
+            (features/crypto.DeviceSSE.batch_params): rows of different
+            objects share a step under their own keys.
+    Returns (rows (B, k+m, S) uint8 — ciphertext data shards with parity
+    appended, digests (B, k+m, 32)). Unlike put_step the data rows cross
+    back: the caller staged plaintext and writes (and tags) ciphertext.
+    """
+    b, k_, s = data.shape
+    if k_ != k:
+        raise ValueError(f"data has {k_} shards, expected k={k}")
+    span = nonces.shape[1] * pkg_bytes
+    ct = chacha20_cuda.keystream_xor(data.reshape(b, k * s), keys, nonces,
+                                     pkg_bytes, span).view(b, k, s)
+    parity = rs_cuda.gf_matmul(
+        rs_cuda.matrix_bits(rs_matrix.parity_matrix(k, m), data.device), ct)
+    rows = torch.cat([ct, parity], dim=-2)
+    digests = _hash_rows(rows.reshape(b * (k + m), s), shard_len or s, key,
+                         algo)
+    return rows, digests.reshape(b, k + m, 32)
+
+
+def sse_get_step(survivors: torch.Tensor, matrix_bits, keys: torch.Tensor,
+                 nonces: torch.Tensor, r: int, k: int, data_src: tuple = (),
+                 pkg_bytes: int = 0, shard_len: int = 0, key: bytes = b"",
+                 algo: str = "highwayhash"
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One ENCRYPTED degraded-GET device step: verify, decode, decipher.
+    Reconstructs the missing rows from the survivors, reassembles the kd
+    ciphertext data shards, and XORs the per-package keystream off them
+    (the Poly1305 package tags are checked on the host before any of this
+    output is served).
+
+    data_src: one (src, idx) per data shard — src 0 takes survivors[:, idx]
+    (in decode `used` order), src 1 takes the reconstructed row idx (in
+    `missing` order). keys (B, 8) / nonces (B, P, 3): the block's package
+    words; the plaintext span is P·pkg_bytes of the flat (B, kd·S) view.
+    Returns (plain (B, kd, S) deciphered data shards, missing (B, r, S)
+    reconstructed CIPHERTEXT shards, survivor digests (B, k, 32)).
+    """
+    missing = _reconstruct(survivors, matrix_bits, r, k)
+    b, _, s = survivors.shape
+    digests = _hash_rows(survivors.reshape(b * k, s).contiguous(),
+                         shard_len or s, key, algo).reshape(b, k, 32)
+    stacked = torch.stack([survivors[:, i] if src == 0 else missing[:, i]
+                           for src, i in data_src], dim=1)
+    flat = stacked.view(b, len(data_src) * s)
+    # the stack is this step's own tensor: decipher it in place
+    chacha20_cuda.keystream_xor(flat, keys, nonces, pkg_bytes,
+                                nonces.shape[1] * pkg_bytes, out=flat)
+    return stacked, missing, digests
 
 
 def _reconstruct(survivors, matrix_bits, r, k):

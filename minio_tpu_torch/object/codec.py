@@ -26,7 +26,11 @@ allocated and used on its slot's stream (none crosses streams, so none
 needs ``record_stream``); the cached coding matrices are written once by
 a blocking copy before any stream reads them.
 
-Left out: the mesh routes (parallel/mesh.py) and the SSE cipher steps.
+Encrypted batches (encrypt_encode_and_hash_batch,
+verify_decode_decrypt_batch) ride the same slots: their per-row ChaCha20
+key and nonce words go to the card on the slot's stream with the batch.
+
+Left out: the mesh routes (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import torch
 
 from .. import bitrot as bitrot_mod
 from .. import device as device_mod
-from ..ops import gf256, rs_cuda, rs_matrix
+from ..ops import chacha20_cuda, gf256, rs_cuda, rs_matrix
 from ..parallel import bpool
 from ..utils import knobs, native
 from . import api_errors
@@ -342,6 +346,77 @@ class Codec:
         return self._run_step(
             "encode", parts, lambda x: put_step(x, k, m, algo=kernel),
             stage_cb)
+
+    def encrypt_encode_and_hash_batch(self, data, keys, nonces,
+                                      pkg_bytes: int, algo, *,
+                                      stage_cb=None):
+        """The fused device path of the ENCRYPTED PUT loop: ChaCha20 cipher,
+        parity and every shard's digest in one device step
+        (models/pipeline.sse_put_step).
+
+        data: (B, k, S) staged PLAINTEXT shards, or a list of such groups;
+        keys (B, 8) / nonces (B, P, 3) u32 word arrays for the stacked
+        rows (features/crypto.DeviceSSE.batch_params; P·pkg_bytes
+        plaintext bytes per row). Returns (full (B, k+m, S) — CIPHERTEXT
+        data rows with parity appended, digests (B, k+m, 32)), or None
+        when the batch does not route to the device (the caller ciphers on
+        the host) or the algorithm has no device kernel."""
+        parts = _parts(data)
+        if not self.fused_route(algo):
+            return None
+        if self._route(sum(p.nbytes for p in parts)) != "device":
+            return None
+        from ..models.pipeline import sse_put_step
+        k, m = self.k, self.m
+        kernel = self._device_hash_kernel(algo)
+
+        def step(x):
+            return sse_put_step(x, chacha20_cuda.words(keys, x.device),
+                                chacha20_cuda.words(nonces, x.device), k, m,
+                                pkg_bytes, algo=kernel)
+        return self._run_step("encode", parts, step, stage_cb)
+
+    def verify_decode_decrypt_batch(self, survivors, present_mask: int,
+                                    shard_len: int, keys, nonces,
+                                    pkg_bytes: int, algo, *, stage_cb=None):
+        """The fused device path of the ENCRYPTED degraded GET: verify the
+        survivors, reconstruct the missing data rows, and decipher the
+        reassembled data shards in one device step
+        (models/pipeline.sse_get_step).
+
+        survivors: (B, k, S) in missing_data_matrix `used` order (or a list
+        of such groups); keys (B, 8) / nonces (B, P, 3) word arrays.
+        Returns (plain (B, k, S) deciphered data shards in shard-index
+        order, missing_idx, survivor_digests (B, k, 32)), or None when the
+        batch does not route to the device, the algorithm has no device
+        kernel, or nothing is missing. The package tags are checked on the
+        host before any of this is served."""
+        parts = _parts(survivors)
+        kernel = self._device_hash_kernel(algo)
+        if kernel is None:
+            return None
+        if self._route(sum(p.nbytes for p in parts)) != "device":
+            return None
+        dm, used, missing = rs_matrix.missing_data_matrix(
+            self.k, self.m, present_mask)
+        if not missing:
+            return None
+        # data shard j comes from the survivors (decode `used` order) or
+        # the reconstructed rows (`missing` order)
+        data_src = tuple((0, used.index(j)) if j in used
+                         else (1, missing.index(j)) for j in range(self.k))
+        from ..models.pipeline import sse_get_step
+        bits = rs_cuda.matrix_bits(dm, self.device)
+        r, k = dm.shape[0], self.k
+
+        def step(x):
+            plain, _ct_missing, digests = sse_get_step(
+                x, bits, chacha20_cuda.words(keys, x.device),
+                chacha20_cuda.words(nonces, x.device), r, k, data_src,
+                pkg_bytes, shard_len, algo=kernel)
+            return plain, digests
+        plain, digests = self._run_step("decode", parts, step, stage_cb)
+        return plain, missing, digests
 
     # -- fused verify + decode / recover (device) --------------------------
 

@@ -32,8 +32,15 @@ Whole-file bitrot algorithms (sha256, blake2b, highwayhash256) store one
 digest per drive in that drive's xl.meta: the commit takes each writer's
 digest, and readers verify the whole shard file against it.
 
+SSE (PutOptions.sse_spec, a features/crypto.DeviceSSE): the reader carries
+PLAINTEXT and each batch of full blocks is ciphered, encoded and digested
+in one fused device step (models/pipeline.sse_put_step); the host tags the
+returned ciphertext and appends the Poly1305 trailer at stream end. A
+batch the codec's size gate keeps on the host is ciphered there; a failed
+dispatch raises (the reference ciphers that batch on the host instead).
+
 Left out: hedged reads and quarantine, the quorum-ack lane of PUT (its
-multipart form is ported), spans, SSE, transitions and stubs, and the
+multipart form is ported), spans, transitions and stubs, and the
 namespace-change hook that feeds the metacache, replication and
 notification planes.
 """
@@ -78,12 +85,19 @@ GET_BATCH_BLOCKS = knobs.get_int("MINIO_TPU_GET_BATCH")
 RESERVED_BUCKETS = (MINIO_META_BUCKET,)
 
 
+def _sse_pkg() -> int:
+    """features/crypto.PKG_SIZE, imported at call time: crypto imports
+    this package's hash reader."""
+    from ..features.crypto import PKG_SIZE
+    return PKG_SIZE
+
+
 class PutOptions:
     def __init__(self, metadata: Optional[dict] = None,
                  version_id: str = "", versioned: bool = False,
                  parity: Optional[int] = None,
                  mod_time: Optional[float] = None,
-                 if_none_newer: bool = False):
+                 if_none_newer: bool = False, sse_spec=None):
         self.metadata = dict(metadata or {})
         self.version_id = version_id
         self.versioned = versioned
@@ -96,6 +110,11 @@ class PutOptions:
         # (mod_time, version_id, etag)-newer, evaluated inside the
         # per-key write lock (the replication apply's last-writer-wins)
         self.if_none_newer = if_none_newer
+        # features/crypto.DeviceSSE for the fused cipher+encode+digest
+        # PUT: the reader then carries PLAINTEXT and the engine ciphers
+        # in-batch, appending the Poly1305 tag trailer at stream end
+        # (None: any cipher ran as a reader transform)
+        self.sse_spec = sse_spec
 
 
 class GetOptions:
@@ -148,6 +167,13 @@ class ErasureObjects:
                 c = self._codec_cache[(k, m)] = Codec(
                     k, m, self.block_size, device=self.device)
             return c
+
+    @property
+    def supports_sse_device(self) -> bool:
+        """Whether this set can run the fused cipher+encode+digest PUT
+        (PutOptions.sse_spec): the package stream must tile the erasure
+        blocks exactly, so full blocks carry whole ChaCha20 packages."""
+        return self.block_size % _sse_pkg() == 0
 
     def _default_quorums(self, parity: Optional[int] = None
                          ) -> tuple[int, int, int, int]:
@@ -277,7 +303,7 @@ class ErasureObjects:
         try:
             try:
                 total = self._encode_stream(reader, codec, writers,
-                                            write_quorum)
+                                            write_quorum, sse=opts.sse_spec)
                 with stagetimer.stage("put.hash_verify"):
                     reader.verify()
             finally:
@@ -327,22 +353,28 @@ class ErasureObjects:
             return
 
     def _encode_stream(self, reader, codec: Codec, writers,
-                       write_quorum: int) -> int:
+                       write_quorum: int, sse=None) -> int:
         """The PUT hot loop: read blocks, batch-encode, batch-hash,
         fan-out framed writes. Returns total bytes. Streams that fit in
         ONE encode batch stay serial even with the pipeline on: a single
-        batch has nothing to overlap."""
+        batch has nothing to overlap.
+
+        With `sse` (a features/crypto.DeviceSSE) the reader carries
+        PLAINTEXT: full blocks are ciphered in their encode dispatch, the
+        short tail on the host, the Poly1305 tag trailer (computed on the
+        host over the ciphertext) lands at stream end, and the returned
+        total is the STORED size (ciphertext + trailer)."""
         from ..parallel import pipeline as pl
         size = getattr(reader, "size", -1)
         if pl.ENABLED and (size < 0
                            or size > ENCODE_BATCH_BLOCKS * self.block_size):
             return self._encode_stream_pipelined(reader, codec, writers,
-                                                 write_quorum)
+                                                 write_quorum, sse)
         return self._encode_stream_serial(reader, codec, writers,
-                                          write_quorum)
+                                          write_quorum, sse)
 
     def _encode_stream_pipelined(self, reader, codec: Codec, writers,
-                                 write_quorum: int) -> int:
+                                 write_quorum: int, sse=None) -> int:
         """The PUT hot loop, overlapped (reference :414-636): a ring of
         BytePool-backed (B, k*S) staging buffers, pinned on a CUDA
         engine, carries three concurrent stages —
@@ -381,10 +413,19 @@ class ErasureObjects:
         def encode_stage(item):
             t0 = time.perf_counter()
             with stagetimer.stage("put.encode+digest"):
-                fut, data = item["fut"], item["data"]
-                fused = fut.result() if fut is not None else \
-                    codec.encode_and_hash_batch(data, self.bitrot_algo)
-                item["rows"] = self._unpack_fused(codec, data, fused)
+                fut, data = item.get("fut"), item.get("data")
+                if "sse_finish" in item:
+                    # stream end under SSE: runs on this FIFO stage, so
+                    # every earlier batch has been absorbed
+                    item["rows_multi"] = self._sse_finish_rows(
+                        codec, sse, item["tail"], item["sse_finish"])
+                elif sse is not None:
+                    item["rows"] = self._sse_encode(codec, data, item, fut,
+                                                    sse)
+                else:
+                    fused = fut.result() if fut is not None else \
+                        codec.encode_and_hash_batch(data, self.bitrot_algo)
+                    item["rows"] = self._unpack_fused(codec, data, fused)
             stage_s[1] += time.perf_counter() - t0
             return item
 
@@ -392,8 +433,9 @@ class ErasureObjects:
             t0 = time.perf_counter()
             try:
                 with stagetimer.stage("put.shard_write"):
-                    self._write_shards_batch(*item["rows"], writers,
-                                             write_quorum)
+                    for rows in item.get("rows_multi", [item.get("rows")]):
+                        self._write_shards_batch(*rows, writers,
+                                                 write_quorum)
             finally:
                 recycle(item)
                 stage_s[2] += time.perf_counter() - t0
@@ -406,15 +448,19 @@ class ErasureObjects:
             ownership moves to the item BEFORE submit: if submit raises
             a pending stage error, on_drop recycles the item's buffer and
             the caller's finally must not recycle it again."""
-            nonlocal batches, buf, pipe
+            nonlocal batches, buf, pipe, enc_off
             if pipe is None:
                 pipe = pl.StagePipeline([encode_stage, write_stage],
                                         depth=pl.DEPTH, name="put-pipe",
                                         on_drop=recycle)
             owned, buf = buf, None
-            fut = (self.scheduler.submit(codec, data, self.bitrot_algo)
-                   if self.scheduler is not None else None)
-            pipe.submit({"buf": owned, "data": data, "fut": fut})
+            item = {"buf": owned, "data": data}
+            if sse is not None:
+                item["sse_kn"] = sse.batch_params(enc_off, data.shape[0], bs)
+                item["sse_off"] = enc_off
+                enc_off += data.shape[0] * bs
+            item["fut"] = self._submit_encode(codec, data, item)
+            pipe.submit(item)
             batches += 1
 
         def acquire():
@@ -430,6 +476,8 @@ class ErasureObjects:
 
         total = 0
         buf = None
+        enc_off = 0       # plaintext stream offset of the next sse batch
+        tail_pt = b""     # short last block (plaintext) under sse
         try:
             buf, arr = acquire()
             nb = 0
@@ -451,6 +499,12 @@ class ErasureObjects:
                             # take no buffer the stream never fills
                             break
                         buf, arr = acquire()
+                elif sse is not None:
+                    # short last block under SSE: it joins the tag
+                    # trailer in the finish batches, after the pending
+                    # full rows
+                    tail_pt = bytes(arr[nb][:n])
+                    break
                 else:
                     # short last block: its shard length differs — flush
                     # the pending full rows first, then the short block
@@ -474,9 +528,18 @@ class ErasureObjects:
                 if pipe is None:
                     self._encode_write(codec,
                                        arr[:nb].reshape(nb, k, s_len),
-                                       writers, write_quorum)
+                                       writers, write_quorum, sse, enc_off)
+                    enc_off += nb * bs
                 else:
                     feed(arr[:nb].reshape(nb, k, s_len))
+            if sse is not None:
+                if pipe is None:
+                    for rows in self._sse_finish_rows(codec, sse, tail_pt,
+                                                      enc_off):
+                        self._write_shards_batch(*rows, writers,
+                                                 write_quorum)
+                else:
+                    pipe.submit({"sse_finish": enc_off, "tail": tail_pt})
             if pipe is not None:
                 pipe.close()    # join; re-raises the first stage error
         except BaseException:
@@ -490,10 +553,10 @@ class ErasureObjects:
             wall = time.perf_counter() - t_start
             pl.STATS.record_put(wall, sum(stage_s), batches)
             stagetimer.add_overlap("put.pipeline", wall, sum(stage_s))
-        return total
+        return total if sse is None else _encrypted_size(total)
 
     def _encode_stream_serial(self, reader, codec: Codec, writers,
-                              write_quorum: int) -> int:
+                              write_quorum: int, sse=None) -> int:
         """The serial PUT loop (MINIO_TPU_PIPELINE=off, and streams of one
         batch): blocks are read straight into a padded (B, k*S) buffer so
         the shard split is a reshape VIEW, the data shards are written
@@ -508,12 +571,16 @@ class ErasureObjects:
         # blocks never write into it
         buf = np.zeros((cap, k * s_len), dtype=np.uint8)
         nb = 0
+        enc_off = 0
+        tail_pt = b""
 
         def flush_full(n_rows: int) -> None:
+            nonlocal enc_off
             if n_rows:
                 self._encode_write(codec,
                                    buf[:n_rows].reshape(n_rows, k, s_len),
-                                   writers, write_quorum)
+                                   writers, write_quorum, sse, enc_off)
+                enc_off += n_rows * bs
 
         while True:
             row = buf[nb]
@@ -527,6 +594,11 @@ class ErasureObjects:
                 if nb == cap:
                     flush_full(nb)
                     nb = 0
+            elif sse is not None:
+                # short last block under SSE: it joins the tag trailer in
+                # the finish batches (after flush_full below)
+                tail_pt = bytes(row[:n])
+                break
             else:
                 # short last block: its shard length differs — encode
                 # the pending full rows first, then it alone
@@ -537,7 +609,11 @@ class ErasureObjects:
                 self._encode_write(codec, data, writers, write_quorum)
                 break
         flush_full(nb)
-        return total
+        if sse is None:
+            return total
+        for rows in self._sse_finish_rows(codec, sse, tail_pt, enc_off):
+            self._write_shards_batch(*rows, writers, write_quorum)
+        return _encrypted_size(total)
 
     def _unpack_fused(self, codec: Codec, data: np.ndarray, fused
                       ) -> tuple[np.ndarray, np.ndarray, np.ndarray,
@@ -562,21 +638,90 @@ class ErasureObjects:
             dp = np.zeros((b_, 0, dd.shape[-1]), dtype=np.uint8)
         return data, parity, dd, dp
 
+    def _submit_encode(self, codec: Codec, data: np.ndarray, item: dict):
+        """The batch's fused dispatch on the batch former (None without
+        one); under SSE its key and nonce words (item["sse_kn"]) ride
+        along."""
+        if self.scheduler is None:
+            return None
+        if "sse_kn" not in item:
+            return self.scheduler.submit(codec, data, self.bitrot_algo)
+        keys, nonces = item["sse_kn"]
+        return self.scheduler.submit(codec, data, self.bitrot_algo,
+                                     sse=(keys, nonces, _sse_pkg()))
+
     def _encode_write(self, codec: Codec, data: np.ndarray, writers,
-                      write_quorum: int) -> None:
+                      write_quorum: int, sse=None, sse_off: int = 0
+                      ) -> None:
         """Encode+digest one (B, k, S) batch — through the batch former
         when there is one, which coalesces concurrent PUT streams into
         shared dispatches — and fan the framed shard writes out; data
-        rows go to the writers as views of `data`."""
+        rows go to the writers as views of `data`. With `sse` the rows
+        are PLAINTEXT full blocks at stream offset `sse_off`, ciphered in
+        the same dispatch."""
         with stagetimer.stage("put.encode+digest"):
-            if self.scheduler is not None:
-                fused = self.scheduler.encode_and_hash(codec, data,
-                                                       self.bitrot_algo)
+            item: dict = {}
+            if sse is not None:
+                item = {"sse_kn": sse.batch_params(sse_off, data.shape[0],
+                                                   self.block_size),
+                        "sse_off": sse_off}
+            fut = self._submit_encode(codec, data, item)
+            if sse is not None:
+                rows = self._sse_encode(codec, data, item, fut, sse)
             else:
-                fused = codec.encode_and_hash_batch(data, self.bitrot_algo)
-            rows = self._unpack_fused(codec, data, fused)
+                fused = fut.result() if fut is not None else \
+                    codec.encode_and_hash_batch(data, self.bitrot_algo)
+                rows = self._unpack_fused(codec, data, fused)
         with stagetimer.stage("put.shard_write"):
             self._write_shards_batch(*rows, writers, write_quorum)
+
+    def _sse_encode(self, codec: Codec, data: np.ndarray, item, fut,
+                    sse) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                  np.ndarray]:
+        """Resolve one SSE batch: the fused device cipher+encode+digest
+        result or, when the codec's size gate keeps the batch on the host,
+        the in-place host cipher followed by the host encode (the same
+        bytes). A failed dispatch raises. Always absorbs the ciphertext
+        into the Poly1305 tag trailer in stream order (the caller runs
+        batches FIFO), so the tags cover the bytes actually committed."""
+        bs = self.block_size
+        k = codec.k
+        if fut is not None:
+            fused = fut.result()
+        else:
+            keys, nonces = item["sse_kn"]
+            fused = codec.encrypt_encode_and_hash_batch(
+                data, keys, nonces, _sse_pkg(), self.bitrot_algo)
+        if fused is None:
+            sse.cpu_encrypt_rows(data.reshape(data.shape[0], -1)[:, :bs],
+                                 item["sse_off"])
+            rows = self._unpack_fused(codec, data, None)
+        else:
+            full, digests = fused
+            rows = (full[:, :k], full[:, k:], digests[:, :k],
+                    digests[:, k:])
+        for blk in rows[0]:
+            sse.absorb(np.ascontiguousarray(blk).reshape(-1)[:bs])
+        return rows
+
+    def _sse_finish_rows(self, codec: Codec, sse, tail_pt: bytes,
+                         off: int) -> list:
+        """Close an SSE stream: cipher the short plaintext tail on the host
+        (partial blocks never ride the device), absorb it, close the tag
+        trailer, and chunk ct_tail‖trailer into block-size erasure batches
+        ready for _write_shards_batch (the trailer can exceed one block
+        for huge objects, hence a list)."""
+        if tail_pt:
+            arr = np.frombuffer(bytearray(tail_pt), dtype=np.uint8)
+            sse.cpu_encrypt_tail(arr, off)
+            sse.absorb(arr)
+            stream = arr.tobytes() + sse.trailer()
+        else:
+            stream = sse.trailer()
+        bs = self.block_size
+        return [self._unpack_fused(
+            codec, codec.split(stream[at:at + bs])[None, ...], None)
+            for at in range(0, len(stream), bs)]
 
     def _write_shards_batch(self, data: np.ndarray, parity: np.ndarray,
                             dd: np.ndarray, dp: np.ndarray,
@@ -1613,6 +1758,11 @@ class _PartReadPlan:
                 if r is not None:
                     r.close()
             self.readers = None
+
+
+def _encrypted_size(n: int) -> int:
+    from ..features.crypto import encrypted_size
+    return encrypted_size(n)
 
 
 def _read_full_into(reader, view: np.ndarray) -> int:

@@ -49,6 +49,12 @@ class ErasureServerSets:
     def single_zone(self) -> bool:
         return len(self.server_sets) == 1
 
+    @property
+    def supports_sse_device(self) -> bool:
+        """Every pool can run the fused SSE PUT (the handlers' probe)."""
+        return all(getattr(z, "supports_sse_device", False)
+                   for z in self.server_sets)
+
     # ------------------------------------------------------------------
     # zone choice
     # ------------------------------------------------------------------

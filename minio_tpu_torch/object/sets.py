@@ -15,7 +15,7 @@ keywords): the former keys its buckets by geometry, not by set, so the
 blocks of concurrent writes to different sets coalesce into one fused
 dispatch.
 
-Left out: the SSE capability probe, the transition/stub verbs and the
+Left out: the transition/stub verbs and the
 namespace-change feed (their planes are not ported).
 """
 
@@ -60,6 +60,12 @@ class ErasureSets:
                 # queue (reference maintainMRFList + healMRFRoutine)
                 s.on_degraded_read = self._queue_mrf_heal
                 s.on_degraded_write = self._queue_mrf_heal
+
+    @property
+    def supports_sse_device(self) -> bool:
+        """Every set can run the fused SSE PUT (the handlers' probe)."""
+        return all(getattr(s, "supports_sse_device", False)
+                   for s in self.sets)
 
     # ------------------------------------------------------------------
     # construction from drives (format bootstrap)

@@ -31,9 +31,15 @@ to the host by its size gate resolves to None and the caller takes its
 local path (counted in ``host_routed``), as does every waiter when the
 scheduler closes.
 
+Encrypted PUTs and degraded GETs (``sse=(keys, nonces, pkg_bytes)``)
+carry their per-row ChaCha20 key and nonce words as the group's payload;
+the bucket key holds only their geometry (package count and size), so
+encrypted groups under different keys share one dispatch, which
+concatenates the payloads as it stacks the shards.
+
 Left out: the ``scan`` verb (the scan plane is not ported), the mesh
-split points, the SSE payloads, spans, and the MINIO_TPU_SCHED_ATTRIB
-switch (attribution is always on).
+split points, spans, and the MINIO_TPU_SCHED_ATTRIB switch (attribution
+is always on).
 
 Knobs: MINIO_TPU_SCHED_MAX_BATCH (32 blocks per fused dispatch),
 MINIO_TPU_SCHED_MAX_WAIT_MS (3, the coalescing grace window),
@@ -76,12 +82,14 @@ DISPATCH_STAGE_SECONDS = telemetry.REGISTRY.histogram(
 
 
 class _Pending:
-    __slots__ = ("codec", "data", "blocks", "event", "out", "error",
-                 "t_submit")
+    __slots__ = ("codec", "data", "payload", "blocks", "event", "out",
+                 "error", "t_submit")
 
-    def __init__(self, codec, data: np.ndarray):
+    def __init__(self, codec, data: np.ndarray, payload=None):
         self.codec = codec
         self.data = data
+        # SSE groups: (keys (B, 8), nonces (B, P, 3)) u32 word arrays
+        self.payload = payload
         self.blocks = int(data.shape[0])
         self.event = threading.Event()
         self.out = None
@@ -130,7 +138,8 @@ class BatchScheduler:
         # (verb, device, k, m, S, algo value, extra) -> [_Pending]: no
         # codec identity, so groups of different engines (erasure sets,
         # pools) of one geometry share a dispatch (reference
-        # minio_tpu/parallel/scheduler.py:202, 322-327)
+        # minio_tpu/parallel/scheduler.py:202, 322-327); `extra` holds the
+        # survivor pattern and, for SSE groups, ("sse", P, pkg_bytes)
         self._buckets: dict[tuple, list[_Pending]] = {}
         self._bucket_blocks: dict[tuple, int] = {}
         self._kick = threading.Condition(self._mu)
@@ -189,9 +198,12 @@ class BatchScheduler:
             self.declined += 1
         return True
 
-    def _enqueue(self, key: tuple, codec, data: np.ndarray
+    def _enqueue(self, key: tuple, codec, data: np.ndarray, sse=None
                  ) -> DispatchFuture:
-        p = _Pending(codec, np.ascontiguousarray(data, np.uint8))
+        payload = None if sse is None else (
+            np.ascontiguousarray(sse[0], np.uint32),
+            np.ascontiguousarray(sse[1], np.uint32))
+        p = _Pending(codec, np.ascontiguousarray(data, np.uint8), payload)
         with self._mu:
             if self._stop:
                 return DispatchFuture()
@@ -201,30 +213,41 @@ class BatchScheduler:
             self._kick.notify_all()
         return DispatchFuture(p)
 
-    def submit(self, codec, data: np.ndarray, algo) -> DispatchFuture:
+    def submit(self, codec, data: np.ndarray, algo, sse=None
+               ) -> DispatchFuture:
         """Non-blocking fused encode+digest dispatch of one (B, k, S)
         group. The future resolves to (parity, digests), or to None when
         the work takes the caller's local path; a declined submission
-        returns an already-done future."""
+        returns an already-done future.
+
+        sse = (keys (B, 8), nonces (B, P, 3), pkg_bytes) makes it the
+        fused cipher+encode+digest dispatch
+        (codec.encrypt_encode_and_hash_batch): the future then resolves
+        to (full (B, k+m, S) with CIPHERTEXT data rows, digests)."""
         if self._declined(codec, algo):
             return DispatchFuture()
+        extra = None if sse is None else ("sse", sse[1].shape[1], sse[2])
         key = ("encode", codec.device, codec.k, codec.m, data.shape[-1],
-               algo.value, None)
-        return self._enqueue(key, codec, data)
+               algo.value, extra)
+        return self._enqueue(key, codec, data, sse)
 
     def submit_decode(self, codec, survivors: np.ndarray,
-                      present_mask: int, shard_len: int, algo
+                      present_mask: int, shard_len: int, algo, sse=None
                       ) -> DispatchFuture:
         """Non-blocking fused verify+decode dispatch for a degraded-GET
         bucket: survivors (B, k, S) stacked in missing_data_matrix `used`
         order. Resolves to (missing, missing_idx, survivor_digests) or
-        None."""
+        None. With sse = (keys, nonces, pkg_bytes) it is the fused
+        verify+decode+decipher dispatch
+        (codec.verify_decode_decrypt_batch): the first element is then the
+        deciphered (B, k, S) data shards in shard-index order."""
         if self._declined(codec, algo):
             return DispatchFuture()
+        extra = (present_mask, shard_len) if sse is None else \
+            (present_mask, shard_len, "sse", sse[1].shape[1], sse[2])
         key = ("decode", codec.device, codec.k, codec.m,
-               survivors.shape[-1],
-               algo.value, (present_mask, shard_len))
-        return self._enqueue(key, codec, survivors)
+               survivors.shape[-1], algo.value, extra)
+        return self._enqueue(key, codec, survivors, sse)
 
     def submit_recover(self, codec, survivors: np.ndarray,
                        present_mask: int, rows, shard_len: int, algo
@@ -376,11 +399,23 @@ class BatchScheduler:
         # the groups are stacked by the codec, straight into the pinned
         # input staging of the dispatch's slot on the card
         parts = [p.data for p in group]
+        if extra is not None and "sse" in extra:
+            # per-row key and nonce words stack like the shards do
+            keys = np.concatenate([p.payload[0] for p in group])
+            nonces = np.concatenate([p.payload[1] for p in group])
+            pkg_bytes = extra[-1]
         if verb == "encode":
+            if extra is not None:
+                return codec.encrypt_encode_and_hash_batch(
+                    parts, keys, nonces, pkg_bytes, algo, stage_cb=stage_cb)
             return codec.encode_and_hash_batch(parts, algo,
                                                stage_cb=stage_cb)
         if verb == "decode":
-            mask, shard_len = extra
+            mask, shard_len = extra[:2]
+            if len(extra) > 2:
+                return codec.verify_decode_decrypt_batch(
+                    parts, mask, shard_len, keys, nonces, pkg_bytes, algo,
+                    stage_cb=stage_cb)
             return codec.verify_and_decode_batch(parts, mask, shard_len,
                                                  algo, stage_cb=stage_cb)
         mask, rows, shard_len = extra

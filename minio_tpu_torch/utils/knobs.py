@@ -1,10 +1,9 @@
 """Registry of the ``MINIO_TPU_*`` tuning knobs the port reads.
 
 Counterpart of minio_tpu/utils/knobs.py, trimmed to the knobs of the
-pipelined data path, the batch former, heal, the MRF queue, the
-quorum-ack write lane of multipart and the crash injector, with the
-reference's names, types and defaults (minio_tpu/utils/knobs.py:160-197,
-:284-291, :310-331, :360, :522). Left out: the README table renderer and every knob no ported
+pipelined data path, the batch former, heal, the MRF queue and the SSE
+cipher choice, with the reference's names, types and defaults
+(minio_tpu/utils/knobs.py:160-197, :203-206, :284-291, :310-331). Left out: the README table renderer and every knob no ported
 module reads. No knob here is one the reference lacks.
 
 Getters read the environment at call time: tests flip knobs with
@@ -59,6 +58,12 @@ def get(name: str) -> Knob:
 def is_set(name: str) -> bool:
     get(name)
     return name in os.environ
+
+
+def get_str(name: str) -> str:
+    k = get(name)
+    v = os.environ.get(name)
+    return str(k.resolve_default()) if v is None else v
 
 
 def get_int(name: str) -> int:
@@ -131,3 +136,9 @@ define("MINIO_TPU_MRF_BACKOFF_BASE", "float", 0.05,
        "first MRF retry delay, seconds (doubles per attempt)")
 define("MINIO_TPU_MRF_BACKOFF_MAX", "float", 15.0,
        "MRF retry delay cap, seconds")
+
+# -- SSE -------------------------------------------------------------------
+define("MINIO_TPU_SSE_CIPHER", "str", "aes-gcm",
+       "package cipher for NEW SSE writes: `aes-gcm` (CPU DARE packages) "
+       "or `chacha20` (ChaCha20-Poly1305, ciphered on the card); reads "
+       "dispatch on each object's recorded cipher")

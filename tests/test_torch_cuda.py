@@ -11,8 +11,10 @@ import torch
 
 from minio_tpu_torch.bitrot import MAGIC_HIGHWAYHASH_KEY as KEY
 from minio_tpu_torch.models import pipeline
-from minio_tpu_torch.ops import (highwayhash_cuda, highwayhash_py, rs_cuda,
-                                 rs_matrix, sha256_cuda, sha256_ref)
+from minio_tpu_torch.ops import (chacha20_cuda, chacha20_plain,
+                                 chacha20_ref, highwayhash_cuda,
+                                 highwayhash_py, rs_cuda, rs_matrix,
+                                 sha256_cuda, sha256_ref)
 from minio_tpu_torch.utils import guard_pages
 
 pytestmark = pytest.mark.cuda
@@ -380,3 +382,146 @@ def test_codec_dispatches_overlap_threads_and_agree(dev, monkeypatch):
     for x, got in zip(inputs, outs):
         want = host.encode_and_hash_batch(np.ascontiguousarray(x), hh)
         assert (got[0] == want[0]).all() and (got[1] == want[1]).all()
+
+
+def _cipher_words(b, p, seed, dev):
+    rng = np.random.default_rng(seed)
+    return (chacha20_cuda.words(rng.integers(0, 1 << 32, (b, 8),
+                                             dtype=np.uint32), dev),
+            chacha20_cuda.words(rng.integers(0, 1 << 32, (b, p, 3),
+                                             dtype=np.uint32), dev))
+
+
+def _check_chacha(data, keys, nonces, pkg_bytes, span=None):
+    """Kernel == plain version (tolerance 0), into a new tensor and in
+    place; bytes at or past the span stay as they were."""
+    want = chacha20_plain.keystream_xor(data, keys, nonces, pkg_bytes, span)
+    before = chacha20_cuda.keystream_xor.launches
+    got = chacha20_cuda.keystream_xor(data, keys, nonces, pkg_bytes, span)
+    torch.cuda.synchronize()
+    assert chacha20_cuda.keystream_xor.launches == before + 1
+    assert torch.equal(got, want)
+    inplace = data.clone()
+    chacha20_cuda.keystream_xor(inplace, keys, nonces, pkg_bytes, span,
+                                out=inplace)
+    torch.cuda.synchronize()
+    assert torch.equal(inplace, want)
+
+
+def test_chacha20_rfc8439_vector(dev):
+    # §2.4.2: the sunscreen plaintext, 114 bytes in one 128-byte package
+    pt = (b"Ladies and Gentlemen of the class of '99: If I could offer "
+          b"you only one tip for the future, sunscreen would be it.")
+    nonce = bytes.fromhex("000000000000004a00000000")
+    got = chacha20_cuda.keystream_xor(
+        torch.frombuffer(bytearray(pt), dtype=torch.uint8)[None].to(dev),
+        chacha20_cuda.words(np.frombuffer(bytes(range(32)), "<u4")[None],
+                            dev),
+        chacha20_cuda.words(np.frombuffer(nonce, "<u4")[None, None], dev),
+        128)
+    assert got.cpu().numpy().tobytes() == chacha20_ref.xor_stream(
+        pt, bytes(range(32)), nonce)
+
+
+@pytest.mark.parametrize("pkg_bytes", [64, 4096, 65536])
+@pytest.mark.parametrize("p", [1, 2, 16])
+def test_chacha20_kernel_equals_plain(dev, pkg_bytes, p):
+    data = _rand((3, p * pkg_bytes + 40), pkg_bytes + p, dev)
+    keys, nonces = _cipher_words(3, p, p, dev)
+    _check_chacha(data, keys, nonces, pkg_bytes)
+    # spans shorter than the row, a multiple of 64 and not
+    for span in (p * pkg_bytes - 64, p * pkg_bytes - 1, 1):
+        if span > 0:
+            _check_chacha(data, keys, nonces, pkg_bytes, span)
+
+
+@pytest.mark.parametrize("stride", [1048584, 1048580, 1048577, 4194312])
+def test_chacha20_put_rows_at_every_alignment(dev, stride):
+    # the PUT's flat (B, k*S) rows: k*S = 1,048,584 (1 MiB blocks at 12+4)
+    # and 4,194,312 (4 MiB) start on 8-byte boundaries; 4- and 1-byte
+    # strides too; the plaintext span is the block
+    span = 4 << 20 if stride > 4 << 20 else 1 << 20
+    data = _rand((8 if stride < 4 << 20 else 2, stride), stride, dev)
+    keys, nonces = _cipher_words(data.shape[0], span // 65536, stride, dev)
+    _check_chacha(data, keys, nonces, 65536, span)
+
+
+@pytest.mark.parametrize("base", [1, 4, 8])
+def test_chacha20_offset_views(dev, base):
+    flat = _rand((base + 3 * 8192,), base, dev)
+    view = flat[base:].view(3, 8192)
+    keys, nonces = _cipher_words(3, 2, base, dev)
+    _check_chacha(view, keys, nonces, 4096)
+    _check_chacha(view, keys, nonces, 4096, 5000)
+
+
+def test_chacha20_get_batch(dev):
+    # GET's decipher batch: 64 packages of 65,536 B, and a short last
+    # package zero-padded to a 64-byte multiple
+    keys, nonces = _cipher_words(64, 1, 64, dev)
+    rows = _rand((64, 65536), 1, dev)
+    for width in (65536, 1024):
+        r = rows[:, :width].contiguous()
+        r[-1, width - 50:] = 0
+        got = chacha20_cuda.xor_packages(r, keys, nonces[:, 0])
+        assert torch.equal(got, chacha20_plain.keystream_xor(
+            r, keys, nonces, width))
+
+
+@pytest.mark.parametrize("n_rows,length,span", [(3, 129, 100), (2, 65536,
+                                                                 65536),
+                                                (8, 1048584, 1 << 20)])
+def test_chacha20_touches_only_its_tensors(dev, n_rows, length, span):
+    # input and output at each end of a mapping between unmapped ranges: a
+    # load or store outside the rows stops the kernel
+    n = n_rows * length
+    keys, nonces = _cipher_words(n_rows, -(-span // 64), length, dev)
+    src = _rand((n_rows, length), length, dev)
+    want = chacha20_plain.keystream_xor(src, keys, nonces, 64, span)
+    with guard_pages.guarded(n, dev) as a, \
+            guard_pages.guarded(n, dev) as b:
+        for x in (a[:n], a[-n:]):
+            x = x.view(n_rows, length)
+            x.copy_(src)
+            for out in (b[:n], b[-n:]):
+                out = out.view(n_rows, length)
+                out.copy_(src)
+                chacha20_cuda.keystream_xor(x, keys, nonces, 64, span,
+                                            out=out)
+                torch.cuda.synchronize()
+                assert torch.equal(out, want)
+            chacha20_cuda.keystream_xor(x, keys, nonces, 64, span, out=x)
+            torch.cuda.synchronize()
+            assert torch.equal(x, want)
+
+
+
+def test_sse_steps_on_card_equal_cpu(dev):
+    k, m, s = 12, 4, 87382                  # 1 MiB blocks at 12+4
+    b, p = 2, 16
+    x = torch.zeros((b, k * s), dtype=torch.uint8, device=dev)
+    x[:, :1 << 20] = _rand((b, 1 << 20), 9, dev)
+    x = x.view(b, k, s)
+    keys, nonces = _cipher_words(b, p, 9, dev)
+    before = chacha20_cuda.keystream_xor.launches
+    rows, dig = pipeline.sse_put_step(x, keys, nonces, k, m, 65536)
+    assert chacha20_cuda.keystream_xor.launches == before + 1
+    cpu_rows, cpu_dig = pipeline.sse_put_step(x.cpu(), keys.cpu(),
+                                              nonces.cpu(), k, m, 65536)
+    assert torch.equal(rows.cpu(), cpu_rows) and torch.equal(dig.cpu(),
+                                                             cpu_dig)
+    mask = sum(1 << i for i in range(k + m) if i not in (1, 5, 14))
+    dm, used, missing = rs_matrix.missing_data_matrix(k, m, mask)
+    surv = rows[:, list(used)].contiguous()
+    data_src = tuple((0, used.index(j)) if j in used
+                     else (1, missing.index(j)) for j in range(k))
+    bits = rs_cuda.matrix_bits(dm, dev)
+    got = pipeline.sse_get_step(surv, bits, keys, nonces, dm.shape[0], k,
+                                data_src, 65536, s)
+    want = pipeline.sse_get_step(surv.cpu(), bits.cpu(), keys.cpu(),
+                                 nonces.cpu(), dm.shape[0], k, data_src,
+                                 65536, s)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(got[0], x)
+
