@@ -31,7 +31,10 @@ printing one JSON line; any failure exits non-zero:
                 sha256 against its plain version and hashlib (the third
                 witness) at lengths 0, 1, 55, 56, 63, 64, 65, 119, 120,
                 65,535 and 65,536 (length < S in all but the last) on
-                N = 1, 20, 160 and 640 rows of S = 65,536, rows at 4- and
+                N = 1, 20, 160 and 640 rows of S = 65,536, at the ring's
+                edges (1, 31-33, 63-65 and 639-641 rows; lengths of a
+                ring stage -1, +0, +1 and both padding forms ending or
+                crossing a stage, at 128 and 768 bytes), rows at 4- and
                 1-byte alignments (strides 1,028 and 1,031, views from
                 bytes 1..3), and config 5's 640 rows at each end of a
                 guarded mapping; gf_matmul at config 5's shapes: encode
@@ -99,7 +102,9 @@ printing one JSON line; any failure exits non-zero:
                 flight at once into two pools of one 16+4 set each,
                 sharing one batch former; every object read back by bytes
                 and multipart ETag, healthy and with 4 of 20 drives gone
-                in each pool.
+                in each pool; then the uploads again under torch.profiler
+                for the idle share and the kernels' device ms per encode
+                dispatch.
   9. SSE      — BASELINE.json config 2 under SSE-S3 with ChaCha20-Poly1305
                 (see run_sse): 32 threads each PUT one 16 MiB object at
                 once through setup_put_transforms and the DeviceSSE spec,
@@ -548,6 +553,22 @@ def check_sha256(torch, dev, rand_u8, max_err, sha256_cuda, sha256_ref,
         for n in (1, 20, 160, 640):
             check(f"{n} rows, length {length}", rows[:n], length,
                   plain[:n], want[:n])
+    # the ring's edges: a block of the kernel is 32 rows (one per lane of
+    # its round warp), a ring stage 128 bytes of a row, and the three
+    # producers' two slots each turn every 6 stages (768 bytes). Row counts
+    # around one and two blocks and config 5's 640, on rows of 1031 bytes
+    # (every offset mod 16); lengths of a stage -1, +0, +1 and both padding
+    # forms (length % 64 = 55, 56, 63, 0) ending a stage or crossing into
+    # the next, at the first stage and after a turn of the slots
+    rows = rand_u8(641, 1031)
+    plain = sha256_ref.sha256_rows(rows, 1031)
+    want = [hashlib.sha256(r.tobytes()).digest()
+            for r in rows.cpu().numpy()]
+    for n in (1, 31, 32, 33, 63, 64, 65, 639, 640, 641):
+        check(f"{n} rows of 1031", rows[:n], 1031, plain[:n], want[:n])
+    for length in sorted({base + d for base in (128, 768)
+                          for d in (-9, -8, -1, 0, 1, 55, 56, 63, 64)}):
+        check(f"33 rows, length {length}", rand_u8(33, length + 5), length)
     # rows on 4- and 1-byte boundaries, and views starting mid-word
     for stride in (1028, 1031):
         r = rand_u8(33, stride)
@@ -1379,8 +1400,19 @@ def run_config5(tmp, card, counts, stagetimer, np) -> dict:
     degraded = counts.read()
     if degraded["gf_matmul"] <= 0:
         fail(f"config 5 degraded GET launched {degraded}")
-    # the same uploads again under the profiler: the device's idle share
+    # the same uploads again under the profiler: the device's idle share,
+    # and the kernels' device time per encode dispatch (one sha256 launch
+    # each)
+    counts.zero()
     profiled = device_busy(torch, lambda: upload_all("again/"))
+    again = counts.read()["sha256"]
+    profiled["dispatches"] = again
+    if again and profiled["device_s"] is not None:
+        kern = {n: t for n, t in profiled["device_s_by_name"].items()
+                if not n.startswith("Memcpy")}
+        profiled["kernel_ms_per_dispatch"] = sum(kern.values()) / again * 1e3
+        profiled["sha256_ms_per_dispatch"] = sum(
+            t for n, t in kern.items() if "sha256_kernel" in n) / again * 1e3
     layer.close()
     sched.close()
     total = n_obj * n_parts * part_size

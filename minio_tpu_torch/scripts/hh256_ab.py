@@ -23,7 +23,6 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
 import sys
 
 import torch
@@ -31,6 +30,7 @@ import torch
 from ..bitrot import MAGIC_HIGHWAYHASH_KEY as KEY
 from ..ops import kernels
 from ..utils import sass
+from . import ab
 
 SHAPES = {"baseline": (512, 87382), "put": (128, 349526),
           "degraded_get": (96, 349526)}
@@ -41,19 +41,8 @@ _ARGS = [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + \
 def build_all(builds: dict[str, str]) -> tuple:
     """name -> source built into build/ab/; returns (name -> the loaded
     hh256_launch, name -> its hot-loop summary)."""
-    out_dir = os.path.join(os.path.dirname(kernels.BUILD_DIR), "ab")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name, src in builds.items():
-        lib = os.path.join(out_dir, f"libhh256_{name}.so")
-        procs[name] = (lib, subprocess.Popen(
-            [kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", lib, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns, loops = {}, {}
-    for name, (lib, p) in procs.items():
-        log, _ = p.communicate()
-        if p.returncode != 0:
-            sys.exit(f"hh256_ab: build {name} failed:\n{log}")
+    for name, lib in ab.build_libs("hh256", builds).items():
         fn = ctypes.CDLL(lib).hh256_launch
         fn.argtypes, fn.restype = _ARGS, ctypes.c_int
         fns[name] = fn
@@ -74,20 +63,6 @@ def launch(fn, rows: torch.Tensor, length: int) -> torch.Tensor:
     return out
 
 
-def timed(fn, sets, length: int, iters: int = 20) -> float:
-    for i in range(2):
-        launch(fn, sets[i % 4], length)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        launch(fn, sets[i % 4], length)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", action="append", default=[],
@@ -104,10 +79,7 @@ def main(argv=None) -> int:
     builds["tree"] = tree_src
     fns, loops = build_all(builds)
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = ab.card()
     gen = torch.Generator(device="cuda").manual_seed(20240601)
     result = {"card": card, "order": [], "shapes": {}, "hot_loop": loops}
     order = list(fns) + list(fns)[::-1]
@@ -123,7 +95,8 @@ def main(argv=None) -> int:
         times: dict[str, list[float]] = {name: [] for name in fns}
         for _ in range(args.rounds):
             for name in order:
-                times[name].append(timed(fns[name], sets, length))
+                times[name].append(ab.timed(
+                    lambda i, fn=fns[name]: launch(fn, sets[i % 4], length)))
         result["shapes"][shape] = {
             "rows": n, "length": length, "ms": times,
             "mean_ms": {k: sum(v) / len(v) for k, v in times.items()}}

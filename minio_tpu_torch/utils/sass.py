@@ -8,7 +8,9 @@ floor of a loop whose trips depend on each other, however many threads run
 it. The latencies are a model (``LATENCY``), not a measurement; they are
 printed beside every floor computed from them. ``packet_loop`` applies
 them to hh256's packet loop in a built kernel library, ``block_loop`` to
-sha256's loop over 64-byte blocks (one trip = one compression).
+sha256's loop over 64-byte blocks on its round warp (one trip = one
+compression). ``analyse`` also counts a loop's instructions by issue pipe
+(``PIPES``, also a model).
 """
 
 from __future__ import annotations
@@ -29,6 +31,17 @@ _NO_DEST = {"ST", "STS", "STG", "STL", "RED", "BRA", "EXIT", "BAR",
             "WARPSYNC", "BSYNC", "BSSY", "LDGSTS", "DEPBAR", "LDGDEPBAR",
             "NOP", "CALL", "RET", "YIELD", "MEMBAR", "ERRBAR", "CCTL",
             "ATOMS", "ARRIVES", "SYNCS"}
+# issue pipe of each opcode family on Hopper, from NVIDIA's descriptions
+# of the SM sub-partition (a model, not a measurement): the integer ALU
+# pipe and the FMA pipe each take two cycles per warp instruction of
+# integer work, so a loop bound by one of them issues at half rate.
+# VIADD (sm_90's add of an immediate) is counted with the FMA pipe's
+# IMAD.IADD, whose work it does.
+PIPES = {"alu": ("IADD3", "LOP3", "SHF", "PRMT", "ISETP", "SEL", "LEA",
+                 "MOV", "IABS", "IMNMX", "FLO", "POPC", "BMSK", "PLOP3"),
+         "fma": ("IMAD", "IMUL", "VIADD", "FFMA", "FADD", "FMUL"),
+         "mem": ("LDS", "STS", "LDG", "STG", "LDGSTS", "LDL", "STL",
+                 "ATOMS", "LDSM")}
 # opcodes whose leading predicate output is followed by a register output
 _PRED_THEN_REG = {"SHFL", "LOP3", "VOTE"}
 _LINE = re.compile(r"/\*([0-9a-fA-F]{4,})\*/\s+(.*?)\s*;")
@@ -185,14 +198,28 @@ def chain_cycles(body: list[Instr], trips: int = 16) -> float:
     return (ends[-1] - ends[half - 1]) / (trips - half)
 
 
+def pipe(ins: Instr) -> str:
+    """The issue pipe of an instruction under ``PIPES``, else "other"."""
+    for name, bases in PIPES.items():
+        if ins.base in bases:
+            return name
+    return "other"
+
+
 def analyse(text: str, need=("IMAD.WIDE",), avoid=("SHFL",)) -> dict:
     """Hot-loop summary of one function's SASS: its address range, issue
-    slots (instructions per trip) and their count by opcode, chain cycles
-    per trip, and the latency model."""
+    slots (instructions per trip) and their count by opcode and by pipe,
+    the 32-bit adds on each of the ALU (IADD3) and FMA (IMAD.IADD, VIADD)
+    pipes, chain cycles per trip, and the latency model."""
     body = hot_loop(parse(text), need, avoid)
+    adds = {"alu": sum(i.base == "IADD3" for i in body),
+            "fma": sum(i.opcode.startswith(("IMAD.IADD", "VIADD"))
+                       for i in body)}
     return {"loop": [hex(body[0].addr), hex(body[-1].addr)],
             "issue_slots": len(body),
             "opcodes": dict(collections.Counter(i.base for i in body)),
+            "pipes": dict(collections.Counter(pipe(i) for i in body)),
+            "adds": adds,
             "chain_cycles": chain_cycles(body),
             "latency_model": dict(LATENCY)}
 
@@ -225,10 +252,23 @@ def packet_loop(lib: str) -> dict:
                    need=("IMAD.WIDE", "LDS"), avoid=("SHFL", "LDGSTS"))
 
 
-def block_loop(lib: str) -> dict:
+def sha256_block_loop(text: str) -> dict:
     """``analyse`` of one trip of sha256's block loop (one compression of
-    64 rounds) in the kernel library at path `lib`: the loop with the
-    most funnel shifts (the rotates). Raises when the listing cannot be
-    read or holds no such loop."""
-    return analyse(function_text(dump(lib), "sha256_kernel"),
-                   need=("SHF",), avoid=("SHFL",))
+    64 rounds) in the SASS of its kernel function. The round warp's loop
+    reads W + K from shared memory (LDS) and holds the most funnel shifts
+    (the rotates); the producers' loop also stores (STS) and the staging
+    loop copies (LDGSTS), so both are passed over. A kernel with no such
+    loop (one thread doing schedule and rounds from global loads, as
+    before the round warp) is read as its loop with the most funnel
+    shifts. Raises when neither is there."""
+    try:
+        return analyse(text, need=("SHF", "LDS"),
+                       avoid=("SHFL", "LDGSTS", "STS"))
+    except ValueError:
+        return analyse(text, need=("SHF",), avoid=("SHFL",))
+
+
+def block_loop(lib: str) -> dict:
+    """``sha256_block_loop`` of the kernel library at path `lib`. Raises
+    when the listing cannot be read or holds no such loop."""
+    return sha256_block_loop(function_text(dump(lib), "sha256_kernel"))

@@ -237,8 +237,18 @@ def _check_sha256(rows, length):
             hashlib.sha256(r.tobytes()).digest()
 
 
-@pytest.mark.parametrize("length", [0, 1, 3, 55, 56, 57, 63, 64, 65, 119,
-                                    120, 127, 128, 1000, 4099])
+# csrc/sha256.cu stages 128 bytes of a row per ring stage, and its three
+# producers with two slots each turn once every 6 stages (768 bytes): a
+# stage's bytes -1, +0, +1, and both padding forms (length % 64 = 55, 56,
+# 63, 0) ending a stage or crossing into the next, at both
+SHA256_STAGE_LENGTHS = sorted({base + d for base in (128, 768)
+                               for d in (-64 + 55, -64 + 56, -1, 0, 1, 55,
+                                         56, 63, 64)})
+
+
+@pytest.mark.parametrize("length", sorted(
+    {0, 1, 3, 55, 56, 57, 63, 64, 65, 119, 120, 127, 128, 1000, 4099}
+    | set(SHA256_STAGE_LENGTHS)))
 def test_sha256_kernel_equals_plain(dev, length):
     before = sha256_cuda.sha256_rows.launches
     _check_sha256(_rand((35, length + 5), length, dev), length)
@@ -252,8 +262,17 @@ def test_sha256_row_alignments(dev, stride):
     _check_sha256(_rand((33, stride), stride + 1, dev), stride - 9)
 
 
+# a block is 32 rows (one per lane of its round warp)
+@pytest.mark.parametrize("n_rows", [1, 31, 32, 33, 63, 64, 65, 639, 640,
+                                    641])
+def test_sha256_row_counts(dev, n_rows):
+    # rows of 1031 bytes start at every offset mod 16
+    _check_sha256(_rand((n_rows, 1031), n_rows, dev), 1031)
+
+
 @pytest.mark.parametrize("n_rows,length", [(3, 17), (40, 1031),
-                                           (20, 8192)])
+                                           (20, 8192), (32, 1031),
+                                           (64, 8193)])
 def test_sha256_reads_only_its_rows(dev, n_rows, length):
     # rows at each end of a mapping between unmapped ranges: a read
     # outside the rows stops the kernel with an illegal-address error

@@ -120,3 +120,84 @@ def test_packet_loop_reports_an_unreadable_library(tmp_path):
     # a missing library raises, so no caller takes a floor it could not read
     with pytest.raises(FileNotFoundError):
         sass.packet_loop(str(tmp_path / "libhh256.so"))
+
+
+# sha256 with warp specialisation: a producer staging loop (cp.async),
+# a producer schedule loop (shared loads and stores, three funnel shifts)
+# and the round warp's loop (shared loads, two funnel shifts). The round
+# chain: R26 -> SHF (4) -> LOP3 (4) -> IADD3 (4) = 12 cycles per trip;
+# the shared load (23) hangs off the address chain, 4 cycles per trip.
+WARP_SPECIALISED = """
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDGSTS.E.BYPASS.128 [R2], desc[UR4][R4.64] ;
+        /*0020*/                   IADD3 R2, R2, 0x10, RZ ;
+        /*0030*/                   SHF.R.U32.HI R9, RZ, 0x4, R2 ;
+        /*0040*/                   ISETP.NE.AND P0, PT, R2, R3, PT ;
+        /*0050*/               @P0 BRA 0x10 ;
+        /*0060*/                   LDS.128 R12, [R6] ;
+        /*0070*/                   SHF.R.W.U32 R16, R12, 0x7, R12 ;
+        /*0080*/                   SHF.R.W.U32 R17, R12, 0x12, R12 ;
+        /*0090*/                   SHF.R.U32.HI R18, RZ, 0x3, R12 ;
+        /*00a0*/                   LOP3.LUT R16, R16, R17, R18, 0x96, !PT ;
+        /*00b0*/                   IADD3 R13, R13, R16, R14 ;
+        /*00c0*/                   STS.128 [R7], R12 ;
+        /*00d0*/                   IADD3 R6, R6, 0x40, RZ ;
+        /*00e0*/                   ISETP.NE.AND P1, PT, R6, R8, PT ;
+        /*00f0*/               @P1 BRA 0x60 ;
+        /*0100*/                   LDS.128 R20, [R10] ;
+        /*0110*/                   SHF.R.W.U32 R24, R26, 0x6, R26 ;
+        /*0120*/                   SHF.R.W.U32 R25, R26, 0xb, R26 ;
+        /*0130*/                   LOP3.LUT R24, R24, R25, R27, 0x96, !PT ;
+        /*0140*/                   IMAD.IADD R27, R27, 0x1, R20 ;
+        /*0150*/                   IADD3 R26, R24, R20, R26 ;
+        /*0160*/                   VIADD R10, R10, 0x200 ;
+        /*0170*/                   ISETP.NE.AND P2, PT, R10, R11, PT ;
+        /*0180*/               @P2 BRA 0x100 ;
+        /*0190*/                   EXIT ;
+"""
+
+# sha256 as one thread per row doing schedule and rounds from global
+# loads (the kernel of git 649558e): the chain R12 -> SHF -> LOP3 -> IADD3
+# is 12 cycles per trip; the load (400) and its byte permute feed it once
+# and then fall behind, their address advancing 4 cycles per trip
+ONE_THREAD = """
+        /*0000*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0010*/                   PRMT R8, R4, 0x123, RZ ;
+        /*0020*/                   SHF.R.W.U32 R9, R12, 0x6, R12 ;
+        /*0030*/                   SHF.R.W.U32 R10, R12, 0xb, R12 ;
+        /*0040*/                   LOP3.LUT R9, R9, R10, R13, 0x96, !PT ;
+        /*0050*/                   IADD3 R12, R9, R8, R12 ;
+        /*0060*/                   IADD3 R2, P0, R2, 0x40, RZ ;
+        /*0070*/                   IADD3.X R3, RZ, R3, RZ, P0, !PT ;
+        /*0080*/                   ISETP.NE.AND P1, PT, R2, R14, PT ;
+        /*0090*/               @P1 BRA 0x0 ;
+        /*00a0*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("text, loop, pipes, adds", [
+    # the round warp's loop, not the producers' (more funnel shifts, but
+    # shared stores) nor the staging loop (cp.async)
+    (WARP_SPECIALISED, ["0x100", "0x180"],
+     {"mem": 1, "alu": 5, "fma": 2, "other": 1}, {"alu": 1, "fma": 2}),
+    (ONE_THREAD, ["0x0", "0x90"],
+     {"mem": 1, "alu": 8, "other": 1}, {"alu": 3, "fma": 0}),
+])
+def test_sha256_block_loop_reads_the_round_loop(text, loop, pipes, adds):
+    got = sass.sha256_block_loop(text)
+    assert got["loop"] == loop
+    assert got["chain_cycles"] == 12.0
+    assert got["pipes"] == pipes
+    assert got["adds"] == adds
+    assert sum(got["pipes"].values()) == got["issue_slots"]
+
+
+def test_funnel_shift_rule_alone_takes_the_producer_loop():
+    # why block_loop asks for shared loads and passes over shared stores
+    got = sass.analyse(WARP_SPECIALISED, need=("SHF",), avoid=("SHFL",))
+    assert got["loop"] == ["0x60", "0xf0"]
+
+
+def test_block_loop_reports_an_unreadable_library(tmp_path):
+    with pytest.raises(FileNotFoundError):
+        sass.block_loop(str(tmp_path / "libsha256.so"))
