@@ -44,7 +44,8 @@ printing one JSON line; any failure exits non-zero:
                 packages of 64, 4,096 and 65,536 B x P = 1, 2, 16, spans
                 shorter than the row (the bytes past them must stay as
                 they were), the PUT's flat rows of 1,048,584 and
-                4,194,312 B, rows at 8-, 4- and 1-byte alignment, GET's
+                4,194,312 B, rows at 8-, 4- and 1-byte alignment, input
+                and output rows at different offsets mod 16, GET's
                 64 x 65,536 with a short padded last package, and input
                 and output at each end of a guarded mapping; and
                 sse_put_step / sse_get_step on the card against the same
@@ -120,10 +121,17 @@ printing one JSON line; any failure exits non-zero:
                 the GiB/s, the host Poly1305 seconds for the phase's
                 packages (timed on one core) and the idle share.
   4. timings  — (continued) chacha20 at the encode launch (8 rows, 1 MiB
-                span in 1,048,584-byte rows) and at GET's 64 x 65,536,
-                beside its byte and operation bounds, its plain version
-                and chacha20_ref.xor_stream on the host over the same
-                bytes; sse_put_step against put_step at config 2's shape,
+                span in 1,048,584-byte rows) and at GET's 64 x 65,536:
+                CUDA events around back-to-back wrapper calls, the kernel's
+                own device time (torch.profiler kernel durations over the
+                same launches; fails without), the wrapper's host µs per
+                call, beside its byte bound, its operation bound (all 992
+                operations a block over the INT32 rate) and the two-pipe
+                floor (its ALU-pipe operations over that rate; the bound
+                is the larger of it and the byte bound), its plain version and chacha20_ref.xor_stream on the host over
+                the same bytes, and its SASS summary (utils/sass.unrolled:
+                fails if a 64-bit divide is left); sse_put_step against
+                put_step at config 2's shape,
                 and sse_put_step there and sse_get_step at a degraded-GET
                 group (B=8, 3 data shards lost) beside the sum of their
                 kernels' bounds and their plain composition on the card.
@@ -172,6 +180,12 @@ SHA256_OPS_PER_COMPRESSION = 64 * 14 + 48 * 10 + 8 + 16
 # funnel shifts, one instruction each) = 960, the 16 feed-forward adds and
 # the 16 xors with the data
 CHACHA20_OPS_PER_BLOCK = 10 * 8 * 12 + 16 + 16
+# of those, the 320 round adds and 16 feed-forward adds may issue on the FMA
+# pipe (as IMAD); the xors and rotates only on the integer ALU pipe, which
+# has the same 64 lanes per SM: the two-pipe floor of a block is its ALU
+# operations over the INT32 rate
+CHACHA20_ADDS_PER_BLOCK = 10 * 8 * 4 + 16
+CHACHA20_ALU_OPS_PER_BLOCK = CHACHA20_OPS_PER_BLOCK - CHACHA20_ADDS_PER_BLOCK
 SEED = 20240601
 # object sizes of phases 3, 5, 7 and 9
 MAIN_OBJECT = 64 << 20              # eight of these, one 12,345 B longer
@@ -449,7 +463,7 @@ def main() -> int:
     timing.update(run_sse_timings(torch, dev, rand_u8, max_err, pipeline,
                                   chacha20_cuda, chacha20_plain,
                                   chacha20_ref, rs_cuda, rs_matrix,
-                                  highwayhash_cuda, KEY, np))
+                                  highwayhash_cuda, kernels, sass, KEY, np))
     timing.update({"phase": "timings", "B": b, "k": k, "m": m, "S": s,
                    "card": card})
     emit(timing)
@@ -503,13 +517,29 @@ def main() -> int:
          "max_abs_err": max(cc_err, sse_err,
                             timing["chacha20_encode"]["max_abs_err"],
                             timing["chacha20_get"]["max_abs_err"]),
+         # "ms": CUDA events around back-to-back calls, as for the other
+         # kernels (here the wrapper's host rate, above the kernel's time);
+         # "device_ms": the kernel's own (torch.profiler durations)
          "ms": timing["chacha20_encode"]["ms"],
          "plain_ms": timing["chacha20_encode"]["plain_ms"],
+         # the larger of the byte bound and the two-pipe floor; op_bound_ms
+         # puts all 992 operations a block on one pipe
          "bound_ms": timing["chacha20_encode"]["bound_ms"],
          "bound_by": timing["chacha20_encode"]["bound_by"],
+         "bound_pipe": "ALU",
          "library_ms": None,
+         "device_ms": timing["chacha20_encode"]["device_ms"],
+         "wrapper_host_us": timing["chacha20_encode"]["wrapper_host_us"],
+         "op_bound_ms": timing["chacha20_encode"]["op_bound_ms"],
+         "two_pipe_floor_ms": timing["chacha20_encode"]["two_pipe_floor_ms"],
          "get_batch_ms": timing["chacha20_get"]["ms"],
+         "get_batch_device_ms": timing["chacha20_get"]["device_ms"],
+         "get_batch_wrapper_host_us":
+             timing["chacha20_get"]["wrapper_host_us"],
          "get_batch_bound_ms": timing["chacha20_get"]["bound_ms"],
+         "get_batch_op_bound_ms": timing["chacha20_get"]["op_bound_ms"],
+         "get_batch_two_pipe_floor_ms":
+             timing["chacha20_get"]["two_pipe_floor_ms"],
          "host_xor_stream_ms": timing["chacha20_encode"][
              "host_xor_stream_ms"]}]})
     print(card, flush=True)
@@ -670,6 +700,17 @@ def check_chacha20(torch, dev, rand_u8, max_err, chacha20_cuda,
             fail("chacha20: the view does not start where intended")
         check(f"8 rows of 1048584 from byte {base}", view, keys, nonces,
               65536, 1 << 20)
+    # input and output rows at different offsets mod 16 (strides 5 and 11
+    # bytes over a span of four 8 KiB tiles and a fifth cut mid-block)
+    span = 4 * 8192 + 4096 + 37
+    flat_in, flat_out = rand_u8(16 + 3 * (span + 5)), \
+        rand_u8(16 + 3 * (span + 11))
+    keys, nonces = words(3, 8), words(3, 10, 3)
+    for a, b in ((1, 6), (3, 0), (0, 13), (8, 15), (15, 7), (6, 6)):
+        view = flat_in[a:a + 3 * (span + 5)].view(3, span + 5)
+        out = flat_out[b:b + 3 * (span + 11)].view(3, span + 11)[:, :span + 5]
+        check(f"3 rows in from byte {a}, out from byte {b}", view, keys,
+              nonces, 4096, span, out=out)
     # GET's decipher batch: 64 packages of 65,536 B, a short last package
     # zero-padded to a 64-byte multiple, and a lone short package
     rows = rand_u8(64, 65536)
@@ -1773,18 +1814,26 @@ def run_sse(tmp, card, counts, stagetimer, np) -> dict:
 
 def run_sse_timings(torch, dev, rand_u8, max_err, pipeline, chacha20_cuda,
                     chacha20_plain, chacha20_ref, rs_cuda, rs_matrix, hh,
-                    key, np) -> dict:
+                    kernels, sass, key, np) -> dict:
     """chacha20 at its two launch shapes — the encode launch (8 rows of a
-    1 MiB span in 1,048,584-byte rows) and GET's 64 x 65,536 — beside its
-    byte and operation bounds, its plain version and the host
-    chacha20_ref.xor_stream over the same bytes; sse_put_step against
-    put_step at config 2's shape (B = 32, 12+4, S = 87,382), in turns; and
+    1 MiB span in 1,048,584-byte rows) and GET's 64 x 65,536 — read three
+    ways (CUDA events around back-to-back wrapper calls, the kernel's own
+    device time from the profiler, the wrapper's host µs per call), beside
+    its byte and operation bounds and its two-pipe floor, its plain
+    version and the host chacha20_ref.xor_stream over the same bytes, and
+    its SASS summary; sse_put_step against put_step at config 2's shape
+    (B = 32, 12+4, S = 87,382), in turns; and
     sse_put_step there and sse_get_step at a degraded-GET group (B = 8,
     3 data shards lost) beside the sum of their kernels' bounds, their
     plain composition (the kernels' plain versions, on the card, checked
     against the step) and the host cipher over the same packages."""
     rng = np.random.default_rng(SEED + 6)
-    out = {"chacha20_ops_per_block": CHACHA20_OPS_PER_BLOCK}
+    block = sass.keystream_block(kernels.library("chacha20"))
+    if block["divide64"]:
+        fail(f"chacha20's SASS still calls a subroutine: {block['calls']}")
+    out = {"chacha20_ops_per_block": CHACHA20_OPS_PER_BLOCK,
+           "chacha20_alu_ops_per_block": CHACHA20_ALU_OPS_PER_BLOCK,
+           "chacha20_sass": block}
     shapes = {"encode": (8, 1048584, 1 << 20), "get": (64, 65536, 65536)}
     for name, (n, stride, span) in shapes.items():
         pkg = 65536
@@ -1796,9 +1845,19 @@ def run_sse_timings(torch, dev, rand_u8, max_err, pipeline, chacha20_cuda,
         nw = rng.integers(0, 1 << 32, (n, p, 3), dtype=np.uint32)
         keys, nonces = chacha20_cuda.words(kw, dev), \
             chacha20_cuda.words(nw, dev)
-        ms = cuda_timed(torch, lambda i: chacha20_cuda.keystream_xor(
-            sets[i % len(sets)], keys, nonces, pkg, span,
-            out=sets[i % len(sets)]), 50)
+
+        def call(i):
+            x = sets[i % len(sets)]
+            chacha20_cuda.keystream_xor(x, keys, nonces, pkg, span, out=x)
+
+        ms = cuda_timed(torch, call, 50)
+        device = kernel_device_ms(torch, call, 50, "chacha20_kernel")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(50):
+            call(i)
+        host_us = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
         x = sets[0]
         t0 = time.perf_counter()
         plain = chacha20_plain.keystream_xor(x, keys, nonces, pkg, span)
@@ -1821,14 +1880,20 @@ def run_sse_timings(torch, dev, rand_u8, max_err, pipeline, chacha20_cuda,
         nbytes = 2 * n * span
         ops = blocks * CHACHA20_OPS_PER_BLOCK
         t = {"rows": n, "row_bytes": stride, "span": span, "packages": n * p,
-             "ms": ms, "bytes": nbytes, "ops": ops,
+             "ms": ms, "device_ms": device["ms"],
+             "device_launches": device["launches"],
+             "wrapper_host_us": host_us, "bytes": nbytes, "ops": ops,
              "byte_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
              "op_bound_ms": ops / INT32_OPS_PER_S * 1e3,
+             "two_pipe_floor_ms": blocks * CHACHA20_ALU_OPS_PER_BLOCK
+             / INT32_OPS_PER_S * 1e3,
              "plain_ms": plain_ms, "host_xor_stream_ms": host_ms,
              "max_abs_err": err, "library_ms": None}
-        t["bound_ms"] = max(t["byte_bound_ms"], t["op_bound_ms"])
-        t["bound_by"] = ("bytes" if t["byte_bound_ms"] >= t["op_bound_ms"]
-                         else "operations")
+        # the adds issue on the FMA pipe (IMAD.IADD), so the operations'
+        # floor is the ALU pipe's share, not all 992 on one pipe
+        t["bound_ms"] = max(t["byte_bound_ms"], t["two_pipe_floor_ms"])
+        t["bound_by"] = ("bytes" if t["byte_bound_ms"]
+                         >= t["two_pipe_floor_ms"] else "operations")
         out[f"chacha20_{name}"] = t
     # sse_put_step against put_step at config 2's shape, in turns
     k, m, s, b = 12, 4, 87382, 32
@@ -1865,7 +1930,7 @@ def time_sse_steps(torch, dev, rand_u8, max_err, pipeline, chacha20_cuda,
 
     def cc_bound(n):
         return max(2 * n * span / HBM_BYTES_PER_S, n * span // 64
-                   * CHACHA20_OPS_PER_BLOCK / INT32_OPS_PER_S) * 1e3
+                   * CHACHA20_ALU_OPS_PER_BLOCK / INT32_OPS_PER_S) * 1e3
 
     def gf_bound(bits, nb):
         kk, r = bits.shape[1] // 8, bits.shape[0] // 8
@@ -1985,6 +2050,30 @@ def cuda_timed(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(torch, fn, iters: int, kernel: str) -> dict:
+    """The device time of one launch of the kernel whose name holds
+    `kernel`, from torch.profiler's kernel durations over `iters` calls of
+    fn(i) (after two warm-up calls). Fails when the profiler recorded no
+    such kernel: no other reading stands in for it."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(2):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if kernel not in e.key:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us and e.count:
+            return {"ms": us / e.count / 1e3, "launches": e.count}
+    fail(f"the profiler recorded no device time for {kernel}")
 
 
 def sha256_compressions(length: int) -> int:

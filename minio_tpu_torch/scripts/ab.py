@@ -1,6 +1,7 @@
 """What the kernel A/B scripts share: building several sources of one
-kernel side by side, timing launches with CUDA events, and the card's
-name and power limit."""
+kernel side by side, timing launches with CUDA events (around the calls,
+or around the replay of a CUDA graph of them), and the card's name and
+power limit."""
 
 from __future__ import annotations
 
@@ -45,6 +46,28 @@ def timed(fn, iters: int = 20) -> float:
     start.record()
     for i in range(iters):
         fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_timed(fn, iters: int = 20) -> float:
+    """ms per call of fn(i), i < iters, from CUDA events around the replay
+    of one CUDA graph of the `iters` calls (captured after two warm-up
+    calls): the device-side time, free of the host's cost per call."""
+    for i in range(2):
+        fn(i)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(iters):
+            fn(i)
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters

@@ -10,7 +10,10 @@ printed beside every floor computed from them. ``packet_loop`` applies
 them to hh256's packet loop in a built kernel library, ``block_loop`` to
 sha256's loop over 64-byte blocks on its round warp (one trip = one
 compression). ``analyse`` also counts a loop's instructions by issue pipe
-(``PIPES``, also a model).
+(``PIPES``, also a model). ``unrolled`` reads a kernel with no hot loop,
+all of whose work per thread is one straight run (chacha20's 20 unrolled
+rounds): that run's instructions by pipe, its adds on each pipe, and the
+subroutine calls left in the function (a 64-bit divide is one).
 """
 
 from __future__ import annotations
@@ -272,3 +275,53 @@ def block_loop(lib: str) -> dict:
     """``sha256_block_loop`` of the kernel library at path `lib`. Raises
     when the listing cannot be read or holds no such loop."""
     return sha256_block_loop(function_text(dump(lib), "sha256_kernel"))
+
+
+def straight_runs(instrs: list[Instr]) -> list[list[Instr]]:
+    """The function's basic blocks: runs of instructions entered only at
+    their first (a branch target or the instruction after a branch, exit
+    or return) and left only at their last."""
+    leaders = {0} | {i + 1 for i, ins in enumerate(instrs)
+                     if ins.base in ("BRA", "BRX", "JMP", "EXIT", "RET")}
+    index = {ins.addr: i for i, ins in enumerate(instrs)}
+    leaders |= {index[ins.target] for ins in instrs
+                if ins.target is not None and ins.target in index}
+    cuts = sorted(i for i in leaders if i < len(instrs)) + [len(instrs)]
+    return [instrs[a:b] for a, b in zip(cuts, cuts[1:]) if b > a]
+
+
+def _fma_add(ins: Instr) -> bool:
+    # a plain IMAD in an unrolled run is an add, x * one + y with an
+    # opaque one (IMAD.MOV, .SHL, .WIDE and .HI carry modifiers)
+    return ins.opcode.startswith(("IMAD.IADD", "VIADD")) or \
+        ins.opcode in ("IMAD", "IMAD.U32")
+
+
+def unrolled(text: str) -> dict:
+    """Summary of an unrolled kernel function's SASS: its longest straight
+    run (for chacha20 the rounds and feed-forward of one 64-byte block)
+    with its instructions by opcode and by pipe and its 32-bit adds on the
+    ALU (IADD3) and FMA (IMAD.IADD, VIADD, plain IMAD) pipes; the whole
+    function's instructions by pipe (every path counted once); and the
+    subroutine calls left in it. nvcc reaches a 64-bit divide or
+    remainder through such a call (CALL.REL to __internal_*div*), so
+    ``divide64`` is whether any is left."""
+    instrs = parse(text)
+    run = max(straight_runs(instrs), key=len)
+    calls = [ins.opcode for ins in instrs if ins.base == "CALL"]
+    return {"run": [hex(run[0].addr), hex(run[-1].addr)],
+            "run_instructions": len(run),
+            "opcodes": dict(collections.Counter(i.base for i in run)),
+            "pipes": dict(collections.Counter(pipe(i) for i in run)),
+            "adds": {"alu": sum(i.base == "IADD3" for i in run),
+                     "fma": sum(_fma_add(i) for i in run)},
+            "function_instructions": len(instrs),
+            "function_pipes": dict(collections.Counter(
+                pipe(i) for i in instrs)),
+            "calls": calls, "divide64": bool(calls)}
+
+
+def keystream_block(lib: str) -> dict:
+    """``unrolled`` of chacha20's kernel in the library at path `lib`.
+    Raises when the listing cannot be read or holds no such function."""
+    return unrolled(function_text(dump(lib), "chacha20_kernel"))

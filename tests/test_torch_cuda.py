@@ -514,6 +514,114 @@ def test_chacha20_touches_only_its_tensors(dev, n_rows, length, span):
             assert torch.equal(x, want)
 
 
+# four 8 KiB tiles of the kernel and a fifth cut mid-tile and mid-block
+# (% 64 = 37), in packages of 4,096 B
+TILED_SPAN = 4 * 8192 + 4096 + 37
+
+
+@pytest.mark.parametrize("in_off", range(16))
+def test_chacha20_every_alignment_pair(dev, in_off):
+    # input rows from byte in_off of a buffer, output rows from each byte
+    # 0..15 of another; strides 5 and 11 bytes over the span, so each row
+    # of a call sits at another (in, out) offset pair mod 16. Bytes of the
+    # output buffer outside the spans stay as they were
+    n_rows, span = 3, TILED_SPAN
+    si, so = span + 5, span + 11
+    p = -(-span // 4096)
+    keys, nonces = _cipher_words(n_rows, p, in_off, dev)
+    flat_in = _rand((16 + n_rows * si,), in_off, dev)
+    x = flat_in[in_off:in_off + n_rows * si].view(n_rows, si)
+    assert x.data_ptr() % 16 == (flat_in.data_ptr() + in_off) % 16
+    want = chacha20_plain.keystream_xor(x, keys, nonces, 4096, span)
+    for out_off in range(16):
+        flat_out = _rand((16 + n_rows * so,), 100 + out_off, dev)
+        before = flat_out.clone()
+        out = flat_out[out_off:out_off + n_rows * so].view(n_rows, so)
+        chacha20_cuda.keystream_xor(x, keys, nonces, 4096, span,
+                                    out=out[:, :si])
+        torch.cuda.synchronize()
+        assert torch.equal(out[:, :span], want[:, :span]), out_off
+        expect = before.clone()
+        expect[out_off:out_off + n_rows * so].view(n_rows, so)[:, :span] = \
+            want[:, :span]
+        assert torch.equal(flat_out, expect), out_off
+
+
+@pytest.mark.parametrize("off", [1, 3, 7, 13])
+def test_chacha20_in_place_at_odd_offsets(dev, off):
+    # in place from an odd byte, rows 7 bytes over the span: each row of
+    # the call starts at another odd offset
+    n_rows, span = 4, TILED_SPAN
+    stride = span + 7
+    keys, nonces = _cipher_words(n_rows, -(-span // 4096), off, dev)
+    flat = _rand((16 + n_rows * stride,), off, dev)
+    before = flat.clone()
+    x = flat[off:off + n_rows * stride].view(n_rows, stride)
+    want = chacha20_plain.keystream_xor(x, keys, nonces, 4096, span)
+    chacha20_cuda.keystream_xor(x, keys, nonces, 4096, span, out=x)
+    torch.cuda.synchronize()
+    assert torch.equal(x, want)
+    assert torch.equal(flat[:off], before[:off])
+    assert torch.equal(flat[off + n_rows * stride:],
+                       before[off + n_rows * stride:])
+
+
+@pytest.mark.parametrize("n_rows,length", [(5, TILED_SPAN), (3, 100),
+                                           (64, 65536 - 3)])
+def test_chacha20_span_ends_at_a_guarded_page(dev, n_rows, length):
+    # the span is the whole row, so the first row's first byte is the
+    # mapping's first byte, or the last row's last byte is its last, with
+    # unmapped address space beyond: input and output at each end of two
+    # mappings (odd lengths: the other end sits mid-granule), out of place
+    # and in place
+    n = n_rows * length
+    keys, nonces = _cipher_words(n_rows, -(-length // 4096), length, dev)
+    src = _rand((n_rows, length), length, dev)
+    want = chacha20_plain.keystream_xor(src, keys, nonces, 4096)
+    with guard_pages.guarded(n, dev) as a, \
+            guard_pages.guarded(n, dev) as b:
+        for x in (a[:n], a[-n:]):
+            x = x.view(n_rows, length)
+            x.copy_(src)
+            for out in (b[:n], b[-n:]):
+                out = out.view(n_rows, length)
+                chacha20_cuda.keystream_xor(x, keys, nonces, 4096, out=out)
+                torch.cuda.synchronize()
+                assert torch.equal(out, want)
+            chacha20_cuda.keystream_xor(x, keys, nonces, 4096, out=x)
+            torch.cuda.synchronize()
+            assert torch.equal(x, want)
+
+
+def test_chacha20_rows_past_65535_in_one_launch(dev):
+    # more rows than a grid's y dimension holds: rows sit on grid.x, so
+    # one call is one launch
+    keys, nonces = _cipher_words(70000, 1, 70000, dev)
+    _check_chacha(_rand((70000, 100), 70000, dev), keys, nonces, 128)
+
+
+def test_chacha20_longest_span_and_past_it(dev):
+    # 65,535 tiles of 8 KiB are the longest span one launch takes. In
+    # packages of one tile each (the counter restarts at 1 in each), the
+    # first and last tiles equal the plain version of their package alone;
+    # a span one block longer is refused before any launch
+    tile, tiles = 8192, 65535
+    data = _rand((1, tiles * tile + 64), 5, dev)
+    keys, nonces = _cipher_words(1, tiles + 1, 6, dev)
+    got = chacha20_cuda.keystream_xor(data, keys, nonces, tile,
+                                      tiles * tile)
+    torch.cuda.synchronize()
+    for t in (0, tiles - 1):
+        part = data[:, t * tile:(t + 1) * tile].contiguous()
+        assert torch.equal(got[:, t * tile:(t + 1) * tile],
+                           chacha20_plain.keystream_xor(
+                               part, keys, nonces[:, t:t + 1], tile))
+    assert torch.equal(got[:, tiles * tile:], data[:, tiles * tile:])
+    before = chacha20_cuda.keystream_xor.launches
+    with pytest.raises(RuntimeError, match="chacha20 launch"):
+        chacha20_cuda.keystream_xor(data, keys, nonces, tile)
+    assert chacha20_cuda.keystream_xor.launches == before
+
 
 def test_sse_steps_on_card_equal_cpu(dev):
     k, m, s = 12, 4, 87382                  # 1 MiB blocks at 12+4

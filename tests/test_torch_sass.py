@@ -201,3 +201,84 @@ def test_funnel_shift_rule_alone_takes_the_producer_loop():
 def test_block_loop_reports_an_unreadable_library(tmp_path):
     with pytest.raises(FileNotFoundError):
         sass.block_loop(str(tmp_path / "libsha256.so"))
+
+
+# chacha20 as one thread per block with its row and package from 64-bit
+# divides (the kernel of git e8d2d0c): the divide is a CALL.REL to nvcc's
+# subroutine, then the straight run of the rounds (a quarter round's
+# adds, xors and rotates), then the stores behind a branch
+UNROLLED_DIV64 = """
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   ISETP.GE.U32.AND P0, PT, R0, R2, PT ;
+        /*0020*/               @P0 EXIT ;
+        /*0030*/                   CALL.REL.NOINC `($__internal_0_$__cuda_sm20_div_s64) ;
+        /*0040*/                   IADD3 R4, R4, R5, RZ ;
+        /*0050*/                   LOP3.LUT R7, R7, R4, RZ, 0x3c, !PT ;
+        /*0060*/                   PRMT R7, R7, 0x1032, RZ ;
+        /*0070*/                   IADD3 R6, R6, R7, RZ ;
+        /*0080*/                   LOP3.LUT R5, R5, R6, RZ, 0x3c, !PT ;
+        /*0090*/                   SHF.L.W.U32.HI R5, R5, 0xc, R5 ;
+        /*00a0*/                   IMAD.IADD R4, R4, 0x1, R5 ;
+        /*00b0*/                   ISETP.GE.AND P1, PT, R8, 0x40, PT ;
+        /*00c0*/              @!P1 BRA 0x100 ;
+        /*00d0*/                   STG.E.128 desc[UR4][R10.64], R4 ;
+        /*00e0*/                   EXIT ;
+        /*0100*/                   STG.E.U8 desc[UR4][R10.64], R4 ;
+        /*0110*/                   EXIT ;
+        /*0120*/                   IADD3 R2, R2, 0x1, RZ ;
+        /*0130*/                   RET.REL.NODEC R20 0x0 ;
+"""
+
+# the tiled kernel: a staging loop, the barrier, the rounds with adds as
+# IMAD by a constant-bank one, no call
+UNROLLED_TILED = """
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDGSTS.E.BYPASS.128 [R2], desc[UR4][R4.64] ;
+        /*0020*/                   IADD3 R0, R0, 0x100, RZ ;
+        /*0030*/                   ISETP.GE.AND P0, PT, R0, R9, PT ;
+        /*0040*/              @!P0 BRA 0x10 ;
+        /*0050*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0060*/                   LDS.128 R4, [UR6] ;
+        /*0070*/                   IMAD R4, R5, c[0x0][0x250], R4 ;
+        /*0080*/                   LOP3.LUT R7, R7, R4, RZ, 0x3c, !PT ;
+        /*0090*/                   PRMT R7, R7, 0x1032, RZ ;
+        /*00a0*/                   IMAD R6, R7, c[0x0][0x250], R6 ;
+        /*00b0*/                   LOP3.LUT R5, R5, R6, RZ, 0x3c, !PT ;
+        /*00c0*/                   SHF.L.W.U32.HI R5, R5, 0xc, R5 ;
+        /*00d0*/                   IADD3 R4, R5, R4, RZ ;
+        /*00e0*/                   IMAD.MOV.U32 R8, RZ, RZ, R4 ;
+        /*00f0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0100*/                   STS.128 [R3], R4 ;
+        /*0110*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("text, run, pipes, adds, divide64", [
+    (UNROLLED_DIV64, ["0x30", "0xc0"], {"other": 2, "alu": 7, "fma": 1},
+     {"alu": 2, "fma": 1}, True),
+    # the run spans the barriers (no branch); IMAD.MOV is not an add
+    (UNROLLED_TILED, ["0x50", "0x110"],
+     {"other": 3, "mem": 2, "fma": 3, "alu": 5}, {"alu": 1, "fma": 2},
+     False),
+], ids=["div64", "tiled"])
+def test_unrolled_reads_the_straight_run(text, run, pipes, adds, divide64):
+    got = sass.unrolled(text)
+    assert got["run"] == run
+    assert got["pipes"] == pipes
+    assert got["adds"] == adds
+    assert got["divide64"] is divide64
+    assert sum(got["pipes"].values()) == got["run_instructions"]
+    assert got["function_instructions"] == len(sass.parse(text))
+
+
+def test_straight_runs_split_at_branches_targets_and_returns():
+    runs = sass.straight_runs(sass.parse(UNROLLED_DIV64))
+    assert [(r[0].addr, r[-1].addr) for r in runs] == [
+        (0x0, 0x20), (0x30, 0xc0), (0xd0, 0xe0), (0x100, 0x110),
+        (0x120, 0x130)]
+    assert sass.unrolled(UNROLLED_DIV64)["calls"] == ["CALL.REL.NOINC"]
+
+
+def test_keystream_block_reports_an_unreadable_library(tmp_path):
+    with pytest.raises(FileNotFoundError):
+        sass.keystream_block(str(tmp_path / "libchacha20.so"))
