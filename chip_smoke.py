@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-About 7 to 8 minutes on one H100, the kernels' builds included. Phases, each
+About 9 to 10 minutes on one H100, the kernels' builds included. Phases, each
 printing one JSON line; any failure exits non-zero:
 
   1. build    — compile every hand-written kernel (csrc/*.cu, one nvcc per
@@ -120,6 +120,22 @@ printing one JSON line; any failure exits non-zero:
                 dispatches and the GET decipher batches, per path. Prints
                 the GiB/s, the host Poly1305 seconds for the phase's
                 packages (timed on one core) and the idle share.
+  10. s3      — the port's server on the card over HTTP (see run_s3):
+                cluster.start_single over 16 fresh drives at 12+4 with 1 MiB
+                blocks on the edge transport; 32 concurrent signed PUTs of
+                16 MiB (config 2, two rounds reported apart) and their GETs,
+                a listing, ranged GETs, a HEAD, an aws-chunked PUT, a
+                2 x 64 MiB + tail multipart upload, eight 4 MiB objects read
+                by 8 clients at once with 3 drives' bucket gone (config 3's
+                shape, cut) and a degraded 64 MiB GET, SSE-S3, SSE-C and
+                multipart SSE objects read whole and in ranges by clients
+                released at one barrier, a flipped ciphertext byte that
+                fails before any plaintext, the PUT round under the
+                profiler; launches equal the former's dispatches on the
+                card (chacha20: the encrypted encode and decode ones plus
+                its GET decipher ones); then `python3 -m minio_tpu_torch
+                server` as a subprocess: ListBuckets, a 64 MiB PUT and GET,
+                SIGTERM, exit 0.
   4. timings  — (continued) chacha20 at the encode launch (8 rows, 1 MiB
                 span in 1,048,584-byte rows) and at GET's 64 x 65,536:
                 CUDA events around back-to-back wrapper calls, the kernel's
@@ -136,8 +152,8 @@ printing one JSON line; any failure exits non-zero:
                 group (B=8, 3 data shards lost) beside the sum of their
                 kernels' bounds and their plain composition on the card.
 
-Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 4. Each path's launch counters
-are set to 0 just before it runs and read just after. Then it prints the
+Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 10, 4. Each path's launch
+counters are set to 0 just before it runs and read just after. Then it prints the
 kernel table as one JSON line (with each kernel's launches on every path),
 the card's name and power limit, and the device line last. It needs one
 CUDA card and the repo's minio_tpu_torch package beside it; it imports
@@ -193,6 +209,13 @@ CONCURRENT = (32, 16 << 20)         # streams, bytes each (config 2)
 MRF_OBJECTS = (4, 64 << 20)
 CONFIG5 = (8, 4, 64 << 20)          # objects, parts each, bytes per part
 SSE_OBJECTS = (32, 16 << 20)        # streams, bytes each (config 2, SSE)
+# phase 10, the server over HTTP
+S3_PUTS = (32, 16 << 20)            # streams, bytes each (config 2)
+S3_DEGRADED = (8, 4 << 20)          # objects, bytes each (config 3, cut)
+S3_BIG = 64 << 20                   # degraded GET past the gate; CLI object
+S3_PARTS = (2, 64 << 20, 12345)     # full parts, bytes each, tail bytes
+S3_SSE = (2, 16 << 20)              # SSE-S3 objects (and one SSE-C), bytes
+S3_SSE_PARTS = (2, 5 << 20)         # SSE-S3 multipart: parts, bytes each
 
 
 def fail(msg: str) -> None:
@@ -444,13 +467,15 @@ def main() -> int:
         config5 = run_config5(tmp, card, counts, stagetimer, np)
         # -- 9. config 2 under SSE: its own former ------------------------
         ssep = run_sse(tmp, card, counts, stagetimer, np)
+        # -- 10. the server over HTTP: its own boot, former and drives ----
+        s3p = run_s3(tmp, card, counts, stagetimer, np)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths_launches = {"main_path": main_path["launches"],
                       "concurrent_put": concurrent["launches"],
                       "heal": heal["launches"], "mrf": mrf["launches"],
                       "config5": config5["launches"],
-                      "sse": ssep["launches"]}
+                      "sse": ssep["launches"], "s3": s3p["launches"]}
 
     # -- 4. timings -------------------------------------------------------
     b, s = 32, -(-(1 << 20) // k)
@@ -519,7 +544,9 @@ def main() -> int:
                             timing["chacha20_get"]["max_abs_err"]),
          # "ms": CUDA events around back-to-back calls, as for the other
          # kernels (here the wrapper's host rate, above the kernel's time);
-         # "device_ms": the kernel's own (torch.profiler durations)
+         # "device_ms": the kernel's own (torch.profiler durations, None
+         # when the profiler kept no record), "device_graph_ms": the
+         # replay of a CUDA graph of the same calls
          "ms": timing["chacha20_encode"]["ms"],
          "plain_ms": timing["chacha20_encode"]["plain_ms"],
          # the larger of the byte bound and the two-pipe floor; op_bound_ms
@@ -529,11 +556,14 @@ def main() -> int:
          "bound_pipe": "ALU",
          "library_ms": None,
          "device_ms": timing["chacha20_encode"]["device_ms"],
+         "device_graph_ms": timing["chacha20_encode"]["device_graph_ms"],
          "wrapper_host_us": timing["chacha20_encode"]["wrapper_host_us"],
          "op_bound_ms": timing["chacha20_encode"]["op_bound_ms"],
          "two_pipe_floor_ms": timing["chacha20_encode"]["two_pipe_floor_ms"],
          "get_batch_ms": timing["chacha20_get"]["ms"],
          "get_batch_device_ms": timing["chacha20_get"]["device_ms"],
+         "get_batch_device_graph_ms":
+             timing["chacha20_get"]["device_graph_ms"],
          "get_batch_wrapper_host_us":
              timing["chacha20_get"]["wrapper_host_us"],
          "get_batch_bound_ms": timing["chacha20_get"]["bound_ms"],
@@ -915,31 +945,53 @@ def run_main_path(eng_mod, hash_order, tmp, card, counts, stagetimer,
     return out, {"paths": paths, "objects": objects, "drive": gone[0]}
 
 
-def device_busy(torch, run) -> dict:
+def device_busy(torch, run, counts) -> dict:
     """Run `run()` under torch.profiler (device activity only) and return
     its wall seconds, the device seconds the profiler recorded (summed by
-    name; two streams' overlapping work counts twice, so the idle share
-    derived from it is a lower bound), and that idle share. Device fields
-    are None when the profiler recorded no device time."""
+    name; two streams' overlapping work counts twice), and the idle share
+    they leave. The profiler can lose kernel records, so each kernel's
+    launches it recorded stand beside those its wrapper counted in the
+    run: "idle_share_at_least" is a lower bound only when it recorded
+    every counted launch, and is None otherwise; "idle_share_scaled"
+    charges each lost launch the mean of that kernel's recorded ones.
+    Device fields are None when the profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
+    before = counts.read()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {}
+    after = counts.read()
+    by_name, recorded = {}, {n: [0, 0.0] for n in after}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         if us:
             by_name[e.key] = round(us / 1e6, 6)
+            for n in recorded:
+                if f"{n}_kernel" in e.key:
+                    recorded[n][0] += e.count
+                    recorded[n][1] += us / 1e6
     busy = sum(by_name.values())
+    launches = {n: {"counted": after[n] - before[n],
+                    "recorded": recorded[n][0]} for n in after}
+    complete = all(v["recorded"] >= v["counted"] for v in launches.values())
+    scaled = busy
+    for n, v in launches.items():
+        lost = v["counted"] - v["recorded"]
+        if lost > 0:
+            scaled = None if not v["recorded"] or scaled is None else \
+                scaled + lost * recorded[n][1] / v["recorded"]
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
     return {"wall_s": round(wall, 3),
             "device_s": round(busy, 6) if by_name else None,
+            "kernel_launches": launches, "recorded_every_launch": complete,
             "idle_share_at_least": round(1 - busy / wall, 6)
-            if by_name else None,
+            if by_name and complete else None,
+            "idle_share_scaled": round(1 - scaled / wall, 6)
+            if by_name and scaled is not None else None,
             "device_s_by_name": top}
 
 
@@ -1025,7 +1077,7 @@ def run_concurrent_put(eng_mod, sched, stagetimer, tmp, card, counts,
     ring = pl.pool_pressure()
     get_s = read_all_back(eng, "smoke", objects)
     # the same PUTs again under the profiler: the device's idle share
-    profiled = device_busy(torch, lambda: put_all("again/"))
+    profiled = device_busy(torch, lambda: put_all("again/"), counts)
     if errors:
         fail(f"concurrent PUT under the profiler: {errors[:3]}")
     gib = streams * size / (1 << 30)
@@ -1445,7 +1497,7 @@ def run_config5(tmp, card, counts, stagetimer, np) -> dict:
     # and the kernels' device time per encode dispatch (one sha256 launch
     # each)
     counts.zero()
-    profiled = device_busy(torch, lambda: upload_all("again/"))
+    profiled = device_busy(torch, lambda: upload_all("again/"), counts)
     again = counts.read()["sha256"]
     profiled["dispatches"] = again
     if again and profiled["device_s"] is not None:
@@ -1778,7 +1830,7 @@ def run_sse(tmp, card, counts, stagetimer, np) -> dict:
     put_pkgs = streams * size // pkg
     get_pkgs = put_pkgs + len(deg_names) * size // pkg
 
-    profiled = device_busy(torch, lambda: put_all("again/"))
+    profiled = device_busy(torch, lambda: put_all("again/"), counts)
     sched.close()
     gib = streams * size / (1 << 30)
     totals = {n: sum(v[n] for v in launched.values())
@@ -1807,6 +1859,465 @@ def run_sse(tmp, card, counts, stagetimer, np) -> dict:
            "put_packages": put_pkgs, "get_packages": get_pkgs,
            "profiled_again": profiled, "codec_step_s": steps,
            "stagetimer": stages, "card": card}
+    emit(out)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def at_barrier(jobs: dict) -> tuple[float, dict, list]:
+    """Run every job of {name: fn()} on its own thread, released at one
+    barrier; (wall seconds from the barrier to the last return, results,
+    errors)."""
+    import threading
+    start = threading.Barrier(len(jobs) + 1, timeout=600)
+    out, errors = {}, []
+
+    def run(name, fn):
+        try:
+            start.wait()
+            out[name] = fn()
+        except Exception as e:  # noqa: BLE001 — failed by the caller
+            errors.append(f"{name}: {e!r}")
+
+    threads = [threading.Thread(target=run, args=kv) for kv in jobs.items()]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    return time.perf_counter() - t0, out, errors
+
+
+def run_s3(tmp, card, counts, stagetimer, np) -> dict:
+    """The port's server on the card, driven by signed HTTP requests from
+    this process (see S3_* for the cuts): cluster.start_single over 16
+    fresh drives at 12+4, 1 MiB blocks, highwayhash256S, the default edge
+    transport, MINIO_SSE_MASTER_KEY and the ChaCha20 cipher set before
+    boot. BASELINE.json config 2 over HTTP (32 concurrent signed PUTs of
+    16 MiB, two rounds reported apart, then their GETs), a listing, three
+    ranged GETs and a HEAD; one aws-chunked streaming-signed PUT; one
+    multipart upload of 2 x 64 MiB + a 12,345-byte tail; config 3's shape
+    cut (eight 4 MiB objects read back by 8 clients at once with the
+    bucket gone from 3 drives) and one degraded 64 MiB GET whose decode
+    batch passes the codec's gate alone; SSE-S3 and SSE-C objects and an
+    SSE-S3 multipart object, read whole and then in ranges by clients
+    released at one barrier, and one flipped ciphertext byte (its shard's
+    frame digest rewritten, so only Poly1305 can see it) that must fail
+    the GET before any plaintext; the 32-PUT round again under
+    torch.profiler. Every kernel's launches must equal the former's
+    dispatches of its verbs on the card (chacha20: the encrypted encode
+    and decode ones, plus the GET decipher ones, which must have
+    deciphered exactly the packages the GETs cover). Then the CLI,
+    `python3 -m minio_tpu_torch server`, as a subprocess on the card: a
+    signed ListBuckets, a 64 MiB PUT and GET, SIGTERM, exit 0."""
+    import base64
+    import collections
+    import re
+    import signal
+    import socket
+    import xml.etree.ElementTree as ET
+
+    import torch
+    from minio_tpu_torch import cluster
+    from minio_tpu_torch.bitrot import BitrotAlgorithm, hash_shard
+    from minio_tpu_torch.features import crypto as sse
+    from minio_tpu_torch.parallel import pipeline as pl
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.s3.credentials import Credentials
+    from minio_tpu_torch.storage.datatypes import hash_order
+    k, m, bs = 12, 4, 1 << 20
+    pkg = sse.PKG_SIZE
+    rng = np.random.default_rng(SEED + 13)
+    creds = Credentials("smokeadmin", "smokeadminsecret")
+    os.environ["MINIO_SSE_MASTER_KEY"] = rng.bytes(32).hex()
+    os.environ["MINIO_TPU_SSE_CIPHER"] = "chacha20"
+    root = os.path.join(tmp, "s3")
+    drives = [os.path.join(root, f"d{i}") for i in range(k + m)]
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    node = cluster.start_single(drives, creds=creds, parity=m,
+                                set_drive_count=k + m, block_size=bs)
+    boot_s = time.perf_counter() - t0
+    if not node.s3.edge_enabled:
+        fail("s3: the server did not take the edge transport")
+    sched = node.scheduler
+    c = S3Client(node.s3.port, creds)
+    out = {"phase": "s3", "drives": k + m, "ec": f"{k}+{m}",
+           "block_size": bs, "transport": "edge",
+           "boot_s": round(boot_s, 3),
+           "admission_capacity": node.s3.api.admission.capacity,
+           "staging_buffers_per_ring": pl.POOL_BUFFERS}
+
+    # on-card dispatches by (verb, encrypted); the counts must match them
+    on_card = collections.Counter()
+    real_run, real_decipher = sched._run_erasure, sched._run_decipher
+
+    def run_erasure(key, group, stage_cb):
+        res = real_run(key, group, stage_cb)
+        if res is not None:
+            on_card[(key[0], key[-1] is not None and "sse" in key[-1])] \
+                += 1
+        return res
+
+    def run_decipher(key, group, stage_cb):
+        res = real_decipher(key, group, stage_cb)
+        on_card[("decipher", True)] += 1
+        return res
+
+    def ok(resp, what, status=200):
+        if resp[0] != status:
+            fail(f"s3 {what}: HTTP {resp[0]} {resp[2][:300]!r}")
+        return resp
+
+    def decode_stats() -> dict:
+        return dict(sched.stats()["verbs"]["decode"])
+
+    sched._run_erasure, sched._run_decipher = run_erasure, run_decipher
+    counts.zero()
+    before = sched.stats()
+    get_packages = 0         # packages the SSE GETs must decipher
+
+    def packages(offset, length) -> int:
+        return (offset + length - 1) // pkg - offset // pkg + 1
+
+    # -- BASELINE.json config 2 over HTTP ----------------------------------
+    streams, size = S3_PUTS
+    objects = {f"put-{i:02d}": rng.bytes(size) for i in range(streams)}
+    ok(c.send("PUT", "/smoke"), "make bucket")
+
+    def put_round(prefix) -> float:
+        signed = {n: c.sign("PUT", f"/smoke/{prefix}{n}", body=d)
+                  for n, d in objects.items()}
+        wall, res, errors = at_barrier({
+            n: (lambda n=n, d=d: c.send("PUT", f"/smoke/{prefix}{n}",
+                                        body=d, signed=signed[n]))
+            for n, d in objects.items()})
+        if errors:
+            fail(f"s3 PUT round {prefix!r}: {errors[:3]}")
+        for n, d in objects.items():
+            if res[n][0] != 200 or \
+                    res[n][1].get("etag") != f'"{hashlib.md5(d).hexdigest()}"':
+                fail(f"s3 PUT {prefix}{n}: {res[n][0]} {res[n][1]}")
+        return wall
+
+    gib = streams * size / (1 << 30)
+    stagetimer.reset()
+    stagetimer.enable()
+    walls = [put_round("r1/"), put_round("r2/")]
+    stagetimer.disable()
+    out["config2"] = {
+        "streams": streams, "object_bytes": size,
+        "upload_wall_s": [round(w, 3) for w in walls],
+        "upload_gib_s_first_round": round(gib / walls[0], 4),
+        "upload_gib_s_second_round": round(gib / walls[1], 4),
+        "stagetimer": stage_report(stagetimer)}
+    wall, res, errors = at_barrier({
+        n: (lambda n=n: c.send("GET", f"/smoke/r1/{n}"))
+        for n in objects})
+    if errors:
+        fail(f"s3 GET: {errors[:3]}")
+    for n, d in objects.items():
+        st, h, body = res[n]
+        if st != 200 or body != d or \
+                h.get("etag") != f'"{hashlib.md5(d).hexdigest()}"':
+            fail(f"s3 GET {n}: status {st}, bytes or ETag differ")
+    out["config2"]["get_wall_s"] = round(wall, 3)
+    out["config2"]["get_gib_s"] = round(gib / wall, 4)
+    ns = "{http://s3.amazonaws.com/doc/2006-03-01/}"
+    listing = ET.fromstring(ok(c.send("GET", "/smoke", query={
+        "list-type": "2", "prefix": "r1/"}), "ListObjectsV2")[2])
+    keys = [e.text for e in listing.iter(f"{ns}Key")]
+    if keys != [f"r1/{n}" for n in sorted(objects)]:
+        fail(f"s3 ListObjectsV2: {keys[:4]}...")
+    d0 = objects["put-00"]
+    for a, b in ((0, 0), (size // 16 + 5, size // 4 + 77),
+                 (size - 12345, size - 1)):
+        st, h, body = c.send("GET", "/smoke/r1/put-00",
+                             headers={"range": f"bytes={a}-{b}"})
+        if st != 206 or body != d0[a:b + 1] or \
+                h.get("content-range") != f"bytes {a}-{b}/{size}":
+            fail(f"s3 ranged GET {a}-{b}: {st} {h.get('content-range')}")
+    st, h, _ = c.send("HEAD", "/smoke/r1/put-00")
+    if st != 200 or h.get("content-length") != str(size) or \
+            h.get("etag") != f'"{hashlib.md5(d0).hexdigest()}"':
+        fail(f"s3 HEAD: {st} {h}")
+
+    # -- one streaming-signed PUT; one multipart upload --------------------
+    data_s = rng.bytes(size + 12345)
+    ok(c.streaming_put("/smoke/streamed", data_s), "streaming PUT")
+    if ok(c.send("GET", "/smoke/streamed"), "streamed GET")[2] != data_s:
+        fail("s3 streaming PUT: bytes differ")
+    n_full, part_bytes, tail = S3_PARTS
+    parts = [rng.bytes(part_bytes) for _ in range(n_full)]
+    parts.append(rng.bytes(tail))
+    upload = re.search(rb"<UploadId>([^<]+)</UploadId>", ok(c.send(
+        "POST", "/smoke/mp", query={"uploads": ""}), "create upload")[2])
+    upload = upload[1].decode()
+    etags = [ok(c.send("PUT", "/smoke/mp", body=p, query={
+        "uploadId": upload, "partNumber": str(i + 1)}),
+        f"part {i + 1}")[1]["etag"] for i, p in enumerate(parts)]
+    done = ok(c.send("POST", "/smoke/mp", query={"uploadId": upload},
+                     body=("<CompleteMultipartUpload>" + "".join(
+                         f"<Part><PartNumber>{i + 1}</PartNumber>"
+                         f"<ETag>{e}</ETag></Part>"
+                         for i, e in enumerate(etags))
+                         + "</CompleteMultipartUpload>").encode()),
+              "complete upload")[2]
+    want = hashlib.md5(b"".join(hashlib.md5(p).digest()
+                                for p in parts)).hexdigest()
+    if f"{want}-{len(parts)}".encode() not in done:
+        fail(f"s3 multipart ETag: {done[:300]!r}")
+    if ok(c.send("GET", "/smoke/mp"), "multipart GET")[2] != b"".join(parts):
+        fail("s3 multipart GET: bytes differ")
+
+    # -- config 3's shape, cut: degraded GETs --------------------------------
+    n_deg, deg_size = S3_DEGRADED
+    deg = {f"deg-{i}": rng.bytes(deg_size) for i in range(n_deg)}
+    deg["big"] = rng.bytes(S3_BIG)
+    ok(c.send("PUT", "/deg"), "make bucket deg")
+    for n, d in deg.items():
+        ok(c.send("PUT", f"/deg/{n}", body=d), f"PUT deg/{n}")
+    gone = [0, 1, 2]
+    for i in gone:
+        shutil.rmtree(os.path.join(drives[i], "deg"))
+    d_before = decode_stats()
+    wall, res, errors = at_barrier({
+        n: (lambda n=n: c.send("GET", f"/deg/{n}"))
+        for n in deg if n != "big"})
+    if errors or any(res[n][0] != 200 or res[n][2] != deg[n] for n in res):
+        fail(f"s3 degraded GETs: {errors[:3]}")
+    d_mid = decode_stats()
+    groups = {key: d_mid[key] - d_before[key] for key in d_mid}
+    gf_before = counts.read()["gf_matmul"]
+    ok_big = ok(c.send("GET", "/deg/big"), "degraded GET big")
+    d_after = decode_stats()
+    big_card = (d_after["batches"] - d_mid["batches"]) - \
+        (d_after["host_routed"] - d_mid["host_routed"])
+    if ok_big[2] != deg["big"]:
+        fail("s3 degraded GET of the 64 MiB object: bytes differ")
+    if big_card <= 0 or counts.read()["gf_matmul"] <= gf_before:
+        fail(f"s3 degraded 64 MiB GET: {big_card} decode dispatches on "
+             "the card")
+    out["degraded"] = {
+        "objects": n_deg, "object_bytes": deg_size, "missing_drives": gone,
+        "concurrent_get_wall_s": round(wall, 3),
+        "concurrent_get_gib_s": round(n_deg * deg_size / (1 << 30) / wall,
+                                      4),
+        "decode_groups_on_card": groups["batches"] - groups["host_routed"],
+        "decode_groups_on_host": groups["host_routed"],
+        "decode_groups_coalesced": groups["coalesced"],
+        "big_object_bytes": S3_BIG, "big_decode_dispatches_on_card":
+            big_card}
+
+    # -- SSE over HTTP -------------------------------------------------------
+    n_enc, enc_size = S3_SSE
+    ssec_key = rng.bytes(32)
+    ssec = {"x-amz-server-side-encryption-customer-algorithm": "AES256",
+            "x-amz-server-side-encryption-customer-key":
+                base64.b64encode(ssec_key).decode(),
+            "x-amz-server-side-encryption-customer-key-md5":
+                base64.b64encode(hashlib.md5(ssec_key).digest()).decode()}
+    s3h = {"x-amz-server-side-encryption": "AES256"}
+    enc = {f"enc-{i}": (rng.bytes(enc_size), s3h) for i in range(n_enc)}
+    enc["enc-c"] = (rng.bytes(enc_size), ssec)
+    ok(c.send("PUT", "/enc"), "make bucket enc")
+    t0 = time.perf_counter()
+    for n, (d, h) in enc.items():
+        got = ok(c.send("PUT", f"/enc/{n}", body=d, headers=h),
+                 f"SSE PUT {n}")[1]
+        if got.get("etag") != f'"{hashlib.md5(d).hexdigest()}"':
+            fail(f"s3 SSE PUT {n}: ETag {got.get('etag')}")
+    sse_put_s = time.perf_counter() - t0
+    n_mp, mp_part = S3_SSE_PARTS
+    mp_parts = [rng.bytes(mp_part) for _ in range(n_mp)]
+    upload = re.search(rb"<UploadId>([^<]+)</UploadId>", ok(c.send(
+        "POST", "/enc/mp", query={"uploads": ""}, headers=s3h),
+        "SSE create upload")[2])[1].decode()
+    etags = [ok(c.send("PUT", "/enc/mp", body=p, query={
+        "uploadId": upload, "partNumber": str(i + 1)}),
+        f"SSE part {i + 1}")[1]["etag"] for i, p in enumerate(mp_parts)]
+    ok(c.send("POST", "/enc/mp", query={"uploadId": upload},
+              body=("<CompleteMultipartUpload>" + "".join(
+                  f"<Part><PartNumber>{i + 1}</PartNumber><ETag>{e}"
+                  "</ETag></Part>" for i, e in enumerate(etags))
+                  + "</CompleteMultipartUpload>").encode()),
+       "SSE complete upload")
+    enc["mp"] = (b"".join(mp_parts), {})
+
+    def mp_packages(offset, length) -> int:
+        """Packages of a ranged read over the SSE parts (each part is its
+        own package stream)."""
+        total, start = 0, 0
+        for p in mp_parts:
+            lo, hi = max(offset, start), min(offset + length,
+                                             start + len(p))
+            if lo < hi:
+                total += packages(lo - start, hi - lo)
+            start += len(p)
+        return total
+
+    # every object read whole by its own client, then every range, each
+    # set released at one barrier: their decipher groups meet in the former
+    wall, res, errors = at_barrier({
+        n: (lambda n=n, h=h: c.send("GET", f"/enc/{n}", headers=h))
+        for n, (_d, h) in enc.items()})
+    if errors:
+        fail(f"s3 SSE GETs: {errors[:3]}")
+    for n, (d, h) in enc.items():
+        if res[n][0] != 200 or res[n][2] != d:
+            fail(f"s3 SSE GET {n}: {res[n][0]}, bytes differ")
+        get_packages += mp_packages(0, len(d)) if n == "mp" else \
+            packages(0, len(d))
+    sse_get_s = wall
+    ranges = ((5 * pkg + 777, 70 * pkg), (100 * pkg + 1, 64 * pkg),
+              (enc_size - 3 * pkg - 5, 3 * pkg + 5))
+    ranged = {}
+    for n in ("enc-0", "enc-c", "mp"):
+        for i, (off, ln) in enumerate(ranges):
+            if n == "mp":
+                off, ln = mp_part - 2 * pkg - 9 + i * 7 * pkg, 4 * pkg
+            ranged[(n, off, ln)] = enc[n][1]
+    wall_r, res, errors = at_barrier({
+        r: (lambda r=r, h=h: c.send("GET", f"/enc/{r[0]}", headers={
+            **h, "range": f"bytes={r[1]}-{r[1] + r[2] - 1}"}))
+        for r, h in ranged.items()})
+    if errors:
+        fail(f"s3 SSE ranged GETs: {errors[:3]}")
+    for (n, off, ln) in ranged:
+        d = enc[n][0]
+        st, hh, body = res[(n, off, ln)]
+        if st != 206 or body != d[off:off + ln] or \
+                hh.get("content-range") != \
+                f"bytes {off}-{off + ln - 1}/{len(d)}":
+            fail(f"s3 SSE ranged GET {n} {off}+{ln}: {st}")
+        get_packages += mp_packages(off, ln) if n == "mp" else \
+            packages(off, ln)
+    # one flipped ciphertext byte in package 10 of enc-1: its data shard's
+    # frame digest is rewritten, so the erasure layer serves the flipped
+    # byte and only the package's Poly1305 tag can see it
+    name = "enc-1"
+    at = 10 * pkg + 99
+    shard = at // (-(-bs // k))
+    dist = hash_order(f"enc/{name}", k + m)
+    drive = drives[dist.index(shard + 1)]
+    part = [os.path.join(dp, f) for dp, _d, fs in
+            os.walk(os.path.join(drive, "enc", name))
+            for f in fs if f.startswith("part.")][0]
+    with open(part, "r+b") as fh:
+        frame = bytearray(fh.read(32 + -(-bs // k)))
+        frame[32 + at - shard * -(-bs // k)] ^= 0x01
+        frame[:32] = hash_shard(bytes(frame[32:]),
+                                BitrotAlgorithm.HIGHWAYHASH256S)
+        fh.seek(0)
+        fh.write(frame)
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", node.s3.port,
+                                      timeout=120)
+    conn.request("GET", f"/enc/{name}", headers=c.sign("GET",
+                                                       f"/enc/{name}"))
+    resp = conn.getresponse()
+    try:
+        leaked = resp.read()
+    except http.client.IncompleteRead as e:
+        leaked = e.partial
+    else:
+        fail("s3 SSE: a flipped ciphertext byte was served")
+    finally:
+        conn.close()
+    if leaked:
+        fail(f"s3 SSE: {len(leaked)} bytes left before the tag failed")
+    out["sse"] = {
+        "objects": {n: len(d) for n, (d, _h) in enc.items()},
+        "put_s": round(sse_put_s, 3),
+        "put_gib_s": round((n_enc + 1) * enc_size / (1 << 30) / sse_put_s,
+                           4),
+        "get_s": round(sse_get_s, 3),
+        "get_gib_s": round(sum(len(d) for d, _h in enc.values())
+                           / (1 << 30) / sse_get_s, 4),
+        "clients": len(enc), "ranged_clients": len(ranged),
+        "ranged_get_s": round(wall_r, 3),
+        "flipped_byte": {"object": name, "offset": at,
+                         "status": resp.status, "plaintext_bytes": 0}}
+
+    # -- the 32-PUT round again under the profiler ---------------------------
+    out["profiled_again"] = device_busy(torch, lambda: put_round("again/"), counts)
+    if not node.object_layer.drain_mrf(timeout=120):
+        fail("s3: the MRF queue did not drain")
+    launched = counts.read()
+    sched._run_erasure, sched._run_decipher = real_run, real_decipher
+    after = sched.stats()
+    node.shutdown()
+    verbs = {v: {key: after["verbs"][v][key] - before["verbs"][v][key]
+                 for key in after["verbs"][v]} for v in after["verbs"]}
+    card_total = sum(on_card.values())
+    if card_total != sum(v["batches"] - v["host_routed"]
+                         for v in verbs.values()):
+        fail(f"s3: watched dispatches {dict(on_card)} != {verbs}")
+    sse_card = sum(n for (_v, enc_), n in on_card.items() if enc_)
+    erasure_card = card_total - on_card[("decipher", True)]
+    if launched != {"gf_matmul": erasure_card, "hh256": erasure_card,
+                    "sha256": 0, "chacha20": sse_card} \
+            or min(launched["gf_matmul"], launched["chacha20"],
+                   on_card[("decipher", True)]) <= 0:
+        fail(f"s3: launches {launched}; {card_total} dispatches on the card "
+             f"({sse_card} encrypted, {on_card[('decipher', True)]} GET "
+             "decipher)")
+    if verbs["decipher"]["blocks"] != get_packages:
+        fail(f"s3: the former deciphered {verbs['decipher']['blocks']} "
+             f"packages; the SSE GETs cover {get_packages}")
+    out.update({"verbs": verbs, "launches": launched,
+                "dispatches_on_card": {f"{v}{'+sse' if e else ''}": n
+                                       for (v, e), n in on_card.items()},
+                "get_decipher_packages": get_packages})
+
+    # -- the CLI -------------------------------------------------------------
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MINIO_ACCESS_KEY=creds.access_key,
+               MINIO_SECRET_KEY=creds.secret_key)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "minio_tpu_torch", "server",
+         os.path.join(tmp, "cli", "e{1...16}"), "--address",
+         f"127.0.0.1:{port}"], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        cc = S3Client(port, creds)
+        deadline = time.monotonic() + 180
+        while True:
+            if proc.poll() is not None:
+                fail(f"s3 CLI exited {proc.returncode}: "
+                     f"{proc.stderr.read()[-2000:]}")
+            try:
+                if cc.send("GET", "/")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                fail("s3 CLI: no answer within 180 s")
+            time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        big = rng.bytes(S3_BIG)
+        ok(cc.send("PUT", "/cli"), "CLI make bucket")
+        got = ok(cc.send("PUT", "/cli/big", body=big), "CLI PUT")[1]
+        if got.get("etag") != f'"{hashlib.md5(big).hexdigest()}"' or \
+                ok(cc.send("GET", "/cli/big"), "CLI GET")[2] != big:
+            fail("s3 CLI: the 64 MiB object came back different")
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        fail(f"s3 CLI: exit {proc.returncode} after SIGTERM: "
+             f"{stderr[-2000:]}")
+    out["cli"] = {"banner": stdout.strip().splitlines(),
+                  "answered_after_s": round(up_s, 3), "exit_code": 0}
+    out["seconds"] = round(time.perf_counter() - t_phase, 3)
+    out["card"] = card
     emit(out)
     shutil.rmtree(root, ignore_errors=True)
     return out
@@ -1881,7 +2392,9 @@ def run_sse_timings(torch, dev, rand_u8, max_err, pipeline, chacha20_cuda,
         ops = blocks * CHACHA20_OPS_PER_BLOCK
         t = {"rows": n, "row_bytes": stride, "span": span, "packages": n * p,
              "ms": ms, "device_ms": device["ms"],
+             "device_graph_ms": device["graph_ms"],
              "device_launches": device["launches"],
+             "device_launches_recorded": device["recorded"],
              "wrapper_host_us": host_us, "bytes": nbytes, "ops": ops,
              "byte_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
              "op_bound_ms": ops / INT32_OPS_PER_S * 1e3,
@@ -2054,26 +2567,40 @@ def cuda_timed(torch, fn, iters: int) -> float:
 
 def kernel_device_ms(torch, fn, iters: int, kernel: str) -> dict:
     """The device time of one launch of the kernel whose name holds
-    `kernel`, from torch.profiler's kernel durations over `iters` calls of
-    fn(i) (after two warm-up calls). Fails when the profiler recorded no
-    such kernel: no other reading stands in for it."""
+    `kernel`, read two ways over `iters` calls of fn(i) (after two warm-up
+    calls): the replay of a CUDA graph of the calls between CUDA events
+    ("graph_ms", free of the host's cost per call), and torch.profiler's
+    kernel durations ("ms", the mean over the launches it recorded). The
+    profiler can lose kernel records (CUPTI's activity buffers; it kept
+    27-30 of 50 late in this script and none once), so it is asked up to
+    three times, with host activity on, until it records every launch;
+    "recorded" says how many it kept, and "ms" is None when it kept none.
+    The graph reading does not depend on it."""
     from torch.profiler import ProfilerActivity, profile
-    for i in range(2):
-        fn(i)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
+
+    from minio_tpu_torch.scripts.ab import graph_timed
+    graph_ms = graph_timed(fn, iters)
+    best = {"ms": None, "recorded": 0, "attempts": 0}
+    for attempt in range(1, 4):
         torch.cuda.synchronize()
-    for e in prof.key_averages():
-        if kernel not in e.key:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us and e.count:
-            return {"ms": us / e.count / 1e3, "launches": e.count}
-    fail(f"the profiler recorded no device time for {kernel}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0)
+            if kernel in e.key and t and e.count:
+                us, n = us + t, n + e.count
+        if n > best["recorded"]:
+            best = {"ms": us / n / 1e3, "recorded": n}
+        best["attempts"] = attempt
+        if n >= iters:
+            break
+    return {**best, "launches": iters, "graph_ms": graph_ms}
 
 
 def sha256_compressions(length: int) -> int:

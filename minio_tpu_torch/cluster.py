@@ -1,0 +1,139 @@
+"""Single-node boot — local drives into a running S3 server.
+
+Counterpart of the single-node part of minio_tpu/cluster.py (the
+reference's serverMain, cmd/server-main.go:371-533): expand the drive
+arguments, divide them into erasure sets, start the S3 listener, then
+format or open the drives and late-bind the object layer into the
+handlers. The boot follows ``ClusterNode._finish_boot``
+(minio_tpu/cluster.py:143-210): one cross-request batch former, the
+admission gate and the staging rings sized from one RAM/CPU budget, the
+sets over the drives with that former, one pool of them.
+
+``device`` picks where the sets' fused steps run: None means the card,
+and a host without one raises rather than serving from the CPU;
+``device="cpu"`` runs the plain PyTorch versions on the host.
+
+Left out: distributed nodes (internode storage, lock, peer and bootstrap
+RPC, dsync), IAM, config KV, events, replication, notification, tiers,
+the admin, health and web routers, the incident plane, online pool
+expansion and the single-path FS backend.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from . import device as device_mod
+from .object.nslock import NSLockMap
+from .object.server_sets import ErasureServerSets
+from .object.sets import ErasureSets
+from .parallel import pipeline as _pipeline
+from .parallel.scheduler import BatchScheduler, requests_budget
+from .s3.credentials import Credentials, global_credentials
+from .s3.server import S3Server
+from .storage import errors as serr
+from .storage.xl_storage import XLStorage
+from .utils import ellipses
+
+
+@dataclasses.dataclass
+class NodeSpec:
+    """One node: where it listens and which drive paths it owns."""
+    host: str
+    port: int
+    drives: list[str]
+
+    @property
+    def addr(self) -> str:
+        return f"{self.host}:{self.port}"
+
+
+class ClusterNode:
+    """One running single node: S3 endpoint + object layer over local
+    drives."""
+
+    def __init__(self, spec: NodeSpec, creds: Credentials,
+                 parity: Optional[int] = None, set_drive_count: int = 0,
+                 block_size: int = 1 << 22, region: str = "us-east-1",
+                 certfile: Optional[str] = None,
+                 keyfile: Optional[str] = None, device=None):
+        device = device_mod.resolve(device)
+        self.spec = spec
+        self.creds = creds
+        total = len(spec.drives)
+        if set_drive_count:
+            if total % set_drive_count:
+                raise ValueError("drives not divisible into sets")
+            set_count = total // set_drive_count
+        else:
+            set_count, set_drive_count = ellipses.divide_into_sets(
+                total, [total])
+        if parity is None:
+            parity = set_drive_count // 2   # reference default EC:N/2
+        self.set_count, self.set_drive_count = set_count, set_drive_count
+        self.parity = parity
+        self.scheduler: Optional[BatchScheduler] = None
+        self.sets: Optional[ErasureSets] = None
+        self.object_layer: Optional[ErasureServerSets] = None
+        # the listener starts before the drives are formatted (the
+        # reference serves before newObjectLayer returns)
+        self.s3: Optional[S3Server] = S3Server(
+            None, address=spec.host, port=spec.port, region=region,
+            creds=creds, certfile=certfile, keyfile=keyfile).start()
+        try:
+            self._finish_boot(block_size, device)
+        except BaseException:
+            # a failed boot must not leak the listening server
+            self.shutdown()
+            raise
+
+    def _finish_boot(self, block_size: int, device) -> None:
+        # a faulty drive becomes a None slot, never a boot abort
+        drives: list = []
+        for path in self.spec.drives:
+            try:
+                drives.append(XLStorage(path))
+            except serr.StorageError:
+                drives.append(None)
+        # -- cross-request device batch former + RAM-budgeted admission ----
+        self.scheduler = BatchScheduler()
+        budget = requests_budget(block_size, self.set_drive_count)
+        self.s3.api.set_max_clients(budget)
+        # staging rings sized from the SAME admission budget (each
+        # admitted stream keeps ~2 batches in flight); buffers are
+        # allocated, and pinned, lazily on first use
+        _pipeline.configure_pool_buffers(budget)
+        self.sets = ErasureSets.from_storage(
+            drives, self.set_count, self.set_drive_count, self.parity,
+            block_size=block_size, ns_lock=NSLockMap(),
+            scheduler=self.scheduler, device=device)
+        self.object_layer = ErasureServerSets([self.sets])
+        self.s3.api.set_object_layer(self.object_layer)
+
+    @property
+    def url(self) -> str:
+        return self.s3.url
+
+    def shutdown(self) -> None:
+        """Idempotent; safe on a partially-booted node. The server stops
+        first, then the sets, then the former."""
+        if self.s3 is not None:
+            self.s3.stop()
+            self.s3 = None
+        if self.sets is not None:
+            self.sets.close()
+            self.sets = None
+        if self.scheduler is not None:
+            self.scheduler.close()
+            self.scheduler = None
+
+
+def start_single(drives: list[str], address: str = "127.0.0.1",
+                 port: int = 0, creds: Optional[Credentials] = None,
+                 **kw) -> ClusterNode:
+    """Single-node server over local drives (reference `minio server
+    /data/d{1...16}`)."""
+    creds = creds or global_credentials()
+    paths = ellipses.expand_args(drives)
+    return ClusterNode(NodeSpec(address, port, paths), creds, **kw)

@@ -251,7 +251,7 @@ class ChaChaEncryptor:
 
 def chacha_decrypt_ranged(fetch, stored: int, oek: bytes,
                           nonce_base: bytes, offset: int, length: int,
-                          device=None) -> Iterator[bytes]:
+                          device=None, scheduler=None) -> Iterator[bytes]:
     """Verify-then-decrypt a plaintext range of one chacha stream.
 
     fetch(off, len) -> ciphertext-chunk iterator over the STORED bytes
@@ -260,14 +260,15 @@ def chacha_decrypt_ranged(fetch, stored: int, oek: bytes,
     package's Poly1305 tag is checked against the trailer before any
     package of its batch is deciphered, so corrupt ciphertext surfaces as
     an authentication error, never as garbled plaintext. Each batch of up
-    to _GET_PKG_BATCH packages is deciphered by one launch of the ChaCha20
-    kernel on `device` (None: the card; "cpu" runs its plain version); a
-    failure there raises.
+    to _GET_PKG_BATCH packages is deciphered on `device` (None: the card;
+    "cpu" runs the kernel's plain version) by the batch former
+    `scheduler`, whose dispatch threads hold the device's slot streams
+    (packages of concurrent GETs share a launch), or, without one or once
+    it closed, by one launch of the ChaCha20 kernel inside a slot taken
+    here (object/codec.decipher_packages); a failure raises.
     """
-    import torch
-
     from .. import device as device_mod
-    from ..ops import chacha20_cuda
+    from ..object.codec import decipher_packages
     from ..s3.s3errors import S3Error
     ct_len, npkg = chacha_ct_len(stored)
     if length <= 0 or ct_len <= 0:
@@ -299,10 +300,11 @@ def chacha_decrypt_ranged(fetch, stored: int, oek: bytes,
         nn = np.stack([np.frombuffer(_pkg_nonce(nonce_base, seq0 + j),
                                      dtype="<u4")
                        for j in range(len(pkgs))])
-        out = chacha20_cuda.xor_packages(
-            torch.from_numpy(rows).to(dev),
-            chacha20_cuda.words(np.broadcast_to(kw, (len(pkgs), 8)), dev),
-            chacha20_cuda.words(nn, dev)).cpu().numpy()
+        keys = np.broadcast_to(kw, (len(pkgs), 8))
+        out = None if scheduler is None else \
+            scheduler.submit_decipher(dev, rows, keys, nn).result()
+        if out is None:
+            out = decipher_packages(dev, rows, keys, nn)
         for j, pkg in enumerate(pkgs):
             yield out[j, :len(pkg)].tobytes()
 

@@ -29,6 +29,8 @@ a blocking copy before any stream reads them.
 Encrypted batches (encrypt_encode_and_hash_batch,
 verify_decode_decrypt_batch) ride the same slots: their per-row ChaCha20
 key and nonce words go to the card on the slot's stream with the batch.
+So does the GET's decipher of verified packages (decipher_packages), the
+one device step that holds no erasure geometry.
 
 Left out: the mesh routes (parallel/mesh.py).
 """
@@ -73,7 +75,7 @@ STEP_SECONDS: dict[str, dict] = {}
 
 def reset_step_seconds() -> None:
     with _steps_mu:
-        for verb in ("encode", "decode", "recover"):
+        for verb in ("encode", "decode", "recover", "decipher"):
             STEP_SECONDS[verb] = {"calls": 0,
                                   **dict.fromkeys(STEP_STAGES, 0.0)}
 
@@ -149,6 +151,107 @@ def _parts(data) -> list[np.ndarray]:
     """A batch given as one (B, ...) array or as a list of such arrays
     stacked along the batch axis (the batch former's coalesced groups)."""
     return list(data) if isinstance(data, (list, tuple)) else [data]
+
+
+# -- one device dispatch ----------------------------------------------------
+
+def run_step(device: torch.device, verb: str, parts: list, step,
+             stage_cb=None) -> tuple:
+    """Put the batch stacked from `parts` on `device`, run
+    `step(tensor) -> tuple of uint8 tensors` on it, and return the outputs
+    as numpy arrays. On the card this holds one of the device's slots for
+    the copies and launches. Reports the STEP_STAGES spans to
+    STEP_SECONDS[verb] and to stage_cb."""
+    if device.type == "cuda":
+        out, stages = _run_on_card(device, parts, step)
+    else:
+        out, stages = _run_on_host_tensors(device, parts, step)
+    _record_step(verb, stages)
+    if stage_cb is not None:
+        for name in STEP_STAGES:
+            stage_cb(name, stages[name])
+    return out
+
+
+def _run_on_host_tensors(device: torch.device, parts: list, step):
+    t0 = time.perf_counter()
+    x = parts[0] if len(parts) == 1 else np.concatenate(parts)
+    x = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    t1 = time.perf_counter()
+    outs = step(x)
+    t2 = time.perf_counter()
+    res = tuple(o.cpu().numpy() for o in outs)
+    t3 = time.perf_counter()
+    return res, {"transfer_span_s": t1 - t0,
+                 "compute_span_s": t2 - t1, "fetch_span_s": t3 - t2}
+
+
+def _run_on_card(device: torch.device, parts: list, step):
+    shape = (sum(p.shape[0] for p in parts),) + tuple(parts[0].shape[1:])
+    nbytes = int(np.prod(shape))
+    with _slot(device) as slot:
+        t0 = time.perf_counter()
+        start, copied, stepped, fetched = slot.events
+        src = parts[0] if len(parts) == 1 else None
+        if src is not None and src.flags.c_contiguous \
+                and torch.from_numpy(src).is_pinned():
+            host = torch.from_numpy(src)     # a pinned ring buffer
+        else:
+            src = None
+            host = slot.pinned("in", nbytes).view(shape)
+            view, at = host.numpy(), 0
+            for p in parts:
+                view[at:at + p.shape[0]] = p
+                at += p.shape[0]
+        assembled = time.perf_counter() - t0
+        start.record()
+        x = torch.empty(shape, dtype=torch.uint8, device=device)
+        x.copy_(host, non_blocking=True)
+        copied.record()
+        if src is not None:
+            # the ring buffer is recycled only after this copy
+            done = torch.cuda.Event()
+            done.record()
+            bpool.after_copy(src, done)
+        outs = step(x)
+        stepped.record()
+        pin = slot.pinned("out", sum(o.numel() for o in outs))
+        views, at = [], 0
+        for o in outs:
+            v = pin[at:at + o.numel()].view(o.shape)
+            v.copy_(o, non_blocking=True)
+            views.append(v)
+            at += o.numel()
+        fetched.record()
+        fetched.synchronize()
+        t1 = time.perf_counter()
+        # the slot's pinned output is reused by its next dispatch
+        res = tuple(v.numpy().copy() for v in views)
+        copied_out = time.perf_counter() - t1
+        stages = {"transfer_span_s": assembled
+                  + start.elapsed_time(copied) / 1e3,
+                  "compute_span_s": copied.elapsed_time(stepped) / 1e3,
+                  "fetch_span_s": stepped.elapsed_time(fetched) / 1e3
+                  + copied_out}
+    return res, stages
+
+
+def decipher_packages(device, rows, keys: np.ndarray, nonces: np.ndarray,
+                      *, stage_cb=None) -> np.ndarray:
+    """The GET's decipher of verified ChaCha20 packages: rows (N, Lp)
+    uint8, one package each zero-padded to a 64-byte multiple (or a list
+    of such groups, stacked), keys (N, 8) and nonces (N, 3) u32 words ->
+    (N, Lp) plaintext rows, in one launch of the ChaCha20 kernel on
+    `device` (its plain version on the CPU). A failure raises."""
+    def step(x):
+        return (chacha20_cuda.xor_packages(
+            x, chacha20_cuda.words(keys, x.device),
+            chacha20_cuda.words(nonces, x.device)),)
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        # the codecs' slots are keyed by the indexed device
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return run_step(dev, "decipher", _parts(rows), step, stage_cb)[0]
 
 
 class Codec:
@@ -228,80 +331,7 @@ class Codec:
 
     def _run_step(self, verb: str, parts: list, step, stage_cb=None
                   ) -> tuple:
-        """Put the batch stacked from `parts` on the device, run
-        `step(tensor) -> tuple of uint8 tensors` on it, and return the
-        outputs as numpy arrays. Reports the STEP_STAGES spans to
-        STEP_SECONDS[verb] and to stage_cb."""
-        if self.device.type == "cuda":
-            out, stages = self._run_on_card(parts, step)
-        else:
-            out, stages = self._run_on_host_tensors(parts, step)
-        _record_step(verb, stages)
-        if stage_cb is not None:
-            for name in STEP_STAGES:
-                stage_cb(name, stages[name])
-        return out
-
-    def _run_on_host_tensors(self, parts: list, step):
-        t0 = time.perf_counter()
-        x = parts[0] if len(parts) == 1 else np.concatenate(parts)
-        x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-        t1 = time.perf_counter()
-        outs = step(x)
-        t2 = time.perf_counter()
-        res = tuple(o.cpu().numpy() for o in outs)
-        t3 = time.perf_counter()
-        return res, {"transfer_span_s": t1 - t0,
-                     "compute_span_s": t2 - t1, "fetch_span_s": t3 - t2}
-
-    def _run_on_card(self, parts: list, step):
-        shape = (sum(p.shape[0] for p in parts),) + tuple(parts[0].shape[1:])
-        nbytes = int(np.prod(shape))
-        with _slot(self.device) as slot:
-            t0 = time.perf_counter()
-            start, copied, stepped, fetched = slot.events
-            src = parts[0] if len(parts) == 1 else None
-            if src is not None and src.flags.c_contiguous \
-                    and torch.from_numpy(src).is_pinned():
-                host = torch.from_numpy(src)     # a pinned ring buffer
-            else:
-                src = None
-                host = slot.pinned("in", nbytes).view(shape)
-                view, at = host.numpy(), 0
-                for p in parts:
-                    view[at:at + p.shape[0]] = p
-                    at += p.shape[0]
-            assembled = time.perf_counter() - t0
-            start.record()
-            x = torch.empty(shape, dtype=torch.uint8, device=self.device)
-            x.copy_(host, non_blocking=True)
-            copied.record()
-            if src is not None:
-                # the ring buffer is recycled only after this copy
-                done = torch.cuda.Event()
-                done.record()
-                bpool.after_copy(src, done)
-            outs = step(x)
-            stepped.record()
-            pin = slot.pinned("out", sum(o.numel() for o in outs))
-            views, at = [], 0
-            for o in outs:
-                v = pin[at:at + o.numel()].view(o.shape)
-                v.copy_(o, non_blocking=True)
-                views.append(v)
-                at += o.numel()
-            fetched.record()
-            fetched.synchronize()
-            t1 = time.perf_counter()
-            # the slot's pinned output is reused by its next dispatch
-            res = tuple(v.numpy().copy() for v in views)
-            copied_out = time.perf_counter() - t1
-            stages = {"transfer_span_s": assembled
-                      + start.elapsed_time(copied) / 1e3,
-                      "compute_span_s": copied.elapsed_time(stepped) / 1e3,
-                      "fetch_span_s": stepped.elapsed_time(fetched) / 1e3
-                      + copied_out}
-        return res, stages
+        return run_step(self.device, verb, parts, step, stage_cb)
 
     def _matmul_on_device(self, verb: str, matrix: np.ndarray, parts: list
                           ) -> np.ndarray:

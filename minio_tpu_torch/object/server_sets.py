@@ -55,6 +55,16 @@ class ErasureServerSets:
         return all(getattr(z, "supports_sse_device", False)
                    for z in self.server_sets)
 
+    @property
+    def device(self):
+        """Where the pools' device steps run."""
+        return self.server_sets[0].device
+
+    @property
+    def scheduler(self):
+        """The pools' batch former (None without one)."""
+        return self.server_sets[0].scheduler
+
     # ------------------------------------------------------------------
     # zone choice
     # ------------------------------------------------------------------

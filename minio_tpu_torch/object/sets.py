@@ -67,6 +67,18 @@ class ErasureSets:
         return all(getattr(s, "supports_sse_device", False)
                    for s in self.sets)
 
+    @property
+    def device(self):
+        """Where the sets' device steps run (the handlers' GET decipher
+        runs there too)."""
+        return self.sets[0].device
+
+    @property
+    def scheduler(self):
+        """The batch former the sets share (None without one): the
+        handlers' GET decipher goes through it too."""
+        return self.sets[0].scheduler
+
     # ------------------------------------------------------------------
     # construction from drives (format bootstrap)
     # ------------------------------------------------------------------

@@ -11,8 +11,11 @@ reference's host cipher under its own name.
 
 All (row, 64-byte block) pairs advance in lockstep through the 10 double
 rounds and the feed-forward add. PyTorch has no unsigned 32-bit
-arithmetic, so every u32 is an int64 tensor holding a value below 2^32,
-masked after each add; the keystream is serialised little-endian.
+arithmetic, so every u32 is the bit pattern of an int32: adds wrap
+modulo 2^32 as unsigned ones do, and the right shift of a rotation is
+masked to its n bits, which makes the arithmetic shift a logical one.
+The state words are updated in place; the keystream is serialised
+little-endian.
 """
 
 from __future__ import annotations
@@ -24,7 +27,6 @@ _CONST = (0x61707865, 0x3320646E, 0x79622D32, 0x6B206574)
 # quarter-round schedule: 4 column rounds then 4 diagonal rounds
 _QROUNDS = ((0, 4, 8, 12), (1, 5, 9, 13), (2, 6, 10, 14), (3, 7, 11, 15),
             (0, 5, 10, 15), (1, 6, 11, 12), (2, 7, 8, 13), (3, 4, 9, 14))
-_M32 = 0xFFFFFFFF
 
 
 def check_args(data: torch.Tensor, keys: torch.Tensor,
@@ -54,12 +56,15 @@ def check_args(data: torch.Tensor, keys: torch.Tensor,
     return span
 
 
-def _u32(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.int64) & _M32
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    """u32 words (int32 bit patterns or int64 values) -> int32."""
+    if t.dtype == torch.int64:
+        t = torch.where(t >= 1 << 31, t - (1 << 32), t)
+    return t.to(torch.int32)
 
 
 def _rotl(x: torch.Tensor, n: int) -> torch.Tensor:
-    return ((x << n) & _M32) | (x >> (32 - n))
+    return (x << n) | ((x >> (32 - n)) & ((1 << n) - 1))
 
 
 def keystream(keys: torch.Tensor, nonces: torch.Tensor, span: int,
@@ -71,26 +76,26 @@ def keystream(keys: torch.Tensor, nonces: torch.Tensor, span: int,
     nblk = -(-span // 64)
     pkg_blocks = pkg_bytes // 64
     j = torch.arange(nblk, device=dev)
-    keys, nonces = _u32(keys), _u32(nonces)
+    keys, nonces = _i32(keys), _i32(nonces)
     bn = nonces[:, j // pkg_blocks, :]                     # (B, nblk, 3)
-    init = [torch.full((b, nblk), c, dtype=torch.int64, device=dev)
-            for c in _CONST]
+    init = [torch.full((b, nblk), c - (1 << 32) if c >= 1 << 31 else c,
+                       dtype=torch.int32, device=dev) for c in _CONST]
     init += [keys[:, i:i + 1].expand(b, nblk) for i in range(8)]
-    init += [(1 + j % pkg_blocks).expand(b, nblk)]
+    init += [(1 + j % pkg_blocks).to(torch.int32).expand(b, nblk)]
     init += [bn[:, :, i] for i in range(3)]
-    x = list(init)
+    x = [t.clone(memory_format=torch.contiguous_format) for t in init]
     for _ in range(10):
         for a, b_, c, d in _QROUNDS:
-            x[a] = (x[a] + x[b_]) & _M32
-            x[d] = _rotl(x[d] ^ x[a], 16)
-            x[c] = (x[c] + x[d]) & _M32
-            x[b_] = _rotl(x[b_] ^ x[c], 12)
-            x[a] = (x[a] + x[b_]) & _M32
-            x[d] = _rotl(x[d] ^ x[a], 8)
-            x[c] = (x[c] + x[d]) & _M32
-            x[b_] = _rotl(x[b_] ^ x[c], 7)
-    words = torch.stack([(x[i] + init[i]) & _M32 for i in range(16)], -1)
-    shifts = torch.tensor((0, 8, 16, 24), device=dev)
+            x[a].add_(x[b_])
+            x[d] = _rotl(x[d].bitwise_xor_(x[a]), 16)
+            x[c].add_(x[d])
+            x[b_] = _rotl(x[b_].bitwise_xor_(x[c]), 12)
+            x[a].add_(x[b_])
+            x[d] = _rotl(x[d].bitwise_xor_(x[a]), 8)
+            x[c].add_(x[d])
+            x[b_] = _rotl(x[b_].bitwise_xor_(x[c]), 7)
+    words = torch.stack([x[i].add_(init[i]) for i in range(16)], -1)
+    shifts = torch.tensor((0, 8, 16, 24), dtype=torch.int32, device=dev)
     ks = ((words[..., None] >> shifts) & 0xFF).to(torch.uint8)
     return ks.reshape(b, nblk * 64)[:, :span]
 

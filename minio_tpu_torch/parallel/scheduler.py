@@ -9,7 +9,12 @@ cmd/handler-api.go:46-57). Verbs:
 
   * ``encode``  — fused RS-encode + per-shard bitrot digest (PUT);
   * ``decode``  — fused verify + reconstruct-missing-data (degraded GET);
-  * ``recover`` — fused verify + rebuild-rows + re-digest (heal).
+  * ``recover`` — fused verify + rebuild-rows + re-digest (heal);
+  * ``decipher`` — the ChaCha20 keystream XOR of an encrypted GET's
+    verified packages (object/codec.decipher_packages). The reference
+    ciphers GETs on its handler threads; here they come to the former,
+    so that no handler thread touches the card and the packages of
+    concurrent GETs share one launch.
 
 Concurrent callers hand (B_i, k, S) block groups to the submit_* methods;
 a collector thread coalesces groups with identical (verb, device,
@@ -62,7 +67,7 @@ MAX_BATCH_BLOCKS = knobs.get_int("MINIO_TPU_SCHED_MAX_BATCH")
 MAX_WAIT_S = knobs.get_float("MINIO_TPU_SCHED_MAX_WAIT_MS") / 1e3
 INFLIGHT = max(1, knobs.get_int("MINIO_TPU_SCHED_INFLIGHT"))
 
-VERBS = ("encode", "decode", "recover")
+VERBS = ("encode", "decode", "recover", "decipher")
 
 _BATCHES_TOTAL = telemetry.REGISTRY.counter(
     "minio_tpu_sched_batches_total", "Fused device dispatches issued")
@@ -262,6 +267,18 @@ class BatchScheduler:
                (present_mask, frozenset(rows), shard_len))
         return self._enqueue(key, codec, survivors)
 
+    def submit_decipher(self, device, rows: np.ndarray, keys: np.ndarray,
+                        nonces: np.ndarray) -> DispatchFuture:
+        """Non-blocking decipher of an encrypted GET's verified packages:
+        rows (N, Lp) uint8, one package each zero-padded to a 64-byte
+        multiple, keys (N, 8) and nonces (N, 3) u32 words. Packages of
+        every GET with the same padded width share a dispatch; each
+        package counts as one block (max_batch, stats()). Resolves to
+        the (N, Lp) plaintext rows, or to None when the scheduler closed
+        (the caller then deciphers on its own)."""
+        key = ("decipher", device, 0, 0, rows.shape[-1], None, None)
+        return self._enqueue(key, None, rows, (keys, nonces))
+
     def encode_and_hash(self, codec, data: np.ndarray, algo
                         ) -> Optional[tuple[np.ndarray, np.ndarray]]:
         """Blocking fused encode+digest via the shared batch former."""
@@ -347,7 +364,9 @@ class BatchScheduler:
         verb = key[0]
         stages: dict[str, float] = {}
         t0 = time.perf_counter()
-        out = self._run_erasure(key, group, stages.__setitem__)
+        run = self._run_decipher if verb == "decipher" else \
+            self._run_erasure
+        out = run(key, group, stages.__setitem__)
         nb = sum(p.blocks for p in group)
         with self._mu:
             self.batches += 1
@@ -375,7 +394,9 @@ class BatchScheduler:
         at = 0
         for p in group:
             b = p.blocks
-            if verb == "encode":
+            if verb == "decipher":
+                p.out = out[at:at + b]
+            elif verb == "encode":
                 parity, digests = out
                 p.out = (parity[at:at + b], digests[at:at + b])
             elif verb == "decode":
@@ -387,6 +408,15 @@ class BatchScheduler:
                          odig[at:at + b])
             at += b
             p.event.set()
+
+    @staticmethod
+    def _run_decipher(key: tuple, group: list, stage_cb):
+        from ..object.codec import decipher_packages
+        return decipher_packages(
+            key[1], [p.data for p in group],
+            np.concatenate([p.payload[0] for p in group]),
+            np.concatenate([p.payload[1] for p in group]),
+            stage_cb=stage_cb)
 
     @staticmethod
     def _run_erasure(key: tuple, group: list, stage_cb):

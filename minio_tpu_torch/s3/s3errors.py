@@ -2,13 +2,18 @@
 
 The reference keeps a giant table of APIError structs
 (cmd/api-errors.go); here the registry maps code name -> (http status,
-default message), and S3Error carries one code. The SSE layer
-(features/crypto.py) raises it. Left out: ``api_error_from``, the mapping
-of object-layer and signature exceptions, which waits for the S3 front
-(s3/signature.py).
+default message), S3Error carries one code, and ``api_error_from``
+converts the port's object-layer, storage and signature exceptions into
+an S3Error for the XML error response writer. The reference's mapping
+rows for exceptions the port never raises (object-lock state, tiers,
+size limits of the object layer, directory collisions) are left out.
 """
 
 from __future__ import annotations
+
+from ..object import api_errors as oerr
+from ..storage import errors as serr
+from .signature import SigError
 
 # code -> (http status, message)
 ERROR_TABLE: dict[str, tuple[int, str]] = {
@@ -157,3 +162,40 @@ class S3Error(Exception):
         self.code = code
         self.status = status
         self.message = message or default_msg
+
+
+def api_error_from(exc: Exception) -> S3Error:
+    """Map any exception from the stack below into an S3Error
+    (reference toAPIErrorCode, cmd/api-errors.go:1721-)."""
+    if isinstance(exc, S3Error):
+        return exc
+    if isinstance(exc, SigError):
+        return S3Error(exc.code if exc.code in ERROR_TABLE
+                       else "AccessDenied", str(exc))
+    mapping = [
+        (oerr.BucketNotFound, "NoSuchBucket"),
+        (oerr.BucketNotEmpty, "BucketNotEmpty"),
+        (oerr.BucketExists, "BucketAlreadyOwnedByYou"),
+        (oerr.BucketNameInvalid, "InvalidBucketName"),
+        (oerr.VersionNotFound, "NoSuchVersion"),
+        (oerr.ObjectNotFound, "NoSuchKey"),
+        (oerr.ObjectNameInvalid, "XMinioInvalidObjectName"),
+        (oerr.InvalidUploadID, "NoSuchUpload"),
+        (oerr.InvalidPart, "InvalidPart"),
+        (oerr.PartTooSmall, "EntityTooSmallPart"),
+        (oerr.InsufficientReadQuorum, "SlowDown"),
+        (oerr.InsufficientWriteQuorum, "SlowDown"),
+        (oerr.InvalidRange, "InvalidRange"),
+        (oerr.IncompleteBody, "IncompleteBody"),
+        (oerr.PreConditionFailed, "PreconditionFailed"),
+        (oerr.InvalidETag, "InvalidDigest"),
+        (oerr.MethodNotAllowed, "MethodNotAllowed"),
+        (oerr.SignatureDoesNotMatch, "SignatureDoesNotMatch"),
+        (serr.VolumeNotFound, "NoSuchBucket"),
+        (serr.FileNotFound, "NoSuchKey"),
+        (serr.DiskFull, "StorageFull"),
+    ]
+    for etype, code in mapping:
+        if isinstance(exc, etype):
+            return S3Error(code)
+    return S3Error("InternalError", str(exc))

@@ -1,9 +1,10 @@
 """Registry of the ``MINIO_TPU_*`` tuning knobs the port reads.
 
 Counterpart of minio_tpu/utils/knobs.py, trimmed to the knobs of the
-pipelined data path, the batch former, heal, the MRF queue and the SSE
-cipher choice, with the reference's names, types and defaults
-(minio_tpu/utils/knobs.py:160-197, :203-206, :284-291, :310-331). Left out: the README table renderer and every knob no ported
+pipelined data path, the batch former, heal, the MRF queue, the SSE
+cipher choice, the admission gate and the HTTP edge, with the reference's
+names, types and defaults (minio_tpu/utils/knobs.py:160-197, :203-206,
+:220-233, :261-281, :284-291, :310-331). Left out: the README table renderer and every knob no ported
 module reads. No knob here is one the reference lacks.
 
 Getters read the environment at call time: tests flip knobs with
@@ -142,3 +143,33 @@ define("MINIO_TPU_SSE_CIPHER", "str", "aes-gcm",
        "package cipher for NEW SSE writes: `aes-gcm` (CPU DARE packages) "
        "or `chacha20` (ChaCha20-Poly1305, ciphered on the card); reads "
        "dispatch on each object's recorded cipher")
+
+# -- server: admission -------------------------------------------------------
+define("MINIO_TPU_MAX_CLIENTS", "int", 0,
+       "admission-gate size; 0 derives it from the RAM+CPU budget")
+define("MINIO_TPU_REQUEST_DEADLINE", "float", 10.0,
+       "seconds a request waits on admission before SlowDown")
+define("MINIO_TPU_SHED_WINDOW_S", "float", 5.0,
+       "shed data writes this long after a staging-pool timeout")
+define("MINIO_TPU_ADMIT_SCHED_QUEUE", "int", 0,
+       "queued device-batch blocks above which data writes shed "
+       "(scheduler-occupancy admission signal; 0 disables)")
+define("MINIO_TPU_REQUEST_QUEUE", "int", 128,
+       "threaded-listener accept backlog (socketserver "
+       "request_queue_size)")
+
+# -- HTTP edge ---------------------------------------------------------------
+define("MINIO_TPU_EDGE", "bool", True,
+       "`off` selects the threaded frontend (escape hatch and "
+       "correctness oracle; TLS listeners always use it)")
+define("MINIO_TPU_EDGE_MAX_CONNS", "int", 8192,
+       "open-connection budget per edge server; beyond it new "
+       "connections shed 503 before any read")
+define("MINIO_TPU_EDGE_HEADER_S", "float", 10.0,
+       "deadline for a complete request line + headers (slowloris "
+       "partial requests shed at expiry)")
+define("MINIO_TPU_EDGE_IDLE_S", "float", 120.0,
+       "idle keep-alive connection deadline (quiet close)")
+define("MINIO_TPU_EDGE_POOL", "int", 0,
+       "blocking handler worker threads behind the event loop "
+       "(0 = 8 x cores + 16)")

@@ -1,0 +1,159 @@
+"""The port's single-node boot (minio_tpu_torch/cluster.py) and its CLI
+(`python -m minio_tpu_torch server`, minio_tpu_torch/cli.py) on the host.
+
+The CLI runs as a subprocess with `--device cpu`: it must answer a signed
+ListBuckets, a PUT and a GET, and exit 0 on SIGTERM. `--node`, `--pool`,
+one drive path, MINIO_COMPRESS=on and the default device on a host
+without a card are refused with exit code 2 and a message. Every test is
+bounded: subprocesses by their own timeouts, the rest by an alarm.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from minio_tpu_torch import cli, cluster
+from tests.test_s3 import CREDS, S3TestClient
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TEST_SECONDS = 120
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    def expire(*_):
+        raise TimeoutError(f"test ran past {TEST_SECONDS} s")
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(TEST_SECONDS)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _env(**extra) -> dict:
+    env = dict(os.environ, MINIO_ACCESS_KEY=CREDS.access_key,
+               MINIO_SECRET_KEY=CREDS.secret_key, **extra)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def _wait_for(client, proc, seconds: float = 60.0) -> None:
+    """Until the server answers a signed ListBuckets (or the process
+    exits, or the bound passes)."""
+    deadline = time.monotonic() + seconds
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"server exited {proc.returncode}: "
+                                 f"{proc.stderr.read()}")
+        try:
+            if client.request("GET", "/")[0] == 200:
+                return
+        except OSError:
+            pass
+        time.sleep(0.2)
+    raise AssertionError("server did not answer in time")
+
+
+def test_cli_serves_and_stops_on_sigterm(tmp_path):
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "minio_tpu_torch", "server",
+         str(tmp_path / "e{1...8}"), "--address", f"127.0.0.1:{port}",
+         "--device", "cpu"],
+        cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        c = S3TestClient("127.0.0.1", port)
+        _wait_for(c, proc)
+        assert c.request("PUT", "/clibucket")[0] == 200
+        data = np.random.default_rng(3).bytes(3 << 20)
+        assert c.request("PUT", "/clibucket/o", body=data)[0] == 200
+        assert c.request("GET", "/clibucket/o")[2] == data
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+    assert "1 set(s) x 8 drives, EC:4" in out
+    assert f"S3 endpoint: http://127.0.0.1:{port}" in out
+
+
+@pytest.mark.parametrize("args,env,needle", [
+    (["--node", "127.0.0.1:9000=/d{1...4}"], {}, "--node"),
+    (["--pool", "/p{1...4}"], {}, "--pool"),
+    ([], {"MINIO_COMPRESS": "on"}, "MINIO_COMPRESS"),
+])
+def test_cli_refuses_what_it_does_not_serve(tmp_path, args, env, needle):
+    proc = subprocess.run(
+        [sys.executable, "-m", "minio_tpu_torch", "server",
+         str(tmp_path / "e{1...4}"), "--address", "127.0.0.1:0",
+         "--device", "cpu", *args],
+        cwd=ROOT, env=_env(**env), capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 2
+    assert needle in proc.stderr
+
+
+def test_cli_refuses_one_path_and_no_card(tmp_path, capsys):
+    assert cli.main(["server", str(tmp_path / "fs"), "--device",
+                     "cpu"]) == 2
+    assert "FS backend" in capsys.readouterr().err
+    if torch.cuda.is_available():
+        return
+    assert cli.main(["server", str(tmp_path / "e{1...4}"),
+                     "--address", "127.0.0.1:0"]) == 2
+    assert "CUDA" in capsys.readouterr().err
+
+
+def test_start_single_without_a_device_needs_a_card(tmp_path, monkeypatch):
+    """The default device is the card: without one the boot raises and
+    leaves no listener behind; it never falls back to the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cluster.start_single([str(tmp_path / "e{1...4}")], creds=CREDS)
+
+
+def test_start_single_on_the_host(tmp_path, monkeypatch):
+    """The boot's wiring: one former shared by the sets, the admission
+    gate and the staging rings sized from one budget, the object layer
+    late-bound into the handlers."""
+    from minio_tpu_torch.parallel import pipeline
+    # the boot re-sizes the process's staging rings: restored afterwards
+    monkeypatch.setattr(pipeline, "POOL_BUFFERS", pipeline.POOL_BUFFERS)
+    node = cluster.start_single([str(tmp_path / "e{1...16}")],
+                                creds=CREDS, block_size=1 << 20,
+                                device="cpu")
+    try:
+        assert (node.set_count, node.set_drive_count, node.parity) == \
+            (1, 16, 8)
+        assert all(s.scheduler is node.scheduler for s in node.sets.sets)
+        assert node.s3.api.obj is node.object_layer
+        assert node.s3.api.admission.layer is node.object_layer
+        budget = node.s3.api.admission.capacity
+        assert pipeline.POOL_BUFFERS == max(4, 2 * budget) or \
+            "MINIO_TPU_PIPELINE_POOL" in os.environ
+        c = S3TestClient("127.0.0.1", node.s3.port)
+        assert c.request("PUT", "/single")[0] == 200
+        data = np.random.default_rng(4).bytes(2_500_000)
+        assert c.request("PUT", "/single/o", body=data)[0] == 200
+        assert c.request("GET", "/single/o")[2] == data
+    finally:
+        node.shutdown()
+    assert node.s3 is None and node.scheduler is None

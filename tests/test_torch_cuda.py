@@ -652,3 +652,63 @@ def test_sse_steps_on_card_equal_cpu(dev):
         assert torch.equal(g.cpu(), w)
     assert torch.equal(got[0], x)
 
+
+
+def _server_on_card(tmp_path, monkeypatch):
+    """The port's server over a small set on the card (16 drives at 12+4,
+    1 MiB blocks), a bucket made; (node, signed client)."""
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch import cluster
+    from minio_tpu_torch.s3.credentials import Credentials
+    monkeypatch.setenv("MINIO_SSE_MASTER_KEY", "5a" * 32)
+    monkeypatch.setenv("MINIO_TPU_SSE_CIPHER", "chacha20")
+    creds = Credentials("cudaadminkey", "cudaadminsecretkey")
+    node = cluster.start_single([str(tmp_path / "d{1...16}")], creds=creds,
+                                parity=4, block_size=1 << 20)
+    client = S3Client(node.s3.port, creds)
+    assert client.send("PUT", "/cuda")[0] == 200
+    return node, client
+
+
+def test_server_put_and_degraded_get_launch_kernels(dev, tmp_path,
+                                                    monkeypatch):
+    """A PUT past the codec's 8 MiB gate runs put_step on the card; a GET
+    with 3 drives' bucket gone runs get_step there; the bytes match."""
+    import shutil
+    node, c = _server_on_card(tmp_path, monkeypatch)
+    try:
+        data = np.random.default_rng(21).bytes((16 << 20) + 777)
+        gf, hh = rs_cuda.gf_matmul.launches, highwayhash_cuda.hh256.launches
+        st, h, _ = c.send("PUT", "/cuda/o", body=data)
+        assert st == 200 and h["etag"] == f'"{hashlib.md5(data).hexdigest()}"'
+        assert rs_cuda.gf_matmul.launches > gf
+        assert highwayhash_cuda.hh256.launches > hh
+        assert c.send("GET", "/cuda/o")[2] == data
+        for i in (1, 2, 3):
+            shutil.rmtree(tmp_path / f"d{i}" / "cuda")
+        gf = rs_cuda.gf_matmul.launches
+        assert c.send("GET", "/cuda/o")[2] == data
+        assert rs_cuda.gf_matmul.launches > gf
+    finally:
+        node.shutdown()
+
+
+def test_server_sse_put_and_get_launch_chacha20(dev, tmp_path, monkeypatch):
+    """An SSE-S3 PUT takes the fused cipher+encode step on the card and
+    its GET deciphers there, whole and in a range."""
+    node, c = _server_on_card(tmp_path, monkeypatch)
+    try:
+        data = np.random.default_rng(22).bytes((16 << 20) + 5)
+        sse = {"x-amz-server-side-encryption": "AES256"}
+        cc = chacha20_cuda.keystream_xor.launches
+        st, h, _ = c.send("PUT", "/cuda/e", body=data, headers=sse)
+        assert st == 200 and h["x-amz-server-side-encryption"] == "AES256"
+        assert chacha20_cuda.keystream_xor.launches > cc
+        cc = chacha20_cuda.keystream_xor.launches
+        assert c.send("GET", "/cuda/e")[2] == data
+        st, _, got = c.send("GET", "/cuda/e",
+                               headers={"range": "bytes=70000-4200000"})
+        assert st == 206 and got == data[70000:4200001]
+        assert chacha20_cuda.keystream_xor.launches > cc
+    finally:
+        node.shutdown()

@@ -2,7 +2,8 @@
 scheduler) on the CPU, modelled on tests/test_scheduler.py: coalescing of
 concurrent groups, max_batch splits, no head-of-line block across
 geometries, an error fanned out to every waiter, declines, close, the
-size gate, and the staging pool's back-pressure.
+size gate, and the staging pool's back-pressure; the GET decipher verb
+held against minio_tpu's xor_packages.
 
 Coalesced encode/decode/recover outputs are held against minio_tpu's
 codec (encode_and_hash_batch / verify_and_decode_batch /
@@ -21,6 +22,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from minio_tpu import bitrot as ref_bitrot
 from minio_tpu.object.codec import Codec as RefCodec
@@ -103,6 +105,32 @@ def test_concurrent_encodes_coalesce_and_equal_reference(gate):
     st = sched.stats()
     assert st["batches"] < len(inputs) and st["coalesced"] > 0
     assert st["dispatched_blocks"] == 12 and st["host_routed"] == 0
+
+
+def test_concurrent_deciphers_coalesce_and_equal_reference():
+    """GET decipher groups of three GETs (one package per row, under
+    their own keys and nonces) share one dispatch; each GET gets its own
+    rows back, equal to minio_tpu's xor_packages."""
+    from minio_tpu.ops import chacha20_jax
+    sched = BatchScheduler(max_batch=64, max_wait=0.05)
+    rng = np.random.default_rng(31)
+    groups = [(_data(40 + i, (n, 192)),
+               rng.integers(0, 1 << 32, (n, 8), dtype=np.uint64).astype(
+                   np.uint32),
+               rng.integers(0, 1 << 32, (n, 3), dtype=np.uint64).astype(
+                   np.uint32)) for i, n in enumerate((2, 5, 1))]
+    dev = torch.device("cpu")
+    outs, errs = _run_threads({
+        i: (lambda g=g: sched.submit_decipher(dev, *g).result())
+        for i, g in enumerate(groups)})
+    sched.close()
+    assert not errs, errs
+    for i, (rows, keys, nonces) in enumerate(groups):
+        assert (outs[i] == chacha20_jax.xor_packages(rows, keys,
+                                                     nonces)).all()
+    st = sched.stats()["verbs"]["decipher"]
+    assert st["batches"] < 3 and st["coalesced"] > 0 and st["blocks"] == 8
+    assert sched.submit_decipher(dev, *groups[0]).result() is None
 
 
 def test_max_batch_splits_dispatches(gate):
