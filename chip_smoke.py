@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-About 9 to 10 minutes on one H100, the kernels' builds included. Phases, each
+About 11 to 12 minutes on one H100, the kernels' builds included. Phases, each
 printing one JSON line; any failure exits non-zero:
 
   1. build    — compile every hand-written kernel (csrc/*.cu, one nvcc per
@@ -49,7 +49,17 @@ printing one JSON line; any failure exits non-zero:
                 64 x 65,536 with a short padded last package, and input
                 and output at each end of a guarded mapping; and
                 sse_put_step / sse_get_step on the card against the same
-                steps on CPU tensors (config 2's block, B=2).
+                steps on CPU tensors (config 2's block, B=2); scan_eval
+                against its plain version (ops/scan_plain.py), equal
+                masks and COUNT sums, over 250 seeded queries of
+                tests/test_scan.py's generator (scripts/scan_cases.py,
+                literals longer than the width, nan / inf / -0 / 1e400 /
+                subnormal cells) on CSV and JSON-Lines pages at every
+                width 8-128, fixed predicates over every node kind also
+                held against the host evaluator's WHERE decision, B = 1,
+                3, 64 and 254 pages with a ragged last page, packed pages
+                with inputs and outputs at each end of a guarded mapping,
+                and (a * 3) + 1, which one FMA would round differently.
   3. main path — one 16-drive erasure set at EC 12+4, 4 MiB blocks,
                 highwayhash256S streaming bitrot: PUT eight 64 MiB objects,
                 one of 64 MiB + 12,345 bytes and one of 1 KiB; GET them all
@@ -136,6 +146,19 @@ printing one JSON line; any failure exits non-zero:
                 its GET decipher ones); then `python3 -m minio_tpu_torch
                 server` as a subprocess: ListBuckets, a 64 MiB PUT and GET,
                 SIGTERM, exit 0.
+  11. select  — S3 Select on the card over HTTP (see run_select): a
+                fresh server as in phase 10 holding TPC-H lineitem as CSV
+                (520,000 rows, ~64.6 MB, under the 64 MiB device cap); Q6's
+                predicate with COUNT(*) and with a projection, a
+                contains-LIKE over l_comment, eight clients at one barrier
+                on 8,000-row objects (at the former's default window, where
+                they must take fewer than 8 dispatches, and at 0.4 s), a 4
+                MiB SSE-S3 object (chacha20 deciphers, then scan_eval
+                scans), a declined SUM; every response equal to the host
+                evaluator's framed stream (computed in worker processes
+                meanwhile), scan_eval launches equal to the former's scan
+                dispatches; Select walls, rows/s, MiB/s, stage seconds, a
+                profiled COUNT round.
   4. timings  — (continued) chacha20 at the encode launch (8 rows, 1 MiB
                 span in 1,048,584-byte rows) and at GET's 64 x 65,536:
                 CUDA events around back-to-back wrapper calls, the kernel's
@@ -150,9 +173,13 @@ printing one JSON line; any failure exits non-zero:
                 put_step at config 2's shape,
                 and sse_put_step there and sse_get_step at a degraded-GET
                 group (B=8, 3 data shards lost) beside the sum of their
-                kernels' bounds and their plain composition on the card.
+                kernels' bounds and their plain composition on the card;
+                scan_eval at Q6's launch (B = 254 pages of 2,048 rows, C = 3
+                slots of width 16): events ms, the kernel's own time (a
+                CUDA graph's replay, the profiler), its byte bound and its
+                plain version on the card.
 
-Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 10, 4. Each path's launch
+Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 4. Each path's launch
 counters are set to 0 just before it runs and read just after. Then it prints the
 kernel table as one JSON line (with each kernel's launches on every path),
 the card's name and power limit, and the device line last. It needs one
@@ -216,6 +243,12 @@ S3_BIG = 64 << 20                   # degraded GET past the gate; CLI object
 S3_PARTS = (2, 64 << 20, 12345)     # full parts, bytes each, tail bytes
 S3_SSE = (2, 16 << 20)              # SSE-S3 objects (and one SSE-C), bytes
 S3_SSE_PARTS = (2, 5 << 20)         # SSE-S3 multipart: parts, bytes each
+# phase 11, S3 Select over TPC-H lineitem (scripts/scan_cases.py)
+SELECT_ROWS = 520_000               # ~64.6 MB, under the 64 MiB device cap
+SELECT_CLIENTS = 8                  # concurrent Selects, one object each
+SELECT_SMALL_ROWS = 8_000           # ~1 MiB, 4 pages: 8 x 4 = one batch
+SELECT_SSE_ROWS = 33_700            # ~4 MiB SSE-S3 object
+SELECT_WINDOW_S = 0.4               # the reference's coalescing test's
 
 
 def fail(msg: str) -> None:
@@ -246,7 +279,8 @@ def main() -> int:
     from minio_tpu_torch.ops import (chacha20_cuda, chacha20_plain,
                                      chacha20_ref, highwayhash_cuda,
                                      highwayhash_py, kernels, rs_cuda,
-                                     rs_matrix, sha256_cuda, sha256_ref)
+                                     rs_matrix, scan_cuda, sha256_cuda,
+                                     sha256_ref)
     from minio_tpu_torch.bitrot import MAGIC_HIGHWAYHASH_KEY as KEY
     from minio_tpu_torch.models import pipeline
     from minio_tpu_torch.utils import guard_pages, sass
@@ -432,12 +466,16 @@ def main() -> int:
                                       chacha20_ref, guard_pages, np)
     sse_err = check_sse_steps(torch, dev, rand_u8, max_err, pipeline,
                               rs_cuda, rs_matrix, chacha20_cuda, np)
+    scan_err, scan_cases_n, scan_cov = check_scan(torch, dev, np,
+                                                  guard_pages)
     emit({"phase": "kernels", "gf_matmul_max_abs_err": gf_err,
           "gf_matmul_cases": gf_cases,
           "hh256_max_abs_err": hh_err, "hh256_cases": hh_cases,
           "sha256_max_abs_err": sha_err, "sha256_cases": sha_cases,
           "chacha20_max_abs_err": cc_err, "chacha20_cases": cc_cases,
           "sse_steps_max_abs_err": sse_err,
+          "scan_eval_max_abs_err": scan_err,
+          "scan_eval_cases": scan_cases_n, "scan_eval_coverage": scan_cov,
           "tolerance": 0,
           "seconds": round(time.perf_counter() - t0, 3), "card": card})
 
@@ -448,7 +486,7 @@ def main() -> int:
     from minio_tpu_torch.utils import stagetimer
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     counts = LaunchCounts(rs_cuda, highwayhash_cuda, sha256_cuda,
-                          chacha20_cuda)
+                          chacha20_cuda, scan_cuda)
     try:
         main_path, state = run_main_path(eng_mod, hash_order, tmp, card,
                                          counts, stagetimer, np)
@@ -469,13 +507,16 @@ def main() -> int:
         ssep = run_sse(tmp, card, counts, stagetimer, np)
         # -- 10. the server over HTTP: its own boot, former and drives ----
         s3p = run_s3(tmp, card, counts, stagetimer, np)
+        # -- 11. S3 Select over HTTP: its own boot, former and drives -----
+        selp, lineitem = run_select(tmp, card, counts, stagetimer, np)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths_launches = {"main_path": main_path["launches"],
                       "concurrent_put": concurrent["launches"],
                       "heal": heal["launches"], "mrf": mrf["launches"],
                       "config5": config5["launches"],
-                      "sse": ssep["launches"], "s3": s3p["launches"]}
+                      "sse": ssep["launches"], "s3": s3p["launches"],
+                      "select": selp["launches"]}
 
     # -- 4. timings -------------------------------------------------------
     b, s = 32, -(-(1 << 20) // k)
@@ -489,6 +530,7 @@ def main() -> int:
                                   chacha20_cuda, chacha20_plain,
                                   chacha20_ref, rs_cuda, rs_matrix,
                                   highwayhash_cuda, kernels, sass, KEY, np))
+    timing.update(run_scan_timings(torch, dev, np, lineitem))
     timing.update({"phase": "timings", "B": b, "k": k, "m": m, "S": s,
                    "card": card})
     emit(timing)
@@ -571,12 +613,151 @@ def main() -> int:
          "get_batch_two_pipe_floor_ms":
              timing["chacha20_get"]["two_pipe_floor_ms"],
          "host_xor_stream_ms": timing["chacha20_encode"][
-             "host_xor_stream_ms"]}]})
+             "host_xor_stream_ms"]},
+        {"name": "scan_eval", "route": "cuda",
+         "source": "minio_tpu_torch/csrc/scan_eval.cu",
+         "replaces": "minio_tpu/scan/kernels.py:244",
+         "launches": selp["launches"]["scan_eval"],
+         "launches_by_path": {p: n["scan_eval"]
+                              for p, n in paths_launches.items()},
+         "max_abs_err": max(scan_err, timing["scan_eval_q6"]["max_abs_err"]),
+         # "ms": CUDA events around back-to-back calls at Q6's launch
+         # (B = 254, C = 3, W = 16); device_ms / device_graph_ms the
+         # kernel's own time (profiler, a CUDA graph's replay)
+         "ms": timing["scan_eval_q6"]["ms"],
+         "plain_ms": timing["scan_eval_q6"]["plain_ms"],
+         "bound_ms": timing["scan_eval_q6"]["bound_ms"],
+         "bound_by": timing["scan_eval_q6"]["bound_by"],
+         "library_ms": None,
+         "device_ms": timing["scan_eval_q6"]["device_ms"],
+         "device_graph_ms": timing["scan_eval_q6"]["device_graph_ms"],
+         "wrapper_host_us": timing["scan_eval_q6"]["wrapper_host_us"]}]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def check_scan(torch, dev, np, guard_pages) -> tuple[int, int, dict]:
+    """scan_eval against its plain version on the card, tolerance 0 on the
+    mask and the COUNT sums: the seeded port of tests/test_scan.py's query
+    generator (scripts/scan_cases.py, with literals longer than the page
+    width and nan / inf / -0 / 1e400 / subnormal cells) over CSV and
+    JSON-Lines corpora at every width bucket 8-128; fixed predicates over
+    every node kind (scan_cases.ORACLE_WHERE), whose masks must also equal
+    the host evaluator's WHERE decision row by row; B = 1, 3, 64 and 254
+    pages with a ragged last page; packed pages (the former's batch) with
+    inputs and outputs at each end of a guarded mapping; and the query
+    one FMA contraction would flip."""
+    from minio_tpu_torch.ops import scan_cuda, scan_plain, scan_program
+    from minio_tpu_torch.s3select import sql
+    from minio_tpu_torch.scan import pager
+    from minio_tpu_torch.scan.plan import compile_plan
+    from minio_tpu_torch.scripts import scan_cases as sc
+    stats = {"queries": 0, "evaluator_checked": 0, "widths": set(),
+             "kinds": set(), "batches": set()}
+    err_max = 0
+
+    def on_dev(arrays):
+        return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+    def err_of(got, want) -> int:
+        if got.shape != want.shape:
+            fail(f"scan_eval: shape {tuple(got.shape)} != "
+                 f"{tuple(want.shape)}")
+        if got.numel() == 0:
+            return 0
+        return int((got.long() - want.long()).abs().max())
+
+    def check(what, program, arrs, outs=None):
+        nonlocal err_max
+        before = scan_cuda.scan_eval.launches
+        mask, counts = scan_cuda.scan_eval(program, **arrs) if outs is None \
+            else scan_cuda.scan_eval(program, mask=outs[0], counts=outs[1],
+                                     **arrs)
+        torch.cuda.synchronize()
+        if scan_cuda.scan_eval.launches != before + 1:
+            fail(f"scan_eval {what}: the wrapper did not count its launch")
+        pm, pc = scan_plain.scan_eval(program.prog, program.cspec, **arrs)
+        err = max(err_of(mask, pm), err_of(counts, pc))
+        if err:
+            fail(f"scan_eval {what}: kernel disagrees with the plain "
+                 f"version (max abs err {err})")
+        err_max = max(err_max, err)
+        stats["queries"] += 1
+        stats["kinds"] |= sc.node_kinds(program.prog)
+        return mask, counts
+
+    # the generator's queries at every width bucket (0: the narrow words)
+    for fmt in ("CSV", "JSON"):
+        for width in (0, 12, 30, 60, 100):
+            for expr, program, pages, _q, _r in sc.page_cases(
+                    fmt, width, 100 + width, 25):
+                check(f"{fmt} W={pages.width} {expr!r}", program,
+                      on_dev(pages.arrays))
+                stats["widths"].add(pages.width)
+    if stats["widths"] != {8, 16, 32, 64, 128}:
+        fail(f"scan_eval: widths {sorted(stats['widths'])} checked")
+    # every node kind, against the evaluator's WHERE decision too
+    rows = sc.rows_of(sc.oracle_csv(), "CSV")
+    for where in sc.ORACLE_WHERE:
+        q = sql.parse(f"SELECT COUNT(*), COUNT(s) FROM S3Object WHERE "
+                      f"{where}")
+        plan = compile_plan(q, "CSV")
+        program = scan_program.program_for(plan)
+        pages = pager.build_pages(rows, plan)
+        mask, _ = check(f"oracle {where!r}", program, on_dev(pages.arrays))
+        want = np.array([bool(sql.evaluate(q.where, r, q.alias))
+                         for r in rows])
+        got = mask.reshape(-1)[:len(rows)].cpu().numpy().astype(bool)
+        if not np.array_equal(got, want):
+            fail(f"scan_eval {where!r}: the mask is not the evaluator's "
+                 f"WHERE decision on rows "
+                 f"{np.flatnonzero(got != want)[:8].tolist()}")
+        stats["evaluator_checked"] += 1
+    missing = sc.ALL_KINDS - stats["kinds"]
+    if missing:
+        fail(f"scan_eval: node kinds never checked: {sorted(missing)}")
+    # batches of 1, 3, 64 and 254 pages, the last one ragged
+    for expr, program, pages, _q, _r in sc.page_cases("CSV", 30, 7, 4,
+                                                      rows=2500):
+        for B in (1, 3, 64, 254):
+            check(f"B={B} {expr!r}", program,
+                  on_dev(sc.tile_pages(pages.arrays, B, 1234)))
+            stats["batches"].add(B)
+    # packed pages of two requests; inputs and outputs at each end of a
+    # mapping between unmapped ranges (a read or store outside faults)
+    for expr, program, pages, _q, _r in sc.page_cases("JSON", 60, 9, 4,
+                                                      rows=2100):
+        packed = np.concatenate([scan_cuda.pack_pages(pages.arrays)] * 2)
+        B, P = packed.shape
+        R, C, W = pages.shape_key()
+        k = len(program.cspec)
+        n_out = B * R + 4 * B * k
+        with guard_pages.guarded(packed.nbytes, dev) as src, \
+                guard_pages.guarded(n_out, dev) as dst:
+            for x in (src[:packed.nbytes], src[-packed.nbytes:]):
+                x.copy_(torch.from_numpy(packed.reshape(-1)).to(dev))
+                v = scan_cuda.unpack(x.view(B, P), R, C, W)
+                check(f"packed {expr!r}", program, v)
+                for out in (dst[:n_out], dst[-n_out:]):
+                    counts = out[:4 * B * k].view(torch.int32).view(B, k)
+                    check(f"packed {expr!r}, outputs in a guarded mapping",
+                          program, v, (out[4 * B * k:].view(B, R), counts))
+    # one rounding per operation, as the evaluator's floats
+    data, expr = sc.fma_case()
+    plan = compile_plan(sql.parse(expr), "CSV")
+    pages = pager.build_pages(sc.rows_of(data, "CSV"), plan)
+    _m, counts = check("fma", scan_program.program_for(plan),
+                       on_dev(pages.arrays))
+    if int(counts[0, 0]) != 1:
+        fail("scan_eval: (a * 3) + 1 was contracted into one FMA")
+    return err_max, stats["queries"], {
+        "evaluator_checked": stats["evaluator_checked"],
+        "widths": sorted(stats["widths"]),
+        "node_kinds": len(stats["kinds"]),
+        "batches": sorted(stats["batches"])}
 
 
 def check_sha256(torch, dev, rand_u8, max_err, sha256_cuda, sha256_ref,
@@ -815,21 +996,24 @@ class LaunchCounts:
     """Every kernel's launch counter: set to 0 just before a path is
     driven, read just after."""
 
-    def __init__(self, rs_cuda, hh, sha, chacha):
+    def __init__(self, rs_cuda, hh, sha, chacha, scan):
         self.rs_cuda, self.hh, self.sha, self.chacha = rs_cuda, hh, sha, \
             chacha
+        self.scan = scan
 
     def zero(self) -> None:
         self.rs_cuda.gf_matmul.launches = 0
         self.hh.hh256.launches = 0
         self.sha.sha256_rows.launches = 0
         self.chacha.keystream_xor.launches = 0
+        self.scan.scan_eval.launches = 0
 
     def read(self) -> dict:
         return {"gf_matmul": self.rs_cuda.gf_matmul.launches,
                 "hh256": self.hh.hh256.launches,
                 "sha256": self.sha.sha256_rows.launches,
-                "chacha20": self.chacha.keystream_xor.launches}
+                "chacha20": self.chacha.keystream_xor.launches,
+                "scan_eval": self.scan.scan_eval.launches}
 
 
 def stage_report(stagetimer) -> dict:
@@ -1068,7 +1252,7 @@ def run_concurrent_put(eng_mod, sched, stagetimer, tmp, card, counts,
     # each encode dispatch on the card is one put_step: one launch of
     # each kernel, counted exactly under the two dispatch threads
     if launched != {"gf_matmul": on_card, "hh256": on_card, "sha256": 0,
-                    "chacha20": 0} \
+                    "chacha20": 0, "scan_eval": 0} \
             or steps["encode"]["calls"] != on_card:
         fail(f"concurrent PUT: launches {launched}, codec calls "
              f"{steps['encode']['calls']} != {on_card} dispatches")
@@ -1167,7 +1351,7 @@ def run_heal(sched, state, tmp, card, counts, np) -> dict:
         fail(f"heal: recover dispatches {rec} (card {on_card}), expected "
              f"{want_card} on the card and {want_host} by the size gate")
     if launched != {"gf_matmul": on_card, "hh256": on_card, "sha256": 0,
-                    "chacha20": 0}:
+                    "chacha20": 0, "scan_eval": 0}:
         fail(f"heal: launches {launched} != {on_card} recover dispatches")
     if rebuilt:
         fail("heal: a host rebuild ran without bitrot")
@@ -1696,7 +1880,8 @@ def run_sse(tmp, card, counts, stagetimer, np) -> dict:
     if enc["coalesced"] <= 0:
         fail(f"SSE PUT: the former never coalesced: {enc}")
     if launched["put"] != {"gf_matmul": on_card, "hh256": on_card,
-                           "sha256": 0, "chacha20": on_card} \
+                           "sha256": 0, "chacha20": on_card,
+                           "scan_eval": 0} \
             or steps["encode"]["calls"] != on_card:
         fail(f"SSE PUT: launches {launched['put']}, codec calls "
              f"{steps['encode']['calls']} != {on_card} encode dispatches")
@@ -1790,7 +1975,8 @@ def run_sse(tmp, card, counts, stagetimer, np) -> dict:
     if plain.reshape(8, -1)[:, :bs].tobytes() != objects[name1][:8 * bs]:
         fail("sse_get_step: deciphered blocks differ from the plaintext")
     if launched["sse_get_step"] != {"gf_matmul": 1, "hh256": 1,
-                                    "sha256": 0, "chacha20": 1}:
+                                    "sha256": 0, "chacha20": 1,
+                                    "scan_eval": 0}:
         fail(f"sse_get_step: launches {launched['sse_get_step']}")
 
     # SSE-C: one object with a short tail (ciphered on the host)
@@ -2257,7 +2443,7 @@ def run_s3(tmp, card, counts, stagetimer, np) -> dict:
     sse_card = sum(n for (_v, enc_), n in on_card.items() if enc_)
     erasure_card = card_total - on_card[("decipher", True)]
     if launched != {"gf_matmul": erasure_card, "hh256": erasure_card,
-                    "sha256": 0, "chacha20": sse_card} \
+                    "sha256": 0, "chacha20": sse_card, "scan_eval": 0} \
             or min(launched["gf_matmul"], launched["chacha20"],
                    on_card[("decipher", True)]) <= 0:
         fail(f"s3: launches {launched}; {card_total} dispatches on the card "
@@ -2320,6 +2506,231 @@ def run_s3(tmp, card, counts, stagetimer, np) -> dict:
     out["card"] = card
     emit(out)
     shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def select_oracle(expr: str, data: bytes, compression: str = "NONE"
+                  ) -> tuple[bytes, float]:
+    """The port's CPU evaluator's framed stream of a CSV Select
+    (s3select.select.event_stream) and its seconds: phase 11's oracle, run
+    in worker processes while the server works."""
+    sys.path.insert(0, HERE)
+    from minio_tpu_torch.s3select.select import event_stream
+    from minio_tpu_torch.scripts import scan_cases
+    t0 = time.perf_counter()
+    body = b"".join(event_stream(
+        scan_cases.request(expr, compression=compression), data))
+    return body, time.perf_counter() - t0
+
+
+def run_select(tmp, card, counts, stagetimer, np) -> tuple[dict, bytes]:
+    """S3 Select on the card over HTTP: the port's server (booted as in
+    phase 10: cluster.start_single over 16 fresh drives at 12+4, 1 MiB
+    blocks, the edge transport) holding TPC-H lineitem as CSV
+    (scripts/scan_cases.lineitem_csv: the spec's column domains, 16
+    columns; SELECT_ROWS rows under MINIO_TPU_SCAN_MAX_BYTES, the cut from
+    SF 0.1's 600,572), queried as S3 Select pushdown runs TPC-H (PushdownDB,
+    ICDE 2020): Q6's predicate with COUNT(*), and with a projection; a
+    contains-LIKE over l_comment (MinIO's documented Select shape); eight
+    clients released at one barrier, each running the COUNT on its own
+    8,000-row object (4 pages each: the eight fit one batch of the
+    former's 32 blocks), which must take fewer than 8 scan dispatches at
+    the former's default window (printed beside the reference's 0.4 s); a 4
+    MiB SSE-S3 object (chacha20 deciphers, then scan_eval scans); one
+    query the plan declines (SUM, counted as "aggregate"). Every response
+    must equal the host evaluator's framed stream over the same bytes
+    (computed in worker processes meanwhile); scan_eval's launches must
+    equal the former's scan dispatches, and the engine's device serves
+    rise by the device-served count. Prints the Select walls, rows/s and
+    CSV MiB/s, the stage seconds (GET, rows, pages, dispatch, emit) and a
+    profiled COUNT round."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from minio_tpu_torch import cluster
+    from minio_tpu_torch.ops import scan_cuda
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.s3.credentials import Credentials
+    from minio_tpu_torch.scan import engine as scan_engine
+    from minio_tpu_torch.scripts import scan_cases as sc
+    k, m, bs = 12, 4, 1 << 20
+    rng = np.random.default_rng(SEED + 17)
+    os.environ["MINIO_SSE_MASTER_KEY"] = rng.bytes(32).hex()
+    os.environ["MINIO_TPU_SSE_CIPHER"] = "chacha20"
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    big = sc.lineitem_csv(SELECT_ROWS, SEED)
+    small = {f"part-{i}": sc.lineitem_csv(SELECT_SMALL_ROWS, SEED + 1 + i)
+             for i in range(SELECT_CLIENTS)}
+    sse_data = sc.lineitem_csv(SELECT_SSE_ROWS, SEED + 99)
+    gen_s = time.perf_counter() - t0
+    if len(big) > scan_engine.MAX_SCAN_BYTES:
+        fail(f"select: {len(big)} B of lineitem exceed the device cap "
+             f"{scan_engine.MAX_SCAN_BYTES}")
+    queries = {"q6_count": sc.Q6_COUNT, "q6_rows": sc.Q6_ROWS,
+               "like": sc.LIKE_QUERY}
+    ctx = multiprocessing.get_context("spawn")
+    root = os.path.join(tmp, "select")
+    drives = [os.path.join(root, f"d{i}") for i in range(k + m)]
+    creds = Credentials("smokeselect", "smokeselectsecret")
+    with ProcessPoolExecutor(max_workers=4, mp_context=ctx) as pool:
+        oracles = {n: pool.submit(select_oracle, e, big)
+                   for n, e in queries.items()}
+        oracles.update({n: pool.submit(select_oracle, sc.Q6_COUNT, d)
+                        for n, d in small.items()})
+        oracles["sse"] = pool.submit(select_oracle, sc.Q6_COUNT, sse_data)
+        oracles["declined"] = pool.submit(select_oracle, sc.SUM_QUERY,
+                                          small["part-0"])
+        node = cluster.start_single(drives, creds=creds, parity=m,
+                                    set_drive_count=k + m, block_size=bs)
+        try:
+            out = run_select_on(node, S3Client(node.s3.port, creds), big,
+                                small, sse_data, queries, oracles, counts,
+                                stagetimer, torch, scan_cuda)
+        finally:
+            node.shutdown()
+    out.update({"lineitem_rows": SELECT_ROWS, "lineitem_bytes": len(big),
+                "device_cap_bytes": scan_engine.MAX_SCAN_BYTES,
+                "generate_s": round(gen_s, 3),
+                "seconds": round(time.perf_counter() - t_phase, 3),
+                "card": card})
+    emit(out)
+    shutil.rmtree(root, ignore_errors=True)
+    return out, big
+
+
+def run_select_on(node, c, big, small, sse_data, queries, oracles, counts,
+                  stagetimer, torch, scan_cuda) -> dict:
+    import re
+
+    from minio_tpu_torch.scripts import scan_cases as sc
+    sched, eng = node.scheduler, node.s3.api.scan
+    sel_q = {"select": "", "select-type": "2"}
+
+    def ok(resp, what, status=200):
+        if resp[0] != status:
+            fail(f"select {what}: HTTP {resp[0]} {resp[2][:300]!r}")
+        return resp
+
+    def select(key, expr):
+        return c.send("POST", f"/lineitem/{key}", query=sel_q,
+                      body=sc.select_xml(expr))
+
+    def scan_stats() -> dict:
+        return dict(sched.stats()["verbs"]["scan"])
+
+    ok(c.send("PUT", "/lineitem"), "make bucket")
+    t0 = time.perf_counter()
+    ok(c.send("PUT", "/lineitem/big.csv", body=big), "PUT lineitem")
+    put_s = time.perf_counter() - t0
+    for n, d in small.items():
+        ok(c.send("PUT", f"/lineitem/{n}.csv", body=d), f"PUT {n}")
+    ok(c.send("PUT", "/lineitem/sse.csv", body=sse_data,
+              headers={"x-amz-server-side-encryption": "AES256"}),
+       "PUT SSE-S3")
+    out = {"phase": "select", "drives": len(node.spec.drives),
+           "ec": f"{node.set_drive_count - node.parity}+{node.parity}",
+           "put_s": round(put_s, 3)}
+    before, served0 = scan_stats(), eng.stats()
+    counts.zero()
+    stagetimer.reset()
+    stagetimer.enable()
+    walls, bodies = {}, {}
+    for n, expr in queries.items():
+        t0 = time.perf_counter()
+        bodies[n] = ok(select("big.csv", expr), n)[2]
+        walls[n] = time.perf_counter() - t0
+    stagetimer.disable()
+    stages = stage_report(stagetimer)["stages"]
+    big_launches = counts.read()
+    # eight clients at one barrier, each its own 8,000-row object: once at
+    # the former's default grace window, then at the reference's own
+    # coalescing setting (tests/test_scan.py: 0.4 s), where the bucket
+    # dispatches as soon as the eight have filled its 32 blocks
+    concurrent, rounds8 = {}, []
+    for window in (sched.max_wait, SELECT_WINDOW_S):
+        default_wait, sched.max_wait = sched.max_wait, window
+        mid = scan_stats()
+        wall8, res8, errors = at_barrier({
+            n: (lambda n=n: select(f"{n}.csv", sc.Q6_COUNT))
+            for n in small})
+        sched.max_wait = default_wait
+        if errors:
+            fail(f"select concurrent: {errors[:3]}")
+        after8 = scan_stats()
+        concurrent[f"window_{window * 1e3:g}ms"] = {
+            "clients": len(small), "wall_s": round(wall8, 3),
+            "scan_dispatches": after8["batches"] - mid["batches"],
+            "pages": after8["blocks"] - mid["blocks"],
+            "coalesced": after8["coalesced"] - mid["coalesced"]}
+        rounds8.append({n: r[2] for n, r in res8.items()})
+    # the shipped window must coalesce; the reference's setting is printed
+    # beside it
+    dispatches8 = concurrent[f"window_{sched.max_wait * 1e3:g}ms"][
+        "scan_dispatches"]
+    if dispatches8 >= len(small):
+        fail(f"select: {len(small)} concurrent Selects took {dispatches8} "
+             f"scan dispatches at the former's default window")
+    # the SSE object: chacha20 deciphers on the card, then scan_eval scans
+    pre = counts.read()
+    t0 = time.perf_counter()
+    sse_body = ok(select("sse.csv", sc.Q6_COUNT), "SSE Select")[2]
+    sse_s = time.perf_counter() - t0
+    post = counts.read()
+    sse_launches = {n: post[n] - pre[n] for n in post}
+    if sse_launches["chacha20"] < 1 or sse_launches["scan_eval"] != 1:
+        fail(f"select SSE: launches {sse_launches}")
+    # a query the plan declines
+    declined = ok(select("part-0.csv", sc.SUM_QUERY), "declined")[2]
+    launched = counts.read()
+    after = scan_stats()
+    served = eng.stats()
+    # oracles, computed by the worker processes meanwhile
+    got = {**bodies, "sse": sse_body, "declined": declined}
+    oracle_s = {}
+    for n, fut in oracles.items():
+        want, secs = fut.result()
+        oracle_s[n] = round(secs, 3)
+        for resp in [got.get(n)] + [r.get(n) for r in rounds8]:
+            if resp is not None and resp != want:
+                fail(f"select {n}: the response is not the evaluator's "
+                     f"bytes ({len(resp)} B against {len(want)} B)")
+    dispatches = after["batches"] - before["batches"]
+    if launched["scan_eval"] != dispatches or dispatches < 1 or \
+            after["host_routed"] != before["host_routed"]:
+        fail(f"select: scan_eval launched {launched['scan_eval']} times "
+             f"for {dispatches} scan dispatches")
+    device_served = len(queries) + len(rounds8) * len(small) + 1
+    if served["device_serves"] - served0["device_serves"] != \
+            device_served or served["fallback_reasons"].get("aggregate", 0) \
+            - served0["fallback_reasons"].get("aggregate", 0) != 1 or \
+            served["fallbacks"] - served0["fallbacks"] != 1:
+        fail(f"select: engine {served} (before {served0})")
+    # one profiled COUNT round
+    profiled = device_busy(torch, lambda: ok(
+        select("big.csv", sc.Q6_COUNT), "profiled"), counts)
+    rows = SELECT_ROWS
+    mib = len(big) / (1 << 20)
+    out.update({
+        "select_wall_s": {n: round(w, 3) for n, w in walls.items()},
+        "rows_per_s": {n: round(rows / w, 1) for n, w in walls.items()},
+        "csv_mib_per_s": {n: round(mib / w, 3) for n, w in walls.items()},
+        "stage_s": {n: v for n, v in stages.items()
+                    if n.startswith("select.")},
+        "big_launches": big_launches,
+        "concurrent": concurrent,
+        "sse": {"bytes": len(sse_data), "wall_s": round(sse_s, 3),
+                "launches": sse_launches},
+        "scan_dispatches": dispatches, "launches": launched,
+        "device_serves": served["device_serves"] - served0["device_serves"],
+        "fallback_reasons": {
+            r: n - served0["fallback_reasons"].get(r, 0)
+            for r, n in served["fallback_reasons"].items()
+            if n != served0["fallback_reasons"].get(r, 0)},
+        "oracle_s": oracle_s, "profiled": profiled,
+        "q6_count": int(re.search(rb"octet-stream(\d+)\n",
+                                  bodies["q6_count"])[1])})
     return out
 
 
@@ -2527,6 +2938,78 @@ def time_sse_steps(torch, dev, rand_u8, max_err, pipeline, chacha20_cuda,
     if err:
         fail("an SSE step disagrees with its plain composition")
     return out
+
+
+def run_scan_timings(torch, dev, np, big: bytes) -> dict:
+    """scan_eval at TPC-H Q6's launch: phase 11's lineitem under Q6's plan
+    (B = 254 pages of 2,048 rows, C = 3 slots of width 16), packed as the
+    former packs it, three copies cycled (the pages are ~47 MB, the L2
+    cache 50 MB). CUDA events around back-to-back wrapper calls ("ms"),
+    the kernel's own time (a CUDA graph's replay and torch.profiler), the
+    plain version on the card, and the byte bound: the page bytes Q6's
+    program needs of this data (scan_cases.must_move_bytes) read once and
+    the mask and counts written once, over 3.35 TB/s. No PyTorch call
+    computes a predicate program, so library_ms is None."""
+    from minio_tpu_torch.ops import scan_cuda, scan_plain, scan_program
+    from minio_tpu_torch.s3select import sql
+    from minio_tpu_torch.scan import pager
+    from minio_tpu_torch.scan.plan import compile_plan
+    from minio_tpu_torch.scripts import scan_cases as sc
+    rows = sc.rows_of(big, "CSV")
+    plan = compile_plan(sql.parse(sc.Q6_COUNT), "CSV")
+    program = scan_program.program_for(plan)
+    pages = pager.build_pages(rows, plan)
+    R, C, W = pages.shape_key()
+    B = pages.n_pages
+    if (B, R, C, W) != (254, 2048, 3, 16):
+        fail(f"scan_eval timing: Q6's pages are {(B, R, C, W)}")
+    packed = torch.from_numpy(scan_cuda.pack_pages(pages.arrays))
+    views = [scan_cuda.unpack(packed.to(dev), R, C, W) for _ in range(3)]
+
+    def call(i):
+        return scan_cuda.scan_eval(program, **views[i % 3])
+
+    ms = cuda_timed(torch, call, 50)
+    device = kernel_device_ms(torch, call, 50, "scan_eval_kernel")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(50):
+        call(i)
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+
+    def plain(i):
+        return scan_plain.scan_eval(program.prog, program.cspec,
+                                    **views[i % 3])
+
+    plain_ms = cuda_timed(torch, plain, 3)
+    mask, counts = call(0)
+    pm, pc = plain(0)
+    err = max(int((mask.long() - pm.long()).abs().max()),
+              int((counts.long() - pc.long()).abs().max()))
+    if err:
+        fail(f"scan_eval disagrees at Q6's launch (max abs err {err})")
+    # what Q6's program needs of this data: the three slots' ok and null,
+    # two slots' numbers, l_shipdate's string bytes (a string compare),
+    # rowvalid, the mask and the counts
+    nbytes = sc.must_move_bytes(program, pages.arrays,
+                                mask.cpu().numpy())
+    # one operation per instruction of the program per row (compares,
+    # pushes, ANDs): far below the bytes' time
+    ops = pages.n_rows * program.parts[1]
+    t = {"B": B, "R": R, "C": C, "W": W, "rows": pages.n_rows,
+         "count": int(counts.sum()), "ms": ms, "device_ms": device["ms"],
+         "device_graph_ms": device["graph_ms"],
+         "device_launches": device["launches"],
+         "device_launches_recorded": device["recorded"],
+         "wrapper_host_us": host_us, "bytes": nbytes, "ops": ops,
+         "byte_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+         "op_bound_ms": ops / INT32_OPS_PER_S * 1e3,
+         "plain_ms": plain_ms, "max_abs_err": err, "library_ms": None}
+    t["bound_ms"] = max(t["byte_bound_ms"], t["op_bound_ms"])
+    t["bound_by"] = "bytes" if t["byte_bound_ms"] >= t["op_bound_ms"] \
+        else "operations"
+    return {"scan_eval_q6": t}
 
 
 def hh256_rounds(length: int) -> int:

@@ -9,9 +9,10 @@ handlers. The boot follows ``ClusterNode._finish_boot``
 admission gate and the staging rings sized from one RAM/CPU budget, the
 sets over the drives with that former, one pool of them.
 
-``device`` picks where the sets' fused steps run: None means the card,
-and a host without one raises rather than serving from the CPU;
-``device="cpu"`` runs the plain PyTorch versions on the host.
+``device`` picks where the sets' fused steps and the Select scans run:
+None means the card, and a host without one raises rather than serving
+from the CPU; ``device="cpu"`` runs the plain PyTorch versions on the
+host.
 
 Left out: distributed nodes (internode storage, lock, peer and bootstrap
 RPC, dsync), IAM, config KV, events, replication, notification, tiers,
@@ -110,6 +111,10 @@ class ClusterNode:
             scheduler=self.scheduler, device=device)
         self.object_layer = ErasureServerSets([self.sets])
         self.s3.api.set_object_layer(self.object_layer)
+        # the scan plane on the shared former: concurrent Selects coalesce
+        # their pages into one launch on the cluster's device (the engine
+        # took the layer's device in set_object_layer)
+        self.s3.api.scan.scheduler = self.scheduler
 
     @property
     def url(self) -> str:

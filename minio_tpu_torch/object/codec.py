@@ -29,8 +29,9 @@ a blocking copy before any stream reads them.
 Encrypted batches (encrypt_encode_and_hash_batch,
 verify_decode_decrypt_batch) ride the same slots: their per-row ChaCha20
 key and nonce words go to the card on the slot's stream with the batch.
-So does the GET's decipher of verified packages (decipher_packages), the
-one device step that holds no erasure geometry.
+So do the two device steps that hold no erasure geometry: the GET's
+decipher of verified packages (decipher_packages) and S3 Select's
+predicate scan over packed pages (scan/kernels.run_packed).
 
 Left out: the mesh routes (parallel/mesh.py).
 """
@@ -75,7 +76,7 @@ STEP_SECONDS: dict[str, dict] = {}
 
 def reset_step_seconds() -> None:
     with _steps_mu:
-        for verb in ("encode", "decode", "recover", "decipher"):
+        for verb in ("encode", "decode", "recover", "decipher", "scan"):
             STEP_SECONDS[verb] = {"calls": 0,
                                   **dict.fromkeys(STEP_STAGES, 0.0)}
 

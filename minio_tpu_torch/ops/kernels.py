@@ -23,9 +23,24 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = {"gf_matmul": "gf_matmul.cu", "hh256": "hh256.cu",
-           "sha256": "sha256.cu", "chacha20": "chacha20.cu"}
+           "sha256": "sha256.cu", "chacha20": "chacha20.cu",
+           "scan_eval": "scan_eval.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _scan_eval_flags() -> list[str]:
+    # the scan interpreter's float64 arithmetic must round once per
+    # operation, as the CPU evaluator's does, so nvcc may not contract a
+    # multiply and an add into one FMA; its stack depths are the
+    # flattener's limits, which are written down there only
+    from . import scan_program
+    return ["-fmad=false", f"-DSCAN_MAX_VALS={scan_program.MAX_VALS}",
+            f"-DSCAN_MAX_BOOLS={scan_program.MAX_BOOLS}"]
+
+
+# flags of one source only, after NVCC_FLAGS, made when it is built
+SOURCE_FLAGS = {"scan_eval": _scan_eval_flags}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -45,10 +60,16 @@ def nvcc() -> str:
     return found
 
 
+def flags(name: str) -> list[str]:
+    """nvcc's flags for kernel `name`."""
+    extra = SOURCE_FLAGS.get(name)
+    return NVCC_FLAGS + (extra() if extra else [])
+
+
 def _target(name: str) -> str:
     with open(os.path.join(_CSRC, SOURCES[name]), "rb") as f:
         h = hashlib.sha1(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
@@ -67,7 +88,7 @@ def build(names=None) -> float:
     for n in todo:
         tmp = f"{_target(n)}.{os.getpid()}.tmp"
         procs[n] = (tmp, subprocess.Popen(
-            [cc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, SOURCES[n])],
+            [cc, *flags(n), "-o", tmp, os.path.join(_CSRC, SOURCES[n])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for n, (tmp, p) in procs.items():

@@ -14,7 +14,13 @@ cmd/handler-api.go:46-57). Verbs:
     verified packages (object/codec.decipher_packages). The reference
     ciphers GETs on its handler threads; here they come to the former,
     so that no handler thread touches the card and the packages of
-    concurrent GETs share one launch.
+    concurrent GETs share one launch;
+  * ``scan`` — S3 Select's predicate over one request's tokenized pages
+    (scan/kernels.run_packed, the scan_eval kernel). Pages of one plan
+    signature and page shape (rows, slots, string width) stack along the
+    batch axis, one page counting as one block, so concurrent Selects of
+    one query share a launch; each gets its own rows of the mask and of
+    the per-page COUNT sums back.
 
 Concurrent callers hand (B_i, k, S) block groups to the submit_* methods;
 a collector thread coalesces groups with identical (verb, device,
@@ -42,9 +48,14 @@ the bucket key holds only their geometry (package count and size), so
 encrypted groups under different keys share one dispatch, which
 concatenates the payloads as it stacks the shards.
 
-Left out: the ``scan`` verb (the scan plane is not ported), the mesh
-split points, spans, and the MINIO_TPU_SCHED_ATTRIB switch (attribution
-is always on).
+The scan verb rides the same in-flight dispatches and codec slots as the
+other verbs. The reference gives it a slot of its own
+(minio_tpu/parallel/scheduler.py:224) because a new plan pays an XLA
+compile inside its dispatch; the port's one interpreter kernel compiles
+nothing per query.
+
+Left out: the mesh split points, spans, and the MINIO_TPU_SCHED_ATTRIB
+switch (attribution is always on).
 
 Knobs: MINIO_TPU_SCHED_MAX_BATCH (32 blocks per fused dispatch),
 MINIO_TPU_SCHED_MAX_WAIT_MS (3, the coalescing grace window),
@@ -67,7 +78,7 @@ MAX_BATCH_BLOCKS = knobs.get_int("MINIO_TPU_SCHED_MAX_BATCH")
 MAX_WAIT_S = knobs.get_float("MINIO_TPU_SCHED_MAX_WAIT_MS") / 1e3
 INFLIGHT = max(1, knobs.get_int("MINIO_TPU_SCHED_INFLIGHT"))
 
-VERBS = ("encode", "decode", "recover", "decipher")
+VERBS = ("encode", "decode", "recover", "decipher", "scan")
 
 _BATCHES_TOTAL = telemetry.REGISTRY.counter(
     "minio_tpu_sched_batches_total", "Fused device dispatches issued")
@@ -93,7 +104,8 @@ class _Pending:
     def __init__(self, codec, data: np.ndarray, payload=None):
         self.codec = codec
         self.data = data
-        # SSE groups: (keys (B, 8), nonces (B, P, 3)) u32 word arrays
+        # SSE groups: (keys (B, 8), nonces (B, P, 3)) u32 word arrays;
+        # scan groups: the ops/scan_program.Program of their plan
         self.payload = payload
         self.blocks = int(data.shape[0])
         self.event = threading.Event()
@@ -203,11 +215,11 @@ class BatchScheduler:
             self.declined += 1
         return True
 
-    def _enqueue(self, key: tuple, codec, data: np.ndarray, sse=None
-                 ) -> DispatchFuture:
-        payload = None if sse is None else (
-            np.ascontiguousarray(sse[0], np.uint32),
-            np.ascontiguousarray(sse[1], np.uint32))
+    def _enqueue(self, key: tuple, codec, data: np.ndarray, sse=None,
+                 payload=None) -> DispatchFuture:
+        if sse is not None:
+            payload = (np.ascontiguousarray(sse[0], np.uint32),
+                       np.ascontiguousarray(sse[1], np.uint32))
         p = _Pending(codec, np.ascontiguousarray(data, np.uint8), payload)
         with self._mu:
             if self._stop:
@@ -278,6 +290,21 @@ class BatchScheduler:
         (the caller then deciphers on its own)."""
         key = ("decipher", device, 0, 0, rows.shape[-1], None, None)
         return self._enqueue(key, None, rows, (keys, nonces))
+
+    def submit_scan(self, device, pages, program) -> DispatchFuture:
+        """Non-blocking predicate scan of one Select's tokenized pages
+        (scan/pager.Pages) on `device` under `program` (the
+        ops/scan_program.Program of pages.plan). Pages bucket by (device,
+        plan signature, page shape), so concurrent requests of one query
+        coalesce into one launch. Resolves to (mask bool [B, R], counts
+        int32 [B, K]) for the request's B pages, or to None when the
+        scheduler closed (the caller then answers from the CPU
+        evaluator); a failed dispatch raises."""
+        from ..ops import scan_cuda
+        key = ("scan", device, 0, 0, pages.shape_key(), program.signature,
+               None)
+        return self._enqueue(key, None, scan_cuda.pack_pages(pages.arrays),
+                             payload=program)
 
     def encode_and_hash(self, codec, data: np.ndarray, algo
                         ) -> Optional[tuple[np.ndarray, np.ndarray]]:
@@ -364,8 +391,8 @@ class BatchScheduler:
         verb = key[0]
         stages: dict[str, float] = {}
         t0 = time.perf_counter()
-        run = self._run_decipher if verb == "decipher" else \
-            self._run_erasure
+        run = {"decipher": self._run_decipher,
+               "scan": self._run_scan}.get(verb, self._run_erasure)
         out = run(key, group, stages.__setitem__)
         nb = sum(p.blocks for p in group)
         with self._mu:
@@ -396,6 +423,9 @@ class BatchScheduler:
             b = p.blocks
             if verb == "decipher":
                 p.out = out[at:at + b]
+            elif verb == "scan":
+                mask, counts = out
+                p.out = (mask[at:at + b], counts[at:at + b])
             elif verb == "encode":
                 parity, digests = out
                 p.out = (parity[at:at + b], digests[at:at + b])
@@ -417,6 +447,14 @@ class BatchScheduler:
             np.concatenate([p.payload[0] for p in group]),
             np.concatenate([p.payload[1] for p in group]),
             stage_cb=stage_cb)
+
+    @staticmethod
+    def _run_scan(key: tuple, group: list, stage_cb):
+        from ..scan import kernels as scan_kernels
+        # one plan signature per bucket: the first group's program serves
+        return scan_kernels.run_packed(key[1], group[0].payload, key[4],
+                                       [p.data for p in group],
+                                       stage_cb=stage_cb)
 
     @staticmethod
     def _run_erasure(key: tuple, group: list, stage_cb):

@@ -15,20 +15,24 @@ cipher+encode (features/crypto.DeviceSSE), and every encrypted GET
 checks each package's Poly1305 tag on the host before the card deciphers
 it (crypto.chacha_decrypt_ranged, through the batch former: handler
 threads never touch the card). Multipart SSE parts are ciphered on
-the host with per-part nonces, as in the reference.
+the host with per-part nonces, as in the reference. SelectObjectContent
+evaluates its WHERE clause and COUNTs on the card (scan/engine.ScanEngine,
+through the batch former's scan verb when the boot attached one) and
+frames the evaluator's response bytes; a Select over an SSE object
+deciphers on the card first.
 
 Authentication takes the root credential only: there is no IAM, so
 anonymous requests are refused and STS answers NotImplemented, as the
 reference does without IAM. Verbs of planes not ported yet answer
-NotImplemented: STS, SelectObjectContent, object lock (bucket config,
-retention, legal hold, and the lock headers of a PUT or a locked bucket's
-deletes), replication and notification configs, ListenBucketNotification,
-browser POST uploads, RestoreObject and the internal replication headers.
+NotImplemented: STS, object lock (bucket config, retention, legal hold,
+and the lock headers of a PUT or a locked bucket's deletes), replication
+and notification configs, ListenBucketNotification, browser POST uploads,
+RestoreObject and the internal replication headers.
 Left out with them: QoS pacing, request tracing, bandwidth accounting,
 event notification, tiering, bucket federation and storage-class parity.
 Compression is not ported: the constructor refuses MINIO_COMPRESS=on, and
-a GET, HEAD or copy of an object the reference stored compressed answers
-NotImplemented.
+a GET, HEAD, copy or Select of an object the reference stored compressed
+answers NotImplemented.
 
 Departure: a copy that keeps the source's stored bytes (REPLACE directive
 without a new transform) also keeps the source's cipher record, and a
@@ -57,6 +61,8 @@ from ..object.bucket_metadata import BucketMetadataSys
 from ..object.engine import GetOptions, PutOptions
 from ..object.hash_reader import HashReader
 from ..object.multipart import CompletePart
+from ..s3select import SelectRequest
+from ..scan import ScanEngine
 from ..storage.datatypes import ObjectInfo
 from ..utils import stagetimer
 from ..utils.streams import IterStream as _IterStream
@@ -274,6 +280,10 @@ class S3ApiHandlers:
         self._mpu_keys: "OrderedDict[str, tuple]" = OrderedDict()
         self.kms = sse.kms_from_env()        # SSE-S3 KMS seam
         self.cors_allow_origin = "*"
+        # the scan plane: Selects evaluate on the object layer's device;
+        # the cluster boot attaches the shared batch former, so that
+        # concurrent Selects coalesce
+        self.scan = ScanEngine(device=getattr(object_layer, "device", None))
 
     def set_max_clients(self, n: int) -> None:
         """Re-size the admission gate once topology is known (the
@@ -289,6 +299,7 @@ class S3ApiHandlers:
         # the scheduler-occupancy admission signal probes the live
         # layer's batch formers
         self.admission.layer = object_layer
+        self.scan.device = getattr(object_layer, "device", None)
 
     # ------------------------------------------------------------------
     # auth
@@ -488,7 +499,7 @@ class S3ApiHandlers:
                 raise _not_ported("RestoreObject")
             if ctx.has_query("select") or \
                     ctx.query1("select-type") == "2":
-                raise _not_ported("SelectObjectContent")
+                return self.select_object_content(ctx, bucket, key)
         if m == "DELETE":
             if ctx.has_query("uploadId"):
                 return self.abort_multipart_upload(ctx, bucket, key)
@@ -1553,6 +1564,29 @@ class S3ApiHandlers:
                 md[k] = v
         self.obj.update_object_metadata(bucket, key, md,
                                         version_id or info.version_id)
+
+    # ------------------------------------------------------------------
+    # select
+    # ------------------------------------------------------------------
+
+    def select_object_content(self, ctx, bucket, key) -> HTTPResponse:
+        """SelectObjectContent: SQL over a CSV/JSON object streamed back
+        as AWS event-stream messages (reference pkg/s3select and
+        cmd/object-handlers.go SelectObjectContentHandler). The object is
+        read whole through the plaintext stack (an SSE object deciphers on
+        the card; a compressed one answers NotImplemented), then the scan
+        engine decides its rows on the card before the response starts: a
+        device failure answers 500, never the evaluator's bytes."""
+        self.authenticate(ctx)
+        req = SelectRequest.from_xml(ctx.read_body())
+        with stagetimer.stage("select.get"):
+            info = self.obj.get_object_info(bucket, key)
+            stream, _size = self._plaintext_stream(bucket, key, info,
+                                                   ctx.header, GetOptions())
+            data = b"".join(stream)
+        return HTTPResponse(
+            headers={"Content-Type": "application/octet-stream"},
+            stream=self.scan.event_stream(req, data))
 
     # ------------------------------------------------------------------
     # quota

@@ -2,10 +2,10 @@
 
 Counterpart of minio_tpu/utils/knobs.py, trimmed to the knobs of the
 pipelined data path, the batch former, heal, the MRF queue, the SSE
-cipher choice, the admission gate and the HTTP edge, with the reference's
-names, types and defaults (minio_tpu/utils/knobs.py:160-197, :203-206,
-:220-233, :261-281, :284-291, :310-331). Left out: the README table renderer and every knob no ported
-module reads. No knob here is one the reference lacks.
+cipher choice, the scan plane, the admission gate and the HTTP edge, with
+the reference's names, types and defaults (minio_tpu/utils/knobs.py:160-197,
+:203-206, :220-233, :261-281, :284-291, :310-331, :459-471). Left out:
+the README table renderer and every knob no ported module reads. No knob here is one the reference lacks.
 
 Getters read the environment at call time: tests flip knobs with
 ``monkeypatch.setenv`` and modules that want an import-time snapshot call
@@ -143,6 +143,20 @@ define("MINIO_TPU_SSE_CIPHER", "str", "aes-gcm",
        "package cipher for NEW SSE writes: `aes-gcm` (CPU DARE packages) "
        "or `chacha20` (ChaCha20-Poly1305, ciphered on the card); reads "
        "dispatch on each object's recorded cipher")
+
+# -- scan plane ------------------------------------------------------------
+define("MINIO_TPU_SCAN_DEVICE", "str", "on",
+       "`off` answers every Select from the CPU evaluator; `on` and "
+       "`force` ride the scan engine's device")
+define("MINIO_TPU_SCAN_PAGE_ROWS", "int", 2048,
+       "rows per tokenized column page")
+define("MINIO_TPU_SCAN_MAX_STR", "int", 128,
+       "widest string cell a page holds; wider cells decline to the CPU")
+define("MINIO_TPU_SCAN_KERNEL_CACHE", "int", 64,
+       "bounded LRU of flattened scan programs (signatures bake in "
+       "query literals)")
+define("MINIO_TPU_SCAN_MAX_BYTES", "int", 64 << 20,
+       "device-path input cap; bigger objects go to the CPU evaluator")
 
 # -- server: admission -------------------------------------------------------
 define("MINIO_TPU_MAX_CLIENTS", "int", 0,

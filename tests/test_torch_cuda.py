@@ -1,9 +1,10 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
-versions, on the card (tolerance 0: exact bytes). Marked `cuda`: each test
-skips, with the reason, on a host without a card; CUDA kernels have no
-CPU mode."""
+versions, on the card (tolerance 0: exact bytes, and for the scan kernel
+equal masks and COUNT sums). Marked `cuda`: each test skips, with the
+reason, on a host without a card; CUDA kernels have no CPU mode."""
 
 import hashlib
+import random
 
 import numpy as np
 import pytest
@@ -14,7 +15,9 @@ from minio_tpu_torch.models import pipeline
 from minio_tpu_torch.ops import (chacha20_cuda, chacha20_plain,
                                  chacha20_ref, highwayhash_cuda,
                                  highwayhash_py, rs_cuda, rs_matrix,
+                                 scan_cuda, scan_plain, scan_program,
                                  sha256_cuda, sha256_ref)
+from minio_tpu_torch.scripts import scan_cases
 from minio_tpu_torch.utils import guard_pages
 
 pytestmark = pytest.mark.cuda
@@ -710,5 +713,171 @@ def test_server_sse_put_and_get_launch_chacha20(dev, tmp_path, monkeypatch):
                                headers={"range": "bytes=70000-4200000"})
         assert st == 206 and got == data[70000:4200001]
         assert chacha20_cuda.keystream_xor.launches > cc
+    finally:
+        node.shutdown()
+
+
+# -- scan_eval: the Select predicate interpreter ----------------------------
+
+def _pages_on(arrays, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+
+def _scan_equal(program, arrs):
+    before = scan_cuda.scan_eval.launches
+    mask, counts = scan_cuda.scan_eval(program, **arrs)
+    assert scan_cuda.scan_eval.launches == before + 1
+    pm, pc = scan_plain.scan_eval(program.prog, program.cspec, **arrs)
+    assert torch.equal(mask, pm)
+    assert torch.equal(counts, pc)
+
+
+@pytest.mark.parametrize("fmt", ["CSV", "JSON"])
+@pytest.mark.parametrize("width", [0, 12, 30, 60, 100])
+def test_scan_eval_equals_plain_every_width(dev, fmt, width):
+    # the generator's queries with literals longer than the page width,
+    # over corpora with nan / inf / -0 / 1e400 cells
+    for _e, program, pages, _q, _r in scan_cases.page_cases(
+            fmt, width, 100 + width, 30):
+        _scan_equal(program, _pages_on(pages.arrays, dev))
+
+
+@pytest.mark.parametrize("B", [1, 3, 64, 254])
+def test_scan_eval_batches_with_a_ragged_last_page(dev, B):
+    for _e, program, pages, _q, _r in scan_cases.page_cases(
+            "CSV", 30, 7, 6, rows=2500):
+        arrays = scan_cases.tile_pages(pages.arrays, B, 1234)
+        _scan_equal(program, _pages_on(arrays, dev))
+
+
+def test_scan_eval_packed_pages(dev):
+    # the former's batch: packed pages of two requests, typed views
+    cases = scan_cases.page_cases("JSON", 60, 9, 8, rows=2100)
+    for _e, program, pages, _q, _r in cases:
+        packed = np.concatenate([scan_cuda.pack_pages(pages.arrays)] * 2)
+        R, C, W = pages.shape_key()
+        views = scan_cuda.unpack(torch.from_numpy(packed).to(dev), R, C, W)
+        _scan_equal(program, views)
+
+
+def test_scan_eval_rounds_like_the_evaluator(dev):
+    # (a * 3) + 1 contracted into one FMA would round once and miss
+    from minio_tpu_torch.scan import ScanEngine
+    from minio_tpu_torch.s3select.select import event_stream, run_select
+    data, expr = scan_cases.fma_case()
+    req = scan_cases.request(expr)
+    assert list(run_select(req, data)) == [b"1\n"]
+    eng = ScanEngine(device=dev)
+    assert b"".join(eng.event_stream(req, data)) == \
+        b"".join(event_stream(req, data))
+    assert eng.device_serves == 1
+
+
+def test_scan_plain_fmod_is_exact_on_the_card(dev):
+    # the plain version's fmod builds its powers of two from exponent bits:
+    # torch.pow on the card is not exact at 2**700
+    rng = np.random.default_rng(3)
+    a = np.concatenate([[1e308, -1e308, 1e-320, 7.0, 1.7976931348623157e308],
+                        10.0 ** rng.uniform(-300, 300, 400)])
+    b = np.concatenate([[2.5, 3.0, 2.5, 2.5, 1e-300],
+                        10.0 ** rng.uniform(-300, 300, 400)])
+    got = scan_plain._fmod(torch.from_numpy(a).to(dev),
+                           torch.from_numpy(b).to(dev)).cpu().numpy()
+    assert np.array_equal(got, np.fmod(a, b))
+
+
+@pytest.mark.parametrize("width", [0, 60, 100])
+def test_scan_eval_touches_only_its_tensors(dev, width):
+    # packed pages, mask and counts at each end of a mapping between
+    # unmapped ranges: a read past the last page or a store past the mask
+    # or the counts stops the kernel with an illegal-address error
+    for _e, program, pages, _q, _r in scan_cases.page_cases(
+            "CSV", width, 31 + width, 6, rows=2100):
+        packed = scan_cuda.pack_pages(pages.arrays)
+        B, P = packed.shape
+        R, C, W = pages.shape_key()
+        k = len(program.cspec)
+        want = scan_plain.scan_eval(program.prog, program.cspec,
+                                    **_pages_on(pages.arrays, dev))
+        with guard_pages.guarded(packed.nbytes, dev) as src, \
+                guard_pages.guarded(B * R + 4 * B * k + 4, dev) as dst:
+            for x in (src[:packed.nbytes], src[-packed.nbytes:]):
+                x.copy_(torch.from_numpy(packed.reshape(-1)))
+                v = scan_cuda.unpack(x.view(B, P), R, C, W)
+                for end in (0, 1):
+                    n = B * R + 4 * B * k
+                    out = dst[:n] if end == 0 else dst[-n:]
+                    counts = out[:4 * B * k].view(torch.int32).view(B, k)
+                    mask = out[4 * B * k:].view(B, R)
+                    before = scan_cuda.scan_eval.launches
+                    scan_cuda.scan_eval(program, mask=mask, counts=counts,
+                                        **v)
+                    torch.cuda.synchronize()
+                    assert scan_cuda.scan_eval.launches == before + 1
+                    assert torch.equal(mask, want[0])
+                    assert torch.equal(counts, want[1])
+
+
+def test_scan_eval_programs_past_shared_memory(dev):
+    # IN lists of long literals whose blob is past a block's 48 KB of
+    # shared memory: the kernel reads the program where it lies
+    from minio_tpu_torch.s3select import sql
+    from minio_tpu_torch.scan import pager
+    from minio_tpu_torch.scan.plan import compile_plan
+    rng = random.Random(8)
+    data = scan_cases.csv_corpus(rng, 300, edge=True, width=60)
+    rows = scan_cases.rows_of(data, "CSV")
+    for n in (100, 1500):
+        items = ", ".join(f"'{'w' * 60}{i}'" for i in range(n))
+        q = sql.parse(f"SELECT COUNT(*), COUNT(b) FROM S3Object WHERE "
+                      f"a IN ({items}, 25, 'x') OR b NOT IN ({items})")
+        plan = compile_plan(q, "CSV")
+        program = scan_program.program_for(plan)
+        assert (program.blob.nbytes > 48 * 1024) == (n == 1500)
+        pages = pager.build_pages(rows, plan)
+        _scan_equal(program, _pages_on(pages.arrays, dev))
+
+
+def test_scan_eval_more_pages_than_grid_y(dev):
+    # 70,000 pages of 32 rows: more than the grid's 65,535 in y, so a
+    # block strides over pages, each page's counts its own
+    from minio_tpu_torch.s3select import sql
+    from minio_tpu_torch.scan.plan import compile_plan
+    plan = compile_plan(sql.parse(
+        "SELECT COUNT(*), COUNT(a) FROM S3Object WHERE a > 3 OR a = 'x'"),
+        "CSV")
+    program = scan_program.program_for(plan)
+    B, R, W = 70_000, 32, 8
+    g = torch.Generator().manual_seed(4)
+    num = torch.randint(0, 8, (B, R, 1), generator=g).double()
+    arrs = {"num": num, "ok": torch.rand(B, R, 1, generator=g) < 0.9,
+            "null": torch.rand(B, R, 1, generator=g) < 0.1,
+            "sb": torch.randint(0, 256, (B, R, 1, W), generator=g,
+                                dtype=torch.uint8),
+            "slen": torch.full((B, R, 1), 8, dtype=torch.int32),
+            "rowvalid": torch.rand(B, R, generator=g) < 0.95}
+    _scan_equal(program, {k: v.to(dev) for k, v in arrs.items()})
+
+
+def test_server_select_launches_scan_eval(dev, tmp_path, monkeypatch):
+    """A Select over HTTP on the card: its rows are decided by scan_eval
+    (one launch through the former), and the framed stream is the
+    evaluator's."""
+    from minio_tpu_torch.s3select.select import event_stream
+    node, c = _server_on_card(tmp_path, monkeypatch)
+    try:
+        data = scan_cases.lineitem_csv(5000, 3)
+        assert c.send("PUT", "/cuda/l.csv", body=data)[0] == 200
+        before = scan_cuda.scan_eval.launches
+        for expr in (scan_cases.Q6_COUNT, scan_cases.Q6_ROWS):
+            st, _, body = c.send(
+                "POST", "/cuda/l.csv", query={"select": "",
+                                              "select-type": "2"},
+                body=scan_cases.select_xml(expr))
+            assert st == 200
+            assert body == b"".join(event_stream(
+                scan_cases.request(expr), data))
+        assert scan_cuda.scan_eval.launches == before + 2
+        assert node.s3.api.scan.device_serves == 2
     finally:
         node.shutdown()

@@ -212,6 +212,12 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((root / "minio_tpu_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
     assert len(files) > 40
+    names = {p.relative_to(root).as_posix() for p in files}
+    for mod in ("scan/engine.py", "scan/kernels.py", "scan/pager.py",
+                "scan/plan.py", "s3select/sql.py", "s3select/select.py",
+                "ops/scan_cuda.py", "ops/scan_plain.py",
+                "ops/scan_program.py"):
+        assert f"minio_tpu_torch/{mod}" in names, mod
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):

@@ -9,7 +9,9 @@ Three parts, all on the host (device="cpu") over 8 drives at 6+2 with
     and sub-resources, signed, unsigned and aws-chunked PUTs, GET, HEAD,
     ranged and conditional GETs, copy, delete, bulk delete, listings,
     multipart with abort, tagging, SSE-S3 and SSE-C single and multipart
-    objects, ranged SSE GETs): equal statuses, bodies (request IDs, ports
+    objects, ranged SSE GETs, and SelectObjectContent over CSV, JSON
+    Lines, GZIP input and an SSE-S3 object, with COUNTs, a LIMIT and a
+    query the scan plan declines): equal statuses, bodies (request IDs, ports
     and bucket creation dates masked; the dates are the bucket
     directories' inode change times, which no test can set, and are held
     within seconds of each other instead) and headers (Date and Server
@@ -30,9 +32,11 @@ fails one test instead of the run.
 from __future__ import annotations
 
 import base64
+import gzip
 import hashlib
 import http.client
 import os
+import random
 import re
 import signal
 import time
@@ -60,6 +64,7 @@ from minio_tpu_torch.object import codec as codec_mod
 from minio_tpu_torch.object.sets import ErasureSets
 from minio_tpu_torch.s3.client import S3Client
 from minio_tpu_torch.s3.server import S3Server
+from minio_tpu_torch.scripts import scan_cases
 # the reference's HTTP cases, collected here against the port's `server`
 from tests.test_s3 import (CREDS, REGION, S3TestClient,  # noqa: F401
                            bucket, client,
@@ -380,6 +385,32 @@ def twin_sequence(data: dict[str, bytes]):
         "x-amz-copy-source-server-side-encryption-customer-key-md5":
             SSEC["x-amz-server-side-encryption-customer-key-md5"]})
     req("GET", f"{b}/sse-copy")
+    # SelectObjectContent: the port's scan plane against the reference's
+    # evaluator (its device path is inert on this host)
+    csv, js = data["csv"], data["json"]
+    req("PUT", f"{b}/t.csv", body=csv)
+    req("PUT", f"{b}/t.json", body=js)
+    req("PUT", f"{b}/t.csv.gz", body=gzip.compress(csv, mtime=0))
+    req("PUT", f"{b}/t-sse.csv", body=csv, headers=SSE_S3)
+    for key, expr, fmt, out, comp in (
+            ("t.csv", "SELECT * FROM S3Object WHERE a > 1", "CSV", "CSV",
+             "NONE"),
+            ("t.csv", "SELECT COUNT(*), COUNT(b) FROM S3Object WHERE "
+             "c = 'x' OR d IS NULL", "CSV", "JSON", "NONE"),
+            ("t.csv", "SELECT a, b FROM S3Object WHERE b BETWEEN 0 AND 20 "
+             "LIMIT 5", "CSV", "CSV", "NONE"),
+            ("t.json", "SELECT * FROM S3Object WHERE a IN (1, 'x', 25)",
+             "JSON", "JSON", "NONE"),
+            ("t.json", "SELECT COUNT(a) FROM S3Object WHERE NOT (b < c)",
+             "JSON", "CSV", "NONE"),
+            ("t.csv.gz", "SELECT COUNT(*) FROM S3Object WHERE "
+             "a >= 1 AND a < 30", "CSV", "CSV", "GZIP"),
+            ("t.csv", "SELECT a, c FROM S3Object WHERE c LIKE 'x_y'",
+             "CSV", "CSV", "NONE"),
+            ("t-sse.csv", "SELECT a, d FROM S3Object WHERE a < b", "CSV",
+             "CSV", "NONE")):
+        req("POST", f"{b}/{key}", {"select": "", "select-type": "2"},
+            scan_cases.select_xml(expr, fmt, out, comp))
     # versioning, deletes, bulk delete
     req("PUT", b, {"versioning": ""}, b"<VersioningConfiguration><Status>"
         b"Enabled</Status></VersioningConfiguration>")
@@ -443,7 +474,9 @@ def test_twin_servers_answer_as_reference(tmp_path, monkeypatch, sse_env,
     rng = np.random.default_rng(11)
     data = {"big": rng.bytes(600_001), "small": rng.bytes(1234),
             "sse1": rng.bytes((1 << 20) + 4321), "ssec1": rng.bytes(300_000),
-            "part": rng.bytes(5 << 20)}
+            "part": rng.bytes(5 << 20),
+            "csv": scan_cases.csv_corpus(random.Random(3), 300),
+            "json": scan_cases.json_corpus(random.Random(4), 300)}
     (tmp_path / "ref").mkdir()
     (tmp_path / "port").mkdir()
     ref, ref_sets = _ref_server(tmp_path / "ref")
@@ -463,6 +496,10 @@ def test_twin_servers_answer_as_reference(tmp_path, monkeypatch, sse_env,
             assert a[0] == b[0], f"step {i}: status {a[0]} != {b[0]}"
             assert a[1] == b[1], f"step {i}: headers differ"
             assert a[2] == b[2], f"step {i}: bodies differ"
+        # the port's rows came from its scan plane, but the declined one's
+        assert port.api.scan.stats() == {
+            "device_serves": 7, "fallbacks": 1,
+            "fallback_reasons": {"like-pattern": 1}}
     finally:
         ref.stop()
         port.stop()
@@ -529,8 +566,6 @@ def test_unported_verbs_answer_not_implemented(client, bucket):
             ("GET", f"/{bucket}", {"object-lock": ""}, None),
             ("PUT", f"/{bucket}", {"replication": ""}, None),
             ("GET", f"/{bucket}", {"notification": ""}, None),
-            ("POST", f"/{bucket}/o", {"select": "", "select-type": "2"},
-             None),
             ("POST", f"/{bucket}/o", {"restore": ""}, None),
             ("GET", f"/{bucket}/o", {"retention": ""}, None),
             ("PUT", f"/{bucket}/o", None,
@@ -540,6 +575,35 @@ def test_unported_verbs_answer_not_implemented(client, bucket):
                                          headers=hdrs)
         assert status == 501 and b"<Code>NotImplemented</Code>" in body, \
             (method, path, query)
+
+
+def test_select_of_a_compressed_object_answers_not_implemented(
+        tmp_path, monkeypatch):
+    """An object the reference stored compressed: the port's GET and
+    Select both answer NotImplemented (the Select through the plaintext
+    stack's _refuse_compressed), never bytes of the compressed stream."""
+    monkeypatch.setenv("MINIO_COMPRESS", "on")
+    ref, ref_sets = _ref_server(tmp_path)
+    monkeypatch.delenv("MINIO_COMPRESS")
+    port, port_sets = _port_server(tmp_path)
+    try:
+        c = S3TestClient("127.0.0.1", ref.port)
+        data = scan_cases.csv_corpus(random.Random(5), 200)
+        assert c.request("PUT", "/cmp")[0] == 200
+        assert c.request("PUT", "/cmp/t.csv", body=data,
+                         headers={"content-type": "text/csv"})[0] == 200
+        p = S3TestClient("127.0.0.1", port.port)
+        assert p.request("GET", "/cmp/t.csv")[0] == 501
+        st, _, body = p.request(
+            "POST", "/cmp/t.csv", query={"select": "", "select-type": "2"},
+            body=scan_cases.select_xml("SELECT * FROM S3Object WHERE a > 1"))
+        assert st == 501 and b"<Code>NotImplemented</Code>" in body
+        assert port.api.scan.stats()["device_serves"] == 0
+    finally:
+        ref.stop()
+        port.stop()
+        ref_sets.close()
+        port_sets.close()
 
 
 def test_compression_is_refused(monkeypatch):
