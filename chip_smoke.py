@@ -6,7 +6,9 @@ About 11 to 12 minutes on one H100, the kernels' builds included. Phases, each
 printing one JSON line; any failure exits non-zero:
 
   1. build    — compile every hand-written kernel (csrc/*.cu, one nvcc per
-                source, all at once) and report nvcc's register/spill lines.
+                source, all at once) and report nvcc's register/spill lines
+                and scan_eval's registers, stack frame and spill bytes
+                per instantiation.
   2. kernels  — each kernel against its plain PyTorch version on the card,
                 byte for byte (tolerance 0): gf_matmul with a parity, a
                 3-missing decode and a recover matrix at 16 ragged widths
@@ -175,9 +177,11 @@ printing one JSON line; any failure exits non-zero:
                 group (B=8, 3 data shards lost) beside the sum of their
                 kernels' bounds and their plain composition on the card;
                 scan_eval at Q6's launch (B = 254 pages of 2,048 rows, C = 3
-                slots of width 16): events ms, the kernel's own time (a
-                CUDA graph's replay, the profiler), its byte bound and its
-                plain version on the card.
+                slots of width 16) and at phase 11's contains-LIKE launch
+                (C = 1, W = 64): events ms, the kernel's own time (a CUDA
+                graph's replay, the profiler), its byte bound, the sector
+                floor of the row-major layout and its plain version on the
+                card.
 
 Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 4. Each path's launch
 counters are set to 0 just before it runs and read just after. Then it prints the
@@ -308,7 +312,10 @@ def main() -> int:
           "wall_s": round(time.perf_counter() - t0, 3),
           "ptxas": {n: [ln for ln in kernels.BUILD_LOG.get(n, "").splitlines()
                         if "registers" in ln or "spill" in ln]
-                    for n in kernels.SOURCES}})
+                    for n in kernels.SOURCES},
+          # registers, stack frame and spill bytes of each instantiation
+          "scan_eval_ptxas": kernels.ptxas_report(
+              kernels.BUILD_LOG.get("scan_eval", ""))})
 
     # -- 2. each kernel against its plain version --------------------------
     t0 = time.perf_counter()
@@ -620,18 +627,25 @@ def main() -> int:
          "launches": selp["launches"]["scan_eval"],
          "launches_by_path": {p: n["scan_eval"]
                               for p, n in paths_launches.items()},
-         "max_abs_err": max(scan_err, timing["scan_eval_q6"]["max_abs_err"]),
+         "max_abs_err": max(scan_err, timing["scan_eval_q6"]["max_abs_err"],
+                            timing["scan_eval_like"]["max_abs_err"]),
          # "ms": CUDA events around back-to-back calls at Q6's launch
          # (B = 254, C = 3, W = 16); device_ms / device_graph_ms the
-         # kernel's own time (profiler, a CUDA graph's replay)
+         # kernel's own time (profiler, a CUDA graph's replay);
+         # sector_floor_ms the 32-byte sectors holding the bytes bound_ms
+         # counts; like_*: the same at phase 11's contains-LIKE launch
          "ms": timing["scan_eval_q6"]["ms"],
          "plain_ms": timing["scan_eval_q6"]["plain_ms"],
          "bound_ms": timing["scan_eval_q6"]["bound_ms"],
          "bound_by": timing["scan_eval_q6"]["bound_by"],
          "library_ms": None,
+         "sector_floor_ms": timing["scan_eval_q6"]["sector_floor_ms"],
          "device_ms": timing["scan_eval_q6"]["device_ms"],
          "device_graph_ms": timing["scan_eval_q6"]["device_graph_ms"],
-         "wrapper_host_us": timing["scan_eval_q6"]["wrapper_host_us"]}]})
+         "wrapper_host_us": timing["scan_eval_q6"]["wrapper_host_us"],
+         **{f"like_{k}": timing["scan_eval_like"][k]
+            for k in ("ms", "device_ms", "device_graph_ms", "plain_ms",
+                      "bound_ms", "sector_floor_ms")}}]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2942,29 +2956,42 @@ def time_sse_steps(torch, dev, rand_u8, max_err, pipeline, chacha20_cuda,
 
 def run_scan_timings(torch, dev, np, big: bytes) -> dict:
     """scan_eval at TPC-H Q6's launch: phase 11's lineitem under Q6's plan
-    (B = 254 pages of 2,048 rows, C = 3 slots of width 16), packed as the
-    former packs it, three copies cycled (the pages are ~47 MB, the L2
-    cache 50 MB). CUDA events around back-to-back wrapper calls ("ms"),
-    the kernel's own time (a CUDA graph's replay and torch.profiler), the
-    plain version on the card, and the byte bound: the page bytes Q6's
-    program needs of this data (scan_cases.must_move_bytes) read once and
-    the mask and counts written once, over 3.35 TB/s. No PyTorch call
-    computes a predicate program, so library_ms is None."""
-    from minio_tpu_torch.ops import scan_cuda, scan_plain, scan_program
-    from minio_tpu_torch.s3select import sql
-    from minio_tpu_torch.scan import pager
-    from minio_tpu_torch.scan.plan import compile_plan
+    (B = 254 pages of 2,048 rows, C = 3 slots of width 16), and at phase
+    11's contains-LIKE launch (the same rows under the LIKE over
+    l_comment, at the shape the pager gives it: C = 1, W = 64); each
+    packed as the former packs it, three copies cycled (the Q6 pages are
+    ~47 MB, the L2 cache 50 MB). CUDA events around back-to-back wrapper
+    calls ("ms"), the kernel's own time (a CUDA graph's replay and
+    torch.profiler), the plain version on the card, the byte bound (the
+    page bytes the program needs of this data, scan_cases.must_move_bytes,
+    read once and the mask and counts written once, over 3.35 TB/s) and
+    the sector floor (the 32-byte sectors that hold those bytes,
+    scan_cases.sector_floor_bytes). No PyTorch call computes a predicate
+    program, so library_ms is None. The pages, their copies on the card
+    and the bounds come from scripts/scan_ab.py's helpers, as its A/B
+    launches do."""
+    from minio_tpu_torch.scripts import scan_ab
     from minio_tpu_torch.scripts import scan_cases as sc
     rows = sc.rows_of(big, "CSV")
-    plan = compile_plan(sql.parse(sc.Q6_COUNT), "CSV")
-    program = scan_program.program_for(plan)
-    pages = pager.build_pages(rows, plan)
+    out = {}
+    for what, query, shape in (("q6", sc.Q6_COUNT, (254, 2048, 3, 16)),
+                               ("like", sc.LIKE_QUERY, (254, 2048, 1, 64))):
+        program, pages = scan_ab.pages_of(rows, query)
+        if (pages.n_pages, *pages.shape_key()) != shape:
+            fail(f"scan_eval timing: {what}'s pages are "
+                 f"{(pages.n_pages, *pages.shape_key())}")
+        out[f"scan_eval_{what}"] = time_scan(torch, dev, np, program, pages,
+                                             what)
+    return out
+
+
+def time_scan(torch, dev, np, program, pages, what: str) -> dict:
+    """One scan_eval launch's times and bounds (run_scan_timings)."""
+    from minio_tpu_torch.ops import scan_cuda, scan_plain
+    from minio_tpu_torch.scripts import scan_ab
     R, C, W = pages.shape_key()
     B = pages.n_pages
-    if (B, R, C, W) != (254, 2048, 3, 16):
-        fail(f"scan_eval timing: Q6's pages are {(B, R, C, W)}")
-    packed = torch.from_numpy(scan_cuda.pack_pages(pages.arrays))
-    views = [scan_cuda.unpack(packed.to(dev), R, C, W) for _ in range(3)]
+    views = scan_ab.card_copies(pages.arrays, dev, 3)
 
     def call(i):
         return scan_cuda.scan_eval(program, **views[i % 3])
@@ -2986,30 +3013,32 @@ def run_scan_timings(torch, dev, np, big: bytes) -> dict:
     mask, counts = call(0)
     pm, pc = plain(0)
     err = max(int((mask.long() - pm.long()).abs().max()),
-              int((counts.long() - pc.long()).abs().max()))
+              int((counts.long() - pc.long()).abs().max())
+              if counts.numel() else 0)
     if err:
-        fail(f"scan_eval disagrees at Q6's launch (max abs err {err})")
-    # what Q6's program needs of this data: the three slots' ok and null,
-    # two slots' numbers, l_shipdate's string bytes (a string compare),
-    # rowvalid, the mask and the counts
-    nbytes = sc.must_move_bytes(program, pages.arrays,
-                                mask.cpu().numpy())
+        fail(f"scan_eval disagrees at the {what} launch (max abs err "
+             f"{err})")
+    # what the program needs of this data: at Q6 the three slots' ok and
+    # null, two slots' numbers, l_shipdate's string bytes (a string
+    # compare), rowvalid, the mask and the counts; at the LIKE
+    # l_comment's null, length and bytes up to its length
+    bound = scan_ab.bounds(program, pages.arrays, mask.cpu().numpy())
     # one operation per instruction of the program per row (compares,
     # pushes, ANDs): far below the bytes' time
     ops = pages.n_rows * program.parts[1]
     t = {"B": B, "R": R, "C": C, "W": W, "rows": pages.n_rows,
-         "count": int(counts.sum()), "ms": ms, "device_ms": device["ms"],
+         "count": int(counts.sum()) if counts.numel() else None,
+         "passed": int(mask.sum()), "ms": ms, "device_ms": device["ms"],
          "device_graph_ms": device["graph_ms"],
          "device_launches": device["launches"],
          "device_launches_recorded": device["recorded"],
-         "wrapper_host_us": host_us, "bytes": nbytes, "ops": ops,
-         "byte_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+         "wrapper_host_us": host_us, **bound, "ops": ops,
          "op_bound_ms": ops / INT32_OPS_PER_S * 1e3,
          "plain_ms": plain_ms, "max_abs_err": err, "library_ms": None}
     t["bound_ms"] = max(t["byte_bound_ms"], t["op_bound_ms"])
     t["bound_by"] = "bytes" if t["byte_bound_ms"] >= t["op_bound_ms"] \
         else "operations"
-    return {"scan_eval_q6": t}
+    return t
 
 
 def hh256_rounds(length: int) -> int:
@@ -3059,27 +3088,13 @@ def kernel_device_ms(torch, fn, iters: int, kernel: str) -> dict:
     three times, with host activity on, until it records every launch;
     "recorded" says how many it kept, and "ms" is None when it kept none.
     The graph reading does not depend on it."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from minio_tpu_torch.scripts.ab import graph_timed
+    from minio_tpu_torch.scripts.ab import graph_timed, profiled
     graph_ms = graph_timed(fn, iters)
     best = {"ms": None, "recorded": 0, "attempts": 0}
     for attempt in range(1, 4):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(i)
-            torch.cuda.synchronize()
-        us, n = 0.0, 0
-        for e in prof.key_averages():
-            t = getattr(e, "self_device_time_total", None)
-            if t is None:
-                t = getattr(e, "self_cuda_time_total", 0)
-            if kernel in e.key and t and e.count:
-                us, n = us + t, n + e.count
+        ms, n = profiled(fn, kernel, iters)
         if n > best["recorded"]:
-            best = {"ms": us / n / 1e3, "recorded": n}
+            best = {"ms": ms, "recorded": n}
         best["attempts"] = attempt
         if n >= iters:
             break

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -117,6 +118,48 @@ def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def _demangled(name: str) -> str:
+    """The last source name of an Itanium-mangled function name, with a
+    bool template argument after it spelled out; `name` itself when it is
+    not mangled."""
+    m = re.match(r"_ZN?", name)
+    if not m:
+        return name
+    at, last = m.end(), name
+    while at < len(name) and name[at].isdigit():
+        n = re.match(r"\d+", name[at:]).group(0)
+        at += len(n)
+        last = name[at:at + int(n)]
+        at += int(n)
+    arg = re.match(r"ILb([01])E", name[at:])
+    if arg:
+        last += "<true>" if arg.group(1) == "1" else "<false>"
+    return last
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: {"registers", "stack_frame", "spill_stores", "spill_loads"}}
+    from an nvcc -Xptxas -v log, each kernel by its name (a bool template
+    argument spelled out: ``scan_eval_kernel<true>``)."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = _demangled(m.group(1))
+            fn = out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn is not None:
+            fn.update(stack_frame=int(m.group(1)),
+                      spill_stores=int(m.group(2)),
+                      spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            fn["registers"] = int(m.group(1))
+    return out
 
 
 def library(name: str) -> str:

@@ -76,12 +76,15 @@ def unpack(x: torch.Tensor, R: int, C: int, W: int) -> dict:
     return out
 
 
+# the argument types of the C entry point scan_eval_launch
+ARGTYPES = [ctypes.c_void_p, ctypes.c_int, *[ctypes.c_int] * 9,
+            *[ctypes.c_void_p, ctypes.c_longlong] * 6, *[ctypes.c_int] * 4,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+
+
 @functools.cache
 def _launcher():
-    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    return kernels.function("scan_eval", "scan_eval_launch",
-                            [vp, ci, *[ci] * 9, vp, ll, vp, ll, vp, ll, vp,
-                             ll, vp, ll, vp, ll, ci, ci, ci, ci, vp, vp, vp])
+    return kernels.function("scan_eval", "scan_eval_launch", ARGTYPES)
 
 
 def _blob_on(program, device: torch.device) -> torch.Tensor:
@@ -112,6 +115,21 @@ def _check_out(t: torch.Tensor, name: str, dtype, shape: tuple, device):
             not t.is_contiguous() or t.device != device:
         raise ValueError(f"scan_eval: {name} must be a contiguous {shape} "
                          f"{dtype} tensor on {device}")
+
+
+def launch_args(program, blob: torch.Tensor, num, ok, null, sb, slen,
+                rowvalid, mask, counts, stream) -> tuple:
+    """scan_eval_launch's arguments for checked pages, outputs and the
+    program's blob on their device: the blob and its parts, the stack
+    depths, each page array's address and page stride in bytes, the
+    shape, the outputs and the stream."""
+    B, R, C, W = sb.shape
+    return (blob.data_ptr(), blob.numel(), *program.parts, program.max_vals,
+            program.max_bools, num.data_ptr(), num.stride(0) * 8,
+            slen.data_ptr(), slen.stride(0) * 4, ok.data_ptr(), ok.stride(0),
+            null.data_ptr(), null.stride(0), sb.data_ptr(), sb.stride(0),
+            rowvalid.data_ptr(), rowvalid.stride(0), B, R, C, W,
+            mask.data_ptr(), counts.data_ptr(), stream.cuda_stream)
 
 
 def scan_eval(program, num: torch.Tensor, ok: torch.Tensor,
@@ -159,13 +177,8 @@ def scan_eval(program, num: torch.Tensor, ok: torch.Tensor,
     stream = torch.cuda.current_stream(num.device)
     # an evicted program's blob may be freed while this launch reads it
     blob.record_stream(stream)
-    err = _launcher()(
-        blob.data_ptr(), blob.numel(), *program.parts, program.max_vals,
-        program.max_bools, num.data_ptr(), num.stride(0) * 8,
-        slen.data_ptr(), slen.stride(0) * 4, ok.data_ptr(), ok.stride(0),
-        null.data_ptr(), null.stride(0), sb.data_ptr(), sb.stride(0),
-        rowvalid.data_ptr(), rowvalid.stride(0), B, R, C, W,
-        mask.data_ptr(), counts.data_ptr(), stream.cuda_stream)
+    err = _launcher()(*launch_args(program, blob, num, ok, null, sb, slen,
+                                   rowvalid, mask, counts, stream))
     kernels.check(err, "scan_eval launch")
     kernels.count_launch(scan_eval)
     return mask, counts

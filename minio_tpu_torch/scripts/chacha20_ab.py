@@ -32,7 +32,6 @@ import argparse
 import ctypes
 import json
 import os
-import re
 import subprocess
 import sys
 
@@ -51,25 +50,6 @@ _ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
          ctypes.c_longlong, ctypes.c_void_p]
 ITERS = 20
-
-
-def variant(tree_src: str, name: str, spec: str) -> str:
-    """A copy of the tree's source with `constexpr int CONST = ...;` set to
-    each CONST=VALUE of spec; returns its path under build/ab/."""
-    with open(tree_src) as f:
-        src = f.read()
-    for item in spec.split(","):
-        const, value = item.split("=", 1)
-        src, n = re.subn(rf"(constexpr int {const} = )[^;]+;",
-                         rf"\g<1>{value};", src)
-        if n != 1:
-            sys.exit(f"chacha20_ab: no constant {const} in {tree_src}")
-    out_dir = os.path.join(os.path.dirname(kernels.BUILD_DIR), "ab")
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"chacha20_{name}.cu")
-    with open(path, "w") as f:
-        f.write(src)
-    return path
 
 
 def resource_usage(lib: str) -> str:
@@ -107,7 +87,7 @@ def main(argv=None) -> int:
     builds.update(spec.split("=", 1) for spec in args.other)
     for spec in args.set:
         name, consts = spec.split(":", 1)
-        builds[name] = variant(tree, name, consts)
+        builds[name] = ab.variant("chacha20", tree, name, consts)
     fns, summary, usage = {}, {}, {}
     for name, lib in ab.build_libs("chacha20", builds).items():
         fn = ctypes.CDLL(lib).chacha20_launch

@@ -256,6 +256,20 @@ def fma_case(seed: int = 5) -> tuple[bytes, str]:
                     f"{twice!r}")
 
 
+def wide_numeric_case(C: int, n_rows: int, seed: int) -> tuple[bytes, str]:
+    """A CSV of C columns and a numeric-only WHERE over all of them (each
+    column against a number, ORed), over cells that parse, do not, and are
+    empty: wide enough a read set that a tile holds fewer rows than a
+    block has threads."""
+    rng = random.Random(seed)
+    data = ",".join(f"c{i}" for i in range(C)) + "\n" + "".join(
+        ",".join(rng.choice(["1", "7", "-3", "2.5", "", "x"])
+                 for _ in range(C)) + "\n" for _ in range(n_rows))
+    where = " OR ".join(f"c{i} {'<>'[i % 2]} {i % 5}" for i in range(C))
+    return (data.encode(),
+            f"SELECT COUNT(*), COUNT(c1) FROM S3Object WHERE {where}")
+
+
 # -- a fixed corpus and fixed predicates over every node kind --------------
 
 _ORACLE_CELLS = ("nan", "inf", "-inf", "1_0", " 5", "-0", "1e400", "0x10",
@@ -337,25 +351,28 @@ def node_kinds(prog: tuple, out: set | None = None) -> set:
     return out
 
 
-def must_move_bytes(program, arrays: dict, mask: np.ndarray) -> int:
-    """The bytes scan_eval must move to run `program` (an
-    ops/scan_program.Program) over the pager's `arrays` (numpy, B pages),
-    whose result mask is `mask`: each page array a row of the program
-    needs, read once, and the mask and counts written once. Counted from
-    this data: a real row (rowvalid) reads a slot's ok where a comparison
-    or arithmetic reads the slot, its number only where that side is a
-    number (both sides of a comparison parse), its null where a string
-    compare, NOT NULL, IS NULL, LIKE or a COUNT of the slot needs it, its
-    W string bytes where a comparison falls to the string order (neither
-    side parses nor is null), and for LIKE its length and the needle's
-    bytes or, for contains, the cell's bytes up to its length. Every row
-    reads its rowvalid."""
+def needs(program, arrays: dict, mask: np.ndarray) -> dict:
+    """What scan_eval must read of the pager's `arrays` (numpy, B pages)
+    to run `program` (an ops/scan_program.Program) whose result mask is
+    `mask`, cell by cell, counted from this data: a real row (rowvalid)
+    reads a slot's ok where a comparison or arithmetic reads the slot, its
+    number only where that side is a number (both sides of a comparison
+    parse), its null where a string compare, NOT NULL, IS NULL, LIKE or a
+    COUNT of the slot needs it, its W string bytes where a comparison falls
+    to the string order (neither side parses nor is null), and for LIKE
+    its length and the needle's bytes or, for contains, the cell's bytes up
+    to its length. -> {"num", "ok", "null", "slen": bool [B, R, C];
+    "sb_bytes": int64 [B, R, C], the string bytes a cell must give (the
+    most any use needs); "sb_lo", "sb_hi": int64 [B, R, C], the hull of
+    the byte offsets those uses read}."""
     num, ok, null = arrays["num"], arrays["ok"], arrays["null"]
     slen, rv = arrays["slen"], arrays["rowvalid"].astype(bool)
     B, R, C, W = arrays["sb"].shape
     need = {k: np.zeros((B, R, C), bool) for k in ("num", "ok", "null",
                                                    "slen")}
     sb_bytes = np.zeros((B, R, C), np.int64)
+    sb_lo = np.full((B, R, C), W, np.int64)
+    sb_hi = np.zeros((B, R, C), np.int64)
 
     def lit_ok(b: bytes) -> bool:
         try:
@@ -363,6 +380,17 @@ def must_move_bytes(program, arrays: dict, mask: np.ndarray) -> int:
             return True
         except ValueError:
             return False
+
+    def reads(s: int, where, lo, hi):
+        """Slot s's cells in `where` give their bytes lo .. hi - 1."""
+        where = where & (hi > lo)
+        sb_bytes[..., s] = np.where(where, np.maximum(sb_bytes[..., s],
+                                                      hi - lo),
+                                    sb_bytes[..., s])
+        sb_lo[..., s] = np.where(where, np.minimum(sb_lo[..., s], lo),
+                                 sb_lo[..., s])
+        sb_hi[..., s] = np.where(where, np.maximum(sb_hi[..., s], hi),
+                                 sb_hi[..., s])
 
     def side(sd, numeric_only: bool):
         """(ok, null, slot or None) of a side over the rows; marks the
@@ -397,8 +425,7 @@ def must_move_bytes(program, arrays: dict, mask: np.ndarray) -> int:
             if arith:
                 continue
             need["null"][..., s] |= rv & ~both
-            strs = rv & ~both & ~(xn | yn)
-            sb_bytes[..., s] = np.where(strs, W, sb_bytes[..., s])
+            reads(s, rv & ~both & ~(xn | yn), 0, W)
 
     def walk(node):
         kind = node[0]
@@ -429,21 +456,62 @@ def must_move_bytes(program, arrays: dict, mask: np.ndarray) -> int:
             need["slen"][..., s] |= live
             n = slen[..., s].astype(np.int64)
             if lkind == "exact":
-                got = np.where(live & (n == L), L, 0)
-            elif lkind in ("prefix", "suffix"):
-                got = np.where(live & (n >= L), L, 0)
+                reads(s, live & (n == L), 0, L)
+            elif lkind == "prefix":
+                reads(s, live & (n >= L), 0, L)
+            elif lkind == "suffix":
+                reads(s, live & (n >= L), n - L, n)
             else:
-                got = np.where(live & (n >= L), np.minimum(n, W), 0)
-            sb_bytes[..., s] = np.maximum(sb_bytes[..., s], got)
+                reads(s, live & (n >= L), 0, np.minimum(n, W))
 
     walk(program.prog)
     passed = rv & mask.astype(bool)
     for c in program.cspec:
         if c >= 0:
             need["null"][..., c] |= passed
+    return {**need, "sb_bytes": sb_bytes, "sb_lo": sb_lo, "sb_hi": sb_hi}
+
+
+def must_move_bytes(program, arrays: dict, mask: np.ndarray) -> int:
+    """The bytes scan_eval must move to run `program` over the pager's
+    `arrays` whose result mask is `mask`: each page array a row of the
+    program needs (`needs`), read once, rowvalid for every row, and the
+    mask and counts written once."""
+    need = needs(program, arrays, mask)
+    B, R = arrays["rowvalid"].shape
     return int(8 * need["num"].sum() + need["ok"].sum()
                + need["null"].sum() + 4 * need["slen"].sum()
-               + sb_bytes.sum() + 2 * B * R + 4 * B * len(program.cspec)
+               + need["sb_bytes"].sum() + 2 * B * R
+               + 4 * B * len(program.cspec) + program.blob.nbytes)
+
+
+def sector_floor_bytes(program, arrays: dict, mask: np.ndarray) -> int:
+    """The bytes of the 32-byte sectors of device memory that hold what
+    `program` needs of `arrays` (`needs`), the pages packed as the former
+    packs them (ops/scan_cuda.pack_pages, the batch at a 32-byte aligned
+    address), read once, rowvalid for every row, and the mask and counts
+    written once: the least a kernel reading this layout can move. A
+    cell's string bytes count as the hull of the offsets its uses read."""
+    from ..ops import scan_cuda
+    need = needs(program, arrays, mask)
+    B, R, C, W = arrays["sb"].shape
+    layout, P = scan_cuda.page_layout(R, C, W)
+    touched = np.zeros(-(-B * P // 32) + 1, bool)
+    page = np.arange(B, dtype=np.int64)[:, None, None] * P
+    cell = np.arange(R * C, dtype=np.int64).reshape(1, R, C)
+    for name, size in (("num", 8), ("slen", 4), ("ok", 1), ("null", 1)):
+        addr = page + layout[name][0] + cell * size
+        touched[addr[need[name]] >> 5] = True
+    touched[(np.arange(B, dtype=np.int64)[:, None] * P
+             + layout["rowvalid"][0] + np.arange(R)).reshape(-1) >> 5] = True
+    lo, hi = need["sb_lo"], need["sb_hi"]
+    some = hi > lo
+    start = (page + layout["sb"][0] + cell * W)[some]
+    lo, hi = lo[some], hi[some]
+    for k in range(-(-W // 32) + 1):
+        at = np.minimum(lo + 32 * k, hi - 1)
+        touched[(start + at) >> 5] = True
+    return int(32 * touched.sum() + B * R + 4 * B * len(program.cspec)
                + program.blob.nbytes)
 
 

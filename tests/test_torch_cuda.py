@@ -881,3 +881,149 @@ def test_server_select_launches_scan_eval(dev, tmp_path, monkeypatch):
         assert node.s3.api.scan.device_serves == 2
     finally:
         node.shutdown()
+
+
+def _lineitem_pages(expr: str, n_rows: int = 3000, seed: int = 5):
+    from minio_tpu_torch.s3select import sql
+    from minio_tpu_torch.scan import pager
+    from minio_tpu_torch.scan.plan import compile_plan
+    rows = scan_cases.rows_of(scan_cases.lineitem_csv(n_rows, seed), "CSV")
+    plan = compile_plan(sql.parse(expr), "CSV")
+    return scan_program.program_for(plan), pager.build_pages(rows, plan)
+
+
+@pytest.mark.parametrize("R", [1, 3, 1000, 1023, 1025, 2047])
+def test_scan_eval_rows_not_a_multiple_of_the_tile(dev, R):
+    # pages of R rows (the tile is up to kRows x kThreads = 1024 rows), a
+    # ragged last page, packed and as separate arrays
+    for expr in (scan_cases.Q6_COUNT, scan_cases.LIKE_QUERY,
+                 "SELECT COUNT(*), COUNT(l_tax) FROM S3Object WHERE "
+                 "((l_quantity + 1) / (l_tax - 0.02)) < (l_linenumber % 3)"
+                 " OR l_returnflag = l_linestatus"):
+        program, pages = _lineitem_pages(expr)
+        arrays = {k: np.ascontiguousarray(v[:, :R])
+                  for k, v in pages.arrays.items()}
+        arrays = scan_cases.tile_pages(arrays, 5, max(1, R // 2))
+        _scan_equal(program, _pages_on(arrays, dev))
+        packed = scan_cuda.pack_pages(arrays)
+        _B, _R, C, W = arrays["sb"].shape
+        _scan_equal(program, scan_cuda.unpack(
+            torch.from_numpy(packed).to(dev), R, C, W))
+
+
+@pytest.mark.parametrize("width,want", [(0, 8), (100, 128)])
+def test_scan_eval_narrowest_and_widest_pages(dev, width, want):
+    # W = 8 (8-byte cell pieces where only some slots are staged) and the
+    # widest width the pager makes (scan/pager._WIDTHS)
+    from minio_tpu_torch.scan import pager
+    assert pager._WIDTHS[-1] == 128
+    n = 0
+    for _e, program, pages, _q, _r in scan_cases.page_cases(
+            "CSV", width, 61 + width, 30, rows=1500):
+        _scan_equal(program, _pages_on(pages.arrays, dev))
+        n += pages.width == want
+    # (a query that reads no column pages one narrow placeholder slot)
+    assert n >= 15
+
+
+def test_scan_eval_blob_past_the_budget_beside_the_tiles(dev):
+    # a blob under the two-block budget that with two stages of kThreads
+    # rows of every array passes it: the blob is read from global memory
+    # (tests/test_torch_scan_tiles.py restates that choice)
+    from minio_tpu_torch.s3select import sql
+    from minio_tpu_torch.scan import pager
+    from minio_tpu_torch.scan.plan import compile_plan
+    rows = scan_cases.rows_of(scan_cases.lineitem_csv(3000, 9), "CSV")
+    items = ", ".join(f"'{'s' * 60}{i}'" for i in range(600))
+    q = sql.parse(f"SELECT COUNT(*), COUNT(l_discount) FROM S3Object "
+                  f"WHERE l_shipdate IN ({items}, '1994-02-03') OR "
+                  f"l_discount BETWEEN 0.05 AND 0.07 OR l_quantity < 3")
+    plan = compile_plan(q, "CSV")
+    program = scan_program.program_for(plan)
+    assert 60_000 < program.blob.nbytes < 100_000
+    pages = pager.build_pages(rows, plan)
+    assert pages.shape_key()[1:] == (3, 16)
+    _scan_equal(program, _pages_on(pages.arrays, dev))
+
+
+@pytest.mark.parametrize("W", [16, 64])
+def test_scan_eval_contains_like_at_every_offset(dev, W):
+    # the needle at every offset of the cell, the last one included, cut
+    # by the cell's length, absent, or only its first byte present
+    from minio_tpu_torch.s3select import sql
+    from minio_tpu_torch.scan.plan import compile_plan
+    rng = np.random.default_rng(W)
+    needle = b"fur"
+    L = len(needle)
+    cells = []
+    for off in range(W - L + 1):
+        for s in (off + L, W, off + L - 1):
+            raw = bytearray(rng.integers(97, 102, W, dtype=np.uint8))
+            raw[off:off + L] = needle
+            raw[s:] = bytes(W - s)
+            cells.append((bytes(raw), s))
+    cells.append((b"f" * W, W))
+    cells.append((b"fu" * (W // 2), W))
+    R = len(cells)
+    plan = compile_plan(sql.parse(
+        "SELECT COUNT(*) FROM S3Object WHERE a LIKE '%fur%'"), "CSV")
+    program = scan_program.program_for(plan)
+    sb = np.frombuffer(b"".join(c for c, _ in cells),
+                       np.uint8).reshape(1, R, 1, W).copy()
+    arrays = {"num": np.zeros((1, R, 1)), "ok": np.zeros((1, R, 1), bool),
+              "null": np.zeros((1, R, 1), bool), "sb": sb,
+              "slen": np.array([s for _, s in cells],
+                               np.int32).reshape(1, R, 1),
+              "rowvalid": np.ones((1, R), bool)}
+    _scan_equal(program, _pages_on(arrays, dev))
+
+
+@pytest.mark.parametrize("expr", [
+    "SELECT COUNT(*) FROM S3Object WHERE a > 3 AND (n * 2) < 50",
+    "SELECT COUNT(*) FROM S3Object WHERE a < 'x' OR b >= 'P'",
+    "SELECT COUNT(*) FROM S3Object WHERE a LIKE 'x%' OR b LIKE '%z'",
+    "SELECT COUNT(a), COUNT(*) FROM S3Object"])
+def test_scan_eval_each_read_set(dev, expr):
+    # numbers only, strings only, LIKE only, COUNT(col) only: each stages
+    # its own arrays, over cells that parse, do not, and are null
+    from minio_tpu_torch.s3select import sql
+    from minio_tpu_torch.scan import pager
+    from minio_tpu_torch.scan.plan import compile_plan
+    rng = random.Random(17)
+    data = "a,b,n\n" + "".join(
+        f"{rng.choice(['1', '7', '-3', 'x', 'Par', '', 'zz', '2.5'])},"
+        f"{rng.choice(['30', 'P', '', 'xz', '9', 'abz'])},"
+        f"{rng.choice(['1', '30', '-2', '7.5'])}\n"
+        for _ in range(2500))
+    rows = scan_cases.rows_of(data.encode(), "CSV")
+    plan = compile_plan(sql.parse(expr), "CSV")
+    program = scan_program.program_for(plan)
+    pages = pager.build_pages(rows, plan)
+    _scan_equal(program, _pages_on(pages.arrays, dev))
+
+
+@pytest.mark.parametrize("C", [40, 43, 64])
+def test_scan_eval_wide_numeric_where(dev, C):
+    # a numeric-only WHERE over 40 or more slots: tiles of fewer rows than
+    # a block has threads, the blob in global memory; the threads past a
+    # tile's rows read only its staged cells
+    from minio_tpu_torch.s3select import sql
+    from minio_tpu_torch.scan import pager
+    from minio_tpu_torch.scan.plan import compile_plan
+    data, expr = scan_cases.wide_numeric_case(C, 3000, C)
+    plan = compile_plan(sql.parse(expr), "CSV")
+    program = scan_program.program_for(plan)
+    pages = pager.build_pages(scan_cases.rows_of(data, "CSV"), plan)
+    assert pages.shape_key()[1] == C
+    _scan_equal(program, _pages_on(pages.arrays, dev))
+    R, C, W = pages.shape_key()
+    _scan_equal(program, scan_cuda.unpack(torch.from_numpy(
+        scan_cuda.pack_pages(pages.arrays)).to(dev), R, C, W))
+
+
+def test_scan_eval_count_star_over_many_tiles_a_block(dev):
+    # COUNT(*) with no WHERE stages rowvalid alone: 1,501 pages (about
+    # eleven tiles a block), a ragged last page, the counts met per page
+    program, pages = _lineitem_pages("SELECT COUNT(*) FROM S3Object")
+    arrays = scan_cases.tile_pages(pages.arrays, 1501, 777)
+    _scan_equal(program, _pages_on(arrays, dev))
