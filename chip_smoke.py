@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-About 11 to 12 minutes on one H100, the kernels' builds included. Phases, each
+About 11 to 13 minutes on one H100, the kernels' builds included. Phases, each
 printing one JSON line; any failure exits non-zero:
 
   1. build    — compile every hand-written kernel (csrc/*.cu, one nvcc per
@@ -161,6 +161,23 @@ printing one JSON line; any failure exits non-zero:
                 meanwhile), scan_eval launches equal to the former's scan
                 dispatches; Select walls, rows/s, MiB/s, stage seconds, a
                 profiled COUNT round.
+  12. compress — inline compression on the card over HTTP (see
+                run_compress): a fresh server as in phase 10 with
+                MINIO_COMPRESS=on; 32 concurrent 16 MiB lineitem CSV PUTs
+                (config 2's shape over text, stored S2-framed), four 64 MiB
+                CSV objects (also read with 3 drives' bucket gone), four
+                compress + SSE-S3 64 MiB objects (chacha20 ciphers the
+                compressed stream in the encode dispatch), a compressed
+                8,000-row Select (scan_eval), zstd objects where
+                `zstandard` imports; raw and stored bytes, ratios, PUT and
+                GET GiB/s over client bytes, a profiled PUT round; fails
+                without the native snappy codec.
+  13. autoheal — the same server's background plane (see run_autoheal):
+                one drive emptied while it runs, the disk monitor's timed
+                scan_once formats it for its slot and sweep-heals the set
+                on the card, file for file; two heal-scanner passes (full,
+                then hinted by the update tracker); one crawler pass and a
+                quota refused from its usage cache.
   4. timings  — (continued) chacha20 at the encode launch (8 rows, 1 MiB
                 span in 1,048,584-byte rows) and at GET's 64 x 65,536:
                 CUDA events around back-to-back wrapper calls, the kernel's
@@ -183,9 +200,9 @@ printing one JSON line; any failure exits non-zero:
                 floor of the row-major layout and its plain version on the
                 card.
 
-Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 4. Each path's launch
-counters are set to 0 just before it runs and read just after. Then it prints the
-kernel table as one JSON line (with each kernel's launches on every path),
+Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 4. Each
+path's launch counters are set to 0 just before it runs and read just
+after. Then it prints the kernel table as one JSON line (with each kernel's launches on every path),
 the card's name and power limit, and the device line last. It needs one
 CUDA card and the repo's minio_tpu_torch package beside it; it imports
 nothing of JAX or minio_tpu.
@@ -253,6 +270,15 @@ SELECT_CLIENTS = 8                  # concurrent Selects, one object each
 SELECT_SMALL_ROWS = 8_000           # ~1 MiB, 4 pages: 8 x 4 = one batch
 SELECT_SSE_ROWS = 33_700            # ~4 MiB SSE-S3 object
 SELECT_WINDOW_S = 0.4               # the reference's coalescing test's
+# phase 12, inline compression over HTTP (lineitem CSV, S2 framing)
+COMPRESS_ROWS = 560_000             # one ~69 MB lineitem; objects rotate it
+COMPRESS_PUTS = (32, 16 << 20)      # streams, bytes each (config 2's shape)
+COMPRESS_BIG = (4, 64 << 20)        # objects, bytes each
+COMPRESS_SSE = (4, 64 << 20)        # compress + SSE-S3 objects, bytes each
+COMPRESS_SELECT_ROWS = 8_000        # ~1 MiB, 4 pages
+# phase 13, the background plane on the same server
+AUTOHEAL_DRIVE = 7                  # the drive emptied (not drive 0, which
+#                                     holds the update tracker's file)
 
 
 def fail(msg: str) -> None:
@@ -516,6 +542,14 @@ def main() -> int:
         s3p = run_s3(tmp, card, counts, stagetimer, np)
         # -- 11. S3 Select over HTTP: its own boot, former and drives -----
         selp, lineitem = run_select(tmp, card, counts, stagetimer, np)
+        # -- 12. compression over HTTP; 13. the background plane on the
+        # same server ------------------------------------------------------
+        compp, node, cstate = run_compress(tmp, card, counts, stagetimer,
+                                           np)
+        try:
+            autop = run_autoheal(node, cstate, card, counts)
+        finally:
+            node.shutdown()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths_launches = {"main_path": main_path["launches"],
@@ -523,7 +557,9 @@ def main() -> int:
                       "heal": heal["launches"], "mrf": mrf["launches"],
                       "config5": config5["launches"],
                       "sse": ssep["launches"], "s3": s3p["launches"],
-                      "select": selp["launches"]}
+                      "select": selp["launches"],
+                      "compress": compp["launches"],
+                      "autoheal": autop["launches"]}
 
     # -- 4. timings -------------------------------------------------------
     b, s = 32, -(-(1 << 20) // k)
@@ -2745,6 +2781,501 @@ def run_select_on(node, c, big, small, sse_data, queries, oracles, counts,
         "oracle_s": oracle_s, "profiled": profiled,
         "q6_count": int(re.search(rb"octet-stream(\d+)\n",
                                   bodies["q6_count"])[1])})
+    return out
+
+
+def csv_objects(base: bytes, n: int, size: int, offset: int = 0
+                ) -> list[bytes]:
+    """`n` distinct CSV objects of exactly `size` bytes from one lineitem
+    CSV: each keeps the header row and starts its rows at its own row of
+    `base` (the rows rotated), so no two objects share their bytes."""
+    header, rows = base.split(b"\n", 1)
+    header += b"\n"
+    if len(header) + len(rows) < size:
+        fail(f"compress: {len(rows)} B of rows for {size} B objects")
+    out = []
+    for i in range(n):
+        at = rows.index(b"\n", (offset + i * 7919) * 997 % len(rows)) + 1
+        rot = rows[at:] + rows[:at]
+        out.append(header + rot[:size - len(header)])
+    return out
+
+
+def run_compress(tmp, card, counts, stagetimer, np):
+    """Inline compression on the card over HTTP: a fresh boot as
+    `python -m minio_tpu_torch server` makes it (cluster.start_single over
+    16 drives at 12+4, 1 MiB blocks, the edge transport) with
+    MINIO_COMPRESS=on, so that every .csv PUT is stored S2-framed (the
+    snappy block codec in the native host library; the phase fails
+    without it). BASELINE.json config 2's shape over compressible text:
+    32 concurrent signed PUTs of 16 MiB TPC-H lineitem CSV
+    (scripts/scan_cases.lineitem_csv; MinIO compresses by extension and
+    type), their GETs and four ranged GETs of the last MiB; four 64 MiB
+    CSV objects, whole and last-MiB GETs, and their GETs again at one
+    barrier with 3 drives' bucket gone (the MRF queue heals them back);
+    four compress + SSE-S3 (ChaCha20-Poly1305) 64 MiB objects PUT at one
+    barrier (the engine ciphers each compressed stream in its
+    encode dispatch) and read back; an 8,000-row compressed Select (Q6's
+    COUNT, held to the host evaluator's framed bytes); two zstd objects
+    where `zstandard` imports; the 32-PUT round again under the profiler.
+    Every GET must equal the PUT's bytes and MD5 ETag, every CSV object
+    must be stored smaller than it came. Returns (the phase's line, the
+    running node, what the autoheal phase needs)."""
+    import torch
+    from minio_tpu_torch import cluster
+    from minio_tpu_torch.features import crypto as sse
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.s3.credentials import Credentials
+    from minio_tpu_torch.s3select.select import event_stream
+    from minio_tpu_torch.scripts import scan_cases as sc
+    from minio_tpu_torch.utils import native
+    k, m, bs = 12, 4, 1 << 20
+    rng = np.random.default_rng(SEED + 29)
+    snappy_native = native.snappy_available()
+    if not snappy_native:
+        fail("compress: the native snappy codec did not build or load")
+    try:
+        import zstandard  # noqa: F401
+        zstd_import = True
+    except ImportError:
+        zstd_import = False
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    base = sc.lineitem_csv(COMPRESS_ROWS, SEED + 31)
+    n_put, put_size = COMPRESS_PUTS
+    n_big, big_size = COMPRESS_BIG
+    n_sse, sse_size = COMPRESS_SSE
+    objs = {"csv": dict(zip((f"put-{i:02d}.csv" for i in range(n_put)),
+                            csv_objects(base, n_put, put_size))),
+            "big": dict(zip((f"big-{i}.csv" for i in range(n_big)),
+                            csv_objects(base, n_big, big_size, 101))),
+            "sse": dict(zip((f"sse-{i}.csv" for i in range(n_sse)),
+                            csv_objects(base, n_sse, sse_size, 211))),
+            "sel": {"part.csv": sc.lineitem_csv(COMPRESS_SELECT_ROWS,
+                                                SEED + 37)}}
+    if zstd_import:
+        objs["zst"] = dict(zip(("z-0.csv", "z-1.csv"),
+                               csv_objects(base, 2, put_size, 307)))
+    gen_s = time.perf_counter() - t0
+    env = {"MINIO_COMPRESS": "on", "MINIO_COMPRESS_ALGORITHM": "s2",
+           "MINIO_SSE_MASTER_KEY": rng.bytes(32).hex(),
+           "MINIO_TPU_SSE_CIPHER": "chacha20"}
+    saved_env = {n: os.environ.get(n) for n in env}
+    os.environ.update(env)
+    root = os.path.join(tmp, "compress")
+    drives = [os.path.join(root, f"d{i}") for i in range(k + m)]
+    creds = Credentials("smokecompress", "smokecompresssecret")
+    t0 = time.perf_counter()
+    node = cluster.start_single(drives, creds=creds, parity=m,
+                                set_drive_count=k + m, block_size=bs)
+    boot_s = time.perf_counter() - t0
+    try:
+        # compression's switches are read at boot; the cipher's and the
+        # key's stay set, as phases 10 and 11 leave them
+        for n in ("MINIO_COMPRESS", "MINIO_COMPRESS_ALGORITHM"):
+            if saved_env[n] is None:
+                os.environ.pop(n)
+            else:
+                os.environ[n] = saved_env[n]
+        if not node.s3.api.compression_enabled or not node.s3.edge_enabled:
+            fail("compress: the server did not boot with compression on "
+                 "the edge transport")
+        out = run_compress_on(node, S3Client(node.s3.port, creds), objs,
+                              counts, stagetimer, torch, sse, sc,
+                              event_stream)
+    except BaseException:
+        node.shutdown()
+        raise
+    out.update({"snappy_native": snappy_native, "zstd_import": zstd_import,
+                "drives": k + m, "ec": f"{k}+{m}", "block_size": bs,
+                "boot_s": round(boot_s, 3), "generate_s": round(gen_s, 3),
+                "seconds": round(time.perf_counter() - t_phase, 3),
+                "card": card})
+    emit(out)
+    return out, node, {"drives": drives, "objects": objs}
+
+
+def run_compress_on(node, c, objs, counts, stagetimer, torch, sse, sc,
+                    event_stream) -> dict:
+    sched, layer = node.scheduler, node.object_layer
+    etag = {name: f'"{hashlib.md5(d).hexdigest()}"'
+            for b in objs.values() for name, d in b.items()}
+
+    def ok(resp, what, status=200):
+        if resp[0] != status:
+            fail(f"compress {what}: HTTP {resp[0]} {resp[2][:300]!r}")
+        return resp
+
+    def put_all(bucket, prefix="", headers=None) -> float:
+        signed = {n: c.sign("PUT", f"/{bucket}/{prefix}{n}", body=d,
+                            headers=headers)
+                  for n, d in objs[bucket].items()}
+        wall, res, errors = at_barrier({
+            n: (lambda n=n, d=d: c.send("PUT", f"/{bucket}/{prefix}{n}",
+                                        body=d, headers=headers,
+                                        signed=signed[n]))
+            for n, d in objs[bucket].items()})
+        if errors:
+            fail(f"compress PUT {bucket}: {errors[:3]}")
+        for n, r in res.items():
+            if r[0] != 200 or r[1].get("etag") != etag[n]:
+                fail(f"compress PUT {bucket}/{prefix}{n}: {r[0]} {r[1]}")
+        return wall
+
+    def get_all(bucket, headers=None) -> float:
+        wall, res, errors = at_barrier({
+            n: (lambda n=n: c.send("GET", f"/{bucket}/{n}",
+                                   headers=headers))
+            for n in objs[bucket]})
+        if errors:
+            fail(f"compress GET {bucket}: {errors[:3]}")
+        for n, (st, h, body) in res.items():
+            if st != 200 or body != objs[bucket][n] or h.get("etag") != \
+                    etag[n]:
+                fail(f"compress GET {bucket}/{n}: status {st}, bytes or "
+                     "ETag differ")
+        return wall
+
+    def last_mib(bucket, names) -> None:
+        for n in names:
+            d = objs[bucket][n]
+            a, b = len(d) - (1 << 20), len(d) - 1
+            st, h, body = c.send("GET", f"/{bucket}/{n}",
+                                 headers={"range": f"bytes={a}-{b}"})
+            if st != 206 or body != d[a:] or \
+                    h.get("content-range") != f"bytes {a}-{b}/{len(d)}":
+                fail(f"compress ranged GET {bucket}/{n}: {st}")
+            st, h, _ = c.send("HEAD", f"/{bucket}/{n}")
+            if st != 200 or h.get("content-length") != str(len(d)):
+                fail(f"compress HEAD {bucket}/{n}: {st} {h}")
+
+    def stored(bucket, algo=sse.COMPRESS_S2) -> int:
+        total = 0
+        for n, d in objs[bucket].items():
+            info = layer.get_object_info(bucket, n)
+            if info.user_defined.get(sse.MK_COMPRESS) != algo or \
+                    info.size >= len(d):
+                fail(f"compress {bucket}/{n}: stored {info.size} B of "
+                     f"{len(d)} under "
+                     f"{info.user_defined.get(sse.MK_COMPRESS)!r}")
+            total += info.size
+        return total
+
+    def verbs() -> dict:
+        return {v: dict(s) for v, s in sched.stats()["verbs"].items()}
+
+    def delta(a, b) -> dict:
+        return {v: {k: b[v][k] - a[v][k] for k in b[v]} for v in b}
+
+    for bucket in objs:
+        ok(c.send("PUT", f"/{bucket}"), f"make bucket {bucket}")
+    out = {"phase": "compress", "algorithm": sse.COMPRESS_S2}
+    sub = {}
+    before = verbs()
+    counts.zero()
+
+    def gib(bucket) -> float:
+        return sum(len(d) for d in objs[bucket].values()) / (1 << 30)
+
+    def since(pre) -> dict:
+        now = counts.read()
+        return {n: now[n] - pre[n] for n in now}
+
+    # -- config 2's shape over CSV ------------------------------------------
+    stagetimer.reset()
+    stagetimer.enable()
+    put_s = put_all("csv")
+    stagetimer.disable()
+    stages = stage_report(stagetimer)["stages"]
+    get_s = get_all("csv")
+    last_mib("csv", list(objs["csv"])[:4])
+    sub["csv"] = counts.read()
+    mark = counts.read()
+    csv_raw = sum(len(d) for d in objs["csv"].values())
+    csv_stored = stored("csv")
+    out["csv"] = {
+        "objects": len(objs["csv"]), "raw_bytes": csv_raw,
+        "stored_bytes": csv_stored,
+        "ratio": round(csv_stored / csv_raw, 6),
+        "put_wall_s": round(put_s, 3), "get_wall_s": round(get_s, 3),
+        "put_gib_s": round(gib("csv") / put_s, 4),
+        "get_gib_s": round(gib("csv") / get_s, 4),
+        "stage_s": {n: v for n, v in stages.items()
+                    if n.startswith(("put.", "http"))}}
+
+    # -- four 64 MiB objects, then read with 3 drives' bucket gone --------
+    put_s = put_all("big")
+    get_s = get_all("big")
+    last_mib("big", objs["big"])
+    big_raw = sum(len(d) for d in objs["big"].values())
+    big_stored = stored("big")
+    mid = verbs()
+    for i in (0, 1, 2):
+        shutil.rmtree(os.path.join(node.spec.drives[i], "big"))
+    pre = counts.read()
+    deg_s = get_all("big")
+    deg = counts.read()
+    dec = delta(mid, verbs())["decode"]
+    if dec["batches"] - dec["host_routed"] <= 0 or \
+            deg["gf_matmul"] <= pre["gf_matmul"]:
+        fail(f"compress degraded GET: decode {dec}, launches {deg}")
+    sub["big"] = since(mark)
+    out["big"] = {
+        "objects": len(objs["big"]), "raw_bytes": big_raw,
+        "stored_bytes": big_stored, "ratio": round(big_stored / big_raw, 6),
+        "put_wall_s": round(put_s, 3), "get_wall_s": round(get_s, 3),
+        "put_gib_s": round(gib("big") / put_s, 4),
+        "get_gib_s": round(gib("big") / get_s, 4),
+        "degraded_get": {"missing_drives": [0, 1, 2],
+                         "wall_s": round(deg_s, 3),
+                         "gib_s": round(gib("big") / deg_s, 4),
+                         "decode_groups_on_card":
+                             dec["batches"] - dec["host_routed"],
+                         "decode_groups_on_host": dec["host_routed"]}}
+
+    # -- compress + SSE-S3: the cipher fused into the encode dispatch -------
+    pre = counts.read()
+    enc0 = verbs()
+    hdr = {"x-amz-server-side-encryption": "AES256"}
+    put_s = put_all("sse", headers=hdr)
+    mid_counts = counts.read()
+    get_s = get_all("sse")
+    last_mib("sse", ["sse-0.csv"])
+    post = counts.read()
+    sse_raw = sum(len(d) for d in objs["sse"].values())
+    sse_stored = stored("sse")
+    enc = delta(enc0, verbs())["encode"]
+    if mid_counts["chacha20"] <= pre["chacha20"] or \
+            post["chacha20"] <= mid_counts["chacha20"]:
+        fail(f"compress SSE: chacha20 launches {pre} -> {mid_counts} -> "
+             f"{post}")
+    for n in objs["sse"]:
+        md = layer.get_object_info("sse", n).user_defined
+        if md.get(sse.MK_CIPHER) != sse.CIPHER_CHACHA or \
+                md.get(sse.MK_SSE) != "S3":
+            fail(f"compress SSE {n}: metadata {sorted(md)}")
+    sub["sse"] = since(pre)
+    out["sse"] = {
+        "objects": len(objs["sse"]), "raw_bytes": sse_raw,
+        "stored_bytes": sse_stored, "ratio": round(sse_stored / sse_raw, 6),
+        "put_wall_s": round(put_s, 3), "get_wall_s": round(get_s, 3),
+        "put_gib_s": round(gib("sse") / put_s, 4),
+        "get_gib_s": round(gib("sse") / get_s, 4),
+        "put_launches": {n: mid_counts[n] - pre[n] for n in post},
+        "get_launches": {n: post[n] - mid_counts[n] for n in post},
+        "encode_groups_on_card": enc["batches"] - enc["host_routed"],
+        "encode_groups_on_host": enc["host_routed"]}
+
+    # -- a Select over a compressed CSV object ----------------------------
+    served0 = node.s3.api.scan.stats()["device_serves"]
+    ok(c.send("PUT", "/sel/part.csv", body=objs["sel"]["part.csv"]),
+       "PUT select object")
+    stored("sel")
+    pre = counts.read()
+    t0 = time.perf_counter()
+    got = ok(c.send("POST", "/sel/part.csv",
+                    query={"select": "", "select-type": "2"},
+                    body=sc.select_xml(sc.Q6_COUNT)), "Select")[2]
+    sel_s = time.perf_counter() - t0
+    post = counts.read()
+    want = b"".join(event_stream(sc.request(sc.Q6_COUNT),
+                                 objs["sel"]["part.csv"]))
+    served = node.s3.api.scan.stats()["device_serves"] - served0
+    if got != want or served < 1 or post["scan_eval"] - pre["scan_eval"] < 1:
+        fail(f"compress Select: {served} device serves, scan_eval "
+             f"{post['scan_eval'] - pre['scan_eval']}, bytes "
+             f"{'equal' if got == want else 'differ'}")
+    out["select"] = {"rows": COMPRESS_SELECT_ROWS,
+                     "raw_bytes": len(objs["sel"]["part.csv"]),
+                     "wall_s": round(sel_s, 3), "device_serves": served,
+                     "launches": {n: post[n] - pre[n] for n in post}}
+
+    # -- zstd, where its package imports ----------------------------------
+    if "zst" in objs:
+        node.s3.api.compression_algorithm = "zstd"
+        try:
+            put_s = put_all("zst")
+        finally:
+            node.s3.api.compression_algorithm = "s2"
+        get_s = get_all("zst")
+        z_raw = sum(len(d) for d in objs["zst"].values())
+        z_stored = stored("zst", sse.COMPRESS_ZSTD)
+        out["zstd"] = {"objects": len(objs["zst"]), "raw_bytes": z_raw,
+                       "stored_bytes": z_stored,
+                       "ratio": round(z_stored / z_raw, 6),
+                       "put_gib_s": round(gib("zst") / put_s, 4),
+                       "get_gib_s": round(gib("zst") / get_s, 4)}
+
+    launched = counts.read()
+    if min(launched["gf_matmul"], launched["hh256"],
+           launched["chacha20"], launched["scan_eval"]) <= 0:
+        fail(f"compress: launches {launched}")
+    out["encode"] = delta(before, verbs())
+    # the 32-PUT round again, under the profiler (not in the launches)
+    out["profiled_put_round"] = device_busy(
+        torch, lambda: put_all("csv", prefix="r2/"), counts)
+    objs["csv"].update({f"r2/{n}": d for n, d in list(objs["csv"].items())})
+    out["launches"] = launched
+    out["launches_by_subpath"] = sub
+    return out
+
+
+def run_autoheal(node, state, card, counts) -> dict:
+    """The background plane of the compress phase's server, on the card.
+    Its loops are stopped (their cadence would race the timed calls) and
+    the MRF queue drained; then one drive's directory is emptied while
+    the server runs, and the disk monitor's scan_once, timed, must admit
+    it: format.json with its slot's UUID, and every file a manifest took
+    before the wipe back byte for byte (the buckets' shards and journals;
+    the sweep heals buckets, as the reference's does), rebuilt by heal
+    steps on the card (gf_matmul and hh256 launch; groups under the
+    codec's gate stay on the host and are reported). Then two HealScanner
+    passes: a full one, and one after one object's copy on another drive
+    is removed and marked in the tracker and one new object is PUT over
+    HTTP, which must check only those two, heal the first, and skip every
+    other bucket; one crawler pass, whose usage must equal the objects'
+    stored sizes, and a quota refused from its cache (a PUT the cache does
+    not know of yet still passes; after the next crawl it is counted)."""
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.storage.format import read_format_from
+    from minio_tpu_torch.storage.xl_storage import XLStorage
+    t_phase = time.perf_counter()
+    sched, layer, sets = node.scheduler, node.object_layer, node.sets
+    loops = (node.disk_monitor, node.heal_scanner, node.crawler)
+    for loop in loops:
+        loop.close()
+        if loop._thread is not None:
+            loop._thread.join(timeout=120)
+            if loop._thread.is_alive():
+                fail("autoheal: a background loop did not stop")
+    if not sets.drain_mrf(600):
+        fail("autoheal: the MRF queue did not drain")
+    victim = AUTOHEAL_DRIVE
+    path = node.spec.drives[victim]
+    buckets = sorted(state["objects"])
+
+    def manifest() -> dict:
+        files = tree_files(path)
+        return {rel: hashlib.sha256(data).hexdigest()
+                for rel, data in files.items()
+                if rel.split(os.sep)[0] in buckets
+                or rel == os.path.join(".minio.sys", "format.json")}
+
+    before = manifest()
+    stored_bytes = sum(layer.get_object_info(b, n).size
+                       for b, names in state["objects"].items()
+                       for n in names)
+    drive_bytes = sum(os.path.getsize(os.path.join(path, rel))
+                      for rel in before)
+    for entry in os.listdir(path):
+        full = os.path.join(path, entry)
+        if os.path.isdir(full):
+            shutil.rmtree(full)
+        else:
+            os.unlink(full)
+    mon = node.disk_monitor
+    v0 = {v: dict(s) for v, s in sched.stats()["verbs"].items()}
+    counts.zero()
+    t0 = time.perf_counter()
+    admitted = mon.scan_once()
+    sweep_s = time.perf_counter() - t0
+    launched = counts.read()
+    rec = {k: sched.stats()["verbs"]["recover"][k] - v0["recover"][k]
+           for k in v0["recover"]}
+    after = manifest()
+    want_uuid = sets.format_ref.sets[0][victim]
+    if admitted != 1 or mon.healed_slots != [(0, victim)]:
+        fail(f"autoheal: admitted {admitted}, healed {mon.healed_slots}")
+    if read_format_from(XLStorage(path)).this != want_uuid:
+        fail("autoheal: format.json does not hold the slot's UUID")
+    if after != before:
+        diff = sorted(set(after) ^ set(before)) or \
+            [f for f in before if after[f] != before[f]]
+        fail(f"autoheal: {len(diff)} files differ from the manifest: "
+             f"{diff[:4]}")
+    if min(launched["gf_matmul"], launched["hh256"]) <= 0 or \
+            rec["batches"] - rec["host_routed"] != launched["gf_matmul"]:
+        fail(f"autoheal: sweep launches {launched}, recover {rec}")
+    out = {"phase": "autoheal", "drive": victim, "admitted": admitted,
+           "files": len(before), "drive_bytes": drive_bytes,
+           "objects": sum(len(v) for v in state["objects"].values()),
+           "stored_bytes": stored_bytes, "sweep_s": round(sweep_s, 3),
+           "heal_gib_s_stored": round(stored_bytes / (1 << 30) / sweep_s, 4),
+           "heal_gib_s_drive": round(drive_bytes / (1 << 30) / sweep_s, 4),
+           "recover_groups_on_card": rec["batches"] - rec["host_routed"],
+           "recover_groups_on_host": rec["host_routed"],
+           "launches": launched}
+
+    # -- the hinted heal scanner: a full pass, then a hinted one -----------
+    scanner, tracker = node.heal_scanner, node.update_tracker
+    if scanner.last_cycle:
+        fail("autoheal scanner: its loop ran a pass before the phase (it "
+             "waits 300 s after boot)")
+    c = S3Client(node.s3.port, node.creds)
+    counts.zero()
+    t0 = time.perf_counter()
+    full = scanner.scan_once()
+    full_s = time.perf_counter() - t0
+    if full != out["objects"] or scanner.healed:
+        fail(f"autoheal scanner: full pass checked {full}, healed "
+             f"{scanner.healed}")
+    damaged = ("big", "big-1.csv")
+    other = (victim + 5) % len(node.spec.drives)
+    shutil.rmtree(os.path.join(node.spec.drives[other], *damaged))
+    tracker.mark(*damaged)
+    new = state["objects"]["sel"]["part.csv"][:100_000]
+    if c.send("PUT", "/sel/new.csv", body=new)[0] != 200:
+        fail("autoheal scanner: the PUT of a new object failed")
+    skipped0 = scanner.skipped_buckets
+    pre = counts.read()
+    t0 = time.perf_counter()
+    hinted = scanner.scan_once()
+    hinted_s = time.perf_counter() - t0
+    post = counts.read()
+    skipped = scanner.skipped_buckets - skipped0
+    if hinted != 2 or scanner.healed != 1 or skipped != len(buckets) - 2:
+        fail(f"autoheal scanner: hinted pass checked {hinted}, healed "
+             f"{scanner.healed}, skipped {skipped} buckets")
+    if not os.path.isdir(os.path.join(node.spec.drives[other], *damaged)):
+        fail("autoheal scanner: the marked object was not healed")
+    out["scanner"] = {"full_checked": full, "full_s": round(full_s, 3),
+                      "hinted_checked": hinted,
+                      "hinted_s": round(hinted_s, 3),
+                      "healed_drives": scanner.healed,
+                      "skipped_buckets": skipped, "walks": scanner.walks,
+                      "full_launches": pre,
+                      "hinted_launches": {n: post[n] - pre[n]
+                                          for n in post}}
+
+    # -- the crawler, and quota from its cache ----------------------------
+    state["objects"]["sel"]["new.csv"] = new
+    t0 = time.perf_counter()
+    usage = node.crawler.scan_once()
+    crawl_s = time.perf_counter() - t0
+    for b, names in state["objects"].items():
+        want = {"objects": len(names),
+                "size": sum(layer.get_object_info(b, n).size
+                            for n in names)}
+        if usage["buckets"].get(b) != want:
+            fail(f"autoheal crawler: {b} {usage['buckets'].get(b)} != "
+                 f"{want}")
+    used = usage["buckets"]["sel"]["size"]
+    node.s3.api.bucket_meta.update("sel", quota={"quota": used + 1000,
+                                                 "quotatype": "hard"})
+    quota = [c.send("PUT", "/sel/q-0.dat", body=b"q" * 2000)[0],
+             c.send("PUT", "/sel/q-1.dat", body=b"q" * 600)[0],
+             c.send("PUT", "/sel/q-2.dat", body=b"q" * 600)[0]]
+    node.crawler.scan_once()
+    quota.append(c.send("PUT", "/sel/q-3.dat", body=b"q" * 600)[0])
+    if quota != [409, 200, 200, 409]:
+        fail(f"autoheal quota: statuses {quota}")
+    out["crawler"] = {"wall_s": round(crawl_s, 3), "walks": node.crawler.walks,
+                      "objects_total": usage["objects_total"],
+                      "size_total": usage["size_total"],
+                      "quota_statuses": quota}
+    out.update({"seconds": round(time.perf_counter() - t_phase, 3),
+                "card": card})
+    emit(out)
     return out
 
 

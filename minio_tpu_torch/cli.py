@@ -12,8 +12,11 @@ steps run: the default needs a card and exits non-zero without one;
 
 Refused with exit code 2 and a message, not half served: distributed
 nodes (``--node``), pool expansion (``--pool``) and the single-path FS
-backend. With MINIO_COMPRESS on the boot refuses to start, since
-compression is not ported and objects would be stored uncompressed.
+backend. MINIO_COMPRESS=on compresses eligible objects inline (by
+extension and content type, as the reference does), with S2 framing or,
+under MINIO_COMPRESS_ALGORITHM=zstd, zstd; a zstd PUT fails where the
+`zstandard` package does not import, and never stores the object
+uncompressed.
 """
 
 from __future__ import annotations

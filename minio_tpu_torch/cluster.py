@@ -7,7 +7,12 @@ format or open the drives and late-bind the object layer into the
 handlers. The boot follows ``ClusterNode._finish_boot``
 (minio_tpu/cluster.py:143-210): one cross-request batch former, the
 admission gate and the staging rings sized from one RAM/CPU budget, the
-sets over the drives with that former, one pool of them.
+sets over the drives with that former, one pool of them; then the
+background plane of a single node (minio_tpu/cluster.py:556-617): the
+disk monitor (a wiped or replaced drive is formatted for its slot and its
+set sweep-healed), the data-update tracker every mutation marks, the
+hinted heal scanner over it, and the data-usage crawler whose cache
+quota reads.
 
 ``device`` picks where the sets' fused steps and the Select scans run:
 None means the card, and a host without one raises rather than serving
@@ -16,16 +21,19 @@ host.
 
 Left out: distributed nodes (internode storage, lock, peer and bootstrap
 RPC, dsync), IAM, config KV, events, replication, notification, tiers,
-the admin, health and web routers, the incident plane, online pool
-expansion and the single-path FS backend.
+the crawler's lifecycle and transition actions, the metacache, the hot-
+object read cache, the admin, health and web routers, the incident plane,
+online pool expansion and the single-path FS backend.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 from . import device as device_mod
+from .object.background import DataUsageCrawler, DiskMonitor, HealScanner
 from .object.nslock import NSLockMap
 from .object.server_sets import ErasureServerSets
 from .object.sets import ErasureSets
@@ -34,6 +42,7 @@ from .parallel.scheduler import BatchScheduler, requests_budget
 from .s3.credentials import Credentials, global_credentials
 from .s3.server import S3Server
 from .storage import errors as serr
+from .object.update_tracker import DataUpdateTracker
 from .storage.xl_storage import XLStorage
 from .utils import ellipses
 
@@ -77,6 +86,10 @@ class ClusterNode:
         self.scheduler: Optional[BatchScheduler] = None
         self.sets: Optional[ErasureSets] = None
         self.object_layer: Optional[ErasureServerSets] = None
+        self.disk_monitor: Optional[DiskMonitor] = None
+        self.update_tracker: Optional[DataUpdateTracker] = None
+        self.heal_scanner: Optional[HealScanner] = None
+        self.crawler: Optional[DataUsageCrawler] = None
         # the listener starts before the drives are formatted (the
         # reference serves before newObjectLayer returns)
         self.s3: Optional[S3Server] = S3Server(
@@ -115,14 +128,39 @@ class ClusterNode:
         # their pages into one launch on the cluster's device (the engine
         # took the layer's device in set_object_layer)
         self.s3.api.scan.scheduler = self.scheduler
+        # -- background plane (initAutoHeal + initDataCrawler) -------------
+        self.disk_monitor = DiskMonitor(self.sets).start()
+        # data-update tracker: every mutation marks the bloom; the heal
+        # scanner prunes unchanged work (cmd/data-update-tracker.go)
+        self.update_tracker = DataUpdateTracker(os.path.join(
+            self.spec.drives[0], ".minio.sys", "tracker",
+            "update-tracker.bin"))
+        self.s3.api.update_tracker = self.update_tracker
+        # a single node is the cluster's first node: it runs the scanner
+        # and the crawler, whose usage cache feeds quota
+        self.heal_scanner = HealScanner(self.object_layer,
+                                        self.update_tracker).start()
+        self.crawler = DataUsageCrawler(self.object_layer).start()
+        self.s3.api.usage = self.crawler
 
     @property
     def url(self) -> str:
         return self.s3.url
 
     def shutdown(self) -> None:
-        """Idempotent; safe on a partially-booted node. The server stops
-        first, then the sets, then the former."""
+        """Idempotent; safe on a partially-booted node. The background
+        loops close and the tracker flushes first, then the server stops,
+        then the sets, then the former."""
+        for loop in ("disk_monitor", "crawler", "heal_scanner"):
+            if getattr(self, loop) is not None:
+                getattr(self, loop).close()
+                setattr(self, loop, None)
+        if self.update_tracker is not None:
+            try:
+                self.update_tracker.flush()
+            except Exception:  # noqa: BLE001 — hints only
+                pass
+            self.update_tracker = None
         if self.s3 is not None:
             self.s3.stop()
             self.s3 = None

@@ -1,11 +1,20 @@
-"""SSE-S3 / SSE-C encryption of the PUT/GET path.
+"""SSE-S3 / SSE-C encryption and inline compression of the PUT/GET path.
 
-Counterpart of the SSE part of minio_tpu/features/crypto.py. The
+Counterpart of minio_tpu/features/crypto.py. The
 reference encrypts with DARE (sio) streams — a per-object data key (OEK)
 sealed by the KMS/master or the SSE-C client key, the payload split into
-packages each AEAD-sealed (cmd/encryption-v1.go:195-364). The ETag stays
-the MD5 of the CLIENT bytes: PutObjReader pairs the raw hashing reader
-with the transformed stream.
+packages each AEAD-sealed (cmd/encryption-v1.go:195-364) — and
+compresses eligible objects inline with S2, keeping the *actual* size in
+internal metadata (cmd/object-api-utils.go:869, isCompressible). The ETag
+stays the MD5 of the CLIENT bytes: PutObjReader pairs the raw hashing
+reader with the transformed stream.
+
+Compression is snappy framing (features/snappy.py: S2-interoperable, the
+default) or zstd (MINIO_COMPRESS_ALGORITHM=zstd, no cross-binary interop;
+the `zstandard` package is imported at the first zstd PUT or GET, and a
+PUT without it fails rather than store the object uncompressed). The
+compressor is a host transform; under a fused SSE PUT its output is the
+plaintext the engine ciphers in the encode dispatch.
 
 Two package ciphers (MINIO_TPU_SSE_CIPHER picks for NEW writes; reads
 dispatch on the per-object X-Minio-Internal-Sse-Cipher record):
@@ -34,14 +43,13 @@ Internal metadata keys (never exposed over the API):
     X-Minio-Internal-Sse-Iv:          base64 12-byte package nonce base
     X-Minio-Internal-Sse-Cipher:      "CHACHA20-POLY1305" (absent = AES)
     X-Minio-Internal-Sse-Key-Md5:     SSE-C client key MD5 (verification)
+    X-Minio-Internal-compression:     "klauspost/compress/s2" | "zstd"
     X-Minio-Internal-actual-size:     plaintext byte count
 
 Departures from the reference: GET deciphers on the device of the caller's
 choice (default: the card) and raises when that fails, with no host retry;
 the fused PUT has no MINIO_TPU_SSE_DEVICE switch and its size window is
 fixed at the reference's defaults (DEVICE_SSE_MIN_BYTES, no maximum).
-Left out: compression, with its metadata keys (setup_put_transforms
-raises on compress=True), and the handler side of multipart SSE.
 """
 
 from __future__ import annotations
@@ -73,12 +81,40 @@ MK_SSE_MP = "X-Minio-Internal-Sse-Multipart"
 MK_SEALED = "X-Minio-Internal-Sse-Sealed-Key"
 MK_IV = "X-Minio-Internal-Sse-Iv"
 MK_KEYMD5 = "X-Minio-Internal-Sse-Key-Md5"
+# exact reference bytes (cmd/object-handlers.go:997 writes
+# ReservedMetadataPrefix+"compression"): the reference binary looks
+# this key up case-SENSITIVELY when reading our disks
+MK_COMPRESS = "X-Minio-Internal-compression"
+
+# MK_COMPRESS values. S2/snappy is the interop default: snappy framing
+# is a strict subset of the S2 stream format. zstd stays available
+# behind config with no cross-binary interop.
+COMPRESS_S2 = "klauspost/compress/s2"      # cmd/object-handlers.go:69
+COMPRESS_SNAPPY_V1 = "golang/snappy/LZ77"  # cmd/object-handlers.go:68
+COMPRESS_ZSTD = "zstd"
+
+# older minio_tpu builds wrote the key with a capital C; metadata lookups
+# are case-sensitive, so reads accept both spellings
+MK_COMPRESS_LEGACY = "X-Minio-Internal-Compression"
+
+
+def stored_compression(md: dict) -> str:
+    """The stored compression algorithm under either key spelling
+    ('' when the object is not compressed)."""
+    return md.get(MK_COMPRESS) or md.get(MK_COMPRESS_LEGACY) or ""
+
+
 # matches storage.datatypes.to_object_info's actual-size key, so
 # ObjectInfo.actual_size is correct for transformed objects too
 MK_ACTUAL = "X-Minio-Internal-actual-size"
 MK_KMS = "X-Minio-Internal-Sse-Kms-Key-Id"
 MK_KMS_SEALED = "X-Minio-Internal-Sse-Kms-Sealed-Key"
 MK_KMS_CTX = "X-Minio-Internal-Sse-Kms-Context"
+
+COMPRESSIBLE_EXT = (".txt", ".log", ".csv", ".json", ".tar", ".xml",
+                    ".bin")
+COMPRESSIBLE_TYPES = ("text/", "application/json", "application/xml",
+                      "application/x-tar", "binary/octet-stream")
 
 # the fused PUT's size window (reference MINIO_TPU_SSE_DEVICE_MIN_BYTES
 # and _MAX_BYTES at their defaults: 1 MiB, no maximum)
@@ -144,6 +180,39 @@ def sse_cipher_for_new_writes() -> str:
     v = knobs.get_str("MINIO_TPU_SSE_CIPHER").strip().lower()
     return CIPHER_CHACHA if v in ("chacha20", "chacha20-poly1305",
                                   "chacha") else CIPHER_AES
+
+
+# ---------------------------------------------------------------------------
+# compression transforms
+# ---------------------------------------------------------------------------
+
+class ZstdCompress:
+    def __init__(self) -> None:
+        import zstandard
+        self._c = zstandard.ZstdCompressor().compressobj()
+
+    def update(self, data: bytes) -> bytes:
+        return self._c.compress(data)
+
+    def finalize(self) -> bytes:
+        return self._c.flush()
+
+
+def decompress_stream(chunks: Iterator[bytes],
+                      algo: str = COMPRESS_ZSTD) -> Iterator[bytes]:
+    """Stored-compression decoder, dispatched on the MK_COMPRESS value
+    (both S2 v2 and golang/snappy v1 streams ride the framing
+    reader)."""
+    if algo in (COMPRESS_S2, COMPRESS_SNAPPY_V1):
+        from . import snappy as _snappy
+        yield from _snappy.decompress_stream(chunks)
+        return
+    import zstandard
+    d = zstandard.ZstdDecompressor().decompressobj()
+    for chunk in chunks:
+        out = d.decompress(chunk)
+        if out:
+            yield out
 
 
 # ---------------------------------------------------------------------------
@@ -448,7 +517,7 @@ def _finalize_chain(transforms: list) -> bytes:
 
 class PutObjReader(HashReader):
     """Hashes/verifies the RAW client bytes (ETag semantics) while the
-    engine consumes the transformed (encrypted) stream."""
+    engine consumes the transformed (compressed/encrypted) stream."""
 
     def __init__(self, inner: HashReader, transforms: list):
         # no super().__init__: hashing/verification delegate to `inner`
@@ -557,10 +626,18 @@ def parse_ssec_headers(header) -> Optional[bytes]:
     return key
 
 
+def is_compressible(key: str, content_type: str) -> bool:
+    if any(key.endswith(ext) for ext in COMPRESSIBLE_EXT):
+        return True
+    return any(content_type.startswith(t) for t in COMPRESSIBLE_TYPES)
+
+
 def setup_put_transforms(*, key_name: str, raw_reader: HashReader,
                          raw_size: int, metadata: dict,
                          ssec_key: Optional[bytes], sse_s3: bool, kms,
-                         compress: bool, cipher: Optional[str] = None,
+                         compress: bool,
+                         compress_algo: str = COMPRESS_S2,
+                         cipher: Optional[str] = None,
                          device_sse: bool = False):
     """Build the transformed reader + metadata for a PUT.
 
@@ -568,29 +645,53 @@ def setup_put_transforms(*, key_name: str, raw_reader: HashReader,
     computable, else -1; sse_spec is a DeviceSSE for the engine's fused
     device path (chacha, device_sse=True, and the size window allows) or
     None (the cipher runs as a host transform here). Mutates `metadata`
-    with the internal keys. Compression is not ported: compress=True
-    raises.
+    with the internal keys.
     """
-    from ..s3.s3errors import S3Error
+    transforms: list = []
+    size = raw_size
+    spec = None
+
     if compress:
-        raise S3Error("NotImplemented", "inline compression is not ported")
-    if ssec_key is None and not sse_s3:
+        if compress_algo == COMPRESS_ZSTD:
+            metadata[MK_COMPRESS] = COMPRESS_ZSTD
+            transforms.append(ZstdCompress())
+        else:
+            from .snappy import SnappyFramedCompress
+            metadata[MK_COMPRESS] = COMPRESS_S2
+            transforms.append(SnappyFramedCompress())
+        size = -1
+
+    if ssec_key is not None or sse_s3:
+        if cipher is None:
+            cipher = sse_cipher_for_new_writes()
+        oek, nonce_base = create_sse_seals(metadata, ssec_key, sse_s3, kms,
+                                           kms_context={"object": key_name},
+                                           cipher=cipher)
+        if cipher == CIPHER_CHACHA:
+            # compressed streams fuse too: the compressor stays a host
+            # transform and its output is the "plaintext" the engine
+            # ciphers in the encode dispatch (raw_size gates the window,
+            # as in the reference; the engine reads the compressed
+            # stream to its end whatever its length)
+            if device_sse and device_sse_allowed(raw_size):
+                # the cipher leaves this chain: the engine fuses it into
+                # the encode step and appends the tag trailer
+                spec = DeviceSSE(oek, nonce_base)
+            else:
+                transforms.append(ChaChaEncryptor(oek, nonce_base))
+        else:
+            transforms.append(Encryptor(oek, nonce_base))
+        if size >= 0:
+            size = encrypted_size(size)
+
+    if not transforms and spec is None:
         return raw_reader, raw_size, None
-    if cipher is None:
-        cipher = sse_cipher_for_new_writes()
-    oek, nonce_base = create_sse_seals(metadata, ssec_key, sse_s3, kms,
-                                       kms_context={"object": key_name},
-                                       cipher=cipher)
     metadata[MK_ACTUAL] = str(raw_size) if raw_size >= 0 else "-1"
-    size = encrypted_size(raw_size) if raw_size >= 0 else -1
-    if cipher == CIPHER_CHACHA and device_sse and \
-            device_sse_allowed(raw_size):
-        # the cipher leaves this chain: the engine fuses it into the
-        # encode step, reads the PLAINTEXT and appends the tag trailer
-        return raw_reader, size, DeviceSSE(oek, nonce_base)
-    transform = ChaChaEncryptor(oek, nonce_base) \
-        if cipher == CIPHER_CHACHA else Encryptor(oek, nonce_base)
-    return PutObjReader(raw_reader, [transform]), size, None
+    if not transforms:
+        # fused path, nothing else in the chain: the engine reads the
+        # PLAINTEXT and ciphers in-batch; the stored size is still known
+        return raw_reader, size, spec
+    return PutObjReader(raw_reader, transforms), size, spec
 
 
 def create_sse_seals(metadata: dict, ssec_key: Optional[bytes],

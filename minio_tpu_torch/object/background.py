@@ -1,36 +1,82 @@
-"""Background plane: the MRF heal queue.
+"""Background plane: the MRF heal queue, the disk monitor (replaced-drive
+admission and sweep), the hinted heal scanner and the data-usage crawler.
 
-Counterpart of minio_tpu/object/background.py:71-272. The MRF ("most
-recently failed") heal queue (cmd/background-heal-ops.go +
-maintainMRFList, cmd/erasure-sets.go:1641): writes that succeeded at
-quorum but lost some drives, and reads that had to reconstruct, enqueue
-the object for an immediate background heal, so degraded objects regain
-full redundancy without waiting for the next scanner sweep.
+Counterpart of minio_tpu/object/background.py. The reference runs these
+from serverMain (cmd/server-main.go:487-493):
+  * the MRF ("most recently failed") heal queue
+    (cmd/background-heal-ops.go + maintainMRFList,
+    cmd/erasure-sets.go:1641): writes that succeeded at quorum but lost
+    some drives, and reads that had to reconstruct, enqueue the object
+    for an immediate background heal;
+  * monitorLocalDisksAndHeal (cmd/background-newdisks-heal-ops.go) +
+    connectDisks (cmd/erasure-sets.go:200-281): dead drive slots are
+    re-probed, returning drives re-admitted after a format check, fresh
+    (wiped/replaced) drives formatted for their slot and then swept —
+    every object they should hold is healed onto them (healErasureSet,
+    cmd/global-heal.go); the heals run the fused heal step on the set's
+    device like every other heal;
+  * the bloom-hinted heal scanner over the data-update tracker
+    (object/update_tracker.py);
+  * the data crawler (cmd/data-crawler.go:61-157): walks every bucket and
+    keeps per-bucket object counts and bytes, which quota reads, persisted
+    to .minio.sys/datausage/usage.json.
 
-Left out until the background plane is ported: the disk monitor and
-reconnect/new-disk heal, the heal scanner and the data-usage crawler, and
-the reference's event-log records and crash points. The lock is a plain
+Left out: the disk monitor's slow-drive quarantine (it needs
+utils/healthtrack's state machine and the event log) and its add_pool
+(online expansion is not ported), the metacache namespace feed (both
+scanners walk the namespace through paged listings, and each counts its
+walks itself), the crawler's lifecycle, transition and multipart-abort
+actions (its `actions` hook stays, with nothing wired to it), and the
+reference's event-log records and crash points. The MRF lock is a plain
 threading.Condition (lockcheck is not ported).
 
 Knobs: MINIO_TPU_MRF_QUEUE_SIZE, MINIO_TPU_MRF_MAX_RETRIES,
 MINIO_TPU_MRF_BACKOFF_BASE, MINIO_TPU_MRF_BACKOFF_MAX (the retry schedule
-spans ~40 s with the defaults).
+spans ~40 s with the defaults), MINIO_TPU_DISK_PROBE_S (the disk
+monitor's scan interval).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import heapq
+import json
 import threading
 import time
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional
 
+from ..storage import errors as serr
+from ..storage.format import (MINIO_META_BUCKET, read_format_from,
+                              write_format_to)
+from ..storage.xl_storage import XLStorage
 from ..utils import backoff_delay, knobs
 from . import api_errors
+
+if TYPE_CHECKING:  # sets.py imports MRFHealer: no cycle at runtime
+    from .sets import ErasureSets
+
+DATA_USAGE_OBJECT = "datausage/usage.json"
 
 MRF_QUEUE_SIZE = knobs.get_int("MINIO_TPU_MRF_QUEUE_SIZE")
 MRF_MAX_RETRIES = knobs.get_int("MINIO_TPU_MRF_MAX_RETRIES")
 MRF_BACKOFF_BASE = knobs.get_float("MINIO_TPU_MRF_BACKOFF_BASE")
 MRF_BACKOFF_MAX = knobs.get_float("MINIO_TPU_MRF_BACKOFF_MAX")
+
+
+def paged_list_objects(obj, bucket: str):
+    """The scanners' merge-walk feed: every listable object in one
+    bucket, paged through list_objects (1000/page)."""
+    marker = ""
+    while True:
+        try:
+            objs, _, trunc = obj.list_objects(bucket, "", marker, "",
+                                              1000)
+        except api_errors.ObjectApiError:
+            return
+        yield from objs
+        if not trunc or not objs:
+            return
+        marker = objs[-1].name
 
 
 class MRFHealer:
@@ -224,3 +270,312 @@ class MRFHealer:
         with self._cond:
             self._closed = True
             self._cond.notify_all()
+
+
+class _ScanLoop:
+    """Shared lifecycle + failure bookkeeping of the background scan
+    loops: run scan_once() every `interval` seconds on a daemon thread,
+    counting failures instead of swallowing them silently — a wedged
+    background plane must be observable (`errors`, `consecutive_errors`,
+    `last_error`)."""
+
+    interval: float
+
+    def _init_loop(self) -> None:
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.errors = 0
+        self.consecutive_errors = 0
+        self.last_error = ""
+
+    def start(self):
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def close(self) -> None:
+        self._stop.set()
+
+    def scan_once(self):  # pragma: no cover — subclasses implement
+        raise NotImplementedError
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self.scan_once()
+                self.consecutive_errors = 0
+            except Exception as e:  # noqa: BLE001 — keep scanning
+                self.errors += 1
+                self.consecutive_errors += 1
+                self.last_error = repr(e)
+
+
+class DiskMonitor(_ScanLoop):
+    """Re-admit returning drives; format + sweep-heal fresh ones, over the
+    one pool of a single node (the reference's add_pool registers pools
+    that online expansion appends; expansion is not ported). The
+    reference's slow-drive quarantine (suspect / probation states) is not
+    ported either."""
+
+    def __init__(self, sets: "ErasureSets",
+                 interval: Optional[float] = None):
+        self.sets = sets
+        self.interval = knobs.get_float("MINIO_TPU_DISK_PROBE_S") \
+            if interval is None else interval
+        self.healed_slots: list[tuple[int, int]] = []   # for tests/admin
+        self._init_loop()
+
+    # -- one scan ----------------------------------------------------------
+
+    def scan_once(self) -> int:
+        """Probe every slot; returns drives (re)admitted."""
+        pool = self.sets
+        if pool.format_ref is None or pool.slot_sources is None:
+            return 0
+        admitted = 0
+        for i, eng in enumerate(pool.sets):
+            for j in range(len(eng.disks)):
+                if self._probe_slot(pool, i, j):
+                    admitted += 1
+        if admitted and pool.mrf is not None:
+            # a returning drive makes queued MRF heals winnable NOW:
+            # collapse their retry backoffs instead of waiting them out
+            pool.mrf.kick()
+        return admitted
+
+    def _probe_slot(self, pool: "ErasureSets", i: int, j: int) -> bool:
+        from ..storage.diskid_check import DiskIDCheck
+        eng = pool.sets[i]
+        cur = eng.disks[j]
+        want_uuid = pool.format_ref.sets[i][j]
+
+        def unwrap(d):
+            return getattr(d, "inner", d)
+
+        def fmt_of(d):
+            """format, or None (fresh), or 'err' (unreachable)."""
+            try:
+                return read_format_from(d)
+            except (serr.UnformattedDisk, serr.FileNotFound,
+                    serr.VolumeNotFound, serr.CorruptedFormat):
+                return None
+            except serr.StorageError:
+                return "err"
+
+        if cur is not None:
+            fmt = fmt_of(unwrap(cur))
+            if fmt not in (None, "err") and fmt.this == want_uuid \
+                    and fmt.id == pool.deployment_id:
+                return False         # healthy and in place
+            if fmt == "err" and not isinstance(unwrap(cur), XLStorage):
+                return False         # remote hiccup: transport re-probes
+
+        # slot is dead, wiped, or replaced: (re)open from its source
+        src = pool.slot_sources[i][j]
+        if isinstance(src, str):
+            try:
+                drive = XLStorage(src)
+            except serr.StorageError:
+                return False
+        else:
+            drive = unwrap(src) if src is not None else unwrap(cur)
+        if drive is None:
+            return False
+
+        fmt = fmt_of(drive)
+        if fmt == "err":
+            return False             # unreachable/IO error: try later
+
+        if fmt is not None:
+            if fmt.this != want_uuid or fmt.id != pool.deployment_id:
+                return False         # foreign drive: never adopt
+            if cur is not None and unwrap(cur) is drive:
+                return False
+            eng.disks[j] = DiskIDCheck(drive, want_uuid)
+            return True
+
+        # fresh/wiped drive: format it for this slot, admit, sweep-heal
+        # (reference HealFormat + healErasureSet)
+        nf = dataclasses.replace(pool.format_ref, this=want_uuid)
+        try:
+            write_format_to(drive, nf)
+        except serr.StorageError:
+            return False
+        eng.disks[j] = DiskIDCheck(drive, want_uuid)
+        self.healed_slots.append((i, j))
+        try:
+            self.heal_set_sweep(i)
+        except Exception:  # noqa: BLE001 — MRF/next sweep will retry
+            pass
+        return True
+
+    def heal_set_sweep(self, set_index: int) -> int:
+        """Heal every bucket + object of one set (healErasureSet,
+        cmd/global-heal.go). Returns objects healed."""
+        eng = self.sets.sets[set_index]
+        healed = 0
+        for vol in eng.list_buckets():
+            try:
+                eng.heal_bucket(vol.name)
+            except api_errors.ObjectApiError:
+                continue
+            for name in eng._merged_names(vol.name, ""):
+                try:
+                    eng.heal_object(vol.name, name)
+                    healed += 1
+                except api_errors.ObjectApiError:
+                    continue
+        return healed
+
+
+class HealScanner(_ScanLoop):
+    """Bloom-hinted background heal (the consumer that makes the
+    data-update tracker load-bearing — reference data-update-tracker
+    feeds the heal crawl the same way): each pass heals only objects
+    the tracker says could have changed since the last COMPLETED pass,
+    pruning unchanged buckets outright. False positives cost a redundant
+    heal check; false negatives cannot happen (the tracker answers
+    "changed" whenever its history can't prove otherwise).
+
+    The namespace comes from paged listings (the merge walk); `walks`
+    counts them, the reference's walks_counter(consumer="heal",
+    source="merge")."""
+
+    def __init__(self, object_layer, tracker, interval: float = 300.0,
+                 peer_snapshots: Optional[Callable] = None):
+        self.obj = object_layer
+        self.tracker = tracker
+        self.interval = interval
+        # cluster fan-in: callable returning one rotated tracker snapshot
+        # per peer (None for an unreachable one); a single node has none
+        self.peer_snapshots = peer_snapshots
+        self._peer_covered: dict[int, int] = {}
+        self.last_cycle = 0          # 0 = never ran: full first pass
+        self.healed = 0
+        self.skipped_buckets = 0
+        self.scanned = 0
+        self.walks = 0
+        self._init_loop()
+
+    def scan_once(self) -> int:
+        """One hinted heal pass; returns objects heal-checked."""
+        from .update_tracker import TrackerSnapshot
+        # everything marked from here on belongs to the NEXT pass
+        pass_cycle = self.tracker.advance_cycle() - 1
+        # the last completed pass covered every cycle <= last_cycle, so
+        # this pass needs mutations from the cycles AFTER it
+        since = self.last_cycle + 1
+
+        snaps: list[tuple[int, Optional[TrackerSnapshot]]] = []
+        degraded = False
+        if self.peer_snapshots is not None:
+            for idx, raw in enumerate(self.peer_snapshots()):
+                if raw:
+                    snaps.append((idx, TrackerSnapshot(raw)))
+                else:
+                    # unreachable peer: its mutation window is unknown,
+                    # so this pass cannot prune anything
+                    degraded = True
+                    snaps.append((idx, None))
+        full = not self.last_cycle or degraded
+
+        def changed(b: str, o: str = "") -> bool:
+            if full:
+                return True
+            if self.tracker.changed_since(since, b, o):
+                return True
+            return any(
+                s.changed_since(self._peer_covered.get(idx, 0) + 1,
+                                b, o)
+                for idx, s in snaps if s is not None)
+
+        checked = 0
+        for vol in self.obj.list_buckets():
+            b = vol.name
+            if not changed(b):
+                self.skipped_buckets += 1
+                continue
+            self.walks += 1
+            for oi in paged_list_objects(self.obj, b):
+                if not changed(b, oi.name):
+                    continue
+                self.scanned += 1
+                checked += 1
+                try:
+                    res = self.obj.heal_object(b, oi.name)
+                    if getattr(res, "disks_healed", 0):
+                        self.healed += res.disks_healed
+                except api_errors.ObjectApiError:
+                    pass
+        self.last_cycle = pass_cycle
+        # every reachable peer's rotated window was covered this pass
+        for idx, s in snaps:
+            if s is not None:
+                self._peer_covered[idx] = s.cycle - 1
+        return checked
+
+
+class DataUsageCrawler(_ScanLoop):
+    """Periodic bucket/object scan feeding usage accounting (quota reads
+    bucket_usage) and per-object actions (`actions`: the reference's hook
+    for lifecycle expiry; no lifecycle action is ported to fill it).
+    `walks` counts the paged listings, the reference's
+    walks_counter(consumer="crawler", source="merge")."""
+
+    def __init__(self, object_layer, interval: float = 60.0,
+                 actions: Optional[list[Callable]] = None,
+                 persist: bool = True):
+        self.obj = object_layer
+        self.interval = interval
+        # each action: fn(bucket: str, info: ObjectInfo) -> None
+        self.actions = list(actions or [])
+        self.persist = persist
+        self.usage: dict = {"buckets": {}, "objects_total": 0,
+                            "size_total": 0, "last_update": 0.0}
+        self.walks = 0
+        self._init_loop()
+
+    def scan_once(self) -> dict:
+        buckets: dict[str, dict] = {}
+        for vol in self.obj.list_buckets():
+            b = vol.name
+            count = size = 0
+            self.walks += 1
+            for oi in paged_list_objects(self.obj, b):
+                count += 1
+                size += oi.size
+                for action in self.actions:
+                    try:
+                        action(b, oi)
+                    except Exception:  # noqa: BLE001 — per-object
+                        pass
+            buckets[b] = {"objects": count, "size": size}
+        self.usage = {
+            "buckets": buckets,
+            "objects_total": sum(v["objects"] for v in buckets.values()),
+            "size_total": sum(v["size"] for v in buckets.values()),
+            "last_update": time.time(),
+        }
+        if self.persist:
+            try:
+                self.obj.put_object(MINIO_META_BUCKET, DATA_USAGE_OBJECT,
+                                    json.dumps(self.usage).encode())
+            except api_errors.ObjectApiError:
+                pass
+        return self.usage
+
+    def bucket_usage(self, bucket: str) -> Optional[int]:
+        """Cached bytes for a bucket; None before the first scan."""
+        if not self.usage["last_update"]:
+            return None
+        info = self.usage["buckets"].get(bucket)
+        return int(info["size"]) if info else 0
+
+    @classmethod
+    def load_snapshot(cls, object_layer) -> Optional[dict]:
+        try:
+            _, stream = object_layer.get_object(MINIO_META_BUCKET,
+                                                DATA_USAGE_OBJECT)
+            return json.loads(b"".join(stream).decode())
+        except (api_errors.ObjectApiError, ValueError):
+            return None

@@ -44,12 +44,17 @@ class ErasureSets:
                  distribution_algo: str = DISTRIBUTION_ALGO_V3,
                  enable_mrf: bool = True,
                  format_ref: Optional[FormatErasureV3] = None,
+                 slot_sources: Optional[list] = None,
                  mrf_options: Optional[dict] = None):
         self.sets = sets
         self.deployment_id = deployment_id
         self.distribution_algo = distribution_algo
-        # the sets x drives UUID matrix the drives are ordered by
+        # topology reference (the sets x drives UUID matrix the drives are
+        # ordered by) + per-slot drive sources (root path or live
+        # StorageAPI), set-major order — the disk monitor's map of what
+        # belongs where (reference erasure-sets endpoints)
         self.format_ref = format_ref
+        self.slot_sources = slot_sources
         self._id16 = _uuid.UUID(deployment_id).bytes
         self.mrf: Optional[MRFHealer] = None
         if enable_mrf:
@@ -103,18 +108,21 @@ class ErasureSets:
                 drives.append(None)
         return cls.from_storage(drives, set_count, set_drive_count, parity,
                                 block_size=block_size, ns_lock=ns_lock,
-                                **engine_kw)
+                                sources=list(drive_roots), **engine_kw)
 
     @classmethod
     def from_storage(cls, drives: list, set_count: int,
                      set_drive_count: int, parity: int,
                      block_size: int = 1 << 22,
                      ns_lock: Optional[NSLockMap] = None,
+                     sources: Optional[list] = None,
                      **engine_kw) -> "ErasureSets":
         """Assemble sets over StorageAPI drives (None: an offline slot;
         reference newErasureSets, cmd/erasure-sets.go:337-430). Fresh
         drives are formatted; a drive without a format in an otherwise
-        formatted cluster is healed: it gets the format of its slot."""
+        formatted cluster is healed: it gets the format of its slot.
+        `sources` (default: the drives themselves) names each input
+        position's drive source for the disk monitor's slot_sources."""
         from ..storage.format import read_format_from, write_format_to
         if len(drives) != set_count * set_drive_count:
             raise ValueError(f"{len(drives)} drives for {set_count} sets "
@@ -165,11 +173,18 @@ class ErasureSets:
         ref_sets = next(f.sets for f in formats if f is not None)
 
         # order drives by their position in the format's sets matrix
-        by_uuid = {f.this: d for d, f in zip(drives, formats)
-                   if d is not None and f is not None}
+        by_uuid = {}
+        src_by_uuid = {}
+        if sources is None:
+            sources = list(drives)
+        for idx, (d, f) in enumerate(zip(drives, formats)):
+            if d is not None and f is not None:
+                by_uuid[f.this] = d
+                src_by_uuid[f.this] = sources[idx]
         from ..storage.diskid_check import DiskIDCheck
         ns = ns_lock or NSLockMap()
         sets = []
+        slot_sources = []
         for i in range(set_count):
             # every drive is identity-guarded: a swap/reformat behind a
             # running set reads as DiskStale, never as wrong shards
@@ -178,6 +193,13 @@ class ErasureSets:
                 DiskIDCheck(by_uuid[ref_sets[i][j]], ref_sets[i][j])
                 if ref_sets[i][j] in by_uuid else None
                 for j in range(set_drive_count)]
+            # per-slot source: the drive that attested the slot's UUID,
+            # else the position-derived input (the heuristic the format
+            # heal above uses for fresh replacements)
+            slot_sources.append([
+                src_by_uuid.get(ref_sets[i][j],
+                                sources[i * set_drive_count + j])
+                for j in range(set_drive_count)])
             sets.append(ErasureSetObjects(
                 set_drives, set_drive_count - parity, parity,
                 block_size=block_size, ns_lock=ns, set_index=i,
@@ -185,7 +207,8 @@ class ErasureSets:
         fmt_ref = FormatErasureV3(id=deployment_id,
                                   sets=[list(s) for s in ref_sets])
         return cls(sets, deployment_id, enable_mrf=enable_mrf,
-                   format_ref=fmt_ref, mrf_options=mrf_options)
+                   format_ref=fmt_ref, slot_sources=slot_sources,
+                   mrf_options=mrf_options)
 
     # ------------------------------------------------------------------
     # routing

@@ -5,8 +5,9 @@ cmd/object-handlers.go, cmd/bucket-handlers.go and
 cmd/bucket-listobjects-handlers.go) on top of a request snapshot and the
 port's object layer: auth classification and signature verification,
 conditional headers, ranged reads, streaming-signed payload decoding,
-multipart, copy, delete-multiple, tagging, versioning, and the handler
-side of SSE-S3 / SSE-C.
+multipart, copy, delete-multiple, tagging, versioning, the handler
+side of SSE-S3 / SSE-C, and inline compression (MINIO_COMPRESS,
+MINIO_COMPRESS_ALGORITHM: S2 framing by default, or zstd).
 
 Every object byte goes through the port's object layer, so a PUT runs the
 fused encode step on the card (models/pipeline.put_step through the batch
@@ -19,7 +20,11 @@ the host with per-part nonces, as in the reference. SelectObjectContent
 evaluates its WHERE clause and COUNTs on the card (scan/engine.ScanEngine,
 through the batch former's scan verb when the boot attached one) and
 frames the evaluator's response bytes; a Select over an SSE object
-deciphers on the card first.
+deciphers on the card first, and one over a compressed object decodes
+through the same plaintext stack on the host. Every mutation marks the
+data-update tracker (update_tracker, attached by the boot) where the
+reference's event funnel marks it, and quota reads the usage crawler's
+cache (usage) when one is attached.
 
 Authentication takes the root credential only: there is no IAM, so
 anonymous requests are refused and STS answers NotImplemented, as the
@@ -30,9 +35,6 @@ and notification configs, ListenBucketNotification, browser POST uploads,
 RestoreObject and the internal replication headers.
 Left out with them: QoS pacing, request tracing, bandwidth accounting,
 event notification, tiering, bucket federation and storage-class parity.
-Compression is not ported: the constructor refuses MINIO_COMPRESS=on, and
-a GET, HEAD, copy or Select of an object the reference stored compressed
-answers NotImplemented.
 
 Departure: a copy that keeps the source's stored bytes (REPLACE directive
 without a new transform) also keeps the source's cipher record, and a
@@ -77,27 +79,19 @@ MIN_PART_SIZE = 5 * (1 << 20)            # 5 MiB
 MAX_PARTS = 10000
 _BUCKET_RE = re.compile(r"^[a-z0-9][a-z0-9.\-]{1,61}[a-z0-9]$")
 
-# the reference's stored-compression records (features/crypto.py
-# MK_COMPRESS, MK_COMPRESS_LEGACY)
-_MK_COMPRESS = ("X-Minio-Internal-compression",
-                "X-Minio-Internal-Compression")
 # object-lock request headers (features/objectlock.py)
 _LOCK_HEADERS = ("x-amz-object-lock-mode",
                  "x-amz-object-lock-retain-until-date",
                  "x-amz-object-lock-legal-hold")
-# internal metadata a re-encrypting copy drops before it seals anew, and,
+# internal metadata a re-transforming copy drops before it seals anew, and,
 # with the cipher record, a verbatim copy keeps
 _SEAL_KEYS = (sse.MK_SSE, sse.MK_SEALED, sse.MK_IV, sse.MK_KEYMD5,
-              sse.MK_ACTUAL, sse.MK_SSE_MP)
+              sse.MK_COMPRESS, sse.MK_COMPRESS_LEGACY, sse.MK_ACTUAL,
+              sse.MK_SSE_MP)
 
 
 def _not_ported(what: str) -> S3Error:
     return S3Error("NotImplemented", f"{what} is not served by this port")
-
-
-def _refuse_compressed(md: dict) -> None:
-    if any(md.get(k) for k in _MK_COMPRESS):
-        raise _not_ported("a compressed object")
 
 
 @dataclasses.dataclass
@@ -257,11 +251,6 @@ class S3ApiHandlers:
     def __init__(self, object_layer, region: str = "us-east-1",
                  creds: Optional[Credentials] = None,
                  max_clients: Optional[int] = None):
-        if os.environ.get("MINIO_COMPRESS", "").lower() in \
-                ("on", "true", "1"):
-            raise ValueError(
-                "MINIO_COMPRESS is on, but compression is not ported: "
-                "the server would store objects uncompressed")
         self.obj = object_layer
         self.region = region
         self.root_cred = creds or global_credentials()
@@ -279,6 +268,14 @@ class S3ApiHandlers:
         # trips to one per upload, not one per part)
         self._mpu_keys: "OrderedDict[str, tuple]" = OrderedDict()
         self.kms = sse.kms_from_env()        # SSE-S3 KMS seam
+        self.compression_enabled = os.environ.get(
+            "MINIO_COMPRESS", "").lower() in ("on", "true", "1")
+        # "s2" (snappy framing, reference-interoperable — the default)
+        # or "zstd" (better ratio, no cross-binary interop)
+        self.compression_algorithm = os.environ.get(
+            "MINIO_COMPRESS_ALGORITHM", "s2").lower()
+        self.usage = None          # optional DataUsageCrawler (quota cache)
+        self.update_tracker = None  # optional DataUpdateTracker
         self.cors_allow_origin = "*"
         # the scan plane: Selects evaluate on the object layer's device;
         # the cluster boot attaches the shared batch former, so that
@@ -536,6 +533,7 @@ class S3ApiHandlers:
         if ctx.header("x-amz-bucket-object-lock-enabled") == "true":
             raise _not_ported("object lock")
         self.obj.make_bucket(bucket)
+        self._mark(bucket)
         return HTTPResponse(headers={"Location": f"/{bucket}"})
 
     def head_bucket(self, ctx, bucket) -> HTTPResponse:
@@ -548,6 +546,7 @@ class S3ApiHandlers:
         force = ctx.header("x-minio-force-delete") == "true"
         self.obj.delete_bucket(bucket, force=force)
         self.bucket_meta.delete(bucket)
+        self._mark(bucket)
         return HTTPResponse(status=204)
 
     def get_bucket_location(self, ctx, bucket) -> HTTPResponse:
@@ -790,6 +789,7 @@ class S3ApiHandlers:
                     entry["delete_marker"] = True
                     entry["delete_marker_version"] = res.version_id
                 deleted.append(entry)
+                self._mark(bucket, key)
             except oerr.ObjectNotFound:
                 deleted.append({"key": key, "version_id": vid})
             except Exception as e:  # noqa: BLE001 — per-key error entry
@@ -888,23 +888,29 @@ class S3ApiHandlers:
         headers = {"ETag": f'"{info.etag}"', **sse_headers}
         if info.version_id and info.version_id != "null":
             headers["x-amz-version-id"] = info.version_id
+        self._mark(bucket, key)
         return HTTPResponse(headers=headers)
 
     def _apply_put_transforms(self, ctx, key, reader, size, metadata
                               ) -> tuple:
-        """SSE wrapping of the PUT stream (reference EncryptRequest
-        wiring, cmd/object-handlers.go:1452-1470). Returns (reader, size,
+        """Compression + SSE wrapping of the PUT stream (reference
+        newS2CompressReader + EncryptRequest wiring,
+        cmd/object-handlers.go:1452-1470). Returns (reader, size,
         response headers, sse_spec) — sse_spec rides PutOptions into the
         engine when the fused device cipher path takes the stream
         instead of a host transform here."""
         ssec_key = sse.parse_ssec_headers(ctx.header)
         sse_s3 = self._sse_s3_requested(ctx, ssec_key)
-        if ssec_key is None and not sse_s3:
+        compress = (self.compression_enabled
+                    and sse.is_compressible(
+                        key, metadata.get("content-type", "")))
+        if ssec_key is None and not sse_s3 and not compress:
             return reader, size, {}, None
         reader2, size2, spec = sse.setup_put_transforms(
             key_name=key, raw_reader=reader, raw_size=size,
             metadata=metadata, ssec_key=ssec_key, sse_s3=sse_s3,
-            kms=self.kms, compress=False,
+            kms=self.kms, compress=compress,
+            compress_algo=self._compress_algo(),
             device_sse=getattr(self.obj, "supports_sse_device", False))
         headers = {}
         if sse_s3:
@@ -977,8 +983,7 @@ class S3ApiHandlers:
             return HTTPResponse(status=short,
                                 headers=self._obj_response_headers(info))
         md = info.user_defined or {}
-        _refuse_compressed(md)
-        if md.get(sse.MK_SSE):
+        if md.get(sse.MK_SSE) or sse.stored_compression(md):
             return self._get_transformed(ctx, bucket, key, info, opts, md)
         rng = _parse_range(ctx.header("range"), info.size)
         offset, length = (0, info.size) if rng is None else rng
@@ -1002,23 +1007,36 @@ class S3ApiHandlers:
                 headers[hk] = ctx.query1(qk)
         return HTTPResponse(status=status, headers=headers, stream=stream)
 
+    def _compress_algo(self) -> str:
+        return sse.COMPRESS_ZSTD if self.compression_algorithm == \
+            "zstd" else sse.COMPRESS_S2
+
     def _get_transformed(self, ctx, bucket, key, info, opts, md
                          ) -> HTTPResponse:
-        """GET of an encrypted object: decrypt the covering package
-        range, then trim to the requested plaintext range (reference
-        DecryptBlocksRequestR, cmd/object-api-utils.go:626-697)."""
+        """GET of an encrypted and/or compressed object: decrypt the
+        covering package range / decompress, then trim to the requested
+        plaintext range (reference DecryptBlocksRequestR + s2 reader
+        stack, cmd/object-api-utils.go:626-697)."""
         enc = sse.resolve_get_key(md, ctx.header, self.kms)
+        compressed = bool(sse.stored_compression(md))
         actual = self._plain_size(info, md)
         rng = _parse_range(ctx.header("range"), actual)
         offset, length = (0, actual) if rng is None else rng
 
         if actual <= 0 or length <= 0:
             stream = iter(())
-        elif md.get(sse.MK_SSE_MP) and info.parts:
+        elif enc is not None and md.get(sse.MK_SSE_MP) and info.parts:
             # multipart SSE: parts are independent package streams under
             # per-part nonces; walk the parts covering the range
             stream = self._mp_decrypt_stream(opts, bucket, key, info,
                                              enc, offset, length)
+        elif compressed:
+            # compressed payloads have no random access: decode from the
+            # start and skip (the reference's s2 path does the same)
+            stream = self._stored_plaintext(bucket, key, info, opts, enc)
+            stream = sse.decompress_stream(
+                stream, sse.stored_compression(md) or sse.COMPRESS_ZSTD)
+            stream = _skip_take(stream, offset, length)
         elif sse.stored_sse_cipher(md) == sse.CIPHER_CHACHA:
             # detached-tag stream: ciphertext offsets match plaintext
             # 1:1 and the tag trailer sits at the end — the ranged
@@ -1110,46 +1128,58 @@ class S3ApiHandlers:
     def _chacha_full_stream(self, bucket, key, info, opts, enc
                             ) -> Iterator[bytes]:
         """Whole-object verify-then-decrypt of a detached-tag chacha
-        stream."""
+        stream (the cipher's plaintext length comes from the stored
+        size — under compression it is the compressed length, which
+        metadata does not record)."""
         ct_len, _ = sse.chacha_ct_len(info.size)
         return sse.chacha_decrypt_ranged(
             self._obj_fetch(bucket, key, opts), info.size,
             enc[0], enc[1], 0, ct_len, device=self.obj.device,
             scheduler=self.obj.scheduler)
 
+    def _stored_plaintext(self, bucket, key, info, opts, enc
+                          ) -> Iterator[bytes]:
+        """The whole stored stream, deciphered when `enc` is an object key
+        (a compressed object's compressed bytes)."""
+        if enc is not None and \
+                sse.stored_sse_cipher(info.user_defined or {}) == \
+                sse.CIPHER_CHACHA:
+            return self._chacha_full_stream(bucket, key, info, opts, enc)
+        _, stream = self.obj.get_object(bucket, key, 0, info.size, opts)
+        if enc is not None:
+            stream = sse.decrypt_stream(stream, enc[0], enc[1])
+        return stream
+
     def _plaintext_stream(self, bucket, key, info, header, opts
                           ) -> tuple[Iterator[bytes], int]:
-        """Full plaintext stream + size of a stored object, decrypting as
-        its metadata requires (the copy source's decode stack; the
-        ranged S3 GET keeps its own package-range arithmetic in
-        _get_transformed). `header` is a callable(name, default="")
-        supplying SSE-C key headers; without them an SSE-C object raises
-        AccessDenied from resolve_get_key."""
+        """Full plaintext stream + size of a stored object, decrypting and
+        decompressing as its metadata requires (the copy source's and
+        Select's decode stack; the ranged S3 GET keeps its own
+        package-range arithmetic in _get_transformed). `header` is a
+        callable(name, default="") supplying SSE-C key headers; without
+        them an SSE-C object raises AccessDenied from resolve_get_key."""
         md = info.user_defined or {}
-        _refuse_compressed(md)
-        if not md.get(sse.MK_SSE):
+        if not (md.get(sse.MK_SSE) or sse.stored_compression(md)):
             _, stream = self.obj.get_object(bucket, key, 0, info.size,
                                             opts)
             return stream, info.size
         enc = sse.resolve_get_key(md, header, self.kms)
         plain_size = self._plain_size(info, md)
-        if md.get(sse.MK_SSE_MP) and info.parts:
+        if enc is not None and md.get(sse.MK_SSE_MP) and info.parts:
             return (self._mp_decrypt_stream(opts, bucket, key, info,
                                             enc, 0, plain_size),
                     plain_size)
-        if sse.stored_sse_cipher(md) == sse.CIPHER_CHACHA:
-            stream = self._chacha_full_stream(bucket, key, info, opts,
-                                              enc)
-        else:
-            _, stream = self.obj.get_object(bucket, key, 0, info.size,
-                                            opts)
-            stream = sse.decrypt_stream(stream, enc[0], enc[1])
+        stream = self._stored_plaintext(bucket, key, info, opts, enc)
+        if sse.stored_compression(md):
+            stream = sse.decompress_stream(
+                stream, sse.stored_compression(md) or sse.COMPRESS_ZSTD)
         return stream, plain_size
 
     def _copy_source_plaintext(self, ctx, src_bucket, src_key, src_info,
                                opts) -> tuple[Iterator[bytes], int]:
         """Plaintext stream + size of a copy source, decrypting with the
-        x-amz-copy-source-* SSE-C headers (or the master key)."""
+        x-amz-copy-source-* SSE-C headers (or the master key) and
+        decompressing as needed."""
 
         def src_header(name, default=""):
             prefix = "x-amz-server-side-encryption-customer"
@@ -1243,8 +1273,7 @@ class S3ApiHandlers:
         short = self._check_preconditions(ctx, info)
         headers = self._obj_response_headers(info)
         md = info.user_defined or {}
-        _refuse_compressed(md)
-        if md.get(sse.MK_SSE):
+        if md.get(sse.MK_SSE) or sse.stored_compression(md):
             if md.get(sse.MK_SSE) == "C":
                 sse.resolve_get_key(md, ctx.header, self.kms)
             headers.update(self._sse_response_headers(md))
@@ -1284,6 +1313,7 @@ class S3ApiHandlers:
                     headers["x-amz-version-id"] = res.version_id
         except oerr.ObjectNotFound:
             pass  # S3 DELETE of a missing key is 204
+        self._mark(bucket, key)
         return HTTPResponse(status=204, headers=headers)
 
     def copy_object(self, ctx, bucket, key) -> HTTPResponse:
@@ -1301,8 +1331,8 @@ class S3ApiHandlers:
             raise S3Error("PreconditionFailed")
         directive = ctx.header("x-amz-metadata-directive", "COPY")
         src_md = src_info.user_defined or {}
-        _refuse_compressed(src_md)
-        src_transformed = bool(src_md.get(sse.MK_SSE))
+        src_transformed = bool(src_md.get(sse.MK_SSE)
+                               or sse.stored_compression(src_md))
         # target transform request (re-encrypt / encrypt-on-copy), or an
         # explicit source key (decrypt-on-copy)?
         tgt_ssec = sse.parse_ssec_headers(ctx.header)
@@ -1316,8 +1346,8 @@ class S3ApiHandlers:
             metadata = _extract_metadata(ctx)
             if src_transformed and not re_transform:
                 # stored bytes copied verbatim: the transform state
-                # (seals, cipher, actual size) must survive a metadata
-                # REPLACE or the copy is unreadable
+                # (seals, cipher, compression flag, actual size) must
+                # survive a metadata REPLACE or the copy is unreadable
                 for ik in _SEAL_KEYS + (sse.MK_CIPHER,):
                     if ik in src_md:
                         metadata[ik] = src_md[ik]
@@ -1334,8 +1364,8 @@ class S3ApiHandlers:
                     metadata.pop(ik, None)
 
         if re_transform:
-            # re-encryption path: decrypt the source to plaintext, then
-            # apply the TARGET transforms like a fresh PUT
+            # re-encryption path: decrypt/decompress the source to
+            # plaintext, then apply the TARGET transforms like a fresh PUT
             plain_stream, plain_size = self._copy_source_plaintext(
                 ctx, src_bucket, src_key, src_info, opts)
             if src_bucket == bucket and src_key == key:
@@ -1360,6 +1390,7 @@ class S3ApiHandlers:
             headers = {}
             if info.version_id and info.version_id != "null":
                 headers["x-amz-version-id"] = info.version_id
+            self._mark(bucket, key)
             return HTTPResponse(headers=headers).with_xml(
                 xmlgen.copy_object_response(info.etag, info.mod_time))
 
@@ -1380,6 +1411,7 @@ class S3ApiHandlers:
         headers = {}
         if info.version_id and info.version_id != "null":
             headers["x-amz-version-id"] = info.version_id
+        self._mark(bucket, key)
         return HTTPResponse(headers=headers).with_xml(
             xmlgen.copy_object_response(info.etag, info.mod_time))
 
@@ -1497,6 +1529,7 @@ class S3ApiHandlers:
             raise S3Error("InvalidPartOrder")
         info = self.obj.complete_multipart_upload(bucket, key, upload_id,
                                                   parts)
+        self._mark(bucket, key)
         host = ctx.header("host", "")
         return HTTPResponse().with_xml(xmlgen.complete_multipart_response(
             f"http://{host}/{bucket}/{key}", bucket, key, info.etag))
@@ -1574,7 +1607,7 @@ class S3ApiHandlers:
         as AWS event-stream messages (reference pkg/s3select and
         cmd/object-handlers.go SelectObjectContentHandler). The object is
         read whole through the plaintext stack (an SSE object deciphers on
-        the card; a compressed one answers NotImplemented), then the scan
+        the card, a compressed one decodes on the host), then the scan
         engine decides its rows on the card before the response starts: a
         device failure answers 500, never the evaluator's bytes."""
         self.authenticate(ctx)
@@ -1601,8 +1634,13 @@ class S3ApiHandlers:
             raise S3Error("QuotaExceeded")
 
     def _bucket_usage(self, bucket: str) -> int:
-        """Bytes used by one bucket, by a listing walk (the data-usage
-        crawler is not ported)."""
+        """Bytes used by one bucket: the data-usage crawler's cache when
+        one is attached (cmd/bucket-quota.go reads dataUsageCache), else
+        a listing walk."""
+        if self.usage is not None:
+            cached = self.usage.bucket_usage(bucket)
+            if cached is not None:
+                return cached
         used = 0
         marker = ""
         while True:
@@ -1612,6 +1650,21 @@ class S3ApiHandlers:
             if not trunc or not objs:
                 return used
             marker = objs[-1].name
+
+    # ------------------------------------------------------------------
+    # the data-update tracker
+    # ------------------------------------------------------------------
+
+    def _mark(self, bucket: str, key: str = "") -> None:
+        """Mark a mutation in the data-update tracker, where the
+        reference's _notify marks it for every event but s3:ObjectAccessed
+        (cmd/data-update-tracker.go marks its bloom on object writes)."""
+        tracker = self.update_tracker
+        if tracker is not None:
+            try:
+                tracker.mark(bucket, key)
+            except Exception:  # noqa: BLE001 — hints are best-effort
+                pass
 
 
 def _parse_max_keys(v: str) -> int:

@@ -1,10 +1,11 @@
 """Registry of the ``MINIO_TPU_*`` tuning knobs the port reads.
 
 Counterpart of minio_tpu/utils/knobs.py, trimmed to the knobs of the
-pipelined data path, the batch former, heal, the MRF queue, the SSE
-cipher choice, the scan plane, the admission gate and the HTTP edge, with
-the reference's names, types and defaults (minio_tpu/utils/knobs.py:160-197,
-:203-206, :220-233, :261-281, :284-291, :310-331, :459-471). Left out:
+pipelined data path, the batch former, heal, the MRF queue, the disk
+monitor, the SSE cipher choice, the scan plane, the admission gate and the
+HTTP edge, with the reference's names, types and defaults
+(minio_tpu/utils/knobs.py:160-197, :203-206, :220-233, :261-281,
+:284-291, :299-301, :310-331, :459-471). Left out:
 the README table renderer and every knob no ported module reads. No knob here is one the reference lacks.
 
 Getters read the environment at call time: tests flip knobs with
@@ -137,6 +138,11 @@ define("MINIO_TPU_MRF_BACKOFF_BASE", "float", 0.05,
        "first MRF retry delay, seconds (doubles per attempt)")
 define("MINIO_TPU_MRF_BACKOFF_MAX", "float", 15.0,
        "MRF retry delay cap, seconds")
+
+# -- disk monitor ------------------------------------------------------------
+define("MINIO_TPU_DISK_PROBE_S", "float", 10.0,
+       "DiskMonitor scan interval: dead-slot re-probes run on this "
+       "cadence")
 
 # -- SSE -------------------------------------------------------------------
 define("MINIO_TPU_SSE_CIPHER", "str", "aes-gcm",

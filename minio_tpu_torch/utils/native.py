@@ -3,7 +3,9 @@
 The port's host engine for small writes and healthy-GET verification:
   * HighwayHash-256 (batched and streaming) — the CPU bitrot engine;
   * gf_matmul — the GFNI/AVX-512 (or portable) GF(2^8) coding matmul of
-    batches below the device size gate.
+    batches below the device size gate;
+  * the snappy/S2 block codec and CRC32C of inline compression
+    (features/snappy.py).
 
 The library is compiled at first use with g++ into ``build/native/`` (named
 by a hash of its sources, so an edit rebuilds it). If the compiler is
@@ -25,7 +27,7 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_REPO, "native")
-_SOURCES = ("highwayhash.cpp", "gf_rs.cpp")
+_SOURCES = ("highwayhash.cpp", "gf_rs.cpp", "snappy.cpp")
 _BUILD_DIR = os.path.join(_REPO, "build", "native")
 _FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 
@@ -87,6 +89,18 @@ def get_lib() -> Optional[ctypes.CDLL]:
                                   u8p, ctypes.c_size_t,
                                   u8p, ctypes.c_size_t, ctypes.c_size_t,
                                   ctypes.c_int]
+        lib.snappy_crc32c.restype = ctypes.c_uint32
+        lib.snappy_crc32c.argtypes = [u8p, ctypes.c_size_t]
+        lib.snappy_max_compressed_length.restype = ctypes.c_size_t
+        lib.snappy_max_compressed_length.argtypes = [ctypes.c_size_t]
+        lib.snappy_compress_block.restype = ctypes.c_int
+        lib.snappy_compress_block.argtypes = [
+            u8p, ctypes.c_size_t, u8p, ctypes.POINTER(ctypes.c_size_t)]
+        lib.snappy_uncompressed_length.restype = ctypes.c_int64
+        lib.snappy_uncompressed_length.argtypes = [u8p, ctypes.c_size_t]
+        lib.snappy_uncompress_block.restype = ctypes.c_int64
+        lib.snappy_uncompress_block.argtypes = [
+            u8p, ctypes.c_size_t, u8p, ctypes.c_size_t]
         _lib = lib
         return _lib
 
@@ -128,3 +142,57 @@ def gf_matmul(matrix: np.ndarray, data: np.ndarray) -> np.ndarray:
     lib.gf_matmul(_u8p(matrix), r, k, _u8p(data), data.strides[0],
                   _u8p(out), out.strides[0], length, 0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# snappy/S2 block codec + CRC32C
+# ---------------------------------------------------------------------------
+
+# the snappy codec is built into the one library
+snappy_available = available
+
+
+def _snappy_lib() -> ctypes.CDLL:
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    return lib
+
+
+def crc32c(data: bytes | memoryview) -> int:
+    d = np.frombuffer(data, dtype=np.uint8)
+    return int(_snappy_lib().snappy_crc32c(_u8p(d), d.size))
+
+
+def snappy_compress_block(data: bytes | memoryview) -> bytes:
+    """One snappy block (<= 65536 bytes: the framing chunk limit; the C
+    hash table stores 16-bit positions)."""
+    lib = _snappy_lib()
+    d = np.frombuffer(data, dtype=np.uint8)
+    if d.size > 65536:
+        raise ValueError(f"{d.size} bytes exceed one 65536-byte block")
+    out = np.empty(int(lib.snappy_max_compressed_length(d.size)),
+                   dtype=np.uint8)
+    n = ctypes.c_size_t(0)
+    lib.snappy_compress_block(_u8p(d), d.size, _u8p(out), ctypes.byref(n))
+    return out[:n.value].tobytes()
+
+
+def snappy_uncompress_block(data: bytes | memoryview,
+                            max_out: int = 1 << 24) -> bytes:
+    """Decode one snappy/S2 block; raises ValueError on corrupt input
+    and NotImplementedError on S2 encodings outside the subset."""
+    lib = _snappy_lib()
+    d = np.frombuffer(data, dtype=np.uint8)
+    want = int(lib.snappy_uncompressed_length(_u8p(d), d.size))
+    if want < 0 or want > max_out:
+        raise ValueError("corrupt snappy block header")
+    out = np.empty(want, dtype=np.uint8)
+    got = int(lib.snappy_uncompress_block(_u8p(d), d.size, _u8p(out),
+                                          want))
+    if got == -2:
+        raise NotImplementedError(
+            "S2 extended repeat encoding outside the decoded subset")
+    if got != want:
+        raise ValueError("corrupt snappy block")
+    return out.tobytes()

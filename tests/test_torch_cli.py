@@ -2,9 +2,11 @@
 (`python -m minio_tpu_torch server`, minio_tpu_torch/cli.py) on the host.
 
 The CLI runs as a subprocess with `--device cpu`: it must answer a signed
-ListBuckets, a PUT and a GET, and exit 0 on SIGTERM. `--node`, `--pool`,
-one drive path, MINIO_COMPRESS=on and the default device on a host
-without a card are refused with exit code 2 and a message. Every test is
+ListBuckets, a PUT and a GET, and exit 0 on SIGTERM, with MINIO_COMPRESS
+on too (the object stored compressed). `--node`, `--pool`, one drive path
+and the default device on a host without a card are refused with exit
+code 2 and a message. The boot's background plane (disk monitor, tracker,
+heal scanner, crawler) is wired and closes on shutdown. Every test is
 bounded: subprocesses by their own timeouts, the rest by an alarm.
 """
 
@@ -95,10 +97,44 @@ def test_cli_serves_and_stops_on_sigterm(tmp_path):
     assert f"S3 endpoint: http://127.0.0.1:{port}" in out
 
 
+@pytest.mark.parametrize("algo", ["s2", "zstd"])
+def test_cli_serves_compressed_objects(tmp_path, algo):
+    """MINIO_COMPRESS=on: the CLI boots (the port refused to before
+    compression was ported) under either algorithm, stores a CSV
+    compressed and serves it back whole and ranged."""
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "minio_tpu_torch", "server",
+         str(tmp_path / "e{1...8}"), "--address", f"127.0.0.1:{port}",
+         "--device", "cpu"],
+        cwd=ROOT, env=_env(MINIO_COMPRESS="on",
+                           MINIO_COMPRESS_ALGORITHM=algo),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        c = S3TestClient("127.0.0.1", port)
+        _wait_for(c, proc)
+        assert c.request("PUT", "/clizip")[0] == 200
+        data = b"".join(b"%d,%d,row\n" % (i, i * 7) for i in range(200_000))
+        assert c.request("PUT", "/clizip/t.csv", body=data)[0] == 200
+        assert c.request("GET", "/clizip/t.csv")[2] == data
+        st, _, got = c.request("GET", "/clizip/t.csv",
+                               headers={"range": "bytes=100000-100999"})
+        assert st == 206 and got == data[100000:101000]
+        listing = c.request("GET", "/clizip", query={"list-type": "2"})[2]
+        stored = int(listing.split(b"<Size>")[1].split(b"<")[0])
+        assert stored < len(data) // 2
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+
+
 @pytest.mark.parametrize("args,env,needle", [
     (["--node", "127.0.0.1:9000=/d{1...4}"], {}, "--node"),
     (["--pool", "/p{1...4}"], {}, "--pool"),
-    ([], {"MINIO_COMPRESS": "on"}, "MINIO_COMPRESS"),
 ])
 def test_cli_refuses_what_it_does_not_serve(tmp_path, args, env, needle):
     proc = subprocess.run(
@@ -154,6 +190,19 @@ def test_start_single_on_the_host(tmp_path, monkeypatch):
         data = np.random.default_rng(4).bytes(2_500_000)
         assert c.request("PUT", "/single/o", body=data)[0] == 200
         assert c.request("GET", "/single/o")[2] == data
+        # the background plane: the monitor over the sets, the tracker
+        # marked by the handlers, the scanner and the crawler on this node
+        assert node.disk_monitor.sets is node.sets
+        assert node.s3.api.update_tracker is node.update_tracker
+        assert node.update_tracker.changed_since(1, "single", "o")
+        assert node.s3.api.usage is node.crawler
+        assert node.heal_scanner.scan_once() == 1
+        assert node.crawler.scan_once()["buckets"]["single"] == \
+            {"objects": 1, "size": len(data)}
+        monitor = node.disk_monitor
     finally:
         node.shutdown()
     assert node.s3 is None and node.scheduler is None
+    assert node.disk_monitor is None and monitor._stop.is_set()
+    assert os.path.exists(os.path.join(str(tmp_path), "e1", ".minio.sys",
+                                       "tracker", "update-tracker.bin"))

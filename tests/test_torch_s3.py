@@ -22,8 +22,11 @@ Three parts, all on the host (device="cpu") over 8 drives at 6+2 with
     server, every case but the one that needs the notification plane;
   * the port's own: the admission gate's scheduler-occupancy and
     client-budget sheds (503 SlowDown before any body byte), a bucket
-    quota written by the reference honoured by the port, and encrypted
-    GETs deciphered by the batch former's threads, never a handler's.
+    quota written by the reference honoured by the port, encrypted GETs
+    deciphered by the batch former's threads, never a handler's, and an
+    object the reference stored compressed read and Selected as the
+    reference reads it (tests/test_torch_compress.py holds compression
+    itself).
 
 Every test here is bounded by an alarm (``_deadline``), so a hung socket
 fails one test instead of the run.
@@ -577,28 +580,39 @@ def test_unported_verbs_answer_not_implemented(client, bucket):
             (method, path, query)
 
 
-def test_select_of_a_compressed_object_answers_not_implemented(
+def test_compressed_object_of_the_reference_reads_as_reference(
         tmp_path, monkeypatch):
-    """An object the reference stored compressed: the port's GET and
-    Select both answer NotImplemented (the Select through the plaintext
-    stack's _refuse_compressed), never bytes of the compressed stream."""
+    """An object the reference stored compressed (MINIO_COMPRESS on for
+    its server only): the port's server, with compression off, answers
+    its HEAD, whole and ranged GETs and a Select with the reference's own
+    statuses and bytes, the Select from the port's scan plane."""
     monkeypatch.setenv("MINIO_COMPRESS", "on")
     ref, ref_sets = _ref_server(tmp_path)
     monkeypatch.delenv("MINIO_COMPRESS")
     port, port_sets = _port_server(tmp_path)
     try:
+        assert not port.api.compression_enabled
         c = S3TestClient("127.0.0.1", ref.port)
-        data = scan_cases.csv_corpus(random.Random(5), 200)
+        data = scan_cases.csv_corpus(random.Random(5), 2000)
         assert c.request("PUT", "/cmp")[0] == 200
         assert c.request("PUT", "/cmp/t.csv", body=data,
                          headers={"content-type": "text/csv"})[0] == 200
+        assert ref_crypto.stored_compression(
+            ref_sets.get_object_info("cmp", "t.csv").user_defined)
         p = S3TestClient("127.0.0.1", port.port)
-        assert p.request("GET", "/cmp/t.csv")[0] == 501
-        st, _, body = p.request(
-            "POST", "/cmp/t.csv", query={"select": "", "select-type": "2"},
-            body=scan_cases.select_xml("SELECT * FROM S3Object WHERE a > 1"))
-        assert st == 501 and b"<Code>NotImplemented</Code>" in body
-        assert port.api.scan.stats()["device_serves"] == 0
+        sel = scan_cases.select_xml("SELECT * FROM S3Object WHERE a > 1")
+        for method, query, hdrs, body in (
+                ("HEAD", None, None, b""), ("GET", None, None, b""),
+                ("GET", None, {"range": "bytes=1000-5000"}, b""),
+                ("GET", None, {"range": "bytes=-99"}, b""),
+                ("POST", {"select": "", "select-type": "2"}, None, sel)):
+            want = _norm(c.request(method, "/cmp/t.csv", query=query,
+                                   headers=hdrs, body=body))
+            got = _norm(p.request(method, "/cmp/t.csv", query=query,
+                                  headers=hdrs, body=body))
+            assert got == want, (method, hdrs)
+            assert got[0] in (200, 206)
+        assert port.api.scan.stats()["device_serves"] == 1
     finally:
         ref.stop()
         port.stop()
@@ -606,10 +620,21 @@ def test_select_of_a_compressed_object_answers_not_implemented(
         port_sets.close()
 
 
-def test_compression_is_refused(monkeypatch):
+def test_handlers_read_the_compression_settings(monkeypatch):
+    """MINIO_COMPRESS and MINIO_COMPRESS_ALGORITHM reach the handlers as
+    the reference's read them: off and s2 by default."""
+    srv = S3Server(None, creds=CREDS)
+    assert not srv.api.compression_enabled
+    assert srv.api.compression_algorithm == "s2"
     monkeypatch.setenv("MINIO_COMPRESS", "on")
-    with pytest.raises(ValueError, match="MINIO_COMPRESS"):
-        S3Server(None, creds=CREDS)
+    monkeypatch.setenv("MINIO_COMPRESS_ALGORITHM", "ZSTD")
+    srv = S3Server(None, creds=CREDS)
+    ref = RefServer(None, creds=CREDS)
+    for api in (srv.api, ref.api):
+        assert api.compression_enabled
+        assert api.compression_algorithm == "zstd"
+    assert srv.api._compress_algo() == port_crypto.COMPRESS_ZSTD == \
+        ref.api._compress_algo()
 
 
 def test_put_reads_the_body_through_readinto(tmp_path, monkeypatch):

@@ -385,8 +385,14 @@ def test_setup_put_transforms_routes_as_reference(monkeypatch):
         (r, _, spec), _ = setup(size, **args)
         assert spec is None and isinstance(r, sse.PutObjReader)
     assert not sse.device_sse_allowed(-1)
-    with pytest.raises(S3Error):
-        setup(mib, compress=True)
+    # compression joins the chain: a compressing reader of unknown stored
+    # size, whose compressed stream the fused cipher takes
+    (r, size, spec), md = setup(mib, compress=True,
+                                cipher=sse.CIPHER_CHACHA, device_sse=True)
+    assert isinstance(r, sse.PutObjReader) and size == -1
+    assert isinstance(spec, sse.DeviceSSE)
+    assert md[sse.MK_COMPRESS] == sse.COMPRESS_S2 and \
+        md[sse.MK_ACTUAL] == str(mib)
     with pytest.raises(S3Error):
         setup(mib, kms=None)
     monkeypatch.setenv("MINIO_TPU_SSE_CIPHER", "chacha20")
