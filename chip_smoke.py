@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-About 11 to 13 minutes on one H100, the kernels' builds included. Phases, each
+About 14 to 16 minutes on one H100, the kernels' builds included. Phases, each
 printing one JSON line; any failure exits non-zero:
 
   1. build    — compile every hand-written kernel (csrc/*.cu, one nvcc per
@@ -119,8 +119,8 @@ printing one JSON line; any failure exits non-zero:
                 for the idle share and the kernels' device ms per encode
                 dispatch.
   9. SSE      — BASELINE.json config 2 under SSE-S3 with ChaCha20-Poly1305
-                (see run_sse): 32 threads each PUT one 16 MiB object at
-                once through setup_put_transforms and the DeviceSSE spec,
+                (see run_sse): 16 threads (config 2's 32, halved for
+                the run's time) each PUT one 16 MiB object at once through setup_put_transforms and the DeviceSSE spec,
                 the former and the pipelined loop; every object read back
                 through resolve_get_key and chacha_decrypt_ranged (bytes,
                 MD5 ETag), three ranged reads across a 64-package batch,
@@ -131,7 +131,8 @@ printing one JSON line; any failure exits non-zero:
                 object; chacha20 launches equal the encrypted encode
                 dispatches and the GET decipher batches, per path. Prints
                 the GiB/s, the host Poly1305 seconds for the phase's
-                packages (timed on one core) and the idle share.
+                packages (timed on one core) and the idle share of 8 of
+                the 16 PUTs run again under the profiler.
   10. s3      — the port's server on the card over HTTP (see run_s3):
                 cluster.start_single over 16 fresh drives at 12+4 with 1 MiB
                 blocks on the edge transport; 32 concurrent signed PUTs of
@@ -176,8 +177,23 @@ printing one JSON line; any failure exits non-zero:
                 one drive emptied while it runs, the disk monitor's timed
                 scan_once formats it for its slot and sweep-heals the set
                 on the card, file for file; two heal-scanner passes (full,
-                then hinted by the update tracker); one crawler pass and a
-                quota refused from its usage cache.
+                then hinted by the update tracker) and one crawler pass,
+                each reading every bucket it walks from the metacache's
+                feed (no merge walk); a quota refused from the crawler's
+                usage cache.
+  14. namespace — the namespace plane (see run_namespace): a fresh server
+                over 8 drives at 6+2 (on tmpfs where it has room, as
+                bench.py --ab-list's pool) with the read cache on; 10,000
+                keys in its shape, seeded by worker processes, listed over
+                HTTP from the persisted bucket index (two 5,000-key
+                segments), page for page the merge walk's;
+                the index persisted, 2 drives' copy removed, reloaded by a
+                new boot and restored by the scanner's segment sweep; a
+                lifecycle rule expiring 500 of 1,000 objects in one crawler
+                pass; 64 MiB objects read degraded twice (decode, gf_matmul)
+                and then from the cache (no decode), an SSE-S3 object's
+                cache hit deciphered by chacha20, and a cached Select of
+                phase 11's lineitem (scan_eval).
   4. timings  — (continued) chacha20 at the encode launch (8 rows, 1 MiB
                 span in 1,048,584-byte rows) and at GET's 64 x 65,536:
                 CUDA events around back-to-back wrapper calls, the kernel's
@@ -200,7 +216,7 @@ printing one JSON line; any failure exits non-zero:
                 floor of the row-major layout and its plain version on the
                 card.
 
-Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 4. Each
+Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 4. Each
 path's launch counters are set to 0 just before it runs and read just
 after. Then it prints the kernel table as one JSON line (with each kernel's launches on every path),
 the card's name and power limit, and the device line last. It needs one
@@ -256,7 +272,9 @@ MAIN_OBJECT = 64 << 20              # eight of these, one 12,345 B longer
 CONCURRENT = (32, 16 << 20)         # streams, bytes each (config 2)
 MRF_OBJECTS = (4, 64 << 20)
 CONFIG5 = (8, 4, 64 << 20)          # objects, parts each, bytes per part
-SSE_OBJECTS = (32, 16 << 20)        # streams, bytes each (config 2, SSE)
+SSE_OBJECTS = (16, 16 << 20)        # streams, bytes each (config 2, SSE;
+                                    # half its 32, for the run's time)
+SSE_PROFILED_STREAMS = 8            # of them PUT again under the profiler
 # phase 10, the server over HTTP
 S3_PUTS = (32, 16 << 20)            # streams, bytes each (config 2)
 S3_DEGRADED = (8, 4 << 20)          # objects, bytes each (config 3, cut)
@@ -277,6 +295,14 @@ COMPRESS_BIG = (4, 64 << 20)        # objects, bytes each
 COMPRESS_SSE = (4, 64 << 20)        # compress + SSE-S3 objects, bytes each
 COMPRESS_SELECT_ROWS = 8_000        # ~1 MiB, 4 pages
 # phase 13, the background plane on the same server
+NS_KEYS = 10_000                    # bench.py --ab-list's
+NS_VERSIONS_EVERY = 20              # an extra version every 20th key
+NS_PAGE = 1000                      # keys a listing page
+NS_LIFECYCLE = (1000, 500)          # objects, of them under exp/
+NS_CACHE = (4, 64 << 20)            # plain objects, bytes each
+NS_SSE = 64 << 20                   # the SSE-S3 object
+NS_WORKERS = 8                      # processes seeding and walking
+NS_SHM_MIN_BYTES = 4 << 30          # tmpfs room the phase's drives need
 AUTOHEAL_DRIVE = 7                  # the drive emptied (not drive 0, which
 #                                     holds the update tracker's file)
 
@@ -294,8 +320,14 @@ def card_line() -> str:
     return out[0].strip()
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+    if "phase" in obj:
+        print(f"[{time.perf_counter() - T_START:.1f} s] phase "
+              f"{obj['phase']} emitted", file=sys.stderr, flush=True)
 
 
 def main() -> int:
@@ -541,7 +573,8 @@ def main() -> int:
         # -- 10. the server over HTTP: its own boot, former and drives ----
         s3p = run_s3(tmp, card, counts, stagetimer, np)
         # -- 11. S3 Select over HTTP: its own boot, former and drives -----
-        selp, lineitem = run_select(tmp, card, counts, stagetimer, np)
+        selp, lineitem, q6_oracle = run_select(tmp, card, counts,
+                                               stagetimer, np)
         # -- 12. compression over HTTP; 13. the background plane on the
         # same server ------------------------------------------------------
         compp, node, cstate = run_compress(tmp, card, counts, stagetimer,
@@ -550,6 +583,9 @@ def main() -> int:
             autop = run_autoheal(node, cstate, card, counts)
         finally:
             node.shutdown()
+        shutil.rmtree(os.path.join(tmp, "compress"), ignore_errors=True)
+        # -- 14. the namespace plane: its own boot, former and drives -----
+        nsp = run_namespace(tmp, card, counts, np, lineitem, q6_oracle)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths_launches = {"main_path": main_path["launches"],
@@ -559,7 +595,8 @@ def main() -> int:
                       "sse": ssep["launches"], "s3": s3p["launches"],
                       "select": selp["launches"],
                       "compress": compp["launches"],
-                      "autoheal": autop["launches"]}
+                      "autoheal": autop["launches"],
+                      "namespace": nsp["launches"]}
 
     # -- 4. timings -------------------------------------------------------
     b, s = 32, -(-(1 << 20) // k)
@@ -1771,7 +1808,7 @@ def run_config5(tmp, card, counts, stagetimer, np) -> dict:
 
 
 def run_sse(tmp, card, counts, stagetimer, np) -> dict:
-    """BASELINE.json config 2 under SSE-S3 with ChaCha20-Poly1305: 32
+    """BASELINE.json config 2 under SSE-S3 with ChaCha20-Poly1305: 16
     threads each PUT one 16 MiB object at once into a fresh 16-drive 12+4
     set with 1 MiB blocks (highwayhash256S, the batch former and the
     pipelined loop), wired as the S3 handlers wire it
@@ -1787,9 +1824,12 @@ def run_sse(tmp, card, counts, stagetimer, np) -> dict:
     under open_detached, a fetch with one flipped ciphertext byte that
     must fail authentication before any plaintext, submit_decode(sse=)
     over survivors of an encrypted object's blocks, and one SSE-C object.
-    The PUTs then run again under torch.profiler for the idle share.
+    The first SSE_PROFILED_STREAMS PUTs then run again at one barrier
+    under torch.profiler for the idle share (half of the streams: the
+    round is all host Poly1305, and the run's time budget).
 
-    Cut: 512 MiB in 32 objects, as phase 5. Fails unless the former
+    Cut: 256 MiB in 16 objects, half of phase 5's 32 (the run's time:
+    the phase is host Poly1305 at ~4 ms a 64 KiB package). Fails unless the former
     coalesced, declined nothing and routed nothing to the host, and
     chacha20 launched once per encrypted encode dispatch and once per GET
     decipher batch, counted per path."""
@@ -1843,8 +1883,11 @@ def run_sse(tmp, card, counts, stagetimer, np) -> dict:
         return eng.put_object("smoke9", prefix + name, reader, stored,
                               eng_mod.PutOptions(metadata=md, sse_spec=spec))
 
-    def put_all(prefix="") -> float:
-        start = threading.Barrier(streams + 1, timeout=600)
+    def put_all(prefix="", n=None) -> float:
+        """The first n objects (all of them by default) PUT at one
+        barrier; wall seconds from it to the last return."""
+        batch = dict(list(objects.items())[:n])
+        start = threading.Barrier(len(batch) + 1, timeout=600)
         errors = []
 
         def run(name, data):
@@ -1857,7 +1900,7 @@ def run_sse(tmp, card, counts, stagetimer, np) -> dict:
                 errors.append(f"{name}: {e!r}")
 
         threads = [threading.Thread(target=run, args=kv)
-                   for kv in objects.items()]
+                   for kv in batch.items()]
         for t in threads:
             t.start()
         start.wait()
@@ -2066,7 +2109,11 @@ def run_sse(tmp, card, counts, stagetimer, np) -> dict:
     put_pkgs = streams * size // pkg
     get_pkgs = put_pkgs + len(deg_names) * size // pkg
 
-    profiled = device_busy(torch, lambda: put_all("again/"), counts)
+    # the profiled round at half of the streams (the run's time budget;
+    # the idle share is that round's)
+    profiled = device_busy(
+        torch, lambda: put_all("again/", SSE_PROFILED_STREAMS), counts)
+    profiled["streams"] = SSE_PROFILED_STREAMS
     sched.close()
     gib = streams * size / (1 << 30)
     totals = {n: sum(v[n] for v in launched.values())
@@ -2573,7 +2620,8 @@ def select_oracle(expr: str, data: bytes, compression: str = "NONE"
     return body, time.perf_counter() - t0
 
 
-def run_select(tmp, card, counts, stagetimer, np) -> tuple[dict, bytes]:
+def run_select(tmp, card, counts, stagetimer, np
+               ) -> tuple[dict, bytes, bytes]:
     """S3 Select on the card over HTTP: the port's server (booted as in
     phase 10: cluster.start_single over 16 fresh drives at 12+4, 1 MiB
     blocks, the edge transport) holding TPC-H lineitem as CSV
@@ -2593,7 +2641,8 @@ def run_select(tmp, card, counts, stagetimer, np) -> tuple[dict, bytes]:
     equal the former's scan dispatches, and the engine's device serves
     rise by the device-served count. Prints the Select walls, rows/s and
     CSV MiB/s, the stage seconds (GET, rows, pages, dispatch, emit) and a
-    profiled COUNT round."""
+    profiled COUNT round. Returns (the phase's line, the lineitem CSV, the
+    evaluator's framed stream of Q6's COUNT over it)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -2640,6 +2689,7 @@ def run_select(tmp, card, counts, stagetimer, np) -> tuple[dict, bytes]:
                                 stagetimer, torch, scan_cuda)
         finally:
             node.shutdown()
+        q6_oracle = oracles["q6_count"].result()[0]
     out.update({"lineitem_rows": SELECT_ROWS, "lineitem_bytes": len(big),
                 "device_cap_bytes": scan_engine.MAX_SCAN_BYTES,
                 "generate_s": round(gen_s, 3),
@@ -2647,7 +2697,7 @@ def run_select(tmp, card, counts, stagetimer, np) -> tuple[dict, bytes]:
                 "card": card})
     emit(out)
     shutil.rmtree(root, ignore_errors=True)
-    return out, big
+    return out, big, q6_oracle
 
 
 def run_select_on(node, c, big, small, sse_data, queries, oracles, counts,
@@ -3212,13 +3262,24 @@ def run_autoheal(node, state, card, counts) -> dict:
         fail("autoheal scanner: its loop ran a pass before the phase (it "
              "waits 300 s after boot)")
     c = S3Client(node.s3.port, node.creds)
+    mgr = node.metacache
+    if mgr is None or not mgr.drain(60):
+        fail("autoheal: the boot attached no metacache, or its journal "
+             "did not drain")
     counts.zero()
+    w0 = walk_counts()
     t0 = time.perf_counter()
     full = scanner.scan_once()
     full_s = time.perf_counter() - t0
-    if full != out["objects"] or scanner.healed:
+    full_walks = walk_counts(w0)
+    # the index is the scanner's feed: every bucket read from it (the
+    # first read of each builds it: the one walk, the metacache's own)
+    if full != out["objects"] or scanner.healed or \
+            full_walks.get("heal/index") != len(buckets) or \
+            full_walks.get("heal/merge"):
         fail(f"autoheal scanner: full pass checked {full}, healed "
-             f"{scanner.healed}")
+             f"{scanner.healed}, walks {full_walks}")
+    full_segments = len(mgr.segment_objects())
     damaged = ("big", "big-1.csv")
     other = (victim + 5) % len(node.spec.drives)
     shutil.rmtree(os.path.join(node.spec.drives[other], *damaged))
@@ -3226,32 +3287,51 @@ def run_autoheal(node, state, card, counts) -> dict:
     new = state["objects"]["sel"]["part.csv"][:100_000]
     if c.send("PUT", "/sel/new.csv", body=new)[0] != 200:
         fail("autoheal scanner: the PUT of a new object failed")
+    # the PUT's delta is inside the index's 2 s staleness bound: settle
+    if not mgr.drain(60):
+        fail("autoheal scanner: the metacache journal did not drain")
     skipped0 = scanner.skipped_buckets
+    w0 = walk_counts()
     pre = counts.read()
     t0 = time.perf_counter()
     hinted = scanner.scan_once()
     hinted_s = time.perf_counter() - t0
     post = counts.read()
     skipped = scanner.skipped_buckets - skipped0
-    if hinted != 2 or scanner.healed != 1 or skipped != len(buckets) - 2:
+    hinted_walks = walk_counts(w0)
+    if hinted != 2 or scanner.healed != 1 or skipped != len(buckets) - 2 \
+            or hinted_walks.get("heal/merge") or \
+            hinted_walks.get("heal/index") != 2:
         fail(f"autoheal scanner: hinted pass checked {hinted}, healed "
-             f"{scanner.healed}, skipped {skipped} buckets")
+             f"{scanner.healed}, skipped {skipped} buckets, walks "
+             f"{hinted_walks}")
     if not os.path.isdir(os.path.join(node.spec.drives[other], *damaged)):
         fail("autoheal scanner: the marked object was not healed")
     out["scanner"] = {"full_checked": full, "full_s": round(full_s, 3),
                       "hinted_checked": hinted,
                       "hinted_s": round(hinted_s, 3),
                       "healed_drives": scanner.healed,
-                      "skipped_buckets": skipped, "walks": scanner.walks,
+                      "skipped_buckets": skipped,
+                      "full_walks": full_walks,
+                      "hinted_walks": hinted_walks,
+                      "segment_objects_after_full": full_segments,
+                      "segment_objects_after_hinted":
+                          len(mgr.segment_objects()),
                       "full_launches": pre,
                       "hinted_launches": {n: post[n] - pre[n]
                                           for n in post}}
 
     # -- the crawler, and quota from its cache ----------------------------
     state["objects"]["sel"]["new.csv"] = new
+    # the crawler's own loop may have run a pass during phase 12
+    w0 = walk_counts()
     t0 = time.perf_counter()
     usage = node.crawler.scan_once()
     crawl_s = time.perf_counter() - t0
+    crawl_walks = walk_counts(w0)
+    if crawl_walks.get("crawler/merge") or \
+            crawl_walks.get("crawler/index") != len(buckets):
+        fail(f"autoheal crawler: walks {crawl_walks}")
     for b, names in state["objects"].items():
         want = {"objects": len(names),
                 "size": sum(layer.get_object_info(b, n).size
@@ -3265,15 +3345,660 @@ def run_autoheal(node, state, card, counts) -> dict:
     quota = [c.send("PUT", "/sel/q-0.dat", body=b"q" * 2000)[0],
              c.send("PUT", "/sel/q-1.dat", body=b"q" * 600)[0],
              c.send("PUT", "/sel/q-2.dat", body=b"q" * 600)[0]]
+    if not mgr.drain(60):
+        fail("autoheal quota: the metacache journal did not drain")
     node.crawler.scan_once()
     quota.append(c.send("PUT", "/sel/q-3.dat", body=b"q" * 600)[0])
     if quota != [409, 200, 200, 409]:
         fail(f"autoheal quota: statuses {quota}")
-    out["crawler"] = {"wall_s": round(crawl_s, 3), "walks": node.crawler.walks,
+    out["crawler"] = {"wall_s": round(crawl_s, 3),
+                      "walks": crawl_walks,
                       "objects_total": usage["objects_total"],
                       "size_total": usage["size_total"],
                       "quota_statuses": quota}
     out.update({"seconds": round(time.perf_counter() - t_phase, 3),
+                "card": card})
+    emit(out)
+    return out
+
+
+def pct_ms(xs: list) -> dict:
+    """p50 and p99 of a list of seconds, in ms (nearest rank)."""
+    xs = sorted(xs)
+    if not xs:
+        return {"p50_ms": None, "p99_ms": None}
+    return {"p50_ms": round(xs[len(xs) // 2] * 1e3, 3),
+            "p99_ms": round(xs[max(0, -(-len(xs) * 99 // 100) - 1)] * 1e3,
+                            3)}
+
+
+def list_v2_pages(c, bucket: str, page: int) -> tuple[list, list]:
+    """ListObjectsV2 over HTTP, paged by continuation token: (key lists
+    per page, seconds per page)."""
+    import xml.etree.ElementTree as ET
+    pages, lat, token = [], [], None
+    while True:
+        q = {"list-type": "2", "max-keys": str(page)}
+        if token:
+            q["continuation-token"] = token
+        t0 = time.perf_counter()
+        st, _h, body = c.send("GET", f"/{bucket}", query=q)
+        lat.append(time.perf_counter() - t0)
+        if st != 200:
+            fail(f"namespace ListObjectsV2 {bucket}: HTTP {st}")
+        root = ET.fromstring(body)
+        ns = root.tag[:root.tag.index("}") + 1] if "}" in root.tag else ""
+        pages.append([e.findtext(f"{ns}Key")
+                      for e in root.findall(f"{ns}Contents")])
+        if root.findtext(f"{ns}IsTruncated") != "true":
+            return pages, lat
+        token = root.findtext(f"{ns}NextContinuationToken")
+
+
+def list_versions_pages(c, bucket: str,
+                        page: int) -> tuple[list, list, list]:
+    """ListObjectVersions over HTTP, paged by key and version-id markers:
+    ((key, version id) lists per page, seconds per page, the (key,
+    version id) markers each page was asked with)."""
+    import xml.etree.ElementTree as ET
+    pages, lat, marks, km, vm = [], [], [], "", ""
+    while True:
+        marks.append((km, vm))
+        q = {"versions": "", "max-keys": str(page)}
+        if km:
+            q.update({"key-marker": km, "version-id-marker": vm})
+        t0 = time.perf_counter()
+        st, _h, body = c.send("GET", f"/{bucket}", query=q)
+        lat.append(time.perf_counter() - t0)
+        if st != 200:
+            fail(f"namespace ListObjectVersions {bucket}: HTTP {st}")
+        root = ET.fromstring(body)
+        ns = root.tag[:root.tag.index("}") + 1] if "}" in root.tag else ""
+        pages.append([(e.findtext(f"{ns}Key"), e.findtext(f"{ns}VersionId"))
+                      for e in root
+                      if e.tag in (f"{ns}Version", f"{ns}DeleteMarker")])
+        if root.findtext(f"{ns}IsTruncated") != "true":
+            return pages, lat, marks
+        km = root.findtext(f"{ns}NextKeyMarker")
+        vm = root.findtext(f"{ns}NextVersionIdMarker")
+
+
+def walk_first_pages(layer, bucket: str, page: int,
+                     n: int) -> tuple[list, list]:
+    """The first n ListObjects pages of the merge walk, paged one by one
+    by the node's own layer with its index detached: (key lists, seconds
+    per page)."""
+    mc, layer.metacache = layer.metacache, None
+    try:
+        pages, lat, marker = [], [], ""
+        for _ in range(n):
+            t0 = time.perf_counter()
+            o, _p, trunc = layer.list_objects(bucket, "", marker, "", page)
+            lat.append(time.perf_counter() - t0)
+            pages.append([x.name for x in o])
+            if not trunc:
+                break
+            marker = o[-1].name
+    finally:
+        layer.metacache = mc
+    return pages, lat
+
+
+def ns_key(i: int) -> str:
+    """bench_list_ab's key shape: dirN/ prefixes on three keys of four."""
+    return f"dir{i % 4}/obj-{i:07d}" if i % 4 else f"obj-{i:07d}"
+
+
+# the namespace phase's worker processes: each imports the port at start
+# and opens its own object layer over the phase's drives at its first
+# task (after the node has formatted them)
+_NS: dict = {}
+
+
+def _ns_init(drives: list, parity: int, block_size: int) -> None:
+    from minio_tpu_torch.object import server_sets, sets  # noqa: F401
+    _NS.update(drives=drives, parity=parity, block_size=block_size)
+
+
+def _ns_layer():
+    """The worker's ErasureServerSets over the drives, with no metacache
+    (a walk is the merge walk); its engines code on the host, as the
+    node's do for the seed's 16-byte objects (under the codec's gate)."""
+    if "layer" not in _NS:
+        from minio_tpu_torch.object.server_sets import ErasureServerSets
+        from minio_tpu_torch.object.sets import ErasureSets
+        drives = _NS["drives"]
+        _NS["layer"] = ErasureServerSets([ErasureSets.from_drives(
+            drives, 1, len(drives), _NS["parity"],
+            block_size=_NS["block_size"], enable_mrf=False,
+            device="cpu")], load_topology=False)
+    return _NS["layer"]
+
+
+def _ns_seed(args) -> int:
+    """PUT keys lo..hi-1 into bucket list (an extra version every
+    `every`th); returns the keys written."""
+    from minio_tpu_torch.object.engine import PutOptions
+    lo, hi, every, payload = args
+    layer = _ns_layer()
+    for i in range(lo, hi):
+        layer.put_object("list", ns_key(i), payload)
+        if every and i % every == 0:
+            layer.put_object("list", ns_key(i), payload,
+                             opts=PutOptions(versioned=True))
+    return hi - lo
+
+
+def _ns_put(args) -> None:
+    """PUT one payload under each of the names into the bucket."""
+    bucket, names, payload = args
+    layer = _ns_layer()
+    for name in names:
+        layer.put_object(bucket, name, payload)
+
+
+def _ns_walk(args) -> tuple:
+    """One merge-walk page of bucket list from the given markers:
+    (entries, seconds, truncated, the walk's own next markers)."""
+    kind, km, vm, page = args
+    layer = _ns_layer()
+    t0 = time.perf_counter()
+    if kind == "objects":
+        o, _p, trunc = layer.list_objects("list", "", km, "", page)
+        return ([x.name for x in o], time.perf_counter() - t0, trunc,
+                (o[-1].name if o else "", ""))
+    v, _p, nkm, nvm, trunc = layer.list_object_versions(
+        "list", "", km, page, vm)
+    return ([(x.name, x.version_id or "null") for x in v],
+            time.perf_counter() - t0, trunc, (nkm, nvm))
+
+
+WALK_PAIRS = [(con, src)
+              for con in ("heal", "crawler", "lifecycle", "metacache")
+              for src in ("merge", "index")]
+
+
+def walk_counts(before: dict | None = None) -> dict:
+    """minio_tpu_namespace_walks_total for each (consumer, source) pair
+    the phases check, as "consumer/source"; with `before`, the pairs that
+    moved since then and by how much."""
+    from minio_tpu_torch.object.metacache import walks_counter
+    c = walks_counter()
+    now = {f"{con}/{src}": c.value(consumer=con, source=src)
+           for con, src in WALK_PAIRS}
+    if before is None:
+        return now
+    return {k: v - before[k] for k, v in now.items() if v != before[k]}
+
+
+def run_namespace(tmp, card, counts, np, lineitem: bytes,
+                  q6_oracle: bytes) -> dict:
+    """The namespace plane on the card: a fresh cluster.start_single over
+    8 drives at EC 6+2 with 1 MiB blocks (the layout of the reference's
+    bench.py --ab-list, its pool on tmpfs too where /dev/shm has
+    NS_SHM_MIN_BYTES free, else under tmp), MINIO_TPU_CACHE=on,
+    MINIO_TPU_METACACHE_PERSIST_S short for the phase, the default
+    5,000-key index segments; the
+    background loops stopped (each pass is driven here). Listing: NS_KEYS
+    keys as bench_list_ab shapes them (dirN/ prefixes on three keys of
+    four, an extra version every 20th, 16-byte payloads), seeded by
+    NS_WORKERS processes, each through its own port object layer over the
+    node's drives (a PUT costs ~30 ms of host work, so one process would
+    take ~5 min), the index built by the node, ListObjectsV2 and
+    ListObjectVersions paged over HTTP at NS_PAGE keys three times, every
+    page name-identical to the merge walk's page: each walk page is
+    computed by a worker's layer (no index) from the markers the walk's
+    previous page gives, which are checked too, so the pages are the
+    walk's own paging, computed in parallel; the first three ListObjects
+    pages of the walk are also paged one by one by the node's layer with
+    its index detached, for the walk's page time; no fallback, one
+    crawler pass with no merge walk.
+    Persist and reload: the index persisted (two segments), the node shut
+    down, the .metacache directory of 2 drives removed, a new boot over
+    the same drives (its MRF queue closed, so that only the scanner
+    restores), the index reloaded through degraded reads, the pages equal
+    again, and one scanner pass (no merge walk) restoring the removed
+    segment shards file for file.
+    Lifecycle: NS_LIFECYCLE objects, half under exp/, a rule expiring
+    exp/ at a past Date, one crawler pass deleting exactly those; their
+    GETs answer 404 and the index lists exactly the others. Read cache:
+    four 64 MiB objects and one SSE-S3 64 MiB object PUT over HTTP, 2
+    drives' bucket directory removed; three GETs of each plain object
+    (admission is 2 GETs): two degraded reads with decode dispatches and
+    gf_matmul launches, then a hit with neither; the SSE object GET until
+    a GET is served from the cache (chacha20 deciphers it through the
+    former's decipher verb, no decode dispatch); phase 11's lineitem CSV
+    Selected three times, the third from the cache (scan_eval launches,
+    no decode dispatch, the response equal to the host evaluator's framed
+    stream from phase 11). Bytes and ETags compared on every GET."""
+    import torch
+
+    from minio_tpu_torch import cluster
+    from minio_tpu_torch.object import engine as eng_mod
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.s3.credentials import Credentials
+    from minio_tpu_torch.scripts import scan_cases as sc
+    from minio_tpu_torch.storage.datatypes import hash_order
+    k, m, bs = 6, 2, 1 << 20
+    n_keys, every, page = NS_KEYS, NS_VERSIONS_EVERY, NS_PAGE
+    rng = np.random.default_rng(SEED + 41)
+    env = {"MINIO_TPU_CACHE": "on", "MINIO_TPU_METACACHE": "on",
+           "MINIO_TPU_METACACHE_PERSIST_S": "1",
+           "MINIO_SSE_MASTER_KEY": rng.bytes(32).hex(),
+           "MINIO_TPU_SSE_CIPHER": "chacha20"}
+    saved_env = {n: os.environ.get(n) for n in env}
+    os.environ.update(env)
+    # the drives on tmpfs where it has room, as bench_list_ab puts its pool
+    shm = "/dev/shm"
+    on_shm = os.path.isdir(shm) and \
+        shutil.disk_usage(shm).free >= NS_SHM_MIN_BYTES
+    root = tempfile.mkdtemp(prefix="chip_smoke_ns_",
+                            dir=shm if on_shm else tmp)
+    drives = [os.path.join(root, f"d{i}") for i in range(k + m)]
+    creds = Credentials("smokenamespace", "smokenamespacesecret")
+    t_phase = time.perf_counter()
+    out = {"phase": "namespace", "drives": k + m, "ec": f"{k}+{m}",
+           "block_size": bs,
+           "drives_on": "tmpfs (/dev/shm)" if on_shm else "the disk (tmp)"}
+    counts.zero()
+
+    def note(msg: str) -> None:
+        """Progress on stderr (the phase's line comes at its end)."""
+        print(f"[namespace {time.perf_counter() - t_phase:.1f} s] {msg}",
+              file=sys.stderr, flush=True)
+
+    def boot():
+        t0 = time.perf_counter()
+        node = cluster.start_single(drives, creds=creds, parity=m,
+                                    set_drive_count=k + m, block_size=bs)
+        for loop in (node.disk_monitor, node.heal_scanner, node.crawler):
+            loop.close()
+            if loop._thread is not None:
+                loop._thread.join(timeout=120)
+                if loop._thread.is_alive():
+                    fail("namespace: a background loop did not stop")
+        if node.metacache is None or node.read_cache is None:
+            fail("namespace: the boot attached no metacache or no cache")
+        return node, time.perf_counter() - t0
+
+    def verbs(node):
+        return {v: dict(s)
+                for v, s in node.scheduler.stats()["verbs"].items()}
+
+    def since(a, b, verb):
+        return b[verb]["batches"] - a[verb]["batches"]
+
+    pool = None
+    try:
+        # -- listing --------------------------------------------------------
+        import multiprocessing
+        pool = multiprocessing.get_context("spawn").Pool(
+            NS_WORKERS, initializer=_ns_init, initargs=(drives, m, bs))
+        node, boot_s = boot()
+        try:
+            layer, mgr = node.object_layer, node.metacache
+            c = S3Client(node.s3.port, creds, timeout=300)
+            if c.send("PUT", "/list")[0] != 200:
+                fail("namespace: make bucket list")
+            payload = rng.bytes(16)
+            step = 125
+            t0 = time.perf_counter()
+            seeded = sum(pool.map(
+                _ns_seed, [(lo, min(lo + step, n_keys), every, payload)
+                           for lo in range(0, n_keys, step)], chunksize=1))
+            seed_s = time.perf_counter() - t0
+            if seeded != n_keys:
+                fail(f"namespace: seeded {seeded} keys")
+            note(f"seeded {n_keys} keys in {seed_s:.1f} s")
+            versions = n_keys + len(range(0, n_keys, every))
+            w0 = walk_counts()
+            mgr._persist_s = 1e9        # the persist below is timed
+            t0 = time.perf_counter()
+            if not mgr.build("list"):
+                fail("namespace: the index did not build")
+            build_s = time.perf_counter() - t0
+            build_walks = walk_counts(w0)
+            note(f"built the index in {build_s:.1f} s")
+            if not mgr.drain(60):
+                fail("namespace: the journal did not drain")
+            st0 = mgr.stats()
+            idx_lat, ver_lat = [], []
+            for rnd in range(3):
+                p_, lat = list_v2_pages(c, "list", page)
+                vp_, vlat, vmarks_ = list_versions_pages(c, "list", page)
+                if rnd and (p_ != idx_pages or vp_ != ver_pages):
+                    fail("namespace: the index's pages changed between "
+                         "rounds")
+                idx_pages, ver_pages, vmarks = p_, vp_, vmarks_
+                idx_lat += lat
+                ver_lat += vlat
+            rounds = rnd + 1
+            note("paged the index over HTTP")
+            if sum(map(len, idx_pages)) != n_keys or \
+                    sum(map(len, ver_pages)) != versions:
+                fail(f"namespace: the index lists {sum(map(len, idx_pages))}"
+                     f" keys, {sum(map(len, ver_pages))} versions")
+            # the walk's oracle pages, in parallel: page i from the
+            # markers of the walk's page i - 1 (= the index's, checked)
+            omarks = [""] + [p_[-1] for p_ in idx_pages[:-1]]
+            tasks = [("objects", mk, "", page) for mk in omarks] + \
+                [("versions", km, vm, page) for km, vm in vmarks]
+            t0 = time.perf_counter()
+            walked = pool.map(_ns_walk, tasks, chunksize=1)
+            walk_wall = time.perf_counter() - t0
+            wobj, wver = walked[:len(omarks)], walked[len(omarks):]
+            null = lambda mk: (mk[0], mk[1] or "null")      # noqa: E731
+            for i, (got, _s, trunc, nxt) in enumerate(wobj):
+                if got != idx_pages[i] or trunc != (i + 1 < len(wobj)):
+                    fail(f"namespace: ListObjectsV2 page {i} differs from "
+                         "the walk's")
+            for i, (got, _s, trunc, nxt) in enumerate(wver):
+                last = i + 1 == len(wver)
+                if got != ver_pages[i] or trunc == last or \
+                        (not last and null(nxt) != null(vmarks[i + 1])):
+                    fail(f"namespace: ListObjectVersions page {i} or its "
+                         "markers differ from the walk's")
+            note(f"walked {len(tasks)} pages in {walk_wall:.1f} s")
+            first, w_lat = walk_first_pages(layer, "list", page, 3)
+            if first != idx_pages[:3]:
+                fail("namespace: the walk's first pages differ")
+            note(f"paged the walk's first 3 pages in {sum(w_lat):.1f} s")
+            st1 = mgr.stats()
+            served = st1["serves"] - st0["serves"]
+            fallbacks = st1["fallbacks"] - st0["fallbacks"]
+            if fallbacks or \
+                    served != rounds * (len(idx_pages) + len(ver_pages)):
+                fail(f"namespace: {fallbacks} fallbacks, {served} pages "
+                     "served from the index")
+            t0 = time.perf_counter()
+            mgr._persist("list")
+            persist_s = time.perf_counter() - t0
+            mgr._persist_s = None
+            segs = mgr._indexes["list"].segments
+            per = mgr.segment_keys()
+            if [s["count"] for s in segs] != \
+                    [min(per, n_keys - i) for i in range(0, n_keys, per)]:
+                fail(f"namespace: persisted segments {segs}")
+            crawler = node.crawler
+            w1 = walk_counts()
+            t0 = time.perf_counter()
+            usage = crawler.scan_once()
+            crawl_s = time.perf_counter() - t0
+            crawl_walks = walk_counts(w1)
+            if usage["buckets"]["list"]["objects"] != n_keys or \
+                    crawl_walks.get("crawler/merge") or \
+                    crawl_walks.get("crawler/index") != 1:
+                fail(f"namespace crawler: {usage['buckets']}, walks "
+                     f"{crawl_walks}")
+            out["listing"] = {
+                "keys": n_keys, "versions": versions, "page": page,
+                "boot_s": round(boot_s, 3), "seed_s": round(seed_s, 3),
+                "build_s": round(build_s, 3),
+                "persist_s": round(persist_s, 4),
+                "segments": [s["count"] for s in segs],
+                "index_pages": len(idx_pages),
+                "index_version_pages": len(ver_pages),
+                "index_rounds": rounds,
+                "index_v2": pct_ms(idx_lat),
+                "index_versions": pct_ms(ver_lat),
+                "walk_v2_first_pages_one_by_one": {
+                    "pages": len(w_lat),
+                    "p50_ms": pct_ms(w_lat)["p50_ms"],
+                    "max_ms": round(max(w_lat) * 1e3, 3)},
+                "walk_oracle": {
+                    "workers": NS_WORKERS, "pages": len(tasks),
+                    "wall_s": round(walk_wall, 3),
+                    "v2_page_s": [round(w[1], 3) for w in wobj],
+                    "versions_page_s": [round(w[1], 3) for w in wver]},
+                "served_from_index": served, "fallbacks": fallbacks,
+                "build_walks": build_walks,
+                "crawler": {"wall_s": round(crawl_s, 3),
+                            "walks": crawl_walks}}
+            gone = [2, 5]
+            mc_files = {}
+            for j in gone:
+                d = os.path.join(drives[j], ".minio.sys", "buckets", "list",
+                                 ".metacache")
+                mc_files[j] = {rel: hashlib.sha256(b).hexdigest()
+                               for rel, b in tree_files(d).items()}
+                if not mc_files[j]:
+                    fail(f"namespace: drive {j} holds no index shards")
+        finally:
+            node.shutdown()
+
+        # -- persist and reload ---------------------------------------------
+        for j in gone:
+            shutil.rmtree(os.path.join(drives[j], ".minio.sys", "buckets",
+                                       "list", ".metacache"))
+        node, boot2_s = boot()
+        try:
+            layer, mgr = node.object_layer, node.metacache
+            # no MRF heal of the index objects the degraded reads below
+            # report: only the scanner's segment sweep restores them
+            node.sets.mrf.close()
+            c = S3Client(node.s3.port, creds, timeout=300)
+            t0 = time.perf_counter()
+            if not mgr.build("list"):
+                fail("namespace: the persisted index did not reload")
+            reload_s = time.perf_counter() - t0
+            note(f"rebooted in {boot2_s:.1f} s, reloaded in {reload_s:.1f} s")
+            st0 = mgr.stats()
+            if st0["builds"] != 1 or st0["reconciles"] != 1:
+                fail(f"namespace reload: {st0}")
+            again, again_lat = list_v2_pages(c, "list", page)
+            vagain, _l, _m = list_versions_pages(c, "list", page)
+            if again != idx_pages or vagain != ver_pages:
+                fail("namespace: pages after the reload differ")
+            if mgr.stats()["fallbacks"] != st0["fallbacks"]:
+                fail("namespace: a page after the reload fell back")
+            scanner = node.heal_scanner
+            w1 = walk_counts()
+            counts_pre = counts.read()
+            t0 = time.perf_counter()
+            checked = scanner.scan_once()
+            scan_s = time.perf_counter() - t0
+            scan_walks = walk_counts(w1)
+            note(f"scanner pass in {scan_s:.1f} s")
+            if checked != n_keys or scan_walks.get("heal/merge"):
+                fail(f"namespace scanner: checked {checked}, walks "
+                     f"{scan_walks}")
+            for j in gone:
+                d = os.path.join(drives[j], ".minio.sys", "buckets", "list",
+                                 ".metacache")
+                now = {rel: hashlib.sha256(b).hexdigest()
+                       for rel, b in tree_files(d).items()}
+                if now != mc_files[j]:
+                    fail(f"namespace: drive {j}'s index shards were not "
+                         f"restored file for file ({len(now)} of "
+                         f"{len(mc_files[j])})")
+            counts_post = counts.read()
+            out["reload"] = {
+                "removed_drives": gone,
+                "files_restored": sum(len(v) for v in mc_files.values()),
+                "boot_s": round(boot2_s, 3), "reload_s": round(reload_s, 3),
+                "index_v2_after": pct_ms(again_lat),
+                "scanner": {"checked": checked, "wall_s": round(scan_s, 3),
+                            "walks": scan_walks,
+                            "segment_objects": len(mgr.segment_objects()),
+                            "launches": {n: counts_post[n] - counts_pre[n]
+                                         for n in counts_post}}}
+
+            # -- lifecycle --------------------------------------------------
+            n_lc, n_exp = NS_LIFECYCLE
+            if c.send("PUT", "/lcy")[0] != 200:
+                fail("namespace: make bucket lcy")
+            lc_names = [f"exp/{i:04d}" if i < n_exp else f"keep/{i:04d}"
+                        for i in range(n_lc)]
+            # PUT by the workers (below the node: its index of lcy is
+            # built by the crawler's first feed read)
+            pool.map(_ns_put, [("lcy", lc_names[i:i + 50], payload)
+                               for i in range(0, n_lc, 50)], chunksize=1)
+            pool.close()
+            pool.join()
+            doc = ("<LifecycleConfiguration><Rule><ID>past</ID>"
+                   "<Status>Enabled</Status><Filter><Prefix>exp/</Prefix>"
+                   "</Filter><Expiration><Date>2020-01-01T00:00:00Z</Date>"
+                   "</Expiration></Rule></LifecycleConfiguration>")
+            if c.send("PUT", "/lcy", query={"lifecycle": ""},
+                      body=doc.encode())[0] != 200:
+                fail("namespace: PUT lifecycle")
+            if not mgr.drain(60):
+                fail("namespace: the journal did not drain")
+            w1 = walk_counts()
+            t0 = time.perf_counter()
+            usage = node.crawler.scan_once()
+            lc_s = time.perf_counter() - t0
+            lc_walks = walk_counts(w1)
+            note(f"lifecycle crawl in {lc_s:.1f} s")
+            if not mgr.drain(60):
+                fail("namespace: the journal did not drain")
+            statuses = [c.send("GET", f"/lcy/{n}")[0]
+                        for n in lc_names[:n_exp]]
+            fb0 = mgr.stats()["fallbacks"]
+            left, _ = list_v2_pages(c, "lcy", page)
+            left = [n for p in left for n in p]
+            if set(statuses) != {404} or left != lc_names[n_exp:] or \
+                    mgr.stats()["fallbacks"] != fb0 or \
+                    lc_walks.get("crawler/merge"):
+                fail(f"namespace lifecycle: statuses {set(statuses)}, "
+                     f"{len(left)} listed, walks {lc_walks}")
+            out["lifecycle"] = {"objects": n_lc, "expired": n_exp,
+                                "crawler_wall_s": round(lc_s, 3),
+                                "crawled": usage["buckets"]["lcy"],
+                                "gets_404": len(statuses),
+                                "listed_after": len(left),
+                                "walks": lc_walks}
+
+            # -- the read cache -------------------------------------------
+            n_obj, size = NS_CACHE
+            if c.send("PUT", "/hot")[0] != 200:
+                fail("namespace: make bucket hot")
+            plain = {f"obj-{i}": rng.bytes(size) for i in range(n_obj)}
+            sse_data = rng.bytes(NS_SSE)
+            sse_hdr = {"x-amz-server-side-encryption": "AES256"}
+            for n, d in plain.items():
+                if c.send("PUT", f"/hot/{n}", body=d)[0] != 200:
+                    fail(f"namespace: PUT hot/{n}")
+            if c.send("PUT", "/hot/sse", body=sse_data,
+                      headers=sse_hdr)[0] != 200:
+                fail("namespace: PUT hot/sse")
+            if c.send("PUT", "/hot/lineitem.csv", body=lineitem)[0] != 200:
+                fail("namespace: PUT hot/lineitem.csv")
+            # two drives that hold a data shard of every object
+            keys = [*plain, "sse", "lineitem.csv"]
+            pair = next(
+                ((a, b) for a in range(1, k + m) for b in range(a + 1, k + m)
+                 if all(min(hash_order(f"hot/{n}", k + m)[a],
+                            hash_order(f"hot/{n}", k + m)[b]) <= k
+                        for n in keys)), None)
+            if pair is None:
+                fail("namespace: no 2 drives hold a data shard of every "
+                     "object")
+            for j in pair:
+                shutil.rmtree(os.path.join(drives[j], "hot"))
+            cache = node.read_cache
+            gets = {}
+            note("cache objects PUT")
+
+            def get(path, headers=None):
+                v0, c0, s0 = verbs(node), counts.read(), \
+                    eng_mod.GET_STREAMS.value()
+                h0 = cache.hits
+                t0 = time.perf_counter()
+                r = c.send("GET", path, headers=headers)
+                wall = time.perf_counter() - t0
+                v1, c1 = verbs(node), counts.read()
+                return r, {"wall_s": round(wall, 4),
+                           "decode_dispatches": since(v0, v1, "decode"),
+                           "decipher_dispatches": since(v0, v1,
+                                                        "decipher"),
+                           "erasure_streams":
+                               eng_mod.GET_STREAMS.value() - s0,
+                           "hit": cache.hits - h0,
+                           "launches": {n: c1[n] - c0[n] for n in c1}}
+
+            for n, d in plain.items():
+                md5 = hashlib.md5(d).hexdigest()
+                gets[n] = []
+                for _round in range(3):
+                    r, rec = get(f"/hot/{n}")
+                    if r[0] != 200 or r[2] != d or \
+                            r[1].get("etag", "").strip('"') != md5:
+                        fail(f"namespace cache GET {n}: HTTP {r[0]}, bytes "
+                             "or ETag differ")
+                    gets[n].append(rec)
+                miss = gets[n][:2]
+                hit = gets[n][2]
+                if any(g["decode_dispatches"] <= 0
+                       or g["launches"]["gf_matmul"] <= 0 for g in miss) \
+                        or hit["hit"] != 1 or hit["decode_dispatches"] \
+                        or hit["launches"]["gf_matmul"] \
+                        or hit["erasure_streams"]:
+                    fail(f"namespace cache {n}: {gets[n]}")
+            sse_gets, served = [], None
+            for _round in range(6):
+                r, rec = get("/hot/sse", sse_hdr)
+                if r[0] != 200 or r[2] != sse_data:
+                    fail(f"namespace cache SSE GET: HTTP {r[0]}")
+                sse_gets.append(rec)
+                if rec["hit"] and not rec["decode_dispatches"]:
+                    served = rec
+                    break
+            if served is None or served["launches"]["chacha20"] <= 0 or \
+                    served["decipher_dispatches"] <= 0 or \
+                    served["erasure_streams"]:
+                fail(f"namespace cache SSE: {sse_gets}")
+            sels = []
+            note("cache GETs done")
+            for _round in range(3):
+                v0, c0, h0 = verbs(node), counts.read(), cache.hits
+                t0 = time.perf_counter()
+                r = c.send("POST", "/hot/lineitem.csv",
+                           query={"select": "", "select-type": "2"},
+                           body=sc.select_xml(sc.Q6_COUNT))
+                wall = time.perf_counter() - t0
+                v1, c1 = verbs(node), counts.read()
+                if r[0] != 200 or r[2] != q6_oracle:
+                    fail(f"namespace cached Select {_round}: HTTP {r[0]}, "
+                         f"{len(r[2])} B against the evaluator's "
+                         f"{len(q6_oracle)} B: the responses differ")
+                sels.append({"wall_s": round(wall, 4),
+                             "decode_dispatches": since(v0, v1, "decode"),
+                             "scan_dispatches": since(v0, v1, "scan"),
+                             "hit": cache.hits - h0,
+                             "launches": {n: c1[n] - c0[n] for n in c1}})
+            if sels[2]["hit"] != 1 or sels[2]["decode_dispatches"] or \
+                    sels[2]["launches"]["scan_eval"] < 1:
+                fail(f"namespace cached Select: {sels}")
+            gib = size / (1 << 30)
+            out["cache"] = {
+                "objects": n_obj, "object_bytes": size,
+                "removed_drives": list(pair),
+                "miss_gib_s": round(gib * n_obj / sum(
+                    g[0]["wall_s"] for g in gets.values()), 4),
+                "fill_gib_s": round(gib * n_obj / sum(
+                    g[1]["wall_s"] for g in gets.values()), 4),
+                "hit_gib_s": round(gib * n_obj / sum(
+                    g[2]["wall_s"] for g in gets.values()), 4),
+                "gets": gets, "sse_object_bytes": NS_SSE,
+                "sse_gets": sse_gets, "select_rows": SELECT_ROWS,
+                "selects": sels, "stats": cache.stats()}
+            out["metacache"] = {k2: v for k2, v in mgr.stats().items()
+                                if k2 != "buckets"}
+        finally:
+            node.shutdown()
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+        for n, v in saved_env.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+        shutil.rmtree(root, ignore_errors=True)
+    out.update({"launches": counts.read(),
+                "seconds": round(time.perf_counter() - t_phase, 3),
                 "card": card})
     emit(out)
     return out

@@ -25,7 +25,7 @@ import argparse
 import os
 import signal
 import sys
-import threading
+import time
 
 from .s3.credentials import Credentials, global_credentials
 
@@ -68,13 +68,18 @@ def _creds() -> Credentials:
 
 
 def _serve_until_signal(cleanup) -> int:
-    """Block until SIGTERM/SIGINT, then run cleanup (Event.wait is
-    signal-safe: no lost-wakeup window)."""
-    stop = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *a: stop.set())
-    signal.signal(signal.SIGINT, lambda *a: stop.set())
+    """Block until SIGTERM/SIGINT, then run cleanup. The handler only
+    appends to a list (no lock a signal could land inside), and the main
+    thread looks at it every 0.2 s: a signal the kernel delivers to
+    another thread (the server runs many) only sets a flag that the main
+    thread reads when it next runs, so an untimed wait might never run
+    the handler."""
+    stop: list = []
+    signal.signal(signal.SIGTERM, lambda *a: stop.append(1))
+    signal.signal(signal.SIGINT, lambda *a: stop.append(1))
     try:
-        stop.wait()
+        while not stop:
+            time.sleep(0.2)
     finally:
         cleanup()
     return 0

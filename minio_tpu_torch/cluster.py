@@ -12,7 +12,13 @@ background plane of a single node (minio_tpu/cluster.py:556-617): the
 disk monitor (a wiped or replaced drive is formatted for its slot and its
 set sweep-healed), the data-update tracker every mutation marks, the
 hinted heal scanner over it, and the data-usage crawler whose cache
-quota reads.
+quota reads. Also as in the reference's single node: the persisted bucket
+metacache, on by default (``MINIO_TPU_METACACHE``), serves the listings
+and feeds both scanners (minio_tpu/cluster.py:521-531); with
+``MINIO_TPU_CACHE=on`` the hot-object read cache sits in front of the
+layer for the S3 surface, while the background planes keep the raw layer
+(:541-555); the crawler enforces lifecycle expiry, noncurrent expiry and
+stale multipart aborts (:598-617, without the tier actions).
 
 ``device`` picks where the sets' fused steps and the Select scans run:
 None means the card, and a host without one raises rather than serving
@@ -20,10 +26,10 @@ from the CPU; ``device="cpu"`` runs the plain PyTorch versions on the
 host.
 
 Left out: distributed nodes (internode storage, lock, peer and bootstrap
-RPC, dsync), IAM, config KV, events, replication, notification, tiers,
-the crawler's lifecycle and transition actions, the metacache, the hot-
-object read cache, the admin, health and web routers, the incident plane,
-online pool expansion and the single-path FS backend.
+RPC, dsync), IAM, config KV, events, replication, notification, tiers
+(and the crawler's transition and restore actions), the boot fsck, the
+admin, health and web routers, the incident plane, online pool expansion
+and the single-path FS backend.
 """
 
 from __future__ import annotations
@@ -33,7 +39,13 @@ import os
 from typing import Optional
 
 from . import device as device_mod
+from .features.lifecycle import (crawler_action, mpu_abort_action,
+                                 noncurrent_sweep_action)
+from .object import cache as cache_mod
+from .object import metacache as metacache_mod
 from .object.background import DataUsageCrawler, DiskMonitor, HealScanner
+from .object.cache import CacheObjects
+from .object.metacache import MetacacheManager
 from .object.nslock import NSLockMap
 from .object.server_sets import ErasureServerSets
 from .object.sets import ErasureSets
@@ -90,6 +102,8 @@ class ClusterNode:
         self.update_tracker: Optional[DataUpdateTracker] = None
         self.heal_scanner: Optional[HealScanner] = None
         self.crawler: Optional[DataUsageCrawler] = None
+        self.metacache: Optional[MetacacheManager] = None
+        self.read_cache: Optional[CacheObjects] = None
         # the listener starts before the drives are formatted (the
         # reference serves before newObjectLayer returns)
         self.s3: Optional[S3Server] = S3Server(
@@ -128,6 +142,21 @@ class ClusterNode:
         # their pages into one launch on the cluster's device (the engine
         # took the layer's device in set_object_layer)
         self.s3.api.scan.scheduler = self.scheduler
+        # -- bucket metacache (persisted listing index + scanner feed) -----
+        if metacache_mod.enabled():
+            self.metacache = MetacacheManager(self.object_layer).start()
+            self.object_layer.attach_metacache(self.metacache)
+        # -- hot-object read cache in front of the erasure path ------------
+        if cache_mod.enabled():
+            self.read_cache = CacheObjects.from_env(
+                self.object_layer, os.path.join(self.spec.drives[0],
+                                                ".minio.sys", "cache"))
+            # invalidation rides the namespace feed; the S3 surface serves
+            # through the wrapper (a hit skips the erasure decode), and
+            # the background planes keep the raw layer, so that they never
+            # fill the cache
+            self.object_layer.attach_read_cache(self.read_cache)
+            self.s3.api.set_object_layer(self.read_cache)
         # -- background plane (initAutoHeal + initDataCrawler) -------------
         self.disk_monitor = DiskMonitor(self.sets).start()
         # data-update tracker: every mutation marks the bloom; the heal
@@ -140,7 +169,14 @@ class ClusterNode:
         # and the crawler, whose usage cache feeds quota
         self.heal_scanner = HealScanner(self.object_layer,
                                         self.update_tracker).start()
-        self.crawler = DataUsageCrawler(self.object_layer).start()
+        bmeta = self.s3.api.bucket_meta
+        self.crawler = DataUsageCrawler(
+            self.object_layer,
+            actions=[crawler_action(bmeta, self.object_layer)],
+            bucket_actions=[
+                mpu_abort_action(bmeta, self.object_layer),
+                noncurrent_sweep_action(bmeta, self.object_layer)],
+        ).start()
         self.s3.api.usage = self.crawler
 
     @property
@@ -149,12 +185,16 @@ class ClusterNode:
 
     def shutdown(self) -> None:
         """Idempotent; safe on a partially-booted node. The background
-        loops close and the tracker flushes first, then the server stops,
-        then the sets, then the former."""
+        loops close, the metacache closes (persisting what is dirty) and
+        the tracker flushes first, then the server stops, then the sets,
+        then the former."""
         for loop in ("disk_monitor", "crawler", "heal_scanner"):
             if getattr(self, loop) is not None:
                 getattr(self, loop).close()
                 setattr(self, loop, None)
+        if self.metacache is not None:
+            self.metacache.close()
+            self.metacache = None
         if self.update_tracker is not None:
             try:
                 self.update_tracker.flush()

@@ -1,2 +1,3 @@
-"""Host-side features of the data path: SSE (crypto.py) and its KMS seam
-(kms.py)."""
+"""Host-side features of the data path: SSE and compression (crypto.py),
+the KMS seam (kms.py), S2 framing (snappy.py) and bucket lifecycle rules
+with the crawler's actions (lifecycle.py)."""

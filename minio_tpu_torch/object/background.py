@@ -19,16 +19,22 @@ from serverMain (cmd/server-main.go:487-493):
     (object/update_tracker.py);
   * the data crawler (cmd/data-crawler.go:61-157): walks every bucket and
     keeps per-bucket object counts and bytes, which quota reads, persisted
-    to .minio.sys/datausage/usage.json.
+    to .minio.sys/datausage/usage.json; its per-object `actions` and
+    per-bucket `bucket_actions` enforce lifecycle (features/lifecycle.py:
+    expiry, noncurrent expiry, stale multipart aborts).
+
+Both scanners take their namespace from the bucket metacache's feed
+(object/metacache.py ``namespace_feed``) when the layer has one, and fall
+back to paged listings (the merge walk) otherwise; every walk counts on
+``walks_counter(consumer, source)``. The heal scanner also sweeps the
+index's own segment objects each pass.
 
 Left out: the disk monitor's slow-drive quarantine (it needs
 utils/healthtrack's state machine and the event log) and its add_pool
-(online expansion is not ported), the metacache namespace feed (both
-scanners walk the namespace through paged listings, and each counts its
-walks itself), the crawler's lifecycle, transition and multipart-abort
-actions (its `actions` hook stays, with nothing wired to it), and the
-reference's event-log records and crash points. The MRF lock is a plain
-threading.Condition (lockcheck is not ported).
+(online expansion is not ported), the crawler's transition and restore
+actions (the tier plane is not ported), and the reference's event-log
+records and crash points. The MRF lock is a plain threading.Condition
+(lockcheck is not ported).
 
 Knobs: MINIO_TPU_MRF_QUEUE_SIZE, MINIO_TPU_MRF_MAX_RETRIES,
 MINIO_TPU_MRF_BACKOFF_BASE, MINIO_TPU_MRF_BACKOFF_MAX (the retry schedule
@@ -437,9 +443,9 @@ class HealScanner(_ScanLoop):
     heal check; false negatives cannot happen (the tracker answers
     "changed" whenever its history can't prove otherwise).
 
-    The namespace comes from paged listings (the merge walk); `walks`
-    counts them, the reference's walks_counter(consumer="heal",
-    source="merge")."""
+    The namespace comes from the metacache feed when the layer has one,
+    else from paged listings (the merge walk), which walks_counter(
+    consumer="heal", source="merge") counts."""
 
     def __init__(self, object_layer, tracker, interval: float = 300.0,
                  peer_snapshots: Optional[Callable] = None):
@@ -454,7 +460,6 @@ class HealScanner(_ScanLoop):
         self.healed = 0
         self.skipped_buckets = 0
         self.scanned = 0
-        self.walks = 0
         self._init_loop()
 
     def scan_once(self) -> int:
@@ -490,13 +495,13 @@ class HealScanner(_ScanLoop):
                 for idx, s in snaps if s is not None)
 
         checked = 0
+        mc = getattr(self.obj, "metacache", None)
         for vol in self.obj.list_buckets():
             b = vol.name
             if not changed(b):
                 self.skipped_buckets += 1
                 continue
-            self.walks += 1
-            for oi in paged_list_objects(self.obj, b):
+            for oi in self._bucket_objects(mc, b):
                 if not changed(b, oi.name):
                     continue
                 self.scanned += 1
@@ -507,6 +512,7 @@ class HealScanner(_ScanLoop):
                         self.healed += res.disks_healed
                 except api_errors.ObjectApiError:
                     pass
+        self._heal_metacache_segments(mc)
         self.last_cycle = pass_cycle
         # every reachable peer's rotated window was covered this pass
         for idx, s in snaps:
@@ -514,34 +520,76 @@ class HealScanner(_ScanLoop):
                 self._peer_covered[idx] = s.cycle - 1
         return checked
 
+    def _bucket_objects(self, mc, bucket: str):
+        """One bucket's listable objects: the metacache namespace feed
+        when available (no walk), else the paged merge-walk."""
+        from .metacache import walks_counter
+        feed = mc.namespace_feed(bucket, consumer="heal") \
+            if mc is not None else None
+        if feed is not None:
+            yield from feed
+            return
+        walks_counter().inc(consumer="heal", source="merge")
+        yield from paged_list_objects(self.obj, bucket)
+
+    def _heal_metacache_segments(self, mc) -> int:
+        """Sweep-heal the index's own manifest and segment objects: they
+        are ordinary erasure-coded objects, but live under the hidden
+        meta bucket the bucket walk never visits — without this a
+        replaced drive would never regain its index shards."""
+        if mc is None:
+            return 0
+        healed = 0
+        for key in mc.segment_objects():
+            try:
+                self.obj.heal_object(MINIO_META_BUCKET, key)
+                healed += 1
+            except api_errors.ObjectApiError:
+                continue
+        return healed
+
 
 class DataUsageCrawler(_ScanLoop):
     """Periodic bucket/object scan feeding usage accounting (quota reads
-    bucket_usage) and per-object actions (`actions`: the reference's hook
-    for lifecycle expiry; no lifecycle action is ported to fill it).
-    `walks` counts the paged listings, the reference's
-    walks_counter(consumer="crawler", source="merge")."""
+    bucket_usage), per-object `actions` (lifecycle expiry) and per-bucket
+    `bucket_actions` (stale multipart aborts, noncurrent expiry). The
+    namespace comes from the metacache feed when the layer has one, else
+    from paged listings, which walks_counter(consumer="crawler",
+    source="merge") counts."""
 
     def __init__(self, object_layer, interval: float = 60.0,
                  actions: Optional[list[Callable]] = None,
+                 bucket_actions: Optional[list[Callable]] = None,
                  persist: bool = True):
         self.obj = object_layer
         self.interval = interval
         # each action: fn(bucket: str, info: ObjectInfo) -> None
         self.actions = list(actions or [])
+        # each bucket action: fn(bucket: str) -> None, once per scan
+        self.bucket_actions = list(bucket_actions or [])
         self.persist = persist
         self.usage: dict = {"buckets": {}, "objects_total": 0,
                             "size_total": 0, "last_update": 0.0}
-        self.walks = 0
         self._init_loop()
 
     def scan_once(self) -> dict:
+        from .metacache import walks_counter
+        mc = getattr(self.obj, "metacache", None)
         buckets: dict[str, dict] = {}
         for vol in self.obj.list_buckets():
             b = vol.name
+            for baction in self.bucket_actions:
+                try:
+                    baction(b)
+                except Exception:  # noqa: BLE001 — per-bucket
+                    pass
             count = size = 0
-            self.walks += 1
-            for oi in paged_list_objects(self.obj, b):
+            feed = mc.namespace_feed(b, consumer="crawler") \
+                if mc is not None else None
+            if feed is None:
+                walks_counter().inc(consumer="crawler", source="merge")
+                feed = paged_list_objects(self.obj, b)
+            for oi in feed:
                 count += 1
                 size += oi.size
                 for action in self.actions:

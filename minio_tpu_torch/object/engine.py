@@ -39,10 +39,16 @@ returned ciphertext and appends the Poly1305 trailer at stream end. A
 batch the codec's size gate keeps on the host is ciphered there; a failed
 dispatch raises (the reference ciphers that batch on the host instead).
 
+Every successful namespace mutation (PUT, metadata update, delete,
+delete marker, bulk delete, multipart commit) reports (bucket, object) on
+``on_namespace_change`` (hidden buckets skipped), the feed of the bucket
+metacache and of the read cache's invalidation (object/server_sets.py).
+Every read stream through the shard-read/verify/decode path counts on
+``minio_tpu_erasure_get_streams_total`` (the read cache's hits do not).
+
 Left out: hedged reads and quarantine, the quorum-ack lane of PUT (its
-multipart form is ported), spans, transitions and stubs, and the
-namespace-change hook that feeds the metacache, replication and
-notification planes.
+multipart form is ported), spans, and transitions and stubs (with their
+namespace hooks).
 """
 
 from __future__ import annotations
@@ -71,7 +77,7 @@ from ..storage.format import (FormatErasureV3, get_format_in_quorum,
                               write_format_to)
 from ..storage.xl_storage import (MINIO_META_BUCKET, MINIO_META_TMP_BUCKET,
                                   XLStorage)
-from ..utils import crashpoint, healthtrack, knobs, stagetimer
+from ..utils import crashpoint, healthtrack, knobs, stagetimer, telemetry
 from . import api_errors, bitrot_io, metadata as meta
 from .codec import Codec
 from .hash_reader import HashReader
@@ -83,6 +89,12 @@ GET_BATCH_BLOCKS = knobs.get_int("MINIO_TPU_GET_BATCH")
 
 # Reserved bucket names an S3 client can't touch.
 RESERVED_BUCKETS = (MINIO_META_BUCKET,)
+
+
+GET_STREAMS = telemetry.REGISTRY.counter(
+    "minio_tpu_erasure_get_streams_total",
+    "Object read streams served through the erasure "
+    "shard-read/verify/decode path")
 
 
 def _sse_pkg() -> int:
@@ -155,6 +167,10 @@ class ErasureObjects:
         # version_id) when a write met quorum but some drives missed it
         self.on_degraded_read = None
         self.on_degraded_write = None
+        # namespace hook (reference :149-153): called (bucket, object)
+        # after every successful namespace mutation; the receiver only
+        # appends to a bounded journal and never blocks
+        self.on_namespace_change = None
 
     # ------------------------------------------------------------------
     # helpers
@@ -333,6 +349,7 @@ class ErasureObjects:
             # quorum met but some drives missed the write: queue an MRF
             # heal so the object converges back to full redundancy
             self._notify_degraded(bucket, object_name, fi.version_id)
+        self._notify_namespace(bucket, object_name)
         return fi.to_object_info(bucket, object_name)
 
     def _check_none_newer(self, bucket: str, object_name: str,
@@ -813,6 +830,17 @@ class ErasureObjects:
         except Exception:  # noqa: BLE001 — heal queueing is best-effort
             pass
 
+    def _notify_namespace(self, bucket: str, object_name: str) -> None:
+        """Best-effort on_namespace_change invocation (reference
+        :1723-1735). Hidden meta buckets never feed it: the index's own
+        segment writes land there."""
+        if self.on_namespace_change is None or bucket.startswith("."):
+            return
+        try:
+            self.on_namespace_change(bucket, object_name)
+        except Exception:  # noqa: BLE001 — indexing is best-effort
+            pass
+
     def _flag_degraded_delete(self, bucket: str, object_name: str,
                               version_id: str, errs) -> None:
         """Queue an MRF heal when a quorum-successful delete or marker
@@ -905,6 +933,7 @@ class ErasureObjects:
             fi.metadata = new_meta
         if any(e is not None for e in errs):
             self._notify_degraded(bucket, object_name, version_id)
+        self._notify_namespace(bucket, object_name)
         return fi.to_object_info(bucket, object_name)
 
     def get_object_info(self, bucket: str, object_name: str,
@@ -989,6 +1018,9 @@ class ErasureObjects:
         part N's last group verifies and decodes, part N+1's first group
         is already reading on the prefetch pool."""
         from ..parallel import pipeline as pl
+        # every erasure read stream counts: a read-cache hit shows as no
+        # new stream across the GET (object/cache.py)
+        GET_STREAMS.inc()
         shuffled_disks = meta.shuffle_disks(online, fi.erasure.distribution)
         shuffled_meta = meta.shuffle_parts_metadata(metas,
                                                     fi.erasure.distribution)
@@ -1263,6 +1295,7 @@ class ErasureObjects:
                 oi = fi.to_object_info(bucket, object_name)
                 self._flag_degraded_delete(bucket, object_name,
                                            fi.version_id, errs)
+                self._notify_namespace(bucket, object_name)
                 return oi
 
             fi = FileInfo(volume=bucket, name=object_name,
@@ -1277,6 +1310,7 @@ class ErasureObjects:
             if err is not None:
                 raise api_errors.to_object_err(err, bucket, object_name)
         self._flag_degraded_delete(bucket, object_name, version_id, errs)
+        self._notify_namespace(bucket, object_name)
         return ObjectInfo(bucket=bucket, name=object_name,
                           version_id=version_id)
 
@@ -1302,6 +1336,7 @@ class ErasureObjects:
                 raise api_errors.to_object_err(err, bucket, object_name)
         self._flag_degraded_delete(bucket, object_name, fi.version_id,
                                    errs)
+        self._notify_namespace(bucket, object_name)
         return fi.to_object_info(bucket, object_name)
 
     def delete_objects(self, bucket: str, objects: list[str]
@@ -1334,6 +1369,7 @@ class ErasureObjects:
                        else api_errors.to_object_err(err, bucket, o))
             if err is None:
                 self._flag_degraded_delete(bucket, o, "", per_disk)
+                self._notify_namespace(bucket, o)
         return out
 
     # ------------------------------------------------------------------

@@ -532,4 +532,5 @@ class MultipartMixin(ErasureObjects):
                 # the completed object is degraded on those drives —
                 # feed the MRF heal queue exactly like a degraded PUT
                 self._notify_degraded(bucket, object_name, fi.version_id)
+            self._notify_namespace(bucket, object_name)
             return fi.to_object_info(bucket, object_name)

@@ -13,11 +13,20 @@ Every pool's sets may share one batch former, so the blocks of concurrent
 PUTs and part uploads in different pools coalesce into one fused device
 dispatch (BASELINE config 5's cross-set shard batching).
 
+One namespace-change feed, many listeners: every pool's engines report
+their mutations to ``_dispatch_namespace_change``, which fans out to the
+attached bucket metacache (object/metacache.py: its delta journal) and
+read cache (object/cache.py: invalidation). With a metacache attached,
+``list_objects`` and ``list_object_versions`` are cut from the index, and
+fall back to the merge-walk across pools where it declines (off, not
+built, invalidated); ``delete_bucket`` purges the bucket's persisted
+index.
+
 Left out: live-session migration off a draining
 pool (``migrate_upload``: a part upload or complete of a session homed on
 a pool that no longer takes writes raises TopologyError), online
 expansion (``add_pool``), decommission and rebalance, and the attach hooks
-of the metacache, read cache, replication and notification planes.
+of the replication and notification planes.
 """
 
 from __future__ import annotations
@@ -40,11 +49,51 @@ class ErasureServerSets:
         if not server_sets:
             raise ValueError("no server sets")
         self.server_sets = server_sets
+        # persisted bucket index (object/metacache.py): when attached,
+        # listings serve from it (merge-walk fallback) and the engines'
+        # namespace-change hooks feed its delta journal
+        self.metacache = None
+        # hot-object read cache (object/cache.py): attached at boot,
+        # invalidated off the same namespace feed
+        self.read_cache = None
+        self._ns_listeners: list = []
         if topology is None and load_topology:
             # recover the newest persisted map (highest epoch across
             # pools); a fresh cluster starts all-active at epoch 0
             topology = TopologyStore.load(self)
         self.topology = topology or TopologyMap(len(server_sets))
+
+    def _dispatch_namespace_change(self, bucket: str,
+                                   object_name: str) -> None:
+        """Fan one engine namespace delta out to every listener; a
+        broken listener never blocks the others (or the write path)."""
+        for fn in self._ns_listeners:
+            try:
+                fn(bucket, object_name)
+            except Exception:  # noqa: BLE001 — feed is best-effort
+                pass
+
+    def register_namespace_listener(self, fn) -> None:
+        """Subscribe `fn(bucket, object_name)` to the engines' mutation
+        feed and (re)wire every pool's hook at the dispatcher."""
+        if fn not in self._ns_listeners:
+            self._ns_listeners.append(fn)
+        for z in self.server_sets:
+            z.on_namespace_change = self._dispatch_namespace_change
+
+    def attach_metacache(self, manager) -> None:
+        """Wire the MetacacheManager: every pool's engines journal
+        namespace deltas into it, and the listing paths consult it
+        first (None = fall back to the merge-walk)."""
+        self.metacache = manager
+        self.register_namespace_listener(manager.record)
+
+    def attach_read_cache(self, cache) -> None:
+        """Wire the hot-object read cache's invalidation into the
+        namespace feed (the serving side wraps this layer — see the
+        boot)."""
+        self.read_cache = cache
+        self.register_namespace_listener(cache.on_namespace_change)
 
     def single_zone(self) -> bool:
         return len(self.server_sets) == 1
@@ -140,6 +189,10 @@ class ErasureServerSets:
                 raise api_errors.BucketNotEmpty(bucket)
         for z in self.server_sets:
             z.delete_bucket(bucket, force=True)
+        if self.metacache is not None:
+            # purge: the persisted index lives in .minio.sys and would
+            # otherwise be reloaded by a recreated same-name bucket
+            self.metacache.drop_bucket(bucket, purge=True)
 
     def bucket_exists(self, bucket: str) -> bool:
         return self.server_sets[0].bucket_exists(bucket)
@@ -436,19 +489,38 @@ class ErasureServerSets:
 
     def list_objects(self, bucket, prefix="", marker="", delimiter="",
                      max_keys=1000):
+        t0 = time.monotonic()
+        if self.metacache is not None:
+            page = self.metacache.serve_list_objects(
+                bucket, prefix, marker, delimiter, max_keys)
+            if page is not None:
+                self._observe_listing("list", "index", t0)
+                return page
         per_zone = [z.list_objects(bucket, prefix, marker, delimiter,
                                    max_keys)
                     for z in self.server_sets]
-        return merge_listings(per_zone, max_keys)
+        out = merge_listings(per_zone, max_keys)
+        self._observe_listing("list", "walk", t0)
+        return out
 
     def list_object_versions(self, bucket, prefix="", marker="",
                              max_keys=1000, version_marker="",
                              delimiter=""):
+        t0 = time.monotonic()
+        if self.metacache is not None:
+            page = self.metacache.serve_list_object_versions(
+                bucket, prefix, marker, max_keys, version_marker,
+                delimiter)
+            if page is not None:
+                self._observe_listing("versions", "index", t0)
+                return page
         per_zone = [z.list_object_versions(bucket, prefix, marker,
                                            max_keys, version_marker,
                                            delimiter)
                     for z in self.server_sets]
-        return merge_version_listings(per_zone, max_keys)
+        out = merge_version_listings(per_zone, max_keys)
+        self._observe_listing("versions", "walk", t0)
+        return out
 
     def object_versions(self, bucket, name):
         """Cross-pool quorum-merged versions of one object (dedup by
@@ -468,6 +540,12 @@ class ErasureServerSets:
         out.sort(key=lambda o: (o.mod_time or 0, o.version_id or ""),
                  reverse=True)
         return out
+
+    @staticmethod
+    def _observe_listing(verb: str, source: str, t0: float) -> None:
+        from .metacache import listing_histogram
+        listing_histogram().observe(time.monotonic() - t0, verb=verb,
+                                    source=source)
 
     def storage_info(self) -> dict:
         zones = [z.storage_info() for z in self.server_sets]
@@ -517,6 +595,9 @@ class ErasureServerSets:
         return out
 
     def close(self) -> None:
+        if self.metacache is not None:
+            self.metacache.close()
+            self.metacache = None
         for z in self.server_sets:
             z.close()
 

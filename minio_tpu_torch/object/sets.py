@@ -15,8 +15,11 @@ keywords): the former keys its buckets by geometry, not by set, so the
 blocks of concurrent writes to different sets coalesce into one fused
 dispatch.
 
-Left out: the transition/stub verbs and the
-namespace-change feed (their planes are not ported).
+Every set's namespace-change hook reports up through this layer's
+``on_namespace_change`` (object/server_sets.py points it at its
+dispatcher).
+
+Left out: the transition/stub verbs (the tier plane is not ported).
 """
 
 from __future__ import annotations
@@ -57,6 +60,11 @@ class ErasureSets:
         self.slot_sources = slot_sources
         self._id16 = _uuid.UUID(deployment_id).bytes
         self.mrf: Optional[MRFHealer] = None
+        # the engines report namespace mutations up through this layer;
+        # server_sets (or a test) points it at its dispatcher
+        self.on_namespace_change = None
+        for s in self.sets:
+            s.on_namespace_change = self._notify_namespace
         if enable_mrf:
             self.mrf = MRFHealer(self._heal_mrf_entry, **(mrf_options or {}))
             for s in self.sets:
@@ -230,6 +238,11 @@ class ErasureSets:
                         version_id: str = "") -> None:
         if self.mrf is not None:
             self.mrf.enqueue(bucket, object_name, version_id)
+
+    def _notify_namespace(self, bucket: str, object_name: str) -> None:
+        cb = self.on_namespace_change
+        if cb is not None:
+            cb(bucket, object_name)
 
     def _heal_mrf_entry(self, bucket: str, object_name: str,
                         version_id: str = ""):

@@ -18,6 +18,26 @@ BLOCK_SIZE_V1 = 1 << 22               # 4 MiB, cmd/object-api-common.go:31
 NULL_VERSION_ID = "null"
 
 
+# tier-transition / restore metadata keys (reference
+# minio_tpu/storage/datatypes.py:24-33); no ported plane sets them yet
+TRANSITION_STATUS_KEY = "X-Minio-Internal-transition-status"
+TRANSITION_COMPLETE = "complete"
+RESTORE_KEY = "x-amz-restore"
+RESTORE_ONGOING = 'ongoing-request="true"'
+
+
+def is_transitioned(metadata: dict) -> bool:
+    """True when this version's data lives in a remote tier."""
+    return metadata.get(TRANSITION_STATUS_KEY) == TRANSITION_COMPLETE
+
+
+def is_restored(metadata: dict) -> bool:
+    """True when a transitioned version currently has a live local
+    restored copy (restore finished, not yet reclaimed)."""
+    v = metadata.get(RESTORE_KEY, "")
+    return bool(v) and RESTORE_ONGOING not in v
+
+
 @dataclasses.dataclass
 class ChecksumInfo:
     """Bitrot checksum of one part on one drive

@@ -2,10 +2,11 @@
 
 Counterpart of minio_tpu/utils/knobs.py, trimmed to the knobs of the
 pipelined data path, the batch former, heal, the MRF queue, the disk
-monitor, the SSE cipher choice, the scan plane, the admission gate and the
-HTTP edge, with the reference's names, types and defaults
+monitor, the SSE cipher choice, the scan plane, the bucket metacache, the
+hot-object read cache, the admission gate and the HTTP edge, with the
+reference's names, types and defaults
 (minio_tpu/utils/knobs.py:160-197, :203-206, :220-233, :261-281,
-:284-291, :299-301, :310-331, :459-471). Left out:
+:284-291, :299-301, :310-331, :438-485). Left out:
 the README table renderer and every knob no ported module reads. No knob here is one the reference lacks.
 
 Getters read the environment at call time: tests flip knobs with
@@ -163,6 +164,37 @@ define("MINIO_TPU_SCAN_KERNEL_CACHE", "int", 64,
        "query literals)")
 define("MINIO_TPU_SCAN_MAX_BYTES", "int", 64 << 20,
        "device-path input cap; bigger objects go to the CPU evaluator")
+
+# -- bucket metacache ---------------------------------------------------------
+define("MINIO_TPU_METACACHE", "bool", True,
+       "`off` = exactly the old merge-walk listing behavior")
+define("MINIO_TPU_METACACHE_FEED", "bool", True,
+       "scanners consume the index namespace feed")
+define("MINIO_TPU_METACACHE_STALENESS_S", "float", 2.0,
+       "serve-time staleness bound (older deltas drain synchronously)")
+define("MINIO_TPU_METACACHE_FLUSH_S", "float", 0.2,
+       "journal drain cadence, seconds")
+define("MINIO_TPU_METACACHE_PERSIST_S", "float", 30.0,
+       "min seconds between persisted segment writes")
+define("MINIO_TPU_METACACHE_RECONCILE_S", "float", 300.0,
+       "drift-repair walk cadence, seconds")
+define("MINIO_TPU_METACACHE_SEGMENT_KEYS", "int", 5000,
+       "keys per persisted index segment")
+define("MINIO_TPU_METACACHE_JOURNAL", "int", 100000,
+       "max pending deltas (overflow invalidates the bucket until "
+       "reconcile — never a silent wrong listing)")
+
+# -- hot-object read cache ----------------------------------------------------
+define("MINIO_TPU_CACHE", "bool", False,
+       "master switch for the erasure-aware read cache")
+define("MINIO_TPU_CACHE_DIR", "str", "",
+       "cache entry directory (empty: <first-drive>/.minio.sys/cache)")
+define("MINIO_TPU_CACHE_BUDGET_BYTES", "int", 1 << 30,
+       "watermark LRU budget")
+define("MINIO_TPU_CACHE_ADMIT", "int", 2,
+       "GETs inside the window before an object is admitted")
+define("MINIO_TPU_CACHE_ADMIT_WINDOW_S", "float", 300.0,
+       "access-frequency admission window, seconds")
 
 # -- server: admission -------------------------------------------------------
 define("MINIO_TPU_MAX_CLIENTS", "int", 0,

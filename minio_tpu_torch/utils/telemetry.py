@@ -1,11 +1,11 @@
-"""In-process metrics registry: counters and histograms.
+"""In-process metrics registry: counters, gauges and histograms.
 
 Counterpart of the metrics half of minio_tpu/utils/telemetry.py, trimmed
-to what the batch former (parallel/scheduler.py) bumps: labelled
-monotonic counters and fixed-bucket histograms, read back with
-``value()`` and ``count()``. Left out until the S3 front and the admin
-surface are ported: gauges and collectors, the Prometheus text
-exposition, the snapshot, and the span tracer. Locks are plain
+to what the port's modules bump: labelled monotonic counters, settable
+gauges (the metacache's entry count) and fixed-bucket histograms, read
+back with ``value()`` and ``count()``. Left out until the admin surface
+is ported: collectors, the Prometheus text exposition, the snapshot, and
+the span tracer. Locks are plain
 ``threading.Lock`` (the reference's lockcheck wrappers are not ported).
 """
 
@@ -51,6 +51,26 @@ class Counter(_Family):
     """Monotonic counter (optionally labelled)."""
 
     kind = "counter"
+
+    def inc(self, amount: float = 1, **labels) -> None:
+        key = self._check_labels(labels)
+        with self._mu:
+            self._series[key] = self._series.get(key, 0) + amount
+
+    def value(self, **labels) -> float:
+        with self._mu:
+            return self._series.get(_label_key(labels), 0)
+
+
+class Gauge(_Family):
+    """Settable instantaneous value (optionally labelled)."""
+
+    kind = "gauge"
+
+    def set(self, value: float, **labels) -> None:
+        key = self._check_labels(labels)
+        with self._mu:
+            self._series[key] = value
 
     def inc(self, amount: float = 1, **labels) -> None:
         key = self._check_labels(labels)
@@ -121,6 +141,9 @@ class MetricsRegistry:
 
     def counter(self, name: str, help_: str = "") -> Counter:
         return self._get(Counter, name, help_)
+
+    def gauge(self, name: str, help_: str = "") -> Gauge:
+        return self._get(Gauge, name, help_)
 
     def histogram(self, name: str, help_: str = "",
                   buckets: Sequence[float] = DEFAULT_BUCKETS

@@ -37,6 +37,7 @@ from minio_tpu_torch.object import background as bg
 from minio_tpu_torch.object import codec, healing
 from minio_tpu_torch.object.background import (DataUsageCrawler,
                                                DiskMonitor, HealScanner)
+from minio_tpu_torch.object.metacache import walks_counter
 from minio_tpu_torch.object.sets import ErasureSets
 from minio_tpu_torch.object.update_tracker import (DataUpdateTracker,
                                                    TrackerSnapshot)
@@ -317,6 +318,12 @@ def small_gate(monkeypatch):
     monkeypatch.setattr(healing, "HEAL_BATCH_BLOCKS", 4)
 
 
+def _merge_walks(consumer):
+    """The port's merge walks so far by `consumer` (its scanners count
+    them on the namespace walks counter)."""
+    return walks_counter().value(consumer=consumer, source="merge")
+
+
 def _twin_trees(tmp_path, n=6, parity=2, seed=3):
     """Two byte-equal copies of a set minio_tpu wrote (two buckets, objects
     of every shape); their roots."""
@@ -432,6 +439,7 @@ def test_heal_scanner_counts_equal_reference(tmp_path, small_gate):
     trackers = {"ref": RefTracker(), "port": DataUpdateTracker()}
     scanners = {"ref": ref_bg.HealScanner(sets["ref"], trackers["ref"]),
                 "port": HealScanner(sets["port"], trackers["port"])}
+    walks0 = _merge_walks("heal")
 
     def damage(rel):
         for root in roots:
@@ -456,7 +464,7 @@ def test_heal_scanner_counts_equal_reference(tmp_path, small_gate):
         # only the marked object is checked; b1 is pruned outright, and
         # the unmarked damage waits for a mark or a full pass
         assert one_pass() == (1, 2, 11, 3)
-        assert scanners["port"].walks == 2 + 1
+        assert _merge_walks("heal") - walks0 == 2 + 1
     finally:
         for s in sets.values():
             s.close()
@@ -481,6 +489,7 @@ def test_crawler_usage_equals_reference(tmp_path, monkeypatch):
     try:
         crawlers = {"ref": ref_bg.DataUsageCrawler(sets["ref"]),
                     "port": DataUsageCrawler(sets["port"])}
+        walks0 = _merge_walks("crawler")
         docs = {who: c.scan_once() for who, c in crawlers.items()}
         assert docs["port"] == docs["ref"]
         assert docs["port"]["buckets"]["b1"] == {
@@ -491,7 +500,7 @@ def test_crawler_usage_equals_reference(tmp_path, monkeypatch):
             ref_bg.DataUsageCrawler.load_snapshot(sets["ref"]) == \
             ref_bg.DataUsageCrawler.load_snapshot(sets["port"]) == \
             docs["ref"]
-        assert crawlers["port"].walks == 2
+        assert _merge_walks("crawler") - walks0 == 2
         # quota from the cache: both handlers refuse past it, and a write
         # since the crawl is not counted until the next one
         from minio_tpu.s3.handlers import S3ApiHandlers as RefApi

@@ -217,7 +217,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "scan/plan.py", "s3select/sql.py", "s3select/select.py",
                 "ops/scan_cuda.py", "ops/scan_plain.py",
                 "ops/scan_program.py", "features/snappy.py",
-                "object/update_tracker.py", "object/background.py"):
+                "object/update_tracker.py", "object/background.py",
+                "object/metacache.py", "object/cache.py",
+                "features/lifecycle.py"):
         assert f"minio_tpu_torch/{mod}" in names, mod
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
