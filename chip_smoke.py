@@ -183,10 +183,11 @@ printing one JSON line; any failure exits non-zero:
                 usage cache.
   14. namespace — the namespace plane (see run_namespace): a fresh server
                 over 8 drives at 6+2 (on tmpfs where it has room, as
-                bench.py --ab-list's pool) with the read cache on; 10,000
-                keys in its shape, seeded by worker processes, listed over
-                HTTP from the persisted bucket index (two 5,000-key
-                segments), page for page the merge walk's;
+                bench.py --ab-list's pool) with the read cache on; 6,000
+                keys in its shape (the bench's 10,000 cut for the run's
+                time limit), seeded by worker processes, listed over
+                HTTP from the persisted bucket index (a 5,000-key and a
+                1,000-key segment), page for page the merge walk's;
                 the index persisted, 2 drives' copy removed, reloaded by a
                 new boot and restored by the scanner's segment sweep; a
                 lifecycle rule expiring 500 of 1,000 objects in one crawler
@@ -194,6 +195,24 @@ printing one JSON line; any failure exits non-zero:
                 and then from the cache (no decode), an SSE-S3 object's
                 cache hit deciphered by chacha20, and a cached Select of
                 phase 11's lineitem (scan_eval).
+  15. tier    — the tier plane on phase 14's node (see run_tier): an fs
+                tier added through the node's TierManager; Transition
+                (Days 1) on bucket hot (phase 14's four 64 MiB objects,
+                its SSE-S3 object, the lineitem CSV, a new 4 x 16 MiB
+                multipart object) and NoncurrentVersionTransition on a
+                versioned key, due by the crawler's clock; one crawler
+                pass, the node's worker moving every version through
+                degraded reads (decode, gf_matmul), remote files equal to
+                the stored streams; GET 403 InvalidObjectState, HEAD's
+                storage class, the index's sizes, no cache hit; POST
+                ?restore for every stub (the 64 MiB ones on the worker),
+                GETs byte- and ETag-equal (chacha20 deciphers the SSE
+                object, the multipart object keeps its parts and -4
+                ETag), the Q6 COUNT over the restored lineitem
+                (scan_eval); a reclaim pass back to stubs, a DELETE and a
+                DeleteObjects freeing remote files, a stub's xl.meta
+                healed with no dispatch; transition, restore and reclaim
+                seconds, GiB/s, local bytes at each step.
   4. timings  — (continued) chacha20 at the encode launch (8 rows, 1 MiB
                 span in 1,048,584-byte rows) and at GET's 64 x 65,536:
                 CUDA events around back-to-back wrapper calls, the kernel's
@@ -216,9 +235,9 @@ printing one JSON line; any failure exits non-zero:
                 floor of the row-major layout and its plain version on the
                 card.
 
-Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 4. Each
-path's launch counters are set to 0 just before it runs and read just
-after. Then it prints the kernel table as one JSON line (with each kernel's launches on every path),
+Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 4.
+Each path's launch counters are set to 0 just before it runs and read
+just after. Then it prints the kernel table as one JSON line (with each kernel's launches on every path),
 the card's name and power limit, and the device line last. It needs one
 CUDA card and the repo's minio_tpu_torch package beside it; it imports
 nothing of JAX or minio_tpu.
@@ -295,13 +314,16 @@ COMPRESS_BIG = (4, 64 << 20)        # objects, bytes each
 COMPRESS_SSE = (4, 64 << 20)        # compress + SSE-S3 objects, bytes each
 COMPRESS_SELECT_ROWS = 8_000        # ~1 MiB, 4 pages
 # phase 13, the background plane on the same server
-NS_KEYS = 10_000                    # bench.py --ab-list's
+NS_KEYS = 6_000                     # bench.py --ab-list's 10,000, cut to fit
+                                    # the run's time limit with phase 15
 NS_VERSIONS_EVERY = 20              # an extra version every 20th key
 NS_PAGE = 1000                      # keys a listing page
 NS_LIFECYCLE = (1000, 500)          # objects, of them under exp/
 NS_CACHE = (4, 64 << 20)            # plain objects, bytes each
 NS_SSE = 64 << 20                   # the SSE-S3 object
 NS_WORKERS = 8                      # processes seeding and walking
+TIER_PARTS = (4, 16 << 20)          # the multipart object: parts, bytes
+TIER_VERSION_BYTES = 16 << 20       # each version of the versioned key
 NS_SHM_MIN_BYTES = 4 << 30          # tmpfs room the phase's drives need
 AUTOHEAL_DRIVE = 7                  # the drive emptied (not drive 0, which
 #                                     holds the update tracker's file)
@@ -584,8 +606,16 @@ def main() -> int:
         finally:
             node.shutdown()
         shutil.rmtree(os.path.join(tmp, "compress"), ignore_errors=True)
-        # -- 14. the namespace plane: its own boot, former and drives -----
-        nsp = run_namespace(tmp, card, counts, np, lineitem, q6_oracle)
+        # -- 14. the namespace plane: its own boot, former and drives;
+        # 15. the tier plane on the same node ------------------------------
+        nsp, node, nstate = run_namespace(tmp, card, counts, np, lineitem,
+                                          q6_oracle)
+        try:
+            tierp = run_tier(node, nstate, card, counts, np, lineitem,
+                             q6_oracle)
+        finally:
+            node.shutdown()
+            end_namespace(nstate)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths_launches = {"main_path": main_path["launches"],
@@ -596,7 +626,8 @@ def main() -> int:
                       "select": selp["launches"],
                       "compress": compp["launches"],
                       "autoheal": autop["launches"],
-                      "namespace": nsp["launches"]}
+                      "namespace": nsp["launches"],
+                      "tier": tierp["launches"]}
 
     # -- 4. timings -------------------------------------------------------
     b, s = 32, -(-(1 << 20) // k)
@@ -3570,7 +3601,8 @@ def run_namespace(tmp, card, counts, np, lineitem: bytes,
     former's decipher verb, no decode dispatch); phase 11's lineitem CSV
     Selected three times, the third from the cache (scan_eval launches,
     no decode dispatch, the response equal to the host evaluator's framed
-    stream from phase 11). Bytes and ETags compared on every GET."""
+    stream from phase 11). Bytes and ETags compared on every GET.
+    Returns (the phase's line, the running node, what phase 15 needs)."""
     import torch
 
     from minio_tpu_torch import cluster
@@ -3595,6 +3627,8 @@ def run_namespace(tmp, card, counts, np, lineitem: bytes,
     root = tempfile.mkdtemp(prefix="chip_smoke_ns_",
                             dir=shm if on_shm else tmp)
     drives = [os.path.join(root, f"d{i}") for i in range(k + m)]
+    state = {"root": root, "drives": drives, "saved_env": saved_env,
+             "on_shm": on_shm}
     creds = Credentials("smokenamespace", "smokenamespacesecret")
     t_phase = time.perf_counter()
     out = {"phase": "namespace", "drives": k + m, "ec": f"{k}+{m}",
@@ -3985,19 +4019,449 @@ def run_namespace(tmp, card, counts, np, lineitem: bytes,
                 "selects": sels, "stats": cache.stats()}
             out["metacache"] = {k2: v for k2, v in mgr.stats().items()
                                 if k2 != "buckets"}
-        finally:
+        except BaseException:
             node.shutdown()
+            raise
+    except BaseException:
+        end_namespace(state)
+        raise
     finally:
         if pool is not None:
             pool.terminate()
             pool.join()
-        for n, v in saved_env.items():
-            if v is None:
-                os.environ.pop(n, None)
-            else:
-                os.environ[n] = v
-        shutil.rmtree(root, ignore_errors=True)
     out.update({"launches": counts.read(),
+                "seconds": round(time.perf_counter() - t_phase, 3),
+                "card": card})
+    emit(out)
+    state.update(creds=creds, k=k, m=m, payload_hot=plain,
+                 sse_data=sse_data, pair=list(pair))
+    return out, node, state
+
+
+def end_namespace(state: dict) -> None:
+    """Phase 14's clean-up, after phase 15 rode its node: the environment
+    back as it was, the drives (and the tier beside them) removed."""
+    for n, v in state["saved_env"].items():
+        if v is None:
+            os.environ.pop(n, None)
+        else:
+            os.environ[n] = v
+    shutil.rmtree(state["root"], ignore_errors=True)
+
+
+def list_keys_sizes(c, bucket: str) -> dict:
+    """ListObjectsV2 over HTTP, all pages: key -> size."""
+    import xml.etree.ElementTree as ET
+    out, token = {}, None
+    while True:
+        q = {"list-type": "2", "max-keys": "1000"}
+        if token:
+            q["continuation-token"] = token
+        st, _h, body = c.send("GET", f"/{bucket}", query=q)
+        if st != 200:
+            fail(f"tier ListObjectsV2 {bucket}: HTTP {st}")
+        root = ET.fromstring(body)
+        ns = root.tag[:root.tag.index("}") + 1] if "}" in root.tag else ""
+        for e in root.findall(f"{ns}Contents"):
+            out[e.findtext(f"{ns}Key")] = int(e.findtext(f"{ns}Size"))
+        if root.findtext(f"{ns}IsTruncated") != "true":
+            return out
+        token = root.findtext(f"{ns}NextContinuationToken")
+
+
+def local_bytes(drives: list, buckets: tuple) -> int:
+    """Bytes of every file under the buckets' directories on the drives
+    (shards and xl.meta)."""
+    n = 0
+    for d in drives:
+        for b in buckets:
+            for dirpath, _dirs, files in os.walk(os.path.join(d, b)):
+                n += sum(os.path.getsize(os.path.join(dirpath, f))
+                         for f in files)
+    return n
+
+
+def data_dirs(drives: list, bucket: str, name: str) -> int:
+    """Data directories of one object over every drive."""
+    n = 0
+    for d in drives:
+        p = os.path.join(d, bucket, name)
+        if os.path.isdir(p):
+            n += sum(1 for e in os.scandir(p) if e.is_dir())
+    return n
+
+
+def file_stats(root: str) -> dict:
+    """path -> (size, mtime_ns, inode) of every file under root."""
+    out = {}
+    for dirpath, _dirs, files in os.walk(root):
+        for f in files:
+            st = os.stat(os.path.join(dirpath, f))
+            out[os.path.join(dirpath, f)] = (st.st_size, st.st_mtime_ns,
+                                             st.st_ino)
+    return out
+
+
+def file_md5(path: str) -> str:
+    h = hashlib.md5()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 22), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def run_tier(node, state, card, counts, np, lineitem: bytes,
+             q6_oracle: bytes) -> dict:
+    """The tier plane on the card, on phase 14's node before it shuts
+    down (its read cache and metacache on, its background loops stopped,
+    its MRF queue closed, 2 of its 8 drives still without bucket hot).
+    An fs tier `cold` beside the drives (tmpfs where phase 14 put them),
+    added through the node's TierManager and so persisted to the pool; a
+    lifecycle document PUT over HTTP on bucket hot (Transition Days 1 to
+    cold), which holds phase 14's four 64 MiB objects, its SSE-S3 64 MiB
+    object, phase 11's lineitem CSV and a new 4 x 16 MiB multipart
+    object; a versioned bucket tierv whose key ver has a 16 MiB
+    noncurrent version under NoncurrentVersionTransition (NoncurrentDays
+    1). The Days rules are made due by the crawler's clock, two days
+    ahead (phase 14's past Date has no noncurrent form).
+    Transition: one crawler pass of the boot's actions enqueues every
+    version, the node's worker drains them, each read degraded (a decode
+    on the card); every remote file equals the object's stored stream
+    (ciphertext for the SSE object: its stored stream is read first), no
+    drive keeps a stubbed version's data directory; over HTTP a GET
+    answers 403 InvalidObjectState, a HEAD carries the tier as storage
+    class, the index lists every key at its size, and the cache serves
+    no hit. Restore: the bucket healed back onto its 2 drives, POST
+    ?restore (Days 1) for every stub, 202 each; those of 64 MiB or more
+    pulled by the worker (a HEAD while it runs shows ongoing-request),
+    then every GET byte- and ETag-equal to before (the SSE object
+    deciphered by chacha20, the multipart object with its 4 parts, its
+    -4 ETag and a ranged GET across a part boundary, the noncurrent
+    version by id), and phase 11's Q6 COUNT over the restored lineitem
+    equal to its evaluator stream. Reclaim: a crawler pass past the
+    restores' expiry returns each copy to its stub, the remote files
+    untouched. Delete: a DELETE of one stub and a DeleteObjects of two
+    free their remote files. Heal: one stub's xl.meta removed from a
+    drive comes back with no recover dispatch and no launch."""
+    from minio_tpu_torch.object.background import DataUsageCrawler
+    from minio_tpu_torch.object.engine import GetOptions
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.scripts import scan_cases as sc
+    from minio_tpu_torch.storage import datatypes as dt
+    from minio_tpu_torch.tier.config import TierConfig
+    from minio_tpu_torch.tier.transition import (
+        noncurrent_transition_action, restore_reclaim_action,
+        transition_action)
+    from minio_tpu_torch.utils import knobs
+    t_phase = time.perf_counter()
+    drives = state["drives"]
+    layer, cache, worker = node.object_layer, node.read_cache, \
+        node.transition_worker
+    bmeta = node.s3.api.bucket_meta
+    c = S3Client(node.s3.port, state["creds"], timeout=300)
+    rng = np.random.default_rng(SEED + 53)
+    n_parts, part_size = TIER_PARTS
+    out = {"phase": "tier", "drives": len(drives),
+           "tier_on": "tmpfs (/dev/shm)" if state["on_shm"]
+           else "the disk (tmp)"}
+    counts.zero()
+
+    def note(msg: str) -> None:
+        print(f"[tier {time.perf_counter() - t_phase:.1f} s] {msg}",
+              file=sys.stderr, flush=True)
+
+    def verbs():
+        return {v: dict(s)
+                for v, s in node.scheduler.stats()["verbs"].items()}
+
+    def since(a, b, verb):
+        return b[verb]["batches"] - a[verb]["batches"]
+
+    v_phase = verbs()
+    tier_root = os.path.join(state["root"], "tier")
+    node.tiers.add(TierConfig("cold", "fs", {"path": tier_root}))
+    # the objects: phase 14's in bucket hot, a multipart one, and a
+    # versioned key in tierv
+    data = dict(state["payload_hot"])
+    data["sse"] = state["sse_data"]
+    data["lineitem.csv"] = lineitem
+    parts = [rng.bytes(part_size) for _ in range(n_parts)]
+    data["mp"] = b"".join(parts)
+    st, _h, body = c.send("POST", "/hot/mp", query={"uploads": ""})
+    if st != 200:
+        fail(f"tier: initiate multipart: HTTP {st}")
+    uid = body.split(b"<UploadId>")[1].split(b"<")[0].decode()
+    etags = []
+    for i, p in enumerate(parts):
+        st, h, _ = c.send("PUT", "/hot/mp", body=p,
+                          query={"partNumber": str(i + 1), "uploadId": uid})
+        if st != 200:
+            fail(f"tier: part {i + 1}: HTTP {st}")
+        etags.append(h["etag"])
+    done = ("<CompleteMultipartUpload>" + "".join(
+        f"<Part><PartNumber>{i + 1}</PartNumber><ETag>{e}</ETag></Part>"
+        for i, e in enumerate(etags)) + "</CompleteMultipartUpload>")
+    if c.send("POST", "/hot/mp", query={"uploadId": uid},
+              body=done.encode())[0] != 200:
+        fail("tier: complete multipart")
+    if c.send("PUT", "/tierv")[0] != 200 or c.send(
+            "PUT", "/tierv", query={"versioning": ""},
+            body=b"<VersioningConfiguration><Status>Enabled</Status>"
+                 b"</VersioningConfiguration>")[0] != 200:
+        fail("tier: make the versioned bucket")
+    vers = [rng.bytes(TIER_VERSION_BYTES) for _ in range(2)]
+    vids = []
+    for d in vers:
+        st, h, _ = c.send("PUT", "/tierv/ver", body=d)
+        if st != 200:
+            fail(f"tier: PUT tierv/ver: HTTP {st}")
+        vids.append(h["x-amz-version-id"])
+    lc_hot = ("<LifecycleConfiguration><Rule><ID>cold</ID><Status>Enabled"
+              "</Status><Filter><Prefix></Prefix></Filter><Transition>"
+              "<Days>1</Days><StorageClass>cold</StorageClass></Transition>"
+              "</Rule></LifecycleConfiguration>")
+    lc_ver = ("<LifecycleConfiguration><Rule><ID>nc</ID><Status>Enabled"
+              "</Status><Filter><Prefix></Prefix></Filter>"
+              "<NoncurrentVersionTransition><NoncurrentDays>1"
+              "</NoncurrentDays><StorageClass>cold</StorageClass>"
+              "</NoncurrentVersionTransition></Rule>"
+              "</LifecycleConfiguration>")
+    for b, doc in (("hot", lc_hot), ("tierv", lc_ver)):
+        if c.send("PUT", f"/{b}", query={"lifecycle": ""},
+                  body=doc.encode())[0] != 200:
+            fail(f"tier: PUT lifecycle on {b}")
+    hot_names = [*state["payload_hot"], "sse", "lineitem.csv", "mp"]
+    before = {}
+    for n in hot_names:
+        st, h, _ = c.send("HEAD", f"/hot/{n}")
+        if st != 200:
+            fail(f"tier: HEAD hot/{n}: HTTP {st}")
+        before[n] = h["etag"]
+    # the SSE object's stored stream (its ciphertext) is what moves
+    info, stream = layer.get_object("hot", "sse")
+    sse_stored = hashlib.md5()
+    stored_size = 0
+    for chunk in stream:
+        sse_stored.update(chunk)
+        stored_size += len(chunk)
+    want_md5 = {n: hashlib.md5(d).hexdigest() for n, d in data.items()}
+    want_md5["sse"] = sse_stored.hexdigest()
+    want_md5["ver@0"] = hashlib.md5(vers[0]).hexdigest()
+    sizes = {n: len(d) for n, d in data.items()}
+    sizes["sse"] = stored_size
+    moved_bytes = sum(sizes.values()) + len(vers[0])
+    if not node.metacache.drain(60):
+        fail("tier: the journal did not drain")
+    listed_before = list_keys_sizes(c, "hot")
+    if sorted(listed_before) != sorted(hot_names):
+        fail(f"tier: the index lists {sorted(listed_before)}")
+    buckets = ("hot", "tierv")
+    local = {"before_transition": local_bytes(drives, buckets)}
+    note("objects in place")
+
+    # -- transition -----------------------------------------------------------
+    later = time.time() + 2 * 86400
+    crawler = DataUsageCrawler(
+        layer, persist=False,
+        actions=[transition_action(bmeta, worker, now_fn=lambda: later)],
+        bucket_actions=[noncurrent_transition_action(
+            bmeta, worker, now_fn=lambda: later)])
+    v0, c0 = verbs(), counts.read()
+    t0 = time.perf_counter()
+    crawler.scan_once()
+    if not worker.drain(600):
+        fail(f"tier: the worker did not drain: {worker.stats()}")
+    transition_s = time.perf_counter() - t0
+    v1, c1 = verbs(), counts.read()
+    stats_t = worker.stats()
+    if stats_t["moved"] != len(hot_names) + 1 or stats_t["failed"]:
+        fail(f"tier: transitions {stats_t}")
+    note(f"transitioned in {transition_s:.1f} s")
+    remote = {}
+    for n in hot_names:
+        md = layer.get_object_info("hot", n).user_defined
+        remote[n] = md.get(dt.TRANSITIONED_OBJECT_KEY, "")
+    md = layer.get_object_info(
+        "tierv", "ver", GetOptions(version_id=vids[0])).user_defined
+    remote["ver@0"] = md.get(dt.TRANSITIONED_OBJECT_KEY, "")
+    if layer.get_object_info("tierv", "ver").user_defined.get(
+            dt.TRANSITION_STATUS_KEY):
+        fail("tier: the current version of tierv/ver transitioned")
+    for n, key in remote.items():
+        p = os.path.join(tier_root, key)
+        size = sizes.get(n, len(vers[0]))
+        if not key or not os.path.isfile(p) or \
+                os.path.getsize(p) != size or file_md5(p) != want_md5[n]:
+            fail(f"tier: the remote copy of {n} is not its stored stream")
+    for n in hot_names:
+        if data_dirs(drives, "hot", n):
+            fail(f"tier: a drive keeps a data directory of hot/{n}")
+    if data_dirs(drives, "tierv", "ver") != len(drives):
+        fail("tier: tierv/ver keeps more than its current version's data")
+    local["after_transition"] = local_bytes(drives, buckets)
+    h0 = cache.hits
+    for n in hot_names:
+        st, _h, body = c.send("GET", f"/hot/{n}")
+        if st != 403 or b"InvalidObjectState" not in body:
+            fail(f"tier: GET of the stub hot/{n}: HTTP {st}")
+        st, h, _ = c.send("HEAD", f"/hot/{n}")
+        if st != 200 or h.get("x-amz-storage-class") != "cold" or \
+                h.get("etag") != before[n]:
+            fail(f"tier: HEAD of the stub hot/{n}: {st} {h}")
+    if cache.hits != h0:
+        fail("tier: the read cache served a stub")
+    if not node.metacache.drain(60):
+        fail("tier: the journal did not drain")
+    listed = list_keys_sizes(c, "hot")
+    if listed != listed_before:
+        fail(f"tier: the index lists {listed}, {listed_before} before")
+    if not node.metacache.drain(60):
+        fail("tier: the journal did not drain")
+    out["transition"] = {
+        "versions": len(remote), "moved_bytes": moved_bytes,
+        "wall_s": round(transition_s, 3),
+        "gib_s": round(moved_bytes / (1 << 30) / transition_s, 4),
+        "decode_dispatches": since(v0, v1, "decode"),
+        "launches": {k: c1[k] - c0[k] for k in c1},
+        "worker": stats_t}
+
+    # -- restore --------------------------------------------------------------
+    layer.heal_bucket("hot")
+    v0, c0 = verbs(), counts.read()
+    t0 = time.perf_counter()
+    body = b"<RestoreRequest><Days>1</Days></RestoreRequest>"
+    posts, ongoing = {}, []
+    for n in hot_names:
+        posts[n] = c.send("POST", f"/hot/{n}", query={"restore": ""},
+                          body=body)[0]
+        # a pull the worker has not finished shows as ongoing
+        if 'ongoing-request="true"' in c.send(
+                "HEAD", f"/hot/{n}")[1].get("x-amz-restore", ""):
+            ongoing.append(n)
+    posts["ver@0"] = c.send("POST", "/tierv/ver",
+                            query={"restore": "", "versionId": vids[0]},
+                            body=body)[0]
+    if set(posts.values()) != {202}:
+        fail(f"tier: RestoreObject answered {posts}")
+    if not worker.drain(600):
+        fail(f"tier: the restores did not drain: {worker.stats()}")
+    restore_s = time.perf_counter() - t0
+    v1, c1 = verbs(), counts.read()
+    stats_r = worker.stats()
+    async_bytes = knobs.get_int("MINIO_TPU_RESTORE_ASYNC_BYTES")
+    async_n = sum(1 for n in hot_names if sizes[n] >= async_bytes)
+    if not ongoing or stats_r["restored"] != async_n or \
+            stats_r["restore_failed"]:
+        fail(f"tier: async restores {stats_r}, ongoing {ongoing}")
+    note(f"restored in {restore_s:.1f} s")
+    local["after_restore"] = local_bytes(drives, buckets)
+    gets = {}
+    for n in hot_names:
+        v2, c2 = verbs(), counts.read()
+        st, h, got = c.send("GET", f"/hot/{n}")
+        c3 = counts.read()
+        if st != 200 or got != data[n] or h.get("etag") != before[n] or \
+                'ongoing-request="false"' not in h.get("x-amz-restore", ""):
+            fail(f"tier: GET of the restored hot/{n}: HTTP {st}, bytes or "
+                 "ETag differ")
+        gets[n] = {"decipher_dispatches": since(v2, verbs(), "decipher"),
+                   "launches": {k: c3[k] - c2[k] for k in c3}}
+    if gets["sse"]["launches"]["chacha20"] <= 0:
+        fail(f"tier: the restored SSE object was not deciphered on the "
+             f"card: {gets['sse']}")
+    mp = layer.get_object_info("hot", "mp")
+    if [p.size for p in mp.parts] != [part_size] * n_parts or \
+            not mp.etag.endswith(f"-{n_parts}"):
+        fail(f"tier: the restored multipart object: {mp.parts} {mp.etag}")
+    lo = part_size - 5
+    st, _h, got = c.send("GET", "/hot/mp",
+                         headers={"range": f"bytes={lo}-{lo + 9}"})
+    if st != 206 or got != data["mp"][lo:lo + 10]:
+        fail(f"tier: ranged GET across a part boundary: HTTP {st}")
+    st, h, got = c.send("GET", "/tierv/ver", query={"versionId": vids[0]})
+    if st != 200 or got != vers[0]:
+        fail(f"tier: GET of the restored noncurrent version: HTTP {st}")
+    c2 = counts.read()
+    t1 = time.perf_counter()
+    st, _h, got = c.send("POST", "/hot/lineitem.csv",
+                         query={"select": "", "select-type": "2"},
+                         body=sc.select_xml(sc.Q6_COUNT))
+    select_s = time.perf_counter() - t1
+    c3 = counts.read()
+    if st != 200 or got != q6_oracle or c3["scan_eval"] <= c2["scan_eval"]:
+        fail(f"tier: the Select over the restored lineitem: HTTP {st}, "
+             f"{len(got)} B against the evaluator's {len(q6_oracle)} B")
+    out["restore"] = {
+        "restored_bytes": moved_bytes, "wall_s": round(restore_s, 3),
+        "gib_s": round(moved_bytes / (1 << 30) / restore_s, 4),
+        "posts": posts, "async": async_n, "seen_ongoing": ongoing,
+        "encode_dispatches": since(v0, v1, "encode"),
+        "launches": {k: c1[k] - c0[k] for k in c1},
+        "worker": stats_r, "gets": gets,
+        "select_wall_s": round(select_s, 3)}
+
+    # -- reclaim --------------------------------------------------------------
+    tier_stat = file_stats(tier_root)
+    past = time.time() + 3 * 86400
+    crawler = DataUsageCrawler(layer, persist=False, actions=[
+        restore_reclaim_action(layer, node.tiers, now_fn=lambda: past)])
+    t0 = time.perf_counter()
+    crawler.scan_once()
+    reclaim_s = time.perf_counter() - t0
+    note(f"reclaimed in {reclaim_s:.1f} s")
+    for n in hot_names:
+        md = layer.get_object_info("hot", n).user_defined
+        if dt.is_restored(md) or data_dirs(drives, "hot", n):
+            fail(f"tier: hot/{n} was not returned to its stub")
+    # the reclaim visits current versions only (the per-object action of
+    # the crawler, as in the reference): the restored noncurrent version
+    # keeps its local copy beside the current one
+    if data_dirs(drives, "tierv", "ver") != 2 * len(drives):
+        fail("tier: tierv/ver's versions lost or kept data")
+    if file_stats(tier_root) != tier_stat:
+        fail("tier: the reclaim touched the remote files")
+    local["after_reclaim"] = local_bytes(drives, buckets)
+    out["reclaim"] = {"wall_s": round(reclaim_s, 3)}
+
+    # -- delete and heal ------------------------------------------------------
+    one, two = hot_names[0], hot_names[1:3]
+    if c.send("DELETE", f"/hot/{one}")[0] != 204:
+        fail(f"tier: DELETE hot/{one}")
+    body = ("<Delete>" + "".join(f"<Object><Key>{n}</Key></Object>"
+                                 for n in two) + "</Delete>").encode()
+    if c.send("POST", "/hot", query={"delete": ""}, body=body)[0] != 200:
+        fail("tier: DeleteObjects")
+    for n in [one, *two]:
+        if os.path.exists(os.path.join(tier_root, remote[n])):
+            fail(f"tier: the remote copy of deleted hot/{n} is still there")
+    for n in hot_names[3:]:
+        if not os.path.exists(os.path.join(tier_root, remote[n])):
+            fail(f"tier: the remote copy of hot/{n} went with the deletes")
+    victim = hot_names[3]
+    meta_path = next(p for p in (os.path.join(d, "hot", victim, "xl.meta")
+                                 for d in drives) if os.path.exists(p))
+    os.remove(meta_path)
+    v0, c0 = verbs(), counts.read()
+    res = layer.heal_object("hot", victim)
+    v1, c1 = verbs(), counts.read()
+    heal = {"disks_healed": res.disks_healed,
+            "recover_dispatches": since(v0, v1, "recover"),
+            "launches": {k: c1[k] - c0[k] for k in c1}}
+    if not os.path.exists(meta_path) or res.disks_healed != 1 or \
+            heal["recover_dispatches"] or any(heal["launches"].values()):
+        fail(f"tier: the stub heal {heal}")
+    out["delete_heal"] = {"deleted": [one, *two], "stub_heal": heal}
+
+    launches = counts.read()
+    v_end = verbs()
+    if any(launches[k] <= 0 for k in ("gf_matmul", "hh256", "chacha20",
+                                      "scan_eval")):
+        fail(f"tier: a kernel of the path was not launched: {launches}")
+    out.update({"local_bytes": local,
+                "dispatches": {v: since(v_phase, v_end, v)
+                               for v in ("decode", "encode", "recover",
+                                         "decipher", "scan")},
+                "worker": worker.stats(), "launches": launches,
                 "seconds": round(time.perf_counter() - t_phase, 3),
                 "card": card})
     emit(out)

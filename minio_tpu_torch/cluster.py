@@ -18,7 +18,11 @@ and feeds both scanners (minio_tpu/cluster.py:521-531); with
 ``MINIO_TPU_CACHE=on`` the hot-object read cache sits in front of the
 layer for the S3 surface, while the background planes keep the raw layer
 (:541-555); the crawler enforces lifecycle expiry, noncurrent expiry and
-stale multipart aborts (:598-617, without the tier actions).
+stale multipart aborts (:598-617). The tier plane (:483-490, :575-612):
+the tier registry loaded from the drives at boot, one transition worker
+(also the async RestoreObject worker), and the crawler's transition,
+noncurrent-transition and restore-reclaim actions, with the expiry
+actions freeing transitioned versions' remote copies.
 
 ``device`` picks where the sets' fused steps and the Select scans run:
 None means the card, and a host without one raises rather than serving
@@ -26,10 +30,10 @@ from the CPU; ``device="cpu"`` runs the plain PyTorch versions on the
 host.
 
 Left out: distributed nodes (internode storage, lock, peer and bootstrap
-RPC, dsync), IAM, config KV, events, replication, notification, tiers
-(and the crawler's transition and restore actions), the boot fsck, the
-admin, health and web routers, the incident plane, online pool expansion
-and the single-path FS backend.
+RPC, dsync), IAM, config KV, events, replication, notification, the QoS
+registry (the transition worker's per-tier budgets), the boot fsck, the
+admin, health and web routers (the admin tier routes with them), the
+incident plane, online pool expansion and the single-path FS backend.
 """
 
 from __future__ import annotations
@@ -56,6 +60,11 @@ from .s3.server import S3Server
 from .storage import errors as serr
 from .object.update_tracker import DataUpdateTracker
 from .storage.xl_storage import XLStorage
+from .tier.client import TierClientError
+from .tier.config import TierManager
+from .tier.transition import (TransitionWorker,
+                              noncurrent_transition_action,
+                              restore_reclaim_action, transition_action)
 from .utils import ellipses
 
 
@@ -104,6 +113,8 @@ class ClusterNode:
         self.crawler: Optional[DataUsageCrawler] = None
         self.metacache: Optional[MetacacheManager] = None
         self.read_cache: Optional[CacheObjects] = None
+        self.tiers: Optional[TierManager] = None
+        self.transition_worker: Optional[TransitionWorker] = None
         # the listener starts before the drives are formatted (the
         # reference serves before newObjectLayer returns)
         self.s3: Optional[S3Server] = S3Server(
@@ -157,6 +168,13 @@ class ClusterNode:
             # fill the cache
             self.object_layer.attach_read_cache(self.read_cache)
             self.s3.api.set_object_layer(self.read_cache)
+        # -- tier plane (remote tiers + ILM transitions) --------------------
+        self.tiers = TierManager(self.object_layer)
+        try:
+            self.tiers.load()
+        except TierClientError:
+            pass    # loaded; its gateway-typed tiers cannot be served
+        self.s3.api.tiers = self.tiers
         # -- background plane (initAutoHeal + initDataCrawler) -------------
         self.disk_monitor = DiskMonitor(self.sets).start()
         # data-update tracker: every mutation marks the bloom; the heal
@@ -169,13 +187,25 @@ class ClusterNode:
         # and the crawler, whose usage cache feeds quota
         self.heal_scanner = HealScanner(self.object_layer,
                                         self.update_tracker).start()
+        # one transition worker, on the raw layer and throttled off the
+        # foreground; the async RestoreObject pulls ride it too
+        self.transition_worker = TransitionWorker(self.object_layer,
+                                                  self.tiers).start()
+        self.s3.api.restore_worker = self.transition_worker
         bmeta = self.s3.api.bucket_meta
         self.crawler = DataUsageCrawler(
             self.object_layer,
-            actions=[crawler_action(bmeta, self.object_layer)],
+            actions=[crawler_action(bmeta, self.object_layer,
+                                    tiers=self.tiers),
+                     transition_action(bmeta, self.transition_worker),
+                     restore_reclaim_action(self.object_layer,
+                                            self.tiers)],
             bucket_actions=[
                 mpu_abort_action(bmeta, self.object_layer),
-                noncurrent_sweep_action(bmeta, self.object_layer)],
+                noncurrent_sweep_action(bmeta, self.object_layer,
+                                        tiers=self.tiers),
+                noncurrent_transition_action(bmeta,
+                                             self.transition_worker)],
         ).start()
         self.s3.api.usage = self.crawler
 
@@ -185,10 +215,11 @@ class ClusterNode:
 
     def shutdown(self) -> None:
         """Idempotent; safe on a partially-booted node. The background
-        loops close, the metacache closes (persisting what is dirty) and
-        the tracker flushes first, then the server stops, then the sets,
-        then the former."""
-        for loop in ("disk_monitor", "crawler", "heal_scanner"):
+        loops and the transition worker close, the metacache closes
+        (persisting what is dirty) and the tracker flushes first, then
+        the server stops, then the sets, then the former."""
+        for loop in ("disk_monitor", "crawler", "transition_worker",
+                     "heal_scanner"):
             if getattr(self, loop) is not None:
                 getattr(self, loop).close()
                 setattr(self, loop, None)

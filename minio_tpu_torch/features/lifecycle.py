@@ -12,12 +12,14 @@ AbortIncompleteMultipartUpload{DaysAfterInitiation},
 Transition{Days|Date,StorageClass},
 NoncurrentVersionTransition{NoncurrentDays,StorageClass}.
 
-The transition rules are parsed and evaluated (``transition_due``,
-``noncurrent_transition``) but nothing acts on them: the tier plane is
-not ported, so the actions here take no tier manager and never free a
-remote copy. ``crawler_action`` sends its s3:ObjectRemoved:Lifecycle
-event only to a ``notifier`` the caller passes; the boot passes none (the
-event plane is not ported).
+Transition rules name a remote TIER via StorageClass (the reference's
+ILM tiering, pkg/bucket/lifecycle/transition.go): the crawler's tier
+actions (tier/transition.py) act on them, and expiry always wins over
+transition when both are due. With a tier manager (``tiers=``), the
+expiry actions here also free a transitioned version's remote copy.
+``crawler_action`` sends its s3:ObjectRemoved:Lifecycle event only to a
+``notifier`` the caller passes; the boot passes none (the event plane is
+not ported).
 """
 
 from __future__ import annotations
@@ -215,11 +217,13 @@ class Lifecycle:
 
 
 def crawler_action(bucket_meta_sys, object_layer, notifier=None,
-                   now_fn=time.time):
+                   now_fn=time.time, tiers=None):
     """DataUsageCrawler per-object action enforcing lifecycle expiry
     (cmd/data-crawler.go:629-713): current-version Expiration (delete or
     delete-marker when versioned). NoncurrentVersionExpiration is the
-    per-bucket noncurrent_sweep_action's.
+    per-bucket noncurrent_sweep_action's. With a tier manager, an
+    unversioned expiry of a transitioned version also frees its remote
+    copy (best-effort: a tier outage must not block expiry).
 
     A departure from the reference: the crawler's ObjectInfo comes from
     the namespace feed, which may lag the drives, so the object is
@@ -249,6 +253,11 @@ def crawler_action(bucket_meta_sys, object_layer, notifier=None,
                     bucket, oi.name, versioned=versioned)
             except api_errors.ObjectApiError:
                 return
+            if tiers is not None and not versioned:
+                # the data version is gone (not a marker write): its
+                # remote tier copy goes too
+                from ..tier.transition import free_remote
+                free_remote(tiers, fresh.user_defined or {})
             if notifier is not None:
                 try:
                     notifier.send("s3:ObjectRemoved:Lifecycle", bucket,
@@ -260,7 +269,7 @@ def crawler_action(bucket_meta_sys, object_layer, notifier=None,
 
 
 def noncurrent_sweep_action(bucket_meta_sys, object_layer,
-                            now_fn=time.time):
+                            now_fn=time.time, tiers=None):
     """Per-bucket crawler action enforcing NoncurrentVersionExpiration
     over a paginated bucket-wide version walk.
 
@@ -270,6 +279,11 @@ def noncurrent_sweep_action(bucket_meta_sys, object_layer,
     noncurrent (its successor's mod time, S3 semantics), and the null
     version (empty version id, written before versioning) expires like
     any other noncurrent version.
+
+    With a tier manager, expiring a transitioned noncurrent version also
+    frees its remote copy: in a versioned bucket this sweep is the main
+    deletion path of tiered data (current-version expiry only lays
+    markers).
     """
 
     def act(bucket: str) -> None:
@@ -298,6 +312,9 @@ def noncurrent_sweep_action(bucket_meta_sys, object_layer,
                             bucket, name, version_id=vs[i].version_id)
                     except api_errors.ObjectApiError:
                         continue
+                    if tiers is not None:
+                        from ..tier.transition import free_remote
+                        free_remote(tiers, vs[i].user_defined or {})
 
         for name, vs in iter_version_groups(object_layer, bucket,
                                             consumer="lifecycle"):

@@ -115,6 +115,16 @@ class PreConditionFailed(ObjectApiError):
     pass
 
 
+class InvalidObjectState(ObjectApiError):
+    """GET of a transitioned (tiered) version with no restored local
+    copy: the client must POST ?restore first (S3 InvalidObjectState)."""
+
+
+class TierNotFound(ObjectApiError):
+    """A lifecycle rule or restore named a tier that is not in the tier
+    registry."""
+
+
 def to_object_err(err: Exception, bucket: str = "",
                   object: str = "") -> Exception:
     """Map a per-drive/quorum StorageError to the object-level error the

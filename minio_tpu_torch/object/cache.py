@@ -26,9 +26,11 @@ misses read through and populate:
     wrapper (lifecycle expiry, heal) still evict; the mutating verbs
     through the wrapper evict too, and the per-GET ETag check is the
     backstop.
-  * **Tiering interplay** — the serve path re-checks the backend
-    metadata, so a cached copy never answers for a transitioned version
-    without a restored copy (no ported plane transitions one yet).
+  * **Tiering interplay** — a transition's stub rewrite reports on the
+    namespace feed, which evicts the entry, and the serve path re-checks
+    the backend metadata, so a cached copy never answers for a
+    transitioned version without a restored copy: the GET reaches the
+    layer's InvalidObjectState gate.
 
 At the boot the wrapper sits in FRONT of ErasureServerSets as the S3
 surface's layer: a hit serves a GET, or a Select's object read, from the
@@ -45,8 +47,7 @@ the old ETag and length. Here the fallback reads with the GET's options
 and aborts the stream (``ObjectApiError``) when the read's ETag is not
 the one the response started with, as the fill paths already refuse a
 changed generation. Left out: the reference's lockcheck wrappers (the
-locks are plain ``threading.Lock``) and the tier plane that would
-transition a version.
+locks are plain ``threading.Lock``).
 
 Env (cluster boot; constructor args override):
   MINIO_TPU_CACHE=on|off            master switch (default off)

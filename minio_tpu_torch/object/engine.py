@@ -46,9 +46,14 @@ metacache and of the read cache's invalidation (object/server_sets.py).
 Every read stream through the shard-read/verify/decode path counts on
 ``minio_tpu_erasure_get_streams_total`` (the read cache's hits do not).
 
+Tier transitions (reference :1021-1160): ``transition_object`` rewrites
+one version's xl.meta into a zero-data stub carrying the tier name and
+remote key, and frees the local shards once the stub is at write quorum;
+``put_stub_version`` writes such a stub from its ObjectInfo. A GET of a
+stub with no restored copy answers InvalidObjectState.
+
 Left out: hedged reads and quarantine, the quorum-ack lane of PUT (its
-multipart form is ported), spans, and transitions and stubs (with their
-namespace hooks).
+multipart form is ported), and spans.
 """
 
 from __future__ import annotations
@@ -69,8 +74,13 @@ from .. import bitrot as bitrot_mod
 from .. import device as device_mod
 from ..storage import errors as serr
 from ..storage.api import StorageAPI
-from ..storage.datatypes import (BLOCK_SIZE_V1, ChecksumInfo, FileInfo,
-                                 ObjectInfo, last_version_marker,
+from ..storage.datatypes import (BLOCK_SIZE_V1, RESTORE_EXPIRY_KEY,
+                                 RESTORE_KEY, TRANSITION_COMPLETE,
+                                 TRANSITION_STATUS_KEY, TRANSITION_TIER_KEY,
+                                 TRANSITIONED_OBJECT_KEY,
+                                 TRANSITIONED_VERSION_KEY, ChecksumInfo,
+                                 FileInfo, ObjectInfo, is_restored,
+                                 is_transitioned, last_version_marker,
                                  new_file_info, now)
 from ..storage.format import (FormatErasureV3, get_format_in_quorum,
                               new_format_erasure_v3, read_format_from,
@@ -936,6 +946,124 @@ class ErasureObjects:
         self._notify_namespace(bucket, object_name)
         return fi.to_object_info(bucket, object_name)
 
+    def transition_object(self, bucket: str, object_name: str,
+                          version_id: str = "", tier: str = "",
+                          remote_object: str = "",
+                          remote_version: str = "",
+                          expect_etag: str = "",
+                          expect_mod_time: Optional[float] = None
+                          ) -> ObjectInfo:
+        """Rewrite one version's xl.meta into a zero-data stub carrying
+        the tier name and remote key, then free its local shards (the
+        reference's TransitionObject commit). The caller has verified the
+        remote copy; the shards go only after the stub is at write
+        quorum, so a crash before that leaves the object readable.
+
+        Also the restore-expiry reclaim: re-stubbing a restored copy
+        passes the same tier and remote key back, and drops the restore
+        state.
+
+        expect_etag / expect_mod_time pin the version's identity inside
+        the write lock: an unversioned overwrite that raced the remote
+        upload aborts the commit (PreConditionFailed)."""
+        with self.ns.new_lock(f"{bucket}/{object_name}").write_locked():
+            fi, metas, online = self._object_file_info(
+                bucket, object_name, version_id)
+            if fi.deleted:
+                raise api_errors.MethodNotAllowed(
+                    f"{bucket}/{object_name} is a delete marker")
+            if (expect_etag
+                    and fi.metadata.get("etag", "") != expect_etag) or \
+                    (expect_mod_time is not None
+                     and fi.mod_time != expect_mod_time):
+                raise api_errors.PreConditionFailed(
+                    f"{bucket}/{object_name} changed since the remote "
+                    "copy was written")
+            data_dir = fi.data_dir
+            new_meta = dict(fi.metadata)
+            new_meta[TRANSITION_STATUS_KEY] = TRANSITION_COMPLETE
+            new_meta[TRANSITION_TIER_KEY] = tier
+            new_meta[TRANSITIONED_OBJECT_KEY] = remote_object
+            if remote_version:
+                new_meta[TRANSITIONED_VERSION_KEY] = remote_version
+            else:
+                new_meta.pop(TRANSITIONED_VERSION_KEY, None)
+            new_meta.pop(RESTORE_KEY, None)
+            new_meta.pop(RESTORE_EXPIRY_KEY, None)
+
+            def upd(i, d):
+                m = metas[i]
+                if m is None:
+                    raise serr.FileNotFound(object_name)
+                m.metadata = dict(new_meta)
+                m.data_dir = ""        # zero-data stub
+                d.write_metadata(bucket, object_name, m)
+
+            _, errs = meta.for_each_disk(online, upd)
+            _, write_quorum = meta.object_quorum_from_meta(
+                metas, [None] * len(metas), self.parity_shards)
+            err = meta.reduce_write_quorum_errs(
+                errs, meta.OBJECT_OP_IGNORED_ERRS, write_quorum)
+            if err is not None:
+                raise api_errors.to_object_err(err, bucket, object_name)
+            # the stub is at quorum: now the shards go, from every drive
+            # (a stale copy must not bring the data directory back)
+            if data_dir:
+                def rm(i, d):
+                    try:
+                        d.delete_file(bucket, f"{object_name}/{data_dir}",
+                                      recursive=True)
+                    except serr.FileNotFound:
+                        pass
+
+                meta.for_each_disk(self.disks, rm)
+            fi.metadata = new_meta
+            fi.data_dir = ""
+        if any(e is not None for e in errs):
+            self._notify_degraded(bucket, object_name, fi.version_id)
+        self._notify_namespace(bucket, object_name)
+        return fi.to_object_info(bucket, object_name)
+
+    def put_stub_version(self, bucket: str, object_name: str,
+                         info: ObjectInfo,
+                         if_none_newer: bool = False) -> ObjectInfo:
+        """Write a transitioned zero-data stub version from its ObjectInfo
+        (a stub's copy between pools: only the xl.meta pointer travels).
+        The identity (version id, mod time, etag, parts, metadata with
+        the tier pointers) is kept; the erasure geometry is this set's."""
+        md = dict(info.user_defined or {})
+        if md.get(TRANSITION_STATUS_KEY) != TRANSITION_COMPLETE:
+            raise api_errors.InvalidObjectState(
+                f"{bucket}/{object_name} is not a transitioned stub")
+        k, m, _, write_quorum = self._default_quorums()
+        fi = new_file_info(f"{bucket}/{object_name}", k, m)
+        fi.erasure.block_size = self.block_size
+        fi.volume, fi.name = bucket, object_name
+        fi.data_dir = ""
+        fi.version_id = info.version_id or ""
+        fi.size = info.size
+        fi.mod_time = info.mod_time
+        md["etag"] = info.etag
+        if info.content_type:
+            md["content-type"] = info.content_type
+        if info.content_encoding:
+            md["content-encoding"] = info.content_encoding
+        fi.metadata = md
+        for p in (info.parts or []):
+            fi.add_object_part(p.number, p.etag, p.size, p.actual_size)
+        if not fi.parts:
+            fi.add_object_part(1, info.etag, info.size, info.size)
+        with self.ns.new_lock(f"{bucket}/{object_name}").write_locked():
+            if if_none_newer:
+                self._check_none_newer(bucket, object_name, fi)
+            metas = [fi.light_copy() for _ in range(len(self.disks))]
+            online = meta.write_unique_file_info(
+                self.disks, bucket, object_name, metas, write_quorum)
+        if any(d is None for d in online):
+            self._notify_degraded(bucket, object_name, fi.version_id)
+        self._notify_namespace(bucket, object_name)
+        return fi.to_object_info(bucket, object_name)
+
     def get_object_info(self, bucket: str, object_name: str,
                         opts: Optional[GetOptions] = None) -> ObjectInfo:
         opts = opts or GetOptions()
@@ -968,6 +1096,14 @@ class ErasureObjects:
                     raise api_errors.MethodNotAllowed(
                         f"{bucket}/{object_name} is a delete marker")
                 raise api_errors.ObjectNotFound(bucket, object_name)
+            if is_transitioned(fi.metadata) \
+                    and not is_restored(fi.metadata):
+                # the data lives in a remote tier and no restored copy
+                # exists: InvalidObjectState until a RestoreObject
+                raise api_errors.InvalidObjectState(
+                    f"{bucket}/{object_name} is archived in tier "
+                    f"{fi.metadata.get(TRANSITION_TIER_KEY, '?')!r}; "
+                    "restore it first")
             oi = fi.to_object_info(bucket, object_name)
             if length < 0:
                 length = fi.size - offset

@@ -25,7 +25,9 @@ Departure from the reference: under a whole-file bitrot algorithm a
 healed drive's xl.meta records the digests of its own rebuilt files;
 minio_tpu copies another drive's, so the healed shards read as bitrot.
 
-Left out: transitioned (tiered) objects, whose stubs are not ported.
+A transitioned zero-data stub heals like a delete marker (reference
+:97-105): its data lives in the remote tier, so only the xl.meta is
+copied to the drives that miss it, with no dispatch.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import numpy as np
 from .. import bitrot as bitrot_mod
 from ..storage import errors as serr
 from ..storage.api import StorageAPI
-from ..storage.datatypes import FileInfo
+from ..storage.datatypes import FileInfo, is_restored, is_transitioned
 from ..storage.xl_storage import MINIO_META_TMP_BUCKET
 from ..utils import knobs
 from . import api_errors, bitrot_io, metadata as meta
@@ -109,8 +111,10 @@ class HealMixin(ErasureObjects):
                 object_name) from None
 
         fi = meta.pick_valid_file_info(metas, read_quorum)
-        if fi.deleted:
-            # delete markers need only metadata replication
+        if fi.deleted or (is_transitioned(fi.metadata)
+                          and not is_restored(fi.metadata)):
+            # delete markers and transitioned zero-data stubs need only
+            # metadata replication (a stub has no local shards)
             missing = [i for i, m in enumerate(metas)
                        if m is None or m.mod_time != fi.mod_time]
             res.missing_before = len(missing)

@@ -378,6 +378,40 @@ class ErasureServerSets:
                                                metadata, version_id),
             bucket, object_name)
 
+    def transition_object(self, bucket, object_name, version_id="",
+                          tier="", remote_object="", remote_version="",
+                          expect_etag="", expect_mod_time=None):
+        """Stub-rewrite one version in the pool that holds it (the tier
+        transition and reclaim commit). A version-targeted call tries
+        every pool holding the name, as a version delete does; the
+        latest-version form hits the newest holder, as reads do."""
+        if not self.single_zone() and version_id:
+            last: Optional[Exception] = None
+            for z in self.server_sets:
+                if not z.has_object_versions(bucket, object_name):
+                    continue
+                try:
+                    return z.transition_object(
+                        bucket, object_name, version_id, tier,
+                        remote_object, remote_version, expect_etag,
+                        expect_mod_time)
+                except (api_errors.ObjectNotFound,
+                        api_errors.VersionNotFound) as e:
+                    last = e
+            raise last or api_errors.ObjectNotFound(bucket, object_name)
+        if not self.single_zone():
+            return self._read_newest(
+                bucket, object_name,
+                lambda z: z.transition_object(bucket, object_name,
+                                              version_id, tier,
+                                              remote_object,
+                                              remote_version,
+                                              expect_etag,
+                                              expect_mod_time))
+        return self.server_sets[0].transition_object(
+            bucket, object_name, version_id, tier, remote_object,
+            remote_version, expect_etag, expect_mod_time)
+
     # ------------------------------------------------------------------
     # version-faithful writes (replication apply / rebalance copy)
     # ------------------------------------------------------------------
@@ -390,6 +424,14 @@ class ErasureServerSets:
         idx = self.get_zone_idx(bucket, object_name, 1 << 20)
         return self.server_sets[idx].put_delete_marker(
             bucket, object_name, version_id, mod_time, metadata)
+
+    def put_stub_version(self, bucket, object_name, info,
+                         if_none_newer=False):
+        """Write a transitioned zero-data stub from its ObjectInfo into
+        an ACTIVE pool (the remote tier copy is never touched)."""
+        idx = self.get_zone_idx(bucket, object_name, 1 << 20)
+        return self.server_sets[idx].put_stub_version(bucket, object_name,
+                                                      info, if_none_newer)
 
     def latest_file_info(self, bucket, object_name):
         """Cross-pool newest version's FileInfo, markers included."""

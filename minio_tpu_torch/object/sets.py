@@ -17,9 +17,8 @@ dispatch.
 
 Every set's namespace-change hook reports up through this layer's
 ``on_namespace_change`` (object/server_sets.py points it at its
-dispatcher).
-
-Left out: the transition/stub verbs (the tier plane is not ported).
+dispatcher). The tier plane's verbs (``transition_object``,
+``put_stub_version``) route by object name like every other write.
 """
 
 from __future__ import annotations
@@ -351,6 +350,18 @@ class ErasureSets:
                                version_id=""):
         return self.get_hashed_set(object_name).update_object_metadata(
             bucket, object_name, metadata, version_id)
+
+    def transition_object(self, bucket, object_name, version_id="",
+                          tier="", remote_object="", remote_version="",
+                          expect_etag="", expect_mod_time=None):
+        return self.get_hashed_set(object_name).transition_object(
+            bucket, object_name, version_id, tier, remote_object,
+            remote_version, expect_etag, expect_mod_time)
+
+    def put_stub_version(self, bucket, object_name, info,
+                         if_none_newer=False):
+        return self.get_hashed_set(object_name).put_stub_version(
+            bucket, object_name, info, if_none_newer)
 
     def has_object_versions(self, bucket, object_name) -> bool:
         return self.get_hashed_set(object_name).has_object_versions(

@@ -31,10 +31,22 @@ anonymous requests are refused and STS answers NotImplemented, as the
 reference does without IAM. Verbs of planes not ported yet answer
 NotImplemented: STS, object lock (bucket config, retention, legal hold,
 and the lock headers of a PUT or a locked bucket's deletes), replication
-and notification configs, ListenBucketNotification, browser POST uploads,
-RestoreObject and the internal replication headers.
+and notification configs, ListenBucketNotification, browser POST uploads
+and the internal replication headers; RestoreObject answers it too when
+no tier manager is attached (``tiers``, as in the reference).
 Left out with them: QoS pacing, request tracing, bandwidth accounting,
-event notification, tiering, bucket federation and storage-class parity.
+event notification, bucket federation and storage-class parity.
+
+The tier plane (tier/): a transitioned object's HEAD and GET carry the
+tier as ``x-amz-storage-class`` and its ``x-amz-restore`` state, a GET
+of a stub answers InvalidObjectState, RestoreObject pulls the object
+back (202 on a fresh restore, 200 when it only extends the expiry; at
+MINIO_TPU_RESTORE_ASYNC_BYTES or more, 202 at once and the tier worker
+pulls), and a DELETE or a DeleteObjects that removes a data version
+frees its remote copy. Departure: the GET of a stub answers
+InvalidObjectState before any transform; the reference's GET of an
+encrypted or compressed stub starts a 200 whose stream then fails (its
+transformed reads open the layer lazily).
 
 Departure: a copy that keeps the source's stored bytes (REPLACE directive
 without a new transform) also keeps the source's cipher record, and a
@@ -65,8 +77,10 @@ from ..object.hash_reader import HashReader
 from ..object.multipart import CompletePart
 from ..s3select import SelectRequest
 from ..scan import ScanEngine
+from ..storage import datatypes as dt
 from ..storage.datatypes import ObjectInfo
-from ..utils import stagetimer
+from ..tier import transition as tier_transition
+from ..utils import knobs, stagetimer
 from ..utils.streams import IterStream as _IterStream
 from . import signature as sig
 from . import xmlgen
@@ -275,6 +289,9 @@ class S3ApiHandlers:
         self.compression_algorithm = os.environ.get(
             "MINIO_COMPRESS_ALGORITHM", "s2").lower()
         self.usage = None          # optional DataUsageCrawler (quota cache)
+        self.tiers = None          # optional TierManager (ILM tiering)
+        # optional TransitionWorker: the async RestoreObject pulls
+        self.restore_worker = None
         self.update_tracker = None  # optional DataUpdateTracker
         self.cors_allow_origin = "*"
         # the scan plane: Selects evaluate on the object layer's device;
@@ -493,7 +510,7 @@ class S3ApiHandlers:
             if ctx.has_query("uploadId"):
                 return self.complete_multipart_upload(ctx, bucket, key)
             if ctx.has_query("restore"):
-                raise _not_ported("RestoreObject")
+                return self.restore_object(ctx, bucket, key)
             if ctx.has_query("select") or \
                     ctx.query1("select-type") == "2":
                 return self.select_object_content(ctx, bucket, key)
@@ -777,10 +794,22 @@ class S3ApiHandlers:
         if len(keys) > 1000:
             raise S3Error("MalformedXML", "too many objects (max 1000)")
         versioned = self.bucket_meta.versioning_enabled(bucket)
+        # a batch delete frees remote tier copies as the single DELETE
+        # does (the same gate: only when a DATA version goes)
+        tiers_live = self.tiers is not None \
+            and getattr(self.tiers, "tiers", None)
         deleted, errors = [], []
         for key, vid in keys:
             if vid == "null":
                 vid = ""  # same normalization as single DELETE
+            tiered_md = None
+            if tiers_live and (vid or not versioned):
+                try:
+                    tiered_md = self.obj.get_object_info(
+                        bucket, key,
+                        GetOptions(version_id=vid)).user_defined or {}
+                except oerr.ObjectApiError:
+                    pass
             try:
                 res = self.obj.delete_object(bucket, key, version_id=vid,
                                              versioned=versioned)
@@ -789,6 +818,8 @@ class S3ApiHandlers:
                     entry["delete_marker"] = True
                     entry["delete_marker_version"] = res.version_id
                 deleted.append(entry)
+                if tiered_md is not None:
+                    tier_transition.free_remote(self.tiers, tiered_md)
                 self._mark(bucket, key)
             except oerr.ObjectNotFound:
                 deleted.append({"key": key, "version_id": vid})
@@ -941,6 +972,13 @@ class S3ApiHandlers:
             elif lk in ("cache-control", "content-disposition",
                         "content-language", "expires"):
                 h[k] = v
+        md = info.user_defined or {}
+        if dt.is_transitioned(md):
+            # a transitioned object reports its TIER as its storage class
+            # and its restore state (S3's GLACIER semantics)
+            h["x-amz-storage-class"] = md.get(dt.TRANSITION_TIER_KEY, "")
+            if md.get(dt.RESTORE_KEY):
+                h["x-amz-restore"] = md[dt.RESTORE_KEY]
         if info.delete_marker:
             h["x-amz-delete-marker"] = "true"
         return h
@@ -983,6 +1021,12 @@ class S3ApiHandlers:
             return HTTPResponse(status=short,
                                 headers=self._obj_response_headers(info))
         md = info.user_defined or {}
+        if dt.is_transitioned(md) and not dt.is_restored(md):
+            # before any transform: a transformed GET reads the layer
+            # only once the response has started
+            raise oerr.InvalidObjectState(
+                f"{bucket}/{key} is archived in a remote tier; restore "
+                "it first")
         if md.get(sse.MK_SSE) or sse.stored_compression(md):
             return self._get_transformed(ctx, bucket, key, info, opts, md)
         rng = _parse_range(ctx.header("range"), info.size)
@@ -1300,8 +1344,25 @@ class S3ApiHandlers:
         vid = ctx.query1("versionId")
         versioned = self.bucket_meta.versioning_enabled(bucket)
         # "null" targets the pre-versioning null version, which this
-        # stack stores under the empty version id
+        # stack stores under the empty version id: normalized once, so
+        # that the tier gate below and delete_object agree on whether
+        # this request removes a DATA version or only lays a marker
         eff_vid = "" if vid == "null" else vid
+        # a delete that removes a data version (an explicit version, or
+        # an unversioned delete) frees a transitioned object's remote
+        # copy. Gated on a non-empty registry (with no tiers nothing is
+        # transitioned, and the extra metadata read would tax every
+        # DELETE) and on eff_vid: ?versionId=null on a versioned bucket
+        # lays a marker, the stub stays, and so must its remote copy
+        tiered_md = None
+        if self.tiers is not None and getattr(self.tiers, "tiers", None) \
+                and (eff_vid or not versioned):
+            try:
+                tiered_md = self.obj.get_object_info(
+                    bucket, key,
+                    GetOptions(version_id=eff_vid)).user_defined or {}
+            except oerr.ObjectApiError:
+                pass
         headers = {}
         try:
             res = self.obj.delete_object(
@@ -1311,10 +1372,68 @@ class S3ApiHandlers:
                     headers["x-amz-delete-marker"] = "true"
                 if res.version_id and res.version_id != "null":
                     headers["x-amz-version-id"] = res.version_id
+            if tiered_md is not None:
+                tier_transition.free_remote(self.tiers, tiered_md)
         except oerr.ObjectNotFound:
             pass  # S3 DELETE of a missing key is 204
         self._mark(bucket, key)
         return HTTPResponse(status=204, headers=headers)
+
+    def restore_object(self, ctx, bucket, key) -> HTTPResponse:
+        """POST /bucket/key?restore: pull a transitioned object back as an
+        expiring local copy (S3 RestoreObject; 202 on a fresh restore,
+        200 when only the expiry window was extended)."""
+        self.authenticate(ctx)
+        self.obj.get_bucket_info(bucket)
+        if self.tiers is None:
+            raise S3Error("NotImplemented", "no tier configuration")
+        body = ctx.read_body()
+        days = 1
+        if body.strip():
+            try:
+                root = ET.fromstring(body)
+            except ET.ParseError:
+                raise S3Error("MalformedXML") from None
+            ns = "{http://s3.amazonaws.com/doc/2006-03-01/}"
+            del_ = root.find("Days")
+            if del_ is None:
+                del_ = root.find(ns + "Days")
+            if del_ is not None and (del_.text or "").strip():
+                try:
+                    days = int(del_.text.strip())
+                except ValueError:
+                    raise S3Error("MalformedXML", "bad Days") from None
+        if days < 1:
+            raise S3Error("InvalidArgument", "restore Days must be >= 1")
+        vid = ctx.query1("versionId")
+        eff_vid = "" if vid == "null" else vid
+        info = self.obj.get_object_info(bucket, key,
+                                        GetOptions(version_id=eff_vid))
+        md = info.user_defined or {}
+        if dt.RESTORE_ONGOING in md.get(dt.RESTORE_KEY, ""):
+            raise S3Error("RestoreAlreadyInProgress")
+        async_bytes = knobs.get_int("MINIO_TPU_RESTORE_ASYNC_BYTES")
+        if (self.restore_worker is not None and async_bytes
+                and info.size >= async_bytes and dt.is_transitioned(md)
+                and not dt.is_restored(md)):
+            # a large object: answer 202 now and pull on the worker;
+            # the ongoing marker shows in GET/HEAD and gates duplicates
+            tier_transition.mark_restore_ongoing(self.obj, bucket, key,
+                                                 eff_vid)
+            if self.restore_worker.enqueue_restore(
+                    bucket, key, eff_vid or info.version_id, days):
+                self._mark(bucket, key)
+                return HTTPResponse(status=202)
+            # the worker's queue is full or stopping: nothing would ever
+            # clear the marker, so undo it and restore synchronously
+            tier_transition.clear_restore_ongoing(self.obj, bucket, key,
+                                                  eff_vid)
+        out = tier_transition.restore_object(self.obj, self.tiers, bucket,
+                                             key, version_id=eff_vid,
+                                             days=days)
+        self._mark(bucket, key)
+        return HTTPResponse(
+            status=202 if out["status"] == "restored" else 200)
 
     def copy_object(self, ctx, bucket, key) -> HTTPResponse:
         self.authenticate(ctx)

@@ -188,6 +188,8 @@ def api_error_from(exc: Exception) -> S3Error:
         (oerr.InvalidRange, "InvalidRange"),
         (oerr.IncompleteBody, "IncompleteBody"),
         (oerr.PreConditionFailed, "PreconditionFailed"),
+        (oerr.InvalidObjectState, "InvalidObjectState"),
+        (oerr.TierNotFound, "XMinioAdminTierNotFound"),
         (oerr.InvalidETag, "InvalidDigest"),
         (oerr.MethodNotAllowed, "MethodNotAllowed"),
         (oerr.SignatureDoesNotMatch, "SignatureDoesNotMatch"),

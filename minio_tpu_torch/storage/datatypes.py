@@ -19,10 +19,16 @@ NULL_VERSION_ID = "null"
 
 
 # tier-transition / restore metadata keys (reference
-# minio_tpu/storage/datatypes.py:24-33); no ported plane sets them yet
+# minio_tpu/storage/datatypes.py:24-33; set by tier/transition.py)
 TRANSITION_STATUS_KEY = "X-Minio-Internal-transition-status"
+TRANSITION_TIER_KEY = "X-Minio-Internal-transition-tier"
+TRANSITIONED_OBJECT_KEY = "X-Minio-Internal-transitioned-object"
+TRANSITIONED_VERSION_KEY = "X-Minio-Internal-transitioned-versionID"
 TRANSITION_COMPLETE = "complete"
+# RestoreObject state: the S3 header value, and the absolute unix expiry
+# of the restored copy that the reclaim sweep reads
 RESTORE_KEY = "x-amz-restore"
+RESTORE_EXPIRY_KEY = "X-Minio-Internal-restore-expiry"
 RESTORE_ONGOING = 'ongoing-request="true"'
 
 

@@ -2,11 +2,11 @@
 
 Counterpart of minio_tpu/utils/knobs.py, trimmed to the knobs of the
 pipelined data path, the batch former, heal, the MRF queue, the disk
-monitor, the SSE cipher choice, the scan plane, the bucket metacache, the
-hot-object read cache, the admission gate and the HTTP edge, with the
-reference's names, types and defaults
+monitor, the SSE cipher choice, the scan plane, the tier plane, the
+bucket metacache, the hot-object read cache, the admission gate and the
+HTTP edge, with the reference's names, types and defaults
 (minio_tpu/utils/knobs.py:160-197, :203-206, :220-233, :261-281,
-:284-291, :299-301, :310-331, :438-485). Left out:
+:284-291, :299-301, :310-331, :403-410, :434-435, :438-485). Left out:
 the README table renderer and every knob no ported module reads. No knob here is one the reference lacks.
 
 Getters read the environment at call time: tests flip knobs with
@@ -183,6 +183,19 @@ define("MINIO_TPU_METACACHE_SEGMENT_KEYS", "int", 5000,
 define("MINIO_TPU_METACACHE_JOURNAL", "int", 100000,
        "max pending deltas (overflow invalidates the bucket until "
        "reconcile — never a silent wrong listing)")
+
+# -- tier plane ---------------------------------------------------------------
+define("MINIO_TPU_TIER_QUEUE_SIZE", "int", 10000,
+       "max queued tier-transition entries")
+define("MINIO_TPU_TIER_BACKOFF_S", "float", 0.05,
+       "first transition backoff when the foreground is busy")
+define("MINIO_TPU_TIER_BACKOFF_MAX_S", "float", 1.0,
+       "transition backoff cap, seconds")
+define("MINIO_TPU_TIER_BACKOFF_TRIES", "int", 8,
+       "busy polls before a transition proceeds anyway")
+define("MINIO_TPU_RESTORE_ASYNC_BYTES", "int", 64 << 20,
+       "RestoreObject switches to 202 + background tier pull at this "
+       "size (0 = always synchronous)")
 
 # -- hot-object read cache ----------------------------------------------------
 define("MINIO_TPU_CACHE", "bool", False,

@@ -1,9 +1,8 @@
 """The port's hot-object read cache (minio_tpu_torch/object/cache.py)
 held against minio_tpu's.
 
-tests/test_disk_cache.py's cases rebound to the port (12 of its 13:
-test_transition_evicts_and_gates_invalid_object_state waits for the tier
-plane): range entries, streamed fills at bounded memory, frame-by-frame
+tests/test_disk_cache.py's cases rebound to the port (all 13, the
+tiering case over the port's tier plane): range entries, streamed fills at bounded memory, frame-by-frame
 verification, the watermark LRU, the hit that skips the erasure decode
 (a flat minio_tpu_erasure_get_streams_total), admission by frequency,
 eviction off the namespace feed, a bitrot frame falling back. The cases
@@ -387,6 +386,50 @@ def test_every_mutation_verb_evicts_via_namespace_feed(tmp_path):
     b"".join(cache.get_object("b", "ow")[1])
     _, s = cache.get_object("b", "ow")
     assert b"".join(s) == new
+    zz.close()
+
+
+def test_transition_evicts_and_gates_invalid_object_state(tmp_path):
+    """A transitioned (stubbed) version evicts its entry through the
+    namespace feed, and a cached copy never answers a GET that must
+    answer InvalidObjectState: the backend gate is the single home."""
+    import shutil
+
+    from minio_tpu_torch.tier.config import TierConfig, TierManager
+    from minio_tpu_torch.tier.transition import (TransitionWorker,
+                                                 restore_object)
+    zz, cache = _erasure_stack(tmp_path)
+    tiers = TierManager(zz)
+    tiers.add(TierConfig("cold", "fs", {"path": str(tmp_path / "tier")}))
+    worker = TransitionWorker(zz, tiers, busy_fn=lambda: False).start()
+    payload = os.urandom(2 * BLOCK)
+    info = zz.put_object("b", "doc", payload)
+    b"".join(cache.get_object("b", "doc")[1])         # hot + cached
+    assert cache._load_entry("b", "doc") is not None
+    worker.enqueue("b", "doc", "", "cold", etag=info.etag)
+    assert worker.drain(30), worker.stats()
+    # the transition's namespace delta evicted the entry
+    assert cache._load_entry("b", "doc") is None
+    with pytest.raises(api_errors.InvalidObjectState):
+        cache.get_object("b", "doc")
+    # a STALE entry planted behind the stub is refused and dropped
+    zz2, planted = _erasure_stack(tmp_path / "p2")
+    zz2.put_object("b", "doc", payload)
+    b"".join(planted.get_object("b", "doc")[1])
+    shutil.copytree(planted._entry_dir("b", "doc"),
+                    cache._entry_dir("b", "doc"))
+    assert cache._load_entry("b", "doc") is not None
+    hits = cache.hits
+    with pytest.raises(api_errors.InvalidObjectState):
+        cache.get_object("b", "doc")
+    assert cache._load_entry("b", "doc") is None      # cause=transition
+    assert cache.hits == hits
+    # restored: the object serves again from a fresh backend read
+    restore_object(zz, tiers, "b", "doc", days=1)
+    _, s = cache.get_object("b", "doc")
+    assert b"".join(s) == payload
+    worker.close()
+    zz2.close()
     zz.close()
 
 

@@ -18,7 +18,11 @@ and NoncurrentVersionTransition parser); then:
     clock: the same versions deleted, the same markers laid, the same
     uploads aborted;
   * a booted node: a lifecycle document PUT over HTTP, one crawler pass,
-    the expired objects answer 404 and the index lists the others.
+    the expired objects answer 404 and the index lists the others;
+  * tests/test_tier.py's ``tiers=`` expiry cases: expiring a transitioned
+    object (unversioned) or a transitioned noncurrent version frees its
+    remote copy; a versioned expiry lays a marker and keeps it; the feed's
+    version lists carry the transition pointers the sweep frees by.
 """
 
 from __future__ import annotations
@@ -553,3 +557,117 @@ def test_booted_node_expires_by_lifecycle_date(tmp_path):
         assert node.metacache.serves >= 1
     finally:
         node.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# tests/test_tier.py's tiers= expiry cases
+# ---------------------------------------------------------------------------
+
+class _OneLifecycle:
+    """bucket_meta_sys stand-in: one lifecycle document for every bucket."""
+
+    def __init__(self, lifecycle_xml: str, versioned: bool = False):
+        self.lifecycle_xml = lifecycle_xml
+        self._versioned = versioned
+
+    def get(self, bucket):
+        return self
+
+    def versioning_enabled(self) -> bool:
+        return self._versioned
+
+
+EXPIRE_1D = ("<LifecycleConfiguration><Rule><Status>Enabled</Status>"
+             "<Prefix></Prefix><Expiration><Days>1</Days></Expiration>"
+             "</Rule></LifecycleConfiguration>")
+NONCURRENT_1D = ("<LifecycleConfiguration><Rule><Status>Enabled</Status>"
+                 "<Prefix></Prefix><NoncurrentVersionExpiration>"
+                 "<NoncurrentDays>1</NoncurrentDays>"
+                 "</NoncurrentVersionExpiration></Rule>"
+                 "</LifecycleConfiguration>")
+
+
+@pytest.fixture()
+def tiered(tmp_path):
+    from minio_tpu_torch.tier.config import TierConfig, TierManager
+    from minio_tpu_torch.tier.transition import TransitionWorker
+    zz = _port_zones(tmp_path, n=4)
+    zz.make_bucket("b")
+    tiers = TierManager(zz)
+    tiers.add(TierConfig("cold", "fs", {"path": str(tmp_path / "tier")}))
+    worker = TransitionWorker(zz, tiers, busy_fn=lambda: False).start()
+    yield zz, tiers, worker
+    worker.close()
+    zz.close()
+
+
+def _transitioned(zz, worker, name, info):
+    from minio_tpu_torch.object import GetOptions
+    from minio_tpu_torch.storage import datatypes as dt
+    worker.enqueue("b", name, info.version_id, "cold", etag=info.etag)
+    assert worker.drain(30), worker.stats()
+    md = zz.get_object_info(
+        "b", name, GetOptions(version_id=info.version_id)).user_defined
+    return md[dt.TRANSITIONED_OBJECT_KEY]
+
+
+def test_expired_transitioned_object_frees_remote(tiered):
+    from minio_tpu_torch.tier.client import TierObjectNotFound
+    zz, tiers, worker = tiered
+    info = zz.put_object("b", "exp", b"e" * 10_000)
+    remote_key = _transitioned(zz, worker, "exp", info)
+    assert tiers.client("cold").head(remote_key) == 10_000
+    act = crawler_action(_OneLifecycle(EXPIRE_1D), zz,
+                         now_fn=lambda: time.time() + 2 * 86400,
+                         tiers=tiers)
+    act("b", zz.get_object_info("b", "exp"))
+    with pytest.raises(api_errors.ObjectNotFound):
+        zz.get_object_info("b", "exp")
+    with pytest.raises(TierObjectNotFound):
+        tiers.client("cold").head(remote_key)
+
+
+def test_versioned_expiry_keeps_the_remote_copy(tiered):
+    """A versioned expiry lays a marker: the stub stays a noncurrent
+    version, and so does its remote copy."""
+    zz, tiers, worker = tiered
+    info = zz.put_object("b", "v", b"v" * 9_000,
+                         opts=PutOptions(versioned=True))
+    remote_key = _transitioned(zz, worker, "v", info)
+    act = crawler_action(_OneLifecycle(EXPIRE_1D, versioned=True), zz,
+                         now_fn=lambda: time.time() + 2 * 86400,
+                         tiers=tiers)
+    act("b", zz.get_object_info("b", "v"))
+    vers = zz.list_object_versions("b", prefix="v")[0]
+    assert [v.delete_marker for v in vers] == [True, False]
+    assert tiers.client("cold").head(remote_key) == 9_000
+
+
+@pytest.mark.parametrize("feed", [False, True])
+def test_noncurrent_expiry_frees_remote(tiered, feed):
+    from minio_tpu_torch.features.lifecycle import noncurrent_sweep_action
+    from minio_tpu_torch.object import GetOptions
+    from minio_tpu_torch.tier.client import TierObjectNotFound
+    zz, tiers, worker = tiered
+    old = zz.put_object("b", "ncx", b"old" * 800,
+                        opts=PutOptions(versioned=True))
+    time.sleep(0.01)
+    zz.put_object("b", "ncx", b"new" * 800,
+                  opts=PutOptions(versioned=True))
+    remote_key = _transitioned(zz, worker, "ncx", old)
+    if feed:
+        # the sweep reads the version lists from the index's feed
+        mgr = MetacacheManager(zz, staleness_s=0.0)
+        zz.attach_metacache(mgr)
+        before = _walks("lifecycle")
+    act = noncurrent_sweep_action(_OneLifecycle(NONCURRENT_1D), zz,
+                                  now_fn=lambda: time.time() + 2 * 86400,
+                                  tiers=tiers)
+    act("b")
+    if feed:
+        assert _walks("lifecycle")["merge"] == before["merge"]
+        mgr.close()
+    with pytest.raises(api_errors.VersionNotFound):
+        zz.get_object_info("b", "ncx", GetOptions(version_id=old.version_id))
+    with pytest.raises(TierObjectNotFound):
+        tiers.client("cold").head(remote_key)

@@ -219,7 +219,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "ops/scan_program.py", "features/snappy.py",
                 "object/update_tracker.py", "object/background.py",
                 "object/metacache.py", "object/cache.py",
-                "features/lifecycle.py"):
+                "features/lifecycle.py", "tier/__init__.py",
+                "tier/client.py", "tier/config.py", "tier/transition.py",
+                "object/faithful.py", "utils/pressure.py",
+                "utils/bandwidth.py"):
         assert f"minio_tpu_torch/{mod}" in names, mod
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
