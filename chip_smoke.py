@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-About 14 to 16 minutes on one H100, the kernels' builds included. Phases, each
+About 15-17 minutes on one H100 (998.8 s in the last run), the kernels' builds
+included. Phases, each
 printing one JSON line; any failure exits non-zero:
 
   1. build    — compile every hand-written kernel (csrc/*.cu, one nvcc per
@@ -213,6 +214,36 @@ printing one JSON line; any failure exits non-zero:
                 DeleteObjects freeing remote files, a stub's xl.meta
                 healed with no dispatch; transition, restore and reclaim
                 seconds, GiB/s, local bytes at each step.
+  16. pools   — the pool plane (see run_pools), bench.py's
+                bench_rebalance_ab at card-sized objects: two pools of 8
+                drives at 6+2, 1 MiB blocks; about 0.95 GiB PUT over HTTP
+                into pool 0 (twelve 64 MiB objects and one 12,345 B longer,
+                32 of 2 MiB, an SSE-S3 object, a versioned key with a
+                delete marker, a 4 x 16 MiB multipart session half
+                uploaded), 2 of its drives' buckets removed, pool 1 added
+                through node.add_pool; foreground PUT rounds timed before
+                start_decommission(0) and during it (the rounds that had a
+                move of the walker in flight for half their window or
+                more); the session's next part migrates it; the drain
+                completes, every object, version and marker reads back
+                byte- and ETag-equal (chacha20 deciphers the SSE object),
+                pool 0 is empty; decode / encode / host-routed dispatches,
+                drain seconds and GiB/s over the window and over the
+                walker's own move seconds, put_p99_degradation_x. Then
+                fsck: six planted faults audited, repaired (a 64 MiB
+                object's shards recovered on the card, file for file) and
+                audited clean; a reboot under MINIO_TPU_FSCK_BOOT=on
+                repairs the two planted in pool 0, misses the one planted
+                in pool 1 (added after the boot's audit, as the CLI's
+                --pool is), which a run_fsck then repairs; the re-armed
+                drain moves nothing.
+  17. fs      — the single-path FS backend (see run_fs): four 16 MiB
+                objects and a 4 x 5 MiB multipart upload over signed HTTP,
+                read back byte- and ETag-equal, listed, one deleted, first
+                through cluster.start_fs in this process (no kernel
+                launch counted), then through `python -m minio_tpu_torch
+                server <one path>` as a subprocess (the card's memory in
+                use does not rise; SIGTERM, exit 0); GiB/s up and down.
   4. timings  — (continued) chacha20 at the encode launch (8 rows, 1 MiB
                 span in 1,048,584-byte rows) and at GET's 64 x 65,536:
                 CUDA events around back-to-back wrapper calls, the kernel's
@@ -235,7 +266,8 @@ printing one JSON line; any failure exits non-zero:
                 floor of the row-major layout and its plain version on the
                 card.
 
-Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 4.
+Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
+16, 17, 4.
 Each path's launch counters are set to 0 just before it runs and read
 just after. Then it prints the kernel table as one JSON line (with each kernel's launches on every path),
 the card's name and power limit, and the device line last. It needs one
@@ -248,6 +280,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -327,6 +360,28 @@ TIER_VERSION_BYTES = 16 << 20       # each version of the versioned key
 NS_SHM_MIN_BYTES = 4 << 30          # tmpfs room the phase's drives need
 AUTOHEAL_DRIVE = 7                  # the drive emptied (not drive 0, which
 #                                     holds the update tracker's file)
+# phase 16, the pool plane (bench.py bench_rebalance_ab's two pools of 8
+# drives at 6+2, 1 MiB blocks, at card-sized objects)
+POOLS_BIG = (12, 64 << 20)          # objects (one more 12,345 B longer)
+POOLS_SMALL = (32, 2 << 20)         # the bench's drain inventory (preload
+#                                     32 of size // 2): below the 8 MiB gate
+POOLS_SSE = 64 << 20                # the SSE-S3 object
+POOLS_VERSION_BYTES = 2 << 20       # v1 and v2 of the versioned key
+POOLS_PARTS = (4, 16 << 20)         # the multipart session: parts, bytes
+POOLS_FOREGROUND = (8, 16 << 20)    # concurrent PUTs a round, bytes each
+POOLS_DURING = (3, 24)              # rounds timed during the drain: those
+#                                     that must each have a move in flight
+#                                     for half their window or more, and
+#                                     the most rounds tried for them
+POOLS_GONE = (1, 5)                 # pool 0 drives whose buckets go
+POOLS_MPU_GRACE_S = 3600.0          # the walker leaves the session to the
+#                                     client, whose next part migrates it
+POOLS_DRAIN_DEADLINE_S = 300
+POOLS_SHM_MIN_BYTES = 6 << 30       # tmpfs room the phase's drives need
+# phase 17, the single-path FS backend
+FS_OBJECTS = (4, 16 << 20)          # objects, bytes each
+FS_PARTS = (4, 5 << 20)             # one multipart upload: parts, bytes
+FS_CONTEXT_MIB = 200                # a CUDA context's memory is far above
 
 
 def fail(msg: str) -> None:
@@ -340,6 +395,14 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def card_memory_used_mib() -> int:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()
+    return int(out[0])
 
 
 T_START = time.perf_counter()
@@ -616,6 +679,10 @@ def main() -> int:
         finally:
             node.shutdown()
             end_namespace(nstate)
+        # -- 16. the pool plane: its own boot, pools and drives; 17. the
+        # single-path FS backend as a subprocess ----------------------------
+        poolsp = run_pools(tmp, card, counts, np)
+        fsp = run_fs(tmp, card, counts, np)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths_launches = {"main_path": main_path["launches"],
@@ -627,7 +694,9 @@ def main() -> int:
                       "compress": compp["launches"],
                       "autoheal": autop["launches"],
                       "namespace": nsp["launches"],
-                      "tier": tierp["launches"]}
+                      "tier": tierp["launches"],
+                      "pools": poolsp["launches"],
+                      "fs": fsp["launches"]}
 
     # -- 4. timings -------------------------------------------------------
     b, s = 32, -(-(1 << 20) // k)
@@ -4464,6 +4533,703 @@ def run_tier(node, state, card, counts, np, lineitem: bytes,
                 "worker": worker.stats(), "launches": launches,
                 "seconds": round(time.perf_counter() - t_phase, 3),
                 "card": card})
+    emit(out)
+    return out
+
+
+def pool_drives(root: str, pool: int, n: int) -> list:
+    return [os.path.join(root, f"p{pool}d{i}") for i in range(n)]
+
+
+def run_pools(tmp, card, counts, np) -> dict:
+    """The pool plane on the card, bench.py's bench_rebalance_ab at
+    card-sized objects: cluster.start_single over pool 0's 8 drives at EC
+    6+2 with 1 MiB blocks (on tmpfs where /dev/shm has POOLS_SHM_MIN_BYTES
+    free, else under tmp), the ChaCha20 SSE cipher, the metacache off (as
+    in the bench: the rebalancer takes the merge walk, and its drain off
+    the index feed is held on the CPU by tests/test_torch_pools.py; with
+    the index on, a drain leaves pool 0's persisted manifest dangling, in
+    the reference too, which fsck would count beside the planted faults),
+    the heal
+    scanner and the crawler stopped and pool 0's MRF queue closed, so that
+    the drain's degraded reads stay degraded. Preload over signed HTTP,
+    before pool 1 exists: POOLS_BIG 64 MiB objects and one 12,345 B
+    longer, POOLS_SMALL 2 MiB objects (the bench's drain inventory, below
+    the codec's 8 MiB gate: they move on the host), one SSE-S3 object, a
+    versioned key (v1, a delete marker, v2) and a 4 x 16 MiB multipart
+    session with two parts uploaded. Then 2 of pool 0's drives lose their
+    buckets' directories, pool 1 (8 more drives) joins through
+    node.add_pool (the CLI's --pool path), two rounds of 8 concurrent 16
+    MiB PUTs into pool 1's engine are timed (the bench's foreground), the
+    drain starts (start_decommission(0), the session given a grace past
+    the phase so that the client's next part migrates it), rounds are
+    timed during it until POOLS_DURING[0] of them each had a move of the
+    walker in flight for half their window or more (the walker yields to
+    a busy former; each move is timed from this process), parts 3 and 4
+    are uploaded over HTTP (the first
+    migrates the session to pool 1) and the upload completes. The drain
+    must complete within POOLS_DRAIN_DEADLINE_S with no failed object;
+    every object then GETs back over HTTP byte- and ETag-equal (chacha20
+    deciphers the SSE object), the versioned key keeps its ids, mod times
+    and marker, the multipart object its -4 ETag, and pool 0 holds
+    nothing. fsck: six faults planted, one of each of missing_shards (a
+    64 MiB object's data dir moved off 2 drives and kept aside),
+    meta_missing, orphan_data, stale_tmp, torn_registry (pool 0's copy of
+    the topology doc) and orphan_metacache_segment; run_fsck audits
+    (counts equal to the planted), repairs (the 64 MiB object recovered
+    through heal_step on the card, its shard files equal to the kept
+    ones) and audits again (clean). Boot fsck: the node shut down, a stale
+    tmp dir and an orphan data dir planted in pool 0 and a stale tmp dir
+    in pool 1, the node booted again over pool 0 with
+    MINIO_TPU_FSCK_BOOT=on (and the tmp age gate at 0: nothing is in
+    flight at a boot) and pool 1 re-added as the CLI does; the boot's
+    report repairs pool 0's two, an audit after the boot finds pool 1's
+    (the boot's audit ran before the pool joined, as in the reference), a
+    run_fsck repairs it and the next audit is clean, and the re-armed
+    drain (pool 0 is still draining in the topology doc) completes moving
+    nothing."""
+    import concurrent.futures as cf
+
+    from minio_tpu_torch import cluster
+    from minio_tpu_torch.object.fsck import run_fsck
+    from minio_tpu_torch.object.metacache import mc_prefix
+    from minio_tpu_torch.object.rebalance import Rebalancer
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.s3.credentials import Credentials
+    from minio_tpu_torch.storage.xl_storage import MINIO_META_BUCKET
+    k, m, bs = 6, 2, 1 << 20
+    n = k + m
+    move_object = Rebalancer._move_object
+    rng = np.random.default_rng(SEED + 61)
+    env = {"MINIO_TPU_METACACHE": "off",
+           "MINIO_SSE_MASTER_KEY": rng.bytes(32).hex(),
+           "MINIO_TPU_SSE_CIPHER": "chacha20"}
+    saved_env = {v: os.environ.get(v)
+                 for v in (*env, "MINIO_TPU_FSCK_BOOT",
+                           "MINIO_TPU_FSCK_TMP_AGE_S")}
+    os.environ.update(env)
+    shm = "/dev/shm"
+    on_shm = os.path.isdir(shm) and \
+        shutil.disk_usage(shm).free >= POOLS_SHM_MIN_BYTES
+    root = tempfile.mkdtemp(prefix="chip_smoke_pools_",
+                            dir=shm if on_shm else tmp)
+    drives0, drives1 = pool_drives(root, 0, n), pool_drives(root, 1, n)
+    creds = Credentials("smokepools", "smokepoolssecret")
+    t_phase = time.perf_counter()
+    out = {"phase": "pools", "pools": 2, "drives_per_pool": n,
+           "ec": f"{k}+{m}", "block_size": bs,
+           "drives_on": "tmpfs (/dev/shm)" if on_shm else "the disk (tmp)"}
+    counts.zero()
+
+    def note(msg: str) -> None:
+        print(f"[pools {time.perf_counter() - t_phase:.1f} s] {msg}",
+              file=sys.stderr, flush=True)
+
+    def boot():
+        node = cluster.start_single(drives0, creds=creds, parity=m,
+                                    set_drive_count=n, block_size=bs)
+        for loop in (node.heal_scanner, node.crawler):
+            loop.close()
+            if loop._thread is not None:
+                loop._thread.join(timeout=120)
+                if loop._thread.is_alive():
+                    fail("pools: a background loop did not stop")
+        return node
+
+    def verbs(node):
+        return {v: dict(s)
+                for v, s in node.scheduler.stats()["verbs"].items()}
+
+    def since(a, b, verb, key="batches"):
+        return b[verb][key] - a[verb][key]
+
+    def ok(resp, what):
+        if resp[0] not in (200, 204):
+            fail(f"pools: {what}: HTTP {resp[0]} {resp[2][:300]!r}")
+        return resp
+
+    node = boot()
+    try:
+        layer = node.object_layer
+        c = S3Client(node.s3.port, creds, timeout=300)
+        # -- preload pool 0 ---------------------------------------------------
+        n_big, big = POOLS_BIG
+        n_small, small = POOLS_SMALL
+        data = {f"big-{i:02d}": rng.bytes(big) for i in range(n_big)}
+        data["big-tail"] = rng.bytes(big + 12345)
+        data.update({f"small-{i:02d}": rng.bytes(small)
+                     for i in range(n_small)})
+        sse_data = rng.bytes(POOLS_SSE)
+        sse_hdrs = {"x-amz-server-side-encryption": "AES256"}
+        for b in ("pools", "poolsv"):
+            ok(c.send("PUT", f"/{b}"), f"make bucket {b}")
+        ok(c.send("PUT", "/poolsv", query={"versioning": ""},
+                  body=b"<VersioningConfiguration><Status>Enabled</Status>"
+                       b"</VersioningConfiguration>"), "versioning")
+        t0 = time.perf_counter()
+        etags = {}
+
+        def put(name):
+            h = ok(c.send("PUT", f"/pools/{name}", body=data[name]),
+                   f"PUT {name}")[1]
+            return name, h["etag"]
+
+        with cf.ThreadPoolExecutor(max_workers=8) as ex:
+            etags.update(ex.map(put, sorted(data)))
+        h = ok(c.send("PUT", "/pools/sse", body=sse_data,
+                      headers=sse_hdrs), "PUT sse")[1]
+        etags["sse"] = h["etag"]
+        vers = [rng.bytes(POOLS_VERSION_BYTES) for _ in range(2)]
+        vids = [ok(c.send("PUT", "/poolsv/ver", body=vers[0]),
+                   "PUT v1")[1]["x-amz-version-id"]]
+        ok(c.send("DELETE", "/poolsv/ver"), "DELETE (marker)")
+        vids.append(ok(c.send("PUT", "/poolsv/ver", body=vers[1]),
+                       "PUT v2")[1]["x-amz-version-id"])
+        n_parts, part_size = POOLS_PARTS
+        parts = [rng.bytes(part_size) for _ in range(n_parts)]
+        st, _h, body = ok(c.send("POST", "/pools/mp",
+                                 query={"uploads": ""}), "initiate")
+        uid = body.split(b"<UploadId>")[1].split(b"<")[0].decode()
+        part_etags = []
+
+        def put_part(i):
+            h = ok(c.send("PUT", "/pools/mp", body=parts[i], query={
+                "partNumber": str(i + 1), "uploadId": uid}),
+                f"part {i + 1}")[1]
+            part_etags.append(h["etag"])
+
+        for i in range(2):
+            put_part(i)
+        preload_s = time.perf_counter() - t0
+        client_bytes = sum(map(len, data.values())) + len(sse_data) + \
+            2 * POOLS_VERSION_BYTES + 2 * part_size
+        versions_before = [(v.version_id, v.delete_marker, v.mod_time)
+                           for v in layer.object_versions("poolsv", "ver")]
+        if len(versions_before) != 3 or \
+                [v[1] for v in versions_before] != [False, True, False]:
+            fail(f"pools: the versioned key holds {versions_before}")
+        note(f"preloaded {client_bytes} B in {preload_s:.1f} s")
+        out["preload"] = {"client_bytes": client_bytes,
+                          "objects": len(data) + 1, "wall_s":
+                          round(preload_s, 3)}
+        # -- degrade pool 0, add pool 1 ---------------------------------------
+        node.sets.mrf.close()
+        for j in POOLS_GONE:
+            for b in ("pools", "poolsv"):
+                shutil.rmtree(os.path.join(drives0[j], b))
+        t0 = time.perf_counter()
+        if node.add_pool(drives1, set_drive_count=n, parity=m) != 1:
+            fail("pools: add_pool did not return pool 1")
+        out["add_pool_s"] = round(time.perf_counter() - t0, 3)
+        if layer.topology.states != ["active", "active"] or \
+                node.disk_monitor.pools[1] is not layer.server_sets[1]:
+            fail(f"pools: after add_pool {layer.topology.to_dict()}")
+        # -- foreground PUTs before and during the drain ----------------------
+        fg_streams, fg_size = POOLS_FOREGROUND
+        fg_payload = rng.bytes(fg_size)
+        fg_etag = hashlib.md5(fg_payload).hexdigest()
+
+        def put_round(prefix):
+            def one(i):
+                t = time.perf_counter()
+                info = layer.server_sets[1].put_object(
+                    "pools", f"{prefix}-{i}", fg_payload)
+                if info.etag != fg_etag:
+                    fail(f"pools: foreground PUT {prefix}-{i} ETag")
+                return time.perf_counter() - t
+            with cf.ThreadPoolExecutor(max_workers=fg_streams) as ex:
+                return list(ex.map(one, range(fg_streams)))
+
+        put_round("fg-warm")
+        vb, cb = verbs(node), counts.read()
+        base = put_round("fg-base") + put_round("fg-base2")
+        v0, c0 = verbs(node), counts.read()
+        # what two foreground rounds dispatch alone (the drain's window
+        # below holds two such rounds besides the drain)
+        fg_alone = {"encode": {"batches": since(vb, v0, "encode"),
+                               "host_routed": since(vb, v0, "encode",
+                                                    "host_routed")},
+                    "launches": {k2: c0[k2] - cb[k2] for k2 in c0}}
+        # the walker's own move seconds: each _move_object call (one
+        # walker thread, so they never overlap) timed from this process
+        moves, in_move = [], [None]
+
+        def timed_move(self, *a, **kw):
+            in_move[0] = time.perf_counter()
+            try:
+                return move_object(self, *a, **kw)
+            finally:
+                moves.append((in_move[0], time.perf_counter()))
+                in_move[0] = None
+
+        def move_overlap(t0, t1):
+            spans = list(moves)
+            if in_move[0] is not None:
+                spans.append((in_move[0], t1))
+            return sum(max(0.0, min(t1, b) - max(t0, a)) for a, b in spans)
+
+        Rebalancer._move_object = timed_move
+        t_drain = time.perf_counter()
+        started = layer.start_decommission(0, mpu_grace_s=POOLS_MPU_GRACE_S)
+        if started["status"] != "draining":
+            fail(f"pools: start_decommission {started}")
+        reb = layer._rebalancer
+        # foreground rounds until POOLS_DURING[0] of them each had a move
+        # in flight for half their window or more: the throttle makes the
+        # walker yield to a busy former (up to BACKOFF_TRIES waits, then it
+        # moves anyway), so a round may see no move at all
+        need, most = POOLS_DURING
+        during, rounds = [], []
+        while len(rounds) < most and \
+                sum(r["overlapped"] for r in rounds) < need and \
+                reb.running():
+            t0 = time.perf_counter()
+            lat = put_round(f"fg-dr{len(rounds)}")
+            t1 = time.perf_counter()
+            share = move_overlap(t0, t1) / (t1 - t0)
+            rounds.append({"wall_s": round(t1 - t0, 4),
+                           "move_share": round(share, 4),
+                           "overlapped": share >= 0.5})
+            if share >= 0.5:
+                during += lat
+        at_measure = {k2: reb.status().get(k2) for k2 in
+                      ("status", "objects_moved", "bytes_moved")}
+        if layer._zone_index_of_upload("pools", "mp", uid) != 0:
+            fail("pools: the session left pool 0 before its next part")
+        for i in range(2, n_parts):
+            put_part(i)
+            if i == 2 and \
+                    layer._zone_index_of_upload("pools", "mp", uid) != 1:
+                fail("pools: part 3 did not migrate the session")
+        done = ("<CompleteMultipartUpload>" + "".join(
+            f"<Part><PartNumber>{i + 1}</PartNumber><ETag>{e}</ETag>"
+            "</Part>" for i, e in enumerate(part_etags)) +
+            "</CompleteMultipartUpload>")
+        h = ok(c.send("POST", "/pools/mp", query={"uploadId": uid},
+                      body=done.encode()), "complete")
+        deadline = time.monotonic() + POOLS_DRAIN_DEADLINE_S
+        while reb.running() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        drain_s = time.perf_counter() - t_drain
+        Rebalancer._move_object = move_object
+        v1, c1 = verbs(node), counts.read()
+        st = reb.status()
+        if st["status"] != "complete" or st["objects_failed"] or \
+                st["mpu_failed"]:
+            fail(f"pools: the drain ended {st}")
+        note(f"drained in {drain_s:.1f} s: {st['objects_moved']} objects")
+        # -- read back --------------------------------------------------------
+        data["mp"] = b"".join(parts)
+        t0 = time.perf_counter()
+        mp_head = ok(c.send("HEAD", "/pools/mp"), "HEAD mp")[1]
+        if not mp_head["etag"].strip('"').endswith(f"-{n_parts}"):
+            fail(f"pools: the multipart ETag {mp_head['etag']}")
+        etags["mp"] = mp_head["etag"]
+        for name, body_want in data.items():
+            st_, h, got = c.send("GET", f"/pools/{name}")
+            if st_ != 200 or got != body_want or h["etag"] != etags[name]:
+                fail(f"pools: GET {name} after the drain: HTTP {st_}")
+            if name != "mp" and \
+                    h["etag"] != f'"{hashlib.md5(got).hexdigest()}"':
+                fail(f"pools: {name}'s ETag is not its MD5")
+        c2 = counts.read()
+        st_, h, got = c.send("GET", "/pools/sse", headers=sse_hdrs)
+        c3 = counts.read()
+        if st_ != 200 or got != sse_data or h["etag"] != etags["sse"]:
+            fail(f"pools: GET sse after the drain: HTTP {st_}")
+        if c3["chacha20"] <= c2["chacha20"]:
+            fail("pools: the SSE object was not deciphered on the card")
+        for vid, want in zip(vids, vers):
+            st_, _h, got = c.send("GET", "/poolsv/ver",
+                                  query={"versionId": vid})
+            if st_ != 200 or got != want:
+                fail(f"pools: GET poolsv/ver?versionId={vid}: HTTP {st_}")
+        versions_after = [(v.version_id, v.delete_marker, v.mod_time)
+                          for v in layer.object_versions("poolsv", "ver")]
+        if versions_after != versions_before:
+            fail(f"pools: versions {versions_after} != {versions_before}")
+        for p in ("fg-base", "fg-base2",
+                  *(f"fg-dr{i}" for i in range(len(rounds)))):
+            for i in range(fg_streams):
+                st_, h, _ = c.send("HEAD", f"/pools/{p}-{i}")
+                if st_ != 200 or h["etag"] != f'"{fg_etag}"':
+                    fail(f"pools: HEAD of foreground {p}-{i}: HTTP {st_}")
+        read_s = time.perf_counter() - t0
+        src = layer.server_sets[0]
+        for b in ("pools", "poolsv"):
+            if src.list_object_versions(b, max_keys=10)[0]:
+                fail(f"pools: pool 0 still lists objects in {b}")
+        if src.list_all_multipart_uploads():
+            fail("pools: pool 0 still holds a multipart session")
+        if Rebalancer.load_checkpoint(layer, 0)["objects_moved"] != \
+                st["objects_moved"]:
+            fail("pools: the persisted checkpoint is not the drain's")
+        moved = st["bytes_moved"]
+        move_s = sum(b - a for a, b in moves)
+        out["drain"] = {
+            "wall_s": round(drain_s, 3), "bytes_moved": moved,
+            # over the window: the walker's yields to the foreground, the
+            # rounds, parts 3-4 and the complete included
+            "gib_s": round(moved / (1 << 30) / drain_s, 4),
+            # over the walker's own move seconds
+            "walker_move_s": round(move_s, 3),
+            "walker_gib_s": round(moved / (1 << 30) / max(move_s, 1e-9), 4),
+            "walker_moves": len(moves),
+            "objects_moved": st["objects_moved"],
+            "objects_failed": st["objects_failed"],
+            "mpu_migrated_by_the_walker": st["mpu_migrated"],
+            "passes": st["passes"],
+            # start_decommission to complete: the drain, the session's
+            # migration, parts 3-4 and the foreground rounds
+            "window_dispatches": {
+                v: {"batches": since(v0, v1, v),
+                    "host_routed": since(v0, v1, v, "host_routed")}
+                for v in ("decode", "encode", "recover")},
+            "window_launches": {k2: c1[k2] - c0[k2] for k2 in c1},
+            "two_foreground_rounds_alone": fg_alone,
+            "foreground_rounds_in_window": len(rounds),
+            "status_at_measure": at_measure,
+            "read_back_s": round(read_s, 3)}
+        # "during" holds only the rounds that had a move in flight for
+        # half their window or more; with none, the metric is not measured
+        out["foreground"] = {
+            "streams": fg_streams, "bytes": fg_size,
+            "before": pct_ms(base), "rounds_during_drain": rounds,
+            "during": pct_ms(during) if during else None,
+            "put_p99_degradation_x": round(
+                pct_ms(during)["p99_ms"] / max(pct_ms(base)["p99_ms"],
+                                               1e-9), 3)
+            if during else None}
+        if since(v0, v1, "decode") - since(v0, v1, "decode",
+                                           "host_routed") <= 0 or \
+                since(v0, v1, "encode") - since(v0, v1, "encode",
+                                                "host_routed") <= 0:
+            fail(f"pools: the drain ran no decode or encode on the card: "
+                 f"{out['drain']['window_dispatches']}")
+        # -- fsck: plant one fault of six classes -----------------------------
+        eng1 = layer.server_sets[1].sets[0]
+        victim, lost = "big-00", (2, 5)
+        ddir = eng1.disks[0].read_versions("pools", victim)[0].data_dir
+        aside = os.path.join(root, "aside")
+        kept = {}
+        for j in lost:
+            p = os.path.join(drives1[j], "pools", victim, ddir)
+            kept[j] = tree_files(p)
+            shutil.move(p, os.path.join(aside, str(j)))
+        os.remove(os.path.join(drives1[3], "pools", "small-00", "xl.meta"))
+        orphan = os.path.join(drives1[4], "pools", "big-01",
+                              "00000000-dead-0000-0000-000000000000")
+        os.makedirs(orphan)
+        with open(os.path.join(orphan, "part.1"), "wb") as f:
+            f.write(b"junk")
+        stale = os.path.join(drives1[6], ".minio.sys", "tmp", "crashed")
+        os.makedirs(stale)
+        with open(os.path.join(stale, "part.1"), "wb") as f:
+            f.write(b"junk")
+        layer.server_sets[0].put_object(MINIO_META_BUCKET,
+                                        "topology/pools.json", b'{"epo')
+        layer.server_sets[1].put_object(
+            MINIO_META_BUCKET, mc_prefix("pools") + "seg-dead.json", b"[]")
+        planted = {"missing_shards": 1, "meta_missing": 1,
+                   "orphan_data": 1, "stale_tmp": 1, "torn_registry": 1,
+                   "orphan_metacache_segment": 1}
+        passes = {}
+        reports = {}
+        v0, c0 = verbs(node), counts.read()
+        for label, repair in (("audit", False), ("repair", True),
+                              ("again", False)):
+            t0 = time.perf_counter()
+            rep = run_fsck(layer, repair=repair, tiers=node.tiers,
+                           tmp_age_s=0)
+            passes[label] = round(time.perf_counter() - t0, 3)
+            reports[label] = rep
+        v1, c1 = verbs(node), counts.read()
+        if reports["audit"].counts() != planted:
+            fail(f"pools: fsck found {reports['audit'].counts()}, planted "
+                 f"{planted}")
+        if reports["repair"].repaired_counts() != planted or \
+                reports["repair"].unrepaired:
+            fail(f"pools: fsck repaired {reports['repair'].to_dict()}")
+        if not reports["again"].clean:
+            fail(f"pools: fsck after repair {reports['again'].to_dict()}")
+        for j in lost:
+            if tree_files(os.path.join(drives1[j], "pools", victim,
+                                       ddir)) != kept[j]:
+                fail(f"pools: the healed shards on drive {j} differ")
+        recover_card = since(v0, v1, "recover") - \
+            since(v0, v1, "recover", "host_routed")
+        if recover_card <= 0:
+            fail("pools: fsck's heal ran no recover dispatch on the card")
+        if os.path.exists(stale) or os.path.exists(orphan):
+            fail("pools: fsck left a planted leftover")
+        st_, _h, got = c.send("GET", f"/pools/{victim}")
+        if st_ != 200 or got != data[victim]:
+            fail("pools: the healed object reads back different")
+        out["fsck"] = {
+            "planted": planted, "found": reports["audit"].counts(),
+            "repaired": reports["repair"].repaired_counts(),
+            "again_clean": True, "seconds": passes,
+            "objects_scanned": reports["audit"].objects_scanned,
+            "recover_dispatches": {"card": recover_card,
+                                   "host": since(v0, v1, "recover",
+                                                 "host_routed")},
+            "launches": {k2: c1[k2] - c0[k2] for k2 in c1}}
+        note(f"fsck passes {passes}")
+        checkpoint = Rebalancer.load_checkpoint(layer, 0)
+    finally:
+        node.shutdown()
+    # -- boot fsck ------------------------------------------------------------
+    try:
+        stale = os.path.join(drives0[0], ".minio.sys", "tmp", "crashed")
+        os.makedirs(stale)
+        with open(os.path.join(stale, "part.1"), "wb") as f:
+            f.write(b"junk")
+        orphan = os.path.join(drives0[1], "pools", "ghost",
+                              "00000000-dead-0000-0000-000000000001")
+        os.makedirs(orphan)
+        with open(os.path.join(orphan, "part.1"), "wb") as f:
+            f.write(b"junk")
+        # one in pool 1 too, which joins only after the boot's audit (as
+        # the CLI's --pool does, and the reference's): the boot misses it
+        stale1 = os.path.join(drives1[2], ".minio.sys", "tmp", "crashed")
+        os.makedirs(stale1)
+        with open(os.path.join(stale1, "part.1"), "wb") as f:
+            f.write(b"junk")
+        os.environ.update({"MINIO_TPU_FSCK_BOOT": "on",
+                           "MINIO_TPU_FSCK_TMP_AGE_S": "0"})
+        t0 = time.perf_counter()
+        node = boot()
+        try:
+            boot_s = time.perf_counter() - t0
+            node.add_pool(drives1, set_drive_count=n, parity=m)
+            rep = node.boot_fsck
+            want = {"stale_tmp": 1, "orphan_data": 1}
+            if rep is None or rep.counts() != want or \
+                    rep.repaired_counts() != want:
+                fail(f"pools: the boot fsck {rep and rep.to_dict()}")
+            layer = node.object_layer
+            reb = layer._rebalancer
+            if reb is None:
+                fail("pools: the reboot did not resume the drain")
+            deadline = time.monotonic() + 120
+            while reb.running() and time.monotonic() < deadline:
+                time.sleep(0.05)
+            status = layer.rebalance_status()
+            resumed = status["rebalance"]
+            if status["topology"]["pools"] != ["draining", "active"] or \
+                    resumed["status"] != "complete" or \
+                    resumed["objects_moved"] or resumed["objects_failed"]:
+                fail(f"pools: the re-armed drain {status}")
+            persisted = Rebalancer.load_checkpoint(layer, 0)
+            if persisted["status"] != "complete" or \
+                    persisted["objects_moved"] != resumed["objects_moved"]:
+                fail(f"pools: the persisted checkpoint {persisted}")
+            if not os.path.exists(stale1):
+                fail("pools: the boot fsck reached a pool added after it")
+            missed = run_fsck(layer, tiers=node.tiers, tmp_age_s=0)
+            if missed.counts() != {"stale_tmp": 1} or \
+                    [f.pool for f in missed.findings] != [1]:
+                fail(f"pools: the audit after the boot {missed.to_dict()}")
+            fixed = run_fsck(layer, repair=True, tiers=node.tiers,
+                             tmp_age_s=0)
+            if fixed.repaired_counts() != {"stale_tmp": 1} or \
+                    fixed.unrepaired or os.path.exists(stale1):
+                fail(f"pools: the repair after the boot {fixed.to_dict()}")
+            after = run_fsck(layer, tiers=node.tiers, tmp_age_s=0)
+            if not after.clean:
+                fail(f"pools: the audit after the repair {after.to_dict()}")
+            c = S3Client(node.s3.port, creds, timeout=300)
+            st_, _h, got = c.send("GET", "/pools/big-tail")
+            if st_ != 200 or got != data["big-tail"]:
+                fail("pools: GET after the reboot")
+        finally:
+            node.shutdown()
+        out["boot_fsck"] = {
+            "boot_s": round(boot_s, 3), "found": rep.counts(),
+            "repaired": rep.repaired_counts(),
+            # the added pool's fault, which the boot's audit cannot see
+            "audit_after_boot_found": missed.counts(),
+            "audit_after_boot_found_in_pool": 1,
+            "repair_after_boot": fixed.repaired_counts(),
+            "audit_after_repair_clean": True,
+            "first_drain_checkpoint": {
+                k2: checkpoint.get(k2)
+                for k2 in ("status", "objects_moved", "bytes_moved",
+                           "passes")},
+            "resumed_drain": {k2: resumed.get(k2)
+                              for k2 in ("status", "objects_moved",
+                                         "passes")}}
+    finally:
+        Rebalancer._move_object = move_object
+        for v, val in saved_env.items():
+            if val is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = val
+        shutil.rmtree(root, ignore_errors=True)
+    launches = counts.read()
+    if any(launches[k2] <= 0 for k2 in ("gf_matmul", "hh256", "chacha20")):
+        fail(f"pools: a kernel of the path was not launched: {launches}")
+    out.update({"launches": launches,
+                "seconds": round(time.perf_counter() - t_phase, 3),
+                "card": card})
+    emit(out)
+    return out
+
+
+def fs_traffic(c, root: str, rng, what: str) -> tuple:
+    """Over the signed client c: FS_OBJECTS objects PUT and GET back
+    byte- and ETag-equal (MD5), a multipart upload of FS_PARTS parts
+    (ETag -N), a listing and a DELETE; the objects are plain files under
+    root. Returns (PUT seconds, GET seconds)."""
+    n_obj, size = FS_OBJECTS
+    n_parts, part_size = FS_PARTS
+    if c.send("PUT", "/fsb")[0] != 200:
+        fail(f"fs ({what}): make bucket")
+    objs = {f"o{i}": rng.bytes(size) for i in range(n_obj)}
+    t0 = time.perf_counter()
+    for name, body in objs.items():
+        st, h, _ = c.send("PUT", f"/fsb/{name}", body=body)
+        if st != 200 or h["etag"] != f'"{hashlib.md5(body).hexdigest()}"':
+            fail(f"fs ({what}): PUT {name}: HTTP {st}")
+    parts = [rng.bytes(part_size) for _ in range(n_parts)]
+    st, _h, body = c.send("POST", "/fsb/mp", query={"uploads": ""})
+    uid = body.split(b"<UploadId>")[1].split(b"<")[0].decode()
+    etags = []
+    for i, p in enumerate(parts):
+        st, h, _ = c.send("PUT", "/fsb/mp", body=p, query={
+            "partNumber": str(i + 1), "uploadId": uid})
+        if st != 200:
+            fail(f"fs ({what}): part {i + 1}: HTTP {st}")
+        etags.append(h["etag"])
+    done = ("<CompleteMultipartUpload>" + "".join(
+        f"<Part><PartNumber>{i + 1}</PartNumber><ETag>{e}</ETag>"
+        "</Part>" for i, e in enumerate(etags)) +
+        "</CompleteMultipartUpload>")
+    st, _h, _b = c.send("POST", "/fsb/mp", query={"uploadId": uid},
+                        body=done.encode())
+    if st != 200:
+        fail(f"fs ({what}): complete: HTTP {st}")
+    up_wall = time.perf_counter() - t0
+    want_mp = hashlib.md5(b"".join(
+        bytes.fromhex(e.strip('"')) for e in etags)).hexdigest() + \
+        f"-{n_parts}"
+    objs["mp"] = b"".join(parts)
+    t0 = time.perf_counter()
+    for name, body in objs.items():
+        st, h, got = c.send("GET", f"/fsb/{name}")
+        want = want_mp if name == "mp" else hashlib.md5(body).hexdigest()
+        if st != 200 or got != body or h["etag"] != f'"{want}"':
+            fail(f"fs ({what}): GET {name}: HTTP {st}, bytes or ETag differ")
+    down_wall = time.perf_counter() - t0
+    st, _h, body = c.send("GET", "/fsb", query={"list-type": "2"})
+    listed = sorted(k.decode() for k in
+                    re.findall(rb"<Key>([^<]+)</Key>", body))
+    if st != 200 or listed != sorted(objs):
+        fail(f"fs ({what}): the listing {listed}")
+    if c.send("DELETE", "/fsb/o0")[0] != 204 or \
+            c.send("GET", "/fsb/o0")[0] != 404:
+        fail(f"fs ({what}): DELETE")
+    for name in list(objs)[1:]:
+        with open(os.path.join(root, "fsb", name), "rb") as f:
+            if f.read() != objs[name]:
+                fail(f"fs ({what}): {name} is not a plain file of its bytes")
+    return up_wall, down_wall
+
+
+def run_fs(tmp, card, counts, np) -> dict:
+    """The single-path FS backend, twice over fs_traffic's sequence.
+    First cluster.start_fs in this process, its device the card, with
+    the launch counts set to 0 just before and read just after: no kernel
+    launches. Then `python -m minio_tpu_torch server <one path>` as a
+    subprocess (the card is its default device), whose launches this
+    process cannot count; its witness is the card's memory instead: in
+    use (nvidia-smi) it rises by less than FS_CONTEXT_MIB between before
+    the server starts and after its traffic, where a CUDA context takes
+    several hundred MiB (this process does no device work meanwhile).
+    SIGTERM, exit 0. GiB/s up and down for both."""
+    import signal
+    import socket
+
+    from minio_tpu_torch import cluster
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.s3.credentials import Credentials
+    rng = np.random.default_rng(SEED + 67)
+    creds = Credentials("smokefs", "smokefssecret")
+    n_obj, size = FS_OBJECTS
+    n_parts, part_size = FS_PARTS
+    up_bytes = n_obj * size + n_parts * part_size
+
+    def rates(up_wall, down_wall):
+        return {"put_gib_s": round(up_bytes / (1 << 30) / up_wall, 4),
+                "get_gib_s": round(up_bytes / (1 << 30) / down_wall, 4)}
+
+    t_phase = time.perf_counter()
+    # -- in this process: the path whose launches are counted --------------
+    counts.zero()
+    node = cluster.start_fs(os.path.join(tmp, "fs-node"), creds=creds)
+    try:
+        in_process = rates(*fs_traffic(
+            S3Client(node.s3.port, creds, timeout=120),
+            os.path.join(tmp, "fs-node"), rng, "start_fs"))
+    finally:
+        node.shutdown()
+    launches = counts.read()
+    if any(launches.values()):
+        fail(f"fs: kernels launched by start_fs's traffic: {launches}")
+    # -- the CLI's one-path boot as a subprocess ---------------------------
+    root = os.path.join(tmp, "fs")
+    t_cli = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MINIO_ACCESS_KEY=creds.access_key,
+               MINIO_SECRET_KEY=creds.secret_key)
+    used_before = card_memory_used_mib()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "minio_tpu_torch", "server", root,
+         "--address", f"127.0.0.1:{port}"], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        c = S3Client(port, creds, timeout=120)
+        deadline = time.monotonic() + 120
+        while True:
+            if proc.poll() is not None:
+                fail(f"fs: the server exited {proc.returncode}: "
+                     f"{proc.stderr.read()[-2000:]}")
+            try:
+                if c.send("GET", "/")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                fail("fs: no answer within 120 s")
+            time.sleep(0.2)
+        up_s = time.perf_counter() - t_cli
+        cli = rates(*fs_traffic(c, root, rng, "the CLI"))
+        used_during = card_memory_used_mib()
+        if used_during - used_before >= FS_CONTEXT_MIB:
+            fail(f"fs: the card's memory in use rose from {used_before} to "
+                 f"{used_during} MiB with the FS server up")
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        fail(f"fs: exit {proc.returncode} after SIGTERM: {stderr[-2000:]}")
+    out = {"phase": "fs", "objects": n_obj, "object_bytes": size,
+           "parts": n_parts, "part_bytes": part_size,
+           # start_fs in this process, counts set to 0 just before
+           "launches": launches, "start_fs": in_process,
+           "cli": {**cli, "answered_after_s": round(up_s, 3),
+                   "banner": stdout.strip().splitlines(), "exit_code": 0,
+                   # the subprocess's witness of no device work
+                   "card_memory_used_mib": {"before": used_before,
+                                            "server_up": used_during}},
+           "seconds": round(time.perf_counter() - t_phase, 3),
+           "card": card}
     emit(out)
     return out
 

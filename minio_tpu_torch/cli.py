@@ -10,9 +10,17 @@ print the startup banner, block on SIGTERM/SIGINT.
 steps run: the default needs a card and exits non-zero without one;
 ``--device cpu`` runs the plain PyTorch versions on the host.
 
+One drive path boots the plain-file FS backend (``cluster.start_fs``;
+with ``--pool`` it exits 2, as the reference does). Each ``--pool``
+appends one pool of drives to an erasure node online
+(``ClusterNode.add_pool``), which also re-adopts a pool's persisted
+draining state and resumes its drain. MINIO_TPU_FSCK_BOOT=on audits and
+repairs the pools the boot opens (object/fsck.py); the ``--pool`` pools
+join after that audit, as in the reference, so a fault in one of them
+waits for an on-demand ``run_fsck``.
+
 Refused with exit code 2 and a message, not half served: distributed
-nodes (``--node``), pool expansion (``--pool``) and the single-path FS
-backend. MINIO_COMPRESS=on compresses eligible objects inline (by
+nodes (``--node``). MINIO_COMPRESS=on compresses eligible objects inline (by
 extension and content type, as the reference does), with S2 framing or,
 under MINIO_COMPRESS_ALGORITHM=zstd, zstd; a zstd PUT fails where the
 `zstandard` package does not import, and never stores the object
@@ -50,7 +58,8 @@ def _parse(argv: list[str]) -> argparse.Namespace:
     s.add_argument("--cert", default="", help="TLS certificate file")
     s.add_argument("--key", default="", help="TLS private key file")
     s.add_argument("--pool", action="append", default=[],
-                   help="extra drive pool (not served by this port yet)")
+                   help="extra drive pool (ellipses supported), appended "
+                   "online after boot; repeatable")
     s.add_argument("--device", default="cuda",
                    help="where the erasure, hash and cipher steps run: "
                    "cuda (default) or cpu")
@@ -95,10 +104,7 @@ def main(argv: list[str] | None = None) -> int:
     creds = _creds()
     if args.node:
         return _refuse("--node: distributed nodes are not served by this "
-                       "port yet (ROADMAP Queue A item 8)")
-    if args.pool:
-        return _refuse("--pool: online pool expansion is not served by "
-                       "this port yet (ROADMAP Queue A item 8)")
+                       "port yet (ROADMAP Queue A item 4)")
     if not args.drives:
         return _refuse("no drives given")
     host, sep, port = args.address.rpartition(":")
@@ -110,10 +116,21 @@ def main(argv: list[str] | None = None) -> int:
         return _refuse(f"bad --address {args.address!r}: port must be a "
                        "number (host:port)")
     from .utils import ellipses
-    if len(ellipses.expand_args(args.drives)) == 1:
-        return _refuse("one drive path: the FS backend is not served by "
-                       "this port yet (ROADMAP Queue A item 8); give an "
-                       "erasure set of drives")
+    expanded = ellipses.expand_args(args.drives)
+    if len(expanded) == 1:
+        # one path: FS backend, no erasure (reference newObjectLayer)
+        if args.pool:
+            return _refuse("--pool needs an erasure backend; the FS "
+                           "backend has no pool topology")
+        from .cluster import start_fs
+        try:
+            node = start_fs(expanded[0], host or "0.0.0.0", port_n,
+                            creds, region=args.region, device=args.device)
+        except (RuntimeError, ValueError) as e:
+            return _refuse(f"boot refused: {e}")
+        print(f"MinIO-TPU FS node up at {node.url} "
+              f"(access key {creds.access_key})", flush=True)
+        return _serve_until_signal(node.shutdown)
     from .cluster import start_single
     try:
         node = start_single(
@@ -123,6 +140,12 @@ def main(argv: list[str] | None = None) -> int:
             keyfile=args.key or None, device=args.device)
     except (RuntimeError, ValueError) as e:
         return _refuse(f"boot refused: {e}")
+    try:
+        for pool_arg in args.pool:
+            node.add_pool([pool_arg])
+    except (RuntimeError, ValueError) as e:
+        node.shutdown()
+        return _refuse(f"--pool refused: {e}")
     info = node.object_layer.storage_info()
     print(f"MinIO-TPU node {node.spec.addr} up: "
           f"{node.set_count} set(s) x {node.set_drive_count} drives, "

@@ -22,7 +22,16 @@ stale multipart aborts (:598-617). The tier plane (:483-490, :575-612):
 the tier registry loaded from the drives at boot, one transition worker
 (also the async RestoreObject worker), and the crawler's transition,
 noncurrent-transition and restore-reclaim actions, with the expiry
-actions freeing transitioned versions' remote copies.
+actions freeing transitioned versions' remote copies. The pool plane
+(:216-224, :501-519, :623-655): the boot resumes a drain that a restart
+interrupted (``resume_rebalance_if_pending``), runs the fsck auditor in
+repair mode under ``MINIO_TPU_FSCK_BOOT=on`` after the tier registry
+loads and before the metacache and scanners start (a failed audit is
+logged and the boot proceeds, as in the reference; it sees the boot's
+pools only, not those ``add_pool`` appends after it), and ``add_pool``
+appends a pool of local drives online (the CLI's ``--pool``). ``FSNode``
+and ``start_fs`` (:763-796) serve one directory through the plain-file
+backend (object/fs.py), with the root credential only.
 
 ``device`` picks where the sets' fused steps and the Select scans run:
 None means the card, and a host without one raises rather than serving
@@ -31,15 +40,16 @@ host.
 
 Left out: distributed nodes (internode storage, lock, peer and bootstrap
 RPC, dsync), IAM, config KV, events, replication, notification, the QoS
-registry (the transition worker's per-tier budgets), the boot fsck, the
-admin, health and web routers (the admin tier routes with them), the
-incident plane, online pool expansion and the single-path FS backend.
+registry (the transition worker's per-tier budgets), the admin, health
+and web routers (the admin tier, fsck and rebalance routes with them),
+and the incident plane.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 from typing import Optional
 
 from . import device as device_mod
@@ -49,6 +59,7 @@ from .object import cache as cache_mod
 from .object import metacache as metacache_mod
 from .object.background import DataUsageCrawler, DiskMonitor, HealScanner
 from .object.cache import CacheObjects
+from .object.fsck import run_fsck
 from .object.metacache import MetacacheManager
 from .object.nslock import NSLockMap
 from .object.server_sets import ErasureServerSets
@@ -65,7 +76,7 @@ from .tier.config import TierManager
 from .tier.transition import (TransitionWorker,
                               noncurrent_transition_action,
                               restore_reclaim_action, transition_action)
-from .utils import ellipses
+from .utils import ellipses, knobs
 
 
 @dataclasses.dataclass
@@ -115,6 +126,10 @@ class ClusterNode:
         self.read_cache: Optional[CacheObjects] = None
         self.tiers: Optional[TierManager] = None
         self.transition_worker: Optional[TransitionWorker] = None
+        self.boot_fsck = None        # the boot audit's FsckReport, if run
+        self.pools: list = []        # pools add_pool appended after boot
+        self._block_size = block_size
+        self._device = device
         # the listener starts before the drives are formatted (the
         # reference serves before newObjectLayer returns)
         self.s3: Optional[S3Server] = S3Server(
@@ -149,10 +164,31 @@ class ClusterNode:
             scheduler=self.scheduler, device=device)
         self.object_layer = ErasureServerSets([self.sets])
         self.s3.api.set_object_layer(self.object_layer)
+        # a drain interrupted by a restart resumes from its persisted
+        # checkpoint (the pool is still marked draining in the topology
+        # doc) instead of starting over
+        try:
+            self.object_layer.resume_rebalance_if_pending()
+        except Exception:  # noqa: BLE001 — boot must proceed; a later
+            pass           # start_decommission restarts the drain
         # the scan plane on the shared former: concurrent Selects coalesce
         # their pages into one launch on the cluster's device (the engine
         # took the layer's device in set_object_layer)
         self.s3.api.scan.scheduler = self.scheduler
+        # -- tier plane (remote tiers + ILM transitions) --------------------
+        self.tiers = TierManager(self.object_layer)
+        try:
+            self.tiers.load()
+        except TierClientError:
+            pass    # loaded; its gateway-typed tiers cannot be served
+        self.s3.api.tiers = self.tiers
+        # -- boot-time crash-consistency audit (object/fsck.py) ------------
+        # MINIO_TPU_FSCK_BOOT=on: audit the boot's pools (add_pool's come
+        # later, as in the reference) and repair what the
+        # last crash left behind BEFORE the index and the scanners start
+        # trusting the tree
+        if knobs.get_bool("MINIO_TPU_FSCK_BOOT"):
+            self._boot_fsck()
         # -- bucket metacache (persisted listing index + scanner feed) -----
         if metacache_mod.enabled():
             self.metacache = MetacacheManager(self.object_layer).start()
@@ -168,13 +204,6 @@ class ClusterNode:
             # fill the cache
             self.object_layer.attach_read_cache(self.read_cache)
             self.s3.api.set_object_layer(self.read_cache)
-        # -- tier plane (remote tiers + ILM transitions) --------------------
-        self.tiers = TierManager(self.object_layer)
-        try:
-            self.tiers.load()
-        except TierClientError:
-            pass    # loaded; its gateway-typed tiers cannot be served
-        self.s3.api.tiers = self.tiers
         # -- background plane (initAutoHeal + initDataCrawler) -------------
         self.disk_monitor = DiskMonitor(self.sets).start()
         # data-update tracker: every mutation marks the bloom; the heal
@@ -209,6 +238,56 @@ class ClusterNode:
         ).start()
         self.s3.api.usage = self.crawler
 
+    def _boot_fsck(self) -> None:
+        """Audit the boot's pools and repair what it finds (a pool that
+        add_pool appends later is not seen); the report stays
+        on the node. A failed audit is logged and the boot proceeds, as
+        in the reference (a later run_fsck repeats it on demand)."""
+        try:
+            rep = run_fsck(self.object_layer, repair=True, tiers=self.tiers)
+        except Exception as e:  # noqa: BLE001 — boot must proceed
+            print(f"boot fsck failed: {e!r}", file=sys.stderr, flush=True)
+            return
+        self.boot_fsck = rep
+        if not rep.clean:
+            print(f"boot fsck: found {rep.counts()}, repaired "
+                  f"{rep.repaired_counts()}, unrepaired "
+                  f"{len(rep.unrepaired)}", file=sys.stderr, flush=True)
+
+    # ------------------------------------------------------------------
+    # topology: online pool expansion
+    # ------------------------------------------------------------------
+
+    def add_pool(self, drive_roots: list[str], set_drive_count: int = 0,
+                 parity: Optional[int] = None) -> int:
+        """Append one pool of LOCAL drives to the running node (online
+        expansion; the single-node form of upstream's server-pool list).
+        Bumps and persists the placement epoch; new writes weigh the new
+        capacity at once. The new pool's sets share the node's batch
+        former and device. Returns the new pool index."""
+        paths = ellipses.expand_args(list(drive_roots))
+        if set_drive_count:
+            if len(paths) % set_drive_count:
+                raise ValueError("drives not divisible into sets")
+            set_count = len(paths) // set_drive_count
+        else:
+            set_count, set_drive_count = ellipses.divide_into_sets(
+                len(paths), [len(paths)])
+        if parity is None:
+            parity = set_drive_count // 2
+        sets = ErasureSets.from_drives(
+            paths, set_count, set_drive_count, parity,
+            block_size=self._block_size, scheduler=self.scheduler,
+            device=self._device)
+        idx = self.object_layer.add_pool(sets)
+        # the running DiskMonitor covers the new pool's drives too: a
+        # drive dying in a post-boot pool re-admits and heals like a
+        # boot-time one
+        if self.disk_monitor is not None:
+            self.disk_monitor.add_pool(sets)
+        self.pools.append(sets)
+        return idx
+
     @property
     def url(self) -> str:
         return self.s3.url
@@ -217,7 +296,8 @@ class ClusterNode:
         """Idempotent; safe on a partially-booted node. The background
         loops and the transition worker close, the metacache closes
         (persisting what is dirty) and the tracker flushes first, then
-        the server stops, then the sets, then the former."""
+        the server stops, then a running drain, then the pools, then the
+        former."""
         for loop in ("disk_monitor", "crawler", "transition_worker",
                      "heal_scanner"):
             if getattr(self, loop) is not None:
@@ -235,9 +315,16 @@ class ClusterNode:
         if self.s3 is not None:
             self.s3.stop()
             self.s3 = None
+        if self.object_layer is not None and \
+                self.object_layer._rebalancer is not None:
+            # a running drain stops, checkpointed, before its pools close
+            self.object_layer._rebalancer.stop()
         if self.sets is not None:
             self.sets.close()
             self.sets = None
+        for pool in self.pools:
+            pool.close()
+        self.pools = []
         if self.scheduler is not None:
             self.scheduler.close()
             self.scheduler = None
@@ -251,3 +338,41 @@ def start_single(drives: list[str], address: str = "127.0.0.1",
     creds = creds or global_credentials()
     paths = ellipses.expand_args(drives)
     return ClusterNode(NodeSpec(address, port, paths), creds, **kw)
+
+
+class FSNode:
+    """Single-directory FS-backend server (the reference's
+    newObjectLayer one-endpoint branch, cmd/server-main.go:524-532): no
+    erasure, a plain file tree, the S3 surface. The backend does no
+    device work; ``device`` (None: the card) is where the handlers'
+    ChaCha20 SSE GETs would decipher, resolved at boot like every entry
+    point's. IAM and the admin router are not ported: the root
+    credential serves, as with start_single."""
+
+    def __init__(self, root: str, address: str = "127.0.0.1",
+                 port: int = 0, creds: Optional[Credentials] = None,
+                 region: str = "us-east-1", device=None):
+        from .object.fs import FSObjects
+        self.creds = creds or global_credentials()
+        self.object_layer = FSObjects(root,
+                                      device=device_mod.resolve(device))
+        self.s3: Optional[S3Server] = S3Server(
+            self.object_layer, address=address, port=port, region=region,
+            creds=self.creds).start()
+
+    @property
+    def url(self) -> str:
+        return self.s3.url
+
+    def shutdown(self) -> None:
+        """Idempotent."""
+        if self.s3 is not None:
+            self.s3.stop()
+            self.s3 = None
+
+
+def start_fs(root: str, address: str = "127.0.0.1", port: int = 0,
+             creds: Optional[Credentials] = None, **kw) -> FSNode:
+    """FS-backend server over one directory (reference `minio server
+    /data`)."""
+    return FSNode(root, address, port, creds, **kw)

@@ -29,9 +29,12 @@ back to paged listings (the merge walk) otherwise; every walk counts on
 ``walks_counter(consumer, source)``. The heal scanner also sweeps the
 index's own segment objects each pass.
 
+The disk monitor covers every pool: a pool that online expansion
+appends after boot registers through ``add_pool`` and is probed and
+sweep-healed like a boot-time one.
+
 Left out: the disk monitor's slow-drive quarantine (it needs
-utils/healthtrack's state machine and the event log) and its add_pool
-(online expansion is not ported), the crawler's transition and restore
+utils/healthtrack's state machine and the event log), the crawler's transition and restore
 actions (the tier plane is not ported), and the reference's event-log
 records and crash points. The MRF lock is a plain threading.Condition
 (lockcheck is not ported).
@@ -55,7 +58,7 @@ from ..storage import errors as serr
 from ..storage.format import (MINIO_META_BUCKET, read_format_from,
                               write_format_to)
 from ..storage.xl_storage import XLStorage
-from ..utils import backoff_delay, knobs
+from ..utils import backoff_delay, crashpoint, knobs
 from . import api_errors
 
 if TYPE_CHECKING:  # sets.py imports MRFHealer: no cycle at runtime
@@ -194,6 +197,10 @@ class MRFHealer:
                 self._inflight[key] = False
             done = True
             try:
+                # dequeued, not yet healed: a crash loses only the retry
+                # (the object itself is intact; fsck or the scanner
+                # re-finds the degradation)
+                crashpoint.hit("mrf.drain.before_heal")
                 res = self.heal_fn(bucket, obj, vid)
                 if getattr(res, "missing_after", 0):
                     # partial heal: copies are STILL missing (a target
@@ -317,25 +324,40 @@ class _ScanLoop:
 
 
 class DiskMonitor(_ScanLoop):
-    """Re-admit returning drives; format + sweep-heal fresh ones, over the
-    one pool of a single node (the reference's add_pool registers pools
-    that online expansion appends; expansion is not ported). The
-    reference's slow-drive quarantine (suspect / probation states) is not
-    ported either."""
+    """Re-admit returning drives; format + sweep-heal fresh ones, over
+    every pool of a single node (``add_pool`` registers the pools that
+    online expansion appends). The reference's slow-drive quarantine
+    (suspect / probation states) is not ported."""
 
     def __init__(self, sets: "ErasureSets",
                  interval: Optional[float] = None):
-        self.sets = sets
+        self.pools: list["ErasureSets"] = [sets]
         self.interval = knobs.get_float("MINIO_TPU_DISK_PROBE_S") \
             if interval is None else interval
         self.healed_slots: list[tuple[int, int]] = []   # for tests/admin
         self._init_loop()
 
+    @property
+    def sets(self) -> "ErasureSets":
+        """First (boot-time) pool."""
+        return self.pools[0]
+
+    def add_pool(self, sets: "ErasureSets") -> None:
+        """Register a pool appended after boot (ClusterNode.add_pool)
+        so its drive slots are probed from the next scan on."""
+        if sets not in self.pools:
+            self.pools.append(sets)
+
     # -- one scan ----------------------------------------------------------
 
     def scan_once(self) -> int:
-        """Probe every slot; returns drives (re)admitted."""
-        pool = self.sets
+        """Probe every slot of every pool; returns drives (re)admitted."""
+        admitted = 0
+        for pool in list(self.pools):
+            admitted += self._scan_pool(pool)
+        return admitted
+
+    def _scan_pool(self, pool: "ErasureSets") -> int:
         if pool.format_ref is None or pool.slot_sources is None:
             return 0
         admitted = 0
@@ -410,15 +432,17 @@ class DiskMonitor(_ScanLoop):
         eng.disks[j] = DiskIDCheck(drive, want_uuid)
         self.healed_slots.append((i, j))
         try:
-            self.heal_set_sweep(i)
+            self.heal_set_sweep(i, pool)
         except Exception:  # noqa: BLE001 — MRF/next sweep will retry
             pass
         return True
 
-    def heal_set_sweep(self, set_index: int) -> int:
-        """Heal every bucket + object of one set (healErasureSet,
-        cmd/global-heal.go). Returns objects healed."""
-        eng = self.sets.sets[set_index]
+    def heal_set_sweep(self, set_index: int,
+                       pool: Optional["ErasureSets"] = None) -> int:
+        """Heal every bucket + object of one set of `pool` (the first
+        pool by default) (healErasureSet, cmd/global-heal.go). Returns
+        objects healed."""
+        eng = (pool or self.sets).sets[set_index]
         healed = 0
         for vol in eng.list_buckets():
             try:

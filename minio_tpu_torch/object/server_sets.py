@@ -22,22 +22,27 @@ fall back to the merge-walk across pools where it declines (off, not
 built, invalidated); ``delete_bucket`` purges the bucket's persisted
 index.
 
-Left out: live-session migration off a draining
-pool (``migrate_upload``: a part upload or complete of a session homed on
-a pool that no longer takes writes raises TopologyError), online
-expansion (``add_pool``), decommission and rebalance, and the attach hooks
-of the replication and notification planes.
+The topology plane's verbs: online expansion (``add_pool``),
+decommission through the background rebalancer (object/rebalance.py:
+``start_decommission``, ``resume_rebalance_if_pending``,
+``rebalance_status``, ``cancel_rebalance``), and live-session migration
+off a pool that takes no writes (``migrate_upload``: a part upload or
+complete of such a session moves it to an active pool first, with its
+uploadID). The replication and notification planes' attach hooks are
+here; nothing attaches them until those planes are ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import random
 import time
 from typing import Optional
 
 from . import api_errors
 from .sets import ErasureSets, merge_listings, merge_version_listings
-from .topology import TopologyError, TopologyMap, TopologyStore
+from .topology import (POOL_ACTIVE, POOL_DRAINING, TopologyError,
+                       TopologyMap, TopologyStore)
 
 DISK_FILL_FRACTION = 0.95  # reference diskFillFraction
 
@@ -49,6 +54,7 @@ class ErasureServerSets:
         if not server_sets:
             raise ValueError("no server sets")
         self.server_sets = server_sets
+        self._rebalancer = None        # live Rebalancer (rebalance.py)
         # persisted bucket index (object/metacache.py): when attached,
         # listings serve from it (merge-walk fallback) and the engines'
         # namespace-change hooks feed its delta journal
@@ -56,6 +62,10 @@ class ErasureServerSets:
         # hot-object read cache (object/cache.py): attached at boot,
         # invalidated off the same namespace feed
         self.read_cache = None
+        # the replication and notification planes: listeners on the same
+        # feed once attached (not ported yet, so nothing attaches them)
+        self.replication = None
+        self.notifications = None
         self._ns_listeners: list = []
         if topology is None and load_topology:
             # recover the newest persisted map (highest epoch across
@@ -94,6 +104,20 @@ class ErasureServerSets:
         boot)."""
         self.read_cache = cache
         self.register_namespace_listener(cache.on_namespace_change)
+
+    def attach_replication(self, plane) -> None:
+        """Wire the active-active replication plane into the one
+        namespace feed: every engine mutation reaches its queue through
+        this listener."""
+        self.replication = plane
+        self.register_namespace_listener(plane.on_namespace_change)
+
+    def attach_notifications(self, plane) -> None:
+        """Wire the bucket event notification plane into the one
+        namespace feed: every engine mutation reaches its queue through
+        this listener."""
+        self.notifications = plane
+        self.register_namespace_listener(plane.on_namespace_change)
 
     def single_zone(self) -> bool:
         return len(self.server_sets) == 1
@@ -477,23 +501,150 @@ class ErasureServerSets:
 
     def _writable_upload_zone(self, bucket, object_name,
                               upload_id) -> int:
-        """The session's pool, which must take writes. The reference
-        migrates a session homed on a draining or suspended pool to an
-        active one first (migrate_upload); that is not ported, so such
-        a session refuses new parts and its commit."""
+        """The session's pool — migrated to an active pool first when
+        its current home is draining/suspended (decommission stops
+        accepting NEW parts on the leaving pool; the client's uploadID
+        keeps resolving because the migration preserves it)."""
         idx = self._zone_index_of_upload(bucket, object_name, upload_id)
         if self.topology.can_write(idx) or self.single_zone():
             return idx
-        raise TopologyError(
-            f"upload {upload_id} lives in pool {idx}, which takes no "
-            f"writes ({self.topology.state(idx)}); session migration is "
-            "not ported")
+        return self.migrate_upload(bucket, object_name, upload_id,
+                                   source=idx)
 
     def put_object_part(self, bucket, object_name, upload_id, part_number,
                         reader, size=-1):
         idx = self._writable_upload_zone(bucket, object_name, upload_id)
-        return self.server_sets[idx].put_object_part(
-            bucket, object_name, upload_id, part_number, reader, size)
+        try:
+            return self.server_sets[idx].put_object_part(
+                bucket, object_name, upload_id, part_number, reader,
+                size)
+        except api_errors.InvalidUploadID:
+            # the drain migrated the session between our zone choice
+            # and the write (no bytes consumed yet: the session check
+            # precedes the encode) — re-resolve once
+            z = self._zone_of_upload(bucket, object_name, upload_id)
+            return z.put_object_part(bucket, object_name, upload_id,
+                                     part_number, reader, size)
+
+    def migrate_upload(self, bucket: str, object_name: str,
+                       upload_id: str,
+                       source: Optional[int] = None) -> int:
+        """Move one LIVE multipart session onto an active pool —
+        session metadata, every uploaded part (decoded through the
+        verified GET readers, re-encoded in the target's geometry) and
+        the client-held uploadID all survive. The whole copy+abort
+        holds the SOURCE engine's session write lock (the one
+        put_object_part takes), so a racing part-write either lands
+        before the snapshot or blocks and then re-resolves to the
+        target; a racing second migration loses the lock and returns
+        the converged home. A crash between copy and abort leaves the
+        session in both pools: clients continue on the writable target
+        (_zone_index_of_upload prefers it) and the re-run copies only
+        parts the target LACKS — target parts are authoritative, a
+        stale source copy can never overwrite a newer client write.
+        Returns the target pool index."""
+        from ..utils.streams import IterStream
+        from .engine import PutOptions
+        from .hash_reader import HashReader
+        if source is None:
+            source = self._zone_index_of_upload(bucket, object_name,
+                                                upload_id)
+        src = self.server_sets[source]
+        src_engine = src.get_hashed_set(object_name)
+        with contextlib.ExitStack() as stack:
+            # per-pool namespace maps in every current assembly; if
+            # pools ever shared one map this same-named lock would
+            # self-deadlock against the dst part-writes below, so gate
+            # on identity
+            if not any(src_engine.ns is z.get_hashed_set(object_name).ns
+                       for i, z in enumerate(self.server_sets)
+                       if i != source):
+                stack.enter_context(src_engine.ns.new_lock(
+                    f"{bucket}/{object_name}/{upload_id}"
+                ).write_locked())
+            try:
+                session_meta = src.get_multipart_info(
+                    bucket, object_name, upload_id)
+            except api_errors.InvalidUploadID:
+                # lost a migration race: the winner already moved (and
+                # aborted) the source session — converge on its home
+                return self._zone_index_of_upload(bucket, object_name,
+                                                  upload_id)
+            parts = src.list_object_parts(bucket, object_name,
+                                          upload_id, 0, 10000)
+            # a crashed earlier migration may have left the session's
+            # twin on SOME other pool — resume THERE, never re-choose
+            # (re-choosing would mistake the surviving twin for a
+            # consumed upload, or fork the session across three pools)
+            idx = -1
+            have: dict[int, str] = {}
+            for i, z in enumerate(self.server_sets):
+                if i == source:
+                    continue
+                try:
+                    have = {p.part_number: p.etag
+                            for p in z.list_object_parts(
+                                bucket, object_name, upload_id,
+                                0, 10000)}
+                    idx = i
+                    break
+                except api_errors.ObjectApiError:
+                    continue
+            if idx < 0:
+                if session_meta.get("x-minio-internal-migrated"):
+                    # the marker is written only AFTER the target
+                    # session exists; no twin anywhere now means the
+                    # client completed/aborted the migrated upload —
+                    # the source copy is a consumed leftover: purge,
+                    # NEVER resurrect a finished upload as a zombie
+                    src.abort_multipart_upload(bucket, object_name,
+                                               upload_id)
+                    raise api_errors.InvalidUploadID(upload_id)
+                total = sum(p.size for p in parts)
+                idx = self.get_available_zone_idx(
+                    max(total, 1 << 20) * 2)
+                if idx < 0 or idx == source:
+                    raise api_errors.InsufficientWriteQuorum(
+                        "no active pool has room for the session "
+                        "migration")
+                versioned = session_meta.get(
+                    "x-minio-internal-versioned") == "true"
+                user_meta = {k: v for k, v in session_meta.items()
+                             if not k.startswith("x-minio-internal-")}
+                self.server_sets[idx].new_multipart_upload(
+                    bucket, object_name,
+                    opts=PutOptions(metadata=user_meta,
+                                    versioned=versioned),
+                    upload_id=upload_id)
+                # marker AFTER the target session exists, BEFORE the
+                # parts copy: a crash from here on re-runs into the
+                # resume-at-twin path above
+                src.mark_multipart_session(
+                    bucket, object_name, upload_id,
+                    {"x-minio-internal-migrated": "1"})
+            dst = self.server_sets[idx]
+            for p in parts:
+                if p.part_number in have:
+                    continue        # crash-window leftover: dst wins
+                info, stream = src.read_multipart_part(
+                    bucket, object_name, upload_id, p.part_number)
+                reader = IterStream(stream)
+                try:
+                    out = dst.put_object_part(
+                        bucket, object_name, upload_id, p.part_number,
+                        HashReader(reader, p.size,
+                                   actual_size=p.actual_size), p.size)
+                finally:
+                    reader.close()
+                if out.etag != p.etag:
+                    # never silently swap bytes under a client-held
+                    # etag: leave the source authoritative for this
+                    # part and surface the fault (next sweep retries)
+                    raise api_errors.ObjectApiError(
+                        f"migrated part {p.part_number} etag mismatch "
+                        f"({out.etag} != {p.etag})")
+            src.abort_multipart_upload(bucket, object_name, upload_id)
+        return idx
 
     def list_object_parts(self, bucket, object_name, upload_id,
                           part_marker=0, max_parts=1000):
@@ -519,7 +670,9 @@ class ErasureServerSets:
     def complete_multipart_upload(self, bucket, object_name, upload_id,
                                   parts, version_id="", mod_time=None,
                                   if_none_newer=False):
-        # a commit is a new write: it lands only in an ACTIVE pool
+        # a commit is a new write: a session still homed on a draining
+        # pool migrates first so the object lands in an ACTIVE pool
+        # instead of being drained again right after the commit
         idx = self._writable_upload_zone(bucket, object_name, upload_id)
         return self.server_sets[idx].complete_multipart_upload(
             bucket, object_name, upload_id, parts, version_id, mod_time,
@@ -601,6 +754,45 @@ class ErasureServerSets:
                 "topology_epoch": self.topology.epoch,
                 "zones": zones}
 
+    # ------------------------------------------------------------------
+    # topology plane: expansion, decommission, rebalance control
+    # ------------------------------------------------------------------
+
+    def add_pool(self, sets: ErasureSets) -> int:
+        """Online expansion: append one pool, replicate existing bucket
+        namespace onto it, bump+persist the placement epoch. Returns
+        the new pool index."""
+        for vol in self.list_buckets():
+            try:
+                sets.make_bucket(vol.name)
+            except api_errors.BucketExists:
+                pass
+        self.server_sets.append(sets)
+        if self._ns_listeners:
+            # the new pool's engines must feed the listeners like
+            # boot-time pools, or its writes would be invisible to the
+            # index/cache until reconcile
+            sets.on_namespace_change = self._dispatch_namespace_change
+        # boot-time RE-attach must not forget a persisted state: the
+        # map loaded at boot was truncated to the CLI drive list's pool
+        # count, so a node that crashed mid-drain and reboots with
+        # --pool would re-register the draining pool as active and
+        # silently abandon the drain (found by the crash harness).
+        # Adopt the persisted doc's state for this index when it has
+        # one; genuinely new pools still default to active.
+        state = POOL_ACTIVE
+        persisted = TopologyStore.load(self)
+        idx = len(self.server_sets) - 1
+        if persisted is not None and len(persisted.states) > idx \
+                and persisted.epoch >= self.topology.epoch:
+            state = persisted.states[idx]
+        self.topology.add_pool(state)
+        TopologyStore.save(self, self.topology)
+        # a drain parked for lack of target capacity — or adopted as
+        # still-draining above — can proceed now
+        self.resume_rebalance_if_pending()
+        return len(self.server_sets) - 1
+
     def set_pool_state(self, pool: int, state: str) -> int:
         """Persisted state transition (suspend/resume a pool for
         writes). Durable BEFORE it takes effect: the epoch doc is
@@ -615,6 +807,75 @@ class ErasureServerSets:
                 self.topology.set_state(pool, prev)
             raise
         return epoch
+
+
+    def start_decommission(self, pool: int, **rebalance_kw) -> dict:
+        """Mark `pool` draining and start the background rebalancer
+        moving its objects into the remaining active pools."""
+        from .rebalance import Rebalancer
+        if self._rebalancer is not None and self._rebalancer.running():
+            raise TopologyError(
+                f"a rebalance of pool {self._rebalancer.source} is "
+                "already running")
+        if self.topology.state(pool) != POOL_DRAINING:
+            self.set_pool_state(pool, POOL_DRAINING)
+        # honor a persisted checkpoint by default (a canceled drain
+        # restarted via the admin API continues where it stopped; the
+        # drain loop's final full sweeps still catch earlier names)
+        rebalance_kw.setdefault("resume", True)
+        self._rebalancer = Rebalancer(self, pool, **rebalance_kw)
+        self._rebalancer.start()
+        return {"pool": pool, "epoch": self.topology.epoch,
+                "status": "draining"}
+
+    def resume_rebalance_if_pending(self) -> bool:
+        """Boot hook (re-armed by add_pool): a pool left in `draining`
+        state (process died mid-drain) resumes its rebalance from the
+        persisted checkpoint instead of restarting from scratch. A
+        drain with no active pool to move INTO stays parked until
+        capacity attaches — every move would fail its target choice."""
+        from .rebalance import Rebalancer
+        if self._rebalancer is not None and self._rebalancer.running():
+            return False
+        targets = self.topology.write_pools()
+        for pool in self.topology.draining_pools():
+            if not any(t != pool for t in targets):
+                continue
+            self._rebalancer = Rebalancer(self, pool, resume=True)
+            self._rebalancer.start()
+            return True
+        return False
+
+    def rebalance_status(self) -> dict:
+        out = {"topology": self.topology.to_dict()}
+        if self._rebalancer is not None:
+            out["rebalance"] = self._rebalancer.status()
+        else:
+            # a drain may have finished in a previous process: surface
+            # the persisted checkpoint so status survives restarts
+            from .rebalance import Rebalancer
+            for pool in range(len(self.server_sets)):
+                doc = Rebalancer.load_checkpoint(self, pool)
+                if doc is not None:
+                    out.setdefault("checkpoints", []).append(doc)
+        return out
+
+    def cancel_rebalance(self) -> dict:
+        """Stop the drain and return the pool to active service; the
+        checkpoint is kept so a later decommission resumes where this
+        one stopped. The pool is reactivated only once the walker has
+        ACTUALLY stopped — flipping it active with a move in flight
+        would let the walker's source purge race a client write."""
+        if self._rebalancer is None:
+            raise TopologyError("no rebalance is running")
+        reb = self._rebalancer
+        if not reb.stop():
+            return {"pool": reb.source, "status": "stopping",
+                    "epoch": self.topology.epoch}
+        if self.topology.state(reb.source) == POOL_DRAINING:
+            self.set_pool_state(reb.source, POOL_ACTIVE)
+        return {"pool": reb.source, "status": "canceled",
+                "epoch": self.topology.epoch}
 
     # ------------------------------------------------------------------
     # MRF heal queue (per-zone queues, aggregated view)
@@ -637,6 +898,9 @@ class ErasureServerSets:
         return out
 
     def close(self) -> None:
+        if self._rebalancer is not None:
+            self._rebalancer.stop()
+            self._rebalancer = None
         if self.metacache is not None:
             self.metacache.close()
             self.metacache = None

@@ -30,8 +30,8 @@ This module is that state machine for :class:`ErasureServerSets`:
     on the new map, so a crash mid-transition replays, never forgets.
 
 The data-path consequences (write routing excludes non-active pools,
-reads scan every pool newest-wins) live in ``server_sets.py``. The
-background migration (the reference's ``rebalance.py``) is not ported.
+reads scan every pool newest-wins) live in ``server_sets.py``; the
+background migration off a draining pool in ``rebalance.py``.
 """
 
 from __future__ import annotations
@@ -204,7 +204,7 @@ class TopologyStore:
                 landed += 1
             except Exception as e:  # noqa: BLE001 — per-pool durability
                 last = e
-        need = regfence.WRITE_QUORUM
+        need = regfence.write_quorum(len(server_sets.server_sets))
         if landed < need:
             # refusing a minority-side epoch bump: a partitioned node
             # must not commit a registry version most pools never saw

@@ -270,3 +270,16 @@ def last_version_marker(versions, prefixes) -> tuple[str, str]:
     if last_p > last_v:
         return last_p, ""
     return last_v, versions[-1].version_id or "null"
+
+
+def single_version_page(objs, truncated, prefixes=None):
+    """The list_object_versions 5-tuple for single-version backends
+    (FS): one "version" per key, paged on the key marker alone — the
+    erasure layer's (versions, CommonPrefixes, NextKeyMarker,
+    NextVersionIdMarker, is_truncated) contract; the backend's
+    list_objects skips prefixes <= marker on resume."""
+    prefixes = prefixes or []
+    if truncated and (objs or prefixes):
+        nkm, nvm = last_version_marker(objs, prefixes)
+        return objs, prefixes, nkm, nvm, True
+    return objs, prefixes, "", "", truncated

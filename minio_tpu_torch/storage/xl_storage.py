@@ -60,7 +60,7 @@ def _check_path_safe(p: str) -> None:
 
 class _SyncedAppender:
     """Buffered append handle that fsyncs at close — the shard-write
-    barrier when atomicfile.FSYNC is on (a shard referenced by a committed
+    barrier when atomicfile.fsync_enabled() (a shard referenced by a committed
     xl.meta must not evaporate in a power cut)."""
 
     def __init__(self, f):
@@ -274,7 +274,7 @@ class XLStorage(StorageAPI):
             f = open(fp, "ab")
             # shard files must be durable BEFORE the xl.meta commit
             # references them: sync at close under the discipline
-            return _SyncedAppender(f) if atomicfile.FSYNC else f
+            return _SyncedAppender(f) if atomicfile.fsync_enabled() else f
         except NotADirectoryError:
             raise errors.FileParentIsFile(fp) from None
         except OSError as e:

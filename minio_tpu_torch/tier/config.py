@@ -212,7 +212,7 @@ class TierManager:
                 landed += 1
             except Exception as e:  # noqa: BLE001 — per-pool durability
                 last = e
-        need = min(regfence.WRITE_QUORUM, len(pools))
+        need = regfence.write_quorum(len(pools))
         if landed < need:
             raise TierConfigError(
                 f"tier config epoch {self.epoch} persisted to {landed} "

@@ -4,7 +4,8 @@ Every raw-file commit follows one recipe: write a temp sibling, then
 atomically ``os.replace`` it over the final name. Without an fsync barrier
 before the rename and a directory fsync after it, a power cut can surface
 the rename while the data blocks are still unwritten, so the barriers
-follow ``FSYNC`` (the reference's default: off).
+follow ``MINIO_TPU_FSYNC`` (the reference's default: off), read at call
+time.
 """
 
 from __future__ import annotations
@@ -14,14 +15,18 @@ import os
 import uuid as _uuid
 from typing import Optional
 
-# fsync barriers on commit paths (reference knob MINIO_TPU_FSYNC, default off)
-FSYNC = False
+from . import knobs
+
+
+def fsync_enabled() -> bool:
+    """fsync barriers on commit paths (MINIO_TPU_FSYNC, default off)."""
+    return knobs.get_bool("MINIO_TPU_FSYNC")
 
 
 def fsync_file(f) -> None:
     """Flush + fsync an open file object (or raw fd) when the
     discipline is on. Best-effort on filesystems that refuse."""
-    if not FSYNC:
+    if not fsync_enabled():
         return
     try:
         if hasattr(f, "flush"):
@@ -34,7 +39,7 @@ def fsync_file(f) -> None:
 def fsync_dir(path: str) -> None:
     """fsync the DIRECTORY so a just-committed rename survives power
     loss (the rename itself lives in the directory's data blocks)."""
-    if not FSYNC:
+    if not fsync_enabled():
         return
     try:
         dfd = os.open(path, os.O_RDONLY)

@@ -13,9 +13,10 @@ fired at the Nth hit — by default it raises :class:`CrashpointAbort`, so
 the commit dies mid-window and the test inspects the wreckage; a custom
 action may do damage through the ``ctx`` kwargs the hit site passes
 (e.g. ``path=``/``data=`` on raw file commits). ``disarm()`` in the
-test's finally. Left out: the reference's ``MINIO_TPU_CRASHPOINT``
-process arming (no port test spawns a process to kill), ``arm_exit``,
-``torn_write_action`` and the README table renderer.
+test's finally. ``torn_write_action`` is such an action: it commits a
+truncated copy to the final path before aborting. Left out: the
+reference's ``MINIO_TPU_CRASHPOINT`` process arming (no port test spawns
+a process to kill), ``arm_exit`` and the README table renderer.
 
 ``hit()`` is one ``is None`` check when nothing is armed — the hot paths
 pay nothing.
@@ -28,7 +29,7 @@ from typing import Callable, Dict, List, Optional
 
 __all__ = [
     "Crashpoint", "CRASHPOINTS", "define", "names", "hit", "arm",
-    "disarm", "CrashpointAbort",
+    "disarm", "hits", "torn_write_action", "CrashpointAbort",
 ]
 
 
@@ -201,8 +202,31 @@ def disarm() -> None:
         _armed = None
 
 
+def hits(name: str) -> int:
+    """How many times the armed point has been hit (0 when another —
+    or no — point is armed)."""
+    a = _armed
+    if a is None or a.name != name:
+        return 0
+    return a.count
+
+
 def _raise_abort(name: str, **ctx) -> None:
     raise CrashpointAbort(name)
+
+
+def torn_write_action(fraction: float = 0.5) -> Callable[..., None]:
+    """An action for hit sites that pass ``path=``/``data=`` context
+    (raw file commits): writes a truncated copy straight to the FINAL
+    path, then aborts — the torn-file state a power cut mid-commit
+    without fsync discipline leaves behind."""
+    def act(name: str, **ctx) -> None:
+        path, data = ctx.get("path"), ctx.get("data")
+        if path is not None and data is not None:
+            with open(path, "wb") as f:
+                f.write(bytes(data)[: max(int(len(data) * fraction), 1)])
+        raise CrashpointAbort(name)
+    return act
 
 
 def hit(name: str, **ctx) -> None:

@@ -197,6 +197,35 @@ define("MINIO_TPU_RESTORE_ASYNC_BYTES", "int", 64 << 20,
        "RestoreObject switches to 202 + background tier pull at this "
        "size (0 = always synchronous)")
 
+# -- registries, topology, durability and fsck ---------------------------------
+define("MINIO_TPU_FSYNC", "bool", False,
+       "`on` = fsync barriers on commit paths (fsync before rename, "
+       "directory fsync after; shard files synced at close) — "
+       "power-loss durability at real I/O cost")
+define("MINIO_TPU_REGISTRY_WRITE_QUORUM", "str", "1",
+       "pools an epoch-registry write must land on before the commit "
+       "is acked: a count, or `majority` — below it the write refuses "
+       "instead of bumping the epoch on a minority side")
+define("MINIO_TPU_REBALANCE_MPU_GRACE_S", "float", 30.0,
+       "live multipart sessions idle less than this get a grace "
+       "before the decommission drain migrates them off the pool")
+define("MINIO_TPU_REBALANCE_CHECKPOINT_EVERY", "int", 16,
+       "objects moved between drain checkpoints")
+define("MINIO_TPU_REBALANCE_PAGE", "int", 256,
+       "rebalance listing page size")
+define("MINIO_TPU_REBALANCE_BACKOFF_S", "float", 0.05,
+       "first drain backoff when the foreground is busy")
+define("MINIO_TPU_REBALANCE_BACKOFF_MAX_S", "float", 1.0,
+       "drain backoff cap, seconds")
+define("MINIO_TPU_REBALANCE_BACKOFF_TRIES", "int", 8,
+       "busy polls before the drain proceeds anyway")
+define("MINIO_TPU_FSCK_BOOT", "bool", False,
+       "`on` runs the fsck consistency auditor (repair mode) at "
+       "cluster boot, feeding repairable findings to heal/MRF")
+define("MINIO_TPU_FSCK_TMP_AGE_S", "float", 3600.0,
+       "staged tmp writes older than this count as crash leftovers "
+       "for fsck (younger ones may be in-flight PUTs)")
+
 # -- hot-object read cache ----------------------------------------------------
 define("MINIO_TPU_CACHE", "bool", False,
        "master switch for the erasure-aware read cache")

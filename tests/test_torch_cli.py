@@ -3,9 +3,10 @@
 
 The CLI runs as a subprocess with `--device cpu`: it must answer a signed
 ListBuckets, a PUT and a GET, and exit 0 on SIGTERM, with MINIO_COMPRESS
-on too (the object stored compressed). `--node`, `--pool`, one drive path
-and the default device on a host without a card are refused with exit
-code 2 and a message. The boot's background plane (disk monitor, tracker,
+on too (the object stored compressed). One drive path serves the plain-
+file FS backend; `--pool` appends a pool of drives to an erasure node
+(and with one drive path exits 2). `--node` and the default device on a
+host without a card are refused with exit code 2 and a message. The boot's background plane (disk monitor, tracker,
 heal scanner, crawler) is wired and closes on shutdown. Every test is
 bounded: subprocesses by their own timeouts, the rest by an alarm.
 """
@@ -134,28 +135,92 @@ def test_cli_serves_compressed_objects(tmp_path, algo):
 
 @pytest.mark.parametrize("args,env,needle", [
     (["--node", "127.0.0.1:9000=/d{1...4}"], {}, "--node"),
-    (["--pool", "/p{1...4}"], {}, "--pool"),
+    (["--pool", "{root}/p{1...4}"], {}, "--pool"),
 ])
 def test_cli_refuses_what_it_does_not_serve(tmp_path, args, env, needle):
-    proc = subprocess.run(
+    """`--node` stays refused (exit 2, pointing at the roadmap item that
+    holds it); `--pool` now appends a pool online, and the node serves
+    across both pools."""
+    args = [a.replace("{root}", str(tmp_path)) for a in args]
+    port = _free_port()
+    proc = subprocess.Popen(
         [sys.executable, "-m", "minio_tpu_torch", "server",
-         str(tmp_path / "e{1...4}"), "--address", "127.0.0.1:0",
+         str(tmp_path / "e{1...4}"), "--address", f"127.0.0.1:{port}",
          "--device", "cpu", *args],
-        cwd=ROOT, env=_env(**env), capture_output=True, text=True,
-        timeout=120)
-    assert proc.returncode == 2
-    assert needle in proc.stderr
+        cwd=ROOT, env=_env(**env), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    if needle == "--node":
+        out, err = proc.communicate(timeout=120)
+        assert proc.returncode == 2
+        assert needle in err and "Queue A item 4" in err
+        return
+    try:
+        c = S3TestClient("127.0.0.1", port)
+        _wait_for(c, proc)
+        assert c.request("PUT", "/pools")[0] == 200
+        data = np.random.default_rng(8).bytes(1 << 20)
+        for i in range(4):
+            assert c.request("PUT", f"/pools/o{i}", body=data)[0] == 200
+        assert all(c.request("GET", f"/pools/o{i}")[2] == data
+                   for i in range(4))
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+    assert "8 online / 0 offline drives" in out
+    # the placement epoch doc reached the added pool's drives
+    assert os.path.isdir(str(tmp_path / "p1" / ".minio.sys" / "topology"))
 
 
 def test_cli_refuses_one_path_and_no_card(tmp_path, capsys):
-    assert cli.main(["server", str(tmp_path / "fs"), "--device",
-                     "cpu"]) == 2
-    assert "FS backend" in capsys.readouterr().err
+    """One drive path serves the FS backend (exit 2 only with --pool,
+    with the reference's message); the default device without a card is
+    refused."""
+    assert cli.main(["server", str(tmp_path / "fs"), "--device", "cpu",
+                     "--pool", str(tmp_path / "p{1...4}")]) == 2
+    assert "--pool needs an erasure backend" in capsys.readouterr().err
     if torch.cuda.is_available():
         return
     assert cli.main(["server", str(tmp_path / "e{1...4}"),
                      "--address", "127.0.0.1:0"]) == 2
     assert "CUDA" in capsys.readouterr().err
+    assert cli.main(["server", str(tmp_path / "fs"),
+                     "--address", "127.0.0.1:0"]) == 2
+    assert "CUDA" in capsys.readouterr().err
+
+
+def test_cli_serves_one_path_as_fs(tmp_path):
+    """One drive path boots the FS backend: objects are plain files
+    under the path, and SIGTERM exits 0."""
+    port = _free_port()
+    root = tmp_path / "fsroot"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "minio_tpu_torch", "server", str(root),
+         "--address", f"127.0.0.1:{port}", "--device", "cpu"],
+        cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        c = S3TestClient("127.0.0.1", port)
+        _wait_for(c, proc)
+        assert c.request("PUT", "/fsb")[0] == 200
+        data = np.random.default_rng(6).bytes(300_000)
+        st, h, _ = c.request("PUT", "/fsb/dir/o", body=data)
+        assert st == 200
+        assert h["etag"] == '"' + __import__("hashlib").md5(
+            data).hexdigest() + '"'
+        assert c.request("GET", "/fsb/dir/o")[2] == data
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+    assert "FS node up" in out
+    assert (root / "fsb" / "dir" / "o").read_bytes() == data
 
 
 def test_start_single_without_a_device_needs_a_card(tmp_path, monkeypatch):

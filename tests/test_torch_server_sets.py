@@ -1,6 +1,7 @@
 """Server sets (pools) on the port (minio_tpu_torch/object/server_sets.py)
 against minio_tpu's: pool choice by free space, newest-wins reads across
-pools, multipart routing to the session's pool, the persisted topology
+pools, multipart routing to the session's pool (and its migration, with
+the reference's, off a pool that stops taking writes), the persisted topology
 map, a multipart upload into two pools that leaves drive trees equal to
 the reference's (uuids, mod times and pool choice pinned), and a
 two-pool layout written by minio_tpu read back by the port. Tolerance: 0
@@ -15,6 +16,7 @@ import uuid
 import numpy as np
 import pytest
 
+import minio_tpu.object.api_errors as ref_api_errors
 import minio_tpu.object.engine as ref_engine
 import minio_tpu.object.multipart as ref_multipart
 import minio_tpu.storage.format as ref_format
@@ -116,29 +118,40 @@ def test_newest_version_wins_across_pools(tmp_path):
 
 def test_multipart_routes_to_the_sessions_pool(tmp_path):
     layer = _port(_pools(tmp_path, "p"))
-    layer.make_bucket("b")
-    layer.get_available_zone_idx = lambda size: 1
-    uid = layer.new_multipart_upload("b", "mp")
-    assert layer._zone_index_of_upload("b", "mp", uid) == 1
-    e1 = layer.put_object_part("b", "mp", uid, 1, b"a" * (5 << 20)).etag
-    assert [p.part_number for p in
-            layer.list_object_parts("b", "mp", uid)] == [1]
-    with pytest.raises(api_errors.InvalidUploadID):
-        layer.server_sets[0].list_object_parts("b", "mp", uid)
-    # a pool that takes no writes refuses the session's new parts
-    layer.set_pool_state(1, POOL_SUSPENDED)
-    with pytest.raises(TopologyError):
-        layer.put_object_part("b", "mp", uid, 2, b"b" * 10)
-    layer.set_pool_state(1, POOL_ACTIVE)
-    e2 = layer.put_object_part("b", "mp", uid, 2, b"b" * 10).etag
-    assert [u["upload_id"] for u in layer.list_multipart_uploads("b")] == \
-        [uid]
-    info = layer.complete_multipart_upload(
-        "b", "mp", uid, [CompletePart(1, e1), CompletePart(2, e2)])
-    assert info.etag.endswith("-2")
-    assert layer.server_sets[1].has_object_versions("b", "mp")
-    assert _read(layer, "mp")[1] == b"a" * (5 << 20) + b"b" * 10
-    layer.close()
+    ref = _ref(_pools(tmp_path, "r"))
+    out = []
+    no_upload = (api_errors.InvalidUploadID, ref_api_errors.InvalidUploadID)
+    for z, Part in ((layer, CompletePart), (ref, RefPart)):
+        z.make_bucket("b")
+        z.get_available_zone_idx = lambda size: 1
+        uid = z.new_multipart_upload("b", "mp")
+        assert z._zone_index_of_upload("b", "mp", uid) == 1
+        e1 = z.put_object_part("b", "mp", uid, 1, b"a" * (5 << 20)).etag
+        assert [p.part_number for p in
+                z.list_object_parts("b", "mp", uid)] == [1]
+        with pytest.raises(no_upload):
+            z.server_sets[0].list_object_parts("b", "mp", uid)
+        # a session on a pool that takes no writes migrates, with its
+        # uploadID, to an active pool at its next part (as the
+        # reference's migrate_upload does)
+        del z.get_available_zone_idx
+        z.set_pool_state(1, POOL_SUSPENDED)
+        e2 = z.put_object_part("b", "mp", uid, 2, b"b" * 10).etag
+        assert z._zone_index_of_upload("b", "mp", uid) == 0
+        with pytest.raises(no_upload):
+            z.server_sets[1].list_object_parts("b", "mp", uid)
+        z.set_pool_state(1, POOL_ACTIVE)
+        assert [u["upload_id"] for u in z.list_multipart_uploads("b")] \
+            == [uid]
+        info = z.complete_multipart_upload(
+            "b", "mp", uid, [Part(1, e1), Part(2, e2)])
+        assert info.etag.endswith("-2")
+        assert z.server_sets[0].has_object_versions("b", "mp")
+        assert not z.server_sets[1].has_object_versions("b", "mp")
+        assert _read(z, "mp")[1] == b"a" * (5 << 20) + b"b" * 10
+        out.append((e1, e2, info.etag, info.size))
+        z.close()
+    assert out[0] == out[1]
 
 
 def test_topology_saved_and_loaded_by_both_packages(tmp_path):

@@ -17,14 +17,16 @@ the handlers' RestoreObject) held against minio_tpu's.
     HTTP restore flow and its 202, versioned ``null`` deletes keeping the
     remote copy, batch deletes freeing it, and the tier metrics. Left for
     their slices: test_admin_tier_crud_http, test_madmin_tier_client and
-    test_admin_tier_delete_refuses_in_use (the admin router and madmin),
-    and test_rebalance_moves_transitioned_stub (rebalance);
+    test_admin_tier_delete_refuses_in_use (the admin router and madmin);
+    test_rebalance_moves_transitioned_stub is in test_torch_pools.py;
   * twin trees, reference and port, transitioned, restored and reclaimed
     under pinned identities: equal drive files and tier files at every
     stage; and twin servers fed one request sequence (PUT, lifecycle,
     crawl, HEAD, GET 403, restore, GET, reclaim, DELETE) under both
-    transports: equal statuses, bodies, headers, drive files and tier
-    files;
+    transports, over plain objects and over an SSE-S3, an SSE-C and a
+    compressed object: equal statuses, bodies, headers, drive files and
+    tier files (the transformed stubs' GETs left out: the departure
+    below);
   * the port's own: the GET of an encrypted stub answering 403 before
     any transform (the reference's starts a 200 and breaks off: the
     record of the departure), gateway-typed tiers refused by name, a failed
@@ -86,6 +88,8 @@ from minio_tpu_torch.tier.transition import (TransitionWorker, free_remote,
                                              restore_reclaim_action,
                                              transition_action)
 from tests.test_s3 import CREDS, REGION, S3TestClient
+from tests.test_torch_s3 import SSE_S3 as SSE_S3_HEADERS
+from tests.test_torch_s3 import SSEC as SSEC_HEADERS
 from tests.test_torch_s3 import _norm, drive_files, pin
 
 BLOCK = 1 << 16
@@ -1314,6 +1318,11 @@ def _twin_steps(data):
         return 0, {}, json.dumps(tree_files(st["tier_root"]),
                                  sort_keys=True).encode()
 
+    def tier_sizes(c, st):
+        return 0, {}, json.dumps(sorted(
+            os.path.getsize(os.path.join(d, f))
+            for d, _, fs in os.walk(st["tier_root"]) for f in fs)).encode()
+
     def mp_upload(c, st):
         s, _, body = c.request("POST", "/twinb/mp", query={"uploads": ""})
         assert s == 200, body
@@ -1329,46 +1338,98 @@ def _twin_steps(data):
 
     mp_len = sum(map(len, data["parts"]))
     cut = len(data["parts"][0])
+    ssec = SSEC_HEADERS
+    csv = {"content-type": "text/csv"}
+    # the transformed objects: SSE-S3 and SSE-C under the ChaCha20
+    # cipher, and a CSV stored compressed (MINIO_COMPRESS on). Their
+    # stubs' GETs are left out: the port answers 403 at once where the
+    # reference starts a 200 and breaks off (the recorded departure,
+    # test_get_of_an_encrypted_stub_answers_before_the_transform)
     return [
-        req("PUT", "/twinb"),
-        req("PUT", "/twinb/doc", body=data["doc"]),
-        req("PUT", "/twinb/tiny", body=data["tiny"]),
-        mp_upload,
-        req("PUT", "/twinb", query={"lifecycle": ""}, body=lc),
-        req("GET", "/twinb", query={"lifecycle": ""}),
-        crawl("transition"),
-        tier_listing,
-        req("HEAD", "/twinb/doc"), req("HEAD", "/twinb/mp"),
-        req("GET", "/twinb/doc"), req("GET", "/twinb/mp"),
-        req("GET", "/twinb", query={"list-type": "2"}),
-        req("POST", "/twinb/doc", query={"restore": ""}, body=restore),
-        req("POST", "/twinb/doc", query={"restore": ""}, body=restore),
-        req("POST", "/twinb/mp", query={"restore": ""}),
-        req("HEAD", "/twinb/doc"),
-        req("GET", "/twinb/doc"), req("GET", "/twinb/mp"),
-        req("GET", "/twinb/mp", headers={"range": f"bytes={cut - 3}-{cut + 3}"}),
-        req("GET", "/twinb/tiny"),
-        crawl("reclaim"),
-        req("GET", "/twinb/doc"), req("HEAD", "/twinb/mp"),
-        tier_listing,
-        req("DELETE", "/twinb/doc"),
-        tier_listing,
-        req("POST", "/twinb", query={"delete": ""},
-            body=b"<Delete><Object><Key>mp</Key></Object><Object><Key>"
-                 b"tiny</Key></Object></Delete>"),
-        tier_listing,
-        req("GET", "/twinb", query={"list-type": "2"}),
-        lambda c, st: (0, {}, str(mp_len).encode()),
+        ("bucket", req("PUT", "/twinb")),
+        ("put doc", req("PUT", "/twinb/doc", body=data["doc"])),
+        ("put tiny", req("PUT", "/twinb/tiny", body=data["tiny"])),
+        ("put mp", mp_upload),
+        ("put sse", req("PUT", "/twinb/sse", body=data["sse"],
+                        headers=SSE_S3_HEADERS)),
+        ("put ssec", req("PUT", "/twinb/ssec", body=data["ssec"],
+                         headers=ssec)),
+        ("put csv", req("PUT", "/twinb/rows.csv", body=data["csv"],
+                        headers=csv)),
+        ("put lifecycle", req("PUT", "/twinb", query={"lifecycle": ""},
+                              body=lc)),
+        ("get lifecycle", req("GET", "/twinb", query={"lifecycle": ""})),
+        ("transition", crawl("transition")),
+        ("tier after transition", tier_listing),
+        ("tier sizes", tier_sizes),
+        ("head doc stub", req("HEAD", "/twinb/doc")),
+        ("head mp stub", req("HEAD", "/twinb/mp")),
+        ("head sse stub", req("HEAD", "/twinb/sse")),
+        ("head ssec stub", req("HEAD", "/twinb/ssec", headers=ssec)),
+        ("head csv stub", req("HEAD", "/twinb/rows.csv")),
+        ("get doc stub", req("GET", "/twinb/doc")),
+        ("get mp stub", req("GET", "/twinb/mp")),
+        ("list stubs", req("GET", "/twinb", query={"list-type": "2"})),
+        ("restore doc", req("POST", "/twinb/doc", query={"restore": ""},
+                            body=restore)),
+        ("restore doc again", req("POST", "/twinb/doc",
+                                  query={"restore": ""}, body=restore)),
+        ("restore mp", req("POST", "/twinb/mp", query={"restore": ""})),
+        ("restore sse", req("POST", "/twinb/sse", query={"restore": ""},
+                            body=restore)),
+        ("restore ssec", req("POST", "/twinb/ssec", query={"restore": ""},
+                             body=restore)),
+        ("restore csv", req("POST", "/twinb/rows.csv",
+                            query={"restore": ""}, body=restore)),
+        ("head doc restored", req("HEAD", "/twinb/doc")),
+        ("get doc", req("GET", "/twinb/doc")),
+        ("get mp", req("GET", "/twinb/mp")),
+        ("get mp range", req("GET", "/twinb/mp", headers={
+            "range": f"bytes={cut - 3}-{cut + 3}"})),
+        ("get tiny stub", req("GET", "/twinb/tiny")),
+        ("get sse", req("GET", "/twinb/sse")),
+        ("get sse range", req("GET", "/twinb/sse", headers={
+            "range": "bytes=65530-131080"})),
+        ("get ssec", req("GET", "/twinb/ssec", headers=ssec)),
+        ("head ssec", req("HEAD", "/twinb/ssec", headers=ssec)),
+        ("get csv", req("GET", "/twinb/rows.csv")),
+        ("get csv range", req("GET", "/twinb/rows.csv", headers={
+            "range": "bytes=1000-2000"})),
+        ("reclaim", crawl("reclaim")),
+        ("get doc reclaimed", req("GET", "/twinb/doc")),
+        ("head mp reclaimed", req("HEAD", "/twinb/mp")),
+        ("head sse reclaimed", req("HEAD", "/twinb/sse")),
+        ("head ssec reclaimed", req("HEAD", "/twinb/ssec", headers=ssec)),
+        ("head csv reclaimed", req("HEAD", "/twinb/rows.csv")),
+        ("tier after reclaim", tier_listing),
+        ("delete doc", req("DELETE", "/twinb/doc")),
+        ("tier after delete", tier_listing),
+        ("delete many", req("POST", "/twinb", query={"delete": ""},
+                            body=b"<Delete><Object><Key>mp</Key></Object>"
+                                 b"<Object><Key>tiny</Key></Object>"
+                                 b"<Object><Key>sse</Key></Object>"
+                                 b"<Object><Key>ssec</Key></Object>"
+                                 b"<Object><Key>rows.csv</Key></Object>"
+                                 b"</Delete>")),
+        ("tier after delete many", tier_listing),
+        ("list", req("GET", "/twinb", query={"list-type": "2"})),
+        ("mp length", lambda c, st: (0, {}, str(mp_len).encode())),
     ]
 
 
 @pytest.mark.parametrize("edge", ["on", "off"])
 def test_twin_servers_tier_sequence(tmp_path, monkeypatch, edge):
     monkeypatch.setenv("MINIO_TPU_EDGE", edge)
+    monkeypatch.setenv("MINIO_SSE_MASTER_KEY", "4f" * 32)
+    monkeypatch.setenv("MINIO_TPU_SSE_CIPHER", "chacha20")
+    monkeypatch.setenv("MINIO_COMPRESS", "on")
     pin_both(monkeypatch)
     rng = np.random.default_rng(17)
     data = {"doc": rng.bytes(300_007), "tiny": rng.bytes(1_500),
-            "parts": [rng.bytes(5 << 20), rng.bytes(123_457)]}
+            "parts": [rng.bytes(5 << 20), rng.bytes(123_457)],
+            "sse": rng.bytes(200_003), "ssec": rng.bytes(90_001),
+            "csv": b"".join(b"%d,%d,row-%d\n" % (i, i * 7, i % 13)
+                            for i in range(20_000))}
     states = []
     for who in ("ref", "port"):
         root = tmp_path / who
@@ -1397,29 +1458,50 @@ def test_twin_servers_tier_sequence(tmp_path, monkeypatch, edge):
                        "sets": sets, "tier_root": root / "tier",
                        "client": S3TestClient("127.0.0.1", srv.port)})
     try:
-        outs = []
-        for i, step in enumerate(_twin_steps(data)):
+        outs = {}
+        for i, (label, step) in enumerate(_twin_steps(data)):
             a, b = (_norm(step(st["client"], st)) for st in states)
-            assert a[0] == b[0], f"step {i}: status {a[0]} != {b[0]}"
-            assert a[1] == b[1], f"step {i}: headers differ"
-            assert a[2] == b[2], f"step {i}: bodies differ"
-            outs.append(b)
+            assert a[0] == b[0], f"{label}: status {a[0]} != {b[0]}"
+            assert a[1] == b[1], f"{label}: headers differ"
+            assert a[2] == b[2], f"{label}: bodies differ"
+            outs[label] = b
         # the sequence did what it says
-        assert [o[0] for o in outs[:6]] == [200] * 6
-        assert outs[6][2].startswith(b"[{") and \
-            json.loads(outs[6][2])[1:] == [3, 0]
-        assert outs[8][1]["x-amz-storage-class"] == "cold"
-        assert outs[10][0] == 403 and outs[11][0] == 403
-        assert (outs[13][0], outs[14][0], outs[15][0]) == (202, 200, 202)
-        assert outs[17][2] == data["doc"]
-        assert outs[18][2] == b"".join(data["parts"])
-        assert outs[19][0] == 206
-        assert outs[22][0] == 403
-        assert outs[20][0] == 403               # tiny: never restored
-        assert len(json.loads(outs[7][2])) == 3
-        assert json.loads(outs[24][2]) == json.loads(outs[7][2])
-        assert len(json.loads(outs[26][2])) == 2
-        assert json.loads(outs[28][2]) == {}
+        for label in ("bucket", "put doc", "put tiny", "put mp", "put sse",
+                      "put ssec", "put csv", "put lifecycle",
+                      "get lifecycle"):
+            assert outs[label][0] == 200, label
+        assert json.loads(outs["transition"][2])[1:] == [6, 0]
+        assert outs["head doc stub"][1]["x-amz-storage-class"] == "cold"
+        for label in ("sse", "ssec", "csv"):
+            assert outs[f"head {label} stub"][0] == 200
+            assert outs[f"head {label} stub"][1][
+                "x-amz-storage-class"] == "cold"
+        assert outs["get doc stub"][0] == 403
+        assert outs["get mp stub"][0] == 403
+        assert [outs[f"restore {k}"][0] for k in
+                ("doc", "doc again", "mp", "sse", "ssec", "csv")] == \
+            [202, 200, 202, 202, 202, 202]
+        assert outs["get doc"][2] == data["doc"]
+        assert outs["get mp"][2] == b"".join(data["parts"])
+        assert outs["get mp range"][0] == 206
+        assert outs["get tiny stub"][0] == 403     # never restored
+        assert outs["get sse"][2] == data["sse"]
+        assert outs["get sse range"][2] == data["sse"][65530:131081]
+        assert outs["get ssec"][2] == data["ssec"]
+        assert outs["get csv"][2] == data["csv"]
+        assert outs["get csv range"][2] == data["csv"][1000:2001]
+        assert outs["get doc reclaimed"][0] == 403
+        transitioned = json.loads(outs["tier after transition"][2])
+        assert len(transitioned) == 6
+        # the tier holds the stored bytes: the CSV compressed, the SSE
+        # objects as ciphertext (their packages' tags make them longer)
+        sizes = json.loads(outs["tier sizes"][2])
+        assert len(sizes) == 6 and sizes[0] == len(data["tiny"])
+        assert sizes[1] < len(data["csv"]) // 2
+        assert len(data["ssec"]) < sizes[2] < len(data["doc"])
+        assert json.loads(outs["tier after reclaim"][2]) == transitioned
+        assert len(json.loads(outs["tier after delete"][2])) == 5
+        assert json.loads(outs["tier after delete many"][2]) == {}
     finally:
         for st in states:
             srv, _tiers, worker, _tr, _c = st["stack"]
