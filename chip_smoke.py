@@ -2,16 +2,19 @@
 
     python3 chip_smoke.py
 
-About 15-17 minutes on one H100 (998.8 s in the last run), the kernels' builds
-included. Phases, each
+About 12 minutes on one H100 (713.6-732.2 s, PERF.md §5; the host's speed
+moves it by a third either way), the kernels' builds included. Phases, each
 printing one JSON line; any failure exits non-zero:
 
   1. build    — compile every hand-written kernel (csrc/*.cu, one nvcc per
                 source, all at once) and report nvcc's register/spill lines
                 and scan_eval's registers, stack frame and spill bytes
                 per instantiation.
-  2. kernels  — each kernel against its plain PyTorch version on the card,
-                byte for byte (tolerance 0): gf_matmul with a parity, a
+  2. kernels  — each kernel on the card against its plain PyTorch
+                version, byte for byte (tolerance 0; hh256's and sha256's
+                plain versions run on CPU copies of the same rows, where
+                they take a quarter to a half of their time on the card,
+                which phase 4 reads): gf_matmul with a parity, a
                 3-missing decode and a recover matrix at 16 ragged widths
                 S from 0 to 349,526 and at the main path's B=8,
                 S=349,526 (the parity launch three times: a store race
@@ -120,8 +123,8 @@ printing one JSON line; any failure exits non-zero:
                 for the idle share and the kernels' device ms per encode
                 dispatch.
   9. SSE      — BASELINE.json config 2 under SSE-S3 with ChaCha20-Poly1305
-                (see run_sse): 16 threads (config 2's 32, halved for
-                the run's time) each PUT one 16 MiB object at once through setup_put_transforms and the DeviceSSE spec,
+                (see run_sse): 8 threads (config 2's 32, cut to a
+                quarter for the run's time) each PUT one 16 MiB object at once through setup_put_transforms and the DeviceSSE spec,
                 the former and the pipelined loop; every object read back
                 through resolve_get_key and chacha_decrypt_ranged (bytes,
                 MD5 ETag), three ranged reads across a 64-package batch,
@@ -132,8 +135,8 @@ printing one JSON line; any failure exits non-zero:
                 object; chacha20 launches equal the encrypted encode
                 dispatches and the GET decipher batches, per path. Prints
                 the GiB/s, the host Poly1305 seconds for the phase's
-                packages (timed on one core) and the idle share of 8 of
-                the 16 PUTs run again under the profiler.
+                packages (timed on one core) and the idle share of 4 of
+                the 8 PUTs run again under the profiler.
   10. s3      — the port's server on the card over HTTP (see run_s3):
                 cluster.start_single over 16 fresh drives at 12+4 with 1 MiB
                 blocks on the edge transport; 32 concurrent signed PUTs of
@@ -167,7 +170,7 @@ printing one JSON line; any failure exits non-zero:
                 run_compress): a fresh server as in phase 10 with
                 MINIO_COMPRESS=on; 32 concurrent 16 MiB lineitem CSV PUTs
                 (config 2's shape over text, stored S2-framed), four 64 MiB
-                CSV objects (also read with 3 drives' bucket gone), four
+                CSV objects (also read with 3 drives' bucket gone), two
                 compress + SSE-S3 64 MiB objects (chacha20 ciphers the
                 compressed stream in the encode dispatch), a compressed
                 8,000-row Select (scan_eval), zstd objects where
@@ -184,18 +187,19 @@ printing one JSON line; any failure exits non-zero:
                 usage cache.
   14. namespace — the namespace plane (see run_namespace): a fresh server
                 over 8 drives at 6+2 (on tmpfs where it has room, as
-                bench.py --ab-list's pool) with the read cache on; 6,000
+                bench.py --ab-list's pool) with the read cache on; 2,100
                 keys in its shape (the bench's 10,000 cut for the run's
                 time limit), seeded by worker processes, listed over
-                HTTP from the persisted bucket index (a 5,000-key and a
-                1,000-key segment), page for page the merge walk's;
+                HTTP from the persisted bucket index (a 1,200-key and a
+                900-key segment: the segment size cut with the keys),
+                page for page the merge walk's;
                 the index persisted, 2 drives' copy removed, reloaded by a
                 new boot and restored by the scanner's segment sweep; a
-                lifecycle rule expiring 500 of 1,000 objects in one crawler
+                lifecycle rule expiring 200 of 400 objects in one crawler
                 pass; 64 MiB objects read degraded twice (decode, gf_matmul)
                 and then from the cache (no decode), an SSE-S3 object's
                 cache hit deciphered by chacha20, and a cached Select of
-                phase 11's lineitem (scan_eval).
+                the first 16 MiB of phase 11's lineitem (scan_eval).
   15. tier    — the tier plane on phase 14's node (see run_tier): an fs
                 tier added through the node's TierManager; Transition
                 (Days 1) on bucket hot (phase 14's four 64 MiB objects,
@@ -244,6 +248,24 @@ printing one JSON line; any failure exits non-zero:
                 launch counted), then through `python -m minio_tpu_torch
                 server <one path>` as a subprocess (the card's memory in
                 use does not rise; SIGTERM, exit 0); GiB/s up and down.
+  18. distributed — four nodes of a distributed cluster in this process
+                (see run_distributed): 4 x 4 drives on tmpfs, one 12+4
+                set at the CLI's default 4 MiB blocks, internode storage,
+                lock, peer and bootstrap RPC on each node's listener,
+                dsync; over signed HTTP at 8 concurrent requests, sixteen
+                64 MiB PUTs, one 12,345 B longer and one of 1 KiB spread
+                over the nodes, a 64 MiB SSE-S3 object, each read back
+                through another node; node 3 shut down, every object read
+                degraded, four 64 MiB PUTs at write quorum; node 3
+                rebooted and its shards healed by the peers' MRF queues;
+                node 0 shut down and the loss objects read through node
+                1; 16 rounds of same-key 16 MiB PUTs through nodes 0 and
+                2 (one body whole, the 16 xl.meta agreeing); GiB/s,
+                stage seconds, dispatches and internode RPC calls and
+                bytes by verb per step. Then the CLI's `--node` boot as
+                four subprocesses on the card: a 64 MiB PUT through node
+                0, its GET through node 3, each process's card memory,
+                SIGTERM, exit 0.
   4. timings  — (continued) chacha20 at the encode launch (8 rows, 1 MiB
                 span in 1,048,584-byte rows) and at GET's 64 x 65,536:
                 CUDA events around back-to-back wrapper calls, the kernel's
@@ -267,7 +289,7 @@ printing one JSON line; any failure exits non-zero:
                 card.
 
 Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
-16, 17, 4.
+16, 17, 18, 4.
 Each path's launch counters are set to 0 just before it runs and read
 just after. Then it prints the kernel table as one JSON line (with each kernel's launches on every path),
 the card's name and power limit, and the device line last. It needs one
@@ -285,6 +307,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -324,9 +347,10 @@ MAIN_OBJECT = 64 << 20              # eight of these, one 12,345 B longer
 CONCURRENT = (32, 16 << 20)         # streams, bytes each (config 2)
 MRF_OBJECTS = (4, 64 << 20)
 CONFIG5 = (8, 4, 64 << 20)          # objects, parts each, bytes per part
-SSE_OBJECTS = (16, 16 << 20)        # streams, bytes each (config 2, SSE;
-                                    # half its 32, for the run's time)
-SSE_PROFILED_STREAMS = 8            # of them PUT again under the profiler
+SSE_OBJECTS = (8, 16 << 20)         # streams, bytes each (config 2, SSE;
+                                    # a quarter of its 32, for the run's
+                                    # time: the phase is host Poly1305)
+SSE_PROFILED_STREAMS = 4            # of them PUT again under the profiler
 # phase 10, the server over HTTP
 S3_PUTS = (32, 16 << 20)            # streams, bytes each (config 2)
 S3_DEGRADED = (8, 4 << 20)          # objects, bytes each (config 3, cut)
@@ -340,18 +364,26 @@ SELECT_CLIENTS = 8                  # concurrent Selects, one object each
 SELECT_SMALL_ROWS = 8_000           # ~1 MiB, 4 pages: 8 x 4 = one batch
 SELECT_SSE_ROWS = 33_700            # ~4 MiB SSE-S3 object
 SELECT_WINDOW_S = 0.4               # the reference's coalescing test's
+NS_SELECT_BYTES = 16 << 20          # phases 14-15's lineitem: the first
+#                                     16 MiB of rows of phase 11's (each
+#                                     Select pages it on the host: ~11 s
+#                                     at 64.6 MB, for the run's time)
 # phase 12, inline compression over HTTP (lineitem CSV, S2 framing)
 COMPRESS_ROWS = 560_000             # one ~69 MB lineitem; objects rotate it
 COMPRESS_PUTS = (32, 16 << 20)      # streams, bytes each (config 2's shape)
 COMPRESS_BIG = (4, 64 << 20)        # objects, bytes each
-COMPRESS_SSE = (4, 64 << 20)        # compress + SSE-S3 objects, bytes each
+COMPRESS_SSE = (2, 64 << 20)        # compress + SSE-S3 objects, bytes each
+#                                     (host Poly1305 again; 2 for the
+#                                     run's time)
 COMPRESS_SELECT_ROWS = 8_000        # ~1 MiB, 4 pages
 # phase 13, the background plane on the same server
-NS_KEYS = 6_000                     # bench.py --ab-list's 10,000, cut to fit
+NS_KEYS = 2_100                     # bench.py --ab-list's 10,000, cut to fit
                                     # the run's time limit with phase 15
+NS_SEGMENT_KEYS = 1_200             # the index's 5,000-key segments cut with
+#                                     the keys, so that it still persists two
 NS_VERSIONS_EVERY = 20              # an extra version every 20th key
 NS_PAGE = 1000                      # keys a listing page
-NS_LIFECYCLE = (1000, 500)          # objects, of them under exp/
+NS_LIFECYCLE = (400, 200)           # objects, of them under exp/
 NS_CACHE = (4, 64 << 20)            # plain objects, bytes each
 NS_SSE = 64 << 20                   # the SSE-S3 object
 NS_WORKERS = 8                      # processes seeding and walking
@@ -382,6 +414,18 @@ POOLS_SHM_MIN_BYTES = 6 << 30       # tmpfs room the phase's drives need
 FS_OBJECTS = (4, 16 << 20)          # objects, bytes each
 FS_PARTS = (4, 5 << 20)             # one multipart upload: parts, bytes
 FS_CONTEXT_MIB = 200                # a CUDA context's memory is far above
+# phase 18, distributed nodes (upstream's docs/distributed/README.md
+# `minio server http://host{1...4}/export{1...4}`: 4 nodes of 4 drives,
+# one 12+4 set, the port CLI's default 4 MiB blocks)
+DIST_NODES, DIST_DRIVES = 4, 4
+DIST_OBJECTS = (16, 64 << 20)       # objects, bytes each; then one 12,345 B
+#                                     longer and one of 1 KiB
+DIST_SSE = 64 << 20                 # the SSE-S3 object
+DIST_LOSS_PUTS = (4, 64 << 20)      # PUTs at quorum with node 3 down
+DIST_LOCK = (16, 16 << 20)          # same-key rounds, bytes each PUT
+DIST_CLIENTS = 8                    # concurrent signed requests
+DIST_CLI_OBJECT = 64 << 20          # the CLI cluster's PUT and GET
+DIST_SHM_MIN_BYTES = 4 << 30        # tmpfs room the phase's drives need
 
 
 def fail(msg: str) -> None:
@@ -412,7 +456,8 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
     if "phase" in obj:
         print(f"[{time.perf_counter() - T_START:.1f} s] phase "
-              f"{obj['phase']} emitted", file=sys.stderr, flush=True)
+              f"{obj['phase']} emitted (threads "
+              f"{threading.active_count()})", file=sys.stderr, flush=True)
 
 
 def main() -> int:
@@ -462,8 +507,30 @@ def main() -> int:
 
     # -- 2. each kernel against its plain version --------------------------
     t0 = time.perf_counter()
+    took = {}                           # seconds of each kernel's checks
     k, m = 12, 4
     n = k + m
+    # the plain versions over the longest rows (hh256 at the main path's
+    # 349,526 B, sha256 at config 5's 65,536 B) take seconds of host time
+    # each: they run in worker processes while the card checks the rest
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    plain_pool = ProcessPoolExecutor(
+        4, mp_context=multiprocessing.get_context("spawn"))
+    hh_long = {"strided": rand_u8(4, 349526 + 64),
+               "main": rand_u8(8 * (k + m), 349526)}
+    sha_rows = rand_u8(640, 65536)
+    long_plain = {
+        **{n_: plain_pool.submit(host_plain, "hh256", r.cpu().numpy(),
+                                 349526) for n_, r in hh_long.items()},
+        **{f"sha256 {ln}": plain_pool.submit(host_plain, "sha256",
+                                             sha_rows.cpu().numpy(), ln)
+           for ln in (65535, 65536)}}
+
+    def long_result(name):
+        """(digests as a CPU tensor, ms of the plain call)."""
+        digests, ms = long_plain[name].result()
+        return torch.from_numpy(digests), ms
     lost = [1, 5, 14]                               # two data, one parity
     mask = sum(1 << i for i in range(n) if i not in lost)
     mats = {"parity": rs_matrix.parity_matrix(k, m),
@@ -542,13 +609,15 @@ def main() -> int:
 
     def check_hh(what, rows, length, plain=None):
         """Kernel == plain version on every row (tolerance 0) and == the
-        scalar HighwayHash on the last row, which may end the tensor."""
+        scalar HighwayHash on the last row, which may end the tensor. The
+        plain version runs on a CPU copy of the rows: the same function on
+        the same bytes, ~4x faster there than one launch per operation."""
         nonlocal hh_err, hh_cases
         got = highwayhash_cuda.hh256(rows, length, KEY)
         torch.cuda.synchronize()
         if plain is None:
-            plain = highwayhash_cuda.hh256_plain(rows, length, KEY)
-        err = max_err(got, plain)
+            plain = highwayhash_cuda.hh256_plain(rows.cpu(), length, KEY)
+        err = max_err(got.cpu(), plain)
         h = highwayhash_py.HighwayHash(KEY)
         h.update(rows[-1, :length].cpu().numpy().tobytes())
         if err or got[-1].cpu().numpy().tobytes() != h.digest256():
@@ -577,13 +646,14 @@ def main() -> int:
     # 9000 packs 16 and needs more than 48 KB of shared memory per block
     for n_rows in (1, 2, 15, 17, 33, 96, 128, 512, 1100, 9000):
         check_hh(f"{n_rows} rows of 1031", rand_u8(n_rows, 1031), 1031)
-    check_hh("349526 in rows of 349590", rand_u8(4, 349526 + 64), 349526)
+    check_hh("349526 in rows of 349590", hh_long["strided"], 349526,
+             long_result("strided")[0])
     # the main path's launch shapes: 8 blocks x (12 + 4) rows in a PUT,
     # 8 x 12 survivor rows in a degraded GET, 8 x (12 + r) in a heal with
     # r shards lost. S = 349,526 = 6 mod 16 puts rows at every even
     # offset, and the 128-row tensor's last row ends the allocation.
-    rows = rand_u8(8 * (k + m), 349526)
-    plain = highwayhash_cuda.hh256_plain(rows, 349526, KEY)
+    rows = hh_long["main"]
+    plain = long_result("main")[0]
     for r in range(m + 1):
         check_hh(f"{8 * (k + r)} rows of 349526", rows[:8 * (k + r)], 349526,
                  plain[:8 * (k + r)])
@@ -609,15 +679,24 @@ def main() -> int:
             k5, m5, mask)[0], dev)
         check_gf(f"config 5 decode r={len(lost)} B=8", m2,
                  rand_u8(8, k5, s5))
-    sha_err, sha_cases = check_sha256(torch, dev, rand_u8, max_err,
-                                      sha256_cuda, sha256_ref, guard_pages)
+    took["gf_matmul+hh256"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    sha_err, sha_cases = check_sha256(
+        torch, dev, rand_u8, max_err, sha256_cuda, sha256_ref, guard_pages,
+        sha_rows, {ln: long_result(f"sha256 {ln}") for ln in (65535, 65536)})
+    took["sha256"] = time.perf_counter() - t1
+    plain_pool.shutdown()
+    t1 = time.perf_counter()
     cc_err, cc_cases = check_chacha20(torch, dev, rand_u8, max_err,
                                       chacha20_cuda, chacha20_plain,
                                       chacha20_ref, guard_pages, np)
     sse_err = check_sse_steps(torch, dev, rand_u8, max_err, pipeline,
                               rs_cuda, rs_matrix, chacha20_cuda, np)
+    took["chacha20+sse_steps"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
     scan_err, scan_cases_n, scan_cov = check_scan(torch, dev, np,
                                                   guard_pages)
+    took["scan_eval"] = time.perf_counter() - t1
     emit({"phase": "kernels", "gf_matmul_max_abs_err": gf_err,
           "gf_matmul_cases": gf_cases,
           "hh256_max_abs_err": hh_err, "hh256_cases": hh_cases,
@@ -627,6 +706,9 @@ def main() -> int:
           "scan_eval_max_abs_err": scan_err,
           "scan_eval_cases": scan_cases_n, "scan_eval_coverage": scan_cov,
           "tolerance": 0,
+          "long_plain_ms": {n_: round(f.result()[1], 1)
+                            for n_, f in long_plain.items()},
+          "seconds_by_check": {n_: round(v, 3) for n_, v in took.items()},
           "seconds": round(time.perf_counter() - t0, 3), "card": card})
 
     # -- 3. the main path; 5-7. concurrent PUT, heal, MRF ------------------
@@ -658,8 +740,8 @@ def main() -> int:
         # -- 10. the server over HTTP: its own boot, former and drives ----
         s3p = run_s3(tmp, card, counts, stagetimer, np)
         # -- 11. S3 Select over HTTP: its own boot, former and drives -----
-        selp, lineitem, q6_oracle = run_select(tmp, card, counts,
-                                               stagetimer, np)
+        selp, lineitem, head, head_q6 = run_select(tmp, card, counts,
+                                                   stagetimer, np)
         # -- 12. compression over HTTP; 13. the background plane on the
         # same server ------------------------------------------------------
         compp, node, cstate = run_compress(tmp, card, counts, stagetimer,
@@ -671,11 +753,11 @@ def main() -> int:
         shutil.rmtree(os.path.join(tmp, "compress"), ignore_errors=True)
         # -- 14. the namespace plane: its own boot, former and drives;
         # 15. the tier plane on the same node ------------------------------
-        nsp, node, nstate = run_namespace(tmp, card, counts, np, lineitem,
-                                          q6_oracle)
+        nsp, node, nstate = run_namespace(tmp, card, counts, np, head,
+                                          head_q6)
         try:
-            tierp = run_tier(node, nstate, card, counts, np, lineitem,
-                             q6_oracle)
+            tierp = run_tier(node, nstate, card, counts, np, head,
+                             head_q6)
         finally:
             node.shutdown()
             end_namespace(nstate)
@@ -683,6 +765,9 @@ def main() -> int:
         # single-path FS backend as a subprocess ----------------------------
         poolsp = run_pools(tmp, card, counts, np)
         fsp = run_fs(tmp, card, counts, np)
+        # -- 18. distributed nodes: four in this process, then the CLI's
+        # --node boot as four subprocesses ------------------------------
+        distp = run_distributed(tmp, card, counts, stagetimer, np)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths_launches = {"main_path": main_path["launches"],
@@ -696,7 +781,8 @@ def main() -> int:
                       "namespace": nsp["launches"],
                       "tier": tierp["launches"],
                       "pools": poolsp["launches"],
-                      "fs": fsp["launches"]}
+                      "fs": fsp["launches"],
+                      "distributed": distp["launches"]}
 
     # -- 4. timings -------------------------------------------------------
     b, s = 32, -(-(1 << 20) // k)
@@ -705,7 +791,8 @@ def main() -> int:
                          k, m, s)
     timing.update(run_config5_timings(
         torch, dev, rand_u8, max_err, rs_cuda, rs_matrix, sha256_cuda,
-        sha256_ref, kernels, sass, timing["sm_clock_mhz"]))
+        kernels, sass, timing["sm_clock_mhz"], sha_rows,
+        long_result("sha256 65536")))
     timing.update(run_sse_timings(torch, dev, rand_u8, max_err, pipeline,
                                   chacha20_cuda, chacha20_plain,
                                   chacha20_ref, rs_cuda, rs_matrix,
@@ -728,6 +815,7 @@ def main() -> int:
                               for p, n in paths_launches.items()},
          "max_abs_err": max(gf_err, timing["gf_matmul_max_abs_err"]),
          "ms": timing["gf_matmul_ms"], "plain_ms": timing["gf_plain_ms"],
+         "plain_on": "card",
          "bound_ms": timing["gf_matmul_bound_ms"],
          "bound_by": bound_by(timing, "gf_matmul"), "library_ms": None},
         {"name": "hh256", "route": "cuda",
@@ -738,6 +826,7 @@ def main() -> int:
                               for p, n in paths_launches.items()},
          "max_abs_err": max(hh_err, timing["hh256_max_abs_err"]),
          "ms": timing["hh256_ms"], "plain_ms": timing["hh_plain_ms"],
+         "plain_on": timing["hh_plain_on"],
          "bound_ms": timing["hh256_bound_ms"],
          "bound_by": bound_by(timing, "hh256"), "library_ms": None},
         {"name": "sha256", "route": "cuda",
@@ -748,6 +837,7 @@ def main() -> int:
                               for p, n in paths_launches.items()},
          "max_abs_err": max(sha_err, timing["sha256_max_abs_err"]),
          "ms": timing["sha256_ms"], "plain_ms": timing["sha256_plain_ms"],
+         "plain_on": timing["sha256_plain_on"],
          "bound_ms": timing["sha256_bound_ms"],
          "bound_by": bound_by(timing, "sha256"), "library_ms": None,
          "hashlib_host_ms": timing["sha256_hashlib_ms"],
@@ -771,6 +861,7 @@ def main() -> int:
          # replay of a CUDA graph of the same calls
          "ms": timing["chacha20_encode"]["ms"],
          "plain_ms": timing["chacha20_encode"]["plain_ms"],
+         "plain_on": "card",
          # the larger of the byte bound and the two-pipe floor; op_bound_ms
          # puts all 992 operations a block on one pipe
          "bound_ms": timing["chacha20_encode"]["bound_ms"],
@@ -809,6 +900,7 @@ def main() -> int:
          # counts; like_*: the same at phase 11's contains-LIKE launch
          "ms": timing["scan_eval_q6"]["ms"],
          "plain_ms": timing["scan_eval_q6"]["plain_ms"],
+         "plain_on": "card",
          "bound_ms": timing["scan_eval_q6"]["bound_ms"],
          "bound_by": timing["scan_eval_q6"]["bound_by"],
          "library_ms": None,
@@ -824,6 +916,24 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def host_plain(kind: str, rows, length: int) -> tuple:
+    """hh256's or sha256's plain version over uint8 rows (a numpy array)
+    on the host, in a worker process: (the digests as a numpy array, ms of
+    the call)."""
+    sys.path.insert(0, HERE)
+    import torch
+    from minio_tpu_torch.bitrot import MAGIC_HIGHWAYHASH_KEY
+    from minio_tpu_torch.ops import highwayhash_cuda, sha256_ref
+    torch.set_num_threads(2)            # four of these share the host
+    x = torch.from_numpy(rows)
+    t0 = time.perf_counter()
+    if kind == "sha256":
+        got = sha256_ref.sha256_rows(x, length)
+    else:
+        got = highwayhash_cuda.hh256_plain(x, length, MAGIC_HIGHWAYHASH_KEY)
+    return got.numpy(), (time.perf_counter() - t0) * 1e3
 
 
 def check_scan(torch, dev, np, guard_pages) -> tuple[int, int, dict]:
@@ -948,18 +1058,25 @@ def check_scan(torch, dev, np, guard_pages) -> tuple[int, int, dict]:
 
 
 def check_sha256(torch, dev, rand_u8, max_err, sha256_cuda, sha256_ref,
-                 guard_pages) -> tuple[int, int]:
+                 guard_pages, c5, c5_plains) -> tuple[int, int]:
     """Phase 2 for sha256: the kernel against its plain version and
-    hashlib on every row (tolerance 0). Returns (max abs err, cases)."""
+    hashlib on every row (tolerance 0). The plain version runs on a CPU
+    copy of the rows: the same function on the same bytes, ~2.5x faster
+    there than one launch per operation. c5: 640 rows of 65,536 B;
+    c5_plains: length -> (their plain digests, ms), for the lengths a
+    worker process computed. Returns (max abs err, cases)."""
     err, cases = 0, 0
+
+    def plain_of(rows, length):
+        return sha256_ref.sha256_rows(rows.cpu(), length)
 
     def check(what, rows, length, plain=None, want=None):
         nonlocal err, cases
         got = sha256_cuda.sha256_rows(rows, length)
         torch.cuda.synchronize()
         if plain is None:
-            plain = sha256_ref.sha256_rows(rows, length)
-        e = max_err(got, plain)
+            plain = plain_of(rows, length)
+        e = max_err(got.cpu(), plain)
         host = rows[:, :length].cpu().numpy()
         if want is None:
             want = [hashlib.sha256(r.tobytes()).digest() for r in host]
@@ -973,14 +1090,15 @@ def check_sha256(torch, dev, rand_u8, max_err, sha256_cuda, sha256_ref,
     # every padding branch, length < S in all but the last, on 1 to 640
     # rows of config 5's shard length (the plain version runs once per
     # length, on all 640 rows)
-    rows = rand_u8(640, 65536)
     for length in (0, 1, 55, 56, 63, 64, 65, 119, 120, 65535, 65536):
-        plain = sha256_ref.sha256_rows(rows, length)
+        plain = c5_plains[length][0] if length in c5_plains \
+            else plain_of(c5, length)
         want = [hashlib.sha256(r.tobytes()).digest()
-                for r in rows[:, :length].cpu().numpy()]
+                for r in c5[:, :length].cpu().numpy()]
         for n in (1, 20, 160, 640):
-            check(f"{n} rows, length {length}", rows[:n], length,
+            check(f"{n} rows, length {length}", c5[:n], length,
                   plain[:n], want[:n])
+    c5_plain = c5_plains[65536][0]
     # the ring's edges: a block of the kernel is 32 rows (one per lane of
     # its round warp), a ring stage 128 bytes of a row, and the three
     # producers' two slots each turn every 6 stages (768 bytes). Row counts
@@ -989,7 +1107,7 @@ def check_sha256(torch, dev, rand_u8, max_err, sha256_cuda, sha256_ref,
     # forms (length % 64 = 55, 56, 63, 0) ending a stage or crossing into
     # the next, at the first stage and after a turn of the slots
     rows = rand_u8(641, 1031)
-    plain = sha256_ref.sha256_rows(rows, 1031)
+    plain = plain_of(rows, 1031)
     want = [hashlib.sha256(r.tobytes()).digest()
             for r in rows.cpu().numpy()]
     for n in (1, 31, 32, 33, 63, 64, 65, 639, 640, 641):
@@ -1006,11 +1124,13 @@ def check_sha256(torch, dev, rand_u8, max_err, sha256_cuda, sha256_ref,
     for base in (1, 2, 3):
         check(f"view from byte {base}",
               flat[base:base + 9 * 1031].view(9, 1031), 1031)
-    # config 5's rows, and a ragged small shape, at each end of a mapping
-    # between unmapped ranges: a read outside the rows faults
-    for n, s_len, length in ((640, 65536, 65536), (3, 1031, 1031)):
-        src = rand_u8(n, s_len)
-        plain = sha256_ref.sha256_rows(src, length)
+    # config 5's rows (their plain digests from the first loop), and a
+    # ragged small shape, at each end of a mapping between unmapped
+    # ranges: a read outside the rows faults
+    small = rand_u8(3, 1031)
+    for src, length, plain in ((c5, 65536, c5_plain),
+                               (small, 1031, plain_of(small, 1031))):
+        n, s_len = src.shape
         with guard_pages.guarded(src.numel(), dev) as buf:
             for at, g in (("start", buf[:src.numel()]),
                           ("end", buf[-src.numel():])):
@@ -1908,7 +2028,7 @@ def run_config5(tmp, card, counts, stagetimer, np) -> dict:
 
 
 def run_sse(tmp, card, counts, stagetimer, np) -> dict:
-    """BASELINE.json config 2 under SSE-S3 with ChaCha20-Poly1305: 16
+    """BASELINE.json config 2 under SSE-S3 with ChaCha20-Poly1305: 8
     threads each PUT one 16 MiB object at once into a fresh 16-drive 12+4
     set with 1 MiB blocks (highwayhash256S, the batch former and the
     pipelined loop), wired as the S3 handlers wire it
@@ -1928,7 +2048,7 @@ def run_sse(tmp, card, counts, stagetimer, np) -> dict:
     under torch.profiler for the idle share (half of the streams: the
     round is all host Poly1305, and the run's time budget).
 
-    Cut: 256 MiB in 16 objects, half of phase 5's 32 (the run's time:
+    Cut: 128 MiB in 8 objects, a quarter of phase 5's 32 (the run's time:
     the phase is host Poly1305 at ~4 ms a 64 KiB package). Fails unless the former
     coalesced, declined nothing and routed nothing to the host, and
     chacha20 launched once per encrypted encode dispatch and once per GET
@@ -2721,7 +2841,7 @@ def select_oracle(expr: str, data: bytes, compression: str = "NONE"
 
 
 def run_select(tmp, card, counts, stagetimer, np
-               ) -> tuple[dict, bytes, bytes]:
+               ) -> tuple[dict, bytes, bytes, bytes]:
     """S3 Select on the card over HTTP: the port's server (booted as in
     phase 10: cluster.start_single over 16 fresh drives at 12+4, 1 MiB
     blocks, the edge transport) holding TPC-H lineitem as CSV
@@ -2741,8 +2861,9 @@ def run_select(tmp, card, counts, stagetimer, np
     equal the former's scan dispatches, and the engine's device serves
     rise by the device-served count. Prints the Select walls, rows/s and
     CSV MiB/s, the stage seconds (GET, rows, pages, dispatch, emit) and a
-    profiled COUNT round. Returns (the phase's line, the lineitem CSV, the
-    evaluator's framed stream of Q6's COUNT over it)."""
+    profiled COUNT round. Returns (the phase's line, the lineitem CSV, its
+    first NS_SELECT_BYTES in whole rows, and the evaluator's framed stream
+    of Q6's COUNT over those)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -2763,6 +2884,7 @@ def run_select(tmp, card, counts, stagetimer, np
     small = {f"part-{i}": sc.lineitem_csv(SELECT_SMALL_ROWS, SEED + 1 + i)
              for i in range(SELECT_CLIENTS)}
     sse_data = sc.lineitem_csv(SELECT_SSE_ROWS, SEED + 99)
+    head = big[:big.index(b"\n", NS_SELECT_BYTES) + 1]
     gen_s = time.perf_counter() - t0
     if len(big) > scan_engine.MAX_SCAN_BYTES:
         fail(f"select: {len(big)} B of lineitem exceed the device cap "
@@ -2781,6 +2903,7 @@ def run_select(tmp, card, counts, stagetimer, np
         oracles["sse"] = pool.submit(select_oracle, sc.Q6_COUNT, sse_data)
         oracles["declined"] = pool.submit(select_oracle, sc.SUM_QUERY,
                                           small["part-0"])
+        head_oracle = pool.submit(select_oracle, sc.Q6_COUNT, head)
         node = cluster.start_single(drives, creds=creds, parity=m,
                                     set_drive_count=k + m, block_size=bs)
         try:
@@ -2789,7 +2912,7 @@ def run_select(tmp, card, counts, stagetimer, np
                                 stagetimer, torch, scan_cuda)
         finally:
             node.shutdown()
-        q6_oracle = oracles["q6_count"].result()[0]
+        head_q6 = head_oracle.result()[0]
     out.update({"lineitem_rows": SELECT_ROWS, "lineitem_bytes": len(big),
                 "device_cap_bytes": scan_engine.MAX_SCAN_BYTES,
                 "generate_s": round(gen_s, 3),
@@ -2797,7 +2920,7 @@ def run_select(tmp, card, counts, stagetimer, np
                 "card": card})
     emit(out)
     shutil.rmtree(root, ignore_errors=True)
-    return out, big, q6_oracle
+    return out, big, head, head_q6
 
 
 def run_select_on(node, c, big, small, sse_data, queries, oracles, counts,
@@ -2963,7 +3086,7 @@ def run_compress(tmp, card, counts, stagetimer, np):
     type), their GETs and four ranged GETs of the last MiB; four 64 MiB
     CSV objects, whole and last-MiB GETs, and their GETs again at one
     barrier with 3 drives' bucket gone (the MRF queue heals them back);
-    four compress + SSE-S3 (ChaCha20-Poly1305) 64 MiB objects PUT at one
+    two compress + SSE-S3 (ChaCha20-Poly1305) 64 MiB objects PUT at one
     barrier (the engine ciphers each compressed stream in its
     encode dispatch) and read back; an 8,000-row compressed Select (Q6's
     COUNT, held to the host evaluator's framed bytes); two zstd objects
@@ -3637,8 +3760,9 @@ def run_namespace(tmp, card, counts, np, lineitem: bytes,
     8 drives at EC 6+2 with 1 MiB blocks (the layout of the reference's
     bench.py --ab-list, its pool on tmpfs too where /dev/shm has
     NS_SHM_MIN_BYTES free, else under tmp), MINIO_TPU_CACHE=on,
-    MINIO_TPU_METACACHE_PERSIST_S short for the phase, the default
-    5,000-key index segments; the
+    MINIO_TPU_METACACHE_PERSIST_S short for the phase, index segments of
+    NS_SEGMENT_KEYS (the default 5,000 cut with the keys, so that the
+    index persists as two segments); the
     background loops stopped (each pass is driven here). Listing: NS_KEYS
     keys as bench_list_ab shapes them (dirN/ prefixes on three keys of
     four, an extra version every 20th, 16-byte payloads), seeded by
@@ -3667,10 +3791,11 @@ def run_namespace(tmp, card, counts, np, lineitem: bytes,
     (admission is 2 GETs): two degraded reads with decode dispatches and
     gf_matmul launches, then a hit with neither; the SSE object GET until
     a GET is served from the cache (chacha20 deciphers it through the
-    former's decipher verb, no decode dispatch); phase 11's lineitem CSV
-    Selected three times, the third from the cache (scan_eval launches,
+    former's decipher verb, no decode dispatch); the first NS_SELECT_BYTES
+    of phase 11's lineitem CSV Selected three times, the third from the cache (scan_eval launches,
     no decode dispatch, the response equal to the host evaluator's framed
-    stream from phase 11). Bytes and ETags compared on every GET.
+    stream, computed in phase 11's workers). Bytes and ETags compared on
+    every GET.
     Returns (the phase's line, the running node, what phase 15 needs)."""
     import torch
 
@@ -3685,6 +3810,7 @@ def run_namespace(tmp, card, counts, np, lineitem: bytes,
     rng = np.random.default_rng(SEED + 41)
     env = {"MINIO_TPU_CACHE": "on", "MINIO_TPU_METACACHE": "on",
            "MINIO_TPU_METACACHE_PERSIST_S": "1",
+           "MINIO_TPU_METACACHE_SEGMENT_KEYS": str(NS_SEGMENT_KEYS),
            "MINIO_SSE_MASTER_KEY": rng.bytes(32).hex(),
            "MINIO_TPU_SSE_CIPHER": "chacha20"}
     saved_env = {n: os.environ.get(n) for n in env}
@@ -3819,7 +3945,7 @@ def run_namespace(tmp, card, counts, np, lineitem: bytes,
             mgr._persist_s = None
             segs = mgr._indexes["list"].segments
             per = mgr.segment_keys()
-            if [s["count"] for s in segs] != \
+            if len(segs) < 2 or [s["count"] for s in segs] != \
                     [min(per, n_keys - i) for i in range(0, n_keys, per)]:
                 fail(f"namespace: persisted segments {segs}")
             crawler = node.crawler
@@ -4084,7 +4210,7 @@ def run_namespace(tmp, card, counts, np, lineitem: bytes,
                 "hit_gib_s": round(gib * n_obj / sum(
                     g[2]["wall_s"] for g in gets.values()), 4),
                 "gets": gets, "sse_object_bytes": NS_SSE,
-                "sse_gets": sse_gets, "select_rows": SELECT_ROWS,
+                "sse_gets": sse_gets, "select_bytes": len(lineitem),
                 "selects": sels, "stats": cache.stats()}
             out["metacache"] = {k2: v for k2, v in mgr.stats().items()
                                 if k2 != "buckets"}
@@ -4188,7 +4314,7 @@ def run_tier(node, state, card, counts, np, lineitem: bytes,
     added through the node's TierManager and so persisted to the pool; a
     lifecycle document PUT over HTTP on bucket hot (Transition Days 1 to
     cold), which holds phase 14's four 64 MiB objects, its SSE-S3 64 MiB
-    object, phase 11's lineitem CSV and a new 4 x 16 MiB multipart
+    object, phase 14's lineitem CSV and a new 4 x 16 MiB multipart
     object; a versioned bucket tierv whose key ver has a 16 MiB
     noncurrent version under NoncurrentVersionTransition (NoncurrentDays
     1). The Days rules are made due by the crawler's clock, two days
@@ -4206,7 +4332,7 @@ def run_tier(node, state, card, counts, np, lineitem: bytes,
     then every GET byte- and ETag-equal to before (the SSE object
     deciphered by chacha20, the multipart object with its 4 parts, its
     -4 ETag and a ranged GET across a part boundary, the noncurrent
-    version by id), and phase 11's Q6 COUNT over the restored lineitem
+    version by id), and Q6's COUNT over the restored lineitem
     equal to its evaluator stream. Reclaim: a crawler pass past the
     restores' expiry returns each copy to its stub, the remote files
     untouched. Delete: a DELETE of one stub and a DeleteObjects of two
@@ -5234,6 +5360,438 @@ def run_fs(tmp, card, counts, np) -> dict:
     return out
 
 
+def run_distributed(tmp, card, counts, stagetimer, np) -> dict:
+    """Phase 18: four nodes of a distributed cluster in this process on
+    the card (cluster.ClusterNode over the internode storage, lock, peer
+    and bootstrap RPC, dsync), 4 drives each on tmpfs where /dev/shm has
+    DIST_SHM_MIN_BYTES free, one 12+4 set at the CLI's default 4 MiB
+    blocks, driven by signed HTTP at DIST_CLIENTS concurrent requests:
+    DIST_OBJECTS PUTs spread round-robin over the nodes, one 64 MiB SSE-S3
+    object, each read back through a node other than its writer (bytes
+    and ETag); node 3 shut down, every object read degraded and
+    DIST_LOSS_PUTS PUTs at write quorum; node 3 rebooted on its drives,
+    its bootstrap re-admitting it on the peers and their MRF queues
+    healing its shards; node 0 shut down and every object written during
+    the loss read through node 1; node 0 rebooted; DIST_LOCK rounds of
+    same-key PUTs through nodes 0 and 2 (one body whole on every GET, the
+    16 xl.meta agreeing). The launch counts are set to 0 just before and
+    read just after. Then the CLI's `--node` boot as four subprocesses on
+    the card: a PUT through node 0, a GET through node 3, SIGTERM, exit 0,
+    each process's card memory. One JSON line per step."""
+    import collections
+    import concurrent.futures
+    import signal
+    import socket
+    import threading
+
+    from minio_tpu_torch import cluster
+    from minio_tpu_torch.distributed import transport
+    from minio_tpu_torch.object import codec as codec_mod
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.s3.credentials import Credentials
+    from minio_tpu_torch.storage.xl_meta import XLMetaV2
+    n_nodes, n_drives = DIST_NODES, DIST_DRIVES
+    k, m = 12, 4
+    rng = np.random.default_rng(SEED + 71)
+    creds = Credentials("smokedist", "smokedistsecret")
+    env = {"MINIO_SSE_MASTER_KEY": rng.bytes(32).hex(),
+           "MINIO_TPU_SSE_CIPHER": "chacha20"}
+    saved_env = {v: os.environ.get(v) for v in env}
+    os.environ.update(env)
+    shm = "/dev/shm"
+    on_shm = os.path.isdir(shm) and \
+        shutil.disk_usage(shm).free >= DIST_SHM_MIN_BYTES
+    root = tempfile.mkdtemp(prefix="chip_smoke_dist_",
+                            dir=shm if on_shm else tmp)
+    t_phase = time.perf_counter()
+
+    def note(msg: str) -> None:
+        print(f"[distributed {time.perf_counter() - t_phase:.1f} s] {msg}",
+              file=sys.stderr, flush=True)
+
+    def free_ports(n: int) -> list:
+        socks = [socket.socket() for _ in range(n)]
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        ports = [s.getsockname()[1] for s in socks]
+        for s in socks:
+            s.close()
+        return ports
+
+    ports = free_ports(n_nodes)
+    specs = [cluster.NodeSpec("127.0.0.1", ports[i],
+                              [os.path.join(root, f"n{i}d{j}")
+                               for j in range(n_drives)])
+             for i in range(n_nodes)]
+    nodes: list = [None] * n_nodes
+
+    def boot(i: int):
+        return cluster.ClusterNode(specs, i, creds, parity=m,
+                                   set_drive_count=k + m,
+                                   format_timeout=120.0)
+
+    def boot_all() -> float:
+        t0 = time.perf_counter()
+        errs = []
+
+        def one(i):
+            try:
+                nodes[i] = boot(i)
+            except Exception as e:  # noqa: BLE001 — failed below
+                errs.append(f"node {i}: {e!r}")
+
+        ts = [threading.Thread(target=one, args=(i,))
+              for i in range(n_nodes)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        if errs:
+            fail(f"distributed boot: {errs}")
+        return time.perf_counter() - t0
+
+    def client(i: int) -> S3Client:
+        return S3Client(nodes[i].s3.port, creds, timeout=600)
+
+    def md5(b: bytes) -> str:
+        return hashlib.md5(b).hexdigest()
+
+    def run_all(jobs: list, what: str) -> tuple:
+        """[(name, fn)] at DIST_CLIENTS at once; (wall, {name: result})."""
+        out = {}
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(DIST_CLIENTS) as ex:
+            futs = {ex.submit(fn): name for name, fn in jobs}
+            for f in concurrent.futures.as_completed(futs):
+                try:
+                    out[futs[f]] = f.result()
+                except Exception as e:  # noqa: BLE001
+                    fail(f"distributed {what}: {futs[f]}: {e!r}")
+        return time.perf_counter() - t0, out
+
+    def put_all(objs: dict, writer: dict, what: str,
+                headers=None) -> float:
+        def put(name):
+            st, h, body = client(writer[name]).send(
+                "PUT", f"/dist/{name}", body=objs[name], headers=headers)
+            if st != 200 or h.get("etag") != f'"{md5(objs[name])}"':
+                fail(f"distributed {what}: PUT {name} via node "
+                     f"{writer[name]}: HTTP {st} {body[:200]!r}")
+            return st
+        wall, _ = run_all([(n, lambda n=n: put(n)) for n in objs], what)
+        return wall
+
+    def get_all(objs: dict, reader: dict, what: str) -> float:
+        def get(name):
+            st, h, body = client(reader[name]).send("GET", f"/dist/{name}")
+            if st != 200 or body != objs[name] or \
+                    h.get("etag") != f'"{md5(objs[name])}"':
+                fail(f"distributed {what}: GET {name} via node "
+                     f"{reader[name]}: HTTP {st}, bytes or ETag differ")
+            return st
+        wall, _ = run_all([(n, lambda n=n: get(n)) for n in objs], what)
+        return wall
+
+    def dispatches() -> dict:
+        return {v: s["calls"] for v, s in codec_mod.step_seconds().items()}
+
+    def diff(after: dict, before: dict) -> dict:
+        return {v: after[v] - before.get(v, 0) for v in after
+                if after[v] - before.get(v, 0)}
+
+    def rpc_diff(before: dict) -> dict:
+        now = transport.verb_stats()
+        out = {}
+        for verb, st in now.items():
+            d = {k2: st[k2] - before.get(verb, {}).get(k2, 0) for k2 in st}
+            if any(d.values()):
+                out[verb] = d
+        return dict(sorted(out.items()))
+
+    def step(name: str, nbytes: int, wall: float, disp0: dict,
+             rpc0: dict, **extra) -> dict:
+        line = {"phase": "distributed", "step": name,
+                "bytes": nbytes, "seconds": round(wall, 4),
+                "gib_s": round(nbytes / (1 << 30) / wall, 4) if wall else None,
+                "dispatches": diff(dispatches(), disp0),
+                "launches_so_far": counts.read(),
+                "rpc": rpc_diff(rpc0), **extra, "card": card}
+        emit(line)
+        return line
+
+    summary = {"phase": "distributed", "step": "summary",
+               "nodes": n_nodes, "drives_per_node": n_drives,
+               "ec": f"{k}+{m}", "block_size": 1 << 22,
+               "clients": DIST_CLIENTS,
+               "drives_on": "tmpfs (/dev/shm)" if on_shm
+               else "the disk (tmp)"}
+    try:
+        summary["boot_s"] = round(boot_all(), 3)
+        if nodes[0].sets.sets[0].block_size != 1 << 22:
+            fail("distributed: the boot's block size is not the CLI's")
+        note("booted")
+        # -- the path: counts set to 0 just before --------------------------
+        counts.zero()
+        codec_mod.reset_step_seconds()
+        rpc_start = transport.verb_stats()
+        if client(0).send("PUT", "/dist")[0] != 200:
+            fail("distributed: make bucket")
+        n_obj, size = DIST_OBJECTS
+        objs = {f"obj-{i:02d}": rng.bytes(size) for i in range(n_obj)}
+        objs["obj-big"] = rng.bytes(size + 12345)
+        objs["obj-small"] = rng.bytes(1024)
+        writer = {n: i % n_nodes for i, n in enumerate(objs)}
+        total = sum(len(d) for d in objs.values())
+        disp0, rpc0 = dispatches(), transport.verb_stats()
+        stagetimer.reset()
+        stagetimer.enable()
+        wall = put_all(objs, writer, "PUT")
+        stagetimer.disable()
+        summary["put"] = step("put", total, wall, disp0, rpc0,
+                              objects=len(objs),
+                              stages=stage_report(stagetimer)["stages"])
+        note("PUTs")
+        # the SSE-S3 object, through node 1, read through node 2
+        sse = {"obj-sse": rng.bytes(DIST_SSE)}
+        before = counts.read()["chacha20"]
+        disp0, rpc0 = dispatches(), transport.verb_stats()
+        wall = put_all(sse, {"obj-sse": 1}, "SSE PUT",
+                       headers={"x-amz-server-side-encryption": "AES256"})
+        wall += get_all(sse, {"obj-sse": 2}, "SSE GET")
+        sse_launches = counts.read()["chacha20"] - before
+        if sse_launches <= 0:
+            fail("distributed: the SSE object launched no chacha20")
+        summary["sse"] = step("sse_put_get", 2 * DIST_SSE, wall, disp0,
+                              rpc0, chacha20_launches=sse_launches)
+        objs.update(sse)
+        writer["obj-sse"] = 1
+        total += DIST_SSE
+        # each object read back through a node other than its writer
+        disp0, rpc0 = dispatches(), transport.verb_stats()
+        wall = get_all(objs, {n: (w + 1) % n_nodes
+                              for n, w in writer.items()}, "GET")
+        summary["get"] = step("get", total, wall, disp0, rpc0,
+                              objects=len(objs))
+        note("GETs")
+        # -- node 3 lost -----------------------------------------------------
+        nodes[3].shutdown()
+        disp0, rpc0 = dispatches(), transport.verb_stats()
+        wall = get_all(objs, {n: i % 3 for i, n in enumerate(objs)},
+                       "degraded GET")
+        summary["degraded_get"] = step(
+            "degraded_get", total, wall, disp0, rpc0, objects=len(objs),
+            node_down=3)
+        if not summary["degraded_get"]["dispatches"].get("decode"):
+            fail("distributed: the degraded GETs dispatched no decode")
+        n_loss, lsize = DIST_LOSS_PUTS
+        loss = {f"loss-{i}": rng.bytes(lsize) for i in range(n_loss)}
+        lwriter = {n: i % 3 for i, n in enumerate(loss)}
+        disp0, rpc0 = dispatches(), transport.verb_stats()
+        wall = put_all(loss, lwriter, "PUT at quorum")
+        summary["loss_put"] = step("put_at_quorum", n_loss * lsize, wall,
+                                   disp0, rpc0, objects=n_loss,
+                                   node_down=3)
+        note("node 3 down: degraded GETs, PUTs at quorum")
+        # -- node 3 rebooted; MRF brings it to full redundancy ----------------
+        mrf0 = {i: nodes[i].sets.mrf.healed for i in range(3)}
+        disp0, rpc0 = dispatches(), transport.verb_stats()
+        t0 = time.perf_counter()
+        nodes[3] = boot(3)
+        reboot_s = time.perf_counter() - t0
+
+        def n3_full() -> bool:
+            return all(os.path.exists(os.path.join(
+                root, f"n3d{j}", "dist", name, "xl.meta"))
+                for j in range(n_drives) for name in loss)
+
+        deadline = time.monotonic() + 120
+        while not n3_full():
+            if time.monotonic() > deadline:
+                fail("distributed: node 3 not healed within 120 s")
+            time.sleep(0.05)
+        for i in range(n_nodes):
+            if not nodes[i].sets.mrf.drain(120):
+                fail(f"distributed: node {i}'s MRF queue did not drain")
+        heal_s = time.perf_counter() - t0
+        healed = {i: nodes[i].sets.mrf.healed - mrf0[i] for i in range(3)}
+        summary["heal"] = step(
+            "heal", n_loss * lsize, heal_s, disp0, rpc0,
+            reboot_s=round(reboot_s, 3), mrf_healed_by_node=healed,
+            mrf_failed=sum(nodes[i].sets.mrf.failed for i in range(3)))
+        note("node 3 rebooted and healed")
+        # -- node 0 lost: the loss objects read through node 1 ----------------
+        nodes[0].shutdown()
+        disp0, rpc0 = dispatches(), transport.verb_stats()
+        wall = get_all(loss, {n: 1 for n in loss}, "GET with node 0 down")
+        summary["second_loss_get"] = step(
+            "get_with_node0_down", n_loss * lsize, wall, disp0, rpc0,
+            objects=n_loss, node_down=0)
+        nodes[0] = boot(0)
+        note("node 0 down: loss objects read; node 0 rebooted")
+        # -- lock check: same-key PUTs through nodes 0 and 2 -------------------
+        rounds, lbytes = DIST_LOCK
+        disp0, rpc0 = dispatches(), transport.verb_stats()
+        t0 = time.perf_counter()
+        winners = collections.Counter()
+        for r in range(rounds):
+            bodies = [rng.bytes(lbytes), rng.bytes(lbytes)]
+            wall_r, res = run_all(
+                [(i, lambda i=i, b=b: client(i).send(
+                    "PUT", "/dist/race", body=b)[0])
+                 for i, b in zip((0, 2), bodies)], "lock PUTs")
+            if sorted(res.values()) != [200, 200]:
+                fail(f"distributed lock round {r}: {res}")
+            st, h, body = client(1).send("GET", "/dist/race")
+            if st != 200 or body not in bodies or \
+                    h.get("etag") != f'"{md5(body)}"':
+                fail(f"distributed lock round {r}: GET is not one body "
+                     "whole")
+            winners[bodies.index(body)] += 1
+            versions = set()
+            for i in range(n_nodes):
+                for j in range(n_drives):
+                    with open(os.path.join(root, f"n{i}d{j}", "dist",
+                                           "race", "xl.meta"), "rb") as f:
+                        fis = XLMetaV2.loads(f.read()).list_file_infos(
+                            "dist", "race")
+                    versions.add(tuple((fi.version_id, fi.data_dir,
+                                        fi.size, fi.metadata.get("etag"))
+                                       for fi in fis))
+            if len(versions) != 1 or \
+                    next(iter(versions))[0][3] != md5(body):
+                fail(f"distributed lock round {r}: the 16 xl.meta "
+                     f"disagree ({len(versions)} forms)")
+        summary["lock"] = step(
+            "lock", rounds * 2 * lbytes, time.perf_counter() - t0, disp0,
+            rpc0, rounds=rounds, put_bytes=lbytes,
+            winner_through_node={"0": winners[0], "2": winners[1]})
+        # -- read just after ---------------------------------------------------
+        launches = counts.read()
+        # each node's event loop parses S3 and RPC headers alike: its lag
+        # (the sampler's ticks since the node's boot) says whether a
+        # callback blocked it
+        summary["edge_loop_lag"] = {
+            str(i): {**pct_ms(list(nodes[i].s3._edge.loop.lag_samples)),
+                     "max_ms": round(max(
+                         nodes[i].s3._edge.loop.lag_samples,
+                         default=0.0) * 1e3, 3),
+                     "ticks": len(nodes[i].s3._edge.loop.lag_samples)}
+            for i in range(n_nodes)}
+        summary["launches"] = launches
+        summary["dispatches"] = dispatches()
+        summary["rpc"] = rpc_diff(rpc_start)
+        for kname in ("gf_matmul", "hh256", "chacha20"):
+            if launches[kname] <= 0:
+                fail(f"distributed: no {kname} launch on the path")
+    finally:
+        for n in nodes:
+            if n is not None:
+                try:
+                    n.shutdown()
+                except Exception:  # noqa: BLE001 — best effort
+                    pass
+    note("in-process path done")
+    # -- the CLI's --node boot as four subprocesses on the card ---------------
+    cli_ports = free_ports(n_nodes)
+    node_args = []
+    for i, p in enumerate(cli_ports):
+        node_args += ["--node", f"127.0.0.1:{p}="
+                      f"{os.path.join(root, 'cli', f'n{i}d')}"
+                      f"{{1...{n_drives}}}"]
+    penv = dict(os.environ, MINIO_ACCESS_KEY=creds.access_key,
+                MINIO_SECRET_KEY=creds.secret_key)
+    used_before = card_memory_used_mib()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "minio_tpu_torch", "server", *node_args,
+         "--this", str(i), "--parity", str(m)], cwd=HERE, env=penv,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(n_nodes)]
+    cli = {}
+    try:
+        cs = [S3Client(p, creds, timeout=600) for p in cli_ports]
+        deadline = time.monotonic() + 300
+        while True:
+            for i, pr in enumerate(procs):
+                if pr.poll() is not None:
+                    fail(f"distributed CLI node {i} exited "
+                         f"{pr.returncode}: {pr.stderr.read()[-2000:]}")
+            try:
+                if all(c.send("GET", "/")[0] == 200 for c in cs):
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                fail("distributed CLI: no answer within 300 s")
+            time.sleep(0.25)
+        cli["answered_after_s"] = round(time.perf_counter() - t0, 3)
+        body = rng.bytes(DIST_CLI_OBJECT)
+        if cs[0].send("PUT", "/cli")[0] != 200:
+            fail("distributed CLI: make bucket")
+        t1 = time.perf_counter()
+        st, h, _ = cs[0].send("PUT", "/cli/o", body=body)
+        put_s = time.perf_counter() - t1
+        if st != 200 or h.get("etag") != f'"{md5(body)}"':
+            fail(f"distributed CLI: PUT via node 0: HTTP {st}")
+        t1 = time.perf_counter()
+        st, h, got = cs[3].send("GET", "/cli/o")
+        get_s = time.perf_counter() - t1
+        if st != 200 or got != body or h.get("etag") != f'"{md5(body)}"':
+            fail("distributed CLI: GET via node 3: bytes or ETag differ")
+        cli.update({"object_bytes": len(body),
+                    "put_s": round(put_s, 4), "get_s": round(get_s, 4),
+                    "put_gib_s": round(len(body) / (1 << 30) / put_s, 4),
+                    "get_gib_s": round(len(body) / (1 << 30) / get_s, 4)})
+        cli["card_memory_used_mib"] = {"before": used_before,
+                                       "cluster_up": card_memory_used_mib()}
+        cli["card_memory_by_process_mib"] = card_memory_by_pid(
+            [pr.pid for pr in procs])
+        outs = []
+        for pr in procs:
+            pr.send_signal(signal.SIGTERM)
+        for i, pr in enumerate(procs):
+            out, err = pr.communicate(timeout=120)
+            if pr.returncode != 0:
+                fail(f"distributed CLI node {i}: exit {pr.returncode} "
+                     f"after SIGTERM: {err[-2000:]}")
+            outs.append(out.strip().splitlines())
+        cli["banners"] = outs
+        cli["exit_codes"] = [pr.returncode for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.communicate()
+        for v, old in saved_env.items():
+            if old is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = old
+        shutil.rmtree(root, ignore_errors=True)
+    summary["cli"] = cli
+    summary["seconds"] = round(time.perf_counter() - t_phase, 3)
+    summary["card"] = card
+    emit(summary)
+    return summary
+
+
+def card_memory_by_pid(pids: list) -> dict:
+    """pid -> card memory in use (MiB) from nvidia-smi's compute apps; a
+    pid it does not list (another PID namespace) maps to None."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    got = {}
+    for line in out.stdout.splitlines():
+        try:
+            pid, mib = (int(x) for x in line.split(","))
+        except ValueError:
+            continue
+        got[pid] = mib
+    return {str(p): got.get(p) for p in pids}
+
+
 def run_sse_timings(torch, dev, rand_u8, max_err, pipeline, chacha20_cuda,
                     chacha20_plain, chacha20_ref, rs_cuda, rs_matrix, hh,
                     kernels, sass, key, np) -> dict:
@@ -5594,17 +6152,19 @@ def sha256_compressions(length: int) -> int:
 
 
 def run_config5_timings(torch, dev, rand_u8, max_err, rs_cuda, rs_matrix,
-                        sha256_cuda, sha256_ref, kernels, sass,
-                        sm_clock_mhz) -> dict:
+                        sha256_cuda, kernels, sass, sm_clock_mhz, c5,
+                        c5_plain) -> dict:
     """sha256 at config 5's encode launch shapes (a full dispatch of 32
     blocks x 20 rows, and a quarter of one) beside its bounds and chain
-    floor, its plain version and hashlib on the host over the same rows;
-    gf_matmul at k = 16 for config 5's encode and degraded-GET decodes."""
+    floor, its plain version and hashlib on the host over the same rows
+    (c5, phase 2's 640 rows; c5_plain their plain digests and ms, from
+    phase 2's worker process); gf_matmul at k = 16 for config 5's encode
+    and degraded-GET decodes."""
     k, m, s = 16, 4, 65536
     loop = sass.block_loop(kernels.library("sha256"))    # raises if unread
     out = {"sha256_block_loop": loop,
            "sha256_ops_per_compression": SHA256_OPS_PER_COMPRESSION}
-    sets = [rand_u8(32 * (k + m), s) for _ in range(4)]
+    sets = [c5] + [rand_u8(32 * (k + m), s) for _ in range(3)]
     for name, n in (("640", 32 * (k + m)), ("160", 8 * (k + m))):
         comp = sha256_compressions(s)
         nbytes = n * (s + 32)
@@ -5621,18 +6181,14 @@ def run_config5_timings(torch, dev, rand_u8, max_err, rs_cuda, rs_matrix,
         out[f"sha256_{name}"] = t
     base = out["sha256_640"]
     rows = sets[0]
-    t0 = time.perf_counter()
-    plain = sha256_ref.sha256_rows(rows, s)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain, plain_ms = c5_plain
     host = rows.cpu().numpy()
     t0 = time.perf_counter()
     want = [hashlib.sha256(r.tobytes()).digest() for r in host]
     hashlib_ms = (time.perf_counter() - t0) * 1e3
-    got = sha256_cuda.sha256_rows(rows, s)
+    got = sha256_cuda.sha256_rows(rows, s).cpu()
     err = max_err(got, plain)
-    if err or any(g.tobytes() != w for g, w in zip(got.cpu().numpy(),
-                                                      want)):
+    if err or any(g.tobytes() != w for g, w in zip(got.numpy(), want)):
         fail("sha256 disagrees at the timing shape")
     out.update({"sha256_ms": base["ms"],
                 "sha256_byte_bound_ms": base["byte_bound_ms"],
@@ -5640,6 +6196,7 @@ def run_config5_timings(torch, dev, rand_u8, max_err, rs_cuda, rs_matrix,
                 "sha256_bound_ms": base["bound_ms"],
                 "sha256_chain_floor_ms": base["chain_floor_ms"],
                 "sha256_plain_ms": plain_ms,
+                "sha256_plain_on": "host",
                 "sha256_hashlib_ms": hashlib_ms,
                 "sha256_max_abs_err": err})
     # gf_matmul at k = 16: a full encode dispatch (B=32), and the degraded
@@ -5700,13 +6257,19 @@ def run_timings(torch, dev, rand_u8, max_err, pipeline, rs_cuda, hh,
 
     loop = sass.packet_loop(kernels.library("hh256"))    # raises if unread
     clocks = sm_clocks(torch, lambda i: hh.hh256(put_rows[i % 4], shard, key))
+    # the plain hh256 once, on a CPU copy of the rows (on the card it is
+    # one launch per operation, ~3x slower), its digests kept for the
+    # check below
+    host_rows = rows[0].cpu()
+    t0 = time.perf_counter()
+    hh_plain = hh.hh256_plain(host_rows, s, key)
+    hh_plain_ms = (time.perf_counter() - t0) * 1e3
     out = {
         "put_step_ms": timed(lambda i: pipeline.put_step(datas[i % 4], k, m),
                              20),
         "gf_plain_ms": timed(
             lambda i: rs_cuda.gf_matmul_plain(m2, datas[i % 4]), 5),
-        "hh_plain_ms": timed(lambda i: hh.hh256_plain(rows[i % 4], s, key),
-                             1),
+        "hh_plain_ms": hh_plain_ms, "hh_plain_on": "host",
         "hh256_hot_loop": loop, **clocks,
         "int32_ops_per_s": INT32_OPS_PER_S,
         "hh256_ops_per_round": HH256_OPS_PER_ROUND,
@@ -5774,8 +6337,8 @@ def run_timings(torch, dev, rand_u8, max_err, pipeline, rs_cuda, hh,
         max_err(rs_cuda.gf_matmul(bits, sets[0]),
                 rs_cuda.gf_matmul_plain(bits, sets[0]))
         for bits, sets in gf_shapes.values())
-    out["hh256_max_abs_err"] = max_err(hh.hh256(rows[0], s, key),
-                                       hh.hh256_plain(rows[0], s, key))
+    out["hh256_max_abs_err"] = max_err(hh.hh256(rows[0], s, key).cpu(),
+                                       hh_plain)
     torch.cuda.synchronize()
     if out["gf_matmul_max_abs_err"] or out["hh256_max_abs_err"]:
         fail("kernel disagrees with its plain version at the timing shape")

@@ -6,6 +6,13 @@ print the startup banner, block on SIGTERM/SIGINT.
 
     python -m minio_tpu_torch server /data/d{1...16} --address :9000
 
+Distributed (run once per node, same node list everywhere; the node
+listens on its own --node address, and --address is not read):
+
+    python -m minio_tpu_torch server \
+        --node 10.0.0.1:9000=/data/d{1...4} \
+        --node 10.0.0.2:9000=/data/d{1...4} ... --this 0
+
 ``--device`` (default ``cuda``) picks where the erasure, hash and cipher
 steps run: the default needs a card and exits non-zero without one;
 ``--device cpu`` runs the plain PyTorch versions on the host.
@@ -19,8 +26,10 @@ repairs the pools the boot opens (object/fsck.py); the ``--pool`` pools
 join after that audit, as in the reference, so a fault in one of them
 waits for an on-demand ``run_fsck``.
 
-Refused with exit code 2 and a message, not half served: distributed
-nodes (``--node``). MINIO_COMPRESS=on compresses eligible objects inline (by
+Refused with exit code 2 and a message, not half served: ``--node``
+without a ``--this`` that indexes the list, and ``--pool`` with
+``--node`` (distributed clusters are one pool). MINIO_COMPRESS=on
+compresses eligible objects inline (by
 extension and content type, as the reference does), with S2 framing or,
 under MINIO_COMPRESS_ALGORITHM=zstd, zstd; a zstd PUT fails where the
 `zstandard` package does not import, and never stores the object
@@ -47,8 +56,9 @@ def _parse(argv: list[str]) -> argparse.Namespace:
     s.add_argument("--address", default=":9000",
                    help="listen address host:port (default :9000)")
     s.add_argument("--node", action="append", default=[],
-                   help="host:port=/drive{1...N} — one per cluster node "
-                   "(not served by this port yet)")
+                   help="host:port=/drive{1...N} — one per cluster node")
+    s.add_argument("--this", type=int, default=-1,
+                   help="index of this node in the --node list")
     s.add_argument("--parity", type=int, default=None,
                    help="parity shards per set (default N/2)")
     s.add_argument("--set-drive-count", type=int, default=0,
@@ -103,8 +113,7 @@ def main(argv: list[str] | None = None) -> int:
     args = _parse(argv if argv is not None else sys.argv[1:])
     creds = _creds()
     if args.node:
-        return _refuse("--node: distributed nodes are not served by this "
-                       "port yet (ROADMAP Queue A item 4)")
+        return _serve_node(args, creds)
     if not args.drives:
         return _refuse("no drives given")
     host, sep, port = args.address.rpartition(":")
@@ -146,6 +155,30 @@ def main(argv: list[str] | None = None) -> int:
     except (RuntimeError, ValueError) as e:
         node.shutdown()
         return _refuse(f"--pool refused: {e}")
+    return _banner_and_serve(node, creds)
+
+
+def _serve_node(args: argparse.Namespace, creds: Credentials) -> int:
+    """One node of a distributed cluster (reference cli.py:484-490)."""
+    if args.this < 0 or args.this >= len(args.node):
+        return _refuse("--this must index the --node list")
+    if args.pool:
+        return _refuse("--pool expansion is single-node only; distributed "
+                       "pools join via their own --node lists")
+    from .cluster import parse_node_arg, start_node
+    try:
+        nodes = [parse_node_arg(n) for n in args.node]
+        node = start_node(
+            nodes, args.this, creds, parity=args.parity,
+            set_drive_count=args.set_drive_count, region=args.region,
+            certfile=args.cert or None, keyfile=args.key or None,
+            device=args.device)
+    except (RuntimeError, ValueError) as e:
+        return _refuse(f"boot refused: {e}")
+    return _banner_and_serve(node, creds)
+
+
+def _banner_and_serve(node, creds: Credentials) -> int:
     info = node.object_layer.storage_info()
     print(f"MinIO-TPU node {node.spec.addr} up: "
           f"{node.set_count} set(s) x {node.set_drive_count} drives, "

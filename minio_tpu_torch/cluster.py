@@ -1,20 +1,33 @@
-"""Single-node boot — local drives into a running S3 server.
+"""Cluster assembly — boot a node into a running (multi-)node system.
 
-Counterpart of the single-node part of minio_tpu/cluster.py (the
-reference's serverMain, cmd/server-main.go:371-533): expand the drive
-arguments, divide them into erasure sets, start the S3 listener, then
-format or open the drives and late-bind the object layer into the
-handlers. The boot follows ``ClusterNode._finish_boot``
-(minio_tpu/cluster.py:143-210): one cross-request batch former, the
-admission gate and the staging rings sized from one RAM/CPU budget, the
-sets over the drives with that former, one pool of them; then the
-background plane of a single node (minio_tpu/cluster.py:556-617): the
-disk monitor (a wiped or replaced drive is formatted for its slot and its
-set sweep-healed), the data-update tracker every mutation marks, the
-hinted heal scanner over it, and the data-usage crawler whose cache
-quota reads. Also as in the reference's single node: the persisted bucket
-metacache, on by default (``MINIO_TPU_METACACHE``), serves the listings
-and feeds both scanners (minio_tpu/cluster.py:521-531); with
+Counterpart of minio_tpu/cluster.py (the reference's serverMain,
+cmd/server-main.go:371-533): expand the drive arguments, divide them into
+erasure sets, start the S3 listener with the internode RPC routers
+(storage, lock, peer, bootstrap) mounted on it, verify the cluster config
+against the peers, then format or open the drives and late-bind the
+object layer into the handlers. A node's own drives are local XLStorage
+objects (also exported over storage RPC for its peers); every other
+node's drives are RemoteStorage clients. The drive order is the endpoint
+order, identical on every node, so each drive holds the same erasure-set
+slot cluster-wide; node 0 formats a fresh cluster and the others wait for
+its format. A distributed node's namespace lock is dsync over every
+node's locker. Each node has its own batch former on its own device: a
+PUT that reaches a node encodes and hashes there, and its shards go to
+the other nodes' drives over storage RPC.
+
+The boot follows ``ClusterNode._finish_boot`` (minio_tpu/cluster.py:
+143-211): one cross-request batch former, the admission gate and the
+staging rings sized from one RAM/CPU budget, the sets over the drives
+with that former, one pool of them; then the background plane
+(minio_tpu/cluster.py:556-617): the disk monitor (a wiped or replaced
+drive is formatted for its slot and its set sweep-healed), the
+data-update tracker every mutation marks and, on the first node only, the
+hinted heal scanner over it (pulling the peers' tracker snapshots), the
+data-usage crawler whose cache quota reads, and the transition worker.
+As in the reference: the persisted bucket metacache, on by default
+(``MINIO_TPU_METACACHE``), serves the listings of a single node and feeds
+its scanners (minio_tpu/cluster.py:521-531); a distributed node keeps the
+merge-walk, since a write through a peer never reaches its journal. With
 ``MINIO_TPU_CACHE=on`` the hot-object read cache sits in front of the
 layer for the S3 surface, while the background planes keep the raw layer
 (:541-555); the crawler enforces lifecycle expiry, noncurrent expiry and
@@ -25,24 +38,30 @@ noncurrent-transition and restore-reclaim actions, with the expiry
 actions freeing transitioned versions' remote copies. The pool plane
 (:216-224, :501-519, :623-655): the boot resumes a drain that a restart
 interrupted (``resume_rebalance_if_pending``), runs the fsck auditor in
-repair mode under ``MINIO_TPU_FSCK_BOOT=on`` after the tier registry
-loads and before the metacache and scanners start (a failed audit is
-logged and the boot proceeds, as in the reference; it sees the boot's
-pools only, not those ``add_pool`` appends after it), and ``add_pool``
-appends a pool of local drives online (the CLI's ``--pool``). ``FSNode``
-and ``start_fs`` (:763-796) serve one directory through the plain-file
-backend (object/fs.py), with the root credential only.
+repair mode under ``MINIO_TPU_FSCK_BOOT=on`` (on the first node only)
+after the tier registry loads and before the metacache and scanners start
+(a failed audit is logged and the boot proceeds, as in the reference; it
+sees the boot's pools only, not those ``add_pool`` appends after it), and
+``add_pool`` appends a pool of local drives online (the CLI's
+``--pool``). ``FSNode`` and ``start_fs`` (:763-796) serve one directory
+through the plain-file backend (object/fs.py), with the root credential
+only.
+
+Node identity (its address) rides every RPC handler and client
+explicitly, so several nodes can run in one process; they share the
+process's staging rings, one per geometry, as in the reference.
 
 ``device`` picks where the sets' fused steps and the Select scans run:
 None means the card, and a host without one raises rather than serving
 from the CPU; ``device="cpu"`` runs the plain PyTorch versions on the
 host.
 
-Left out: distributed nodes (internode storage, lock, peer and bootstrap
-RPC, dsync), IAM, config KV, events, replication, notification, the QoS
-registry (the transition worker's per-tier budgets), the admin, health
-and web routers (the admin tier, fsck and rebalance routes with them),
-and the incident plane.
+Left out: IAM (the root credential serves), config KV, events,
+replication, notification, the QoS registry (the transition worker's
+per-tier budgets), the admin, health, metrics and web routers (the admin
+tier, fsck and rebalance routes with them), the console log, the
+incident plane and its event journal, etcd federation, and the peer
+verbs of those planes.
 """
 
 from __future__ import annotations
@@ -50,9 +69,18 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
+import time
 from typing import Optional
 
 from . import device as device_mod
+from .distributed import membership
+from .distributed.dsync import DistNSLockMap
+from .distributed.local_locker import LocalLocker
+from .distributed.lock_rpc import LockRPCClient, LockRPCServer
+from .distributed.peer_rpc import (BootstrapRPCServer, NotificationSys,
+                                   PeerRPCClient, PeerRPCServer,
+                                   verify_server_system_config)
+from .distributed.storage_rpc import RemoteStorage, StorageRPCServer
 from .features.lifecycle import (crawler_action, mpu_abort_action,
                                  noncurrent_sweep_action)
 from .object import cache as cache_mod
@@ -91,26 +119,55 @@ class NodeSpec:
         return f"{self.host}:{self.port}"
 
 
-class ClusterNode:
-    """One running single node: S3 endpoint + object layer over local
-    drives."""
+def parse_node_arg(arg: str) -> NodeSpec:
+    """"host:port=/d{1...4}" or "host:port=/a,/b" -> NodeSpec."""
+    addr, _, paths = arg.partition("=")
+    if not paths:
+        raise ValueError(f"node arg needs host:port=drives, got {arg!r}")
+    host, _, port = addr.rpartition(":")
+    drives = []
+    for p in paths.split(","):
+        drives.extend(ellipses.expand_arg(p))
+    return NodeSpec(host or "127.0.0.1", int(port), drives)
 
-    def __init__(self, spec: NodeSpec, creds: Credentials,
-                 parity: Optional[int] = None, set_drive_count: int = 0,
-                 block_size: int = 1 << 22, region: str = "us-east-1",
+
+class ClusterNode:
+    """One running node: S3 endpoint + internode RPC + object layer over
+    its local drives and, in a distributed cluster, the peers' drives."""
+
+    def __init__(self, nodes: list[NodeSpec], this: int,
+                 creds: Credentials, parity: Optional[int] = None,
+                 set_drive_count: int = 0, block_size: int = 1 << 22,
+                 region: str = "us-east-1",
+                 bootstrap_timeout: float = 30.0,
+                 format_timeout: float = 30.0,
                  certfile: Optional[str] = None,
                  keyfile: Optional[str] = None, device=None):
         device = device_mod.resolve(device)
-        self.spec = spec
+        self.nodes = nodes
+        self.this = this
         self.creds = creds
-        total = len(spec.drives)
+        self.spec = nodes[this]
+        self.distributed = len(nodes) > 1
+        # this process speaks as spec.addr; every RPC carries it and the
+        # boot generation so peers fence stale per-peer state after a
+        # restart (in-process clusters boot several nodes per process:
+        # their handlers and clients carry this node's id and a boot
+        # generation of its own, which win over the process-level
+        # fallback, so a node rebooted in the process is a new
+        # incarnation to its peers)
+        membership.set_local_node(self.spec.addr)
+        self.generation = membership.mint_generation()
+        all_drives = [(ni, path) for ni, n in enumerate(nodes)
+                      for path in n.drives]
+        total = len(all_drives)
         if set_drive_count:
             if total % set_drive_count:
                 raise ValueError("drives not divisible into sets")
             set_count = total // set_drive_count
         else:
             set_count, set_drive_count = ellipses.divide_into_sets(
-                total, [total])
+                total, [len(n.drives) for n in nodes])
         if parity is None:
             parity = set_drive_count // 2   # reference default EC:N/2
         self.set_count, self.set_drive_count = set_count, set_drive_count
@@ -126,30 +183,86 @@ class ClusterNode:
         self.read_cache: Optional[CacheObjects] = None
         self.tiers: Optional[TierManager] = None
         self.transition_worker: Optional[TransitionWorker] = None
+        self.notification: Optional[NotificationSys] = None
         self.boot_fsck = None        # the boot audit's FsckReport, if run
         self.pools: list = []        # pools add_pool appended after boot
         self._block_size = block_size
         self._device = device
+        self._tls = (certfile, keyfile)
+        self._remote_clients: list[RemoteStorage] = []
+        self._lock_clients: list[LockRPCClient] = []
+        self._peer_clients: list[PeerRPCClient] = []
+
+        # -- local drives + RPC servers on this node's listener ------------
+        # a faulty drive becomes a None slot, never a boot abort
+        self.local_drives: dict[str, XLStorage] = {}
+        for path in self.spec.drives:
+            try:
+                self.local_drives[path] = XLStorage(path)
+            except serr.StorageError:
+                pass
+        self.locker = LocalLocker()
+        ak, sk = creds.access_key, creds.secret_key
+        self._storage_rpc = StorageRPCServer(self.local_drives, ak, sk)
+        self._lock_rpc = LockRPCServer(self.locker, ak, sk)
+        self._peer_rpc = PeerRPCServer(ak, sk, node_id=self.spec.addr)
+        endpoints = [f"{n.addr}{p}" for n in nodes for p in n.drives]
+        self._bootstrap_rpc = BootstrapRPCServer(ak, sk, endpoints)
+        for srv in (self._storage_rpc, self._lock_rpc, self._peer_rpc,
+                    self._bootstrap_rpc):
+            self._identify(srv.handler)
         # the listener starts before the drives are formatted (the
-        # reference serves before newObjectLayer returns)
-        self.s3: Optional[S3Server] = S3Server(
-            None, address=spec.host, port=spec.port, region=region,
-            creds=creds, certfile=certfile, keyfile=keyfile).start()
+        # reference serves before newObjectLayer returns): peers' format
+        # reads and the bootstrap verify reach it meanwhile
+        self.s3: Optional[S3Server] = None
+        self._start_server(region)
         try:
-            self._finish_boot(block_size, device)
+            self._finish_boot(all_drives, endpoints, block_size, device,
+                              bootstrap_timeout, format_timeout)
         except BaseException:
-            # a failed boot must not leak the listening server
+            # a failed boot must not leak the listening server or the
+            # RPC clients (shutdown is idempotent on a partial boot)
             self.shutdown()
             raise
 
-    def _finish_boot(self, block_size: int, device) -> None:
-        # a faulty drive becomes a None slot, never a boot abort
+    def _finish_boot(self, all_drives, endpoints, block_size: int, device,
+                     bootstrap_timeout: float,
+                     format_timeout: float) -> None:
+        nodes, this = self.nodes, self.this
+        ak, sk = self.creds.access_key, self.creds.secret_key
+        # -- bootstrap verify against peers --------------------------------
+        peers = [(n.host, n.port) for i, n in enumerate(nodes)
+                 if i != this]
+        if peers:
+            verify_server_system_config(
+                peers, endpoints, ak, sk,
+                retries=max(int(bootstrap_timeout), 1),
+                node_id=self.spec.addr, generation=self.generation)
+        # -- the drive list in global endpoint order -----------------------
         drives: list = []
-        for path in self.spec.drives:
-            try:
-                drives.append(XLStorage(path))
-            except serr.StorageError:
-                drives.append(None)
+        for ni, path in all_drives:
+            if ni == this:
+                drives.append(self.local_drives.get(path))
+            else:
+                rc = RemoteStorage(nodes[ni].host, nodes[ni].port, path,
+                                   ak, sk)
+                self._identify(rc.rc)
+                self._remote_clients.append(rc)
+                drives.append(rc)
+        # -- namespace lock: dsync across every node when distributed ------
+        if self.distributed:
+            lockers: list = []
+            for i, n in enumerate(nodes):
+                if i == this:
+                    lockers.append(self.locker)
+                else:
+                    lc = LockRPCClient(n.host, n.port, ak, sk)
+                    self._identify(lc.rc)
+                    self._lock_clients.append(lc)
+                    lockers.append(lc)
+            ns_lock = DistNSLockMap(lockers, owner=self.spec.addr)
+        else:
+            ns_lock = NSLockMap()
         # -- cross-request device batch former + RAM-budgeted admission ----
         self.scheduler = BatchScheduler()
         budget = requests_budget(block_size, self.set_drive_count)
@@ -158,11 +271,26 @@ class ClusterNode:
         # admitted stream keeps ~2 batches in flight); buffers are
         # allocated, and pinned, lazily on first use
         _pipeline.configure_pool_buffers(budget)
-        self.sets = ErasureSets.from_storage(
-            drives, self.set_count, self.set_drive_count, self.parity,
-            block_size=block_size, ns_lock=NSLockMap(),
-            scheduler=self.scheduler, device=device)
-        self.object_layer = ErasureServerSets([self.sets])
+        # -- format bootstrap (waitForFormatErasure) -----------------------
+        deadline = time.monotonic() + format_timeout
+        while True:
+            try:
+                self.sets = ErasureSets.from_storage(
+                    drives, self.set_count, self.set_drive_count,
+                    self.parity, block_size=block_size, ns_lock=ns_lock,
+                    create_format=(this == 0), scheduler=self.scheduler,
+                    device=device)
+                break
+            except serr.StorageError:
+                if time.monotonic() >= deadline:
+                    raise
+                time.sleep(0.5)
+        # distributed clusters are single-pool: skip the boot-time
+        # cluster-wide topology read, which during a concurrent boot races
+        # peers still formatting (the default map, all-active, is a
+        # one-pool cluster's only state)
+        self.object_layer = ErasureServerSets(
+            [self.sets], load_topology=not self.distributed)
         self.s3.api.set_object_layer(self.object_layer)
         # a drain interrupted by a restart resumes from its persisted
         # checkpoint (the pool is still marked draining in the topology
@@ -175,6 +303,25 @@ class ClusterNode:
         # their pages into one launch on the cluster's device (the engine
         # took the layer's device in set_object_layer)
         self.s3.api.scan.scheduler = self.scheduler
+        # -- peer control plane hooks (the planes the port has) ------------
+        self._peer_clients = [PeerRPCClient(n.host, n.port, ak, sk)
+                              for i, n in enumerate(nodes) if i != this]
+        for pc in self._peer_clients:
+            self._identify(pc.rc)
+        self.notification = NotificationSys(self._peer_clients)
+        self._peer_rpc.get_locks = self.locker.dump
+        self._peer_rpc.get_server_info = lambda: {
+            "addr": self.spec.addr,
+            "sets": self.set_count,
+            "drives_per_set": self.set_drive_count,
+        }
+        bmeta = self.s3.api.bucket_meta
+        self._peer_rpc.reload_bucket_metadata = bmeta.reload
+        bmeta.on_change = self.notification.reload_bucket_metadata
+        self._peer_rpc.get_storage_info = self.object_layer.storage_info
+        self._peer_rpc.get_bucket_usage = \
+            lambda: (self.crawler.usage if self.crawler is not None
+                     else {})
         # -- tier plane (remote tiers + ILM transitions) --------------------
         self.tiers = TierManager(self.object_layer)
         try:
@@ -183,18 +330,21 @@ class ClusterNode:
             pass    # loaded; its gateway-typed tiers cannot be served
         self.s3.api.tiers = self.tiers
         # -- boot-time crash-consistency audit (object/fsck.py) ------------
-        # MINIO_TPU_FSCK_BOOT=on: audit the boot's pools (add_pool's come
-        # later, as in the reference) and repair what the
-        # last crash left behind BEFORE the index and the scanners start
-        # trusting the tree
-        if knobs.get_bool("MINIO_TPU_FSCK_BOOT"):
+        # MINIO_TPU_FSCK_BOOT=on: the first node audits the boot's pools
+        # (add_pool's come later, as in the reference) and repairs what
+        # the last crash left behind BEFORE the index and the scanners
+        # start trusting the tree
+        if this == 0 and knobs.get_bool("MINIO_TPU_FSCK_BOOT"):
             self._boot_fsck()
         # -- bucket metacache (persisted listing index + scanner feed) -----
-        if metacache_mod.enabled():
+        # single nodes only: deltas are engine-local, so writes through a
+        # PEER's S3 endpoint would never feed this node's journal;
+        # distributed nodes keep the merge-walk
+        if metacache_mod.enabled() and not self.distributed:
             self.metacache = MetacacheManager(self.object_layer).start()
             self.object_layer.attach_metacache(self.metacache)
         # -- hot-object read cache in front of the erasure path ------------
-        if cache_mod.enabled():
+        if cache_mod.enabled() and self.spec.drives:
             self.read_cache = CacheObjects.from_env(
                 self.object_layer, os.path.join(self.spec.drives[0],
                                                 ".minio.sys", "cache"))
@@ -210,18 +360,23 @@ class ClusterNode:
         # scanner prunes unchanged work (cmd/data-update-tracker.go)
         self.update_tracker = DataUpdateTracker(os.path.join(
             self.spec.drives[0], ".minio.sys", "tracker",
-            "update-tracker.bin"))
+            "update-tracker.bin") if self.spec.drives else "")
         self.s3.api.update_tracker = self.update_tracker
-        # a single node is the cluster's first node: it runs the scanner
-        # and the crawler, whose usage cache feeds quota
-        self.heal_scanner = HealScanner(self.object_layer,
-                                        self.update_tracker).start()
+        self._peer_rpc.get_update_tracker = \
+            self.update_tracker.rotate_snapshot
+        if this != 0:
+            return
+        # the first node runs the heal scanner (over every node's
+        # tracker), the transition worker and the crawler, whose usage
+        # cache feeds quota, once per cluster
+        self.heal_scanner = HealScanner(
+            self.object_layer, self.update_tracker,
+            peer_snapshots=self.notification.tracker_rotate_all).start()
         # one transition worker, on the raw layer and throttled off the
         # foreground; the async RestoreObject pulls ride it too
         self.transition_worker = TransitionWorker(self.object_layer,
                                                   self.tiers).start()
         self.s3.api.restore_worker = self.transition_worker
-        bmeta = self.s3.api.bucket_meta
         self.crawler = DataUsageCrawler(
             self.object_layer,
             actions=[crawler_action(bmeta, self.object_layer,
@@ -237,6 +392,11 @@ class ClusterNode:
                                              self.transition_worker)],
         ).start()
         self.s3.api.usage = self.crawler
+
+    def _identify(self, end) -> None:
+        """Stamp this node's id and boot generation on one of its RPC
+        handlers or clients."""
+        end.node_id, end.generation = self.spec.addr, self.generation
 
     def _boot_fsck(self) -> None:
         """Audit the boot's pools and repair what it finds (a pool that
@@ -288,6 +448,22 @@ class ClusterNode:
         self.pools.append(sets)
         return idx
 
+    def _start_server(self, region: str) -> None:
+        """The S3 listener with every internode router mounted (the
+        reference's configureServerHandler); also restarts a stopped
+        node's listener on its address."""
+        certfile, keyfile = self._tls
+        self.s3 = S3Server(None, address=self.spec.host,
+                           port=self.spec.port, region=region,
+                           creds=self.creds, certfile=certfile,
+                           keyfile=keyfile)
+        self.s3.register_router("/minio/storage/", self._storage_rpc.route)
+        self.s3.register_router("/minio/lock/", self._lock_rpc.route)
+        self.s3.register_router("/minio/peer/", self._peer_rpc.route)
+        self.s3.register_router("/minio/bootstrap/",
+                                self._bootstrap_rpc.route)
+        self.s3.start()
+
     @property
     def url(self) -> str:
         return self.s3.url
@@ -297,7 +473,7 @@ class ClusterNode:
         loops and the transition worker close, the metacache closes
         (persisting what is dirty) and the tracker flushes first, then
         the server stops, then a running drain, then the pools, then the
-        former."""
+        former, then the RPC clients."""
         for loop in ("disk_monitor", "crawler", "transition_worker",
                      "heal_scanner"):
             if getattr(self, loop) is not None:
@@ -328,6 +504,19 @@ class ClusterNode:
         if self.scheduler is not None:
             self.scheduler.close()
             self.scheduler = None
+        self._lock_rpc.close()
+        for c in (self._remote_clients + self._lock_clients
+                  + self._peer_clients):
+            c.close()
+        self._remote_clients, self._lock_clients = [], []
+        self._peer_clients = []
+
+
+def start_node(nodes: list[NodeSpec], this: int,
+               creds: Optional[Credentials] = None, **kw) -> ClusterNode:
+    """Boot node `this` of a cluster described by `nodes` (reference
+    `minio server http://host{1...4}/export{1...4}`)."""
+    return ClusterNode(nodes, this, creds or global_credentials(), **kw)
 
 
 def start_single(drives: list[str], address: str = "127.0.0.1",
@@ -337,7 +526,7 @@ def start_single(drives: list[str], address: str = "127.0.0.1",
     /data/d{1...16}`)."""
     creds = creds or global_credentials()
     paths = ellipses.expand_args(drives)
-    return ClusterNode(NodeSpec(address, port, paths), creds, **kw)
+    return ClusterNode([NodeSpec(address, port, paths)], 0, creds, **kw)
 
 
 class FSNode:

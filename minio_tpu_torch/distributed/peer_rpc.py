@@ -1,0 +1,349 @@
+"""Peer control plane + bootstrap verify.
+
+The reference fans control operations out to every node over peer REST
+(cmd/peer-rest-client.go / cmd/peer-rest-server.go, aggregated by
+NotificationSys, cmd/notification.go) and verifies cluster config
+consistency at startup against the first node
+(cmd/bootstrap-peer-server.go verifyServerSystemConfig).
+
+Counterpart of minio_tpu/distributed/peer_rpc.py, with the verbs whose
+planes the port has: ``server-info``, ``locks``,
+``reload-bucket-metadata``, ``storage-info``, ``bucket-usage``,
+``signal``, ``net-probe`` and ``tracker-rotate``, their client calls and
+NotificationSys fan-outs, and the bootstrap verify whole. The IAM, trace,
+metrics, event-journal, incident, profiling, console, OBD, bandwidth and
+notification verbs are not registered: a peer asking for one gets the
+transport's own 404 ``unknown-verb``. Left out with the metrics fan-out:
+the healthtrack-derived deadline it alone used
+(``MINIO_TPU_PEER_SHED_DEADLINE_X``).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import threading
+import time
+from typing import Callable, Optional
+
+from ..utils import telemetry
+from .transport import NetworkError, RestClient, RPCError, RPCHandler
+
+PEER_RPC_PREFIX = "/minio/peer/v1"
+BOOTSTRAP_RPC_PREFIX = "/minio/bootstrap/v1"
+
+# per-peer partition sheds: fan-out calls that failed fast because the
+# peer's transport was already marked offline — bounded degradation's
+# "we didn't even dial" counter
+_PARTITION_SHED = telemetry.REGISTRY.counter(
+    "minio_tpu_net_partition_shed_total",
+    "Cross-peer fan-out calls shed fast (peer transport offline)")
+
+
+class PeerRPCServer:
+    """This node's control-plane verbs. Hooks are injected so the server
+    stays decoupled from the subsystems it pokes."""
+
+    def __init__(self, access_key: str, secret_key: str,
+                 node_id: str = ""):
+        self.handler = RPCHandler(PEER_RPC_PREFIX, access_key,
+                                  secret_key, node_id=node_id)
+        self.node_id = node_id
+        self.started = time.time()
+        # injectable hooks
+        self.get_server_info: Callable[[], dict] = lambda: {}
+        self.get_locks: Callable[[], dict] = lambda: {}
+        self.reload_bucket_metadata: Callable[[str], None] = lambda b: None
+        self.signal_service: Callable[[str], None] = lambda sig: None
+        self.get_storage_info: Callable[[], dict] = lambda: {}
+        self.get_bucket_usage: Callable[[], dict] = lambda: {}
+        # leader heal-scanner pulls + rotates this node's data-update
+        # tracker each pass (None until the cluster wires it)
+        self.get_update_tracker: Optional[Callable[[], dict]] = None
+
+        h = self.handler
+        h.register("server-info", lambda a, b: {
+            "node": self.node_id, "uptime": time.time() - self.started,
+            **self.get_server_info()})
+        h.register("locks", lambda a, b: self.get_locks())
+        h.register("reload-bucket-metadata", self._reload_bm)
+        h.register("signal", self._signal)
+        h.register("storage-info", lambda a, b: self.get_storage_info())
+        h.register("bucket-usage", lambda a, b: self.get_bucket_usage())
+        # OBD net perf: the caller times pushing a payload here; this
+        # side only confirms how much arrived (cmd/obdinfo.go's
+        # peer-to-peer net throughput probes)
+        h.register("net-probe", lambda a, b: {
+            "node": self.node_id, "received": len(b)})
+        h.register("tracker-rotate", self._tracker_rotate)
+
+    def _tracker_rotate(self, args, body):
+        if self.get_update_tracker is None:
+            return {}
+        return self.get_update_tracker()
+
+    def _reload_bm(self, args, body):
+        self.reload_bucket_metadata(args.get("bucket", ""))
+
+    def _signal(self, args, body):
+        self.signal_service(args.get("sig", ""))
+
+    def route(self, ctx):
+        return self.handler.route(ctx)
+
+
+class PeerRPCClient:
+    def __init__(self, host: str, port: int, access_key: str,
+                 secret_key: str, timeout: float = 5.0,
+                 node_id: str = ""):
+        self.rc = RestClient(host, port, PEER_RPC_PREFIX, access_key,
+                             secret_key, timeout=timeout)
+        self.rc.node_id = node_id
+
+    def _shed(self) -> bool:
+        """Fail-fast gate for fan-out verbs: a peer whose transport is
+        already marked offline (partitioned / down) is shed without
+        dialing — counted per peer so a partition window is visible as
+        sheds, not as silent Nones."""
+        if self.rc.online:
+            return False
+        _PARTITION_SHED.inc(peer=self.addr)
+        return True
+
+    def server_info(self) -> Optional[dict]:
+        if self._shed():
+            return None
+        try:
+            return self.rc.call_json("server-info")
+        except (NetworkError, RPCError):
+            return None
+
+    def locks(self) -> dict:
+        try:
+            return self.rc.call_json("locks") or {}
+        except (NetworkError, RPCError):
+            return {}
+
+    def reload_bucket_metadata(self, bucket: str) -> bool:
+        try:
+            self.rc.call("reload-bucket-metadata", {"bucket": bucket})
+            return True
+        except (NetworkError, RPCError):
+            return False
+
+    def signal_service(self, sig: str) -> bool:
+        try:
+            self.rc.call("signal", {"sig": sig})
+            return True
+        except (NetworkError, RPCError):
+            return False
+
+    @property
+    def addr(self) -> str:
+        return f"{self.rc.host}:{self.rc.port}"
+
+    def storage_info(self) -> dict:
+        if self._shed():
+            return {}
+        try:
+            return self.rc.call_json("storage-info") or {}
+        except (NetworkError, RPCError):
+            return {}
+
+    def bucket_usage(self) -> dict:
+        try:
+            return self.rc.call_json("bucket-usage") or {}
+        except (NetworkError, RPCError):
+            return {}
+
+    def net_probe(self, size: int = 4 << 20) -> Optional[dict]:
+        """Timed payload push to this peer: internode throughput + a
+        small-ping RTT (the OBD net perf section). Each RestClient call
+        opens a fresh connection, so a warm-up ping runs first and the
+        empty-call baseline (connect + request overhead) is subtracted
+        from the payload timing — the reported throughput approximates
+        the transfer itself, not TCP setup."""
+        import json as _json
+        try:
+            self.rc.call("net-probe", body=b"")     # warm-up, untimed
+            rtt = None
+            for _ in range(2):
+                t0 = time.perf_counter()
+                self.rc.call("net-probe", body=b"")
+                dt = time.perf_counter() - t0
+                rtt = dt if rtt is None else min(rtt, dt)
+            payload = b"\x00" * size
+            t0 = time.perf_counter()
+            raw = self.rc.call("net-probe", body=payload)
+            dt = max(time.perf_counter() - t0 - (rtt or 0.0), 1e-9)
+            out = _json.loads(raw.decode()) if raw else None
+        except (NetworkError, RPCError, ValueError):
+            return None
+        if not isinstance(out, dict):
+            return None
+        if out.get("received") != size:
+            # reachable but truncated (proxy/body limit) — distinct
+            # from peer-down so the operator chases the right problem
+            return {"peer": f"{self.rc.host}:{self.rc.port}",
+                    "error": "short receive",
+                    "expected": size, "received": out.get("received")}
+        return {"peer": f"{self.rc.host}:{self.rc.port}",
+                "bytes": size,
+                "rtt_us": round((rtt or 0.0) * 1e6),
+                "throughput_mib_s": round(size / dt / 2**20, 2)}
+
+    def tracker_rotate(self) -> Optional[dict]:
+        try:
+            return self.rc.call_json("tracker-rotate")
+        except (NetworkError, RPCError):
+            return None
+
+    @property
+    def online(self) -> bool:
+        return self.rc.online
+
+    def close(self) -> None:
+        self.rc.close()
+
+
+class NotificationSys:
+    """Fan-out aggregator over all peer clients (cmd/notification.go):
+    each call broadcasts concurrently and returns per-peer results."""
+
+    def __init__(self, peers: list[PeerRPCClient]):
+        self.peers = peers
+
+    def _broadcast(self, fn: Callable[[PeerRPCClient], object]) -> list:
+        out: list = [None] * len(self.peers)
+        threads = []
+        for i, p in enumerate(self.peers):
+            def run(i=i, p=p):
+                try:
+                    out[i] = fn(p)
+                except Exception as e:  # noqa: BLE001 — per-peer result
+                    out[i] = e
+            t = threading.Thread(target=run, daemon=True)
+            t.start()
+            threads.append(t)
+        for t in threads:
+            t.join(timeout=10)
+        return out
+
+    def server_info_all(self) -> list:
+        return self._broadcast(lambda p: p.server_info())
+
+    def reload_bucket_metadata(self, bucket: str) -> list:
+        return self._broadcast(
+            lambda p: p.reload_bucket_metadata(bucket))
+
+    def top_locks(self) -> dict:
+        merged: dict = {}
+        for locks in self._broadcast(lambda p: p.locks()):
+            if isinstance(locks, dict):
+                for res, holders in locks.items():
+                    merged.setdefault(res, []).extend(holders)
+        return merged
+
+    def signal_all(self, sig: str) -> list:
+        return self._broadcast(lambda p: p.signal_service(sig))
+
+    def storage_info_all(self) -> list:
+        return self._broadcast(lambda p: p.storage_info())
+
+    def net_obd(self, size: int = 4 << 20) -> list[dict]:
+        """This node's view of the interconnect: timed payload push to
+        every peer, SEQUENTIALLY — concurrent probes would share the
+        NIC and report contention, not per-link capacity (the reference
+        probes peers one at a time for the same reason). Unreachable
+        peers are reported as such rather than dropped."""
+        out = []
+        for p in self.peers:
+            r = None
+            try:
+                r = p.net_probe(size)
+            except Exception:  # noqa: BLE001 — per-peer result
+                r = None
+            if isinstance(r, dict):
+                out.append(r)
+            else:
+                out.append({"peer": f"{p.rc.host}:{p.rc.port}",
+                            "error": "unreachable"})
+        return out
+
+    def tracker_rotate_all(self) -> list[Optional[dict]]:
+        """One entry per peer: the rotated tracker snapshot, or None
+        for an unreachable peer (the scanner must then assume-changed
+        for that peer's window)."""
+        return [r if isinstance(r, dict) else None
+                for r in self._broadcast(lambda p: p.tracker_rotate())]
+
+# ---------------------------------------------------------------------------
+# bootstrap verify
+# ---------------------------------------------------------------------------
+
+def system_config_hash(endpoints: list[str], access_key: str,
+                       secret_key: str) -> str:
+    """Digest of the node's view of cluster topology + credentials
+    (the reference compares ServerSystemConfig field-by-field; a digest
+    keeps secrets off the wire)."""
+    blob = json.dumps({
+        "endpoints": sorted(endpoints),
+        "cred": hashlib.sha256(
+            f"{access_key}:{secret_key}".encode()).hexdigest(),
+    }, sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+class BootstrapRPCServer:
+    def __init__(self, access_key: str, secret_key: str,
+                 endpoints: list[str]):
+        self.handler = RPCHandler(BOOTSTRAP_RPC_PREFIX, access_key,
+                                  secret_key)
+        self.config_hash = system_config_hash(endpoints, access_key,
+                                              secret_key)
+        self.handler.register(
+            "verify", lambda a, b: {"hash": self.config_hash})
+
+    def route(self, ctx):
+        return self.handler.route(ctx)
+
+
+def verify_server_system_config(peers: list[tuple[str, int]],
+                                endpoints: list[str], access_key: str,
+                                secret_key: str, retries: int = 30,
+                                interval: float = 1.0,
+                                node_id: str = "",
+                                generation: int = 0) -> None:
+    """Block until every peer reports the same config digest
+    (cmd/server-main.go:464-478 retry loop). Raises RuntimeError on a
+    real mismatch; keeps retrying while peers are unreachable. `node_id`
+    and `generation` are the calling node's address and boot generation,
+    carried on every call (a peer that knew an earlier generation of this
+    node fires its generation listeners, which re-admit it)."""
+    want = system_config_hash(endpoints, access_key, secret_key)
+    remaining = {f"{h}:{p}" for h, p in peers}
+    for _ in range(retries):
+        for h, p in list(peers):
+            key = f"{h}:{p}"
+            if key not in remaining:
+                continue
+            rc = RestClient(h, p, BOOTSTRAP_RPC_PREFIX, access_key,
+                            secret_key, timeout=2.0)
+            rc.node_id, rc.generation = node_id, generation
+            try:
+                got = rc.call_json("verify")
+            except (NetworkError, RPCError):
+                continue
+            finally:
+                rc.close()
+            if got and got.get("hash") == want:
+                remaining.discard(key)
+            elif got:
+                raise RuntimeError(
+                    f"peer {key} has a different cluster config "
+                    "(endpoints or credentials mismatch)")
+        if not remaining:
+            return
+        time.sleep(interval)
+    raise RuntimeError(f"peers unreachable during bootstrap: "
+                       f"{sorted(remaining)}")

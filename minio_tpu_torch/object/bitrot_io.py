@@ -46,8 +46,14 @@ def new_bitrot_reader(disk: StorageAPI, volume: str, path: str,
 
 
 class StreamingBitrotWriter:
-    """Writes [digest || block] frames into a persistent append handle;
-    every frame is exactly one shard block (the last may be short)."""
+    """Writes [digest || block] frames; every frame is exactly one shard
+    block (the last may be short). A local drive takes them through its
+    persistent append handle; a remote drive (no ``has_appender``) takes
+    buffered batches through append_file, one RPC per FLUSH_THRESHOLD
+    bytes of frames, not one per frame (reference
+    minio_tpu/object/bitrot_io.py:51-105)."""
+
+    FLUSH_THRESHOLD = 8 << 20  # bound writer memory on huge parts
 
     def __init__(self, disk: StorageAPI, volume: str, path: str,
                  shard_size: int, algo: BitrotAlgorithm):
@@ -56,24 +62,57 @@ class StreamingBitrotWriter:
         # opened lazily so writer construction never touches the drive
         # (per-drive faults must surface inside the write fan-out)
         self._file = None
+        self._buf = io.BytesIO()
+        self._started = False
+        try:
+            probe = getattr(disk, "has_appender", None)
+            self._use_appender = bool(probe is not None and probe())
+        except Exception:  # noqa: BLE001 — capability probe only
+            self._use_appender = False
 
     def write(self, block) -> None:
-        """Frame a block, digesting it on the host."""
+        """Frame a block, digesting it on the host; an empty block writes
+        no frame."""
+        if len(block) == 0:
+            return
         self.write_with_digest(
             block, bitrot_mod.hash_shard(bytes(block), self.algo))
 
     def write_with_digest(self, block, digest) -> None:
         """Frame a block whose digest was already computed (by the batched
-        device or native hasher)."""
-        try:
-            if self._file is None:
-                self._file = self.disk.open_appender(self.volume, self.path)
-            self._file.write(digest)
-            self._file.write(block)
-        except OSError as e:
-            raise errors.FaultyDisk(str(e)) from e
+        device or native hasher). Both may be views of a staging slot the
+        caller recycles after this returns: the appender writes them out
+        and the buffer copies them before returning."""
+        if self._use_appender:
+            try:
+                if self._file is None:
+                    self._file = self.disk.open_appender(self.volume,
+                                                         self.path)
+                self._file.write(digest)
+                self._file.write(block)
+            except OSError as e:
+                raise errors.FaultyDisk(str(e)) from e
+            return
+        self._buf.write(digest)
+        self._buf.write(block)
+        if self._buf.tell() >= self.FLUSH_THRESHOLD:
+            self._flush()
+
+    def _flush(self) -> None:
+        # a view of the buffer, not a copy; the first flush always goes
+        # out, so a 0-byte object still commits an (empty) shard file
+        data = self._buf.getbuffer()
+        if not data.nbytes and self._started:
+            return
+        self.disk.append_file(self.volume, self.path, data)
+        self._started = True
+        del data
+        self._buf = io.BytesIO()
 
     def close(self) -> None:
+        if not self._use_appender:
+            self._flush()
+            return
         try:
             if self._file is None:
                 # 0-byte objects still commit an (empty) shard file

@@ -6,8 +6,8 @@ SSE config, tagging, quota, versioning, object-lock, notification and
 replication configs, with an in-memory cluster-wide cache
 (cmd/bucket-metadata.go, cmd/bucket-metadata-sys.go). Here the blob is
 JSON, stored erasure-coded through the object layer itself so it gets
-quorum + healing for free. Left out: the peer-cache hooks (on_change,
-reload) of distributed nodes, which the port does not boot.
+quorum + healing for free. A distributed node wires ``on_change`` to the
+peers' ``reload-bucket-metadata`` verb, whose handler calls ``reload``.
 """
 
 from __future__ import annotations
@@ -80,6 +80,10 @@ class BucketMetadataSys:
         self.obj = object_layer
         self._cache: dict[str, BucketMetadata] = {}
         self._mu = threading.Lock()
+        # Cluster hook: called with the bucket name after every persisted
+        # change so peers drop their caches (the reference broadcasts
+        # LoadBucketMetadata via NotificationSys after each update).
+        self.on_change = None
 
     def _meta_path(self, bucket: str) -> str:
         return f"buckets/{bucket}/{BUCKET_METADATA_FILE}"
@@ -108,6 +112,14 @@ class BucketMetadataSys:
                             bm.to_bytes())
         with self._mu:
             self._cache[bucket] = bm
+        self._notify(bucket)
+
+    def _notify(self, bucket: str) -> None:
+        if self.on_change is not None:
+            try:
+                self.on_change(bucket)
+            except Exception:  # noqa: BLE001 — peers reload lazily anyway
+                pass
 
     def update(self, bucket: str, **fields) -> BucketMetadata:
         bm = self.get(bucket)
@@ -124,6 +136,12 @@ class BucketMetadataSys:
                                    self._meta_path(bucket))
         except api_errors.ObjectApiError:
             pass
+        with self._mu:
+            self._cache.pop(bucket, None)
+        self._notify(bucket)
+
+    def reload(self, bucket: str) -> None:
+        """Drop the cache entry (peer-notified metadata change)."""
         with self._mu:
             self._cache.pop(bucket, None)
 

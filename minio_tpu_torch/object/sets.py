@@ -122,12 +122,17 @@ class ErasureSets:
                      set_drive_count: int, parity: int,
                      block_size: int = 1 << 22,
                      ns_lock: Optional[NSLockMap] = None,
+                     create_format: bool = True,
                      sources: Optional[list] = None,
                      **engine_kw) -> "ErasureSets":
-        """Assemble sets over StorageAPI drives (None: an offline slot;
-        reference newErasureSets, cmd/erasure-sets.go:337-430). Fresh
-        drives are formatted; a drive without a format in an otherwise
-        formatted cluster is healed: it gets the format of its slot.
+        """Assemble sets over StorageAPI drives, local XLStorage and/or
+        RemoteStorage (None: an offline slot; reference newErasureSets,
+        cmd/erasure-sets.go:337-430). Fresh drives are formatted; a drive
+        without a format in an otherwise formatted cluster is healed: it
+        gets the format of its slot. create_format=False makes an
+        unformatted cluster an error instead of a fresh format write
+        (non-first nodes of a distributed boot wait for the first node
+        to format, cmd/prepare-storage.go waitForFormatErasure).
         `sources` (default: the drives themselves) names each input
         position's drive source for the disk monitor's slot_sources."""
         from ..storage.format import read_format_from, write_format_to
@@ -149,6 +154,9 @@ class ErasureSets:
         if all(f is None for f in formats):
             if all(d is None for d in drives):
                 raise serr.DiskNotFound("no usable drives")
+            if not create_format:
+                raise serr.UnformattedDisk(
+                    "cluster not formatted yet (waiting for first node)")
             fresh = new_format_erasure_v3(set_count, set_drive_count)
             for i in range(set_count):
                 for j in range(set_drive_count):

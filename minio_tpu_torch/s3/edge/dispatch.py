@@ -2,15 +2,14 @@
 
 Counterpart of minio_tpu/s3/edge/dispatch.py. The threaded server
 (``s3/server.py``) and the event-loop edge (``edge/server.py``) feed the
-same request snapshot through this one pipeline — ``S3ApiHandlers.
-handle`` and the per-API duration, TTFB and response counters —
+same request snapshot through this one pipeline — extra-router matching
+(the internode RPC routers), ``S3ApiHandlers.handle`` and the per-API
+duration, TTFB and response counters —
 so the two transports cannot drift: the threaded server stays a
 byte-level correctness oracle for the edge (``MINIO_TPU_EDGE=off``).
 
 ``api_name_of`` is a copy of minio_tpu/s3/trace.py:34. Left out with the
-rest of the trace plane: the root span and the admin trace records; and
-the extra routers (admin, health, metrics, internode RPC), which no
-ported module mounts.
+rest of the trace plane: the root span and the admin trace records.
 """
 
 from __future__ import annotations
@@ -120,9 +119,13 @@ def api_name_of(method: str, path: str, query: dict,
     return method
 
 
-def run_request(api, ctx, command: str, respond: Callable) -> int:
-    """Handle one parsed request; ``respond(resp)`` writes it
+def run_request(api, extra_routers, ctx, command: str, raw_path: str,
+                respond: Callable) -> int:
+    """Route + handle one parsed request; ``respond(resp)`` writes it
     on whatever transport owns the socket. Returns the final status.
+    ``extra_routers`` are (path prefix, fn(ctx) -> HTTPResponse or None)
+    pairs checked before S3 routing, in registration order; a router
+    that returns None declines and the next one is asked.
     The per-API histograms record in the finally, the duration covering
     the response body (a streaming GET's drive reads happen inside it).
     Keep-alive body drainage is the transport's job — it depends on close
@@ -142,6 +145,13 @@ def run_request(api, ctx, command: str, respond: Callable) -> int:
         respond(resp)
 
     try:
+        for prefix, router in extra_routers:
+            if raw_path.startswith(prefix):
+                resp = router(ctx)
+                if resp is None:
+                    continue
+                _respond(resp)
+                return status[0]
         _respond(api.handle(ctx))
     finally:
         dur = time.perf_counter() - t0

@@ -1,11 +1,19 @@
 """Event-loop HTTP frontend (the reference's cmd/http/ epoll listener).
 
-Counterpart of minio_tpu/s3/edge/server.py. Left out: the exposition-time
-gauges, counters and lag sampler of the loop and its pool, the trace
-records of loop-side sheds, the extra routers (admin, health, internode
-RPC) and the pool's overflow threads that served their long polls,
-which no ported module mounts, and ``MINIO_TPU_EDGE_WORKERS`` (the
-reference's default of one loop is the only one).
+Counterpart of minio_tpu/s3/edge/server.py. The extra routers (the
+internode RPC a distributed node mounts) bypass both halves of admission,
+and a saturated worker pool gives a job a one-shot overflow thread rather
+than queueing it, so a peer's storage or lock verb is never starved by
+S3 requests that themselves wait on peers. The loop-lag sampler is the
+reference's (``minio_tpu_edge_loop_lag_seconds``, labelled by the
+listener's port here, where several nodes may share a process), ticking
+every ``LAG_INTERVAL_S`` rather than at the reference's
+``MINIO_TPU_EDGE_LAG_S`` (one value in use); each loop also keeps its
+recent samples (``lag_samples``).
+Left out: the exposition-time gauges and counters of the loop and its
+pool, the trace records of loop-side sheds, and
+``MINIO_TPU_EDGE_WORKERS`` (the reference's default of one loop is the
+only one).
 
 One asyncio loop owns every connection: it accepts, parses request
 lines + headers, and holds idle keep-alive connections for the cost of a
@@ -40,6 +48,7 @@ correctness oracle — both run the same middleware
 from __future__ import annotations
 
 import asyncio
+import collections
 import queue
 import socket
 import threading
@@ -47,7 +56,7 @@ import urllib.parse
 from http.client import responses as _REASONS
 from typing import Optional
 
-from ...utils import knobs
+from ...utils import knobs, telemetry
 from .admission import AdmissionController
 from .dispatch import finalize_headers, run_request
 
@@ -57,17 +66,33 @@ MAX_HEADER_COUNT = 100             # http.server's _MAXHEADERS parity
 _RECV = 1 << 16
 
 
+# the lag sampler's tick, seconds
+LAG_INTERVAL_S = 1.0
+
+# event-loop health: how late the loop runs a timer it armed — the one
+# number that says "the loop thread is wedged behind a callback"
+_LOOP_LAG_SECONDS = telemetry.REGISTRY.histogram(
+    "minio_tpu_edge_loop_lag_seconds",
+    "Event-loop timer lag per loop (scheduled vs actual fire time)",
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+             0.25, 0.5, 1.0, 2.5))
+
+
 def _http_date() -> str:
     from email.utils import formatdate
     return formatdate(usegmt=True)
 
 
 class _WorkerPool:
-    """Bounded pool of DAEMON threads running the blocking handler
-    layer behind the loop (stdlib ThreadPoolExecutor threads are
+    """Bounded-then-elastic pool of DAEMON threads running the blocking
+    handler layer behind the loop (stdlib ThreadPoolExecutor threads are
     non-daemon: a handler still blocked on a socket at shutdown would
-    wedge interpreter exit). Threads spawn lazily up to `size`; past
-    that, jobs queue for the next free worker."""
+    wedge interpreter exit). Threads spawn lazily up to `size`; when
+    every pooled worker is busy a job gets a one-shot overflow thread
+    instead of queueing, degrading to the threaded frontend's
+    thread-per-request behaviour: in a distributed cluster an S3 request
+    holds its worker while it waits on peers' storage verbs, and a
+    queued peer verb would deadlock two nodes waiting on each other."""
 
     def __init__(self, size: int, name: str = "edge-worker"):
         self.size = max(size, 1)
@@ -87,7 +112,14 @@ class _WorkerPool:
             # credit, so two racing submits cannot both bank on the
             # same idle worker
             credits = self._idle - self._pending
-            if credits <= 0 and len(self._threads) < self.size:
+            if credits <= 0 and len(self._threads) >= self.size:
+                # pool saturated: one-shot overflow thread (exits with
+                # the job; never parked in the pool)
+                threading.Thread(target=self._run_one, args=(fn, args),
+                                 daemon=True,
+                                 name=f"{self._name}-ovf").start()
+                return
+            if credits <= 0:
                 t = threading.Thread(
                     target=self._run, daemon=True,
                     name=f"{self._name}-{len(self._threads)}")
@@ -98,6 +130,13 @@ class _WorkerPool:
         self._q.put((fn, args))
         if t is not None:
             t.start()
+
+    @staticmethod
+    def _run_one(fn, args) -> None:
+        try:
+            fn(*args)
+        except Exception:  # noqa: BLE001 — per-request isolation
+            pass
 
     def _run(self) -> None:
         while True:
@@ -221,6 +260,29 @@ class _EdgeLoop(threading.Thread):
         self.loop = asyncio.new_event_loop()
         self.conns: set = set()
         self._started = threading.Event()
+        self.lag_samples: collections.deque = collections.deque(
+            maxlen=4096)
+        self._lag_expected = 0.0
+
+    def _arm_lag_sampler(self) -> None:
+        """Periodic loop-lag probe: schedule a timer, measure how late
+        the loop ran it. A blocking call on the loop, GC pauses and CPU
+        starvation all show up as lag here."""
+        interval = LAG_INTERVAL_S
+        label = str(self.lsock.getsockname()[1])
+
+        def tick() -> None:
+            if self.edge.closed:
+                return
+            now = self.loop.time()
+            lag = max(now - self._lag_expected, 0.0)
+            _LOOP_LAG_SECONDS.observe(lag, loop=label)
+            self.lag_samples.append(lag)
+            self._lag_expected = now + interval
+            self.loop.call_later(interval, tick)
+
+        self._lag_expected = self.loop.time() + interval
+        self.loop.call_later(interval, tick)
 
     # -- lifecycle -------------------------------------------------------
 
@@ -228,6 +290,7 @@ class _EdgeLoop(threading.Thread):
         asyncio.set_event_loop(self.loop)
         self.lsock.setblocking(False)
         self.loop.add_reader(self.lsock.fileno(), self._accept)
+        self._arm_lag_sampler()
         self._started.set()
         try:
             self.loop.run_forever()
@@ -402,7 +465,7 @@ class _EdgeLoop(threading.Thread):
                                       keep_blank_values=True)
         # the loop-side half of admission: pure-arithmetic saturation
         # signals shed HERE, before a worker or a body byte is spent
-        if method != "OPTIONS":
+        if not self.edge.is_router_path(path) and method != "OPTIONS":
             decision = self.edge.admission.pre_admit(
                 method, path, query, headers)
             if decision is not None:
@@ -464,8 +527,10 @@ class _EdgeLoop(threading.Thread):
 class EdgeServer:
     """The asyncio frontend: listener + loop + the worker pool."""
 
-    def __init__(self, api, address: str = "127.0.0.1", port: int = 0):
+    def __init__(self, api, extra_routers, address: str = "127.0.0.1",
+                 port: int = 0):
         self.api = api
+        self.extra_routers = extra_routers
         self.admission: AdmissionController = api.admission
         self.max_conns = knobs.get_int("MINIO_TPU_EDGE_MAX_CONNS")
         self.header_deadline_s = knobs.get_float("MINIO_TPU_EDGE_HEADER_S")
@@ -514,6 +579,10 @@ class EdgeServer:
             except OSError:
                 pass
         self.pool.close()
+
+    def is_router_path(self, path: str) -> bool:
+        return any(path.startswith(prefix)
+                   for prefix, _fn in self.extra_routers)
 
     def conn_count(self) -> int:
         with self._conn_mu:
@@ -614,17 +683,20 @@ class EdgeServer:
                                      close_conn)
                 self._finish(lp, conn, None, close_conn[0])
                 return
-            # the budget half of admission — a bounded wait on the
-            # worker, still BEFORE any body byte is read
-            got = self.admission.admit(method, path, query, headers,
-                                       pre_checked=True)
-            if not isinstance(got, AdmissionTicket):
-                self._write_response(conn, method, headers,
-                                     got.response(path), close_conn)
-                close_conn[0] = True
-                self._finish(lp, conn, None, True)
-                return
-            ticket = got
+            if not self.is_router_path(path):
+                # the budget half of admission — a bounded wait on the
+                # worker, still BEFORE any body byte is read (internode
+                # RPC bypasses the budget: a saturated S3 plane must not
+                # deadlock peers' storage and lock traffic)
+                got = self.admission.admit(method, path, query, headers,
+                                           pre_checked=True)
+                if not isinstance(got, AdmissionTicket):
+                    self._write_response(conn, method, headers,
+                                         got.response(path), close_conn)
+                    close_conn[0] = True
+                    self._finish(lp, conn, None, True)
+                    return
+                ticket = got
             if length > 0 and "100-continue" in headers.get(
                     "expect", "").lower():
                 # admitted: NOW invite the body (the threaded frontend
@@ -635,13 +707,15 @@ class EdgeServer:
                               headers=headers, raw_query=raw_query)
             body = _EdgeBodyReader(sock, bytearray(rest), length)
             ctx = RequestContext(req, body, length)
-            ctx.admission_ticket = ticket
+            if ticket is not None:
+                ctx.admission_ticket = ticket
 
             def respond(resp):
                 self._write_response(conn, method, headers, resp,
                                      close_conn)
 
-            run_request(self.api, ctx, method, respond)
+            run_request(self.api, self.extra_routers, ctx, method, path,
+                        respond)
             if not close_conn[0]:
                 # keep-alive hygiene: unread body bytes would be parsed
                 # as the next request; closing paths skip the drain

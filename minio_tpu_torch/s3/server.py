@@ -13,9 +13,11 @@ two transports over the same ``S3ApiHandlers``:
     escape hatch and correctness oracle.
 
 Both feed the same request snapshot through the same middleware
-(``edge/dispatch.py``). Streaming: response bodies may be chunk
-iterators (GET path never buffers the whole object). Left out: the extra
-routers (admin, health, metrics, internode RPC) and IAM.
+(``edge/dispatch.py``), which checks the extra routers (the internode
+storage, lock, peer and bootstrap RPC a distributed node mounts with
+``register_router``) before S3 routing. Streaming: response bodies may be
+chunk iterators (GET path never buffers the whole object). Left out: the
+admin, health and metrics routers, and IAM.
 """
 
 from __future__ import annotations
@@ -83,7 +85,7 @@ class _BodyReader:
                 break
 
 
-def _make_handler_class(api: S3ApiHandlers):
+def _make_handler_class(api: S3ApiHandlers, extra_routers):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
         server_version = SERVER_NAME
@@ -181,7 +183,8 @@ def _make_handler_class(api: S3ApiHandlers):
             ctx = self._snapshot()
             # telemetry + the admission-gated handler live in the
             # transport-shared middleware (edge/dispatch.py)
-            run_request(api, ctx, self.command, self._respond)
+            run_request(api, extra_routers, ctx, self.command, self.path,
+                        self._respond)
             # keep-alive hygiene: any request-body bytes the handler
             # didn't consume (auth failure, early error, streaming
             # trailer) would otherwise be parsed as the next request.
@@ -215,7 +218,11 @@ def _make_handler_class(api: S3ApiHandlers):
 
 
 class S3Server:
-    """S3 endpoint over an object layer — edge or threaded transport."""
+    """S3 endpoint over an object layer — edge or threaded transport.
+
+    extra_routers: list of (path_prefix, fn(ctx) -> HTTPResponse) checked
+    before S3 routing — the internode RPC routers of a distributed node.
+    """
 
     def __init__(self, object_layer, address: str = "127.0.0.1",
                  port: int = 0, region: str = "us-east-1",
@@ -223,17 +230,19 @@ class S3Server:
                  certfile: Optional[str] = None,
                  keyfile: Optional[str] = None):
         self.api = S3ApiHandlers(object_layer, region=region, creds=creds)
+        self.extra_routers: list = []
         self.tls = bool(certfile)
         self._httpd = None
         self._edge: Optional[EdgeServer] = None
         # the edge speaks plaintext only today: TLS listeners keep the
         # threaded frontend (README "HTTP edge and admission")
         if knobs.get_bool("MINIO_TPU_EDGE") and not certfile:
-            self._edge = EdgeServer(self.api, address, port)
+            self._edge = EdgeServer(self.api, self.extra_routers,
+                                    address, port)
         else:
             self._httpd = _DeepBacklogServer(
                 (address, port),
-                _make_handler_class(self.api))
+                _make_handler_class(self.api, self.extra_routers))
             if certfile:
                 ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
                 ctx.load_cert_chain(certfile, keyfile)
@@ -259,6 +268,9 @@ class S3Server:
         host, port = self._httpd.server_address[:2]
         scheme = "https" if self.tls else "http"
         return f"{scheme}://{host}:{port}"
+
+    def register_router(self, prefix: str, fn) -> None:
+        self.extra_routers.append((prefix, fn))
 
     def start(self) -> "S3Server":
         if self._edge is not None:

@@ -1,14 +1,17 @@
 """StorageAPI — the per-drive verb interface.
 
-The seam between the object engine and a drive (reference:
-cmd/storage-interface.go:25-82; counterpart of minio_tpu/storage/api.py):
-XLStorage (POSIX, xl_storage.py) and the identity guard
-(diskid_check.py) speak these verbs, so quorum logic and healing are
+The seam between the object engine and a drive, local or remote
+(reference: cmd/storage-interface.go:25-82; counterpart of
+minio_tpu/storage/api.py): XLStorage (POSIX, xl_storage.py), RemoteStorage
+(the storage RPC client, distributed/storage_rpc.py) and the identity
+guard (diskid_check.py) speak these verbs, so quorum logic and healing are
 implementation-agnostic. Synchronous methods; the object engine fans out
 over drives with a thread pool.
 
-Left out: the remote (RPC) drive; shard writes go through open_appender,
-a local drive's persistent append handle, not append_file.
+Shard frames reach a drive one of two ways (object/bitrot_io.py): a drive
+whose ``has_appender()`` says so (a local XLStorage) takes them through
+``open_appender``, a persistent append handle; any other (a remote drive)
+takes buffered batches through ``append_file``, one call per flush.
 """
 
 from __future__ import annotations
@@ -105,7 +108,7 @@ class StorageAPI(abc.ABC):
         """Bulk version delete: ONE call per drive for N objects
         (reference DeleteVersions, cmd/storage-rest-common.go). The
         default loops locally; the storage-RPC client overrides it with
-        a single wire round-trip; the port has no RPC drive."""
+        a single wire round-trip."""
         out: list[Optional[Exception]] = []
         for fi in versions:
             try:
@@ -136,8 +139,12 @@ class StorageAPI(abc.ABC):
                   verifier: Optional[BitrotVerifier] = None) -> bytes: ...
 
     @abc.abstractmethod
+    def append_file(self, volume: str, path: str, buf: bytes) -> None: ...
+
     def open_appender(self, volume: str, path: str):
-        """Persistent append handle (write, close) for shard frames."""
+        """Persistent append handle (write, close) for shard frames; only
+        drives whose ``has_appender()`` is true have one."""
+        raise NotImplementedError
 
     @abc.abstractmethod
     def create_file(self, volume: str, path: str, size: int,

@@ -148,9 +148,13 @@ class DiskIDCheck(StorageAPI):
         return self._call(self.inner.read_file, volume, path, offset,
                           length, verifier)
 
+    def append_file(self, volume, path, buf):
+        return self._call(self.inner.append_file, volume, path, buf)
+
     def open_appender(self, volume, path):
         # identity-guarded like every other write verb: the shard-write
-        # hot path must not stream frames onto a swapped drive
+        # hot path must not stream frames onto a swapped drive (callers
+        # probe has_appender() first, delegated via __getattr__)
         return self._call(self.inner.open_appender, volume, path)
 
     def create_file(self, volume, path, size, reader):

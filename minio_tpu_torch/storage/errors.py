@@ -17,6 +17,14 @@ class DiskNotFound(StorageError):
     """Drive is offline / unreachable (errDiskNotFound)."""
 
 
+class NetworkStorageError(DiskNotFound):
+    """Transport-level failure talking to a REMOTE drive (connection
+    refused/reset, timeout, mid-stream disconnect) — distinct from the
+    remote reporting a storage error. Subclasses DiskNotFound so quorum
+    logic tolerates it like any gone drive, but callers that retry or
+    hedge can tell 'the wire broke' from 'the drive said no'."""
+
+
 class UnformattedDisk(StorageError):
     """Drive has no format.json yet (errUnformattedDisk)."""
 

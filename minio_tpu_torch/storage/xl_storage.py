@@ -262,10 +262,35 @@ class XLStorage(StorageAPI):
         except OSError as e:
             raise errors.FaultyDisk(str(e)) from e
 
+    def append_file(self, volume: str, path: str, buf: bytes) -> None:
+        """Append one buffered batch of shard frames (the remote shard
+        write: the storage RPC server lands a peer's appendfile here)."""
+        if not os.path.isdir(self._vol_dir(volume)):
+            raise errors.VolumeNotFound(volume)
+        fp = self._file_path(volume, path)
+        try:
+            os.makedirs(os.path.dirname(fp), exist_ok=True)
+            with open(fp, "ab") as f:
+                f.write(buf)
+                # remote drives stream shards through this verb (the RPC
+                # client has no appender), so the shard-durable-before-
+                # meta-commit barrier lives here too
+                atomicfile.fsync_file(f)
+        except NotADirectoryError:
+            raise errors.FileParentIsFile(fp) from None
+        except OSError as e:
+            raise errors.FaultyDisk(str(e)) from e
+
+    def has_appender(self) -> bool:
+        """Capability probe for open_appender (the identity guard
+        delegates it, so the probe reflects the backend)."""
+        return True
+
     def open_appender(self, volume: str, path: str):
         """Persistent append handle for the shard-write hot path: the
         bitrot writer streams [digest‖block] frames straight into the
-        OS file."""
+        OS file. Local drives only: remote drives take buffered batches
+        through append_file."""
         if not os.path.isdir(self._vol_dir(volume)):
             raise errors.VolumeNotFound(volume)
         fp = self._file_path(volume, path)

@@ -1,16 +1,19 @@
-"""Drive latency tracking for the quorum-ack write lane.
+"""Drive and peer latency tracking.
 
-Counterpart of minio_tpu/utils/healthtrack.py, trimmed to what multipart
-uploads call: ``write_stall_s``, the seconds a shard-write fan-out waits
-for stragglers once write quorum is durable, derived from the drives'
-shard-write latencies (``observe_disk``, fed by the engine's shard
-writes, into ``TRACKER``), and ``note_laggard``, which counts the drive
-ops the lane abandoned. The reference's tuning knobs are constants here,
-at its defaults: the lane is always on, and the grace is the drives'
-healthy write p95 times 4, within [0.5 s, 10 s].
+Counterpart of minio_tpu/utils/healthtrack.py, trimmed to two users. The
+quorum-ack write lane of multipart uploads: ``write_stall_s``, the
+seconds a shard-write fan-out waits for stragglers once write quorum is
+durable, derived from the drives' shard-write latencies (``observe_disk``,
+fed by the engine's shard writes, into ``TRACKER``), and ``note_laggard``,
+which counts the drive ops the lane abandoned. The reference's tuning
+knobs are constants here, at its defaults: the lane is always on, and the
+grace is the drives' healthy write p95 times 4, within [0.5 s, 10 s]. And
+the peer half the internode transport feeds (distributed/transport.py):
+``observe_peer`` per successful verb (``minio_tpu_peer_latency_seconds``)
+and ``clear_samples``, which drops a restarted peer's windows.
 
-Left out: hedged reads, the peer latencies, the suspect/probation
-quarantine state machine and its gauges, and the knobs
+Left out: hedged reads, the suspect/probation quarantine state machine
+and its gauges, the OBD snapshot, and the knobs
 ``MINIO_TPU_LAT_WINDOW``, ``MINIO_TPU_QUORUM_ACK`` and
 ``MINIO_TPU_WRITE_STALL_*``.
 """
@@ -27,6 +30,14 @@ WRITE_STALL_K = 4.0        # straggler grace = healthy write p95 x this
 WRITE_STALL_FLOOR_S = 0.5
 WRITE_STALL_CEIL_S = 10.0  # also the cold-start grace
 
+# sub-ms to tens-of-seconds: tmpfs drives (~50 us) to a gray-failing
+# peer (~seconds)
+_LAT_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+_PEER_LAT = telemetry.REGISTRY.histogram(
+    "minio_tpu_peer_latency_seconds",
+    "Per-peer internode RPC latency (feeds the gray-failure health "
+    "snapshot)", buckets=_LAT_BUCKETS)
 _LAGGARDS = telemetry.REGISTRY.counter(
     "minio_tpu_write_laggards_total",
     "Drive write ops abandoned to the background lane after write quorum "
@@ -72,6 +83,16 @@ class HealthTracker:
             if w is None:
                 w = self._windows[(kind, key, verb)] = _Window(LAT_WINDOW)
             w.add(seconds)
+        if kind == "peer":
+            _PEER_LAT.observe(seconds, peer=key, verb=verb)
+
+    def clear_samples(self, kind: str, key: str) -> None:
+        """Drop an entity's latency windows: evidence gathered against a
+        peer's previous incarnation must not judge the new one."""
+        with self._mu:
+            for wkey in [w for w in self._windows
+                         if w[0] == kind and w[1] == key]:
+                del self._windows[wkey]
 
     def healthy_percentile(self, kind: str, q: float,
                            verbs=None) -> Optional[float]:
@@ -100,6 +121,10 @@ def disk_key(disk) -> str:
 
 def observe_disk(disk, verb: str, seconds: float) -> None:
     TRACKER.observe("drive", disk_key(disk), verb, seconds)
+
+
+def observe_peer(key: str, verb: str, seconds: float) -> None:
+    TRACKER.observe("peer", key, verb, seconds)
 
 
 def _clamped_deadline(p: Optional[float], k_mult: float, floor: float,

@@ -3,10 +3,11 @@
 Counterpart of minio_tpu/utils/knobs.py, trimmed to the knobs of the
 pipelined data path, the batch former, heal, the MRF queue, the disk
 monitor, the SSE cipher choice, the scan plane, the tier plane, the
-bucket metacache, the hot-object read cache, the admission gate and the
-HTTP edge, with the reference's names, types and defaults
-(minio_tpu/utils/knobs.py:160-197, :203-206, :220-233, :261-281,
-:284-291, :299-301, :310-331, :403-410, :434-435, :438-485). Left out:
+bucket metacache, the hot-object read cache, the admission gate, the
+HTTP edge and the internode RPC transport, with the reference's names,
+types and defaults (minio_tpu/utils/knobs.py:160-197, :203-206, :220-233,
+:261-281, :284-306, :310-331, :356-359, :403-410, :434-435, :438-485).
+Left out:
 the README table renderer and every knob no ported module reads. No knob here is one the reference lacks.
 
 Getters read the environment at call time: tests flip knobs with
@@ -267,3 +268,18 @@ define("MINIO_TPU_EDGE_IDLE_S", "float", 120.0,
 define("MINIO_TPU_EDGE_POOL", "int", 0,
        "blocking handler worker threads behind the event loop "
        "(0 = 8 x cores + 16)")
+
+# -- internode RPC, peers and locks --------------------------------------------
+define("MINIO_TPU_RPC_RETRIES", "int", 2,
+       "extra attempts for idempotent RPC verbs")
+define("MINIO_TPU_RPC_RETRY_BACKOFF", "float", 0.05,
+       "first RPC retry delay, seconds")
+define("MINIO_TPU_RPC_RETRY_BACKOFF_MAX", "float", 2.0,
+       "RPC retry delay cap, seconds")
+define("MINIO_TPU_PEER_PROBE_S", "float", 30.0,
+       "offline peer health-probe backoff cap, seconds (any "
+       "successful direct call re-admits the host immediately)")
+define("MINIO_TPU_RPC_STREAM_READ_S", "float", 30.0,
+       "per-read socket deadline on streamed RPC responses: a peer "
+       "that goes silent mid-stream fails the reader instead of "
+       "parking it forever (0 disables)")

@@ -61,6 +61,11 @@ class Counter(_Family):
         with self._mu:
             return self._series.get(_label_key(labels), 0)
 
+    def series(self) -> dict:
+        """label tuple -> value of every labelled series."""
+        with self._mu:
+            return dict(self._series)
+
 
 class Gauge(_Family):
     """Settable instantaneous value (optionally labelled)."""

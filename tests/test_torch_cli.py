@@ -5,8 +5,10 @@ The CLI runs as a subprocess with `--device cpu`: it must answer a signed
 ListBuckets, a PUT and a GET, and exit 0 on SIGTERM, with MINIO_COMPRESS
 on too (the object stored compressed). One drive path serves the plain-
 file FS backend; `--pool` appends a pool of drives to an erasure node
-(and with one drive path exits 2). `--node` and the default device on a
-host without a card are refused with exit code 2 and a message. The boot's background plane (disk monitor, tracker,
+(and with one drive path exits 2). `--node` without a `--this` that
+indexes the node list, and the default device on a host without a card,
+are refused with exit code 2 and a message (the distributed boot itself
+is in test_torch_distributed_boot.py). The boot's background plane (disk monitor, tracker,
 heal scanner, crawler) is wired and closes on shutdown. Every test is
 bounded: subprocesses by their own timeouts, the rest by an alarm.
 """
@@ -138,8 +140,8 @@ def test_cli_serves_compressed_objects(tmp_path, algo):
     (["--pool", "{root}/p{1...4}"], {}, "--pool"),
 ])
 def test_cli_refuses_what_it_does_not_serve(tmp_path, args, env, needle):
-    """`--node` stays refused (exit 2, pointing at the roadmap item that
-    holds it); `--pool` now appends a pool online, and the node serves
+    """`--node` without `--this` is refused (exit 2, naming the flag it
+    needs); `--pool` now appends a pool online, and the node serves
     across both pools."""
     args = [a.replace("{root}", str(tmp_path)) for a in args]
     port = _free_port()
@@ -152,7 +154,7 @@ def test_cli_refuses_what_it_does_not_serve(tmp_path, args, env, needle):
     if needle == "--node":
         out, err = proc.communicate(timeout=120)
         assert proc.returncode == 2
-        assert needle in err and "Queue A item 4" in err
+        assert needle in err and "--this must index the --node list" in err
         return
     try:
         c = S3TestClient("127.0.0.1", port)
