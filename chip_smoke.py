@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-About 12 minutes on one H100 (713.6-732.2 s, PERF.md §5; the host's speed
-moves it by a third either way), the kernels' builds included. Phases, each
-printing one JSON line; any failure exits non-zero:
+About 12-15 minutes on one H100 (719.6-928.5 s with phase 19, PERF.md §5;
+the host's speed moves it by a third either way), the kernels' builds
+included. Phases, each printing one JSON line; any failure exits
+non-zero:
 
   1. build    — compile every hand-written kernel (csrc/*.cu, one nvcc per
                 source, all at once) and report nvcc's register/spill lines
@@ -252,20 +253,38 @@ printing one JSON line; any failure exits non-zero:
                 (see run_distributed): 4 x 4 drives on tmpfs, one 12+4
                 set at the CLI's default 4 MiB blocks, internode storage,
                 lock, peer and bootstrap RPC on each node's listener,
-                dsync; over signed HTTP at 8 concurrent requests, sixteen
+                dsync; over signed HTTP at 8 concurrent requests, twelve
                 64 MiB PUTs, one 12,345 B longer and one of 1 KiB spread
                 over the nodes, a 64 MiB SSE-S3 object, each read back
                 through another node; node 3 shut down, every object read
                 degraded, four 64 MiB PUTs at write quorum; node 3
                 rebooted and its shards healed by the peers' MRF queues;
                 node 0 shut down and the loss objects read through node
-                1; 16 rounds of same-key 16 MiB PUTs through nodes 0 and
+                1; 8 rounds of same-key 16 MiB PUTs through nodes 0 and
                 2 (one body whole, the 16 xl.meta agreeing); GiB/s,
                 stage seconds, dispatches and internode RPC calls and
                 bytes by verb per step. Then the CLI's `--node` boot as
                 four subprocesses on the card: a 64 MiB PUT through node
                 0, its GET through node 3, each process's card memory,
-                SIGTERM, exit 0.
+                SIGTERM, exit 0. After the boot, a user added through
+                node 0's admin router signs a 16 MiB PUT through node 2,
+                and one ?cluster=1 scrape through node 1 carries all four
+                nodes.
+  19. iam_admin — IAM, STS and the operator routers (see run_iam_admin):
+                a fresh node with IAM on (16 drives at 12+4, 1 MiB
+                blocks, tmpfs where it has room), driven through madmin
+                over signed HTTP: 256 users, 32 custom policies, 8 groups
+                of 32 members, 32 service accounts; 8 users' 64 MiB PUTs
+                and GETs at once, a denied PUT, an AssumeRole
+                credential's 64 MiB SSE-S3 object (and its refusal without
+                the session token), an anonymous GET through a bucket
+                policy, an allowed and a denied Q6 Select; the admin heal
+                sequence over an emptied drive, `fsck --repair`, `tier
+                ls` and `decommission --status` as subprocesses, health,
+                two Prometheus scrapes, set-config / config-history /
+                restore-config; a reboot on the same drives (iam.load()
+                timed). Whether `cryptography` imports, and which
+                AES-256-GCM sealed the config, on the phase's first line.
   4. timings  — (continued) chacha20 at the encode launch (8 rows, 1 MiB
                 span in 1,048,584-byte rows) and at GET's 64 x 65,536:
                 CUDA events around back-to-back wrapper calls, the kernel's
@@ -289,7 +308,7 @@ printing one JSON line; any failure exits non-zero:
                 card.
 
 Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
-16, 17, 18, 4.
+16, 17, 18, 19, 4.
 Each path's launch counters are set to 0 just before it runs and read
 just after. Then it prints the kernel table as one JSON line (with each kernel's launches on every path),
 the card's name and power limit, and the device line last. It needs one
@@ -418,14 +437,28 @@ FS_CONTEXT_MIB = 200                # a CUDA context's memory is far above
 # `minio server http://host{1...4}/export{1...4}`: 4 nodes of 4 drives,
 # one 12+4 set, the port CLI's default 4 MiB blocks)
 DIST_NODES, DIST_DRIVES = 4, 4
-DIST_OBJECTS = (16, 64 << 20)       # objects, bytes each; then one 12,345 B
+DIST_OBJECTS = (12, 64 << 20)       # objects, bytes each; then one 12,345 B
 #                                     longer and one of 1 KiB
 DIST_SSE = 64 << 20                 # the SSE-S3 object
 DIST_LOSS_PUTS = (4, 64 << 20)      # PUTs at quorum with node 3 down
-DIST_LOCK = (16, 16 << 20)          # same-key rounds, bytes each PUT
+DIST_LOCK = (8, 16 << 20)           # same-key rounds, bytes each PUT
 DIST_CLIENTS = 8                    # concurrent signed requests
 DIST_CLI_OBJECT = 64 << 20          # the CLI cluster's PUT and GET
 DIST_SHM_MIN_BYTES = 4 << 30        # tmpfs room the phase's drives need
+# phase 19, IAM and the operator routers (upstream's docs/multi-user and
+# docs/sts guides' shapes over phase 10's node: 16 drives, 12+4, 1 MiB)
+IAM_USERS = 256
+IAM_POLICIES = 32                   # each read-write on its own bucket
+IAM_GROUPS = (8, 32)                # groups, members each
+IAM_SVC = 32                        # service accounts
+IAM_ADMIN_CLIENTS = 1               # admin mutations at once (4 at once
+#                                     contend: PERF.md §6, PR 18)
+IAM_TRAFFIC = (8, 64 << 20)         # users at once, one object each
+IAM_SSE = 64 << 20                  # the STS credential's SSE-S3 object
+IAM_DENIED = 16 << 20               # the PUT into a denied bucket
+IAM_HEAL_DRIVE = 7                  # the drive whose buckets are emptied
+IAM_SHM_MIN_BYTES = 4 << 30         # tmpfs room the phase's drives need
+DIST_IAM_PUT = 16 << 20             # phase 18: the admin-made user's PUT
 
 
 def fail(msg: str) -> None:
@@ -768,6 +801,9 @@ def main() -> int:
         # -- 18. distributed nodes: four in this process, then the CLI's
         # --node boot as four subprocesses ------------------------------
         distp = run_distributed(tmp, card, counts, stagetimer, np)
+        # -- 19. IAM, STS and the operator routers: its own boot ----------
+        iamp = run_iam_admin(tmp, card, counts, stagetimer, np, head,
+                             head_q6)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths_launches = {"main_path": main_path["launches"],
@@ -782,7 +818,8 @@ def main() -> int:
                       "tier": tierp["launches"],
                       "pools": poolsp["launches"],
                       "fs": fsp["launches"],
-                      "distributed": distp["launches"]}
+                      "distributed": distp["launches"],
+                      "iam_admin": iamp["launches"]}
 
     # -- 4. timings -------------------------------------------------------
     b, s = 32, -(-(1 << 20) // k)
@@ -5377,19 +5414,24 @@ def run_distributed(tmp, card, counts, stagetimer, np) -> dict:
     16 xl.meta agreeing). The launch counts are set to 0 just before and
     read just after. Then the CLI's `--node` boot as four subprocesses on
     the card: a PUT through node 0, a GET through node 3, SIGTERM, exit 0,
-    each process's card memory. One JSON line per step."""
+    each process's card memory. After the boot, within the counted path:
+    a user added through node 0's admin router (madmin) signs a
+    DIST_IAM_PUT PUT through node 2, and one ?cluster=1 scrape through
+    node 1 carries all four nodes' minio_disks_online. One JSON line per
+    step."""
     import collections
     import concurrent.futures
     import signal
     import socket
     import threading
 
-    from minio_tpu_torch import cluster
+    from minio_tpu_torch import cluster, madmin
     from minio_tpu_torch.distributed import transport
     from minio_tpu_torch.object import codec as codec_mod
     from minio_tpu_torch.s3.client import S3Client
     from minio_tpu_torch.s3.credentials import Credentials
     from minio_tpu_torch.storage.xl_meta import XLMetaV2
+    from minio_tpu_torch.utils import promfed
     n_nodes, n_drives = DIST_NODES, DIST_DRIVES
     k, m = 12, 4
     rng = np.random.default_rng(SEED + 71)
@@ -5536,6 +5578,43 @@ def run_distributed(tmp, card, counts, stagetimer, np) -> dict:
         rpc_start = transport.verb_stats()
         if client(0).send("PUT", "/dist")[0] != 200:
             fail("distributed: make bucket")
+        # a user made through node 0's admin router signs a PUT through
+        # node 2 (the peers took the iam-delta); one ?cluster=1 scrape
+        # through node 1 carries all four nodes
+        disp0, rpc0 = dispatches(), transport.verb_stats()
+        t0 = time.perf_counter()
+        madmin.AdminClient("127.0.0.1", nodes[0].s3.port, creds.access_key,
+                           creds.secret_key).add_user("distuser",
+                                                      "distusersecret")
+        madmin.AdminClient("127.0.0.1", nodes[0].s3.port, creds.access_key,
+                           creds.secret_key).set_policy("readwrite",
+                                                        "distuser")
+        admin_s = time.perf_counter() - t0
+        iam_body = rng.bytes(DIST_IAM_PUT)
+        t0 = time.perf_counter()
+        st, h, body = S3Client(nodes[2].s3.port, Credentials(
+            "distuser", "distusersecret"), timeout=600).send(
+            "PUT", "/dist/iam-user", body=iam_body)
+        put_s = time.perf_counter() - t0
+        if st != 200 or h.get("etag") != f'"{md5(iam_body)}"':
+            fail(f"distributed: the admin-made user's PUT through node 2: "
+                 f"HTTP {st} {body[:200]!r}")
+        t0 = time.perf_counter()
+        scrape = madmin.AdminClient(
+            "127.0.0.1", nodes[1].s3.port, creds.access_key,
+            creds.secret_key).cluster_metrics()
+        scrape_s = time.perf_counter() - t0
+        online = promfed.parse_exposition(scrape)["minio_disks_online"]
+        by_node = {dict(labels)["node"]: v
+                   for (_n, labels), v in online.samples.items()}
+        if sorted(by_node) != sorted(sp.addr for sp in specs) or \
+                set(by_node.values()) != {16}:
+            fail(f"distributed: the ?cluster=1 scrape through node 1 "
+                 f"carries {by_node}")
+        summary["iam"] = step(
+            "iam_user_put", DIST_IAM_PUT, put_s, disp0, rpc0,
+            admin_s=round(admin_s, 4), scrape_s=round(scrape_s, 4),
+            scrape_bytes=len(scrape), disks_online_by_node=by_node)
         n_obj, size = DIST_OBJECTS
         objs = {f"obj-{i:02d}": rng.bytes(size) for i in range(n_obj)}
         objs["obj-big"] = rng.bytes(size + 12345)
@@ -5769,6 +5848,569 @@ def run_distributed(tmp, card, counts, stagetimer, np) -> dict:
                 os.environ[v] = old
         shutil.rmtree(root, ignore_errors=True)
     summary["cli"] = cli
+    summary["seconds"] = round(time.perf_counter() - t_phase, 3)
+    summary["card"] = card
+    emit(summary)
+    return summary
+
+
+def run_iam_admin(tmp, card, counts, stagetimer, np, lineitem_head: bytes,
+                  q6_oracle: bytes) -> dict:
+    """Phase 19: IAM, STS and the operator routers on the card. A fresh
+    node as `python -m minio_tpu_torch server /d{1...16}` boots it
+    (cluster.start_single, 12+4, 1 MiB blocks, IAM over the erasure-coded
+    identity store, the admin, health and metrics routers), on tmpfs where
+    /dev/shm has IAM_SHM_MIN_BYTES free; its background loops and IAM
+    refresh stop before anything is timed. The launch counts are set to 0
+    just before the phase's traffic and read just after it. Steps, one
+    JSON line each:
+      * the AES-256-GCM choice: whether ``cryptography`` imports, and
+        config.kv.SEAL, before any config write (the phase fails where it
+        does not import: the config is sealed with it);
+      * admin, through madmin over signed HTTP, IAM_ADMIN_CLIENTS
+        mutation at a time: IAM_USERS users, IAM_POLICIES custom policies (read-write on
+        a bucket each; user u gets policy u mod 32), IAM_GROUPS groups of
+        32 members (group g gets policy g), IAM_SVC service accounts;
+        mutation p50/p99 and the records stored under
+        .minio.sys/config/iam/;
+      * user traffic: IAM_TRAFFIC users at once each PUT one object into
+        their bucket and GET it back (bytes and ETag); one PUT into a
+        bucket the user is denied answers 403 and stores nothing; an
+        AssumeRole credential PUTs and GETs an IAM_SSE SSE-S3 object
+        (chacha20 launches) and without its session token gets
+        InvalidTokenId; an anonymous GET through a bucket policy; a user
+        allowed s3:GetObject runs Q6's COUNT over the lineitem's first
+        NS_SELECT_BYTES (phase 11's oracle, byte for byte) and one denied
+        it gets 403 with no scan dispatch and no launch; the `auth`
+        stage's p50 and p99 (stagetimer);
+      * operator traffic: IAM_HEAL_DRIVE's bucket directories emptied and
+        the admin heal sequence run to done (every object then read byte-
+        and ETag-equal, the drive's xl.meta back); `fsck --repair`, `tier
+        ls` and `decommission --status` as CLI subprocesses (a planted
+        stale tmp file repaired); health live and ready; two Prometheus
+        scrapes (16 drives online; the MRF gauges and the recover
+        dispatches between the scrapes equal the node's own counts);
+        set-config (compression), config-history and restore-config, each
+        read back;
+      * a reboot on the same drives: the boot's iam.load() timed on its
+        own (IAMSys.last_load_s) with the records it read; a user's and
+        the STS credential's requests still succeed."""
+    import concurrent.futures
+    import http.client
+    import urllib.parse
+    import xml.etree.ElementTree as ET
+
+    from minio_tpu_torch import cluster, madmin
+    from minio_tpu_torch.config import kv as config_kv
+    from minio_tpu_torch.object import codec as codec_mod
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.s3.credentials import Credentials
+    from minio_tpu_torch.scripts import scan_cases as sc
+    from minio_tpu_torch.storage.xl_storage import MINIO_META_BUCKET
+    from minio_tpu_torch.utils import promfed
+    k, m, bs = 12, 4, 1 << 20
+    rng = np.random.default_rng(SEED + 97)
+    t_phase = time.perf_counter()
+
+    def note(msg: str) -> None:
+        print(f"[iam_admin {time.perf_counter() - t_phase:.1f} s] {msg}",
+              file=sys.stderr, flush=True)
+
+    # -- the config seal: cryptography's AES-256-GCM, named before any
+    # config write ----------------------------------------------------------
+    try:
+        import cryptography
+        crypto_version = cryptography.__version__
+    except ImportError:
+        crypto_version = None
+    emit({"phase": "iam_admin", "step": "config_seal",
+          "cryptography_imports": crypto_version is not None,
+          "cryptography_version": crypto_version,
+          "config_seal": config_kv.SEAL, "card": card})
+    if crypto_version is None:
+        fail("iam_admin: cryptography does not import, and the config "
+             "is sealed with its AES-256-GCM")
+    creds = Credentials("smokeiamroot", "smokeiamrootsecret")
+    env = {"MINIO_SSE_MASTER_KEY": rng.bytes(32).hex(),
+           "MINIO_TPU_SSE_CIPHER": "chacha20"}
+    saved_env = {v: os.environ.get(v) for v in env}
+    os.environ.update(env)
+    shm = "/dev/shm"
+    on_shm = os.path.isdir(shm) and \
+        shutil.disk_usage(shm).free >= IAM_SHM_MIN_BYTES
+    root = tempfile.mkdtemp(prefix="chip_smoke_iam_",
+                            dir=shm if on_shm else tmp)
+    drives = [os.path.join(root, f"d{i}") for i in range(k + m)]
+
+    def boot():
+        t0 = time.perf_counter()
+        node = cluster.start_single(drives, creds=creds, parity=m,
+                                    set_drive_count=k + m, block_size=bs)
+        boot_s = time.perf_counter() - t0
+        # the loops' cadence would race the timed calls; the IAM refresh
+        # re-reads every record and stays out of every timed window
+        node._iam_refresh_stop.set()
+        for loop in (node.disk_monitor, node.heal_scanner, node.crawler,
+                     node.transition_worker):
+            loop.close()
+            if getattr(loop, "_thread", None) is not None:
+                loop._thread.join(timeout=120)
+                if loop._thread.is_alive():
+                    fail("iam_admin: a background loop did not stop")
+        return node, boot_s
+
+    def md5(b: bytes) -> str:
+        return hashlib.md5(b).hexdigest()
+
+    def dispatches() -> dict:
+        return {v: s["calls"] for v, s in codec_mod.step_seconds().items()}
+
+    def diff(after: dict, before: dict) -> dict:
+        return {v: after[v] - before.get(v, 0) for v in after
+                if after[v] - before.get(v, 0)}
+
+    def auth_stage() -> dict:
+        st = stage_report(stagetimer)["stages"].get("auth", {})
+        return {k2: st.get(k2) for k2 in ("p50_ms", "p99_ms", "calls")}
+
+    def step(name: str, nbytes: int, wall: float, disp0: dict, c0: dict,
+             **extra) -> dict:
+        c1 = counts.read()
+        line = {"phase": "iam_admin", "step": name, "bytes": nbytes,
+                "seconds": round(wall, 4),
+                "gib_s": round(nbytes / (1 << 30) / wall, 4)
+                if wall and nbytes else None,
+                "dispatches": diff(dispatches(), disp0),
+                "launches": {n: c1[n] - c0[n] for n in c1},
+                **extra, "card": card}
+        emit(line)
+        return line
+
+    def run_all(jobs: list, width: int, what: str) -> tuple:
+        """[(name, fn)] at `width` at once; (wall, {name: result})."""
+        out = {}
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(width) as ex:
+            futs = {ex.submit(fn): name for name, fn in jobs}
+            for f in concurrent.futures.as_completed(futs):
+                try:
+                    out[futs[f]] = f.result()
+                except Exception as e:  # noqa: BLE001
+                    fail(f"iam_admin {what}: {futs[f]}: {e!r}")
+        return time.perf_counter() - t0, out
+
+    def http_status(port: int, path: str) -> int:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            conn.request("GET", path)
+            r = conn.getresponse()
+            r.read()
+            return r.status
+        finally:
+            conn.close()
+
+    def iam_records(layer) -> int:
+        objs, _, _ = layer.list_objects(MINIO_META_BUCKET, "config/iam/",
+                                        "", "", 100000)
+        return len(objs)
+
+    summary = {"phase": "iam_admin", "step": "summary", "drives": k + m,
+               "ec": f"{k}+{m}", "block_size": bs,
+               "drives_on": "tmpfs (/dev/shm)" if on_shm
+               else "the disk (tmp)",
+               "cryptography_imports": True,
+               "cryptography_version": crypto_version,
+               "config_seal": config_kv.SEAL}
+    node = None
+    try:
+        node, summary["boot_s"] = boot()
+        port = node.s3.port
+        layer = node.object_layer
+        root_c = S3Client(port, creds, timeout=600)
+        adm = madmin.AdminClient("127.0.0.1", port, creds.access_key,
+                                 creds.secret_key, timeout=120)
+        note("booted")
+        # -- the path: counts set to 0 just before ---------------------------
+        counts.zero()
+        codec_mod.reset_step_seconds()
+        buckets = [f"iam-{j:02d}" for j in range(IAM_POLICIES)]
+        for b in buckets + ["iam-pub", "iam-sel"]:
+            if root_c.send("PUT", f"/{b}")[0] != 200:
+                fail(f"iam_admin: make bucket {b}")
+        # -- admin through madmin ------------------------------------------
+        users = {f"user{u:03d}": f"user{u:03d}-secret-key"
+                 for u in range(IAM_USERS)}
+        names = sorted(users)
+        lat: list = []
+
+        def timed(fn, *a, **kw):
+            c = madmin.AdminClient("127.0.0.1", port, creds.access_key,
+                                   creds.secret_key, timeout=120)
+            t0 = time.perf_counter()
+            out = getattr(c, fn)(*a, **kw)
+            lat.append(time.perf_counter() - t0)
+            return out
+
+        def policy(j: int) -> str:
+            return json.dumps({"Version": "2012-10-17", "Statement": [{
+                "Effect": "Allow", "Action": ["s3:*"],
+                "Resource": [f"arn:aws:s3:::{buckets[j]}",
+                             f"arn:aws:s3:::{buckets[j]}/*"]}]})
+
+        n_groups, per_group = IAM_GROUPS
+        disp0, c0 = dispatches(), counts.read()
+        t_admin = time.perf_counter()
+        w1, _ = run_all([(u, lambda u=u: timed("add_user", u, users[u]))
+                         for u in names], IAM_ADMIN_CLIENTS, "add-user")
+        w2, _ = run_all([(f"rw-{j}", lambda j=j: timed(
+            "add_canned_policy", f"rw-{j:02d}", policy(j)))
+            for j in range(IAM_POLICIES)], IAM_ADMIN_CLIENTS, "policy")
+        w3, _ = run_all([(u, lambda i=i, u=u: timed(
+            "set_policy", f"rw-{i % IAM_POLICIES:02d}", u))
+            for i, u in enumerate(names)], IAM_ADMIN_CLIENTS, "attach")
+        w4, _ = run_all([(f"g{g}", lambda g=g: (
+            timed("update_group_members", f"group{g}",
+                  names[g * per_group:(g + 1) * per_group]),
+            timed("set_policy", f"rw-{g:02d}", f"group{g}",
+                  is_group=True))) for g in range(n_groups)],
+            IAM_ADMIN_CLIENTS, "groups")
+        w5, svc = run_all([(f"s{i}", lambda i=i: timed(
+            "add_service_account", names[i])) for i in range(IAM_SVC)],
+            IAM_ADMIN_CLIENTS, "service accounts")
+        admin_s = time.perf_counter() - t_admin
+        iam = node.iam
+        if len(iam.users) != IAM_USERS or len(iam.svc_accounts) != IAM_SVC \
+                or len(iam.groups) != n_groups or \
+                any(len(g["members"]) != per_group
+                    for g in iam.groups.values()):
+            fail("iam_admin: the IAM cache does not hold what the admin "
+                 "made")
+        records = iam_records(layer)
+        summary["admin"] = step(
+            "admin", 0, admin_s, disp0, c0, mutations=len(lat),
+            mutation_ms=pct_ms(lat),
+            walls_s={"users": round(w1, 3), "policies": round(w2, 3),
+                     "attach": round(w3, 3), "groups": round(w4, 3),
+                     "service_accounts": round(w5, 3)},
+            clients=IAM_ADMIN_CLIENTS, records_stored=records)
+        note(f"admin: {len(lat)} mutations, {records} records")
+        # -- user traffic ------------------------------------------------------
+        n_users, size = IAM_TRAFFIC
+        objs = {names[i]: rng.bytes(size) for i in range(n_users)}
+        ucl = {u: S3Client(port, Credentials(u, users[u]), timeout=600)
+               for u in objs}
+        bucket_of = {u: buckets[i % IAM_POLICIES]
+                     for i, u in enumerate(names)}
+        stagetimer.reset()
+        stagetimer.enable()
+        disp0, c0 = dispatches(), counts.read()
+
+        def put(u):
+            st, h, body = ucl[u].send("PUT", f"/{bucket_of[u]}/{u}",
+                                      body=objs[u])
+            if st != 200 or h.get("etag") != f'"{md5(objs[u])}"':
+                fail(f"iam_admin: {u}'s PUT: HTTP {st} {body[:200]!r}")
+
+        def get(u):
+            st, h, body = ucl[u].send("GET", f"/{bucket_of[u]}/{u}")
+            if st != 200 or body != objs[u] or \
+                    h.get("etag") != f'"{md5(objs[u])}"':
+                fail(f"iam_admin: {u}'s GET: HTTP {st}, bytes or ETag "
+                     "differ")
+
+        wall, _ = run_all([(u, lambda u=u: put(u)) for u in objs],
+                          n_users, "user PUTs")
+        summary["user_put"] = step("user_put", n_users * size, wall, disp0,
+                                   c0, users=n_users, auth=auth_stage())
+        disp0, c0 = dispatches(), counts.read()
+        wall, _ = run_all([(u, lambda u=u: get(u)) for u in objs],
+                          n_users, "user GETs")
+        summary["user_get"] = step("user_get", n_users * size, wall, disp0,
+                                   c0, users=n_users, auth=auth_stage())
+        note("user PUTs and GETs")
+        # a PUT into a bucket the user is denied stores nothing
+        u0 = names[0]
+        denied_bucket = bucket_of[names[1]]
+        disp0, c0 = dispatches(), counts.read()
+        t0 = time.perf_counter()
+        st, _h, body = ucl[u0].send("PUT", f"/{denied_bucket}/denied",
+                                    body=rng.bytes(IAM_DENIED))
+        wall = time.perf_counter() - t0
+        stored = [d for d in drives
+                  if os.path.exists(os.path.join(d, denied_bucket,
+                                                 "denied"))]
+        if st != 403 or b"AccessDenied" not in body or stored or \
+                root_c.send("HEAD", f"/{denied_bucket}/denied")[0] != 404:
+            fail(f"iam_admin: the denied PUT: HTTP {st}, stored on "
+                 f"{len(stored)} drives")
+        summary["denied_put"] = step("denied_put", 0, wall, disp0, c0,
+                                     status=st)
+        # an AssumeRole credential's SSE-S3 object
+        form = urllib.parse.urlencode({
+            "Action": "AssumeRole", "Version": "2011-06-15",
+            "DurationSeconds": "3600"}).encode()
+        st, _h, body = ucl[u0].send("POST", "/", body=form)
+        if st != 200:
+            fail(f"iam_admin: AssumeRole: HTTP {st} {body[:200]!r}")
+        ns = {"sts": "https://sts.amazonaws.com/doc/2011-06-15/"}
+        ce = ET.fromstring(body).find(".//sts:Credentials", ns)
+        sts = Credentials(
+            access_key=ce.find("sts:AccessKeyId", ns).text,
+            secret_key=ce.find("sts:SecretAccessKey", ns).text,
+            session_token=ce.find("sts:SessionToken", ns).text)
+        sts_c = S3Client(port, sts, timeout=600)
+        sse_data = rng.bytes(IAM_SSE)
+        sse_path = f"/{bucket_of[u0]}/sts-sse"
+        disp0, c0 = dispatches(), counts.read()
+        t0 = time.perf_counter()
+        st, h, body = sts_c.send(
+            "PUT", sse_path, body=sse_data,
+            headers={"x-amz-server-side-encryption": "AES256"})
+        if st != 200 or h.get("etag") != f'"{md5(sse_data)}"':
+            fail(f"iam_admin: the STS SSE PUT: HTTP {st} {body[:200]!r}")
+        st, h, body = sts_c.send("GET", sse_path)
+        wall = time.perf_counter() - t0
+        if st != 200 or body != sse_data or \
+                h.get("etag") != f'"{md5(sse_data)}"':
+            fail(f"iam_admin: the STS SSE GET: HTTP {st}, bytes or ETag "
+                 "differ")
+        naked = S3Client(port, Credentials(sts.access_key, sts.secret_key))
+        st_naked, _h, body_naked = naked.send("GET", sse_path)
+        if st_naked != 403 or b"InvalidTokenId" not in body_naked:
+            fail(f"iam_admin: the STS credential without its token: HTTP "
+                 f"{st_naked}")
+        summary["sts_sse"] = step("sts_sse_put_get", 2 * IAM_SSE, wall,
+                                  disp0, c0, without_token=st_naked)
+        if summary["sts_sse"]["launches"]["chacha20"] <= 0:
+            fail("iam_admin: the STS SSE object launched no chacha20")
+        # an anonymous GET through a bucket policy
+        pub = json.dumps({"Version": "2012-10-17", "Statement": [{
+            "Effect": "Allow", "Principal": {"AWS": ["*"]},
+            "Action": ["s3:GetObject"],
+            "Resource": ["arn:aws:s3:::iam-pub/*"]}]}).encode()
+        pub_body = rng.bytes(4096)
+        if root_c.send("PUT", "/iam-pub/o", body=pub_body)[0] != 200 or \
+                root_c.send("PUT", "/iam-pub", query={"policy": ""},
+                            body=pub)[0] not in (200, 204):
+            fail("iam_admin: the public bucket's object or policy")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/iam-pub/o")
+        r = conn.getresponse()
+        anon = (r.status, r.read())
+        conn.close()
+        if anon != (200, pub_body):
+            fail(f"iam_admin: the anonymous GET: HTTP {anon[0]}")
+        # an allowed and a denied Select
+        sel_users = {"selallow": ("s3:GetObject", "selallow-secret"),
+                     "seldeny": ("s3:PutObject", "seldeny-secret")}
+        for u, (action, secret) in sel_users.items():
+            adm.add_user(u, secret)
+            adm.add_canned_policy(f"pol-{u}", json.dumps({
+                "Version": "2012-10-17", "Statement": [{
+                    "Effect": "Allow", "Action": [action],
+                    "Resource": ["arn:aws:s3:::iam-sel/*"]}]}))
+            adm.set_policy(f"pol-{u}", u)
+        if root_c.send("PUT", "/iam-sel/lineitem.csv",
+                       body=lineitem_head)[0] != 200:
+            fail("iam_admin: the lineitem PUT")
+        sel = {}
+        for u, (_a, secret) in sel_users.items():
+            scan0 = node.scheduler.stats()["verbs"]["scan"]["batches"]
+            disp0, c0 = dispatches(), counts.read()
+            t0 = time.perf_counter()
+            st, _h, body = S3Client(port, Credentials(u, secret),
+                                    timeout=600).send(
+                "POST", "/iam-sel/lineitem.csv",
+                query={"select": "", "select-type": "2"},
+                body=sc.select_xml(sc.Q6_COUNT))
+            wall = time.perf_counter() - t0
+            scans = node.scheduler.stats()["verbs"]["scan"]["batches"] - \
+                scan0
+            sel[u] = step(f"select_{u}", len(lineitem_head), wall, disp0,
+                          c0, status=st, scan_dispatches=scans)
+            if u == "selallow" and (st != 200 or body != q6_oracle or
+                                    sel[u]["launches"]["scan_eval"] <= 0):
+                fail(f"iam_admin: the allowed Select: HTTP {st}, "
+                     f"{len(body)} B against the oracle's "
+                     f"{len(q6_oracle)} B")
+            if u == "seldeny" and (st != 403 or scans or
+                                   any(sel[u]["launches"].values())):
+                fail(f"iam_admin: the denied Select: HTTP {st}, {scans} "
+                     f"scan dispatches, {sel[u]['launches']}")
+        stagetimer.disable()
+        summary["select"] = sel
+        summary["auth"] = auth_stage()
+        note("STS, anonymous and Select")
+        # -- operator traffic ------------------------------------------------
+        metrics0 = promfed.parse_exposition(adm.metrics_text())
+        rec0 = node.scheduler.stats()["verbs"]["recover"]
+        victim = drives[IAM_HEAL_DRIVE]
+        every = {f"/{bucket_of[u]}/{u}": objs[u] for u in objs}
+        every[sse_path] = sse_data
+        every["/iam-pub/o"] = pub_body
+        every["/iam-sel/lineitem.csv"] = lineitem_head
+        for b in buckets + ["iam-pub", "iam-sel"]:
+            shutil.rmtree(os.path.join(victim, b), ignore_errors=True)
+        disp0, c0 = dispatches(), counts.read()
+        t0 = time.perf_counter()
+        token = adm.heal_start()
+        deadline = time.monotonic() + 300
+        while True:
+            hs = adm.heal_status(token)
+            if hs["status"] != "running":
+                break
+            if time.monotonic() > deadline:
+                fail("iam_admin: the heal sequence did not finish in 300 s")
+            time.sleep(0.05)
+        heal_s = time.perf_counter() - t0
+        if hs["status"] != "done" or hs["failures"]:
+            fail(f"iam_admin: the heal sequence: {hs}")
+        missing = [p for p in every if not os.path.exists(
+            os.path.join(victim, p.lstrip("/"), "xl.meta"))]
+        if missing:
+            fail(f"iam_admin: not healed onto the emptied drive: "
+                 f"{missing[:4]}")
+        rec1 = node.scheduler.stats()["verbs"]["recover"]
+        summary["heal"] = step(
+            "admin_heal", sum(len(v) for v in every.values()), heal_s,
+            disp0, c0, heal_status=hs,
+            recover_batches=rec1["batches"] - rec0["batches"],
+            recover_host_routed=rec1["host_routed"] - rec0["host_routed"])
+        disp0, c0 = dispatches(), counts.read()
+        t0 = time.perf_counter()
+        for p, data in every.items():
+            cl = sts_c if p == sse_path else root_c
+            st, h, body = cl.send("GET", p)
+            if st != 200 or body != data or h.get("etag") != f'"{md5(data)}"':
+                fail(f"iam_admin: {p} after the heal: HTTP {st}, bytes or "
+                     "ETag differ")
+        summary["read_after_heal"] = step(
+            "read_after_heal", sum(len(v) for v in every.values()),
+            time.perf_counter() - t0, disp0, c0, objects=len(every))
+        note("heal")
+        # the CLI's admin verbs as subprocesses
+        stale = os.path.join(drives[3], MINIO_META_BUCKET, "tmp",
+                             "chip-smoke-crash")
+        os.makedirs(stale, exist_ok=True)
+        with open(os.path.join(stale, "part.1"), "wb") as f:
+            f.write(b"left by a crash")
+        penv = dict(os.environ, MINIO_ROOT_USER=creds.access_key,
+                    MINIO_ROOT_PASSWORD=creds.secret_key)
+        url = f"127.0.0.1:{port}"
+        verbs = {"fsck": ["fsck", "--repair", "--tmp-age", "0"],
+                 "tier_ls": ["tier", "ls"],
+                 "decommission_status": ["decommission", "--status"]}
+        t0 = time.perf_counter()
+        procs = {n: subprocess.Popen(
+            [sys.executable, "-m", "minio_tpu_torch", *a, "--url", url],
+            cwd=HERE, env=penv, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for n, a in verbs.items()}
+        cli = {}
+        for n, pr in procs.items():
+            out, err = pr.communicate(timeout=300)
+            if pr.returncode != 0:
+                fail(f"iam_admin: `{' '.join(verbs[n])}` exited "
+                     f"{pr.returncode}: {err[-2000:]}")
+            cli[n] = json.loads(out)
+        cli_s = time.perf_counter() - t0
+        if cli["fsck"].get("repaired", {}).get("stale_tmp") != 1 or \
+                os.path.exists(stale):
+            fail(f"iam_admin: fsck --repair: {cli['fsck']}")
+        health = {p: http_status(port, f"/minio/health/{p}")
+                  for p in ("live", "ready")}
+        if health != {"live": 200, "ready": 200}:
+            fail(f"iam_admin: health {health}")
+        metrics1 = promfed.parse_exposition(adm.metrics_text())
+        mrf = layer.mrf_stats()
+
+        def gauge(fams, name, **labels):
+            fam = fams.get(name)
+            want = tuple(sorted(labels.items()))
+            return None if fam is None else fam.samples.get((name, want))
+
+        recover_total = [gauge(f, "minio_tpu_sched_batches_total",
+                               verb="recover") or 0
+                         for f in (metrics0, metrics1)]
+        checks = {
+            "disks_online": [gauge(f, "minio_disks_online")
+                             for f in (metrics0, metrics1)],
+            "mrf_healed": (gauge(metrics1, "minio_heal_mrf_healed_total"),
+                           mrf["healed"]),
+            "mrf_pending": (gauge(metrics1, "minio_heal_mrf_pending"),
+                            mrf["pending"]),
+            "mrf_failed": (gauge(metrics1, "minio_heal_mrf_failed_total"),
+                           mrf["failed"]),
+            "recover_dispatches": (recover_total[1] - recover_total[0],
+                                   rec1["batches"] - rec0["batches"])}
+        if checks["disks_online"] != [16, 16] or any(
+                a != b for n, (a, b) in checks.items()
+                if n != "disks_online"):
+            fail(f"iam_admin: the scrapes disagree with the node: {checks}")
+        # config KV: set, history, restore, each read back
+        t0 = time.perf_counter()
+        adm.set_config("compression", enable="on")
+        if adm.get_config()["compression"]["enable"] != "on" or \
+                not node.s3.api.compression_enabled:
+            fail("iam_admin: set-config compression did not read back")
+        adm.set_config("compression", enable="off")
+        hist = adm.config_history()
+        if not hist:
+            fail("iam_admin: config-history is empty after two writes")
+        adm.restore_config(hist[-1])
+        if adm.get_config()["compression"]["enable"] != "on" or \
+                not node.s3.api.compression_enabled:
+            fail("iam_admin: restore-config did not read back")
+        adm.set_config("compression", enable="off")
+        config_s = time.perf_counter() - t0
+        summary["operator"] = step(
+            "operator", 0, cli_s, dispatches(), counts.read(),
+            cli={n: {"exit": 0, **({"repaired": v.get("repaired")}
+                                  if n == "fsck" else {})}
+                 for n, v in cli.items()},
+            health=health, scrape_checks=checks,
+            scrape_bytes=len(adm.metrics_text()),
+            config={"seconds": round(config_s, 4),
+                    "history_entries": len(hist)})
+        note("operator verbs")
+        # -- read just after --------------------------------------------------
+        launches = counts.read()
+        summary["launches"] = launches
+        summary["dispatches"] = dispatches()
+        for kname in ("gf_matmul", "hh256", "chacha20", "scan_eval"):
+            if launches[kname] <= 0:
+                fail(f"iam_admin: no {kname} launch on the path")
+        # -- reboot on the same drives ------------------------------------
+        node.shutdown()
+        node = None
+        node, reboot_s = boot()
+        # the boot's own load, alone in the process (IAMSys.last_load_s)
+        load_s = node.iam.last_load_s
+        loaded = iam_records(node.object_layer)
+        u = names[3]
+        st_u = S3Client(node.s3.port, Credentials(u, users[u])).send(
+            "GET", f"/{bucket_of[u]}/{u}")
+        st_s = S3Client(node.s3.port, sts).send("HEAD", sse_path)
+        if st_u[0] != 200 or st_u[2] != objs[u] or st_s[0] != 200 or \
+                len(node.iam.users) != IAM_USERS + 2:
+            fail(f"iam_admin: after the reboot: user HTTP {st_u[0]}, STS "
+                 f"HTTP {st_s[0]}, {len(node.iam.users)} users")
+        summary["reboot"] = {"boot_s": round(reboot_s, 3),
+                             "iam_load_s": round(load_s, 4),
+                             "iam_users": len(node.iam.users),
+                             "records": loaded,
+                             "user_get": st_u[0], "sts_head": st_s[0]}
+        emit({"phase": "iam_admin", "step": "reboot", **summary["reboot"],
+              "card": card})
+    finally:
+        stagetimer.disable()
+        if node is not None:
+            node.shutdown()
+        for v, old in saved_env.items():
+            if old is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = old
+        shutil.rmtree(root, ignore_errors=True)
     summary["seconds"] = round(time.perf_counter() - t_phase, 3)
     summary["card"] = card
     emit(summary)

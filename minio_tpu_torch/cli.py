@@ -1,8 +1,15 @@
-"""CLI — `python -m minio_tpu_torch server ...` process bootstrap.
+"""CLI — `python -m minio_tpu_torch server ...` process bootstrap, and
+the admin verbs that drive a running node.
 
-Counterpart of the `server` subcommand of minio_tpu/cli.py (the
-reference's main.go + cmd/server-main.go): parse args, boot the node,
-print the startup banner, block on SIGTERM/SIGINT.
+Counterpart of the `server`, `fsck`, `decommission` and `tier`
+subcommands of minio_tpu/cli.py (the reference's main.go +
+cmd/server-main.go): parse args, boot the node, print the startup banner,
+block on SIGTERM/SIGINT. The admin verbs sign with the root credential
+(MINIO_ROOT_USER / MINIO_ROOT_PASSWORD) through madmin.AdminClient:
+
+    python -m minio_tpu_torch fsck --url 127.0.0.1:9000 [--repair]
+    python -m minio_tpu_torch decommission --url ... --pool 0 | --status
+    python -m minio_tpu_torch tier add|ls|rm|stats --url ...
 
     python -m minio_tpu_torch server /data/d{1...16} --address :9000
 
@@ -73,6 +80,56 @@ def _parse(argv: list[str]) -> argparse.Namespace:
     s.add_argument("--device", default="cuda",
                    help="where the erasure, hash and cipher steps run: "
                    "cuda (default) or cpu")
+
+    d = sub.add_parser("decommission",
+                       help="drain a pool's objects into the active "
+                       "pools (admin rebalance surface)")
+    d.add_argument("--url", default="127.0.0.1:9000",
+                   help="server admin endpoint host:port")
+    d.add_argument("--pool", type=int, default=None,
+                   help="pool index to decommission")
+    d.add_argument("--status", action="store_true",
+                   help="print rebalance/topology status and exit")
+    d.add_argument("--cancel", action="store_true",
+                   help="cancel the running drain (pool returns to "
+                   "active)")
+    d.add_argument("--region", default=os.environ.get(
+        "MINIO_REGION", "us-east-1"))
+
+    t = sub.add_parser("tier", help="manage remote tiers for ILM "
+                       "transitions (mc admin tier surface)")
+    t.add_argument("action", choices=("add", "ls", "rm", "stats"))
+    t.add_argument("--url", default="127.0.0.1:9000",
+                   help="server admin endpoint host:port")
+    t.add_argument("--name", default="",
+                   help="tier name (add/rm)")
+    t.add_argument("--type", default="fs", dest="tier_type",
+                   choices=("fs", "s3", "azure", "gcs", "hdfs"),
+                   help="tier backend type (add)")
+    t.add_argument("--param", action="append", default=[],
+                   help="backend param key=value (repeatable): fs needs "
+                   "path=...; s3 needs host=, bucket= (+port/access_key/"
+                   "secret_key/prefix/region)")
+    t.add_argument("--force", action="store_true",
+                   help="add: update an existing tier in place; "
+                   "rm: remove even when lifecycle rules reference it")
+    t.add_argument("--region", default=os.environ.get(
+        "MINIO_REGION", "us-east-1"))
+
+    f = sub.add_parser("fsck", help="run the crash-consistency "
+                       "auditor against a running node")
+    f.add_argument("--url", default="127.0.0.1:9000",
+                   help="server admin endpoint host:port")
+    f.add_argument("--repair", action="store_true",
+                   help="repair repairable findings (POST mode)")
+    f.add_argument("--bucket", default="",
+                   help="narrow the audit to one bucket")
+    f.add_argument("--tmp-age", type=float, default=None,
+                   help="staged tmp older than this (seconds) counts "
+                   "as a crash leftover; 0 = reap all (quiesced only)")
+    f.add_argument("--region", default=os.environ.get(
+        "MINIO_REGION", "us-east-1"))
+
     return p.parse_args(argv)
 
 
@@ -109,9 +166,102 @@ def _refuse(msg: str) -> int:
     return 2
 
 
+def _run_decommission(args, creds: Credentials) -> int:
+    """`minio_tpu decommission` — drive the admin rebalance surface
+    (start / --status / --cancel) against a running node."""
+    import json as _json
+    from .madmin import AdminClient, AdminClientError
+    from .utils import host_port
+    h, p = host_port(args.url, 9000)
+    cli = AdminClient(h, p, creds.access_key, creds.secret_key,
+                      region=args.region)
+    try:
+        if args.status:
+            out = cli.rebalance_status()
+        elif args.cancel:
+            out = cli.cancel_rebalance()
+        elif args.pool is None:
+            print("decommission needs --pool N (or --status/--cancel)",
+                  file=sys.stderr)
+            return 2
+        else:
+            out = cli.start_rebalance(args.pool)
+    except AdminClientError as e:
+        print(f"decommission failed: {e}", file=sys.stderr)
+        return 1
+    print(_json.dumps(out, indent=2, sort_keys=True))
+    return 0
+
+
+def _run_tier(args, creds: Credentials) -> int:
+    """`minio_tpu tier add|ls|rm|stats` — drive the admin tier registry
+    against a running node."""
+    import json as _json
+    from .madmin import AdminClient, AdminClientError
+    from .utils import host_port
+    h, p = host_port(args.url, 9000)
+    cli = AdminClient(h, p, creds.access_key, creds.secret_key,
+                      region=args.region)
+    try:
+        if args.action == "ls":
+            out = cli.list_tiers()
+        elif args.action == "stats":
+            out = cli.tier_stats()
+        elif args.action == "rm":
+            if not args.name:
+                print("tier rm needs --name", file=sys.stderr)
+                return 2
+            out = cli.remove_tier(args.name, force=args.force)
+        else:
+            if not args.name:
+                print("tier add needs --name", file=sys.stderr)
+                return 2
+            params = {}
+            for kv in args.param:
+                k, sep, v = kv.partition("=")
+                if not sep:
+                    print(f"bad --param {kv!r}: need key=value",
+                          file=sys.stderr)
+                    return 2
+                params[k] = v
+            out = cli.add_tier(args.name, args.tier_type,
+                               update=args.force, **params)
+    except AdminClientError as e:
+        print(f"tier {args.action} failed: {e}", file=sys.stderr)
+        return 1
+    print(_json.dumps(out, indent=2, sort_keys=True))
+    return 0
+
+
+def _run_fsck(args, creds: Credentials) -> int:
+    """`minio_tpu fsck` — drive the admin consistency auditor. Exit 0
+    when the tree is clean (or everything repairable was repaired),
+    1 when unrepaired findings remain."""
+    import json as _json
+    from .madmin import AdminClient, AdminClientError
+    from .utils import host_port
+    h, p = host_port(args.url, 9000)
+    cli = AdminClient(h, p, creds.access_key, creds.secret_key,
+                      region=args.region)
+    try:
+        out = cli.fsck(repair=args.repair, bucket=args.bucket,
+                       tmp_age_s=args.tmp_age)
+    except AdminClientError as e:
+        print(f"fsck failed: {e}", file=sys.stderr)
+        return 1
+    print(_json.dumps(out, indent=2, sort_keys=True))
+    return 0 if out.get("unrepaired", 0) == 0 else 1
+
+
 def main(argv: list[str] | None = None) -> int:
     args = _parse(argv if argv is not None else sys.argv[1:])
     creds = _creds()
+    if args.cmd == "fsck":
+        return _run_fsck(args, creds)
+    if args.cmd == "decommission":
+        return _run_decommission(args, creds)
+    if args.cmd == "tier":
+        return _run_tier(args, creds)
     if args.node:
         return _serve_node(args, creds)
     if not args.drives:

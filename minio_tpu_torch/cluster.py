@@ -56,12 +56,23 @@ None means the card, and a host without one raises rather than serving
 from the CPU; ``device="cpu"`` runs the plain PyTorch versions on the
 host.
 
-Left out: IAM (the root credential serves), config KV, events,
-replication, notification, the QoS registry (the transition worker's
-per-tier budgets), the admin, health, metrics and web routers (the admin
-tier, fsck and rebalance routes with them), the console log, the
-incident plane and its event journal, etcd federation, and the peer
-verbs of those planes.
+The identity and operator planes (:226-233, :271-289, :307-315,
+:357-360, :445-447): IAM over the erasure-coded identity store (its
+records are objects of the node's layer under ``.minio.sys/config/iam/``,
+loaded at boot), every mutation pushed to the peers as a per-entity
+delta (the ``iam-delta`` verb, a wholesale ``reload-iam`` as its
+fallback) and a full reload every ``MINIO_TPU_IAM_REFRESH_S``; the admin,
+health and Prometheus routers (s3/admin.py) on the node's listener, the
+peers' ``metrics-text`` verb rendering through the same handler; and the
+config KV (config/kv.py), applied to the handlers at boot and on every
+admin set-config.
+
+Left out: the etcd IAM store and federation, events, replication,
+notification, the QoS registry (the transition worker's per-tier
+budgets), the web router, the console log, the incident plane and its
+event journal, the admin routes of those planes and of profiling, trace,
+spans, OBD, bandwidth and drive health (they answer NotImplemented), and
+the peer verbs of those planes.
 """
 
 from __future__ import annotations
@@ -69,6 +80,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
+import threading
 import time
 from typing import Optional
 
@@ -81,6 +93,8 @@ from .distributed.peer_rpc import (BootstrapRPCServer, NotificationSys,
                                    PeerRPCClient, PeerRPCServer,
                                    verify_server_system_config)
 from .distributed.storage_rpc import RemoteStorage, StorageRPCServer
+from .config import ConfigSys
+from .iam import IAMSys
 from .features.lifecycle import (crawler_action, mpu_abort_action,
                                  noncurrent_sweep_action)
 from .object import cache as cache_mod
@@ -94,6 +108,7 @@ from .object.server_sets import ErasureServerSets
 from .object.sets import ErasureSets
 from .parallel import pipeline as _pipeline
 from .parallel.scheduler import BatchScheduler, requests_budget
+from .s3.admin import mount_admin
 from .s3.credentials import Credentials, global_credentials
 from .s3.server import S3Server
 from .storage import errors as serr
@@ -184,6 +199,10 @@ class ClusterNode:
         self.tiers: Optional[TierManager] = None
         self.transition_worker: Optional[TransitionWorker] = None
         self.notification: Optional[NotificationSys] = None
+        self.iam: Optional[IAMSys] = None
+        self.config: Optional[ConfigSys] = None
+        self.admin = None            # the AdminHandlers mount_admin made
+        self._iam_refresh_stop = threading.Event()
         self.boot_fsck = None        # the boot audit's FsckReport, if run
         self.pools: list = []        # pools add_pool appended after boot
         self._block_size = block_size
@@ -266,6 +285,7 @@ class ClusterNode:
         # -- cross-request device batch former + RAM-budgeted admission ----
         self.scheduler = BatchScheduler()
         budget = requests_budget(block_size, self.set_drive_count)
+        self.s3.api.requests_budget = budget
         self.s3.api.set_max_clients(budget)
         # staging rings sized from the SAME admission budget (each
         # admitted stream keeps ~2 batches in flight); buffers are
@@ -303,6 +323,12 @@ class ClusterNode:
         # their pages into one launch on the cluster's device (the engine
         # took the layer's device in set_object_layer)
         self.s3.api.scan.scheduler = self.scheduler
+        # -- IAM over the object layer (the erasure-coded identity store) --
+        if self.s3.api.iam is None:
+            self.s3.api.iam = IAMSys(self.object_layer, root_cred=self.creds)
+        self.iam = self.s3.api.iam
+        self.iam.bucket_policy_lookup = \
+            lambda b: self.s3.api.bucket_meta.get(b).policy_json
         # -- peer control plane hooks (the planes the port has) ------------
         self._peer_clients = [PeerRPCClient(n.host, n.port, ak, sk)
                               for i, n in enumerate(nodes) if i != this]
@@ -322,6 +348,29 @@ class ClusterNode:
         self._peer_rpc.get_bucket_usage = \
             lambda: (self.crawler.usage if self.crawler is not None
                      else {})
+        self._peer_rpc.reload_iam = self.iam.load
+        self._peer_rpc.apply_iam_delta = self.iam.apply_delta
+        self.iam.on_change = self.notification.reload_iam
+        self.iam.on_delta = self.notification.iam_delta
+        # bounded staleness: a delta lost to a transient partition (the
+        # sender's per-peer reload fallback failing too) must not diverge
+        # this node forever; the whole cache reloads on an interval, as
+        # the reference's IAM refresh loop does
+        threading.Thread(target=self._iam_refresh_loop,
+                         args=(knobs.get_float("MINIO_TPU_IAM_REFRESH_S"),),
+                         name="iam-refresh", daemon=True).start()
+        # -- admin / health / metrics routers ------------------------------
+        self.admin = mount_admin(self.s3, self)
+        self._peer_rpc.get_metrics_text = self.admin.metrics.local_text
+        # service restart/stop: peers run the same local action the admin
+        # endpoint runs, deferred so that the RPC reply reaches the sender
+        self._peer_rpc.signal_service = \
+            lambda sig: threading.Timer(
+                0.2, self.admin.service_action, (sig,)).start()
+        # -- config KV (newAllSubsystems ConfigSys + lookupConfigs) --------
+        self.config = ConfigSys(self.object_layer, secret=sk)
+        self.s3.api.config = self.config
+        self.config.apply(self.s3.api)
         # -- tier plane (remote tiers + ILM transitions) --------------------
         self.tiers = TierManager(self.object_layer)
         try:
@@ -393,6 +442,13 @@ class ClusterNode:
         ).start()
         self.s3.api.usage = self.crawler
 
+    def _iam_refresh_loop(self, refresh_s: float) -> None:
+        while not self._iam_refresh_stop.wait(refresh_s):
+            try:
+                self.iam.load()
+            except Exception:  # noqa: BLE001 — retry next tick
+                pass
+
     def _identify(self, end) -> None:
         """Stamp this node's id and boot generation on one of its RPC
         handlers or clients."""
@@ -455,8 +511,8 @@ class ClusterNode:
         certfile, keyfile = self._tls
         self.s3 = S3Server(None, address=self.spec.host,
                            port=self.spec.port, region=region,
-                           creds=self.creds, certfile=certfile,
-                           keyfile=keyfile)
+                           creds=self.creds, iam=self.iam,
+                           certfile=certfile, keyfile=keyfile)
         self.s3.register_router("/minio/storage/", self._storage_rpc.route)
         self.s3.register_router("/minio/lock/", self._lock_rpc.route)
         self.s3.register_router("/minio/peer/", self._peer_rpc.route)
@@ -473,7 +529,8 @@ class ClusterNode:
         loops and the transition worker close, the metacache closes
         (persisting what is dirty) and the tracker flushes first, then
         the server stops, then a running drain, then the pools, then the
-        former, then the RPC clients."""
+        former, then the RPC clients. The IAM refresh loop stops first."""
+        self._iam_refresh_stop.set()
         for loop in ("disk_monitor", "crawler", "transition_worker",
                      "heal_scanner"):
             if getattr(self, loop) is not None:
@@ -535,8 +592,9 @@ class FSNode:
     erasure, a plain file tree, the S3 surface. The backend does no
     device work; ``device`` (None: the card) is where the handlers'
     ChaCha20 SSE GETs would decipher, resolved at boot like every entry
-    point's. IAM and the admin router are not ported: the root
-    credential serves, as with start_single."""
+    point's. IAM over the directory's ``.minio.sys`` and the admin,
+    health and metrics routers serve it too (minio_tpu/cluster.py:
+    773-783)."""
 
     def __init__(self, root: str, address: str = "127.0.0.1",
                  port: int = 0, creds: Optional[Credentials] = None,
@@ -545,9 +603,14 @@ class FSNode:
         self.creds = creds or global_credentials()
         self.object_layer = FSObjects(root,
                                       device=device_mod.resolve(device))
+        self.iam = IAMSys(self.object_layer, root_cred=self.creds)
         self.s3: Optional[S3Server] = S3Server(
             self.object_layer, address=address, port=port, region=region,
-            creds=self.creds).start()
+            creds=self.creds, iam=self.iam)
+        self.iam.bucket_policy_lookup = \
+            lambda b: self.s3.api.bucket_meta.get(b).policy_json
+        self.admin = mount_admin(self.s3)
+        self.s3.start()
 
     @property
     def url(self) -> str:

@@ -8,14 +8,16 @@ consistency at startup against the first node
 
 Counterpart of minio_tpu/distributed/peer_rpc.py, with the verbs whose
 planes the port has: ``server-info``, ``locks``,
-``reload-bucket-metadata``, ``storage-info``, ``bucket-usage``,
-``signal``, ``net-probe`` and ``tracker-rotate``, their client calls and
-NotificationSys fan-outs, and the bootstrap verify whole. The IAM, trace,
-metrics, event-journal, incident, profiling, console, OBD, bandwidth and
-notification verbs are not registered: a peer asking for one gets the
-transport's own 404 ``unknown-verb``. Left out with the metrics fan-out:
-the healthtrack-derived deadline it alone used
-(``MINIO_TPU_PEER_SHED_DEADLINE_X``).
+``reload-bucket-metadata``, ``reload-iam``, ``iam-delta``,
+``metrics-text``, ``storage-info``, ``bucket-usage``, ``signal``,
+``net-probe`` and ``tracker-rotate``, their client calls and
+NotificationSys fan-outs, and the bootstrap verify whole. The trace,
+JSON-metrics, event-journal, incident, profiling, console, OBD, bandwidth
+and notification verbs are not registered: a peer asking for one gets the
+transport's own 404 ``unknown-verb``. Departure: the federated scrape's
+per-peer pull waits its whole deadline (``MINIO_TPU_CLUSTER_SCRAPE_S``);
+the reference tightens it from the peer's observed latency under
+``MINIO_TPU_PEER_SHED_DEADLINE_X``, which is not ported.
 """
 
 from __future__ import annotations
@@ -57,6 +59,12 @@ class PeerRPCServer:
         self.signal_service: Callable[[str], None] = lambda sig: None
         self.get_storage_info: Callable[[], dict] = lambda: {}
         self.get_bucket_usage: Callable[[], dict] = lambda: {}
+        # IAM: wholesale reload, and the per-entity delta a mutating
+        # peer sends (None: every delta reloads wholesale)
+        self.reload_iam: Callable[[], None] = lambda: None
+        self.apply_iam_delta: Optional[Callable[[str, str], None]] = None
+        # this node's Prometheus exposition (the admin metrics handler)
+        self.get_metrics_text: Callable[[], str] = lambda: ""
         # leader heal-scanner pulls + rotates this node's data-update
         # tracker each pass (None until the cluster wires it)
         self.get_update_tracker: Optional[Callable[[], dict]] = None
@@ -67,7 +75,11 @@ class PeerRPCServer:
             **self.get_server_info()})
         h.register("locks", lambda a, b: self.get_locks())
         h.register("reload-bucket-metadata", self._reload_bm)
+        h.register("reload-iam", lambda a, b: self.reload_iam())
+        h.register("iam-delta", self._iam_delta)
         h.register("signal", self._signal)
+        h.register("metrics-text",
+                   lambda a, b: self.get_metrics_text().encode())
         h.register("storage-info", lambda a, b: self.get_storage_info())
         h.register("bucket-usage", lambda a, b: self.get_bucket_usage())
         # OBD net perf: the caller times pushing a payload here; this
@@ -81,6 +93,26 @@ class PeerRPCServer:
         if self.get_update_tracker is None:
             return {}
         return self.get_update_tracker()
+
+    def _iam_delta(self, args, body):
+        # one RPC carries the whole mutation cascade (remove_user emits
+        # user + mapping + every derived svcacct/sts in one batch)
+        pairs: list = []
+        if body:
+            # malformed body MUST error (-> 500 -> the sender falls
+            # back to a wholesale reload); a silent 200 ack would drop
+            # the delta with no recovery until the periodic refresh
+            raw = json.loads(body.decode())
+            pairs = [(str(k), str(n)) for k, n in raw]
+        elif args.get("kind"):
+            pairs = [(args.get("kind", ""), args.get("name", ""))]
+        if not pairs:
+            raise ValueError("empty iam-delta")
+        if self.apply_iam_delta is not None:
+            for kind, name in pairs:
+                self.apply_iam_delta(kind, name)
+        else:
+            self.reload_iam()
 
     def _reload_bm(self, args, body):
         self.reload_bucket_metadata(args.get("bucket", ""))
@@ -130,6 +162,36 @@ class PeerRPCClient:
             return True
         except (NetworkError, RPCError):
             return False
+
+    def reload_iam(self) -> bool:
+        try:
+            self.rc.call("reload-iam")
+            return True
+        except (NetworkError, RPCError):
+            return False
+
+    def iam_delta(self, pairs: list) -> bool:
+        try:
+            self.rc.call_json("iam-delta", payload=list(pairs))
+            return True
+        except (NetworkError, RPCError):
+            return False
+
+    def metrics_text(self, deadline: float = 2.0) -> Optional[str]:
+        """This peer's Prometheus text exposition, or None on failure:
+        the federated scrape's per-peer pull, bounded by `deadline` so
+        one dead peer degrades the cluster scrape instead of stalling
+        it."""
+        if self._shed():
+            return None
+        try:
+            out = self.rc.call("metrics-text", deadline=deadline)
+        except (NetworkError, RPCError):
+            return None
+        try:
+            return out.decode()
+        except UnicodeDecodeError:
+            return None
 
     def signal_service(self, sig: str) -> bool:
         try:
@@ -235,6 +297,29 @@ class NotificationSys:
     def reload_bucket_metadata(self, bucket: str) -> list:
         return self._broadcast(
             lambda p: p.reload_bucket_metadata(bucket))
+
+    def reload_iam(self) -> list:
+        return self._broadcast(lambda p: p.reload_iam())
+
+    def iam_delta(self, pairs: list) -> list:
+        """Per-entity IAM propagation: one small RPC per peer carrying
+        the mutation's whole (kind, name) batch. A peer that misses the
+        delta gets a wholesale reload attempt instead; one that misses
+        both is offline and re-syncs through its periodic refresh or
+        its boot-time load."""
+        def one(p: PeerRPCClient) -> bool:
+            return p.iam_delta(pairs) or p.reload_iam()
+        return self._broadcast(one)
+
+    def metrics_text_all(self, deadline: float = 2.0
+                         ) -> list[tuple[str, Optional[str]]]:
+        """One (peer_addr, exposition_text | None) per peer: the
+        federated scrape's fan-out; None marks a peer the caller counts
+        as scrape-failed rather than failing the whole scrape."""
+        results = self._broadcast(
+            lambda p: p.metrics_text(deadline=deadline))
+        return [(p.addr, r if isinstance(r, str) else None)
+                for p, r in zip(self.peers, results)]
 
     def top_locks(self) -> dict:
         merged: dict = {}

@@ -1,0 +1,273 @@
+"""Admin client SDK (reference pkg/madmin): a typed Python client for
+the /minio/admin/v3 surface, /minio/health, and the metrics endpoint —
+what `mc admin ...` scripts against.
+
+Counterpart of minio_tpu/madmin.py for the routes the port's admin router
+serves (s3/admin.py). ``update_group_members`` drives a route the
+reference's router lacks (upstream's update-group-members); the other
+calls are the reference's. Left out with their planes: naughtynet, QoS,
+trace, events, incidents, SLO, spans, profiling, console log,
+replication, notify, remote targets, OBD, drive health and bandwidth."""
+
+from __future__ import annotations
+
+import hashlib
+import http.client
+import json
+import urllib.parse
+from typing import Optional
+
+from .s3 import signature as sig
+from .s3.credentials import Credentials
+
+ADMIN_PREFIX = "/minio/admin/v3"
+
+
+class AdminClientError(Exception):
+    def __init__(self, status: int, payload: dict):
+        super().__init__(f"{status}: {payload}")
+        self.status = status
+        self.payload = payload
+
+
+class AdminClient:
+    def __init__(self, host: str, port: int, access_key: str,
+                 secret_key: str, region: str = "us-east-1",
+                 timeout: float = 30.0):
+        self.host, self.port = host, port
+        self.creds = Credentials(access_key, secret_key)
+        self.region = region
+        self.timeout = timeout
+
+    # -- plumbing ----------------------------------------------------------
+
+    def _request(self, method: str, sub: str,
+                 query: Optional[dict] = None, body: bytes = b"",
+                 prefix: str = ADMIN_PREFIX, sign: bool = True):
+        path = f"{prefix}/{sub}" if sub else prefix
+        query = {k: [v] for k, v in (query or {}).items()}
+        qs = urllib.parse.urlencode({k: v[0] for k, v in query.items()})
+        hdrs = {"host": f"{self.host}:{self.port}"}
+        if sign:
+            hdrs = sig.sign_v4(method, path, query, hdrs,
+                               hashlib.sha256(body).hexdigest(),
+                               self.creds, self.region)
+        conn = http.client.HTTPConnection(self.host, self.port,
+                                          timeout=self.timeout)
+        conn.request(method, path + (f"?{qs}" if qs else ""), body=body,
+                     headers=hdrs)
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        if resp.status >= 300:
+            try:
+                payload = json.loads(data.decode())
+            except ValueError:
+                payload = {"raw": data.decode(errors="replace")}
+            raise AdminClientError(resp.status, payload)
+        return data
+
+    def _json(self, method, sub, query=None, body: bytes = b""):
+        out = self._request(method, sub, query, body)
+        return json.loads(out.decode()) if out else {}
+
+    # -- info / health -----------------------------------------------------
+
+    def server_info(self) -> dict:
+        return self._json("GET", "info")
+
+    def storage_info(self) -> dict:
+        return self._json("GET", "storageinfo")
+
+    def data_usage_info(self) -> dict:
+        return self._json("GET", "datausageinfo")
+
+    def top_locks(self) -> dict:
+        return self._json("GET", "top/locks")
+
+    def alive(self) -> bool:
+        try:
+            self._request("GET", "live", prefix="/minio/health",
+                          sign=False)
+            return True
+        except AdminClientError:
+            return False
+
+    def metrics_text(self) -> str:
+        return self._request("GET", "", prefix="/minio/prometheus/metrics",
+                             sign=False).decode()
+
+    def cluster_metrics(self) -> str:
+        """ONE Prometheus exposition for the whole cluster: the serving
+        node scrapes every peer over RPC and merges (counters summed,
+        gauges carrying a `node` label, histograms bucket-merged). A
+        dead peer degrades the scrape — check
+        `minio_tpu_cluster_scrape_failed_total` in the output."""
+        return self._request("GET", "metrics",
+                             {"cluster": "1"}).decode()
+
+    def node_metrics(self) -> str:
+        """The serving node's own exposition via the authenticated
+        admin route (the anonymous endpoint's SigV4 twin)."""
+        return self._request("GET", "metrics").decode()
+
+    # -- heal --------------------------------------------------------------
+
+    def fsck(self, repair: bool = False, bucket: str = "",
+             tmp_age_s: Optional[float] = None) -> dict:
+        """Run the crash-consistency auditor; ``repair=True`` also
+        repairs (POST). ``tmp_age_s=0`` reaps ALL staged tmp leftovers
+        (safe only when nothing is in flight)."""
+        q = {}
+        if bucket:
+            q["bucket"] = bucket
+        if tmp_age_s is not None:
+            q["tmp_age"] = str(tmp_age_s)
+        return self._json("POST" if repair else "GET", "fsck", query=q)
+
+    def heal_start(self, bucket: str = "", prefix: str = "") -> str:
+        out = self._json("POST", "heal",
+                         {"bucket": bucket, "prefix": prefix})
+        return out["token"]
+
+    def heal_status(self, token: str) -> dict:
+        return self._json("GET", "heal/status", {"token": token})
+
+    # -- topology / rebalance ----------------------------------------------
+
+    def start_rebalance(self, pool: int) -> dict:
+        """Begin decommissioning `pool`: mark it draining and start the
+        background rebalance moving its objects to the active pools."""
+        return self._json("POST", "rebalance", {"pool": str(pool)})
+
+    def rebalance_status(self) -> dict:
+        return self._json("GET", "rebalance")
+
+    def cancel_rebalance(self) -> dict:
+        return self._json("DELETE", "rebalance")
+
+    def topology(self) -> dict:
+        return self._json("GET", "topology")
+
+    def set_pool_state(self, pool: int, state: str) -> dict:
+        """Suspend ("suspended") or resume ("active") a pool for new
+        writes without draining it."""
+        return self._json("POST", "topology",
+                          {"pool": str(pool), "state": state})
+
+    def mrf_status(self) -> dict:
+        """MRF heal-queue stats (pending/healed/requeued/failed/dropped;
+        zones nested for server-sets backends)."""
+        return self._json("GET", "mrf")
+
+    def metacache_stats(self, bucket: str = "") -> dict:
+        """Bucket metacache state: per-bucket index entries/state/
+        invalid/dirty/generation, pending journal deltas, and the
+        serve/fallback/drop/reconcile counters ({"enabled": False}
+        when the node runs without the index)."""
+        query = {"bucket": bucket} if bucket else None
+        return self._json("GET", "metacache", query)
+
+    # -- tiering -----------------------------------------------------------
+
+    def add_tier(self, name: str, type_: str, update: bool = False,
+                 **params) -> dict:
+        """Register a remote tier (type_: fs|s3|azure|gcs|hdfs; params
+        are backend-specific — fs: path; s3: host/port/bucket/prefix/
+        access_key/secret_key/region)."""
+        query = {"force": "true"} if update else None
+        return self._json("PUT", "tier", query,
+                          json.dumps({"name": name, "type": type_,
+                                      "params": params}).encode())
+
+    def list_tiers(self) -> list[dict]:
+        """Registered tiers (secrets redacted)."""
+        return self._json("GET", "tier")["tiers"]
+
+    def remove_tier(self, name: str, force: bool = False) -> dict:
+        """Remove a tier; `force` overrides the in-use refusal (a tier
+        still named by lifecycle Transition rules answers 409)."""
+        query = {"name": name}
+        if force:
+            query["force"] = "true"
+        return self._json("DELETE", "tier", query)
+
+    def tier_stats(self) -> dict:
+        """Transition-worker queue/throughput counters."""
+        return self._json("GET", "tier/stats")
+
+    # -- IAM ---------------------------------------------------------------
+
+    def add_user(self, access_key: str, secret_key: str) -> None:
+        self._json("PUT", "add-user", {"accessKey": access_key},
+                   json.dumps({"secretKey": secret_key}).encode())
+
+    def remove_user(self, access_key: str) -> None:
+        self._json("DELETE", "remove-user", {"accessKey": access_key})
+
+    def list_users(self) -> list[str]:
+        return self._json("GET", "list-users")["users"]
+
+    def set_user_status(self, access_key: str, status: str) -> None:
+        self._json("PUT", "set-user-status",
+                   {"accessKey": access_key, "status": status})
+
+    def add_canned_policy(self, name: str, policy_json: str) -> None:
+        self._json("PUT", "add-canned-policy", {"name": name},
+                   policy_json.encode())
+
+    def remove_canned_policy(self, name: str) -> None:
+        self._json("DELETE", "remove-canned-policy", {"name": name})
+
+    def list_canned_policies(self) -> list[str]:
+        return self._json("GET", "list-canned-policies")["policies"]
+
+    def set_policy(self, policy_name: str, user_or_group: str,
+                   is_group: bool = False) -> None:
+        self._json("PUT", "set-user-or-group-policy",
+                   {"policyName": policy_name,
+                    "userOrGroup": user_or_group,
+                    "isGroup": "true" if is_group else "false"})
+
+    def update_group_members(self, group: str, members: list[str],
+                             is_remove: bool = False) -> None:
+        """Add members to a group (created on first add) or remove them
+        (a group left empty is deleted)."""
+        self._json("PUT", "update-group-members", None,
+                   json.dumps({"group": group, "members": list(members),
+                               "isRemove": is_remove}).encode())
+
+    def add_service_account(self, parent: str, access_key: str = "",
+                            secret_key: str = "") -> dict:
+        return self._json("PUT", "add-service-account", None,
+                          json.dumps({"parent": parent,
+                                      "accessKey": access_key,
+                                      "secretKey": secret_key}).encode())
+
+    # -- config KV ---------------------------------------------------------
+
+    def get_config(self) -> dict:
+        return self._json("GET", "get-config")
+
+    def set_config(self, subsys: str, **kv) -> None:
+        self._json("PUT", "set-config", {"subsys": subsys},
+                   json.dumps(kv).encode())
+
+    def config_history(self) -> list[str]:
+        return self._json("GET", "config-history")["entries"]
+
+    def restore_config(self, entry: str) -> None:
+        self._json("PUT", "restore-config", {"entry": entry})
+
+    def service_action(self, action: str) -> dict:
+        """Cluster-wide service restart/stop (mc admin service)."""
+        return self._json("POST", "service", {"action": action})
+
+    def set_bucket_quota(self, bucket: str, quota: int,
+                         quota_type: str = "hard") -> None:
+        self._json("PUT", "set-bucket-quota", {"bucket": bucket},
+                   body=json.dumps({"quota": quota,
+                                    "quotatype": quota_type}).encode())
+
+    def get_bucket_quota(self, bucket: str) -> dict:
+        return self._json("GET", "get-bucket-quota", {"bucket": bucket})

@@ -17,10 +17,14 @@ One namespace-change feed, many listeners: every pool's engines report
 their mutations to ``_dispatch_namespace_change``, which fans out to the
 attached bucket metacache (object/metacache.py: its delta journal) and
 read cache (object/cache.py: invalidation). With a metacache attached,
-``list_objects`` and ``list_object_versions`` are cut from the index, and
-fall back to the merge-walk across pools where it declines (off, not
-built, invalidated); ``delete_bucket`` purges the bucket's persisted
-index.
+``list_objects`` and ``list_object_versions`` of user buckets are cut
+from the index, and fall back to the merge-walk across pools where it
+declines (off, not built, invalidated); ``delete_bucket`` purges the
+bucket's persisted index. Departure: listings of ``.minio.sys`` (the IAM
+store's and config history's) always merge-walk. The engines feed the
+journal with user buckets' mutations only, so the reference's index of
+``.minio.sys``, built at a first listing, goes stale, and its next IAM
+reload drops every identity written since.
 
 The topology plane's verbs: online expansion (``add_pool``),
 decommission through the background rebalancer (object/rebalance.py:
@@ -40,6 +44,7 @@ import time
 from typing import Optional
 
 from . import api_errors
+from ..storage.xl_storage import MINIO_META_BUCKET
 from .sets import ErasureSets, merge_listings, merge_version_listings
 from .topology import (POOL_ACTIVE, POOL_DRAINING, TopologyError,
                        TopologyMap, TopologyStore)
@@ -682,10 +687,14 @@ class ErasureServerSets:
     # listing (merge across pools)
     # ------------------------------------------------------------------
 
+    def _indexed(self, bucket: str) -> bool:
+        """True when listings of `bucket` may come from the metacache."""
+        return self.metacache is not None and bucket != MINIO_META_BUCKET
+
     def list_objects(self, bucket, prefix="", marker="", delimiter="",
                      max_keys=1000):
         t0 = time.monotonic()
-        if self.metacache is not None:
+        if self._indexed(bucket):
             page = self.metacache.serve_list_objects(
                 bucket, prefix, marker, delimiter, max_keys)
             if page is not None:
@@ -702,7 +711,7 @@ class ErasureServerSets:
                              max_keys=1000, version_marker="",
                              delimiter=""):
         t0 = time.monotonic()
-        if self.metacache is not None:
+        if self._indexed(bucket):
             page = self.metacache.serve_list_object_versions(
                 bucket, prefix, marker, max_keys, version_marker,
                 delimiter)

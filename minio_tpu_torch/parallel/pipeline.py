@@ -13,10 +13,11 @@ generalizes that to the whole data path:
     pinned for a CUDA engine): PUT streams borrow their (B, k*S) encode
     buffers here.
   * :data:`STATS` — always-on overlap accounting (wall vs sum-of-stage
-    seconds, GET prefetch savings, pool pressure).
+    seconds, GET prefetch savings, pool pressure), exported as the
+    ``minio_tpu_pipeline_*`` gauges by an exposition-time collector.
 
-Left out: the Prometheus gauges over STATS and span propagation into the
-stage threads (the telemetry exposition and tracer are not ported).
+Left out: span propagation into the stage threads (the tracer is not
+ported).
 
 Knobs (utils/knobs.py): MINIO_TPU_PIPELINE (off selects the serial
 loops), MINIO_TPU_PIPELINE_DEPTH, MINIO_TPU_PIPELINE_POOL,
@@ -31,7 +32,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence
 
-from ..utils import knobs
+from ..utils import knobs, telemetry
 from .bpool import BytePool
 
 ENABLED = knobs.get_bool("MINIO_TPU_PIPELINE")
@@ -153,6 +154,54 @@ class PipelineStats:
 
 
 STATS = PipelineStats()
+
+_PIPELINE_GAUGE_HELP = {
+    "enabled": "1 when the pipelined PUT/GET hot loops are selected",
+    "put_streams_total": "PUT streams run through the stage pipeline",
+    "put_batches_total": "Encode batches fed through the PUT pipeline",
+    "put_wall_seconds_total": "Wall seconds inside pipelined PUT loops",
+    "put_stage_seconds_total":
+        "Summed per-stage seconds (ingest+encode+write) of pipelined "
+        "PUT loops; ratio vs wall = achieved overlap",
+    "get_groups_total": "GET block groups read",
+    "get_prefetched_total":
+        "GET block groups served via the one-group lookahead",
+    "get_prefetch_saved_seconds_total":
+        "Drive-read seconds hidden behind verify+decode by the GET "
+        "lookahead",
+    "bpool_waits_total":
+        "Staging-buffer gets that had to block (back-pressure)",
+    "bpool_exhausted_total":
+        "Staging-buffer gets that timed out (pipeline stalled)",
+}
+# snapshot key -> exported suffix (names predate the registry and are
+# kept stable for dashboards/tests)
+_PIPELINE_GAUGE_KEYS = {
+    "enabled": "enabled",
+    "put_streams": "put_streams_total",
+    "put_batches": "put_batches_total",
+    "put_wall_s": "put_wall_seconds_total",
+    "put_stage_s": "put_stage_seconds_total",
+    "get_groups": "get_groups_total",
+    "get_prefetched": "get_prefetched_total",
+    "get_prefetch_saved_s": "get_prefetch_saved_seconds_total",
+    "bpool_waits": "bpool_waits_total",
+    "bpool_exhausted": "bpool_exhausted_total",
+}
+
+
+def _collect_pipeline_metrics() -> None:
+    """Registry collector: refresh minio_tpu_pipeline_* from STATS at
+    exposition time (no polling thread)."""
+    snap = STATS.snapshot()
+    for key, suffix in _PIPELINE_GAUGE_KEYS.items():
+        if key in snap:
+            telemetry.REGISTRY.gauge(
+                f"minio_tpu_pipeline_{suffix}",
+                _PIPELINE_GAUGE_HELP[suffix]).set(snap[key])
+
+
+telemetry.REGISTRY.register_collector(_collect_pipeline_metrics)
 
 
 # ---------------------------------------------------------------------------

@@ -67,6 +67,7 @@ from __future__ import annotations
 import os
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -95,6 +96,45 @@ DISPATCH_STAGE_SECONDS = telemetry.REGISTRY.histogram(
     "minio_tpu_device_dispatch_seconds",
     "Fused device dispatch stage timings (queue and the codec's "
     "transfer/compute/fetch spans) per verb", buckets=_STAGE_BUCKETS)
+
+
+# every live former, for the exposition-time collector (a node's former
+# and, in one process, its peers')
+_SCHEDULERS: "weakref.WeakSet[BatchScheduler]" = weakref.WeakSet()
+
+
+def _collect_scheduler_metrics() -> None:
+    reg = telemetry.REGISTRY
+    queued_groups = queued_blocks = batches = blocks = inflight = 0
+    verbs: dict[str, list[int]] = {v: [0, 0] for v in VERBS}
+    for s in list(_SCHEDULERS):
+        st = s.stats()
+        queued_groups += st["queued_groups"]
+        queued_blocks += st["queued_blocks"]
+        batches += st["batches"]
+        blocks += st["dispatched_blocks"]
+        inflight += st["inflight"]
+        for v, vs in st["verbs"].items():
+            verbs[v][0] += vs["batches"]
+            verbs[v][1] += vs["coalesced"]
+    reg.gauge("minio_tpu_sched_inflight_dispatches",
+              "Device dispatches currently airborne (transfer/compute "
+              "overlap depth)").set(inflight)
+    reg.gauge("minio_tpu_sched_queue_depth",
+              "Work groups waiting on the batch former").set(
+        queued_groups)
+    reg.gauge("minio_tpu_sched_queued_blocks",
+              "Blocks waiting on the batch former").set(queued_blocks)
+    reg.gauge("minio_tpu_sched_batch_occupancy_blocks",
+              "Mean blocks per fused dispatch (the card's batch fill)").set(
+        round(blocks / batches, 3) if batches else 0)
+    g = reg.gauge("minio_tpu_sched_batch_occupancy_groups",
+                  "Mean request groups per fused dispatch, by verb")
+    for v, (b, c) in verbs.items():
+        g.set(round((b + c) / b, 3) if b else 0, verb=v)
+
+
+telemetry.REGISTRY.register_collector(_collect_scheduler_metrics)
 
 
 class _Pending:
@@ -175,6 +215,7 @@ class BatchScheduler:
         self._thread = threading.Thread(target=self._collector,
                                         name="sched-collector", daemon=True)
         self._thread.start()
+        _SCHEDULERS.add(self)
 
     def stats(self) -> dict:
         """Queue depth and dispatch occupancy."""

@@ -20,8 +20,10 @@ Every shed lands in ``minio_tpu_requests_shed_total{reason}``. Shed
 responses are built here too: 503 ``SlowDown`` with a ``Retry-After``
 hint and ``Connection: close``.
 
-Left out: the multi-tenant QoS probe, the event-log emission of each
-shed, and the exposition-time gauges of the gate.
+The exposition-time gauges of the most recently built gate
+(``minio_tpu_admission_capacity`` and ``_in_use``) are the reference's.
+Left out: the multi-tenant QoS probe and the event-log emission of each
+shed.
 """
 
 from __future__ import annotations
@@ -46,6 +48,24 @@ _SHED_TOTAL = telemetry.REGISTRY.counter(
 # never touch staging, and completing an upload under pressure
 # RELIEVES it
 _DATA_WRITE_APIS = ("PutObject", "UploadPart", "PostObject")
+
+
+def _collect_admission_metrics() -> None:
+    """Exposition-time gauges for the live gate (no polling thread)."""
+    c = _LIVE[0]
+    if c is None:
+        return
+    telemetry.REGISTRY.gauge(
+        "minio_tpu_admission_capacity",
+        "Size of the maxClients admission gate").set(c.capacity)
+    telemetry.REGISTRY.gauge(
+        "minio_tpu_admission_in_use",
+        "Admission slots currently held by in-flight requests").set(
+        c.in_use())
+
+
+_LIVE: list = [None]        # most-recently constructed controller
+telemetry.REGISTRY.register_collector(_collect_admission_metrics)
 
 
 class ShedDecision:
@@ -137,6 +157,7 @@ class AdmissionController:
         self.sched_queue_limit = knobs.get_int(
             "MINIO_TPU_ADMIT_SCHED_QUEUE")
         self.layer = None
+        _LIVE[0] = self
 
     # -- sizing ----------------------------------------------------------
 
@@ -145,6 +166,9 @@ class AdmissionController:
         computes maxClients from RAM + drive count)."""
         self.capacity = max(n, 1)
         self._sem = threading.BoundedSemaphore(self.capacity)
+
+    def in_use(self) -> int:
+        return self.capacity - self._sem._value
 
     # -- signal probes ---------------------------------------------------
 

@@ -707,6 +707,7 @@ class EdgeServer:
                               headers=headers, raw_query=raw_query)
             body = _EdgeBodyReader(sock, bytearray(rest), length)
             ctx = RequestContext(req, body, length)
+            ctx.remote_addr = conn.addr[0] if conn.addr else ""
             if ticket is not None:
                 ctx.admission_ticket = ticket
 

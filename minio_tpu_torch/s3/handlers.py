@@ -26,10 +26,20 @@ data-update tracker (update_tracker, attached by the boot) where the
 reference's event funnel marks it, and quota reads the usage crawler's
 cache (usage) when one is attached.
 
-Authentication takes the root credential only: there is no IAM, so
-anonymous requests are refused and STS answers NotImplemented, as the
-reference does without IAM. Verbs of planes not ported yet answer
-NotImplemented: STS, object lock (bucket config, retention, legal hold,
+Every verb is authorised by the reference's action, bucket and key
+(minio_tpu/s3/handlers.py:298-395): the root credential and credentials
+derived from it are the owner; with an IAMSys attached (``iam``; the
+cluster boot attaches one over the erasure-coded identity store) users,
+groups, service accounts and STS credentials are held to their policies
+and the bucket's policy (explicit Deny wins), temporary credentials must
+present their session token, an anonymous request is allowed only by a
+bucket policy, and a copy needs ``s3:GetObject`` on its source. POST /
+is STS (:396-520): AssumeRole signed by a user, and the web-identity,
+client-grants and LDAP federation where ``identity_openid`` /
+``identity_ldap`` are configured (``config``, a ConfigSys). Without IAM
+the root credential alone serves, anonymous requests are refused and STS
+answers NotImplemented, as in the reference. Verbs of planes not ported
+yet answer NotImplemented: object lock (bucket config, retention, legal hold,
 and the lock headers of a PUT or a locked bucket's deletes), replication
 and notification configs, ListenBucketNotification, browser POST uploads
 and the internal replication headers; RestoreObject answers it too when
@@ -65,6 +75,7 @@ import re
 import urllib.parse
 import uuid
 import xml.etree.ElementTree as ET
+from xml.sax.saxutils import escape as _sax_escape
 from collections import OrderedDict
 from email.utils import formatdate, parsedate_to_datetime
 from typing import Iterator, Optional
@@ -129,6 +140,8 @@ class RequestContext:
         self.body_stream = body_stream
         self.content_length = content_length
         self.cred: Optional[Credentials] = None
+        self.remote_addr = ""              # filled by the server loop
+        self.secure = False                # True on a TLS listener
         self.auth_type = sig.get_request_auth_type(req)
         # hex digest the client signed over (x-amz-content-sha256);
         # enforced when the body is consumed (isReqAuthenticated analog)
@@ -264,10 +277,15 @@ class _ReleasingStream:
 class S3ApiHandlers:
     def __init__(self, object_layer, region: str = "us-east-1",
                  creds: Optional[Credentials] = None,
-                 max_clients: Optional[int] = None):
+                 iam=None, max_clients: Optional[int] = None):
         self.obj = object_layer
         self.region = region
         self.root_cred = creds or global_credentials()
+        self.iam = iam            # optional IAMSys (policy checks + users)
+        self.config = None        # optional ConfigSys (admin KV)
+        # the admission gate's size the boot computed (requests_budget);
+        # config requests_max 0 restores it
+        self.requests_budget: Optional[int] = None
         self.bucket_meta = BucketMetadataSys(object_layer)
         # the one admission gate (s3/edge/admission.py), shared with the
         # event-loop edge so both frontends refuse identically; the
@@ -319,19 +337,33 @@ class S3ApiHandlers:
     # auth
     # ------------------------------------------------------------------
 
+    def _is_owner(self, cred: Credentials) -> bool:
+        """Root and its derived temp/service creds (reference
+        cred.ParentUser == globalActiveCred.AccessKey => IsOwner)."""
+        return cred.access_key == self.root_cred.access_key or \
+            cred.parent_user == self.root_cred.access_key
+
     def _cred_lookup(self, access_key: str) -> Credentials:
         if access_key == self.root_cred.access_key:
             return self.root_cred
+        if self.iam is not None:
+            cred = self.iam.get_credentials(access_key)
+            if cred is not None and cred.is_valid():
+                return cred
         raise sig.SigError("InvalidAccessKeyId")
 
-    def authenticate(self, ctx: RequestContext) -> None:
-        """Verify the request signature (cmd/auth-handler.go
-        checkRequestAuthType); without IAM every verified caller is the
-        owner."""
+    def authenticate(self, ctx: RequestContext,
+                     action: str = "", bucket: str = "",
+                     object_name: str = "") -> None:
+        """Verify the request signature and (if IAM is wired) that the
+        caller may perform `action` (cmd/auth-handler.go
+        checkRequestAuthType)."""
         with stagetimer.stage("auth"):
-            self._authenticate(ctx)
+            self._authenticate(ctx, action, bucket, object_name)
 
-    def _authenticate(self, ctx: RequestContext) -> None:
+    def _authenticate(self, ctx: RequestContext,
+                      action: str = "", bucket: str = "",
+                      object_name: str = "") -> None:
         at = ctx.auth_type
         if at == sig.AUTH_SIGNED:
             body_sha = ctx.header("x-amz-content-sha256",
@@ -352,10 +384,184 @@ class S3ApiHandlers:
         elif at == sig.AUTH_SIGNED_V2:
             ctx.cred = sig.verify_v2(ctx.req, self._cred_lookup)
         elif at == sig.AUTH_ANONYMOUS:
-            # anonymous access needs a bucket policy evaluated by IAM
-            raise S3Error("AccessDenied")
+            if not self._anonymous_allowed(ctx, action, bucket,
+                                           object_name):
+                raise S3Error("AccessDenied")
+            ctx.cred = Credentials()
+            return
         else:
             raise S3Error("SignatureVersionNotSupported")
+        # temp (STS) credentials must present their session token —
+        # header for signed requests, X-Amz-Security-Token query param
+        # for presigned URLs (signature.py:291)
+        if ctx.cred.is_temp():
+            token = ctx.header("x-amz-security-token") or \
+                ctx.query1("X-Amz-Security-Token")
+            if token != ctx.cred.session_token:
+                raise S3Error("InvalidTokenId")
+        if self.iam is not None and ctx.cred.access_key and \
+                not self._is_owner(ctx.cred):
+            if not self.iam.is_allowed(ctx.cred, action, bucket,
+                                       object_name,
+                                       self._policy_conditions(ctx)):
+                raise S3Error("AccessDenied")
+
+    @staticmethod
+    def _policy_conditions(ctx: "RequestContext") -> dict:
+        """Request facts for policy Condition evaluation (reference
+        getConditionValues, cmd/auth-handler.go)."""
+        cond = {}
+        if ctx.remote_addr:
+            cond["aws:SourceIp"] = ctx.remote_addr
+        referer = ctx.header("referer")
+        if referer:
+            cond["aws:Referer"] = referer
+        # real connection state, never a client-supplied header
+        cond["aws:SecureTransport"] = "true" if ctx.secure else "false"
+        return cond
+
+    def _anonymous_allowed(self, ctx: "RequestContext", action: str,
+                           bucket: str, object_name: str) -> bool:
+        if not bucket or self.iam is None:
+            return False
+        return self.iam.is_anonymous_allowed(
+            self.bucket_meta.get(bucket).policy_json, action, bucket,
+            object_name, self._policy_conditions(ctx))
+
+    # ------------------------------------------------------------------
+    # STS (POST / with Action=AssumeRole; cmd/sts-handlers.go:43-86)
+    # ------------------------------------------------------------------
+
+    def handle_sts(self, ctx: RequestContext) -> HTTPResponse:
+        """STS action dispatch (reference cmd/sts-handlers.go:43-86):
+        AssumeRole is SigV4-authenticated; the federation actions
+        (WebIdentity/ClientGrants JWT, LDAP bind) are authenticated by
+        the presented token/credentials themselves."""
+        if self.iam is None:
+            raise S3Error("NotImplemented", "STS requires IAM")
+        body_sha = ctx.header("x-amz-content-sha256",
+                              sig.UNSIGNED_PAYLOAD)
+        if _is_hex_sha(body_sha):
+            ctx.expect_body_sha = body_sha     # enforced by read_body
+        body = ctx.read_body()
+        form = {k: v[0] for k, v in
+                urllib.parse.parse_qs(body.decode(errors="replace")).items()}
+        action = form.get("Action", "")
+        try:
+            duration = int(form.get("DurationSeconds", "3600"))
+        except ValueError:
+            raise S3Error("InvalidArgument", "bad DurationSeconds") from None
+
+        if action == "AssumeRole":
+            # SigV4 over the form body (service "sts" or "s3" both
+            # accepted); any valid non-temporary user may assume a role
+            # — the minted credential inherits the PARENT's policies,
+            # so no policy check gates the call itself
+            cred = sig.verify_v4(ctx.req, self._cred_lookup, self.region,
+                                 body_sha)
+            if cred.is_temp():
+                raise S3Error("AccessDenied",
+                              "temporary credentials cannot assume roles")
+            minted = self.iam.assume_role(cred, duration)
+            return self._sts_response(action, minted)
+
+        if action in ("AssumeRoleWithWebIdentity",
+                      "AssumeRoleWithClientGrants"):
+            from ..iam.providers import STSValidationError
+            token = form.get("WebIdentityToken") or form.get("Token", "")
+            if not token:
+                raise S3Error("InvalidArgument", "missing identity token")
+            provider = self._openid_provider()
+            if provider is None:
+                raise S3Error("NotImplemented",
+                              "OpenID is not configured")
+            try:
+                claims = provider.validate(token)
+            except STSValidationError as e:
+                raise S3Error("AccessDenied", str(e)) from None
+            policies = provider.policy_names(claims)
+            if not policies:
+                # no policy claim -> no permissions mapping; reject like
+                # the reference (policy claim is mandatory)
+                raise S3Error(
+                    "AccessDenied",
+                    f"token lacks a '{provider.claim_name}' claim")
+            subject = str(claims.get("sub") or claims.get("email") or "")
+            if not subject:
+                raise S3Error("AccessDenied", "token lacks sub claim")
+            # minted credentials never outlive the token that
+            # authenticated them
+            import time as _time
+            minted = self.iam.assume_role_with_claims(
+                f"oidc:{subject}", policies, duration,
+                max_seconds=float(claims["exp"]) - _time.time())
+            return self._sts_response(action, minted, subject=subject)
+
+        if action == "AssumeRoleWithLDAPIdentity":
+            from ..iam.providers import STSValidationError
+            provider = self._ldap_provider()
+            if provider is None:
+                raise S3Error("NotImplemented", "LDAP is not configured")
+            try:
+                dn = provider.bind(form.get("LDAPUsername", ""),
+                                   form.get("LDAPPassword", ""))
+            except STSValidationError as e:
+                raise S3Error("AccessDenied", str(e)) from None
+            # policies: the policy-DB mapping for the DN (set by the
+            # admin), never from the client
+            minted = self.iam.assume_role_with_claims(
+                f"ldap:{dn}", None, duration)
+            return self._sts_response(action, minted, subject=dn)
+
+        raise S3Error("InvalidArgument",
+                      f"unsupported STS action {action!r}")
+
+    def _openid_provider(self):
+        """identity_openid provider from config (rebuilt per call: the
+        config may be live-edited via admin set-config)."""
+        if getattr(self, "openid_provider", None) is not None:
+            return self.openid_provider
+        if self.config is None:
+            return None
+        from ..iam.providers import OpenIDProvider
+        p = OpenIDProvider(self.config.get_subsys("identity_openid"))
+        return p if p.enabled() else None
+
+    def _ldap_provider(self):
+        if getattr(self, "ldap_provider", None) is not None:
+            return self.ldap_provider
+        if self.config is None:
+            return None
+        from ..iam.providers import LDAPProvider
+        p = LDAPProvider(self.config.get_subsys("identity_ldap"))
+        return p if p.enabled() else None
+
+    def _sts_response(self, action: str, minted,
+                      subject: str = "") -> HTTPResponse:
+        import datetime as _dt
+        exp = _dt.datetime.fromtimestamp(
+            minted.expiration, _dt.timezone.utc).strftime(
+            "%Y-%m-%dT%H:%M:%SZ")
+        subject_xml = ""
+        if subject and action == "AssumeRoleWithWebIdentity":
+            subject_xml = ("<SubjectFromWebIdentityToken>"
+                           f"{_sax_escape(subject)}"
+                           "</SubjectFromWebIdentityToken>")
+        xml = (
+            '<?xml version="1.0" encoding="UTF-8"?>'
+            f'<{action}Response xmlns='
+            '"https://sts.amazonaws.com/doc/2011-06-15/">'
+            f"<{action}Result><Credentials>"
+            f"<AccessKeyId>{minted.access_key}</AccessKeyId>"
+            f"<SecretAccessKey>{minted.secret_key}</SecretAccessKey>"
+            f"<SessionToken>{minted.session_token}</SessionToken>"
+            f"<Expiration>{exp}</Expiration>"
+            f"</Credentials>{subject_xml}</{action}Result>"
+            "<ResponseMetadata><RequestId>"
+            f"{uuid.uuid4()}</RequestId></ResponseMetadata>"
+            f"</{action}Response>")
+        return HTTPResponse(body=xml.encode(),
+                            headers={"Content-Type": "application/xml"})
 
     # ------------------------------------------------------------------
     # dispatch
@@ -411,7 +617,7 @@ class S3ApiHandlers:
             if m == "GET":
                 return self.list_buckets(ctx)
             if m == "POST":
-                raise S3Error("NotImplemented", "STS requires IAM")
+                return self.handle_sts(ctx)
             raise S3Error("MethodNotAllowed")
 
         if key:
@@ -527,12 +733,12 @@ class S3ApiHandlers:
     # ------------------------------------------------------------------
 
     def list_buckets(self, ctx) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:ListAllMyBuckets")
         return HTTPResponse().with_xml(xmlgen.list_buckets_response(
             "minio", self.obj.list_buckets()))
 
     def make_bucket(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:CreateBucket", bucket)
         if not _BUCKET_RE.match(bucket) or ".." in bucket:
             raise S3Error("InvalidBucketName")
         body = ctx.read_body()
@@ -554,12 +760,12 @@ class S3ApiHandlers:
         return HTTPResponse(headers={"Location": f"/{bucket}"})
 
     def head_bucket(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:ListBucket", bucket)
         self.obj.get_bucket_info(bucket)
         return HTTPResponse()
 
     def delete_bucket(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:DeleteBucket", bucket)
         force = ctx.header("x-minio-force-delete") == "true"
         self.obj.delete_bucket(bucket, force=force)
         self.bucket_meta.delete(bucket)
@@ -567,19 +773,19 @@ class S3ApiHandlers:
         return HTTPResponse(status=204)
 
     def get_bucket_location(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:GetBucketLocation", bucket)
         self.obj.get_bucket_info(bucket)
         region = "" if self.region == "us-east-1" else self.region
         return HTTPResponse().with_xml(xmlgen.location_response(region))
 
     def get_bucket_versioning(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:GetBucketVersioning", bucket)
         self.obj.get_bucket_info(bucket)
         return HTTPResponse().with_xml(xmlgen.versioning_response(
             self.bucket_meta.get(bucket).versioning))
 
     def put_bucket_versioning(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:PutBucketVersioning", bucket)
         self.obj.get_bucket_info(bucket)
         body = ctx.read_body()
         try:
@@ -598,7 +804,7 @@ class S3ApiHandlers:
     # --- policy / tagging / configs ------------------------------------
 
     def get_bucket_policy(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:GetBucketPolicy", bucket)
         self.obj.get_bucket_info(bucket)
         pj = self.bucket_meta.get(bucket).policy_json
         if not pj:
@@ -607,7 +813,7 @@ class S3ApiHandlers:
                             body=pj.encode())
 
     def put_bucket_policy(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:PutBucketPolicy", bucket)
         self.obj.get_bucket_info(bucket)
         body = ctx.read_body()
         import json
@@ -619,13 +825,13 @@ class S3ApiHandlers:
         return HTTPResponse(status=204)
 
     def delete_bucket_policy(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:DeleteBucketPolicy", bucket)
         self.obj.get_bucket_info(bucket)
         self.bucket_meta.update(bucket, policy_json="")
         return HTTPResponse(status=204)
 
     def get_bucket_tagging(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:GetBucketTagging", bucket)
         self.obj.get_bucket_info(bucket)
         tags = self.bucket_meta.get(bucket).tagging
         if not tags:
@@ -633,21 +839,21 @@ class S3ApiHandlers:
         return HTTPResponse().with_xml(xmlgen.tagging_response(tags))
 
     def put_bucket_tagging(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:PutBucketTagging", bucket)
         self.obj.get_bucket_info(bucket)
         tags = _parse_tagging_xml(ctx.read_body())
         self.bucket_meta.update(bucket, tagging=tags)
         return HTTPResponse()
 
     def delete_bucket_tagging(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:PutBucketTagging", bucket)
         self.obj.get_bucket_info(bucket)
         self.bucket_meta.update(bucket, tagging={})
         return HTTPResponse(status=204)
 
-    def _xml_config(self, ctx, bucket, field: str,
+    def _xml_config(self, ctx, bucket, field: str, action: str,
                     missing_code: str) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, action, bucket)
         self.obj.get_bucket_info(bucket)
         xml_doc = getattr(self.bucket_meta.get(bucket), field)
         if not xml_doc:
@@ -655,8 +861,9 @@ class S3ApiHandlers:
         return HTTPResponse(headers={"Content-Type": "application/xml"},
                             body=xml_doc.encode())
 
-    def _put_xml_config(self, ctx, bucket, field: str) -> HTTPResponse:
-        self.authenticate(ctx)
+    def _put_xml_config(self, ctx, bucket, field: str,
+                        action: str) -> HTTPResponse:
+        self.authenticate(ctx, action, bucket)
         self.obj.get_bucket_info(bucket)
         body = ctx.read_body()
         try:
@@ -666,37 +873,43 @@ class S3ApiHandlers:
         self.bucket_meta.update(bucket, **{field: body.decode()})
         return HTTPResponse()
 
-    def _del_xml_config(self, ctx, bucket, field: str) -> HTTPResponse:
-        self.authenticate(ctx)
+    def _del_xml_config(self, ctx, bucket, field: str,
+                        action: str) -> HTTPResponse:
+        self.authenticate(ctx, action, bucket)
         self.obj.get_bucket_info(bucket)
         self.bucket_meta.update(bucket, **{field: ""})
         return HTTPResponse(status=204)
 
     def get_bucket_lifecycle(self, ctx, bucket):
         return self._xml_config(ctx, bucket, "lifecycle_xml",
+                                "s3:GetLifecycleConfiguration",
                                 "NoSuchLifecycleConfiguration")
 
     def put_bucket_lifecycle(self, ctx, bucket):
-        return self._put_xml_config(ctx, bucket, "lifecycle_xml")
+        return self._put_xml_config(ctx, bucket, "lifecycle_xml",
+                                    "s3:PutLifecycleConfiguration")
 
     def delete_bucket_lifecycle(self, ctx, bucket):
-        return self._del_xml_config(ctx, bucket, "lifecycle_xml")
+        return self._del_xml_config(ctx, bucket, "lifecycle_xml",
+                                    "s3:PutLifecycleConfiguration")
 
     def get_bucket_encryption(self, ctx, bucket):
         return self._xml_config(
-            ctx, bucket, "sse_config_xml",
+            ctx, bucket, "sse_config_xml", "s3:GetEncryptionConfiguration",
             "ServerSideEncryptionConfigurationNotFoundError")
 
     def put_bucket_encryption(self, ctx, bucket):
-        return self._put_xml_config(ctx, bucket, "sse_config_xml")
+        return self._put_xml_config(ctx, bucket, "sse_config_xml",
+                                    "s3:PutEncryptionConfiguration")
 
     def delete_bucket_encryption(self, ctx, bucket):
-        return self._del_xml_config(ctx, bucket, "sse_config_xml")
+        return self._del_xml_config(ctx, bucket, "sse_config_xml",
+                                    "s3:PutEncryptionConfiguration")
 
     # --- listings -------------------------------------------------------
 
     def list_objects_v1(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:ListBucket", bucket)
         prefix = ctx.query1("prefix")
         marker = ctx.query1("marker")
         delimiter = ctx.query1("delimiter")
@@ -719,7 +932,7 @@ class S3ApiHandlers:
             prefixes, trunc, next_marker))
 
     def list_objects_v2(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:ListBucket", bucket)
         prefix = ctx.query1("prefix")
         delimiter = ctx.query1("delimiter")
         enc = ctx.query1("encoding-type")
@@ -744,7 +957,7 @@ class S3ApiHandlers:
             next_token, objs, prefixes, trunc, fetch_owner))
 
     def list_object_versions(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:ListBucketVersions", bucket)
         prefix = ctx.query1("prefix")
         key_marker = ctx.query1("key-marker")
         vid_marker = ctx.query1("version-id-marker")
@@ -767,7 +980,7 @@ class S3ApiHandlers:
             enc, versions, prefixes, trunc, nkm, nvm))
 
     def delete_multiple_objects(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:DeleteObject", bucket)
         self.obj.get_bucket_info(bucket)  # missing bucket -> 404, not 200
         self._refuse_object_lock(bucket)
         body = ctx.read_body()
@@ -833,7 +1046,7 @@ class S3ApiHandlers:
             xmlgen.delete_objects_response(deleted, errors))
 
     def list_multipart_uploads(self, ctx, bucket) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:ListBucketMultipartUploads", bucket)
         self.obj.get_bucket_info(bucket)
         prefix = ctx.query1("prefix")
         max_uploads = _parse_max_keys(ctx.query1("max-uploads", "1000"))
@@ -893,7 +1106,7 @@ class S3ApiHandlers:
                           sha256_hex=sha_hex), size
 
     def put_object(self, ctx, bucket, key) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:PutObject", bucket, key)
         self.obj.get_bucket_info(bucket)
         if ctx.header("x-minio-tpu-repl-spec"):
             raise _not_ported("replication apply")
@@ -1012,7 +1225,7 @@ class S3ApiHandlers:
         return None
 
     def get_object(self, ctx, bucket, key) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:GetObject", bucket, key)
         vid = ctx.query1("versionId")
         opts = GetOptions(version_id="" if vid == "null" else vid)
         info = self.obj.get_object_info(bucket, key, opts)
@@ -1310,7 +1523,7 @@ class S3ApiHandlers:
         return {}
 
     def head_object(self, ctx, bucket, key) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:GetObject", bucket, key)
         vid = ctx.query1("versionId")
         opts = GetOptions(version_id="" if vid == "null" else vid)
         info = self.obj.get_object_info(bucket, key, opts)
@@ -1336,7 +1549,7 @@ class S3ApiHandlers:
             raise _not_ported("object lock")
 
     def delete_object(self, ctx, bucket, key) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:DeleteObject", bucket, key)
         self.obj.get_bucket_info(bucket)
         if ctx.header("x-minio-tpu-repl-purge"):
             raise _not_ported("replica prune")
@@ -1383,7 +1596,7 @@ class S3ApiHandlers:
         """POST /bucket/key?restore: pull a transitioned object back as an
         expiring local copy (S3 RestoreObject; 202 on a fresh restore,
         200 when only the expiry window was extended)."""
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:RestoreObject", bucket, key)
         self.obj.get_bucket_info(bucket)
         if self.tiers is None:
             raise S3Error("NotImplemented", "no tier configuration")
@@ -1436,9 +1649,15 @@ class S3ApiHandlers:
             status=202 if out["status"] == "restored" else 200)
 
     def copy_object(self, ctx, bucket, key) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:PutObject", bucket, key)
         src_bucket, src_key, src_vid = _parse_copy_source(
             ctx.header("x-amz-copy-source"))
+        if self.iam is not None and ctx.cred and \
+                not self._is_owner(ctx.cred):
+            if not self.iam.is_allowed(ctx.cred, "s3:GetObject",
+                                       src_bucket, src_key,
+                                       self._policy_conditions(ctx)):
+                raise S3Error("AccessDenied")
         opts = GetOptions(version_id=src_vid)
         src_info = self.obj.get_object_info(src_bucket, src_key, opts)
         # copy preconditions
@@ -1537,7 +1756,7 @@ class S3ApiHandlers:
     # --- multipart ------------------------------------------------------
 
     def new_multipart_upload(self, ctx, bucket, key) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:PutObject", bucket, key)
         self.obj.get_bucket_info(bucket)
         metadata = _extract_metadata(ctx)
         # SSE multipart: seal one object key now; every part encrypts
@@ -1553,7 +1772,7 @@ class S3ApiHandlers:
             xmlgen.initiate_multipart_response(bucket, key, upload_id))
 
     def put_object_part(self, ctx, bucket, key) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:PutObject", bucket, key)
         upload_id = ctx.query1("uploadId")
         try:
             part_number = int(ctx.query1("partNumber"))
@@ -1585,7 +1804,7 @@ class S3ApiHandlers:
         return HTTPResponse(headers={"ETag": f'"{part.etag}"'})
 
     def copy_object_part(self, ctx, bucket, key) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:PutObject", bucket, key)
         upload_id = ctx.query1("uploadId")
         try:
             part_number = int(ctx.query1("partNumber"))
@@ -1617,7 +1836,7 @@ class S3ApiHandlers:
         return HTTPResponse().with_xml(x.bytes())
 
     def complete_multipart_upload(self, ctx, bucket, key) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:PutObject", bucket, key)
         upload_id = ctx.query1("uploadId")
         body = ctx.read_body()
         try:
@@ -1654,13 +1873,13 @@ class S3ApiHandlers:
             f"http://{host}/{bucket}/{key}", bucket, key, info.etag))
 
     def abort_multipart_upload(self, ctx, bucket, key) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:AbortMultipartUpload", bucket, key)
         self.obj.abort_multipart_upload(bucket, key,
                                         ctx.query1("uploadId"))
         return HTTPResponse(status=204)
 
     def list_object_parts(self, ctx, bucket, key) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:ListMultipartUploadParts", bucket, key)
         upload_id = ctx.query1("uploadId")
         try:
             marker = int(ctx.query1("part-number-marker", "0"))
@@ -1680,14 +1899,14 @@ class S3ApiHandlers:
     # --- object tagging -------------------------------------------------
 
     def get_object_tagging(self, ctx, bucket, key) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:GetObjectTagging", bucket, key)
         info = self.obj.get_object_info(bucket, key)
         raw = info.user_defined.get("X-Amz-Tagging", "")
         tags = dict(urllib.parse.parse_qsl(raw))
         return HTTPResponse().with_xml(xmlgen.tagging_response(tags))
 
     def put_object_tagging(self, ctx, bucket, key) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:PutObjectTagging", bucket, key)
         tags = _parse_tagging_xml(ctx.read_body())
         self._rewrite_metadata(
             bucket, key,
@@ -1695,7 +1914,7 @@ class S3ApiHandlers:
         return HTTPResponse()
 
     def delete_object_tagging(self, ctx, bucket, key) -> HTTPResponse:
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:DeleteObjectTagging", bucket, key)
         self._rewrite_metadata(bucket, key, {"X-Amz-Tagging": None})
         return HTTPResponse(status=204)
 
@@ -1729,7 +1948,7 @@ class S3ApiHandlers:
         the card, a compressed one decodes on the host), then the scan
         engine decides its rows on the card before the response starts: a
         device failure answers 500, never the evaluator's bytes."""
-        self.authenticate(ctx)
+        self.authenticate(ctx, "s3:GetObject", bucket, key)
         req = SelectRequest.from_xml(ctx.read_body())
         with stagetimer.stage("select.get"):
             info = self.obj.get_object_info(bucket, key)

@@ -13,11 +13,12 @@ two transports over the same ``S3ApiHandlers``:
     escape hatch and correctness oracle.
 
 Both feed the same request snapshot through the same middleware
-(``edge/dispatch.py``), which checks the extra routers (the internode
-storage, lock, peer and bootstrap RPC a distributed node mounts with
-``register_router``) before S3 routing. Streaming: response bodies may be
-chunk iterators (GET path never buffers the whole object). Left out: the
-admin, health and metrics routers, and IAM.
+(``edge/dispatch.py``), which checks the extra routers (the admin,
+health and metrics routers, and the internode storage, lock, peer and
+bootstrap RPC a distributed node mounts with ``register_router``) before
+S3 routing. Streaming: response bodies may be chunk iterators (GET path
+never buffers the whole object). ``iam`` (an IAMSys) authorises every S3
+verb by action; the cluster boot passes it.
 """
 
 from __future__ import annotations
@@ -102,8 +103,11 @@ def _make_handler_class(api: S3ApiHandlers, extra_routers):
                               query=query, headers=headers,
                               raw_query=parsed.query)
             length = int(headers.get("content-length", 0) or 0)
-            return RequestContext(req, _BodyReader(self.rfile, length),
-                                  length)
+            ctx = RequestContext(req, _BodyReader(self.rfile, length),
+                                 length)
+            ctx.remote_addr = self.client_address[0]
+            ctx.secure = isinstance(self.connection, ssl.SSLSocket)
+            return ctx
 
         def _respond(self, resp: HTTPResponse) -> None:
             # CORS reflection + framing policy shared with the edge
@@ -221,15 +225,18 @@ class S3Server:
     """S3 endpoint over an object layer — edge or threaded transport.
 
     extra_routers: list of (path_prefix, fn(ctx) -> HTTPResponse) checked
-    before S3 routing — the internode RPC routers of a distributed node.
+    before S3 routing — the admin, health and metrics routers
+(s3/admin.mount_admin) and the internode RPC routers of a distributed
+node.
     """
 
     def __init__(self, object_layer, address: str = "127.0.0.1",
                  port: int = 0, region: str = "us-east-1",
-                 creds: Optional[Credentials] = None,
+                 creds: Optional[Credentials] = None, iam=None,
                  certfile: Optional[str] = None,
                  keyfile: Optional[str] = None):
-        self.api = S3ApiHandlers(object_layer, region=region, creds=creds)
+        self.api = S3ApiHandlers(object_layer, region=region, creds=creds,
+                                 iam=iam)
         self.extra_routers: list = []
         self.tls = bool(certfile)
         self._httpd = None

@@ -12,8 +12,9 @@ the peer half the internode transport feeds (distributed/transport.py):
 ``observe_peer`` per successful verb (``minio_tpu_peer_latency_seconds``)
 and ``clear_samples``, which drops a restarted peer's windows.
 
-Left out: hedged reads, the suspect/probation quarantine state machine
-and its gauges, the OBD snapshot, and the knobs
+The exposition-time collector sets ``minio_tpu_drive_health`` for every
+tracked drive, at 0 (ok): left out are hedged reads, the
+suspect/probation quarantine state machine, the OBD snapshot, and the knobs
 ``MINIO_TPU_LAT_WINDOW``, ``MINIO_TPU_QUORUM_ACK`` and
 ``MINIO_TPU_WRITE_STALL_*``.
 """
@@ -38,6 +39,10 @@ _PEER_LAT = telemetry.REGISTRY.histogram(
     "minio_tpu_peer_latency_seconds",
     "Per-peer internode RPC latency (feeds the gray-failure health "
     "snapshot)", buckets=_LAT_BUCKETS)
+_HEALTH = telemetry.REGISTRY.gauge(
+    "minio_tpu_drive_health",
+    "Drive health state from the latency tracker "
+    "(0 = ok, 1 = suspect, 2 = probation)")
 _LAGGARDS = telemetry.REGISTRY.counter(
     "minio_tpu_write_laggards_total",
     "Drive write ops abandoned to the background lane after write quorum "
@@ -75,6 +80,16 @@ class HealthTracker:
     def __init__(self):
         self._mu = threading.Lock()
         self._windows: dict[tuple[str, str, str], _Window] = {}
+        telemetry.REGISTRY.register_collector(self._collect)
+
+    def _collect(self) -> None:
+        """Every tracked drive's state gauge; with no quarantine ported,
+        each drive is in state ok (0)."""
+        with self._mu:
+            drives = {key for (kind, key, _v) in self._windows
+                      if kind == "drive"}
+        for key in drives:
+            _HEALTH.set(0, disk=key)
 
     def observe(self, kind: str, key: str, verb: str,
                 seconds: float) -> None:

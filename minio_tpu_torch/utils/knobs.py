@@ -4,9 +4,10 @@ Counterpart of minio_tpu/utils/knobs.py, trimmed to the knobs of the
 pipelined data path, the batch former, heal, the MRF queue, the disk
 monitor, the SSE cipher choice, the scan plane, the tier plane, the
 bucket metacache, the hot-object read cache, the admission gate, the
-HTTP edge and the internode RPC transport, with the reference's names,
-types and defaults (minio_tpu/utils/knobs.py:160-197, :203-206, :220-233,
-:261-281, :284-306, :310-331, :356-359, :403-410, :434-435, :438-485).
+HTTP edge, the internode RPC transport, the IAM refresh and the federated
+metrics scrape, with the reference's names, types and defaults
+(minio_tpu/utils/knobs.py:160-197, :203-206, :220-235, :261-281, :284-306,
+:310-331, :356-359, :379-382, :403-410, :434-435, :438-485).
 Left out:
 the README table renderer and every knob no ported module reads. No knob here is one the reference lacks.
 
@@ -283,3 +284,11 @@ define("MINIO_TPU_RPC_STREAM_READ_S", "float", 30.0,
        "per-read socket deadline on streamed RPC responses: a peer "
        "that goes silent mid-stream fails the reader instead of "
        "parking it forever (0 disables)")
+
+# -- identity and operator planes (minio_tpu/utils/knobs.py:234, :379) ----
+define("MINIO_TPU_IAM_REFRESH_S", "float", 300.0,
+       "full IAM cache refresh interval (bounded staleness)")
+define("MINIO_TPU_CLUSTER_SCRAPE_S", "float", 2.0,
+       "per-peer deadline for the federated metrics scrape "
+       "(?cluster=1); a peer past it degrades the scrape and counts in "
+       "minio_tpu_cluster_scrape_failed_total")

@@ -9,7 +9,11 @@ file FS backend; `--pool` appends a pool of drives to an erasure node
 indexes the node list, and the default device on a host without a card,
 are refused with exit code 2 and a message (the distributed boot itself
 is in test_torch_distributed_boot.py). The boot's background plane (disk monitor, tracker,
-heal scanner, crawler) is wired and closes on shutdown. Every test is
+heal scanner, crawler) is wired and closes on shutdown. The admin verbs
+run as subprocesses against a port node over its admin router: `fsck`
+audits and, with `--repair`, reaps a planted stale tmp file;
+`decommission --status`, `tier ls` and `tier stats` print JSON, and their
+refusals exit 2 (bad arguments) or 1 (the server's refusal). Every test is
 bounded: subprocesses by their own timeouts, the rest by an alarm.
 """
 
@@ -273,3 +277,58 @@ def test_start_single_on_the_host(tmp_path, monkeypatch):
     assert node.disk_monitor is None and monitor._stop.is_set()
     assert os.path.exists(os.path.join(str(tmp_path), "e1", ".minio.sys",
                                        "tracker", "update-tracker.bin"))
+
+
+@pytest.fixture(scope="module")
+def admin_node(tmp_path_factory):
+    """A port node on the host for the admin verbs, in this process."""
+    root = tmp_path_factory.mktemp("clinode")
+    node = cluster.start_single([str(root / "e{1...4}")], creds=CREDS,
+                                block_size=1 << 16, device="cpu")
+    yield node, root
+    node.shutdown()
+
+
+def _verb(port: int, *args: str) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "-m", "minio_tpu_torch", *args,
+         "--url", f"127.0.0.1:{port}"], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=90)
+
+
+def test_cli_fsck_repairs_a_stale_tmp_file(admin_node):
+    """`fsck` audits (exit 0 clean) and `fsck --repair --tmp-age 0`
+    reaps a staged tmp file a crash left, over the admin route."""
+    import json
+    node, root = admin_node
+    tmp = root / "e1" / ".minio.sys" / "tmp" / "deadbeef-crash"
+    tmp.mkdir(parents=True, exist_ok=True)
+    (tmp / "part.1").write_bytes(b"left by a crash")
+    audit = _verb(node.s3.port, "fsck", "--tmp-age", "0")
+    assert audit.returncode == 1, audit.stderr
+    assert json.loads(audit.stdout)["counts"] == {"stale_tmp": 1}
+    fixed = _verb(node.s3.port, "fsck", "--repair", "--tmp-age", "0")
+    assert fixed.returncode == 0, fixed.stderr
+    assert json.loads(fixed.stdout)["repaired"] == {"stale_tmp": 1}
+    assert not tmp.exists()
+
+
+@pytest.mark.parametrize("args,key", [
+    (("decommission", "--status"), "topology"),
+    (("tier", "ls"), None),
+    (("tier", "stats"), "pending")])
+def test_cli_admin_verbs(admin_node, args, key):
+    import json
+    node, _root = admin_node
+    out = _verb(node.s3.port, *args)
+    assert out.returncode == 0, out.stderr
+    doc = json.loads(out.stdout)
+    assert doc == [] if key is None else key in doc
+
+
+def test_cli_admin_verbs_refuse(admin_node):
+    node, _root = admin_node
+    assert _verb(node.s3.port, "decommission").returncode == 2
+    assert _verb(node.s3.port, "tier", "rm").returncode == 2
+    bad = _verb(node.s3.port, "decommission", "--pool", "7")
+    assert bad.returncode == 1 and "decommission failed" in bad.stderr

@@ -20,7 +20,11 @@ set, 64 KiB blocks (tests/test_cluster.py:48-91).
     re-admits it on the peers at once (the generation listener) and
     their MRF queues heal what it missed;
   * the boot: the topology and one deployment id everywhere, the peer
-    verbs the port serves (and the reference's 404 for the rest).
+    verbs the port serves (and the reference's 404 for the rest);
+  * IAM across nodes: a user added through node 0's admin router signs a
+    PUT through node 2 (the iam-delta verb), and removed through node 1
+    is refused on node 3; a ``?cluster=1`` scrape through node 1 carries
+    all four nodes.
 
 The boot's refusals and the CLI are in test_torch_distributed_boot.py.
 """
@@ -284,10 +288,13 @@ def test_twin_boot_and_peer_plane(twins):
     rc = port_transport.RestClient("127.0.0.1", port[1].s3.port,
                                    "/minio/peer/v1", CREDS.access_key,
                                    CREDS.secret_key)
-    for verb in ("reload-iam", "metrics", "trace", "obd"):
+    for verb in ("events", "metrics", "trace", "obd"):
         with pytest.raises(port_transport.RPCError) as ei:
             rc.call(verb)
         assert ei.value.kind == "unknown-verb"
+    # the identity and metrics verbs are served
+    rc.call("reload-iam")
+    assert b"minio_disks_online" in rc.call("metrics-text")
     rc.close()
 
 
@@ -339,6 +346,59 @@ def test_twin_listings(twins):
     t.both(3, "GET", "/twin", query={"list-type": "2", "max-keys": "2"})
     t.both(0, "GET", "/twin", query={"versions": ""})
     t.both(1, "GET", "/twin", query={"prefix": "s", "delimiter": "/"})
+
+
+def _as(node, creds, method, path, **kw):
+    return S3TestClient("127.0.0.1", node.s3.port, creds).request(
+        method, path, **kw)
+
+
+def test_twin_iam_across_nodes(twins):
+    """A user added through node 0's admin router signs a PUT through
+    node 2 (the peers applied the iam-delta); removed through node 1, it
+    is refused on node 3. Equal answers from both clusters."""
+    t = Twin(twins)
+    user = type(CREDS)("nodeuser", "nodeusersecret")
+    t.both(0, "PUT", "/minio/admin/v3/add-user",
+           query={"accessKey": "nodeuser"},
+           body=b'{"secretKey": "nodeusersecret"}')
+    t.both(0, "PUT", "/minio/admin/v3/set-user-or-group-policy",
+           query={"policyName": "readwrite", "userOrGroup": "nodeuser"})
+    t.both(0, "PUT", "/iamb")
+    outs = [_as(c[2], user, "PUT", "/iamb/o", body=DATA["small"])
+            for c in (t.ref, t.port)]
+    assert [o[0] for o in outs] == [200, 200]
+    assert _norm(outs[0]) == _norm(outs[1])
+    for c in (t.ref, t.port):
+        assert all(n.iam.get_credentials("nodeuser") is not None
+                   for n in c)
+    t.both(1, "DELETE", "/minio/admin/v3/remove-user",
+           query={"accessKey": "nodeuser"})
+    outs = [_as(c[3], user, "GET", "/iamb/o") for c in (t.ref, t.port)]
+    assert [o[0] for o in outs] == [403, 403]
+    assert _norm(outs[0]) == _norm(outs[1])
+    assert b"InvalidAccessKeyId" in outs[1][2]
+
+
+def test_twin_cluster_scrape_merges_every_node(twins):
+    """?cluster=1 through node 1: one exposition carrying all four
+    nodes, as the reference's cluster gives it."""
+    from minio_tpu_torch.utils import promfed
+    t = Twin(twins)
+    texts = [S3TestClient("127.0.0.1", c[1].s3.port).request(
+        "GET", "/minio/admin/v3/metrics", query={"cluster": "1"})
+        for c in (t.ref, t.port)]
+    merged = []
+    for (st, _h, body), nodes in zip(texts, (t.ref, t.port)):
+        assert st == 200
+        fam = promfed.parse_exposition(body.decode())["minio_disks_online"]
+        merged.append(sorted(
+            (dict(labels)["node"], v)
+            for (_n, labels), v in fam.samples.items()))
+        assert [a for a, _v in merged[-1]] == \
+            sorted(n.spec.addr for n in nodes)
+    assert [v for _a, v in merged[0]] == [v for _a, v in merged[1]] \
+        == [16] * NODES
 
 
 def test_twin_node_loss_mrf_and_second_loss(twins):

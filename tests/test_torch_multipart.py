@@ -10,6 +10,7 @@ lowered to one block in both packages so parts stay small."""
 
 import hashlib
 import os
+import time
 import uuid
 
 import numpy as np
@@ -18,17 +19,19 @@ import pytest
 import minio_tpu.object.engine as ref_engine
 import minio_tpu.object.multipart as ref_multipart
 import minio_tpu.storage.format as ref_format
+import minio_tpu.utils.healthtrack as ref_healthtrack
 from minio_tpu.bitrot import BitrotAlgorithm as RefAlgo
 from minio_tpu.object.multipart import CompletePart as RefPart
 from minio_tpu.object.sets import ErasureSets as RefSets
 from minio_tpu_torch.bitrot import BitrotAlgorithm
-from minio_tpu_torch.object import api_errors, codec, engine, multipart
+from minio_tpu_torch.object import (api_errors, bitrot_io, codec, engine,
+                                    multipart)
 from minio_tpu_torch.object.multipart import CompletePart
 from minio_tpu_torch.object.sets import ErasureSets
 from minio_tpu_torch.parallel.scheduler import BatchScheduler
 from minio_tpu_torch.storage import format as port_format
 from minio_tpu_torch.storage.xl_storage import XLStorage
-from minio_tpu_torch.utils import crashpoint
+from minio_tpu_torch.utils import crashpoint, healthtrack
 
 K, M, BS = 4, 2, 1 << 14
 PARTS = [3 * BS + 5, 2 * BS, 777]
@@ -54,9 +57,18 @@ class _Pinned:
         return self.t
 
 
+def _cold_stall_s():
+    """Both packages' quorum-ack grace at its cold-start ceiling: a part
+    upload waits for every drive's close, whatever latencies earlier
+    tests in this worker fed the process-wide trackers."""
+    return healthtrack.WRITE_STALL_CEIL_S
+
+
 @pytest.fixture
 def pinned(monkeypatch):
     ref, port = _Pinned(), _Pinned()
+    monkeypatch.setattr(healthtrack, "write_stall_s", _cold_stall_s)
+    monkeypatch.setattr(ref_healthtrack, "write_stall_s", _cold_stall_s)
     for mod in (ref_engine, ref_multipart, ref_format):
         monkeypatch.setattr(mod, "_uuid", ref)
     for mod in (engine, multipart, port_format):
@@ -165,6 +177,41 @@ def test_trees_equal_to_reference(tmp_path, pinned, algo):
         assert b"".join(it) == b"".join(data)
         assert info.etag.endswith("-3")
         layer.close()
+
+
+def test_trees_equal_with_warm_tracker_and_a_slow_close(
+        tmp_path, pinned, monkeypatch):
+    """The twin trees do not depend on what ran before in the worker or
+    on load: with the port's tracker warmed by fast writes, as earlier
+    tests warm it (a grace of 0.5 s if it were derived from it), and one
+    port drive's first part close taking 1 s, as under the suite's load,
+    the port still waits for that drive, as the reference does."""
+    monkeypatch.setattr(healthtrack, "TRACKER", healthtrack.HealthTracker())
+    for i in range(64):
+        healthtrack.TRACKER.observe("drive", f"warm{i % 4}", "write", 0.001)
+    slow_root = str(tmp_path / "p0")
+    orig = bitrot_io.StreamingBitrotWriter.close
+    slowed = []
+
+    def close(self):
+        if not slowed and healthtrack.disk_key(self.disk) == slow_root:
+            slowed.append(self.path)
+            time.sleep(1.0)
+        return orig(self)
+    monkeypatch.setattr(bitrot_io.StreamingBitrotWriter, "close", close)
+    rng = np.random.default_rng(12)
+    data = [rng.bytes(n) for n in PARTS]
+    ref_paths, port_paths = _paths(tmp_path, "r"), _paths(tmp_path, "p")
+    ref = _open(ref_paths, "highwayhash256S", ref=True)
+    port = _open(port_paths, "highwayhash256S")
+    ups = []
+    for layer, cls in ((ref, RefPart), (port, CompletePart)):
+        layer.make_bucket("b")
+        ups.append(_upload(layer, cls, data))
+        layer.close()
+    assert ups[0] == ups[1]
+    assert slowed
+    _assert_trees_equal(ref_paths, port_paths, False)
 
 
 def test_whole_file_digests_are_each_drives_own(tmp_path, pinned):

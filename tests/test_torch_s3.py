@@ -38,6 +38,7 @@ import base64
 import gzip
 import hashlib
 import http.client
+import importlib
 import os
 import random
 import re
@@ -113,6 +114,7 @@ SSEC = {
         base64.b64encode(hashlib.md5(SSEC_KEY).digest()).decode()}
 SSE_S3 = {"x-amz-server-side-encryption": "AES256"}
 TEST_SECONDS = 240
+STALL_CEIL_S = 10.0     # both packages' MINIO_TPU_WRITE_STALL_CEIL_S
 
 
 @pytest.fixture(autouse=True)
@@ -182,6 +184,11 @@ class _Pinned:
 
 
 def pin(monkeypatch, engine, multipart, bmeta, handlers, crypto):
+    """Pin one package's identity sources (see _Pinned), and its
+    quorum-ack grace at the cold-start ceiling: a shard write that lags
+    under the suite's load is waited for, whatever latencies earlier
+    tests in the worker fed that package's tracker, so that both
+    packages leave the same files."""
     p = _Pinned()
     for mod in (engine, multipart):
         monkeypatch.setattr(mod, "_uuid", p)
@@ -189,6 +196,9 @@ def pin(monkeypatch, engine, multipart, bmeta, handlers, crypto):
     monkeypatch.setattr(bmeta, "time", p)
     monkeypatch.setattr(handlers, "uuid", p)
     monkeypatch.setattr(crypto, "secrets", p)
+    package = engine.__name__.split(".")[0]
+    healthtrack = importlib.import_module(f"{package}.utils.healthtrack")
+    monkeypatch.setattr(healthtrack, "write_stall_s", lambda: STALL_CEIL_S)
 
 
 @pytest.fixture
