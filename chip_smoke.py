@@ -188,11 +188,11 @@ non-zero:
                 usage cache.
   14. namespace — the namespace plane (see run_namespace): a fresh server
                 over 8 drives at 6+2 (on tmpfs where it has room, as
-                bench.py --ab-list's pool) with the read cache on; 2,100
+                bench.py --ab-list's pool) with the read cache on; 1,500
                 keys in its shape (the bench's 10,000 cut for the run's
                 time limit), seeded by worker processes, listed over
-                HTTP from the persisted bucket index (a 1,200-key and a
-                900-key segment: the segment size cut with the keys),
+                HTTP from the persisted bucket index (a 900-key and a
+                600-key segment: the segment size cut with the keys),
                 page for page the merge walk's;
                 the index persisted, 2 drives' copy removed, reloaded by a
                 new boot and restored by the scanner's segment sweep; a
@@ -269,7 +269,11 @@ non-zero:
                 SIGTERM, exit 0. After the boot, a user added through
                 node 0's admin router signs a 16 MiB PUT through node 2,
                 and one ?cluster=1 scrape through node 1 carries all four
-                nodes.
+                nodes; a trace?follow=1 stream opened on node 1 (its
+                peers' subscriptions grafted in) receives a 16 MiB PUT
+                served by node 2, and that PUT's kept span tree holds
+                rpc.appendfile spans with the serving nodes' grafted
+                rpc.server.appendfile fragments (trace_across_nodes).
   19. iam_admin — IAM, STS and the operator routers (see run_iam_admin):
                 a fresh node with IAM on (16 drives at 12+4, 1 MiB
                 blocks, tmpfs where it has room), driven through madmin
@@ -285,6 +289,26 @@ non-zero:
                 restore-config; a reboot on the same drives (iam.load()
                 timed). Whether `cryptography` imports, and which
                 AES-256-GCM sealed the config, on the phase's first line.
+  20. obs     — the tracing plane (see run_obs): a fresh node as in
+                phase 19; 2 rounds under each of three conditions,
+                interleaved (A: the plane on; B: a live trace?follow=1
+                subscriber through madmin.trace_follow, which gets every
+                PUT of its round; C: the event journal and the SLO engine
+                off), each round 8 signed 16 MiB PUTs at once; an audit
+                webhook set through config KV at a loopback receiver gets
+                one round's PUTs; p50/p99 per condition and B/A, A/C; the
+                kept PUT trees hold engine.put_object with
+                pipeline.encode and sched.dispatch, the dispatch with its
+                sched.queue/transfer/compute/fetch children, each
+                sched.compute the codec's CUDA-event
+                compute span of its dispatch within 1 µs; GETs, degraded
+                GETs (decode dispatches in their trees, MRF heals as
+                mrf.enqueue/mrf.drain events), an SSE-S3 object
+                (chacha20), a Q6 COUNT (scan.page, scan_eval); profiling
+                (cpu, mem) around one more round; a drive.probation record
+                captured into a bundle on drive 0 (seconds to the bundle),
+                the SLO windows, the console's online line; a reboot whose
+                journal replays the records from before it.
   4. timings  — (continued) chacha20 at the encode launch (8 rows, 1 MiB
                 span in 1,048,584-byte rows) and at GET's 64 x 65,536:
                 CUDA events around back-to-back wrapper calls, the kernel's
@@ -308,7 +332,7 @@ non-zero:
                 card.
 
 Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
-16, 17, 18, 19, 4.
+16, 17, 18, 19, 20, 4.
 Each path's launch counters are set to 0 just before it runs and read
 just after. Then it prints the kernel table as one JSON line (with each kernel's launches on every path),
 the card's name and power limit, and the device line last. It needs one
@@ -396,9 +420,9 @@ COMPRESS_SSE = (2, 64 << 20)        # compress + SSE-S3 objects, bytes each
 #                                     run's time)
 COMPRESS_SELECT_ROWS = 8_000        # ~1 MiB, 4 pages
 # phase 13, the background plane on the same server
-NS_KEYS = 2_100                     # bench.py --ab-list's 10,000, cut to fit
+NS_KEYS = 1_500                     # bench.py --ab-list's 10,000, cut to fit
                                     # the run's time limit with phase 15
-NS_SEGMENT_KEYS = 1_200             # the index's 5,000-key segments cut with
+NS_SEGMENT_KEYS = 900               # the index's 5,000-key segments cut with
 #                                     the keys, so that it still persists two
 NS_VERSIONS_EVERY = 20              # an extra version every 20th key
 NS_PAGE = 1000                      # keys a listing page
@@ -459,6 +483,16 @@ IAM_DENIED = 16 << 20               # the PUT into a denied bucket
 IAM_HEAL_DRIVE = 7                  # the drive whose buckets are emptied
 IAM_SHM_MIN_BYTES = 4 << 30         # tmpfs room the phase's drives need
 DIST_IAM_PUT = 16 << 20             # phase 18: the admin-made user's PUT
+# phase 20, the tracing plane (the reference bench's bench_obs_ab and
+# bench_incident_ab at phase 19's node: 16 drives, 12+4, 1 MiB blocks)
+OBS_ROUNDS = 2                      # rounds per condition, A B C interleaved
+#                                     (4 at first, cut for the run's time)
+OBS_PUTS = (8, 16 << 20)            # clients, bytes each PUT (the codec's
+#                                     8 MiB gate: every batch on the card)
+OBS_DEGRADED = 4                    # GETs with 3 drives' bucket gone
+OBS_SSE = 16 << 20                  # the SSE-S3 object
+OBS_SLO_WINDOWS_S = "5,15"          # the default 60,300 s cut to the phase
+OBS_SHM_MIN_BYTES = 4 << 30         # tmpfs room the phase's drives need
 
 
 def fail(msg: str) -> None:
@@ -804,6 +838,8 @@ def main() -> int:
         # -- 19. IAM, STS and the operator routers: its own boot ----------
         iamp = run_iam_admin(tmp, card, counts, stagetimer, np, head,
                              head_q6)
+        # -- 20. the tracing plane: its own boot ---------------------------
+        obsp = run_obs(tmp, card, counts, stagetimer, np, head, head_q6)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths_launches = {"main_path": main_path["launches"],
@@ -819,7 +855,8 @@ def main() -> int:
                       "pools": poolsp["launches"],
                       "fs": fsp["launches"],
                       "distributed": distp["launches"],
-                      "iam_admin": iamp["launches"]}
+                      "iam_admin": iamp["launches"],
+                      "obs": obsp["launches"]}
 
     # -- 4. timings -------------------------------------------------------
     b, s = 32, -(-(1 << 20) // k)
@@ -5615,6 +5652,11 @@ def run_distributed(tmp, card, counts, stagetimer, np) -> dict:
             "iam_user_put", DIST_IAM_PUT, put_s, disp0, rpc0,
             admin_s=round(admin_s, 4), scrape_s=round(scrape_s, 4),
             scrape_bytes=len(scrape), disks_online_by_node=by_node)
+        # the tracing plane across nodes: a trace/cluster follow opened on
+        # node 1 receives a PUT that node 2 serves, and that PUT's span
+        # tree, read here, holds the remote drives' appendfile fragments
+        summary["trace_follow"] = trace_across_nodes(
+            nodes, creds, rng, step, dispatches, transport)
         n_obj, size = DIST_OBJECTS
         objs = {f"obj-{i:02d}": rng.bytes(size) for i in range(n_obj)}
         objs["obj-big"] = rng.bytes(size + 12345)
@@ -5852,6 +5894,82 @@ def run_distributed(tmp, card, counts, stagetimer, np) -> dict:
     summary["card"] = card
     emit(summary)
     return summary
+
+
+def trace_across_nodes(nodes, creds, rng, step, dispatches,
+                       transport) -> dict:
+    """Phase 18's tracing step: madmin.trace_follow on node 1 (its peers'
+    trace-stream subscriptions grafted in) gets the record of a
+    DIST_IAM_PUT PUT served by node 2, and the PUT's kept span tree (the
+    process's one span sink) holds rpc.appendfile spans, each with the
+    serving node's rpc.server.appendfile fragment grafted under it."""
+    from minio_tpu_torch import madmin
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.utils import telemetry
+
+    def pumps() -> int:
+        return sum(t.name == "trace-follow-peer" and t.is_alive()
+                   for t in threading.enumerate())
+
+    was = (telemetry.SPANS.slow_s, telemetry.SPANS.sample)
+    telemetry.SPANS.configure(sample=1.0)
+    body = rng.bytes(DIST_IAM_PUT)
+    got: list = []
+    try:
+        adm = madmin.AdminClient("127.0.0.1", nodes[1].s3.port,
+                                 creds.access_key, creds.secret_key,
+                                 timeout=120)
+        t = threading.Thread(target=lambda: got.extend(adm.trace_follow(
+            count=1, api="PutObject", timeout=120)), daemon=True)
+        t.start()
+        deadline = time.monotonic() + 15
+        while pumps() < len(nodes) - 1 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if pumps() < len(nodes) - 1:
+            fail(f"distributed: trace/cluster follow armed {pumps()} peer "
+                 "subscriptions")
+        disp0, rpc0 = dispatches(), transport.verb_stats()
+        t0 = time.perf_counter()
+        st, _h, out = S3Client(nodes[2].s3.port, creds, timeout=600).send(
+            "PUT", "/dist/traced", body=body)
+        put_s = time.perf_counter() - t0
+        if st != 200:
+            fail(f"distributed: the traced PUT: HTTP {st} {out[:200]!r}")
+        t.join(30)
+        if t.is_alive() or len(got) != 1 or \
+                got[0]["node"] != nodes[2].spec.addr or \
+                got[0]["path"] != "/dist/traced" or got[0]["status"] != 200:
+            fail(f"distributed: the follow on node 1 got {got}")
+        trees = telemetry.SPANS.dump(trace_id=got[0]["trace_id"])
+        if len(trees) != 1:
+            fail("distributed: the traced PUT's tree was not kept")
+        calls = find_spans(trees[0], "rpc.appendfile")
+        grafted = [f for ca in calls for f in ca.get("children", ())
+                   if f["name"] == "rpc.server.appendfile"
+                   and f.get("remote")]
+        if not calls or len(grafted) < len(calls):
+            fail(f"distributed: {len(calls)} rpc.appendfile spans, "
+                 f"{len(grafted)} grafted fragments")
+    finally:
+        telemetry.SPANS.configure(*was)
+    deadline = time.monotonic() + 15
+    while pumps() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if pumps():
+        fail("distributed: the follow's peer subscriptions did not unwind")
+    return step("trace_follow", DIST_IAM_PUT, put_s, disp0, rpc0,
+                follow_node=got[0]["node"], appendfile_spans=len(calls),
+                grafted_fragments=len(grafted),
+                tree_spans=len(find_spans(trees[0])),
+                spans_dropped=trees[0].get("spans_dropped", 0))
+
+
+def find_spans(node: dict, name: str = "") -> list:
+    """Every span of a dumped tree named `name` (every span when "")."""
+    out = [node] if not name or node["name"] == name else []
+    for ch in node.get("children", ()):
+        out.extend(find_spans(ch, name))
+    return out
 
 
 def run_iam_admin(tmp, card, counts, stagetimer, np, lineitem_head: bytes,
@@ -6403,6 +6521,471 @@ def run_iam_admin(tmp, card, counts, stagetimer, np, lineitem_head: bytes,
               "card": card})
     finally:
         stagetimer.disable()
+        if node is not None:
+            node.shutdown()
+        for v, old in saved_env.items():
+            if old is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = old
+        shutil.rmtree(root, ignore_errors=True)
+    summary["seconds"] = round(time.perf_counter() - t_phase, 3)
+    summary["card"] = card
+    emit(summary)
+    return summary
+
+
+def run_obs(tmp, card, counts, stagetimer, np, lineitem_head: bytes,
+            q6_oracle: bytes) -> dict:
+    """Phase 20: the tracing plane on the card, modelled on the reference
+    bench's bench_obs_ab and bench_incident_ab at this node's size. A
+    fresh node as `python -m minio_tpu_torch server /d{1...16}` boots it
+    (cluster.start_single, 12+4, 1 MiB blocks, tmpfs where /dev/shm has
+    OBS_SHM_MIN_BYTES free), its heal scanner, crawler, disk monitor and
+    transition worker stopped; the tracing plane's own threads (journal
+    flusher, SLO engine, flight recorder) run. Every trace is kept for
+    the phase (SPANS sample 1.0, restored after). The launch counts are
+    set to 0 just before the traffic and read just after it. Steps, one
+    JSON line each:
+      * rounds: OBS_ROUNDS x 3 conditions, interleaved A B C A B C ...,
+        each round OBS_PUTS[0] signed clients PUTting OBS_PUTS[1] bytes
+        at once: A the plane on with no subscriber, B a live
+        trace?follow=1 subscriber through madmin.trace_follow (it gets
+        every PUT of its round, api PutObject, status 200), C
+        MINIO_TPU_EVENTLOG and MINIO_TPU_SLO off; an audit webhook set
+        through config KV at a loopback receiver gets every PUT of the
+        first A round (minio_tpu_audit_dropped_total 0); p50/p99 per
+        condition, B/A and A/C;
+      * spans: spans?sort=slowest&api=PutObject returns trees, each with
+        engine.put_object holding pipeline.encode and sched.dispatch
+        (verb encode; its batch is submitted where the PUT's feed runs,
+        as in the reference) with its sched.queue/transfer/compute/fetch
+        children; each
+        sched.compute duration equals a codec compute_span_s of the run
+        within 1 µs; spans per tree and spans dropped;
+      * reads: OBS_PUTS[0] GETs, then OBS_DEGRADED GETs with 3 drives'
+        bucket removed (their trees hold sched.dispatch verb decode, and
+        the MRF heals they queue appear as mrf.enqueue / mrf.drain
+        events); one OBS_SSE SSE-S3 PUT and GET (chacha20); one Q6 COUNT
+        over phase 11's lineitem's first NS_SELECT_BYTES (phase 11's
+        oracle, byte for byte; its tree holds scan.page);
+      * profiling/start (cpu,mem) around one extra round, then stop: both
+        texts non-empty, minio_tpu_profiler_running back to 0;
+      * incident: one drive.probation record emitted directly, the
+        seconds until its bundle lands under drive 0's
+        .minio.sys/incidents/, listed with journal and span counts > 0;
+        the SLO document's windows (OBS_SLO_WINDOWS_S, cut from the
+        default 60,300 s to fit the phase) each with at least
+        MINIO_TPU_SLO_MIN_SAMPLES samples; consolelog's `online` line;
+      * reboot on the same drives: events replays every record persisted
+        before it."""
+    import concurrent.futures
+    import http.server
+
+    from minio_tpu_torch import cluster, madmin
+    from minio_tpu_torch.object import codec as codec_mod
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.s3.credentials import Credentials
+    from minio_tpu_torch.scripts import scan_cases as sc
+    from minio_tpu_torch.utils import eventlog, telemetry
+    k, m, bs = 12, 4, 1 << 20
+    rng = np.random.default_rng(SEED + 101)
+    t_phase = time.perf_counter()
+
+    def note(msg: str) -> None:
+        print(f"[obs {time.perf_counter() - t_phase:.1f} s] {msg}",
+              file=sys.stderr, flush=True)
+
+    creds = Credentials("smokeobsroot", "smokeobsrootsecret")
+    env = {"MINIO_SSE_MASTER_KEY": rng.bytes(32).hex(),
+           "MINIO_TPU_SSE_CIPHER": "chacha20",
+           "MINIO_TPU_SLO_WINDOWS_S": OBS_SLO_WINDOWS_S,
+           "MINIO_TPU_SLO_EVAL_S": "1", "MINIO_TPU_INCIDENT_DEBOUNCE_S": "0"}
+    saved_env = {v: os.environ.get(v)
+                 for v in list(env) + ["MINIO_TPU_EVENTLOG", "MINIO_TPU_SLO"]}
+    os.environ.update(env)
+    shm = "/dev/shm"
+    on_shm = os.path.isdir(shm) and \
+        shutil.disk_usage(shm).free >= OBS_SHM_MIN_BYTES
+    root = tempfile.mkdtemp(prefix="chip_smoke_obs_",
+                            dir=shm if on_shm else tmp)
+    drives = [os.path.join(root, f"d{i}") for i in range(k + m)]
+    # every codec step's stage spans, to hold the trees' sched.compute to
+    steps: list = []
+    real_record = codec_mod._record_step
+
+    def record_step(verb, stages):
+        steps.append((verb, stages["compute_span_s"]))
+        real_record(verb, stages)
+
+    def boot():
+        t0 = time.perf_counter()
+        node = cluster.start_single(drives, creds=creds, parity=m,
+                                    set_drive_count=k + m, block_size=bs)
+        boot_s = time.perf_counter() - t0
+        node._iam_refresh_stop.set()
+        for loop in (node.disk_monitor, node.heal_scanner, node.crawler,
+                     node.transition_worker):
+            loop.close()
+            if getattr(loop, "_thread", None) is not None:
+                loop._thread.join(timeout=120)
+                if loop._thread.is_alive():
+                    fail("obs: a background loop did not stop")
+        return node, boot_s
+
+    def md5(b: bytes) -> str:
+        return hashlib.md5(b).hexdigest()
+
+    class Receiver(http.server.BaseHTTPRequestHandler):
+        got: list = []
+
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length", "0"))
+            Receiver.got.append(json.loads(self.rfile.read(n)))
+            self.send_response(200)
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+
+    audit = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Receiver)
+    threading.Thread(target=audit.serve_forever, daemon=True,
+                     name="obs-audit-receiver").start()
+    audit_url = f"http://127.0.0.1:{audit.server_address[1]}/audit"
+    was_sampling = (telemetry.SPANS.slow_s, telemetry.SPANS.sample)
+    summary = {"phase": "obs", "step": "summary", "drives": k + m,
+               "ec": f"{k}+{m}", "block_size": bs,
+               "drives_on": "tmpfs (/dev/shm)" if on_shm
+               else "the disk (tmp)", "rounds_per_condition": OBS_ROUNDS,
+               "clients": OBS_PUTS[0], "put_bytes": OBS_PUTS[1],
+               "slo_windows_s": OBS_SLO_WINDOWS_S}
+    node = None
+    try:
+        node, summary["boot_s"] = boot()
+        port = node.s3.port
+        c = S3Client(port, creds, timeout=600)
+        adm = madmin.AdminClient("127.0.0.1", port, creds.access_key,
+                                 creds.secret_key, timeout=120)
+        meta = os.path.join(drives[0], ".minio.sys")
+        if eventlog.JOURNAL._dir != os.path.join(meta, "eventlog"):
+            fail(f"obs: the journal is attached to {eventlog.JOURNAL._dir} "
+                 "(a node of an earlier phase still holds the plane)")
+        telemetry.SPANS.configure(sample=1.0)
+        codec_mod._record_step = record_step
+        note("booted")
+        # -- the path: counts set to 0 just before ---------------------------
+        counts.zero()
+        codec_mod.reset_step_seconds()
+        for b in ("obs", "obs-deg", "obs-sel"):
+            if c.send("PUT", f"/{b}")[0] != 200:
+                fail(f"obs: make bucket {b}")
+        n_cl, size = OBS_PUTS
+        bodies = [rng.bytes(size) for _ in range(n_cl)]
+        ucl = [S3Client(port, creds, timeout=600) for _ in range(n_cl)]
+        lat = {"A": [], "B": [], "C": []}
+        follow_got: list = []
+
+        def put_round(tag: str) -> list:
+            def one(i):
+                t0 = time.perf_counter()
+                st, h, body = ucl[i].send("PUT", f"/obs/{tag}-{i}",
+                                          body=bodies[i])
+                dt = time.perf_counter() - t0
+                if st != 200 or h.get("etag") != f'"{md5(bodies[i])}"':
+                    fail(f"obs: PUT {tag}-{i}: HTTP {st} {body[:200]!r}")
+                return dt
+            with concurrent.futures.ThreadPoolExecutor(n_cl) as ex:
+                return list(ex.map(one, range(n_cl)))
+
+        adm.set_config("audit_webhook", enable="on", endpoint=audit_url)
+        if node.s3.api.trace.audit_webhook != audit_url:
+            fail("obs: the audit webhook did not reach the trace plane")
+        # one untimed round first: the node's first PUTs allocate its
+        # pinned staging and warm its paths, which would land on A alone
+        put_round("warm")
+        t_rounds = time.perf_counter()
+        for r in range(OBS_ROUNDS):
+            for cond in ("A", "B", "C"):
+                tag = f"r{r}{cond}"
+                if cond == "B":
+                    got: list = []
+                    t = threading.Thread(target=lambda got=got: got.extend(
+                        adm.trace_follow(count=n_cl, api="PutObject",
+                                         timeout=120)), daemon=True)
+                    t.start()
+                    deadline = time.monotonic() + 10
+                    while node.s3.api.trace.hub.subscriber_count == 0 \
+                            and time.monotonic() < deadline:
+                        time.sleep(0.01)
+                    if node.s3.api.trace.hub.subscriber_count == 0:
+                        fail("obs: the follow subscriber never subscribed")
+                if cond == "C":
+                    os.environ["MINIO_TPU_EVENTLOG"] = "off"
+                    os.environ["MINIO_TPU_SLO"] = "off"
+                try:
+                    lat[cond].extend(put_round(tag))
+                finally:
+                    for v in ("MINIO_TPU_EVENTLOG", "MINIO_TPU_SLO"):
+                        os.environ.pop(v, None)
+                if cond == "B":
+                    t.join(60)
+                    if t.is_alive() or sorted(e["path"] for e in got) != \
+                            sorted(f"/obs/{tag}-{i}" for i in range(n_cl)) \
+                            or any(e["api"] != "PutObject" or
+                                   e["status"] != 200 for e in got):
+                        fail(f"obs: the follow subscriber got "
+                             f"{[(e['path'], e['status']) for e in got]}")
+                    follow_got.extend(got)
+                if r == 0 and cond == "A":
+                    deadline = time.monotonic() + 30
+                    want = {f"/obs/{tag}-{i}" for i in range(n_cl)}
+                    while not want <= {e["path"] for e in Receiver.got} \
+                            and time.monotonic() < deadline:
+                        time.sleep(0.05)
+                    shipped = [e for e in Receiver.got
+                               if e["path"] in want]
+                    adm.set_config("audit_webhook", enable="off")
+                    if {e["path"] for e in shipped} != want or any(
+                            e["api"] != "PutObject" or e["status"] != 200
+                            for e in shipped):
+                        fail(f"obs: the audit receiver got "
+                             f"{sorted(e['path'] for e in shipped)}")
+        rounds_s = time.perf_counter() - t_rounds
+        dropped = telemetry.REGISTRY.counter(
+            "minio_tpu_audit_dropped_total").value()
+        if dropped or node.s3.api.trace.audit_dropped:
+            fail(f"obs: {dropped} audit entries dropped")
+        pcts = {cond: pct_ms(v) for cond, v in lat.items()}
+
+        def ratio(a, b, q):
+            return round(pcts[a][q] / pcts[b][q], 4) if pcts[b][q] else None
+
+        summary["rounds"] = {
+            "seconds": round(rounds_s, 3), "latency": pcts,
+            "p50_b_over_a": ratio("B", "A", "p50_ms"),
+            "p99_b_over_a": ratio("B", "A", "p99_ms"),
+            "p50_a_over_c": ratio("A", "C", "p50_ms"),
+            "p99_a_over_c": ratio("A", "C", "p99_ms"),
+            "follow_records": len(follow_got),
+            "audit_records": len(Receiver.got), "audit_dropped": dropped}
+        emit({"phase": "obs", "step": "rounds", **summary["rounds"],
+              "card": card})
+        note("rounds")
+        # -- spans ---------------------------------------------------------
+        trees = adm.spans(count=4 * OBS_ROUNDS * n_cl, sort="slowest",
+                          api="PutObject")["spans"]
+        puts = [t for t in trees
+                if t["attrs"]["path"].startswith("/obs/r")]
+        if len(puts) < n_cl:
+            fail(f"obs: spans returned {len(puts)} PutObject trees")
+        computes = [cs for v, cs in steps if v == "encode"]
+        n_disp = 0
+        for t in puts:
+            # the dispatch hangs under the span current where the PUT's
+            # feed submits its batch (engine.put_object; the encode stage
+            # waits for it later, in pipeline.encode), as in the reference
+            eng = find_spans(t, "engine.put_object")
+            enc = [e for x in eng for e in find_spans(x, "pipeline.encode")]
+            disp = [d for x in eng for d in find_spans(x, "sched.dispatch")]
+            if not eng or not enc or not disp:
+                fail(f"obs: a PUT tree lacks engine.put_object with "
+                     f"pipeline.encode and sched.dispatch: "
+                     f"{json.dumps(t)[:600]}")
+            for d in disp:
+                kids = [ch["name"] for ch in d.get("children", ())]
+                if d["attrs"]["verb"] != "encode" or kids != [
+                        "sched.queue", "sched.transfer", "sched.compute",
+                        "sched.fetch"]:
+                    fail(f"obs: a dispatch of a PUT tree: {d['attrs']} "
+                         f"{kids}")
+                comp = d["children"][2]["duration_ms"]
+                if not any(abs(comp - cs * 1e3) <= 1e-3 for cs in computes):
+                    fail(f"obs: sched.compute {comp} ms equals no codec "
+                         "compute_span_s of the run")
+                n_disp += 1
+        sizes = [len(find_spans(t)) for t in puts]
+        summary["spans"] = {
+            "put_trees": len(puts), "dispatch_spans_checked": n_disp,
+            "spans_per_put_tree": {"min": min(sizes), "max": max(sizes),
+                                   "mean": round(sum(sizes) / len(sizes),
+                                                 1)},
+            "spans_dropped": sum(t.get("spans_dropped", 0) for t in puts),
+            "kept_total": telemetry.SPANS.kept_total,
+            "codec_encode_steps": len(computes)}
+        emit({"phase": "obs", "step": "spans", **summary["spans"],
+              "card": card})
+        note("spans")
+        # -- reads -----------------------------------------------------------
+        t0 = time.perf_counter()
+        for i in range(n_cl):
+            st, h, body = ucl[i].send("GET", f"/obs/r0A-{i}")
+            if st != 200 or body != bodies[i]:
+                fail(f"obs: GET r0A-{i}: HTTP {st}")
+        get_s = time.perf_counter() - t0
+        for i in range(OBS_DEGRADED):
+            if c.send("PUT", f"/obs-deg/o{i}", body=bodies[i])[0] != 200:
+                fail(f"obs: PUT obs-deg/o{i}")
+        gone = [0, 1, 2]
+        for i in gone:
+            shutil.rmtree(os.path.join(drives[i], "obs-deg"))
+        seq0 = eventlog.JOURNAL.seq
+        t0 = time.perf_counter()
+        for i in range(OBS_DEGRADED):
+            st, _h, body = c.send("GET", f"/obs-deg/o{i}")
+            if st != 200 or body != bodies[i]:
+                fail(f"obs: degraded GET o{i}: HTTP {st}")
+        deg_s = time.perf_counter() - t0
+        get_trees = [t for t in adm.spans(count=200, api="GetObject")[
+            "spans"] if t["attrs"]["path"].startswith("/obs-deg/")]
+        decodes = [d for t in get_trees for d in find_spans(t, "sched.dispatch")
+                   if d["attrs"]["verb"] == "decode"]
+        if len(get_trees) < OBS_DEGRADED or not decodes or not all(
+                len(d.get("children", ())) == 4 for d in decodes):
+            fail(f"obs: {len(get_trees)} degraded GET trees, "
+                 f"{len(decodes)} decode dispatches on the card")
+        if not node.sets.mrf.drain(120):
+            fail("obs: the MRF queue did not drain")
+        mrf_events = [e for e in adm.events(classes="mrf.enqueue,mrf.drain")
+                      if e["seq"] > seq0]
+        if {e["class"] for e in mrf_events} != {"mrf.enqueue", "mrf.drain"}:
+            fail(f"obs: the degraded GETs' heals: {mrf_events[-4:]}")
+        # SSE-S3: chacha20 on the encrypted PUT and GET
+        sse_data = rng.bytes(OBS_SSE)
+        c0 = counts.read()["chacha20"]
+        st, _h, _b = c.send("PUT", "/obs/sse", body=sse_data, headers={
+            "x-amz-server-side-encryption": "AES256"})
+        st2, _h, body = c.send("GET", "/obs/sse")
+        if st != 200 or st2 != 200 or body != sse_data or \
+                counts.read()["chacha20"] <= c0:
+            fail(f"obs: the SSE-S3 object: HTTP {st}/{st2}")
+        # the Select: Q6's COUNT over the lineitem's head
+        if c.send("PUT", "/obs-sel/lineitem.csv",
+                  body=lineitem_head)[0] != 200:
+            fail("obs: the lineitem PUT")
+        st, _h, body = c.send("POST", "/obs-sel/lineitem.csv",
+                              query={"select": "", "select-type": "2"},
+                              body=sc.select_xml(sc.Q6_COUNT))
+        if st != 200 or body != q6_oracle:
+            fail(f"obs: the Q6 Select: HTTP {st}, {len(body)} B")
+        sel = [t for t in adm.spans(count=50, api="PostObject")["spans"]
+               if t["attrs"]["path"] == "/obs-sel/lineitem.csv"]
+        if not sel or not find_spans(sel[0], "scan.page"):
+            fail("obs: the Select's tree holds no scan.page")
+        summary["reads"] = {
+            "get_s": round(get_s, 3), "degraded_get_s": round(deg_s, 3),
+            "degraded_trees": len(get_trees),
+            "decode_dispatches": len(decodes),
+            "mrf_events": {cl: sum(e["class"] == cl for e in mrf_events)
+                           for cl in ("mrf.enqueue", "mrf.drain")},
+            "select_scan_page_spans": len(find_spans(sel[0], "scan.page"))}
+        emit({"phase": "obs", "step": "reads", **summary["reads"],
+              "card": card})
+        note("reads, SSE, Select")
+        # -- profiling around one extra round ------------------------------
+        started = adm.profiling_start("cpu,mem")
+        t0 = time.perf_counter()
+        put_round("prof")
+        prof_round_s = time.perf_counter() - t0
+        profiles = adm.profiling_stop("cpu,mem")
+        running = telemetry.REGISTRY.render()
+        if started != {"kinds": {"cpu": "started", "mem": "started"},
+                       "peers": []} or len(profiles) != 2 or \
+                not all(profiles.values()) or \
+                'minio_tpu_profiler_running{kind="cpu"} 0' not in running \
+                or 'minio_tpu_profiler_running{kind="mem"} 0' not in running:
+            fail(f"obs: profiling: {started} {sorted(profiles)}")
+        # -- read just after ---------------------------------------------
+        launches = counts.read()
+        summary["launches"] = launches
+        for kname in ("gf_matmul", "hh256", "chacha20", "scan_eval"):
+            if launches[kname] <= 0:
+                fail(f"obs: no {kname} launch on the path")
+        # -- the incident plane ------------------------------------------
+        inc_dir = os.path.join(drives[0], ".minio.sys", "incidents")
+
+        def bundles() -> set:
+            # committed bundles only: the atomic write's staging file
+            # appears in the directory first
+            return {n for n in os.listdir(inc_dir)
+                    if n.startswith("inc-") and n.endswith(".json")} \
+                if os.path.isdir(inc_dir) else set()
+
+        before = bundles()
+        t0 = time.perf_counter()
+        eventlog.emit("drive.probation", drive=drives[5], set=0)
+        bundle = None
+        while time.perf_counter() - t0 < 30:
+            new = bundles() - before
+            if new:
+                bundle = sorted(new)[-1]
+                break
+            time.sleep(0.01)
+        bundle_s = time.perf_counter() - t0
+        if bundle is None:
+            fail("obs: no incident bundle within 30 s")
+        listed = [i for i in adm.incidents()
+                  if i["id"] + ".json" == bundle]
+        doc = adm.incident(bundle[:-5])
+        if not listed or listed[0]["trigger"] != "drive.probation" or \
+                listed[0]["events"] <= 0 or not doc.get("slow_spans"):
+            fail(f"obs: the incident bundle: {listed}")
+        # the SLO engine's windows: small PUTs keep the short window fed
+        # while the long one fills (the engine evaluates every second)
+        labels = [f"{int(float(w))}s" for w in OBS_SLO_WINDOWS_S.split(",")]
+        minimum = int(os.environ.get("MINIO_TPU_SLO_MIN_SAMPLES", "10"))
+        deadline = time.monotonic() + 40
+        while True:
+            for i in range(minimum + 2):
+                if c.send("PUT", f"/obs/slo-{i}", body=b"s" * 1024)[0] != 200:
+                    fail("obs: an SLO-feeding PUT")
+            time.sleep(1.2)
+            slo_doc = adm.slo()
+            wr = {o["objective"]: o for o in slo_doc["objectives"]}[
+                "write-latency"]["windows"]
+            if all(wr.get(lb, {}).get("samples", 0) >= minimum
+                   for lb in labels):
+                break
+            if time.monotonic() > deadline:
+                fail(f"obs: the SLO windows: {wr}")
+        console = [e["message"] for e in adm.console_log()]
+        if f"node {node.spec.addr} online" not in console:
+            fail("obs: consolelog lacks the node's online line")
+        summary["incident"] = {
+            "bundle_s": round(bundle_s, 4),
+            "journal_events": listed[0]["events"],
+            "slow_spans": len(doc["slow_spans"]),
+            "providers": sorted(doc["state"]),
+            "slo_write_latency_windows": wr,
+            "console_lines": len(console),
+            "profiling_round_s": round(prof_round_s, 3),
+            "profile_bytes": {n: len(t) for n, t in profiles.items()}}
+        emit({"phase": "obs", "step": "incident", **summary["incident"],
+              "card": card})
+        note("incident, SLO, console")
+        # -- reboot: the journal replays its segments -------------------------
+        persisted = {(e["class"], e["seq"]) for e in adm.events()}
+        node.shutdown()
+        node = None
+        node, reboot_s = boot()
+        replayed = {(e["class"], e["seq"]) for e in madmin.AdminClient(
+            "127.0.0.1", node.s3.port, creds.access_key,
+            creds.secret_key).events()}
+        mine = {x for x in persisted if x in replayed}
+        if not mine or ("drive.probation", max(
+                s for cl, s in persisted if cl == "drive.probation")) \
+                not in replayed:
+            fail(f"obs: the reboot replayed {len(replayed)} records, none "
+                 "of the phase's")
+        summary["reboot"] = {"boot_s": round(reboot_s, 3),
+                             "records_replayed": len(replayed),
+                             "phase_records_replayed": len(mine)}
+        emit({"phase": "obs", "step": "reboot", **summary["reboot"],
+              "card": card})
+    finally:
+        codec_mod._record_step = real_record
+        telemetry.SPANS.configure(*was_sampling)
+        audit.shutdown()
+        audit.server_close()
         if node is not None:
             node.shutdown()
         for v, old in saved_env.items():

@@ -67,12 +67,20 @@ peers' ``metrics-text`` verb rendering through the same handler; and the
 config KV (config/kv.py), applied to the handlers at boot and on every
 admin set-config.
 
-Left out: the etcd IAM store and federation, events, replication,
-notification, the QoS registry (the transition worker's per-tier
-budgets), the web router, the console log, the incident plane and its
-event journal, the admin routes of those planes and of profiling, trace,
-spans, OBD, bandwidth and drive health (they answer NotImplemented), and
-the peer verbs of those planes.
+The tracing plane (minio_tpu/cluster.py:300-351): console lines at boot,
+at the boot fsck, at a pool's addition and at shutdown; the event journal
+and the flight recorder on drive 0; the SLO engine; the recorder's
+providers (healthtrack, membership, slo, topology); and the peer hooks of
+the trace, event, incident, profiling and console verbs. Trace records
+carry each node's address; the journal is process-global, and its records
+carry the address of the first node that booted in the process, as in the
+reference.
+
+Left out: the etcd IAM store and federation, bucket event notification,
+replication, the QoS registry (the transition worker's per-tier budgets),
+the web router, the admin routes of those planes and of OBD, bandwidth
+and drive health (they answer NotImplemented), and the peer verbs of
+those planes.
 """
 
 from __future__ import annotations
@@ -119,7 +127,16 @@ from .tier.config import TierManager
 from .tier.transition import (TransitionWorker,
                               noncurrent_transition_action,
                               restore_reclaim_action, transition_action)
-from .utils import ellipses, knobs
+from .utils import (console as console_mod, ellipses, eventlog,
+                    healthtrack, incidents, knobs, slo)
+
+# the tracing plane's process-global services (the journal's flusher, the
+# SLO engine, the flight recorder) are shared by every node of the
+# process; the last node to shut down stops them and detaches the journal
+# and recorder from their drive, so that the next boot replays the
+# journal's segments as a new process would
+_PLANE_MU = threading.Lock()
+_PLANE_NODES = 0
 
 
 @dataclasses.dataclass
@@ -205,6 +222,9 @@ class ClusterNode:
         self._iam_refresh_stop = threading.Event()
         self.boot_fsck = None        # the boot audit's FsckReport, if run
         self.pools: list = []        # pools add_pool appended after boot
+        # the process's console-log ring, its lines tagged with this node
+        self.console = console_mod.get_console()
+        self._plane_on = False       # this node holds the tracing plane
         self._block_size = block_size
         self._device = device
         self._tls = (certfile, keyfile)
@@ -362,6 +382,7 @@ class ClusterNode:
         # -- admin / health / metrics routers ------------------------------
         self.admin = mount_admin(self.s3, self)
         self._peer_rpc.get_metrics_text = self.admin.metrics.local_text
+        self._start_tracing_plane()
         # service restart/stop: peers run the same local action the admin
         # endpoint runs, deferred so that the RPC reply reaches the sender
         self._peer_rpc.signal_service = \
@@ -370,7 +391,7 @@ class ClusterNode:
         # -- config KV (newAllSubsystems ConfigSys + lookupConfigs) --------
         self.config = ConfigSys(self.object_layer, secret=sk)
         self.s3.api.config = self.config
-        self.config.apply(self.s3.api)
+        self.config.apply(self.s3.api, trace=self.s3.api.trace)
         # -- tier plane (remote tiers + ILM transitions) --------------------
         self.tiers = TierManager(self.object_layer)
         try:
@@ -463,12 +484,77 @@ class ClusterNode:
             rep = run_fsck(self.object_layer, repair=True, tiers=self.tiers)
         except Exception as e:  # noqa: BLE001 — boot must proceed
             print(f"boot fsck failed: {e!r}", file=sys.stderr, flush=True)
+            self.console.log_line("ERROR", f"boot fsck failed: {e}")
             return
         self.boot_fsck = rep
         if not rep.clean:
-            print(f"boot fsck: found {rep.counts()}, repaired "
-                  f"{rep.repaired_counts()}, unrepaired "
-                  f"{len(rep.unrepaired)}", file=sys.stderr, flush=True)
+            line = (f"boot fsck: found {rep.counts()}, repaired "
+                    f"{rep.repaired_counts()}, unrepaired "
+                    f"{len(rep.unrepaired)}")
+            print(line, file=sys.stderr, flush=True)
+            self.console.log_line("INFO", line)
+
+    def _start_tracing_plane(self) -> None:
+        """Console lines, the event journal and the flight recorder on
+        drive 0 (``.minio.sys/eventlog``, ``.minio.sys/incidents``), the
+        SLO engine, the recorder's state providers and the tracing
+        plane's peer hooks (minio_tpu/cluster.py:300-351). The journal,
+        engine and recorder are process-global: the first node to boot
+        attaches them, and the last to shut down stops them."""
+        global _PLANE_NODES
+        self.console.node = self.spec.addr
+        self.console.log_line("INFO", f"node {self.spec.addr} online")
+        with _PLANE_MU:
+            _PLANE_NODES += 1
+            self._plane_on = True
+            if self.spec.drives:
+                meta = os.path.join(self.spec.drives[0], ".minio.sys")
+                eventlog.JOURNAL.attach(os.path.join(meta, "eventlog"),
+                                        node=self.spec.addr)
+                incidents.RECORDER.attach(os.path.join(meta, "incidents"))
+            if knobs.get_bool("MINIO_TPU_SLO"):
+                slo.ENGINE.ensure_started()
+        rec = incidents.RECORDER
+        rec.add_provider("healthtrack", lambda: {
+            "drives": healthtrack.TRACKER.snapshot("drive"),
+            "peers": healthtrack.TRACKER.snapshot("peer")})
+        rec.add_provider("membership", membership.TRACKER.snapshot)
+        rec.add_provider("slo", slo.ENGINE.status)
+        rec.add_provider("topology", self._topology_state)
+        pr = self._peer_rpc
+        pr.get_trace = lambda: list(self.s3.api.trace.recent) \
+            if self.s3 is not None else []
+        pr.event_hub = eventlog.JOURNAL.hub
+        pr.get_events = lambda: eventlog.JOURNAL.recent(500)
+        pr.list_incidents = rec.list
+        pr.get_incident = rec.get
+
+    def _topology_state(self) -> dict:
+        topo = getattr(self.object_layer, "topology", None)
+        return topo.to_dict() if topo is not None else {}
+
+    def _stop_tracing_plane(self) -> None:
+        """Persist the journal's tail; the last node of the process
+        also stops the SLO engine and the recorder and detaches the
+        journal (its flusher stops after a last flush)."""
+        global _PLANE_NODES
+        if not self._plane_on:
+            return
+        self._plane_on = False
+        self.console.log_line("INFO",
+                              f"node {self.spec.addr} shutting down")
+        with _PLANE_MU:
+            _PLANE_NODES -= 1
+            last = _PLANE_NODES == 0
+        if not last:
+            try:
+                eventlog.JOURNAL.flush()
+            except Exception:  # noqa: BLE001 — best-effort on the way down
+                pass
+            return
+        slo.ENGINE.stop()
+        incidents.RECORDER.detach()
+        eventlog.JOURNAL.detach()
 
     # ------------------------------------------------------------------
     # topology: online pool expansion
@@ -502,6 +588,9 @@ class ClusterNode:
         if self.disk_monitor is not None:
             self.disk_monitor.add_pool(sets)
         self.pools.append(sets)
+        self.console.log_line(
+            "INFO", f"pool {idx} added ({len(paths)} drives, "
+            f"epoch {self.object_layer.topology.epoch})")
         return idx
 
     def _start_server(self, region: str) -> None:
@@ -518,6 +607,10 @@ class ClusterNode:
         self.s3.register_router("/minio/peer/", self._peer_rpc.route)
         self.s3.register_router("/minio/bootstrap/",
                                 self._bootstrap_rpc.route)
+        # trace records carry this node's name, and the peers' follow
+        # streams subscribe to this listener's hub
+        self.s3.api.trace.node = self.spec.addr
+        self._peer_rpc.trace_hub = self.s3.api.trace.hub
         self.s3.start()
 
     @property
@@ -529,8 +622,11 @@ class ClusterNode:
         loops and the transition worker close, the metacache closes
         (persisting what is dirty) and the tracker flushes first, then
         the server stops, then a running drain, then the pools, then the
-        former, then the RPC clients. The IAM refresh loop stops first."""
+        former, then the RPC clients. The IAM refresh loop stops first,
+        and the tracing plane's journal persists its tail (the last node
+        of the process stops the plane's threads)."""
         self._iam_refresh_stop.set()
+        self._stop_tracing_plane()
         for loop in ("disk_monitor", "crawler", "transition_worker",
                      "heal_scanner"):
             if getattr(self, loop) is not None:

@@ -7,9 +7,10 @@ reference's: the same key derivation, a 12-byte nonce prefix, no
 associated data, so a config either package stored loads in the other.
 The stored blob is an erasure-coded object of the port's layer. ``apply``
 pushes what the port has into the handlers (region, CORS origin,
-compression, the request cap, the static KMS and KES); the audit webhook
-and notify subsystems are stored and validated only, as in the reference
-without its trace and event planes. Departure: MINIO_COMPRESS and
+compression, the request cap, the static KMS and KES) and the audit
+webhook into the trace plane (s3/trace.TraceSys); the notify subsystems
+are stored and validated only, as in the reference without its event
+plane. Departure: MINIO_COMPRESS and
 MINIO_COMPRESS_ALGORITHM overlay the compression keys (``_LEGACY_ENV``);
 the reference's apply at boot turns off the compression those two env
 names turned on. Departures too: with nothing stored yet the env overlay
@@ -322,12 +323,13 @@ class ConfigSys:
         """Push config into a running S3ApiHandlers: region, the CORS
         origin, compression, the API's request cap and the KMS.
         Off-transitions are applied too: resetting requests_max restores
-        the default cap. The audit webhook and notify subsystems are
-        stored and validated; their live effect waits for the trace and
-        event planes, as the reference behaves when ``events`` and
-        ``trace`` are None, which is all a caller of the port can pass."""
-        if events is not None or trace is not None:
-            raise ConfigError("the trace and event planes are not ported")
+        the default cap, and an audit webhook turned off stops shipping.
+        ``trace`` (s3/trace.TraceSys) takes the audit webhook. The notify
+        subsystems are stored and validated; their live effect waits for
+        the event plane, as the reference behaves when ``events`` is None,
+        which is all a caller of the port can pass."""
+        if events is not None:
+            raise ConfigError("the event plane is not ported")
         api.region = self.get("region", "name")
         api.cors_allow_origin = self.get("api", "cors_allow_origin")
         api.compression_enabled = \
@@ -363,3 +365,9 @@ class ConfigSys:
                         api.kms = StaticKMS(key)
                 except ValueError:
                     pass
+        if trace is not None:
+            if self.get("audit_webhook", "enable").lower() in ("on",
+                                                               "true", "1"):
+                trace.audit_webhook = self.get("audit_webhook", "endpoint")
+            else:
+                trace.audit_webhook = ""

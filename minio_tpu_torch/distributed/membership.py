@@ -20,9 +20,8 @@ The reference encodes the same idea as the deployment ID + node uptime
 checks in cmd/bootstrap-peer-server.go; here the generation is explicit
 and fencing is an event, not a side effect of a failed handshake.
 
-A copy of minio_tpu/distributed/membership.py. Left out: the event-log
-record of a generation change (utils/eventlog.py is not ported), the
-table's OBD snapshot and the tests' reset.
+A copy of minio_tpu/distributed/membership.py; a generation change emits
+the ``membership.generation`` journal record. Left out: the tests' reset.
 """
 
 from __future__ import annotations
@@ -32,7 +31,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
-from ..utils import telemetry
+from ..utils import eventlog, telemetry
 
 # request/response header names carrying (node id, generation)
 NODE_HEADER = "x-ntpu-node"
@@ -114,6 +113,8 @@ class MembershipTracker:
             cur.since = time.time()
             listeners = list(self._listeners)
         _GEN_CHANGES.inc()
+        eventlog.emit("membership.generation", peer=peer,
+                      generation=generation)
         for fn in listeners:
             try:
                 fn(peer, old, generation)
@@ -125,6 +126,20 @@ class MembershipTracker:
         with self._mu:
             g = self._peers.get(peer)
             return g.generation if g is not None else None
+
+    def snapshot(self) -> dict:
+        """Membership table (the incident recorder's provider)."""
+        with self._mu:
+            return {
+                "local_node": self._local_node,
+                "local_generation": self.local_generation,
+                "peers": {
+                    addr: {"generation": g.generation,
+                           "node_id": g.node_id,
+                           "changes": g.changes,
+                           "since": g.since}
+                    for addr, g in self._peers.items()},
+            }
 
     def add_listener(self, fn: Callable[[str, int, int], None]) -> None:
         """fn(peer_addr, old_generation, new_generation) — called on

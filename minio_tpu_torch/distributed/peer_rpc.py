@@ -10,11 +10,13 @@ Counterpart of minio_tpu/distributed/peer_rpc.py, with the verbs whose
 planes the port has: ``server-info``, ``locks``,
 ``reload-bucket-metadata``, ``reload-iam``, ``iam-delta``,
 ``metrics-text``, ``storage-info``, ``bucket-usage``, ``signal``,
-``net-probe`` and ``tracker-rotate``, their client calls and
-NotificationSys fan-outs, and the bootstrap verify whole. The trace,
-JSON-metrics, event-journal, incident, profiling, console, OBD, bandwidth
-and notification verbs are not registered: a peer asking for one gets the
-transport's own 404 ``unknown-verb``. Departure: the federated scrape's
+``net-probe``, ``tracker-rotate``, and the tracing plane's ``trace``,
+``trace-stream``, ``events``, ``event-stream``, ``incidents``,
+``incident``, ``profiling-start``, ``profiling-stop`` and
+``console-log``, their client calls and NotificationSys fan-outs, and the
+bootstrap verify whole. The JSON-metrics, OBD, bandwidth and notification
+verbs are not registered: a peer asking for one gets the transport's own
+404 ``unknown-verb``. Departure: the federated scrape's
 per-peer pull waits its whole deadline (``MINIO_TPU_CLUSTER_SCRAPE_S``);
 the reference tightens it from the peer's observed latency under
 ``MINIO_TPU_PEER_SHED_DEADLINE_X``, which is not ported.
@@ -68,6 +70,16 @@ class PeerRPCServer:
         # leader heal-scanner pulls + rotates this node's data-update
         # tracker each pass (None until the cluster wires it)
         self.get_update_tracker: Optional[Callable[[], dict]] = None
+        # the tracing plane: this node's trace ring and live TraceSys
+        # hub, the event journal's hub and recent window, and the
+        # incident readback (None / empty until the cluster wires them)
+        self.get_trace: Callable[[], list] = lambda: []
+        self.trace_hub = None
+        self.event_hub = None
+        self.get_events: Callable[[], list] = lambda: []
+        self.list_incidents: Callable[[], list] = lambda: []
+        self.get_incident: Callable[[str], Optional[dict]] = \
+            lambda inc_id: None
 
         h = self.handler
         h.register("server-info", lambda a, b: {
@@ -88,6 +100,97 @@ class PeerRPCServer:
         h.register("net-probe", lambda a, b: {
             "node": self.node_id, "received": len(b)})
         h.register("tracker-rotate", self._tracker_rotate)
+        h.register("trace", lambda a, b: self.get_trace())
+        h.register("trace-stream", self._trace_stream)
+        h.register("events", lambda a, b: self.get_events())
+        h.register("event-stream", self._event_stream)
+        h.register("incidents", lambda a, b: self.list_incidents())
+        h.register("incident", self._incident)
+        # profiling fan-out (cmd/admin-handlers.go:461-525 peer verbs)
+        # and the console-log ring (peer-rest-common.go:56)
+        h.register("profiling-start", self._profiling_start)
+        h.register("profiling-stop", self._profiling_stop)
+        h.register("console-log", self._console_log)
+
+    def _trace_stream(self, args, body):
+        """Live trace subscription (the peer half of a cluster-wide
+        ?follow=1 stream): ND-JSON entries from this node's TraceSys
+        hub as a chunked response. Idle windows emit bare newline
+        heartbeats so a dead subscriber's next write fails and the
+        subscription unwinds instead of leaking; blank lines are
+        skipped by the merging side. `max_s` bounds the stream's life
+        (the caller re-subscribes — a forgotten stream can't pin the
+        hub forever)."""
+        if self.trace_hub is None:
+            return b""
+        try:
+            max_s = float(args.get("max_s", "3600") or 3600)
+        except ValueError:
+            max_s = 3600.0
+        hub = self.trace_hub
+
+        def gen():
+            deadline = time.monotonic() + max(max_s, 1.0)
+            with hub.subscribe() as sub:
+                while time.monotonic() < deadline:
+                    entry = sub.get(timeout=1.0)
+                    if entry is None:
+                        yield b"\n"              # heartbeat
+                        continue
+                    yield (json.dumps(entry) + "\n").encode()
+
+        return gen()
+
+    def _event_stream(self, args, body):
+        """Live event-journal subscription (the peer half of a
+        cluster-wide /events?follow=1): same ND-JSON + heartbeat +
+        max_s contract as _trace_stream, fed by the EventJournal
+        hub."""
+        if self.event_hub is None:
+            return b""
+        try:
+            max_s = float(args.get("max_s", "3600") or 3600)
+        except ValueError:
+            max_s = 3600.0
+        hub = self.event_hub
+
+        def gen():
+            deadline = time.monotonic() + max(max_s, 1.0)
+            with hub.subscribe() as sub:
+                while time.monotonic() < deadline:
+                    entry = sub.get(timeout=1.0)
+                    if entry is None:
+                        yield b"\n"              # heartbeat
+                        continue
+                    yield (json.dumps(entry) + "\n").encode()
+
+        return gen()
+
+    def _incident(self, args, body):
+        doc = self.get_incident(args.get("id", ""))
+        return doc if isinstance(doc, dict) else {}
+
+    def _profiling_start(self, args, body):
+        from ..utils import profiling
+        kinds = profiling.parse_kinds(args.get("kinds", "cpu")) or ["cpu"]
+        return {"node": self.node_id,
+                "started": {k: profiling.start(k) for k in kinds}}
+
+    def _profiling_stop(self, args, body):
+        from ..utils import profiling
+        kinds = profiling.parse_kinds(args.get("kinds", "cpu")) or ["cpu"]
+        return {"node": self.node_id,
+                "profiles": {k: profiling.stop_text(k) or ""
+                             for k in kinds}}
+
+    def _console_log(self, args, body):
+        from ..utils.console import get_console
+        try:
+            n = int(args.get("count", "0") or 0)
+        except ValueError:
+            n = 0
+        return {"node": self.node_id,
+                "entries": get_console().recent(n)}
 
     def _tracker_rotate(self, args, body):
         if self.get_update_tracker is None:
@@ -218,6 +321,92 @@ class PeerRPCClient:
         except (NetworkError, RPCError):
             return {}
 
+    def trace_stream(self, max_s: float = 3600.0):
+        """Open this peer's live trace subscription: returns an
+        iterator of entry dicts (ends on peer death / stream close),
+        or None when the peer is unreachable. `.close()` on the
+        returned iterator tears the connection down."""
+        if self._shed():
+            return None
+        try:
+            resp = self.rc.call("trace-stream",
+                                {"max_s": str(max_s)},
+                                stream_response=True,
+                                deadline=max(max_s, 60.0))
+        except (NetworkError, RPCError):
+            return None
+        return _TraceLineIter(resp, self.addr)
+
+    def event_stream(self, max_s: float = 3600.0):
+        """Open this peer's live event-journal subscription — same
+        contract as trace_stream (entry-dict iterator or None;
+        `.close()` tears the connection down)."""
+        if self._shed():
+            return None
+        try:
+            resp = self.rc.call("event-stream",
+                                {"max_s": str(max_s)},
+                                stream_response=True,
+                                deadline=max(max_s, 60.0))
+        except (NetworkError, RPCError):
+            return None
+        return _TraceLineIter(resp, self.addr)
+
+    def events(self) -> list:
+        """This peer's recent journal window (?cluster=1 merges)."""
+        if self._shed():
+            return []
+        try:
+            return self.rc.call_json("events") or []
+        except (NetworkError, RPCError):
+            return []
+
+    def incidents(self) -> list:
+        if self._shed():
+            return []
+        try:
+            return self.rc.call_json("incidents") or []
+        except (NetworkError, RPCError):
+            return []
+
+    def incident(self, inc_id: str) -> Optional[dict]:
+        if self._shed():
+            return None
+        try:
+            doc = self.rc.call_json("incident", {"id": inc_id})
+        except (NetworkError, RPCError):
+            return None
+        return doc if isinstance(doc, dict) and doc else None
+
+    def trace(self) -> list:
+        if self._shed():
+            return []
+        try:
+            return self.rc.call_json("trace") or []
+        except (NetworkError, RPCError):
+            return []
+
+    def profiling_start(self, kinds: str = "cpu") -> Optional[dict]:
+        try:
+            return self.rc.call_json("profiling-start",
+                                     {"kinds": kinds})
+        except (NetworkError, RPCError):
+            return None
+
+    def profiling_stop(self, kinds: str = "cpu") -> Optional[dict]:
+        try:
+            return self.rc.call_json("profiling-stop",
+                                     {"kinds": kinds})
+        except (NetworkError, RPCError):
+            return None
+
+    def console_log(self, count: int = 0) -> Optional[dict]:
+        try:
+            return self.rc.call_json("console-log",
+                                     {"count": str(count)})
+        except (NetworkError, RPCError):
+            return None
+
     def net_probe(self, size: int = 4 << 20) -> Optional[dict]:
         """Timed payload push to this peer: internode throughput + a
         small-ping RTT (the OBD net perf section). Each RestClient call
@@ -266,6 +455,50 @@ class PeerRPCClient:
 
     def close(self) -> None:
         self.rc.close()
+
+
+class _TraceLineIter:
+    """ND-JSON line iterator over a streamed trace-stream response:
+    yields entry dicts, skips heartbeat blanks, ends (never raises) on
+    any transport fault. close() tears down the underlying connection
+    — the unblocking lever the merging side pulls from another
+    thread."""
+
+    def __init__(self, resp, peer: str):
+        self._resp = resp
+        self.peer = peer
+        self._closed = False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        while not self._closed:
+            try:
+                # readline, not read(n): chunked read(n) waits for n
+                # bytes, and a mostly-idle peer trickles 1-byte
+                # heartbeats — lines must surface as they arrive
+                line = self._resp.readline()
+            except Exception:  # noqa: BLE001 — peer died: end of stream
+                raise StopIteration from None
+            if not line:
+                raise StopIteration
+            if not line.strip():
+                continue                          # heartbeat
+            try:
+                entry = json.loads(line.decode())
+            except (ValueError, UnicodeDecodeError):
+                continue
+            if isinstance(entry, dict):
+                return entry
+        raise StopIteration
+
+    def close(self) -> None:
+        self._closed = True
+        try:
+            self._resp.close()
+        except Exception:  # noqa: BLE001 — already torn down
+            pass
 
 
 class NotificationSys:
@@ -334,6 +567,117 @@ class NotificationSys:
 
     def storage_info_all(self) -> list:
         return self._broadcast(lambda p: p.storage_info())
+
+    def trace_all(self) -> list[dict]:
+        """Cluster-wide recent trace entries, time-ordered."""
+        merged: list[dict] = []
+        for entries in self._broadcast(lambda p: p.trace()):
+            if isinstance(entries, list):
+                merged.extend(e for e in entries if isinstance(e, dict))
+        merged.sort(key=lambda e: e.get("time", ""))
+        return merged
+
+    def trace_stream_all(self, max_s: float = 3600.0) -> list:
+        """One live trace-entry iterator per reachable peer (see
+        PeerRPCClient.trace_stream)."""
+        return self._stream_all(
+            lambda p: p.trace_stream(max_s=max_s))
+
+    def event_stream_all(self, max_s: float = 3600.0) -> list:
+        """One live event-journal iterator per reachable peer (see
+        PeerRPCClient.event_stream) — the /events?follow=1&cluster=1
+        fan-out."""
+        return self._stream_all(
+            lambda p: p.event_stream(max_s=max_s))
+
+    def _stream_all(self, open_one: Callable[[PeerRPCClient],
+                                             object]) -> list:
+        """Open one live subscription per reachable peer.
+        Subscriptions open concurrently; unreachable peers are simply
+        absent — a follow stream degrades to the nodes it can hear. A
+        peer that answers only AFTER the collection window has its
+        subscription closed by the opener thread itself (nobody else
+        will ever see it — an unclosed late iterator would pin that
+        peer's hub + a worker for max_s)."""
+        results: list = [None] * len(self.peers)
+        mu = threading.Lock()
+        done = [False]
+
+        def run(i: int, p: PeerRPCClient) -> None:
+            r = None
+            try:
+                r = open_one(p)
+            except Exception:  # noqa: BLE001 — peer absent
+                r = None
+            late = None
+            with mu:
+                if done[0]:
+                    late = r
+                else:
+                    results[i] = r
+            if late is not None:
+                late.close()
+
+        threads = [threading.Thread(target=run, args=(i, p),
+                                    daemon=True)
+                   for i, p in enumerate(self.peers)]
+        for t in threads:
+            t.start()
+        # ONE shared deadline across peers: per-thread join(10) would
+        # stall a follow stream's start ~10s PER black-holed peer
+        end = time.monotonic() + 10
+        for t in threads:
+            t.join(timeout=max(end - time.monotonic(), 0))
+        with mu:
+            done[0] = True
+            return [r for r in results
+                    if isinstance(r, _TraceLineIter)]
+
+    def events_all(self) -> list[dict]:
+        """Cluster-wide recent journal entries, time-ordered (the
+        /events?cluster=1 merge)."""
+        merged: list[dict] = []
+        for entries in self._broadcast(lambda p: p.events()):
+            if isinstance(entries, list):
+                merged.extend(e for e in entries
+                              if isinstance(e, dict))
+        merged.sort(key=lambda e: e.get("ts", 0))
+        return merged
+
+    def incidents_all(self) -> list[dict]:
+        """Cluster-wide incident-bundle summaries, newest first."""
+        merged: list[dict] = []
+        for entries in self._broadcast(lambda p: p.incidents()):
+            if isinstance(entries, list):
+                merged.extend(e for e in entries
+                              if isinstance(e, dict))
+        merged.sort(key=lambda e: e.get("time") or 0, reverse=True)
+        return merged
+
+    def incident_any(self, inc_id: str) -> Optional[dict]:
+        """Fetch one bundle from whichever peer holds it (bundles are
+        node-local; 'retrievable from either node' means asking
+        around)."""
+        for doc in self._broadcast(lambda p: p.incident(inc_id)):
+            if isinstance(doc, dict) and doc:
+                return doc
+        return None
+
+    def profiling_start_all(self, kinds: str = "cpu") -> list:
+        return self._broadcast(lambda p: p.profiling_start(kinds))
+
+    def profiling_stop_all(self, kinds: str = "cpu") -> list:
+        return self._broadcast(lambda p: p.profiling_stop(kinds))
+
+    def console_log_all(self, count: int = 0) -> list[dict]:
+        """Cluster-wide console entries, time-ordered."""
+        merged: list[dict] = []
+        for res in self._broadcast(lambda p: p.console_log(count)):
+            if isinstance(res, dict):
+                merged.extend(e for e in res.get("entries", [])
+                              if isinstance(e, dict))
+        merged.sort(key=lambda e: e.get("ts", 0))
+        return merged
 
     def net_obd(self, size: int = 4 << 20) -> list[dict]:
         """This node's view of the interconnect: timed payload push to

@@ -10,9 +10,10 @@ toStorageErr + reconnect semantics).
 
 Counterpart of minio_tpu/distributed/storage_rpc.py, with its verb names
 and wire format (JSON args and bodies, raw shard bytes), so the port's
-RemoteStorage speaks to the reference's StorageRPCServer and back. Left
-out: the drive-side spans of appendfile, createfile and readfilestream
-(the port has no span plane).
+RemoteStorage speaks to the reference's StorageRPCServer and back. The
+serving side's appendfile and createfile run in ``storage.appendfile`` /
+``storage.createfile`` spans under the RPC join, and a streamed read
+attaches a ``storage.readfilestream`` span timed to the stream's close.
 """
 
 from __future__ import annotations
@@ -20,12 +21,14 @@ from __future__ import annotations
 import dataclasses
 import io
 import json
+import time
 from typing import BinaryIO, Iterator, Optional
 
 from ..storage import errors as serr
 from ..storage.api import BitrotVerifier, StorageAPI
 from ..storage.datatypes import (ChecksumInfo, DiskInfo, ErasureInfo,
                                  FileInfo, ObjectPartInfo, VolInfo)
+from ..utils import telemetry
 from .transport import NetworkError, RestClient, RPCError, RPCHandler
 
 STORAGE_RPC_PREFIX = "/minio/storage/v1"
@@ -211,18 +214,34 @@ class StorageRPCServer:
                                        verifier)
 
     def _appendfile(self, a, b):
-        self._disk(a).append_file(a["volume"], a["path"], b)
+        with telemetry.span("storage.appendfile",
+                            disk=a.get("disk", ""), bytes=len(b)):
+            self._disk(a).append_file(a["volume"], a["path"], b)
 
     def _createfile(self, a, body_stream):
-        # stream verb: body_stream is the request-body READER
-        self._disk(a).create_file(a["volume"], a["path"],
-                                  int(a.get("size", "-1")), body_stream)
+        # stream verb: body_stream is the request-body READER. The span
+        # runs under the RPC join (same thread), so the remote drive
+        # write lands in the caller's span tree.
+        with telemetry.span("storage.createfile",
+                            disk=a.get("disk", "")):
+            self._disk(a).create_file(a["volume"], a["path"],
+                                      int(a.get("size", "-1")),
+                                      body_stream)
 
     def _readfilestream(self, a, b):
         """Streamed read: the shard flows out chunked; neither end
-        stages the whole file (reference ReadFileStream verb)."""
-        return self._disk(a).read_file_stream(
+        stages the whole file (reference ReadFileStream verb). The span
+        must cover the body, not just the open: the stream is consumed
+        after this verb returns, so the timing rides a wrapper that
+        reports when the transport closes it."""
+        parent = telemetry.current_span()
+        t0_wall, t0 = time.time(), time.perf_counter()
+        stream = self._disk(a).read_file_stream(
             a["volume"], a["path"], int(a["offset"]), int(a["length"]))
+        if parent is None:
+            return stream
+        return _TimedReadStream(stream, parent, a.get("disk", ""),
+                                t0_wall, t0)
 
     def _renamefile(self, a, b):
         self._disk(a).rename_file(a["src-volume"], a["src-path"],
@@ -254,6 +273,38 @@ class StorageRPCServer:
                 self._disk(a).walk(a["volume"], a.get("dir-path", ""),
                                    a.get("marker", ""),
                                    a.get("recursive", "true") == "true")]
+
+
+class _TimedReadStream:
+    """Times a streamed shard read end-to-end: the span is attached
+    (already finished) to the RPC join span when the transport closes
+    the stream after sending the last chunk — a plain `with span():`
+    around the open would report ~0 ms and miss the actual I/O."""
+
+    def __init__(self, inner, parent, disk: str, t0_wall: float,
+                 t0: float):
+        self._inner = inner
+        self._parent = parent
+        self._disk = disk
+        self._t0_wall = t0_wall
+        self._t0 = t0
+        self._done = False
+
+    def read(self, n: int = -1) -> bytes:
+        return self._inner.read(n)
+
+    def close(self) -> None:
+        try:
+            close = getattr(self._inner, "close", None)
+            if close is not None:
+                close()
+        finally:
+            if not self._done:
+                self._done = True
+                telemetry.attach_span(
+                    self._parent, "storage.readfilestream",
+                    self._t0_wall, time.perf_counter() - self._t0,
+                    disk=self._disk)
 
 
 # ---------------------------------------------------------------------------

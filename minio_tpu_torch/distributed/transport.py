@@ -30,10 +30,13 @@ a boot generation per client and handler (``generation``, beside the
 reference's ``node_id``), so that each of several nodes in one process
 is an incarnation of its own and a rebooted one fires the generation
 listener as it would in a process of its own.
-Left out: the fault-injection hooks (naughtynet), the trace spans and
-trace-header propagation (the port has no span plane), and the OBD
-bundle's per-client counter report and the streamed line reader of the
-trace and event follow streams (their planes are not ported).
+Each call runs in an ``rpc.<verb>`` span and carries the caller's trace
+and span ids in the trace headers; the serving side runs the verb in a
+``join``ed ``rpc.server.<verb>`` fragment, which the span sink grafts back
+into the caller's tree. ``readline`` reads the trace and event follow
+streams line by line.
+Left out: the fault-injection hooks (naughtynet) and the OBD bundle's
+per-client counter report.
 """
 
 from __future__ import annotations
@@ -289,43 +292,45 @@ class RestClient:
         if idempotent and isinstance(body, (bytes, bytearray, memoryview)):
             attempts += RPC_RETRIES
         last: Optional[NetworkError] = None
-        for attempt in range(attempts):
-            remaining = end - time.monotonic()
-            if remaining <= 0:
-                break
-            if attempt:
-                with self._mu:
-                    self.retries += 1
-                _RPC_RETRIES.inc()
-            try:
-                t0 = time.perf_counter()
-                out = self._call_once(verb, args, body,
-                                      stream_response, body_length,
-                                      timeout=min(self.timeout,
-                                                  remaining))
-                # feed the gray-failure plane: per-peer latency
-                # (streamed verbs time the OPEN; the drive-level
-                # read tracker times the body) — and a successful
-                # non-probe verb proves the host alive for every
-                # sibling client still sitting out its backoff
-                healthtrack.observe_peer(
-                    f"{self.host}:{self.port}", verb,
-                    time.perf_counter() - t0)
-                _note_host_alive(self.host, self.port, exclude=self)
-                return out
-            except NetworkError as e:
-                with self._mu:
-                    self.net_errors += 1
-                _RPC_NET_ERRORS.inc()
-                last = e
-                if attempt + 1 >= attempts:
+        with telemetry.span(f"rpc.{verb}",
+                            host=f"{self.host}:{self.port}"):
+            for attempt in range(attempts):
+                remaining = end - time.monotonic()
+                if remaining <= 0:
                     break
-                backoff = backoff_delay(RPC_RETRY_BACKOFF,
-                                        RPC_RETRY_BACKOFF_MAX,
-                                        attempt)
-                if time.monotonic() + backoff >= end:
-                    break
-                time.sleep(backoff)
+                if attempt:
+                    with self._mu:
+                        self.retries += 1
+                    _RPC_RETRIES.inc()
+                try:
+                    t0 = time.perf_counter()
+                    out = self._call_once(verb, args, body,
+                                          stream_response, body_length,
+                                          timeout=min(self.timeout,
+                                                      remaining))
+                    # feed the gray-failure plane: per-peer latency
+                    # (streamed verbs time the OPEN; the drive-level
+                    # read tracker times the body) — and a successful
+                    # non-probe verb proves the host alive for every
+                    # sibling client still sitting out its backoff
+                    healthtrack.observe_peer(
+                        f"{self.host}:{self.port}", verb,
+                        time.perf_counter() - t0)
+                    _note_host_alive(self.host, self.port, exclude=self)
+                    return out
+                except NetworkError as e:
+                    with self._mu:
+                        self.net_errors += 1
+                    _RPC_NET_ERRORS.inc()
+                    last = e
+                    if attempt + 1 >= attempts:
+                        break
+                    backoff = backoff_delay(RPC_RETRY_BACKOFF,
+                                            RPC_RETRY_BACKOFF_MAX,
+                                            attempt)
+                    if time.monotonic() + backoff >= end:
+                        break
+                    time.sleep(backoff)
         if last is None:
             last = NetworkError(
                 f"{self.host}:{self.port} {verb}: deadline exceeded",
@@ -360,6 +365,12 @@ class RestClient:
             headers[membership.NODE_HEADER] = src_id
         headers[membership.GEN_HEADER] = str(
             self.generation or membership.local_generation())
+        cur = telemetry.current_span()
+        if cur is not None:
+            # propagate the trace identity so the serving side joins
+            # this request's span tree (fragment, grafted by span id)
+            headers[telemetry.TRACE_HEADER] = cur.trace_id
+            headers[telemetry.SPAN_HEADER] = cur.span_id
         _RPC_VERB_CALLS.inc(verb=verb)
         _RPC_VERB_SENT.inc(length, verb=verb)
         try:
@@ -517,6 +528,27 @@ class _StreamedResponse:
             self._conn.close()
             raise NetworkError(f"mid-stream: {e}") from e
 
+    def readline(self) -> bytes:
+        """One line, incrementally: read(n) on a chunked response
+        blocks until n bytes accumulate, which on a trickle stream
+        (follow heartbeats) means minutes; readline reads at most one
+        chunk. Empty bytes = end of stream."""
+        self._arm_read_deadline()
+        try:
+            data = self.resp.readline()
+            if self._verb:
+                _RPC_VERB_RECV.inc(len(data), verb=self._verb)
+            return data
+        except socket.timeout as e:
+            self._conn.close()
+            raise NetworkError(
+                f"mid-stream: read deadline "
+                f"({self._read_timeout:g}s) exceeded",
+                conn_failure=True) from e
+        except (OSError, http.client.HTTPException, ValueError) as e:
+            self._conn.close()
+            raise NetworkError(f"mid-stream: {e}") from e
+
     def close(self) -> None:
         self._conn.close()
 
@@ -594,8 +626,19 @@ class RPCHandler:
         args = {k: v[0] for k, v in ctx.req.query.items()}
         body = ctx.body_stream if verb in self._stream_verbs \
             else ctx.read_body()
+        # join the caller's trace when it sent one: the handler runs
+        # under a remote-side span recorded as a fragment and grafted
+        # back into the caller's tree by span id
+        tid = ctx.header(telemetry.TRACE_HEADER)
+        join_cm = telemetry.join(
+            f"rpc.server.{verb}", tid,
+            ctx.header(telemetry.SPAN_HEADER)) if tid else None
         try:
-            out = fn(args, body)
+            if join_cm is not None:
+                with join_cm:
+                    out = fn(args, body)
+            else:
+                out = fn(args, body)
         except Exception as e:  # noqa: BLE001 — serialize to the caller
             return HTTPResponse(status=500, body=json.dumps(
                 {"kind": type(e).__name__, "message": str(e)}).encode(),

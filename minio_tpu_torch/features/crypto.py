@@ -495,8 +495,16 @@ def device_sse_allowed(size: int) -> bool:
     """The size window of the fused PUT path: a stated size of at least
     DEVICE_SSE_MIN_BYTES. Unknown-length and smaller streams take the host
     ChaChaEncryptor (the same bytes). Whether the kernel or its plain
-    version runs is the engine's device's choice."""
-    return size >= DEVICE_SSE_MIN_BYTES
+    version runs is the engine's device's choice. A stream the window
+    sends to the host emits one ``device.decline`` record (stage "sse",
+    reason "size") per process: the reference records its declines of the
+    device there too (minio_tpu/features/crypto.py:494-504), for reasons
+    the port does not have (its switch, no device)."""
+    if size >= DEVICE_SSE_MIN_BYTES:
+        return True
+    from ..utils import eventlog
+    eventlog.emit_once("device.decline", stage="sse", reason="size")
+    return False
 
 
 # ---------------------------------------------------------------------------

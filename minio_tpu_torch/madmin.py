@@ -3,11 +3,13 @@ the /minio/admin/v3 surface, /minio/health, and the metrics endpoint —
 what `mc admin ...` scripts against.
 
 Counterpart of minio_tpu/madmin.py for the routes the port's admin router
-serves (s3/admin.py). ``update_group_members`` drives a route the
-reference's router lacks (upstream's update-group-members); the other
-calls are the reference's. Left out with their planes: naughtynet, QoS,
-trace, events, incidents, SLO, spans, profiling, console log,
-replication, notify, remote targets, OBD, drive health and bandwidth."""
+serves (s3/admin.py), the tracing plane's among them (trace and
+trace_follow, cluster_trace, events and events_follow, incidents and
+incident, slo, spans, profiling_start and profiling_stop, console_log).
+``update_group_members`` drives a route the reference's router lacks
+(upstream's update-group-members); the other calls are the reference's.
+Left out with their planes: naughtynet, QoS, replication, notify, remote
+targets, OBD, drive health and bandwidth."""
 
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import hashlib
 import http.client
 import json
 import urllib.parse
-from typing import Optional
+from typing import Iterator, Optional
 
 from .s3 import signature as sig
 from .s3.credentials import Credentials
@@ -243,6 +245,163 @@ class AdminClient:
                           json.dumps({"parent": parent,
                                       "accessKey": access_key,
                                       "secretKey": secret_key}).encode())
+
+    # -- trace / profiling -------------------------------------------------
+
+    def trace(self, count: int = 10, idle: float = 5.0,
+              api: str = "", errors_only: bool = False
+              ) -> Iterator[dict]:
+        """Stream live trace entries (blocks until idle/count).
+        `api` is a comma list of API names to keep; `errors_only`
+        keeps failed calls (HTTP >= 400)."""
+        query = {"count": str(count), "idle": str(idle)}
+        if api:
+            query["api"] = api
+        if errors_only:
+            query["err"] = "1"
+        data = self._request("GET", "trace", query)
+        for line in data.splitlines():
+            if line.strip():
+                yield json.loads(line)
+
+    def trace_follow(self, count: int = 0, api: str = "",
+                     errors_only: bool = False,
+                     timeout: Optional[float] = None) -> Iterator[dict]:
+        """The `mc admin trace` analog: a LIVE cluster-wide stream —
+        the serving node grafts every peer's records in. Yields entry
+        dicts as they arrive; ends at `count` entries (0 = until the
+        connection drops / `timeout`). Unlike trace(), this reads the
+        chunked response incrementally."""
+        query = {"follow": "1", "count": str(count)}
+        if api:
+            query["api"] = api
+        if errors_only:
+            query["err"] = "1"
+        return self._follow("trace", query, count, timeout)
+
+    def _follow(self, sub: str, query: dict, count: int = 0,
+                timeout: Optional[float] = None) -> Iterator[dict]:
+        """Incremental ND-JSON reader behind the follow streams
+        (trace_follow / events_follow): yields entry dicts as they
+        arrive, skipping heartbeat blanks."""
+        qs = urllib.parse.urlencode(query)
+        path = f"{ADMIN_PREFIX}/{sub}"
+        hdrs = sig.sign_v4("GET", path,
+                           {k: [v] for k, v in query.items()},
+                           {"host": f"{self.host}:{self.port}"},
+                           hashlib.sha256(b"").hexdigest(), self.creds,
+                           self.region)
+        conn = http.client.HTTPConnection(
+            self.host, self.port,
+            timeout=timeout if timeout is not None else self.timeout)
+        try:
+            conn.request("GET", f"{path}?{qs}", headers=hdrs)
+            resp = conn.getresponse()
+            if resp.status >= 300:
+                raise AdminClientError(
+                    resp.status, {"raw": resp.read().decode(
+                        errors="replace")})
+            sent = 0
+            while True:
+                # readline, not read(n): a chunked read(n) blocks for n
+                # bytes while the stream trickles heartbeats
+                line = resp.readline()
+                if not line:
+                    return
+                if not line.strip():
+                    continue                       # heartbeat
+                yield json.loads(line)
+                sent += 1
+                if count and sent >= count:
+                    return
+        finally:
+            conn.close()
+
+    def cluster_trace(self) -> list[dict]:
+        return self._json("GET", "trace/cluster")["entries"]
+
+    def events(self, count: int = 0, classes: str = "",
+               subsystems: str = "", severity: str = "",
+               cluster: bool = False) -> list[dict]:
+        """Recent journal entries. `classes`/`subsystems` are comma
+        lists, `severity` a minimum (info/warn/error/crit);
+        `cluster=True` merges every peer's window."""
+        query = {"count": str(count)}
+        if classes:
+            query["class"] = classes
+        if subsystems:
+            query["sub"] = subsystems
+        if severity:
+            query["sev"] = severity
+        if cluster:
+            query["cluster"] = "1"
+        return self._json("GET", "events", query)["events"]
+
+    def events_follow(self, count: int = 0, classes: str = "",
+                      subsystems: str = "", severity: str = "",
+                      timeout: Optional[float] = None
+                      ) -> Iterator[dict]:
+        """LIVE journal stream with peer grafting — the `mc admin
+        events` analog of trace_follow."""
+        query = {"follow": "1", "count": str(count)}
+        if classes:
+            query["class"] = classes
+        if subsystems:
+            query["sub"] = subsystems
+        if severity:
+            query["sev"] = severity
+        return self._follow("events", query, count, timeout)
+
+    def incidents(self, cluster: bool = False) -> list[dict]:
+        """Black-box bundle summaries, newest first."""
+        query = {"cluster": "1"} if cluster else None
+        return self._json("GET", "incidents", query)["incidents"]
+
+    def incident(self, inc_id: str) -> dict:
+        """One full bundle — served by whichever node holds it."""
+        return self._json("GET", "incidents", {"id": inc_id})
+
+    def slo(self) -> dict:
+        """Burn-rate status per objective (the error-budget view)."""
+        return self._json("GET", "slo")
+
+    def spans(self, count: int = 50, sort: str = "recent",
+              api: str = "", trace_id: str = "") -> dict:
+        """Kept span trees (+ keep/drop counters). `api` filters to
+        one API's roots, `trace_id` selects the tree a trace entry
+        named, `sort=slowest` orders by duration."""
+        query = {"count": str(count), "sort": sort}
+        if api:
+            query["api"] = api
+        if trace_id:
+            query["trace_id"] = trace_id
+        return self._json("GET", "spans", query)
+
+    def profiling_start(self, profiler_type: str = "cpu") -> dict:
+        """profiler_type: comma list of 'cpu' (cProfile) and 'mem'
+        (tracemalloc) — the reference's profilerType=cpu,mem."""
+        return self._json("POST", "profiling/start",
+                          {"profilerType": profiler_type})
+
+    def profiling_stop(self, profiler_type: str = "cpu"
+                       ) -> dict[str, str]:
+        """Stop cluster-wide profiling; returns
+        {profile-<kind>-<node>.txt: text} extracted from the server's
+        zip (one entry per kind per node)."""
+        import io
+        import zipfile
+        blob = self._request("POST", "profiling/stop",
+                             {"profilerType": profiler_type})
+        out: dict[str, str] = {}
+        with zipfile.ZipFile(io.BytesIO(blob)) as zf:
+            for name in zf.namelist():
+                out[name] = zf.read(name).decode()
+        return out
+
+    def console_log(self, count: int = 0) -> list[dict]:
+        """Merged cluster console-log ring entries."""
+        return self._json("GET", "consolelog",
+                          {"count": str(count)})["entries"]
 
     # -- config KV ---------------------------------------------------------
 

@@ -33,10 +33,12 @@ The disk monitor covers every pool: a pool that online expansion
 appends after boot registers through ``add_pool`` and is probed and
 sweep-healed like a boot-time one.
 
+The MRF queue emits the reference's ``mrf.enqueue`` and ``mrf.drain``
+journal records.
+
 Left out: the disk monitor's slow-drive quarantine (it needs
-utils/healthtrack's state machine and the event log), the crawler's transition and restore
-actions (the tier plane is not ported), and the reference's event-log
-records and crash points. The MRF lock is a plain threading.Condition
+utils/healthtrack's state machine) with its ``drive.*`` journal records,
+and the reference's crash points. The MRF lock is a plain threading.Condition
 (lockcheck is not ported).
 
 Knobs: MINIO_TPU_MRF_QUEUE_SIZE, MINIO_TPU_MRF_MAX_RETRIES,
@@ -58,7 +60,7 @@ from ..storage import errors as serr
 from ..storage.format import (MINIO_META_BUCKET, read_format_from,
                               write_format_to)
 from ..storage.xl_storage import XLStorage
-from ..utils import backoff_delay, crashpoint, knobs
+from ..utils import backoff_delay, crashpoint, eventlog, knobs
 from . import api_errors
 
 if TYPE_CHECKING:  # sets.py imports MRFHealer: no cycle at runtime
@@ -154,7 +156,11 @@ class MRFHealer:
                 # so it requeues once finished (the hint is preserved)
                 self._inflight[key] = True
                 return True
-            return self._push(key, 0)
+            pushed = self._push(key, 0)
+            depth = len(self._heap)
+        if pushed:
+            eventlog.emit("mrf.enqueue", queued=depth)
+        return pushed
 
     def _push(self, key: tuple, attempt: int,
               delay: float = 0.0) -> bool:
@@ -223,6 +229,9 @@ class MRFHealer:
                         # fresh entry so the new damage is covered
                         self._push(key, 0)
                     self._cond.notify_all()
+                if done:
+                    eventlog.emit("mrf.drain", healed=self.healed,
+                                  failed=self.failed)
 
     def _retry(self, key: tuple, attempt: int) -> bool:
         """Requeue with backoff; True when the entry is finished

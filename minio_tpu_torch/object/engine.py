@@ -52,12 +52,19 @@ remote key, and frees the local shards once the stub is at write quorum;
 ``put_stub_version`` writes such a stub from its ObjectInfo. A GET of a
 stub with no restored copy answers InvalidObjectState.
 
-Left out: hedged reads and quarantine, the quorum-ack lane of PUT (its
-multipart form is ported), and spans.
+A request's tree holds the reference's spans: ``engine.put_object``,
+``pipeline.encode`` (with the batch former's ``sched.dispatch`` under it),
+``pipeline.shard_write``, ``disk.shard_write``, ``engine.get_object``
+(a ``traced_iter``, never current across a yield), ``pipeline.read_group``,
+``disk.shard_read`` and ``pipeline.verify_decode``.
+
+Left out: hedged reads and quarantine, and the quorum-ack lane of PUT (its
+multipart form is ported).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import heapq
 import io
@@ -301,6 +308,14 @@ class ErasureObjects:
     def put_object(self, bucket: str, object_name: str, reader,
                    size: int = -1, opts: Optional[PutOptions] = None
                    ) -> ObjectInfo:
+        with telemetry.span("engine.put_object", bucket=bucket,
+                            object=object_name, size=size):
+            return self._put_object(bucket, object_name, reader, size,
+                                    opts)
+
+    def _put_object(self, bucket: str, object_name: str, reader,
+                    size: int = -1, opts: Optional[PutOptions] = None
+                    ) -> ObjectInfo:
         opts = opts or PutOptions()
         if isinstance(reader, (bytes, bytearray)):
             size = len(reader)
@@ -439,8 +454,11 @@ class ErasureObjects:
 
         def encode_stage(item):
             t0 = time.perf_counter()
-            with stagetimer.stage("put.encode+digest"):
-                fut, data = item.get("fut"), item.get("data")
+            fut, data = item.get("fut"), item.get("data")
+            # the SSE stream end ciphers its tail on the host: no encode
+            span = contextlib.nullcontext() if "sse_finish" in item else \
+                telemetry.span("pipeline.encode", blocks=data.shape[0])
+            with stagetimer.stage("put.encode+digest"), span:
                 if "sse_finish" in item:
                     # stream end under SSE: runs on this FIFO stage, so
                     # every earlier batch has been absorbed
@@ -459,7 +477,8 @@ class ErasureObjects:
         def write_stage(item):
             t0 = time.perf_counter()
             try:
-                with stagetimer.stage("put.shard_write"):
+                with stagetimer.stage("put.shard_write"), \
+                        telemetry.span("pipeline.shard_write"):
                     for rows in item.get("rows_multi", [item.get("rows")]):
                         self._write_shards_batch(*rows, writers,
                                                  write_quorum)
@@ -686,7 +705,8 @@ class ErasureObjects:
         rows go to the writers as views of `data`. With `sse` the rows
         are PLAINTEXT full blocks at stream offset `sse_off`, ciphered in
         the same dispatch."""
-        with stagetimer.stage("put.encode+digest"):
+        with stagetimer.stage("put.encode+digest"), \
+                telemetry.span("pipeline.encode", blocks=data.shape[0]):
             item: dict = {}
             if sse is not None:
                 item = {"sse_kn": sse.batch_params(sse_off, data.shape[0],
@@ -699,7 +719,8 @@ class ErasureObjects:
                 fused = fut.result() if fut is not None else \
                     codec.encode_and_hash_batch(data, self.bitrot_algo)
                 rows = self._unpack_fused(codec, data, fused)
-        with stagetimer.stage("put.shard_write"):
+        with stagetimer.stage("put.shard_write"), \
+                telemetry.span("pipeline.shard_write"):
             self._write_shards_batch(*rows, writers, write_quorum)
 
     def _sse_encode(self, codec: Codec, data: np.ndarray, item, fut,
@@ -761,8 +782,10 @@ class ErasureObjects:
             rows, digs, j = (data, dd, i) if i < k else \
                 (parity, dp, i - k)
             t0 = time.perf_counter()
-            for bi in range(B):
-                w.write_with_digest(rows[bi, j].data, digs[bi, j].data)
+            with telemetry.span("disk.shard_write", disk=i, blocks=B):
+                for bi in range(B):
+                    w.write_with_digest(rows[bi, j].data,
+                                        digs[bi, j].data)
             # the latencies multipart's quorum-ack grace is derived from
             healthtrack.observe_disk(w.disk, "write",
                                      time.perf_counter() - t0)
@@ -1137,9 +1160,15 @@ class ErasureObjects:
             try:
                 if fi.size == 0 or length == 0:
                     return
-                yield from self._read_object_stream(
-                    bucket, object_name, fi, metas, online, offset, length,
-                    suppress_heal_flag=flagged)
+                # traced_iter, not a plain span: the span is current only
+                # while the read code runs, never across a yield into the
+                # consumer
+                yield from telemetry.traced_iter(
+                    "engine.get_object",
+                    self._read_object_stream(
+                        bucket, object_name, fi, metas, online, offset,
+                        length, suppress_heal_flag=flagged),
+                    bucket=bucket, object=object_name, length=length)
             finally:
                 release()
 
@@ -1346,22 +1375,23 @@ class ErasureObjects:
         per_reader: list = [None] * n
         had_errors = False
 
-        def read_one(r) -> list:
+        def read_one(i: int, r) -> list:
             out = []
-            for b, sl in zip(blocks, shard_lens):
-                off = b * shard_size
-                if collect_digests:
-                    frames = r.read_frames(off, sl)
-                    out.append((frames[0][1] if frames else b"",
-                                frames[0][0] if frames else None))
-                else:
-                    out.append((r.read_at(off, sl), None))
+            with telemetry.span("disk.shard_read", disk=i, blocks=nb):
+                for b, sl in zip(blocks, shard_lens):
+                    off = b * shard_size
+                    if collect_digests:
+                        frames = r.read_frames(off, sl)
+                        out.append((frames[0][1] if frames else b"",
+                                    frames[0][0] if frames else None))
+                    else:
+                        out.append((r.read_at(off, sl), None))
             return out
 
         candidates = [i for i in range(n) if readers[i] is not None]
         candidates.sort(key=lambda i: (0 if i < k else 1, i))
         spares = candidates[k:]
-        inflight = {meta.submit_disk_task(read_one, readers[i]): i
+        inflight = {meta.submit_disk_task(read_one, i, readers[i]): i
                     for i in candidates[:k]}
         while inflight:
             done, _ = _fwait(set(inflight), return_when=FIRST_COMPLETED)
@@ -1375,7 +1405,7 @@ class ErasureObjects:
                     if spares:
                         j = spares.pop(0)
                         inflight[meta.submit_disk_task(
-                            read_one, readers[j])] = j
+                            read_one, j, readers[j])] = j
         got = sum(1 for p in per_reader if p is not None)
         if got < k:
             raise api_errors.InsufficientReadQuorum(
@@ -1821,7 +1851,8 @@ class _PartReadPlan:
         reads, degraded, read seconds)."""
         t0 = time.perf_counter()
         degraded = False
-        with self.io_lock:
+        with self.io_lock, telemetry.span("pipeline.read_group",
+                                          blocks=len(blocks)):
             readers = self.readers
             try:
                 reads = self.eng._read_group_shards_raw(
@@ -1841,7 +1872,13 @@ class _PartReadPlan:
         return reads, degraded, time.perf_counter() - t0
 
     def _submit(self, spec):
+        """Queue one group's reads on the prefetch pool, carrying the
+        caller's span context so the reads attach to the request tree."""
         from ..parallel import pipeline as pl
+        cctx = telemetry.propagating_context()
+        if cctx is not None:
+            return pl.PREFETCH_POOL.submit(cctx.run, self.read_group,
+                                           *spec)
         return pl.PREFETCH_POOL.submit(self.read_group, *spec)
 
     def prime(self) -> None:
@@ -1891,7 +1928,9 @@ class _PartReadPlan:
                 self.heal_required = self.heal_required or had_errors
                 group.append([b, block_off, block_len, shard_len,
                               shards, digests])
-            with stagetimer.stage("get.verify+decode"):
+            with stagetimer.stage("get.verify+decode"), \
+                    telemetry.span("pipeline.verify_decode",
+                                   blocks=len(blocks)):
                 if self.eng._verify_and_reconstruct_group(
                         self.codec, group, k, n, readers, self.shard_size,
                         self.part_algo or self.eng.bitrot_algo,

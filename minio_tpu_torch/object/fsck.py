@@ -26,10 +26,9 @@ verbs (heal_object, delete_object) the foreground uses, so a
 recovers its shards through ``heal_step`` on the card, and a smaller one
 on the host, as every heal does.
 
-Left out: the ``fsck.run`` span and the ``fsck.complete`` /
-``fsck.unrepaired`` event-log records (the tracing and incident planes
-are not ported), and the admin route, madmin client and CLI verb that
-drive the audit over HTTP (they come with the admin router).
+A run is the ``fsck.run`` span of its caller's tree and ends with an
+``fsck.complete`` journal record, plus ``fsck.unrepaired`` (an incident
+trigger) when findings are left unrepaired.
 """
 
 from __future__ import annotations
@@ -47,7 +46,7 @@ from ..storage.xl_storage import (MINIO_META_BUCKET,
                                   MINIO_META_MULTIPART_BUCKET,
                                   MINIO_META_TMP_BUCKET,
                                   XL_STORAGE_FORMAT_FILE, XLStorage)
-from ..utils import atomicfile, knobs, regfence, telemetry
+from ..utils import atomicfile, eventlog, knobs, regfence, telemetry
 from . import api_errors
 from .metacache import manifest_key, mc_prefix
 
@@ -188,29 +187,36 @@ def run_fsck(object_layer, repair: bool = False, tiers=None,
         return report
     if tmp_age_s is None:
         tmp_age_s = knobs.get_float("MINIO_TPU_FSCK_TMP_AGE_S")
-    report.pools = len(ss.server_sets)
-    want = set(buckets) if buckets else None
-    try:
-        all_buckets = [v.name for v in ss.list_buckets()]
-    except api_errors.ObjectApiError:
-        all_buckets = []
-    _audit_registry_forks(report, ss)
-    for p, pool in enumerate(ss.server_sets):
-        _audit_registry_docs(report, ss, p, pool)
-        _audit_tmp(report, p, pool, tmp_age_s)
-        _audit_multipart(report, p, pool)
-        for bucket in all_buckets:
-            if want is not None and bucket not in want:
-                continue
-            _audit_metacache(report, p, pool, bucket)
-            for eng in pool.sets:
-                _audit_namespace(report, p, eng, bucket, tiers,
-                                 tmp_age_s)
-    if repair:
-        report.repair_ran = True
-        for f in report.findings:
-            _run_repair(f)
-    report.duration_s = time.time() - report.started
+    with telemetry.span("fsck.run", repair=repair):
+        report.pools = len(ss.server_sets)
+        want = set(buckets) if buckets else None
+        try:
+            all_buckets = [v.name for v in ss.list_buckets()]
+        except api_errors.ObjectApiError:
+            all_buckets = []
+        _audit_registry_forks(report, ss)
+        for p, pool in enumerate(ss.server_sets):
+            _audit_registry_docs(report, ss, p, pool)
+            _audit_tmp(report, p, pool, tmp_age_s)
+            _audit_multipart(report, p, pool)
+            for bucket in all_buckets:
+                if want is not None and bucket not in want:
+                    continue
+                _audit_metacache(report, p, pool, bucket)
+                for eng in pool.sets:
+                    _audit_namespace(report, p, eng, bucket, tiers,
+                                     tmp_age_s)
+        if repair:
+            report.repair_ran = True
+            for f in report.findings:
+                _run_repair(f)
+        report.duration_s = time.time() - report.started
+    eventlog.emit("fsck.complete", findings=len(report.findings),
+                  repaired=sum(1 for f in report.findings if f.repaired),
+                  unrepaired=len(report.unrepaired))
+    if report.unrepaired:
+        eventlog.emit("fsck.unrepaired",
+                      findings=len(report.unrepaired))
     return report
 
 

@@ -43,9 +43,10 @@ read can install over a newer one. Here (the guarded drain):
     read that started after a write was acknowledged therefore cannot
     be replaced by one that started before it.
 
-Left out: the spans of build, reconcile and serve (the span tracer is
-not ported). The lock is a plain ``threading.Condition`` (lockcheck is
-not ported).
+A build and a reconcile are each the root of a trace of their own
+(``metacache.build``, ``metacache.reconcile``); a served page runs in a
+``metacache.serve`` span of the listing's request. The lock is a plain
+``threading.Condition`` (lockcheck is not ported).
 
 Knobs (README "Listing and the bucket metacache"):
 
@@ -615,34 +616,35 @@ class MetacacheManager:
             self._indexes[bucket] = idx
             drops0 = self.drops
         self.builds += 1
-        if self._load_persisted(bucket, idx):
-            # the persisted snapshot may predate downtime mutations
-            # (and, when the old index overflowed, the lost delta):
-            # presence drift alone cannot prove version freshness —
-            # an overwrite changes versions without changing the
-            # name set — so stay invalid (serves fall back) until
-            # the immediate reconcile has refreshed EVERY name
+        with telemetry.trace("metacache.build", bucket=bucket):
+            if self._load_persisted(bucket, idx):
+                # the persisted snapshot may predate downtime mutations
+                # (and, when the old index overflowed, the lost delta):
+                # presence drift alone cannot prove version freshness —
+                # an overwrite changes versions without changing the
+                # name set — so stay invalid (serves fall back) until
+                # the immediate reconcile has refreshed EVERY name
+                with self._cond:
+                    idx.state = _BucketIndex.READY
+                    idx.invalid = True
+                self.reconcile(bucket)
+                return True
+            names = sorted(self._walk_names(bucket))
+            entries: dict[str, list[ObjectInfo]] = {}
+            for n in names:
+                vers = self._read_versions(bucket, n)
+                if vers:
+                    entries[n] = vers
             with self._cond:
+                idx.replace(entries)
                 idx.state = _BucketIndex.READY
-                idx.invalid = True
-            self.reconcile(bucket)
+                # an overflow DURING this walk lost a delta the walk
+                # may already have passed — stay invalid for reconcile
+                idx.invalid = self.drops != drops0
+                idx.dirty = set(idx.names)
+                self._m[6].set(sum(len(i.names)
+                                   for i in self._indexes.values()))
             return True
-        names = sorted(self._walk_names(bucket))
-        entries: dict[str, list[ObjectInfo]] = {}
-        for n in names:
-            vers = self._read_versions(bucket, n)
-            if vers:
-                entries[n] = vers
-        with self._cond:
-            idx.replace(entries)
-            idx.state = _BucketIndex.READY
-            # an overflow DURING this walk lost a delta the walk
-            # may already have passed — stay invalid for reconcile
-            idx.invalid = self.drops != drops0
-            idx.dirty = set(idx.names)
-            self._m[6].set(sum(len(i.names)
-                               for i in self._indexes.values()))
-        return True
 
     def _load_persisted(self, bucket: str, idx: _BucketIndex) -> bool:
         """Load manifest + segments written by a previous process. Any
@@ -826,29 +828,30 @@ class MetacacheManager:
             invalid = idx.invalid
             drops0 = self.drops
         self.reconciles += 1
-        try:
-            walked = self._walk_names(bucket)
-        except Exception:  # noqa: BLE001 — try again next interval
-            return 0
-        if invalid:
-            # a delta was LOST (journal overflow): name-set drift
-            # alone cannot prove freshness — an overwrite changes
-            # versions without changing presence. Refresh EVERY
-            # name before trusting the index again.
-            drift = sorted(walked | have)
-        else:
-            drift = sorted(walked.symmetric_difference(have))
-        for name in drift:
-            self._refresh(bucket, name)
-        with self._cond:
-            # an overflow DURING this walk lost a delta the walk may
-            # have already passed — leave invalid for the next round
-            if self.drops == drops0:
-                idx.invalid = False
-        if drift:
-            self.repairs += len(drift)
-            self._m[5].inc(len(drift))
-        return len(drift)
+        with telemetry.trace("metacache.reconcile", bucket=bucket):
+            try:
+                walked = self._walk_names(bucket)
+            except Exception:  # noqa: BLE001 — try again next interval
+                return 0
+            if invalid:
+                # a delta was LOST (journal overflow): name-set drift
+                # alone cannot prove freshness — an overwrite changes
+                # versions without changing presence. Refresh EVERY
+                # name before trusting the index again.
+                drift = sorted(walked | have)
+            else:
+                drift = sorted(walked.symmetric_difference(have))
+            for name in drift:
+                self._refresh(bucket, name)
+            with self._cond:
+                # an overflow DURING this walk lost a delta the walk may
+                # have already passed — leave invalid for the next round
+                if self.drops == drops0:
+                    idx.invalid = False
+            if drift:
+                self.repairs += len(drift)
+                self._m[5].inc(len(drift))
+            return len(drift)
 
     def drop_bucket(self, bucket: str, purge: bool = False) -> None:
         """Forget a bucket's in-memory state; with ``purge`` also delete
@@ -933,19 +936,21 @@ class MetacacheManager:
         # existence parity with the merge path: a deleted bucket must
         # raise BucketNotFound, not serve a stale page
         self.obj.get_bucket_info(bucket)
-        # lock-free entry reads: dict get is GIL-atomic and apply()
-        # replaces version lists wholesale, never mutates in place
-        entries = idx.entries
+        with telemetry.span("metacache.serve", bucket=bucket,
+                            verb="list"):
+            # lock-free entry reads: dict get is GIL-atomic and apply()
+            # replaces version lists wholesale, never mutates in place
+            entries = idx.entries
 
-        def read_latest(name: str):
-            vers = entries.get(name)
-            if not vers or vers[0].delete_marker:
-                return None
-            return vers[0]
+            def read_latest(name: str):
+                vers = entries.get(name)
+                if not vers or vers[0].delete_marker:
+                    return None
+                return vers[0]
 
-        page = paginate_objects(
-            self._iter_names_chunked(idx, prefix, marker),
-            read_latest, prefix, marker, delimiter, max_keys)
+            page = paginate_objects(
+                self._iter_names_chunked(idx, prefix, marker),
+                read_latest, prefix, marker, delimiter, max_keys)
         self.serves += 1
         self._m[0].inc()
         return page
@@ -964,12 +969,14 @@ class MetacacheManager:
             self._m[1].inc()
             return None
         self.obj.get_bucket_info(bucket)
-        entries = idx.entries
-        page = paginate_versions(
-            self._iter_names_chunked(idx, prefix, marker,
-                                     inclusive=bool(version_marker)),
-            lambda n: entries.get(n) or [],
-            prefix, marker, version_marker, delimiter, max_keys)
+        with telemetry.span("metacache.serve", bucket=bucket,
+                            verb="versions"):
+            entries = idx.entries
+            page = paginate_versions(
+                self._iter_names_chunked(idx, prefix, marker,
+                                         inclusive=bool(version_marker)),
+                lambda n: entries.get(n) or [],
+                prefix, marker, version_marker, delimiter, max_keys)
         self.serves += 1
         self._m[0].inc()
         return page

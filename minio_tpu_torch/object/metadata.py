@@ -13,12 +13,14 @@ writeQuorum = dataBlocks (+1 when data == parity)
 
 from __future__ import annotations
 
+import contextvars
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence
 
 from ..storage import errors as serr
 from ..storage.api import StorageAPI
 from ..storage.datatypes import FileInfo
+from ..utils import telemetry
 from . import api_errors
 
 # Per-drive errors ignored during object ops (reference objectOpIgnoredErrs:
@@ -96,14 +98,24 @@ def for_each_disk(disks: Sequence[Optional[StorageAPI]],
         except Exception as e:  # noqa: BLE001 — per-drive fault isolation
             errs[i] = e
 
-    futures = [_POOL.submit(run, i) for i in range(len(disks))]
+    if telemetry.current_span() is not None:
+        # carry the caller's span into the pool workers so per-drive
+        # I/O attaches to the request tree; one Context copy per task
+        # (a Context must never run in two threads at once)
+        futures = [_POOL.submit(contextvars.copy_context().run, run, i)
+                   for i in range(len(disks))]
+    else:
+        futures = [_POOL.submit(run, i) for i in range(len(disks))]
     for f in futures:
         f.result()
     return results, errs
 
 
 def submit_disk_task(fn, *args):
-    """One task on the shared drive-io pool."""
+    """One task on the shared drive-io pool, carrying the caller's span
+    context (the for_each_disk discipline)."""
+    if telemetry.current_span() is not None:
+        return _POOL.submit(contextvars.copy_context().run, fn, *args)
     return _POOL.submit(fn, *args)
 
 
@@ -136,6 +148,7 @@ def for_each_disk_quorum(disks: Sequence[Optional[StorageAPI]],
     errs: list[Optional[Exception]] = [None] * len(disks)
     settled = [False] * len(disks)
     futs: dict = {}
+    traced = telemetry.current_span() is not None
     for i in range(len(disks)):
         if disks[i] is None:
             errs[i] = serr.DiskNotFound(f"drive {i}")
@@ -145,7 +158,9 @@ def for_each_disk_quorum(disks: Sequence[Optional[StorageAPI]],
         def run(i=i):
             return fn(i, disks[i])
 
-        futs[_POOL.submit(run)] = i
+        fut = _POOL.submit(contextvars.copy_context().run, run) \
+            if traced else _POOL.submit(run)
+        futs[fut] = i
     deadline = _time.monotonic() + stall_s
     while futs:
         ok = sum(1 for i in range(len(disks))

@@ -27,9 +27,9 @@ Knobs: MINIO_TPU_REBALANCE_CHECKPOINT_EVERY (16 objects between
 checkpoints), _PAGE (256, listing page size), _MPU_GRACE_S (30 s),
 _BACKOFF_S (0.05), _BACKOFF_MAX_S (1.0), _BACKOFF_TRIES (8).
 
-Left out: the ``rebalance.move`` and ``rebalance.migrate_mpu`` spans and
-the ``rebalance.checkpoint`` event-log record (the tracing and incident
-planes are not ported); the crashpoint of the same name is kept.
+Each object moved and each session migrated is the root of a trace of
+its own (``rebalance.move``, ``rebalance.migrate_mpu``), and each
+checkpoint emits a ``rebalance.checkpoint`` journal record.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ import time
 from typing import TYPE_CHECKING, Optional
 
 from ..storage.xl_storage import MINIO_META_BUCKET
-from ..utils import atomicfile, crashpoint, knobs, telemetry
+from ..utils import atomicfile, crashpoint, eventlog, knobs, telemetry
 from ..utils.pressure import ForegroundPressure
 from ..utils.streams import IterStream as _IterStream
 from . import api_errors
@@ -247,24 +247,28 @@ class Rebalancer:
             if now - up.get("initiated", 0) < self.mpu_grace_s:
                 continue                # bounded in-flight grace
             self._throttle()
-            try:
-                self.obj.migrate_upload(up["bucket"], up["object"],
-                                        up["upload_id"],
-                                        source=self.source)
-            except api_errors.InvalidUploadID:
-                # the session vanished under us (client completed or
-                # aborted, or a consumed leftover was purged):
-                # converged, nothing to count
-                moved += 1
-            except Exception:  # noqa: BLE001 — per-session isolation;
-                failed += 1    # MRF heals, the next pass retries
-                with self._mu:
-                    self.state["mpu_failed"] += 1
-                self._on_move_failed(up["bucket"], up["object"])
-            else:
-                moved += 1
-                with self._mu:
-                    self.state["mpu_migrated"] += 1
+            with telemetry.trace("rebalance.migrate_mpu",
+                                 bucket=up["bucket"],
+                                 object=up["object"],
+                                 upload_id=up["upload_id"]):
+                try:
+                    self.obj.migrate_upload(up["bucket"], up["object"],
+                                            up["upload_id"],
+                                            source=self.source)
+                except api_errors.InvalidUploadID:
+                    # the session vanished under us (client completed or
+                    # aborted, or a consumed leftover was purged):
+                    # converged, nothing to count
+                    moved += 1
+                except Exception:  # noqa: BLE001 — per-session isolation;
+                    failed += 1    # MRF heals, the next pass retries
+                    with self._mu:
+                        self.state["mpu_failed"] += 1
+                    self._on_move_failed(up["bucket"], up["object"])
+                else:
+                    moved += 1
+                    with self._mu:
+                        self.state["mpu_migrated"] += 1
         return moved, failed
 
     def _drain_bucket(self, src, bucket: str, marker: str
@@ -398,39 +402,41 @@ class Rebalancer:
         and the next pass's idempotency check finishes the job."""
         src = self.obj.server_sets[self.source]
         moved_bytes = 0
-        for oi in sorted(versions, key=lambda o: o.mod_time or 0):
-            if self._version_in_active_pool(bucket, name, oi):
-                continue            # crash-window leftover: done
-            moved_bytes += self._copy_version(src, bucket, name, oi)
-        if self._stop.is_set():
-            # canceled mid-move: leave the source intact — the
-            # copies are idempotent leftovers the next drain (or a
-            # client overwrite after reactivation) supersedes;
-            # purging here could race a write to the re-activated
-            # pool
-            return moved_bytes
-        # a client DELETE that raced the copy must win: versions
-        # gone from the source since we listed them were deleted
-        # (the purge scanned the target before our copy committed),
-        # so roll their fresh target copies back instead of
-        # resurrecting them
-        try:
-            still = {v.version_id
-                     for v in src.object_versions(bucket, name)}
-        except api_errors.ObjectApiError:
-            still = set()
-        for oi in sorted(versions, key=lambda o: o.mod_time or 0):
+        with telemetry.trace("rebalance.move", bucket=bucket,
+                             object=name, pool=self.source):
+            for oi in sorted(versions, key=lambda o: o.mod_time or 0):
+                if self._version_in_active_pool(bucket, name, oi):
+                    continue            # crash-window leftover: done
+                moved_bytes += self._copy_version(src, bucket, name, oi)
+            if self._stop.is_set():
+                # canceled mid-move: leave the source intact — the
+                # copies are idempotent leftovers the next drain (or a
+                # client overwrite after reactivation) supersedes;
+                # purging here could race a write to the re-activated
+                # pool
+                return moved_bytes
+            # a client DELETE that raced the copy must win: versions
+            # gone from the source since we listed them were deleted
+            # (the purge scanned the target before our copy committed),
+            # so roll their fresh target copies back instead of
+            # resurrecting them
             try:
-                if oi.version_id not in still:
-                    self._rollback_target_copy(bucket, name, oi)
-                elif oi.version_id:
-                    src.delete_object(bucket, name,
-                                      version_id=oi.version_id)
-                else:
-                    src.delete_object(bucket, name)
-            except api_errors.ObjectNotFound:
-                pass                # already gone (raced a delete)
-        return moved_bytes
+                still = {v.version_id
+                         for v in src.object_versions(bucket, name)}
+            except api_errors.ObjectApiError:
+                still = set()
+            for oi in sorted(versions, key=lambda o: o.mod_time or 0):
+                try:
+                    if oi.version_id not in still:
+                        self._rollback_target_copy(bucket, name, oi)
+                    elif oi.version_id:
+                        src.delete_object(bucket, name,
+                                          version_id=oi.version_id)
+                    else:
+                        src.delete_object(bucket, name)
+                except api_errors.ObjectNotFound:
+                    pass                # already gone (raced a delete)
+            return moved_bytes
 
     def _rollback_target_copy(self, bucket: str, name: str, oi) -> None:
         for i in self.obj.topology.write_pools():
@@ -557,6 +563,8 @@ class Rebalancer:
     def _save_checkpoint(self) -> None:
         with self._mu:
             doc = dict(self.state)
+        eventlog.emit("rebalance.checkpoint", pool=self.source,
+                      objects=doc.get("objects_moved", 0))
         payload = json.dumps(doc).encode()
         # every ACTIVE pool gets a copy: the checkpoint must survive the
         # source pool's removal

@@ -16,8 +16,8 @@ generalizes that to the whole data path:
     seconds, GET prefetch savings, pool pressure), exported as the
     ``minio_tpu_pipeline_*`` gauges by an exposition-time collector.
 
-Left out: span propagation into the stage threads (the tracer is not
-ported).
+Stage threads inherit the creating request's span context, so spans of
+stage bodies land in the request's tree.
 
 Knobs (utils/knobs.py): MINIO_TPU_PIPELINE (off selects the serial
 loops), MINIO_TPU_PIPELINE_DEPTH, MINIO_TPU_PIPELINE_POOL,
@@ -26,6 +26,7 @@ MINIO_TPU_PIPELINE_POOL_TIMEOUT_S.
 
 from __future__ import annotations
 
+import contextvars
 import os
 import queue
 import threading
@@ -233,8 +234,19 @@ class StagePipeline:
                         for _ in stages]
         self._error: Optional[BaseException] = None
         self._err_mu = threading.Lock()
+        # stage workers inherit the creating request's span context so
+        # stage-body spans land in the right tree (one Context copy per
+        # thread — a Context must not run concurrently)
+        tracing = telemetry.current_span() is not None
+
+        def _target(i: int) -> Callable:
+            if not tracing:
+                return lambda: self._run(i)
+            cctx = contextvars.copy_context()
+            return lambda: cctx.run(self._run, i)
+
         self._threads = [
-            threading.Thread(target=self._run, args=(i,),
+            threading.Thread(target=_target(i),
                              name=f"{name}-stage{i}", daemon=True)
             for i in range(len(stages))]
         for t in self._threads:

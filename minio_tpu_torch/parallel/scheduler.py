@@ -54,8 +54,20 @@ other verbs. The reference gives it a slot of its own
 compile inside its dispatch; the port's one interpreter kernel compiles
 nothing per query.
 
-Left out: the mesh split points, spans, and the MINIO_TPU_SCHED_ATTRIB
-switch (attribution is always on).
+Each dispatch's stage split is observed in
+``minio_tpu_device_dispatch_seconds{verb, stage}`` under the reference's
+stage names (queue, transfer, compute, fetch), and attached to every
+submitter's span tree: ``sched.dispatch`` (verb, blocks, coalesced) with
+``sched.queue`` and the ``sched.transfer``/``sched.compute``/
+``sched.fetch`` children, whose durations are the codec's spans between
+CUDA events for that dispatch, laid end to end from the dispatch's start
+(reference :527-548). The submitter's span is captured at submit, since
+the collector and dispatch threads serve many requests. A dispatch the
+codec's size gate routes to the host gets no stage children. A declined
+submission emits one ``device.decline`` record per reason.
+
+Left out: the mesh split points and the MINIO_TPU_SCHED_ATTRIB switch
+(attribution is always on).
 
 Knobs: MINIO_TPU_SCHED_MAX_BATCH (32 blocks per fused dispatch),
 MINIO_TPU_SCHED_MAX_WAIT_MS (3, the coalescing grace window),
@@ -73,7 +85,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..utils import knobs, telemetry
+from ..utils import eventlog, knobs, telemetry
 
 MAX_BATCH_BLOCKS = knobs.get_int("MINIO_TPU_SCHED_MAX_BATCH")
 MAX_WAIT_S = knobs.get_float("MINIO_TPU_SCHED_MAX_WAIT_MS") / 1e3
@@ -96,6 +108,10 @@ DISPATCH_STAGE_SECONDS = telemetry.REGISTRY.histogram(
     "minio_tpu_device_dispatch_seconds",
     "Fused device dispatch stage timings (queue and the codec's "
     "transfer/compute/fetch spans) per verb", buckets=_STAGE_BUCKETS)
+# the codec's stage names (object/codec.py STEP_STAGES) -> the stage
+# label values and span names the reference uses
+STAGE_NAMES = {"transfer_span_s": "transfer", "compute_span_s": "compute",
+               "fetch_span_s": "fetch"}
 
 
 # every live former, for the exposition-time collector (a node's former
@@ -139,7 +155,7 @@ telemetry.REGISTRY.register_collector(_collect_scheduler_metrics)
 
 class _Pending:
     __slots__ = ("codec", "data", "payload", "blocks", "event", "out",
-                 "error", "t_submit")
+                 "error", "t_submit", "span")
 
     def __init__(self, codec, data: np.ndarray, payload=None):
         self.codec = codec
@@ -152,6 +168,10 @@ class _Pending:
         self.out = None
         self.error: Optional[BaseException] = None
         self.t_submit = time.perf_counter()
+        # the submitter's span: the collector and dispatch threads are
+        # shared across requests, so dispatch spans are attached to it
+        # explicitly
+        self.span = telemetry.current_span()
 
 
 class DispatchFuture:
@@ -254,6 +274,8 @@ class BatchScheduler:
             return False
         with self._mu:
             self.declined += 1
+        eventlog.emit_once("device.decline", stage="scheduler",
+                           reason="no-parity" if codec.m == 0 else "algo")
         return True
 
     def _enqueue(self, key: tuple, codec, data: np.ndarray, sse=None,
@@ -431,10 +453,12 @@ class BatchScheduler:
     def _dispatch_one(self, key: tuple, group: list) -> None:
         verb = key[0]
         stages: dict[str, float] = {}
-        t0 = time.perf_counter()
+        t0_wall, t0 = time.time(), time.perf_counter()
         run = {"decipher": self._run_decipher,
                "scan": self._run_scan}.get(verb, self._run_erasure)
-        out = run(key, group, stages.__setitem__)
+        out = run(key, group,
+                  lambda name, s: stages.__setitem__(STAGE_NAMES[name], s))
+        dt = time.perf_counter() - t0
         nb = sum(p.blocks for p in group)
         with self._mu:
             self.batches += 1
@@ -450,6 +474,10 @@ class BatchScheduler:
         _BATCHES_TOTAL.inc(verb=verb)
         if len(group) > 1:
             _COALESCED_TOTAL.inc(len(group) - 1, verb=verb)
+        for p in group:
+            if p.span is not None:
+                self._attach_spans(p, verb, nb, len(group), t0_wall, t0,
+                                   dt, stages if out is not None else None)
         if out is None:
             for p in group:      # the codec's size gate: local paths
                 p.event.set()
@@ -479,6 +507,28 @@ class BatchScheduler:
                          odig[at:at + b])
             at += b
             p.event.set()
+
+    @staticmethod
+    def _attach_spans(p: _Pending, verb: str, blocks: int, groups: int,
+                      t0_wall: float, t0: float, dt: float,
+                      stages: Optional[dict]) -> None:
+        """Attach one dispatch to a submitter's tree as an externally
+        timed ``sched.dispatch`` span, with the queue wait and the codec's
+        stage spans (None when the codec routed the batch to the host)
+        as its children, laid end to end from the dispatch's start."""
+        d = telemetry.attach_span(p.span, "sched.dispatch", t0_wall, dt,
+                                  verb=verb, blocks=blocks,
+                                  coalesced=groups - 1)
+        if d is None or stages is None:
+            return
+        qw = max(t0 - p.t_submit, 0.0)
+        telemetry.attach_span(d, "sched.queue", t0_wall - qw, qw)
+        off = t0_wall
+        for stage in ("transfer", "compute", "fetch"):
+            sdt = stages.get(stage)
+            if sdt is not None:
+                telemetry.attach_span(d, f"sched.{stage}", off, sdt)
+                off += sdt
 
     @staticmethod
     def _run_decipher(key: tuple, group: list, stage_cb):

@@ -15,7 +15,10 @@ card), mrf, fsck, metacache; rebalance (POST, GET, DELETE) and topology
 (GET, POST); tier and tier/stats; metrics (``?cluster=1`` merges every
 node's exposition, utils/promfed.py); get-config, set-config,
 config-history, restore-config; the user, policy and service-account
-routes; service, set-bucket-quota and get-bucket-quota. Beside them,
+routes; service, set-bucket-quota and get-bucket-quota; and the tracing
+plane's trace (``?follow=1`` grafts every peer's records), trace/cluster,
+spans, events (``?follow=1``, ``?cluster=1``), incidents, slo, consolelog
+and profiling/start, profiling/stop. Beside them,
 upstream's update-group-members (the reference's router has no route that
 fills a group; its IAMSys has the verbs). The routes of the
 planes not ported answer a JSON NotImplemented that names the plane
@@ -56,18 +59,9 @@ _SCRAPE_FAILED = telemetry.REGISTRY.counter(
 
 # (method, route) -> the unported plane that serves it in the reference
 _UNPORTED = {
-    ("POST", "profiling/start"): "profiling",
-    ("POST", "profiling/stop"): "profiling",
-    ("GET", "consolelog"): "console log",
     ("GET", "bandwidth"): "bandwidth",
     ("GET", "drivehealth"): "drive health",
     ("GET", "obdinfo"): "OBD",
-    ("GET", "trace/cluster"): "trace",
-    ("GET", "trace"): "trace",
-    ("GET", "spans"): "spans",
-    ("GET", "events"): "events",
-    ("GET", "incidents"): "incidents",
-    ("GET", "slo"): "SLO",
     ("POST", "naughtynet"): "naughtynet",
     ("GET", "qos"): "QoS",
     ("PUT", "qos"): "QoS",
@@ -226,6 +220,33 @@ class AdminHandlers:
         if sub == "top/locks" and m == "GET":
             self._auth(ctx, "admin:TopLocksInfo")
             return self._json(self.top_locks())
+        if sub == "profiling/start" and m == "POST":
+            self._auth(ctx, "admin:Profiling")
+            return self._json(self._profiling_start(
+                ctx.query1("profilerType", "cpu")))
+        if sub == "profiling/stop" and m == "POST":
+            self._auth(ctx, "admin:Profiling")
+            return self._profiling_stop(
+                ctx.query1("profilerType", "cpu"))
+        if sub == "consolelog" and m == "GET":
+            self._auth(ctx, "admin:ConsoleLog")
+            try:
+                n = int(ctx.query1("count", "0") or 0)
+            except ValueError:
+                n = 0
+            from ..utils.console import get_console
+            entries = list(get_console().recent(n))
+            if self.node is not None:
+                entries.extend(self.node.notification.console_log_all(n))
+            entries.sort(key=lambda e: e.get("ts", 0))
+            return self._json({"entries": entries[-1000:]})
+        if sub == "trace/cluster" and m == "GET":
+            self._auth(ctx, "admin:ServerTrace")
+            entries = list(self.api.trace.recent)
+            if self.node is not None:
+                entries.extend(self.node.notification.trace_all())
+            entries.sort(key=lambda e: e.get("time", ""))
+            return self._json({"entries": entries[-500:]})
         if sub == "metrics" and m == "GET":
             # authenticated metrics scrape; ?cluster=1 federates over
             # peer RPC into ONE exposition (counters summed, gauges
@@ -241,6 +262,161 @@ class AdminHandlers:
                 text = self.metrics.local_text()
             return HTTPResponse(body=text.encode(),
                                 headers={"Content-Type": "text/plain"})
+        if sub == "spans" and m == "GET":
+            # tail-sampled span trees (errors, slow requests, sampled
+            # ordinary traffic), RPC fragments grafted in — the "where
+            # did this slow PUT spend its time" endpoint. ?api= keeps
+            # one API's roots (root names ARE api names under the
+            # middleware), ?trace_id= selects the tree a trace-stream
+            # entry named.
+            self._auth(ctx, "admin:ServerTrace")
+            try:
+                n = int(ctx.query1("count", "50") or 50)
+            except ValueError:
+                raise S3Error("AdminInvalidArgument",
+                              "bad count") from None
+            slowest = ctx.query1("sort", "recent") == "slowest"
+            return self._json({
+                "spans": telemetry.SPANS.dump(
+                    n, slowest=slowest, name=ctx.query1("api", ""),
+                    trace_id=ctx.query1("trace_id", "")),
+                "kept_total": telemetry.SPANS.kept_total,
+                "dropped_total": telemetry.SPANS.dropped_total,
+                "slow_threshold_ms": round(
+                    telemetry.SPANS.slow_s * 1e3, 3),
+                "sample": telemetry.SPANS.sample,
+            })
+        if sub == "trace" and m == "GET":
+            # live ND-JSON request records. Default: bounded stream
+            # that ends on idle. ?follow=1 is the `mc admin
+            # trace` analog — a long-lived stream with heartbeats, and
+            # (on a cluster node) every PEER's records grafted in via
+            # trace-stream subscriptions, so one client watches the
+            # whole cluster. ?api=PutObject,GetObject and ?err=1
+            # filter; filters apply to peer records too.
+            self._auth(ctx, "admin:ServerTrace")
+            follow = ctx.query1("follow", "") in ("1", "true")
+            apis = {a for a in ctx.query1("api", "").split(",") if a} \
+                or None
+            errors_only = ctx.query1("err", "") in ("1", "true")
+            try:
+                n = int(ctx.query1("count", "0") or 0)
+                idle = float(ctx.query1("idle", "10") or 10)
+            except ValueError:
+                raise S3Error("AdminInvalidArgument",
+                              "bad count/idle") from None
+            idle = min(max(idle, 1.0), 3600.0)
+            max_s = knobs.get_float("MINIO_TPU_TRACE_FOLLOW_MAX_S")
+            peer_subs = None
+            if follow and self.node is not None:
+                # a CALLABLE: the subscriptions open at the stream's
+                # first iteration, so a response abandoned before its
+                # first chunk never opens peers it cannot close
+                node = self.node
+                peer_subs = (lambda:
+                             node.notification.trace_stream_all(
+                                 max_s=max_s))
+            return HTTPResponse(
+                headers={"Content-Type": "application/x-ndjson"},
+                stream=self.api.trace.stream(
+                    max_entries=n, idle_timeout=idle, follow=follow,
+                    apis=apis, errors_only=errors_only,
+                    peer_subs=peer_subs, max_s=max_s),
+                long_poll=follow)
+        if sub == "events" and m == "GET":
+            # the incident plane's journal. Default: the recent ring
+            # window as JSON (?cluster=1 merges peer windows, deduped
+            # by (node, seq) — in-process test clusters share one
+            # journal). ?follow=1 streams ND-JSON live with peer
+            # grafting — same contract (and lazy-subscription lesson)
+            # as /trace?follow=1. Filters: ?class=a,b ?sub=drive,net
+            # ?sev=warn (minimum severity); they apply to peer
+            # entries too.
+            self._auth(ctx, "admin:ServerTrace")
+            from ..utils import eventlog
+            classes = {c for c in ctx.query1("class", "").split(",")
+                       if c} or None
+            subsys = {s for s in ctx.query1("sub", "").split(",")
+                      if s} or None
+            sev = ctx.query1("sev", "")
+            min_sev = eventlog.sev_rank(sev) if sev else 0
+            follow = ctx.query1("follow", "") in ("1", "true")
+            try:
+                n = int(ctx.query1("count", "0") or 0)
+                idle = float(ctx.query1("idle", "10") or 10)
+            except ValueError:
+                raise S3Error("AdminInvalidArgument",
+                              "bad count/idle") from None
+            if follow:
+                idle = min(max(idle, 1.0), 3600.0)
+                max_s = knobs.get_float(
+                    "MINIO_TPU_EVENTS_FOLLOW_MAX_S")
+                peer_subs = None
+                if self.node is not None:
+                    # a CALLABLE: subscriptions open at the stream's
+                    # first iteration, so a response abandoned before
+                    # its first chunk never opens peers it cannot
+                    # close
+                    node = self.node
+                    peer_subs = (lambda:
+                                 node.notification.event_stream_all(
+                                     max_s=max_s))
+                return HTTPResponse(
+                    headers={"Content-Type":
+                             "application/x-ndjson"},
+                    stream=eventlog.JOURNAL.stream(
+                        max_entries=n, idle_timeout=idle,
+                        follow=True, classes=classes,
+                        subsystems=subsys, min_sev=min_sev,
+                        peer_subs=peer_subs, max_s=max_s),
+                    long_poll=True)
+            entries = eventlog.JOURNAL.recent(n, classes, subsys,
+                                              min_sev)
+            if ctx.query1("cluster") == "1" and self.node is not None:
+                seen = {(e.get("node"), e.get("seq"))
+                        for e in entries}
+                for e in self.node.notification.events_all():
+                    k = (e.get("node"), e.get("seq"))
+                    if k in seen:
+                        continue
+                    if eventlog.JOURNAL.entry_matches(
+                            e, classes, subsys, min_sev):
+                        seen.add(k)
+                        entries.append(e)
+                entries.sort(key=lambda e: e.get("ts", 0))
+            return self._json({"events": entries[-1000:]})
+        if sub == "incidents" and m == "GET":
+            # black-box capture bundles. ?id= fetches one bundle —
+            # asking every peer when it is not local (bundles live on
+            # the node that captured them); default lists summaries,
+            # ?cluster=1 merging peer lists.
+            self._auth(ctx, "admin:OBDInfo")
+            from ..utils import incidents as inc_mod
+            inc_id = ctx.query1("id", "")
+            if inc_id:
+                doc = inc_mod.RECORDER.get(inc_id)
+                if doc is None and self.node is not None:
+                    doc = self.node.notification.incident_any(inc_id)
+                if doc is None:
+                    raise S3Error("AdminInvalidArgument",
+                                  "unknown incident id")
+                return self._json(doc)
+            out = inc_mod.RECORDER.list()
+            if ctx.query1("cluster") == "1" and self.node is not None:
+                have = {i.get("id") for i in out}
+                for i in self.node.notification.incidents_all():
+                    if i.get("id") not in have:
+                        have.add(i.get("id"))
+                        out.append(i)
+                out.sort(key=lambda i: i.get("time") or 0,
+                         reverse=True)
+            return self._json({"incidents": out})
+        if sub == "slo" and m == "GET":
+            # burn-rate status per objective — what `mc admin` would
+            # render as the error-budget dashboard
+            self._auth(ctx, "admin:ServerInfo")
+            from ..utils import slo
+            return self._json(slo.ENGINE.status())
         if sub == "heal" and m == "POST":
             self._auth(ctx, "admin:Heal")
             bucket = ctx.query1("bucket")
@@ -402,7 +578,7 @@ class AdminHandlers:
                 cfg.set_kv(subsys, **{k: str(v) for k, v in kv.items()})
             except _kvmod.ConfigError as e:
                 raise S3Error("AdminInvalidArgument", str(e)) from None
-            cfg.apply(self.api)
+            cfg.apply(self.api, trace=self.api.trace)
             return self._json({})
         if sub == "config-history" and m == "GET":
             self._auth(ctx, "admin:ConfigUpdate")
@@ -411,7 +587,7 @@ class AdminHandlers:
             self._auth(ctx, "admin:ConfigUpdate")
             cfg = self._config()
             cfg.restore(ctx.query1("entry"))
-            cfg.apply(self.api)
+            cfg.apply(self.api, trace=self.api.trace)
             return self._json({})
 
         # -- IAM management (cmd/admin-handlers-users.go) ------------------
@@ -620,6 +796,73 @@ class AdminHandlers:
             peers = self.node.notification.server_info_all()
             info["peers"] = [p for p in peers if isinstance(p, dict)]
         return info
+
+    def _profiling_start(self, kinds: str = "cpu") -> dict:
+        """Start profiling on EVERY node: locally via the process
+        profilers, cluster-wide via the peer fan-out (reference admin
+        profiling/start?profilerType=cpu,mem,
+        cmd/admin-handlers.go:461-525 + peerRESTMethodStartProfiling;
+        cProfile = pprof-cpu, tracemalloc = pprof-heap)."""
+        from ..utils import profiling
+        wanted = profiling.parse_kinds(kinds)
+        bad = [k for k in profiling.split_raw(kinds)
+               if k not in profiling.KINDS]
+        if bad or not wanted:
+            raise S3Error("AdminInvalidArgument",
+                          f"unknown profiler type(s) {bad or kinds!r}; "
+                          f"supported: {', '.join(profiling.KINDS)}")
+        out = {"kinds": {k: ("started" if profiling.start(k)
+                             else "already running") for k in wanted}}
+        if self.node is not None:
+            peers = self.node.notification.profiling_start_all(
+                ",".join(wanted))
+            out["peers"] = [p for p in peers if isinstance(p, dict)]
+        return out
+
+    def _profiling_stop(self, kinds: str = "cpu") -> HTTPResponse:
+        """Stop everywhere and return one zip with a profile per
+        (kind, node) (reference downloads a zip of all nodes'
+        profiles)."""
+        import io
+        import zipfile
+        from ..utils import profiling
+        wanted = profiling.parse_kinds(kinds)
+        bad = [k for k in profiling.split_raw(kinds)
+               if k not in profiling.KINDS]
+        if bad or not wanted:
+            # stop must reject what start rejects — a typo'd stop
+            # otherwise tears down someone else's cpu profile
+            raise S3Error("AdminInvalidArgument",
+                          f"unknown profiler type(s) {bad or kinds!r}; "
+                          f"supported: {', '.join(profiling.KINDS)}")
+        local_name = self.node.spec.addr if self.node is not None \
+            else "local"
+        profiles: list[tuple[str, str, str]] = []
+        for k in wanted:
+            local = profiling.stop_text(k)
+            if local is not None:
+                profiles.append((k, local_name, local))
+        if self.node is not None:
+            for res in self.node.notification.profiling_stop_all(
+                    ",".join(wanted)):
+                if not isinstance(res, dict):
+                    continue
+                for k, text in (res.get("profiles") or {}).items():
+                    if text:
+                        profiles.append((k, res.get("node", "peer"),
+                                         text))
+                if res.get("profile"):          # legacy single-kind
+                    profiles.append(("cpu", res.get("node", "peer"),
+                                     res["profile"]))
+        if not profiles:
+            raise S3Error("AdminInvalidArgument", "profiling not running")
+        buf = io.BytesIO()
+        with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as zf:
+            for kind, node, text in profiles:
+                safe = node.replace(":", "_").replace("/", "_")
+                zf.writestr(f"profile-{kind}-{safe}.txt", text)
+        return HTTPResponse(body=buf.getvalue(),
+                            headers={"Content-Type": "application/zip"})
 
     def top_locks(self) -> dict:
         merged: dict = {}

@@ -22,8 +22,9 @@ hint and ``Connection: close``.
 
 The exposition-time gauges of the most recently built gate
 (``minio_tpu_admission_capacity`` and ``_in_use``) are the reference's.
-Left out: the multi-tenant QoS probe and the event-log emission of each
-shed.
+Each shed emits an ``admission.shed`` journal record and rides its reason
+on the response (``shed_reason``) into the request's trace record. Left
+out: the multi-tenant QoS probe.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import threading
 import time
 from typing import Optional
 
-from ...utils import knobs, telemetry
+from ...utils import eventlog, knobs, telemetry
 
 # requests shed with 503 SlowDown, by trigger: "staging" (BytePool
 # exhaustion window), "scheduler" (device-batch queue saturation),
@@ -95,6 +96,9 @@ class ShedDecision:
         resp.with_xml(body)
         resp.headers["Retry-After"] = str(self.retry_after)
         resp.headers["Connection"] = "close"
+        # the middleware's trace record says which signal refused it
+        # (the edge's loop-side sheds record directly)
+        resp.shed_reason = self.reason
         return resp
 
 
@@ -256,4 +260,5 @@ class AdmissionController:
         """Record one refusal (the ONLY requests_shed_total increment
         site in the tree) and hand back the decision to serve."""
         _SHED_TOTAL.inc(reason=reason)
+        eventlog.emit("admission.shed", reason=reason)
         return ShedDecision(reason, message, retry_after)

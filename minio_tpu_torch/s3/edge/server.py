@@ -11,7 +11,7 @@ every ``LAG_INTERVAL_S`` rather than at the reference's
 ``MINIO_TPU_EDGE_LAG_S`` (one value in use); each loop also keeps its
 recent samples (``lag_samples``).
 Left out: the exposition-time gauges and counters of the loop and its
-pool, the trace records of loop-side sheds, and
+pool, and
 ``MINIO_TPU_EDGE_WORKERS`` (the reference's default of one loop is the
 only one).
 
@@ -340,6 +340,7 @@ class _EdgeLoop(threading.Thread):
                 # the cheapest possible refusal
                 decision = self.edge.admission.shed(
                     "conns", "connection budget exhausted, retry")
+                self.edge.record_shed("", "/", decision)
                 sock.setblocking(False)
                 conn = _Conn(sock, addr)
                 self.edge.track(conn, +1)
@@ -408,6 +409,7 @@ class _EdgeLoop(threading.Thread):
     def _on_header_deadline(self, conn: _Conn) -> None:
         decision = self.edge.admission.shed(
             "deadline", "request headers not received in time")
+        self.edge.record_shed("", "/", decision)
         self._send_close_raw(
             conn, self.edge.render_response(decision.response("/")))
 
@@ -469,6 +471,8 @@ class _EdgeLoop(threading.Thread):
             decision = self.edge.admission.pre_admit(
                 method, path, query, headers)
             if decision is not None:
+                self.edge.record_shed(method, path, decision,
+                                      query=query, headers=headers)
                 resp = decision.response(path)
                 finalize_headers(self.edge.api, headers.get("origin"),
                                  resp, method)
@@ -583,6 +587,26 @@ class EdgeServer:
     def is_router_path(self, path: str) -> bool:
         return any(path.startswith(prefix)
                    for prefix, _fn in self.extra_routers)
+
+    def record_shed(self, method: str, path: str, decision,
+                    query: Optional[dict] = None,
+                    headers: Optional[dict] = None) -> None:
+        """Trace-record a loop-side refusal (conns/deadline/pre-admit):
+        these never reach the middleware, so the `mc admin trace`
+        stream would otherwise miss exactly the requests an overloaded
+        server refuses. Runs on the loop thread — record() is a lock +
+        a ring append, cheap by design."""
+        trace = getattr(self.api, "trace", None)
+        if trace is None:
+            return
+        try:
+            from ..trace import api_name_of
+            api = api_name_of(method, path, query or {}, headers or {}) \
+                if method else ""
+            trace.record(method, path, "", 503, 0.0, api=api,
+                         shed_reason=decision.reason)
+        except Exception:  # noqa: BLE001 — tracing is passive
+            pass
 
     def conn_count(self) -> int:
         with self._conn_mu:
@@ -716,7 +740,7 @@ class EdgeServer:
                                      close_conn)
 
             run_request(self.api, self.extra_routers, ctx, method, path,
-                        respond)
+                        respond, caller=ctx.remote_addr)
             if not close_conn[0]:
                 # keep-alive hygiene: unread body bytes would be parsed
                 # as the next request; closing paths skip the drain

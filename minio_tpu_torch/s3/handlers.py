@@ -44,7 +44,9 @@ and the lock headers of a PUT or a locked bucket's deletes), replication
 and notification configs, ListenBucketNotification, browser POST uploads
 and the internal replication headers; RestoreObject answers it too when
 no tier manager is attached (``tiers``, as in the reference).
-Left out with them: QoS pacing, request tracing, bandwidth accounting,
+Each request's trace record goes to ``trace`` (s3/trace.TraceSys) from
+the edge middleware. Left out with the unported planes: QoS pacing,
+bandwidth accounting,
 event notification, bucket federation and storage-class parity.
 
 The tier plane (tier/): a transitioned object's HEAD and GET carry the
@@ -125,6 +127,11 @@ class HTTPResponse:
     headers: dict[str, str] = dataclasses.field(default_factory=dict)
     body: bytes = b""
     stream: Optional[Iterator[bytes]] = None   # used instead of body if set
+    long_poll: bool = False   # idle follow stream: never "slow" in spans
+    # admission-refusal label riding the response so the middleware's
+    # trace record can say why a 503 shed happened (set only by
+    # ShedDecision.response, the one shed construction site)
+    shed_reason: str = ""
 
     def with_xml(self, payload: bytes) -> "HTTPResponse":
         self.headers["Content-Type"] = "application/xml"
@@ -311,6 +318,8 @@ class S3ApiHandlers:
         # optional TransitionWorker: the async RestoreObject pulls
         self.restore_worker = None
         self.update_tracker = None  # optional DataUpdateTracker
+        from .trace import TraceSys
+        self.trace = TraceSys()    # request tracing + audit hub
         self.cors_allow_origin = "*"
         # the scan plane: Selects evaluate on the object layer's device;
         # the cluster boot attaches the shared batch former, so that

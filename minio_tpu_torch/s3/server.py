@@ -188,7 +188,7 @@ def _make_handler_class(api: S3ApiHandlers, extra_routers):
             # telemetry + the admission-gated handler live in the
             # transport-shared middleware (edge/dispatch.py)
             run_request(api, extra_routers, ctx, self.command, self.path,
-                        self._respond)
+                        self._respond, caller=self.client_address[0])
             # keep-alive hygiene: any request-body bytes the handler
             # didn't consume (auth failure, early error, streaming
             # trailer) would otherwise be parsed as the next request.

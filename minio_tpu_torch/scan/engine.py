@@ -31,8 +31,9 @@ Metrics (the port's registry): minio_tpu_scan_requests_total{path},
 minio_tpu_scan_fallbacks_total{reason}, minio_tpu_scan_pages_total,
 minio_tpu_scan_rows_total, minio_tpu_scan_seconds{path}. Stage seconds
 (utils/stagetimer): select.rows, select.pages, select.dispatch,
-select.emit (records and framing). Left out: the reference's spans and
-event-log records.
+select.emit (records and framing). The rows and pages of a device scan
+run in the reference's ``scan.page`` span, and each decline reason emits
+one ``device.decline`` record (stage "scan") per process.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from ..ops import scan_program
 from ..s3.s3errors import S3Error
 from ..s3select import select as sel
 from ..s3select import sql as _sql
-from ..utils import knobs, stagetimer, telemetry
+from ..utils import eventlog, knobs, stagetimer, telemetry
 from . import kernels, pager
 from .plan import Decline, compile_plan
 
@@ -137,6 +138,7 @@ class ScanEngine:
             self.fallback_reasons[reason] = \
                 self.fallback_reasons.get(reason, 0) + 1
         self._m[1].inc(reason=reason)
+        eventlog.emit_once("device.decline", stage="scan", reason=reason)
 
     def _try_device(self, req, data: bytes):
         """The device-served frame iterator, or Decline. Everything that
@@ -150,19 +152,20 @@ class ScanEngine:
             raise Decline("sql-error") from None   # CPU raises properly
         plan = compile_plan(q, req.input_format, req.json_type)
         program = scan_program.program_for(plan)
-        with stagetimer.stage("select.rows"):
-            try:
-                payload = sel._decompress(data, req.compression)
-                if len(payload) > MAX_SCAN_BYTES:
-                    raise Decline("too-large")
-                if req.input_format == "JSON":
-                    rows = list(sel._rows_json(payload, req))
-                else:
-                    rows = list(sel._rows_csv(payload, req))
-            except _INPUT_ERRORS:
-                raise Decline("error") from None
-        with stagetimer.stage("select.pages"):
-            pages = pager.build_pages(rows, plan)
+        with telemetry.span("scan.page", fmt=req.input_format):
+            with stagetimer.stage("select.rows"):
+                try:
+                    payload = sel._decompress(data, req.compression)
+                    if len(payload) > MAX_SCAN_BYTES:
+                        raise Decline("too-large")
+                    if req.input_format == "JSON":
+                        rows = list(sel._rows_json(payload, req))
+                    else:
+                        rows = list(sel._rows_csv(payload, req))
+                except _INPUT_ERRORS:
+                    raise Decline("error") from None
+            with stagetimer.stage("select.pages"):
+                pages = pager.build_pages(rows, plan)
         with stagetimer.stage("select.dispatch"):
             mask, counts = self._run_pages(pages, program)
         self._m[2].inc(pages.n_pages)

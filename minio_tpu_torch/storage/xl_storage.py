@@ -13,8 +13,10 @@ reference's, and minio_tpu's, exactly:
 Writes are staged in tmp and committed with an atomic os.replace-based
 rename (reference RenameData, cmd/xl-storage.go:2041).
 
-Left out: O_DIRECT shard writes, append_file (shard frames go through
-open_appender), legacy xl.json migration and the telemetry spans.
+append_file, create_file, read_file and rename_data each run in the
+reference's ``disk.*`` span.
+
+Left out: O_DIRECT shard writes and legacy xl.json migration.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import threading
 from typing import BinaryIO, Iterator, Optional
 
 from .. import bitrot as bitrot_mod
-from ..utils import atomicfile, crashpoint
+from ..utils import atomicfile, crashpoint, telemetry
 from . import errors
 from .api import BitrotVerifier, StorageAPI
 from .datatypes import DiskInfo, FileInfo, VolInfo
@@ -265,6 +267,10 @@ class XLStorage(StorageAPI):
     def append_file(self, volume: str, path: str, buf: bytes) -> None:
         """Append one buffered batch of shard frames (the remote shard
         write: the storage RPC server lands a peer's appendfile here)."""
+        with telemetry.span("disk.append_file", bytes=len(buf)):
+            self._append_file(volume, path, buf)
+
+    def _append_file(self, volume: str, path: str, buf: bytes) -> None:
         if not os.path.isdir(self._vol_dir(volume)):
             raise errors.VolumeNotFound(volume)
         fp = self._file_path(volume, path)
@@ -310,6 +316,11 @@ class XLStorage(StorageAPI):
         """Stream `size` bytes (exactly) from reader into a fresh file
         (reference CreateFile, cmd/xl-storage.go:1664; errLessData /
         errMoreData on a mismatch)."""
+        with telemetry.span("disk.create_file", size=size):
+            self._create_file(volume, path, size, reader)
+
+    def _create_file(self, volume: str, path: str, size: int,
+                    reader: BinaryIO) -> None:
         fp = self._file_path(volume, path)
         if not os.path.isdir(self._vol_dir(volume)):
             raise errors.VolumeNotFound(volume)
@@ -342,6 +353,11 @@ class XLStorage(StorageAPI):
                   verifier: Optional[BitrotVerifier] = None) -> bytes:
         """`length` bytes at `offset`; with a verifier, the whole file is
         hashed and checked against its expected digest first."""
+        with telemetry.span("disk.read_file", length=length):
+            return self._read_file(volume, path, offset, length, verifier)
+
+    def _read_file(self, volume: str, path: str, offset: int, length: int,
+                  verifier: Optional[BitrotVerifier] = None) -> bytes:
         fp = self._file_path(volume, path)
         try:
             with open(fp, "rb") as f:
@@ -573,6 +589,13 @@ class XLStorage(StorageAPI):
         names the version committed: a multipart session's staged meta
         also holds the session's own entry, so "latest" may be the wrong
         one; without it the latest is taken."""
+        with telemetry.span("disk.rename_data"):
+            self._rename_data(src_volume, src_path, data_dir,
+                              dst_volume, dst_path, version_id)
+
+    def _rename_data(self, src_volume: str, src_path: str, data_dir: str,
+                    dst_volume: str, dst_path: str,
+                    version_id: str = "") -> None:
         src_meta = self._read_xl_meta(src_volume, src_path)
         fi = src_meta.to_file_info(dst_volume, dst_path, version_id)
         try:

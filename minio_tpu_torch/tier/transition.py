@@ -27,8 +27,10 @@ restore-expiry sweep reclaims that copy.
     retry on the next crawler pass) and counts in
     ``minio_tpu_tier_failed_total{tier}``.
 
-Left out: the ``tier.transition`` / ``tier.restore`` / ``tier.reclaim``
-spans (the tracing plane is not ported) and per-tier QoS budgets:
+A transition, a reclaim and a restore are each the root of a trace of
+their own (``tier.transition``, ``tier.reclaim``, ``tier.restore``).
+
+Left out: per-tier QoS budgets:
 ``budget_lookup`` stays None until the QoS registry is ported, so the
 byte pacing below never engages at the boot.
 """
@@ -273,32 +275,34 @@ class TransitionWorker:
     def _move_one(self, bucket: str, name: str, vid: str, tier: str,
                   etag: str) -> None:
         objects_c, bytes_c, failed_c, _ = _metrics()
-        try:
-            moved = self._move(bucket, name, vid, tier, etag)
-        except (api_errors.ObjectNotFound, api_errors.VersionNotFound,
-                api_errors.MethodNotAllowed,
-                api_errors.InvalidObjectState,
-                api_errors.PreConditionFailed):
-            # deleted, markered, already tiered or overwritten since
-            # the scan: converged, nothing to do
-            with self._cond:
-                self.skipped += 1
-        except Exception:  # noqa: BLE001 — per-object isolation
-            with self._cond:
-                self.failed += 1
-            failed_c.inc(tier=tier)
-            # heal first: a degraded source heals through MRF, and the
-            # next crawler pass retries the transition
-            _mrf_enqueue(self.obj, bucket, name)
-        else:
-            with self._cond:
-                if moved < 0:
+        with telemetry.trace("tier.transition", bucket=bucket,
+                             object=name, tier=tier):
+            try:
+                moved = self._move(bucket, name, vid, tier, etag)
+            except (api_errors.ObjectNotFound, api_errors.VersionNotFound,
+                    api_errors.MethodNotAllowed,
+                    api_errors.InvalidObjectState,
+                    api_errors.PreConditionFailed):
+                # deleted, markered, already tiered or overwritten since
+                # the scan: converged, nothing to do
+                with self._cond:
                     self.skipped += 1
-                else:
-                    self.moved += 1
-            if moved >= 0:
-                objects_c.inc(tier=tier)
-                bytes_c.inc(moved, tier=tier)
+            except Exception:  # noqa: BLE001 — per-object isolation
+                with self._cond:
+                    self.failed += 1
+                failed_c.inc(tier=tier)
+                # heal first: a degraded source heals through MRF, and the
+                # next crawler pass retries the transition
+                _mrf_enqueue(self.obj, bucket, name)
+            else:
+                with self._cond:
+                    if moved < 0:
+                        self.skipped += 1
+                    else:
+                        self.moved += 1
+                if moved >= 0:
+                    objects_c.inc(tier=tier)
+                    bytes_c.inc(moved, tier=tier)
 
     def _tier_byte_bucket(self, tier: str) -> Optional[TokenBucket]:
         """Enforce the tier's request-rate budget (blocking: the worker
@@ -478,17 +482,19 @@ def restore_reclaim_action(object_layer, tiers: TierManager,
             expiry = 0.0
         if not expiry or expiry > now_fn():
             return
-        try:
-            object_layer.transition_object(
-                bucket, oi.name, version_id=oi.version_id,
-                tier=md.get(TRANSITION_TIER_KEY, ""),
-                remote_object=md.get(TRANSITIONED_OBJECT_KEY, ""),
-                remote_version=md.get(TRANSITIONED_VERSION_KEY, ""),
-                # identity pin: a restored copy overwritten since the
-                # scan must not be re-stubbed over the stale pointer
-                expect_etag=oi.etag)
-        except api_errors.ObjectApiError:
-            pass                        # the next pass retries
+        with telemetry.trace("tier.reclaim", bucket=bucket,
+                             object=oi.name):
+            try:
+                object_layer.transition_object(
+                    bucket, oi.name, version_id=oi.version_id,
+                    tier=md.get(TRANSITION_TIER_KEY, ""),
+                    remote_object=md.get(TRANSITIONED_OBJECT_KEY, ""),
+                    remote_version=md.get(TRANSITIONED_VERSION_KEY, ""),
+                    # identity pin: a restored copy overwritten since the
+                    # scan must not be re-stubbed over the stale pointer
+                    expect_etag=oi.etag)
+            except api_errors.ObjectApiError:
+                pass                        # the next pass retries
 
     return act
 
@@ -534,44 +540,46 @@ def restore_object(object_layer, tiers: TierManager, bucket: str,
         return {"status": "updated", "expiry": expiry}
 
     tier = md.get(TRANSITION_TIER_KEY, "")
-    try:
-        stream = tiers.client(tier).get(
-            md.get(TRANSITIONED_OBJECT_KEY, ""))
-    except TierObjectNotFound:
-        raise api_errors.InvalidObjectState(
-            f"remote copy of {bucket}/{name} is gone") from None
-    metadata = dict(md)
-    metadata["etag"] = info.etag
-    if info.content_type:
-        metadata["content-type"] = info.content_type
-    if info.content_encoding:
-        metadata["content-encoding"] = info.content_encoding
-    metadata[RESTORE_KEY] = restore_val
-    metadata[RESTORE_EXPIRY_KEY] = str(expiry)
-    reader = _StrictSizeReader(stream, info.size)
-    try:
-        if len(info.parts or []) > 1:
-            # a multipart stub replays its recorded part boundaries, so
-            # ranged reads and the -N etag survive the round trip
-            from ..object.faithful import replay_version, spec_of
-            spec = spec_of(info)
-            spec.metadata = {k: v for k, v in metadata.items()
-                             if k != "etag"}
-            # no conflict gate: the restore rewrites the same identity
-            # over its own stub (equal mod time and etag)
-            replay_version(object_layer, bucket, name, spec,
-                           reader=reader, conflict_gate=False)
-        else:
-            object_layer.put_object(
-                bucket, name, reader, info.size,
-                PutOptions(metadata=metadata,
-                           version_id=info.version_id,
-                           versioned=bool(info.version_id),
-                           mod_time=info.mod_time))
-    finally:
-        reader.close()
-    _metrics()[3].inc(tier=tier)
-    return {"status": "restored", "expiry": expiry}
+    with telemetry.trace("tier.restore", bucket=bucket, object=name,
+                         tier=tier):
+        try:
+            stream = tiers.client(tier).get(
+                md.get(TRANSITIONED_OBJECT_KEY, ""))
+        except TierObjectNotFound:
+            raise api_errors.InvalidObjectState(
+                f"remote copy of {bucket}/{name} is gone") from None
+        metadata = dict(md)
+        metadata["etag"] = info.etag
+        if info.content_type:
+            metadata["content-type"] = info.content_type
+        if info.content_encoding:
+            metadata["content-encoding"] = info.content_encoding
+        metadata[RESTORE_KEY] = restore_val
+        metadata[RESTORE_EXPIRY_KEY] = str(expiry)
+        reader = _StrictSizeReader(stream, info.size)
+        try:
+            if len(info.parts or []) > 1:
+                # a multipart stub replays its recorded part boundaries, so
+                # ranged reads and the -N etag survive the round trip
+                from ..object.faithful import replay_version, spec_of
+                spec = spec_of(info)
+                spec.metadata = {k: v for k, v in metadata.items()
+                                 if k != "etag"}
+                # no conflict gate: the restore rewrites the same identity
+                # over its own stub (equal mod time and etag)
+                replay_version(object_layer, bucket, name, spec,
+                               reader=reader, conflict_gate=False)
+            else:
+                object_layer.put_object(
+                    bucket, name, reader, info.size,
+                    PutOptions(metadata=metadata,
+                               version_id=info.version_id,
+                               versioned=bool(info.version_id),
+                               mod_time=info.mod_time))
+        finally:
+            reader.close()
+        _metrics()[3].inc(tier=tier)
+        return {"status": "restored", "expiry": expiry}
 
 
 def mark_restore_ongoing(object_layer, bucket: str, name: str,

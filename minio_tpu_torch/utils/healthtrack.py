@@ -14,7 +14,7 @@ and ``clear_samples``, which drops a restarted peer's windows.
 
 The exposition-time collector sets ``minio_tpu_drive_health`` for every
 tracked drive, at 0 (ok): left out are hedged reads, the
-suspect/probation quarantine state machine, the OBD snapshot, and the knobs
+suspect/probation quarantine state machine, and the knobs
 ``MINIO_TPU_LAT_WINDOW``, ``MINIO_TPU_QUORUM_ACK`` and
 ``MINIO_TPU_WRITE_STALL_*``.
 """
@@ -120,6 +120,23 @@ class HealthTracker:
                     if k == kind and (verbs is None or verb in verbs)
                     for v in w.buf]
         return _pct(vals, q)
+
+    def snapshot(self, kind: Optional[str] = None) -> list:
+        """Per-entity latency summary (the incident recorder's
+        ``healthtrack`` provider), in the reference's shape less the
+        quarantine's state age and EWMA: every entity is in state ok."""
+        ents: dict[tuple[str, str], dict] = {}
+        with self._mu:
+            for (k, key, verb), w in self._windows.items():
+                if kind is not None and k != kind:
+                    continue
+                vals = list(w.buf)
+                ents.setdefault((k, key), {})[verb] = {
+                    "n": len(vals),
+                    "p50_ms": round((_pct(vals, 0.5) or 0) * 1e3, 3),
+                    "p95_ms": round((_pct(vals, 0.95) or 0) * 1e3, 3)}
+        return [{"kind": k, "key": key, "state": "ok", "verbs": verbs}
+                for (k, key), verbs in sorted(ents.items())]
 
 
 TRACKER = HealthTracker()

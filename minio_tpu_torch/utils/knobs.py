@@ -4,10 +4,11 @@ Counterpart of minio_tpu/utils/knobs.py, trimmed to the knobs of the
 pipelined data path, the batch former, heal, the MRF queue, the disk
 monitor, the SSE cipher choice, the scan plane, the tier plane, the
 bucket metacache, the hot-object read cache, the admission gate, the
-HTTP edge, the internode RPC transport, the IAM refresh and the federated
-metrics scrape, with the reference's names, types and defaults
-(minio_tpu/utils/knobs.py:160-197, :203-206, :220-235, :261-281, :284-306,
-:310-331, :356-359, :379-382, :403-410, :434-435, :438-485).
+HTTP edge, the internode RPC transport, the IAM refresh, the federated
+metrics scrape, and the tracing and incident planes, with the reference's
+names, types and defaults (minio_tpu/utils/knobs.py:160-197, :203-206,
+:220-235, :261-281, :284-306, :310-331, :356-359, :370-383, :403-410,
+:434-435, :438-485, :535-586).
 Left out:
 the README table renderer and every knob no ported module reads. No knob here is one the reference lacks.
 
@@ -284,6 +285,72 @@ define("MINIO_TPU_RPC_STREAM_READ_S", "float", 30.0,
        "per-read socket deadline on streamed RPC responses: a peer "
        "that goes silent mid-stream fails the reader instead of "
        "parking it forever (0 disables)")
+
+# -- tracing and incident planes (minio_tpu/utils/knobs.py:370-383,
+# :535-586) --------------------------------------------------------------------
+define("MINIO_TPU_TRACE_SLOW_MS", "float", 500.0,
+       "span trees at least this slow are always kept")
+define("MINIO_TPU_TRACE_SAMPLE", "float", 0.0,
+       "keep-probability for ordinary (fast, error-free) traces")
+define("MINIO_TPU_TRACE_KEEP", "int", 128,
+       "kept span-tree ring size")
+define("MINIO_TPU_TRACE_MAX_SPANS", "int", 512,
+       "span budget per trace; extras no-op and are counted as "
+       "`spans_dropped`")
+define("MINIO_TPU_TRACE_FOLLOW_MAX_S", "float", 3600.0,
+       "hard lifetime cap on a ?follow=1 trace stream (a forgotten "
+       "client cannot hold peer subscriptions forever)")
+define("MINIO_TPU_EVENTLOG", "bool", True,
+       "`off` disables the structured event journal (emits drop; the "
+       "overhead A/B escape hatch)")
+define("MINIO_TPU_EVENTLOG_RING", "int", 2048,
+       "in-memory journal ring size (the /events backlog bound)")
+define("MINIO_TPU_EVENTLOG_SEGMENT_EVENTS", "int", 64,
+       "pending events that force an early segment flush")
+define("MINIO_TPU_EVENTLOG_FLUSH_S", "float", 2.0,
+       "journal segment flush cadence, seconds")
+define("MINIO_TPU_EVENTLOG_KEEP_SEGMENTS", "int", 16,
+       "persisted journal segments retained (older ones pruned)")
+define("MINIO_TPU_EVENTS_FOLLOW_MAX_S", "float", 3600.0,
+       "hard lifetime cap on a ?follow=1 event stream (a forgotten "
+       "client cannot hold peer subscriptions forever)")
+define("MINIO_TPU_SLO", "bool", True,
+       "`off` disables the SLO burn-rate engine (gauges stop, no "
+       "breach events)")
+define("MINIO_TPU_SLO_EVAL_S", "float", 5.0,
+       "SLO evaluation cadence, seconds")
+define("MINIO_TPU_SLO_WINDOWS_S", "str", "60,300",
+       "comma-separated burn-rate windows, seconds (multi-window "
+       "alerting: short catches fast burn, long catches slow leaks)")
+define("MINIO_TPU_SLO_AVAIL_TARGET", "float", 99.9,
+       "availability objective, percent of non-5xx responses per API "
+       "class")
+define("MINIO_TPU_SLO_LAT_TARGET", "float", 99.0,
+       "latency objective, percent of requests under the class "
+       "threshold")
+define("MINIO_TPU_SLO_LAT_READ_MS", "float", 250.0,
+       "read-class latency threshold, milliseconds")
+define("MINIO_TPU_SLO_LAT_WRITE_MS", "float", 1000.0,
+       "write-class latency threshold, milliseconds")
+define("MINIO_TPU_SLO_BURN_THRESHOLD", "float", 4.0,
+       "burn rate at which an objective breaches (clears at half "
+       "this — hysteresis stops breach/clear flapping)")
+define("MINIO_TPU_SLO_MIN_SAMPLES", "int", 10,
+       "requests a window must hold before its burn rate can breach "
+       "(a single early 500 must not page)")
+define("MINIO_TPU_INCIDENTS", "bool", True,
+       "`off` disables black-box incident capture")
+define("MINIO_TPU_INCIDENT_KEEP", "int", 16,
+       "incident bundles retained on disk (older ones pruned)")
+define("MINIO_TPU_INCIDENT_DEBOUNCE_S", "float", 30.0,
+       "min seconds between captures for the same trigger class "
+       "(a flapping trigger must not fill the retention window)")
+define("MINIO_TPU_INCIDENT_EVENTS", "str",
+       "slo.breach,drive.probation,net.partition,fsck.unrepaired,"
+       "registry.fork",
+       "comma-separated journal event classes that trigger a capture")
+define("MINIO_TPU_INCIDENT_WINDOW", "int", 256,
+       "journal entries snapshotted into each bundle")
 
 # -- identity and operator planes (minio_tpu/utils/knobs.py:234, :379) ----
 define("MINIO_TPU_IAM_REFRESH_S", "float", 300.0,

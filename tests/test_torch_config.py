@@ -20,6 +20,7 @@ The listen cases (ListenBucketNotification) wait for the event plane.
 from __future__ import annotations
 
 import json
+import types
 
 import numpy as np
 import pytest
@@ -83,8 +84,16 @@ def test_apply_live(tmp_path):
         "http://127.0.0.1:1/audit"
     with pytest.raises(ConfigError):
         cfg.set_kv("audit_webhook", enable="maybe")
+    # the audit webhook goes live on the trace plane; the event plane
+    # is still refused
+    trace = types.SimpleNamespace(audit_webhook="")
+    cfg.apply(api, trace=trace)
+    assert trace.audit_webhook == "http://127.0.0.1:1/audit"
+    cfg.set_kv("audit_webhook", enable="off")
+    cfg.apply(api, trace=trace)
+    assert trace.audit_webhook == ""
     with pytest.raises(ConfigError):
-        cfg.apply(api, trace=object())
+        cfg.apply(api, events=object())
     # requests_max back to 0: the gate the boot sized comes back
     api.requests_budget = 40
     cfg.set_kv("api", requests_max="0")

@@ -20,7 +20,8 @@ set, 64 KiB blocks (tests/test_cluster.py:48-91).
     re-admits it on the peers at once (the generation listener) and
     their MRF queues heal what it missed;
   * the boot: the topology and one deployment id everywhere, the peer
-    verbs the port serves (and the reference's 404 for the rest);
+    verbs the port serves (and the reference's 404 for the rest); the
+    ``trace`` and ``events`` verbs answering alike;
   * IAM across nodes: a user added through node 0's admin router signs a
     PUT through node 2 (the iam-delta verb), and removed through node 1
     is refused on node 3; a ``?cluster=1`` scrape through node 1 carries
@@ -288,7 +289,7 @@ def test_twin_boot_and_peer_plane(twins):
     rc = port_transport.RestClient("127.0.0.1", port[1].s3.port,
                                    "/minio/peer/v1", CREDS.access_key,
                                    CREDS.secret_key)
-    for verb in ("events", "metrics", "trace", "obd"):
+    for verb in ("metrics", "obd"):
         with pytest.raises(port_transport.RPCError) as ei:
             rc.call(verb)
         assert ei.value.kind == "unknown-verb"
@@ -311,6 +312,48 @@ def test_twin_put_get_across_nodes(twins):
                                                  "200000"})
     assert got[0] == 206 and got[2] == DATA["big"][70000:200001]
     t.same_files("after the PUTs")
+
+
+def test_twin_trace_and_events_verbs(twins):
+    """The tracing plane's peer verbs answer alike on twin clusters:
+    node 1's ``trace`` ring after one signed sequence through it (times,
+    durations, TTFBs, trace ids, callers and node addresses masked, the
+    address held to node 1's own), and its ``events`` window after the
+    same record is emitted in each package (time, sequence and node
+    masked)."""
+    import minio_tpu.utils.eventlog as ref_eventlog
+    import minio_tpu_torch.utils.eventlog as port_eventlog
+    ref, port, _ = twins
+    t = Twin(twins)
+    for nodes in (ref, port):
+        nodes[1].s3.api.trace.recent.clear()
+    t.both(1, "GET", "/twin/small")
+    t.both(1, "HEAD", "/twin/big")
+    t.both(1, "GET", "/twin/nosuch")
+    for ev in (ref_eventlog, port_eventlog):
+        ev.emit("rebalance.checkpoint", pool=0, objects=7)
+    answers = []
+    for tr, nodes in ((ref_transport, ref), (port_transport, port)):
+        rc = tr.RestClient("127.0.0.1", nodes[1].s3.port,
+                           "/minio/peer/v1", CREDS.access_key,
+                           CREDS.secret_key)
+        try:
+            trace = [e for e in rc.call_json("trace")
+                     if e["path"].startswith("/twin/")]
+            events = [e for e in rc.call_json("events")
+                      if e["class"] == "rebalance.checkpoint"]
+        finally:
+            rc.close()
+        assert {e["node"] for e in trace} == {nodes[1].spec.addr}
+        masked = ("time", "duration_ms", "ttfb_ms", "trace_id", "caller",
+                  "node")
+        answers.append((
+            [{k: ("*" if k in masked else v) for k, v in e.items()}
+             for e in trace],
+            {k: ("*" if k in ("ts", "seq", "node") else v)
+             for k, v in events[-1].items()}))
+    assert len(answers[1][0]) == 3, answers[1][0]
+    assert answers[0] == answers[1]
 
 
 def test_twin_multipart_and_sse(twins):
