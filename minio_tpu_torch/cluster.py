@@ -365,6 +365,7 @@ class ClusterNode:
         self._peer_rpc.reload_bucket_metadata = bmeta.reload
         bmeta.on_change = self.notification.reload_bucket_metadata
         self._peer_rpc.get_storage_info = self.object_layer.storage_info
+        self._peer_rpc.obd_drive_paths = list(self.spec.drives)
         self._peer_rpc.get_bucket_usage = \
             lambda: (self.crawler.usage if self.crawler is not None
                      else {})

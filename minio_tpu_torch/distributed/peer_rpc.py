@@ -13,9 +13,10 @@ planes the port has: ``server-info``, ``locks``,
 ``net-probe``, ``tracker-rotate``, and the tracing plane's ``trace``,
 ``trace-stream``, ``events``, ``event-stream``, ``incidents``,
 ``incident``, ``profiling-start``, ``profiling-stop`` and
-``console-log``, their client calls and NotificationSys fan-outs, and the
-bootstrap verify whole. The JSON-metrics, OBD, bandwidth and notification
-verbs are not registered: a peer asking for one gets the transport's own
+``console-log``, the gray-failure plane's ``obd`` (utils/obd.py over
+``obd_drive_paths``), their client calls and NotificationSys fan-outs
+(``obd_all``, ``net_obd``), and the bootstrap verify whole. The
+JSON-metrics, bandwidth and notification verbs are not registered: a peer asking for one gets the transport's own
 404 ``unknown-verb``. Departure: the federated scrape's
 per-peer pull waits its whole deadline (``MINIO_TPU_CLUSTER_SCRAPE_S``);
 the reference tightens it from the peer's observed latency under
@@ -80,6 +81,8 @@ class PeerRPCServer:
         self.list_incidents: Callable[[], list] = lambda: []
         self.get_incident: Callable[[str], Optional[dict]] = \
             lambda inc_id: None
+        # the drive paths the OBD verb probes (the cluster sets them)
+        self.obd_drive_paths: list[str] = []
 
         h = self.handler
         h.register("server-info", lambda a, b: {
@@ -107,10 +110,12 @@ class PeerRPCServer:
         h.register("incidents", lambda a, b: self.list_incidents())
         h.register("incident", self._incident)
         # profiling fan-out (cmd/admin-handlers.go:461-525 peer verbs)
-        # and the console-log ring (peer-rest-common.go:56)
+        # the console-log ring and the OBD bundle (peer-rest-common.go:
+        # 29-56)
         h.register("profiling-start", self._profiling_start)
         h.register("profiling-stop", self._profiling_stop)
         h.register("console-log", self._console_log)
+        h.register("obd", self._obd)
 
     def _trace_stream(self, args, body):
         """Live trace subscription (the peer half of a cluster-wide
@@ -191,6 +196,12 @@ class PeerRPCServer:
             n = 0
         return {"node": self.node_id,
                 "entries": get_console().recent(n)}
+
+    def _obd(self, args, body):
+        from ..utils.obd import local_obd
+        out = local_obd(self.obd_drive_paths)
+        out["node"] = self.node_id
+        return out
 
     def _tracker_rotate(self, args, body):
         if self.get_update_tracker is None:
@@ -404,6 +415,12 @@ class PeerRPCClient:
         try:
             return self.rc.call_json("console-log",
                                      {"count": str(count)})
+        except (NetworkError, RPCError):
+            return None
+
+    def obd(self) -> Optional[dict]:
+        try:
+            return self.rc.call_json("obd")
         except (NetworkError, RPCError):
             return None
 
@@ -678,6 +695,10 @@ class NotificationSys:
                               if isinstance(e, dict))
         merged.sort(key=lambda e: e.get("ts", 0))
         return merged
+
+    def obd_all(self) -> list[dict]:
+        return [r for r in self._broadcast(lambda p: p.obd())
+                if isinstance(r, dict)]
 
     def net_obd(self, size: int = 4 << 20) -> list[dict]:
         """This node's view of the interconnect: timed payload push to

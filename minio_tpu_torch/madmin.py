@@ -5,11 +5,12 @@ what `mc admin ...` scripts against.
 Counterpart of minio_tpu/madmin.py for the routes the port's admin router
 serves (s3/admin.py), the tracing plane's among them (trace and
 trace_follow, cluster_trace, events and events_follow, incidents and
-incident, slo, spans, profiling_start and profiling_stop, console_log).
+incident, slo, spans, profiling_start and profiling_stop, console_log) and
+the gray-failure plane's (obd_info, drive_health).
 ``update_group_members`` drives a route the reference's router lacks
 (upstream's update-group-members); the other calls are the reference's.
 Left out with their planes: naughtynet, QoS, replication, notify, remote
-targets, OBD, drive health and bandwidth."""
+targets and bandwidth."""
 
 from __future__ import annotations
 
@@ -402,6 +403,15 @@ class AdminClient:
         """Merged cluster console-log ring entries."""
         return self._json("GET", "consolelog",
                           {"count": str(count)})["entries"]
+
+    def obd_info(self) -> list[dict]:
+        """Per-node OBD bundles (drive latency probes, cpu/mem)."""
+        return self._json("GET", "obdinfo")["nodes"]
+
+    def drive_health(self) -> dict:
+        """Gray-failure plane snapshot: per-drive/per-peer tracked
+        latency + quarantine states + recent transition events."""
+        return self._json("GET", "drivehealth")
 
     # -- config KV ---------------------------------------------------------
 

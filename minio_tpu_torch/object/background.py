@@ -36,15 +36,19 @@ sweep-healed like a boot-time one.
 The MRF queue emits the reference's ``mrf.enqueue`` and ``mrf.drain``
 journal records.
 
-Left out: the disk monitor's slow-drive quarantine (it needs
-utils/healthtrack's state machine) with its ``drive.*`` journal records,
-and the reference's crash points. The MRF lock is a plain threading.Condition
+The disk monitor also runs the slow-drive quarantine (utils/healthtrack's
+state machine: ok -> suspect -> probation -> heal-verified re-admission)
+with its ``drive.suspect``, ``drive.probation``, ``drive.reconvict`` and
+``drive.readmit`` journal records.
+
+Left out: the reference's crash points. The MRF lock is a plain threading.Condition
 (lockcheck is not ported).
 
 Knobs: MINIO_TPU_MRF_QUEUE_SIZE, MINIO_TPU_MRF_MAX_RETRIES,
 MINIO_TPU_MRF_BACKOFF_BASE, MINIO_TPU_MRF_BACKOFF_MAX (the retry schedule
 spans ~40 s with the defaults), MINIO_TPU_DISK_PROBE_S (the disk
-monitor's scan interval).
+monitor's scan interval, which is also the slow-drive health cadence),
+MINIO_TPU_QUARANTINE and MINIO_TPU_QUAR_* (utils/knobs.py).
 """
 
 from __future__ import annotations
@@ -54,13 +58,14 @@ import heapq
 import json
 import threading
 import time
+from collections import deque
 from typing import TYPE_CHECKING, Callable, Optional
 
 from ..storage import errors as serr
 from ..storage.format import (MINIO_META_BUCKET, read_format_from,
                               write_format_to)
 from ..storage.xl_storage import XLStorage
-from ..utils import backoff_delay, crashpoint, eventlog, knobs
+from ..utils import backoff_delay, crashpoint, eventlog, healthtrack, knobs
 from . import api_errors
 
 if TYPE_CHECKING:  # sets.py imports MRFHealer: no cycle at runtime
@@ -333,10 +338,20 @@ class _ScanLoop:
 
 
 class DiskMonitor(_ScanLoop):
-    """Re-admit returning drives; format + sweep-heal fresh ones, over
-    every pool of a single node (``add_pool`` registers the pools that
-    online expansion appends). The reference's slow-drive quarantine
-    (suspect / probation states) is not ported."""
+    """Re-admit returning drives; format + sweep-heal fresh ones; walk
+    slow (gray-failing) drives through quarantine — over every pool of a
+    single node (``add_pool`` registers the pools that online expansion
+    appends).
+
+    Health states (the gray-failure plane): beyond online/offline, a
+    drive whose tracked read/write latency stays past the quarantine
+    threshold turns **suspect** — excluded from read plans and hedge
+    targets (capacity-permitting) while still written-and-MRF'd. After
+    ``MINIO_TPU_QUAR_PROBATION_S`` it enters **probation**: each scan
+    runs a timed direct probe, and ``MINIO_TPU_QUAR_PROBES``
+    consecutive healthy probes earn a heal-verified re-admission
+    (sweep-heal the set, flip back to ok, kick MRF). A slow probe
+    re-convicts straight back to suspect."""
 
     def __init__(self, sets: "ErasureSets",
                  interval: Optional[float] = None):
@@ -344,6 +359,10 @@ class DiskMonitor(_ScanLoop):
         self.interval = knobs.get_float("MINIO_TPU_DISK_PROBE_S") \
             if interval is None else interval
         self.healed_slots: list[tuple[int, int]] = []   # for tests/admin
+        # quarantine bookkeeping for admin and tests, bounded: a drive
+        # flapping every scan for the life of the process must not grow it
+        self.quarantine_events: "deque[tuple[str, str]]" = deque(
+            maxlen=1000)
         self._init_loop()
 
     @property
@@ -364,6 +383,7 @@ class DiskMonitor(_ScanLoop):
         admitted = 0
         for pool in list(self.pools):
             admitted += self._scan_pool(pool)
+            self._scan_pool_health(pool)
         return admitted
 
     def _scan_pool(self, pool: "ErasureSets") -> int:
@@ -445,6 +465,81 @@ class DiskMonitor(_ScanLoop):
         except Exception:  # noqa: BLE001 — MRF/next sweep will retry
             pass
         return True
+
+    # -- slow-drive quarantine (the gray-failure plane) --------------------
+
+    def _scan_pool_health(self, pool: "ErasureSets") -> None:
+        """One health-evaluation pass (reference :447-516): convict slow
+        drives, advance suspects to probation, probe probationers,
+        re-admit after enough healthy probes and a heal-verify sweep."""
+        if not healthtrack.quarantine_enabled():
+            return
+        tr = healthtrack.TRACKER
+        for si, eng in enumerate(pool.sets):
+            for d in eng.disks:
+                if d is None:
+                    continue
+                key = healthtrack.disk_key(d)
+                state = tr.state_of("drive", key)
+                if state == healthtrack.STATE_OK:
+                    if tr.should_quarantine("drive", key):
+                        tr.set_state("drive", key,
+                                     healthtrack.STATE_SUSPECT,
+                                     event="suspect")
+                        self.quarantine_events.append((key, "suspect"))
+                        eventlog.emit("drive.suspect", drive=key, set=si)
+                    continue
+                if state == healthtrack.STATE_SUSPECT and \
+                        tr.state_age("drive", key) >= knobs.get_float(
+                            "MINIO_TPU_QUAR_PROBATION_S"):
+                    tr.set_state("drive", key,
+                                 healthtrack.STATE_PROBATION,
+                                 event="probation")
+                    self.quarantine_events.append((key, "probation"))
+                    eventlog.emit("drive.probation", drive=key, set=si)
+                    state = healthtrack.STATE_PROBATION
+                if state != healthtrack.STATE_PROBATION:
+                    continue
+                dur, ok = self._probe_drive(d)
+                tr.observe("drive", key, "probe", dur)
+                passed = ok and dur <= tr.quarantine_threshold("drive", key)
+                probes_ok = tr.note_probe("drive", key, passed)
+                if not passed:
+                    # still slow: note_probe re-convicted it to suspect
+                    self.quarantine_events.append((key, "reconvict"))
+                    eventlog.emit("drive.reconvict", drive=key, set=si)
+                    continue
+                if probes_ok >= knobs.get_int("MINIO_TPU_QUAR_PROBES"):
+                    # heal-verified re-admission: the drive took its writes
+                    # while quarantined only as MRF hints, so the set is
+                    # swept (heal step on the set's device) before read
+                    # plans trust it again
+                    try:
+                        self.heal_set_sweep(si, pool)
+                    except Exception:  # noqa: BLE001 — MRF backstop
+                        pass
+                    # drop the pre-recovery evidence: the drive took no
+                    # reads while convicted, so its old slow samples would
+                    # re-convict it on the next scan
+                    tr.clear_samples("drive", key)
+                    tr.set_state("drive", key, healthtrack.STATE_OK,
+                                 event="readmit")
+                    self.quarantine_events.append((key, "readmit"))
+                    eventlog.emit("drive.readmit", drive=key, set=si)
+                    if pool.mrf is not None:
+                        pool.mrf.kick()
+
+    @staticmethod
+    def _probe_drive(d) -> tuple[float, bool]:
+        """One timed direct probe against the drive (through the whole
+        wrapper chain, so injected stalls are felt)."""
+        t0 = time.perf_counter()
+        try:
+            d.disk_info()
+            ok = True
+        except serr.StorageError:
+            ok = False
+        return time.perf_counter() - t0, ok
 
     def heal_set_sweep(self, set_index: int,
                        pool: Optional["ErasureSets"] = None) -> int:

@@ -58,8 +58,12 @@ A request's tree holds the reference's spans: ``engine.put_object``,
 (a ``traced_iter``, never current across a yield), ``pipeline.read_group``,
 ``disk.shard_read`` and ``pipeline.verify_decode``.
 
-Left out: hedged reads and quarantine, and the quorum-ack lane of PUT (its
-multipart form is ported).
+The gray-failure plane (utils/healthtrack.py): GET shard reads race a
+spare read against a reader past the adaptive hedge deadline or one that
+failed, avoid suspect drives capacity permitting, and reconstruct the
+shards the plan skipped without flagging a heal; PUT shard writes and the
+commit's close, meta and rename fan-outs ack at write quorum and abandon
+laggards past the write-stall grace to MRF.
 """
 
 from __future__ import annotations
@@ -786,11 +790,16 @@ class ErasureObjects:
                 for bi in range(B):
                     w.write_with_digest(rows[bi, j].data,
                                         digs[bi, j].data)
-            # the latencies multipart's quorum-ack grace is derived from
             healthtrack.observe_disk(w.disk, "write",
                                      time.perf_counter() - t0)
 
-        _, errs = meta.for_each_disk(list(writers), write)
+        # quorum-ack lane: once write-quorum writers are durable, a laggard
+        # past the stall grace is dropped from the fan-out (and from every
+        # later batch via writers[i] = None below); its missing shard heals
+        # through MRF instead of setting p99
+        _, errs = meta.for_each_disk_quorum(
+            list(writers), write, write_quorum,
+            stall_s=healthtrack.write_stall_s(), stage="shard_write")
         for i, e in enumerate(errs):
             if e is not None:
                 writers[i] = None
@@ -811,8 +820,15 @@ class ErasureObjects:
                 raise serr.DiskNotFound(f"writer {i}")
             w.close()  # flushes remaining frames (empty file for 0-byte)
 
+        # the whole commit window rides the quorum-ack lane: a drive
+        # stalling at close/meta/rename must not hold the client ack once
+        # quorum is durable; it is counted into the return value and the
+        # object converges back through MRF
+        stall = healthtrack.write_stall_s()
         with stagetimer.stage("put.commit.close_writers"):
-            _, errs = meta.for_each_disk(shuffled, close_writer)
+            _, errs = meta.for_each_disk_quorum(shuffled, close_writer,
+                                                write_quorum, stall_s=stall,
+                                                stage="close")
         for i, e in enumerate(errs):
             if e is not None:
                 writers[i] = None
@@ -832,7 +848,7 @@ class ErasureObjects:
         with stagetimer.stage("put.commit.write_meta"):
             meta.write_unique_file_info(disks_for_meta,
                                         MINIO_META_TMP_BUCKET, tmp_id,
-                                        metas, write_quorum)
+                                        metas, write_quorum, stall_s=stall)
         # fully staged, uncommitted: the renames are the point of no
         # return
         crashpoint.hit("put.meta.before_rename")
@@ -843,8 +859,17 @@ class ErasureObjects:
             d.rename_data(MINIO_META_TMP_BUCKET, tmp_id, fi.data_dir,
                           bucket, object_name)
 
+        def renamed_late(_i: int) -> None:
+            # an abandoned rename that lands late may have laid an older
+            # version over a commit made after this PUT acked: re-queue
+            # the MRF check now that it settled
+            self._notify_degraded(bucket, object_name, fi.version_id)
+
         with stagetimer.stage("put.commit.rename"):
-            _, errs = meta.for_each_disk(disks_for_meta, rename)
+            _, errs = meta.for_each_disk_quorum(disks_for_meta, rename,
+                                                write_quorum, stall_s=stall,
+                                                stage="rename",
+                                                on_settle=renamed_late)
         err = meta.reduce_write_quorum_errs(
             errs, meta.OBJECT_OP_IGNORED_ERRS, write_quorum)
         if err is not None:
@@ -1232,8 +1257,9 @@ class ErasureObjects:
                                       algo: bitrot_mod.BitrotAlgorithm,
                                       io_lock: Optional[threading.Lock]
                                       = None,
-                                      reader_gen: Optional[tuple] = None
-                                      ) -> bool:
+                                      reader_gen: Optional[tuple] = None,
+                                      benign_missing: frozenset
+                                      = frozenset()) -> bool:
         """Verify deferred frame digests AND reconstruct the degraded
         blocks of a read group. Degraded blocks sharing one (present-mask,
         shard-length) pattern go through one fused verify+decode device
@@ -1243,7 +1269,10 @@ class ErasureObjects:
         drops the corrupt shard's reader and re-reads the block with
         inline verification. Group entries are [b, off, blen, shard_len,
         shards, digests] lists, mutated in place. Returns True when any
-        block needed reconstruction or had bitrot."""
+        block needed reconstruction or had bitrot; a block whose missing
+        data shards are all in `benign_missing` (readers the read plan
+        skipped or a latency hedge out-raced) is reconstructed but does
+        not count: its shards are on disk and nothing needs healing."""
         from ..ops import rs_matrix
         heal = False
         corrupt: set[int] = set()
@@ -1272,7 +1301,12 @@ class ErasureObjects:
         # same-pattern buckets
         staged: list[tuple] = []
         for (mask, shard_len), idxs in buckets.items():
-            heal = True
+            # a reconstruct forced by the read plan (quarantine skip,
+            # latency-hedge loser) is not damage: only a miss the plan
+            # cannot account for flags the degraded-read heal
+            if not {i for i in range(k)
+                    if not (mask >> i) & 1} <= benign_missing:
+                heal = True
             _dm, used, _missing = rs_matrix.missing_data_matrix(
                 k, codec.m, mask)
             stacked = np.stack([np.stack([group[gi][4][u] for u in used])
@@ -1360,12 +1394,29 @@ class ErasureObjects:
     def _read_group_shards_raw(self, readers, blocks: list,
                                shard_size: int, shard_lens: list,
                                k: int, n: int,
-                               collect_digests: bool = False) -> list:
+                               collect_digests: bool = False,
+                               avoid: frozenset = frozenset(),
+                               benign_sink: Optional[set] = None) -> list:
         """k-of-n shard reads for a group of blocks (parallelReader,
         cmd/erasure-decode.go:102-184): one pool task per reader streams
-        every block of the group; data readers go first, and a failed
-        reader is replaced by a spare until k succeeded. Returns
-        [(shards, digests, had_errors)] per block (missing entries None).
+        every block of the group. Returns [(shards, digests, had_errors)]
+        per block (missing entries None).
+
+        This is the hedged-read state machine (reference :1464-1614): k
+        primaries launch (data readers first, parity next), and a spare
+        shard read races any primary that either fails (error hedge) or
+        outlives the adaptive latency deadline from the health tracker
+        (healthtrack.read_hedge_s: healthy read p95 x K, clamped; re-armed
+        after each hedge). First k wins; the losers are condemned (their
+        stateful streams must never serve a later group) and closed when
+        their abandoned read settles.
+
+        `avoid` holds reader indices the plan deprioritizes (slow-drive
+        quarantine): they sort behind every healthy candidate and are
+        touched only when nothing else can reach k. `benign_sink` collects
+        indices whose shards are missing for plan reasons (avoided, or
+        out-raced on latency) rather than damage: the verify step flags no
+        heal for those.
 
         With collect_digests, readers skip per-frame host verification and
         return each frame's stored digest instead (digests[i] is None when
@@ -1374,9 +1425,11 @@ class ErasureObjects:
         nb = len(blocks)
         per_reader: list = [None] * n
         had_errors = False
+        errored: set = set()
 
         def read_one(i: int, r) -> list:
             out = []
+            t0 = time.perf_counter()
             with telemetry.span("disk.shard_read", disk=i, blocks=nb):
                 for b, sl in zip(blocks, shard_lens):
                     off = b * shard_size
@@ -1386,31 +1439,92 @@ class ErasureObjects:
                                     frames[0][0] if frames else None))
                     else:
                         out.append((r.read_at(off, sl), None))
+            healthtrack.observe_disk(r.disk, "read",
+                                     time.perf_counter() - t0)
             return out
 
+        # candidate order: data rows first (their shards join without a
+        # decode), parity next, avoided (suspect/probation) drives last —
+        # the capacity rule by construction: they re-enter only when
+        # nothing healthier can reach k
         candidates = [i for i in range(n) if readers[i] is not None]
-        candidates.sort(key=lambda i: (0 if i < k else 1, i))
+        candidates.sort(key=lambda i: (i in avoid, 0 if i < k else 1, i))
         spares = candidates[k:]
-        inflight = {meta.submit_disk_task(read_one, i, readers[i]): i
-                    for i in candidates[:k]}
+        inflight: dict = {}
+
+        def launch(i: int) -> None:
+            inflight[meta.submit_disk_task(read_one, i, readers[i])] = i
+
+        for i in candidates[:k]:
+            launch(i)
+        hedge_s = healthtrack.read_hedge_s()
+        deadline = None if hedge_s is None \
+            else time.monotonic() + hedge_s
         while inflight:
-            done, _ = _fwait(set(inflight), return_when=FIRST_COMPLETED)
+            got = sum(1 for p in per_reader if p is not None)
+            if got >= k:
+                break
+            timeout = None
+            if deadline is not None and spares:
+                timeout = max(deadline - time.monotonic(), 0.0)
+            done, _ = _fwait(set(inflight), timeout=timeout,
+                             return_when=FIRST_COMPLETED)
+            if not done:
+                # latency hedge: every still-missing slot gets a spare
+                # racing it; the deadline re-arms so a second level of
+                # stalls hedges again (spares permitting)
+                need = k - sum(1 for p in per_reader if p is not None)
+                fresh, spares = spares[:need], spares[need:]
+                for i in fresh:
+                    launch(i)
+                    healthtrack.note_hedge("latency")
+                deadline = time.monotonic() + (hedge_s or 0.0)
+                continue
             for f in done:
                 i = inflight.pop(f)
                 try:
-                    per_reader[i] = f.result()
+                    per_reader[i] = f.result(timeout=0)
                 except Exception:  # noqa: BLE001 — reader condemned
                     readers[i] = None
+                    errored.add(i)
                     had_errors = True
                     if spares:
                         j = spares.pop(0)
-                        inflight[meta.submit_disk_task(
-                            read_one, j, readers[j])] = j
+                        launch(j)
+                        healthtrack.note_hedge("error")
         got = sum(1 for p in per_reader if p is not None)
+        if got >= k and inflight:
+            # first k wins: condemn the losers so no later group reads
+            # their (stateful) streams, and close each one when its
+            # abandoned task settles on the pool
+            for f, i in inflight.items():
+                loser = readers[i]
+                readers[i] = None
+
+                def _close(_f, r=loser):
+                    try:
+                        r.close()
+                    except Exception:  # noqa: BLE001 — abandoned
+                        pass
+                f.add_done_callback(_close)
         if got < k:
             raise api_errors.InsufficientReadQuorum(
                 f"{got} readable shards < k={k}")
-        if any(per_reader[i] is None for i in range(k)):
+        # shards missing because the plan skipped or out-raced their
+        # reader (not because it failed) are benign: decode reconstructs
+        # them, but nothing on disk needs healing. The caller may pre-seed
+        # benign_sink with earlier groups' benign misses (a reader
+        # condemned on latency stays out for the whole part)
+        benign = {i for i in candidates
+                  if per_reader[i] is None and i not in errored}
+        if benign_sink is not None:
+            benign_sink.update(benign)
+            # a reader that really errored in this group loses any benign
+            # standing it carried in: that miss is damage
+            benign_sink.difference_update(errored)
+            benign = set(benign_sink)
+        missing_data = {i for i in range(k) if per_reader[i] is None}
+        if missing_data and not missing_data <= benign:
             had_errors = True      # a data shard must be reconstructed
         out = []
         for bi in range(nb):
@@ -1426,16 +1540,20 @@ class ErasureObjects:
 
     def _read_block_shards_raw(self, readers, block_num: int,
                                shard_size: int, shard_len: int, k: int,
-                               n: int, collect_digests: bool = False
+                               n: int, collect_digests: bool = False,
+                               avoid: frozenset = frozenset(),
+                               benign_sink: Optional[set] = None
                                ) -> tuple[list, list, bool]:
-        """k-of-n shard reads of one block (reference :1616-1643): returns
+        """k-of-n shard reads of one block (reference :1616-1638): returns
         (shards, expected_digests, had_errors), raw shards (missing
         entries None, at least k present) without reconstructing. The
-        single-block form of _read_group_shards_raw, which heal reads
-        with."""
+        single-block form of _read_group_shards_raw, so the heal and
+        rebalance readers that call it ride the same hedged state
+        machine."""
         return self._read_group_shards_raw(
             readers, [block_num], shard_size, [shard_len], k, n,
-            collect_digests=collect_digests)[0]
+            collect_digests=collect_digests, avoid=avoid,
+            benign_sink=benign_sink)[0]
 
     # ------------------------------------------------------------------
     # DELETE (cmd/erasure-object.go:727-820)
@@ -1771,7 +1889,13 @@ class _PartReadPlan:
     verify) serializes on ``io_lock``: the bitrot readers are stateful
     streams shared with the lookahead thread. ``reader_gen`` counts
     in-place rebuilds of the readers list, so a verdict formed against
-    the old readers cannot condemn a fresh one by index."""
+    the old readers cannot condemn a fresh one by index.
+
+    Suspect or probation drives (slow-drive quarantine) sort behind every
+    healthy reader (``avoid``), capacity permitting; ``benign_hist``
+    carries the readers whose shards went missing for plan reasons in any
+    earlier group, so later groups keep treating their absence as benign
+    rather than as damage to heal."""
 
     def __init__(self, eng: ErasureObjects, bucket: str, object_name: str,
                  fi: FileInfo, disks, smeta, codec: Codec, part,
@@ -1791,6 +1915,9 @@ class _PartReadPlan:
         self.readers: Optional[list] = None
         self.part_algo = None
         self.defer_verify = False
+        self.avoid: frozenset = frozenset()
+        # cleared on a quorum-loss rebuild, which mints fresh readers
+        self.benign_hist: set = set()
         self.io_lock = threading.Lock()
         self.reader_gen = [0]
         self.heal_required = False
@@ -1829,6 +1956,16 @@ class _PartReadPlan:
         if self.readers is not None:
             return
         self.readers = self._make_readers()
+        # slow-drive quarantine: suspect/probation drives fall to the back
+        # of the candidate order (out of primaries and hedge targets), but
+        # only capacity permitting: with fewer than k healthy readers the
+        # plan keeps everyone in play
+        if healthtrack.quarantine_enabled():
+            sus = {i for i, r in enumerate(self.readers)
+                   if r is not None and healthtrack.is_suspect_disk(r.disk)}
+            if sus and sum(1 for r in self.readers
+                           if r is not None) - len(sus) >= self.k:
+                self.avoid = frozenset(sus)
         # device-routed groups defer per-frame bitrot verification into
         # the fused verify+decode step; small groups verify inline at read
         # time. Deferral needs every reader on one streaming algorithm the
@@ -1844,13 +1981,16 @@ class _PartReadPlan:
                                   * self.shard_size) == "device")
 
     def read_group(self, blocks: list, geoms: list
-                   ) -> tuple[list, bool, float]:
+                   ) -> tuple[list, bool, float, frozenset]:
         """One group's raw shard reads; when the group loses read quorum
         (distinct readers failing at distinct blocks), the readers are
         rebuilt and the group is read block by block. Returns (per-block
-        reads, degraded, read seconds)."""
+        reads, degraded, read seconds, benign-missing reader indices:
+        plan-caused misses the verify step flags no heal for)."""
         t0 = time.perf_counter()
         degraded = False
+        # pre-seeded with earlier groups' plan-caused misses
+        benign: set = set(self.benign_hist)
         with self.io_lock, telemetry.span("pipeline.read_group",
                                           blocks=len(blocks)):
             readers = self.readers
@@ -1858,7 +1998,9 @@ class _PartReadPlan:
                 reads = self.eng._read_group_shards_raw(
                     readers, blocks, self.shard_size,
                     [g[3] for g in geoms], self.k, self.n,
-                    collect_digests=self.defer_verify)
+                    collect_digests=self.defer_verify,
+                    avoid=self.avoid, benign_sink=benign)
+                self.benign_hist = set(benign)
             except api_errors.InsufficientReadQuorum:
                 for r in readers:
                     if r is not None:
@@ -1866,10 +2008,13 @@ class _PartReadPlan:
                 readers[:] = self._make_readers()
                 self.reader_gen[0] += 1
                 degraded = True
+                benign.clear()      # recovery mode: flag everything
+                self.benign_hist = set()
                 reads = [self.eng._read_block_shards_raw(
                     readers, g[0], self.shard_size, g[3], self.k, self.n,
                     collect_digests=self.defer_verify) for g in geoms]
-        return reads, degraded, time.perf_counter() - t0
+        return reads, degraded, time.perf_counter() - t0, \
+            frozenset(benign)
 
     def _submit(self, spec):
         """Queue one group's reads on the prefetch pool, carrying the
@@ -1909,11 +2054,12 @@ class _PartReadPlan:
                     self._primed = False
                 if lookahead is not None:
                     t0 = time.perf_counter()
-                    reads, degraded, read_s = lookahead.result()
+                    reads, degraded, read_s, benign = lookahead.result()
                     pl.STATS.record_get_group(
                         True, time.perf_counter() - t0, read_s)
                 else:
-                    reads, degraded, _ = self.read_group(blocks, geoms)
+                    reads, degraded, _, benign = self.read_group(blocks,
+                                                                 geoms)
                     pl.STATS.record_get_group(False)
             gen_at_read = self.reader_gen[0]
             self.heal_required = self.heal_required or degraded
@@ -1935,7 +2081,8 @@ class _PartReadPlan:
                         self.codec, group, k, n, readers, self.shard_size,
                         self.part_algo or self.eng.bitrot_algo,
                         io_lock=self.io_lock,
-                        reader_gen=(self.reader_gen, gen_at_read)):
+                        reader_gen=(self.reader_gen, gen_at_read),
+                        benign_missing=benign):
                     self.heal_required = True
             with stagetimer.stage("get.join"):
                 out = []

@@ -121,7 +121,7 @@ def submit_disk_task(fn, *args):
 
 def for_each_disk_quorum(disks: Sequence[Optional[StorageAPI]],
                          fn: Callable[[int, StorageAPI], object],
-                         quorum: int, stall_s: float,
+                         quorum: int, stall_s: Optional[float] = None,
                          stage: str = "write",
                          on_settle: Optional[Callable[[int], None]]
                          = None
@@ -138,7 +138,11 @@ def for_each_disk_quorum(disks: Sequence[Optional[StorageAPI]],
     by the time the op lands, the commit lock is long released and a
     NEWER write may have committed — the callback lets the caller
     re-queue an MRF check so a late-landing stale op is healed back to
-    quorum state instead of silently de-replicating the newer version."""
+    quorum state instead of silently de-replicating the newer version.
+
+    stall_s=None (quorum-ack off) degrades to exactly for_each_disk."""
+    if stall_s is None:
+        return for_each_disk(disks, fn)
     import time as _time
     from concurrent.futures import FIRST_COMPLETED
     from concurrent.futures import wait as _fwait
@@ -334,16 +338,20 @@ def eval_disks(disks: Sequence[Optional[StorageAPI]],
 
 def write_unique_file_info(disks: Sequence[Optional[StorageAPI]],
                            bucket: str, prefix: str,
-                           files: Sequence[FileInfo], quorum: int
+                           files: Sequence[FileInfo], quorum: int,
+                           stall_s: Optional[float] = None
                            ) -> list[Optional[StorageAPI]]:
     """Write per-drive xl.meta (Erasure.Index = i+1) to all drives,
     enforcing write quorum (reference writeUniqueFileInfo,
-    cmd/erasure-metadata.go:294)."""
+    cmd/erasure-metadata.go:294). `stall_s` selects the quorum-ack
+    lane: laggard metadata writers past it are abandoned (and counted
+    lost by the caller) once quorum is durable."""
     def write(i: int, d: StorageAPI):
         files[i].erasure.index = i + 1
         d.write_metadata(bucket, prefix, files[i])
 
-    _, errs = for_each_disk(disks, write)
+    _, errs = for_each_disk_quorum(disks, write, quorum,
+                                   stall_s=stall_s, stage="meta")
     err = reduce_write_quorum_errs(errs, OBJECT_OP_IGNORED_ERRS, quorum)
     if err is not None:
         raise err

@@ -18,7 +18,11 @@ config-history, restore-config; the user, policy and service-account
 routes; service, set-bucket-quota and get-bucket-quota; and the tracing
 plane's trace (``?follow=1`` grafts every peer's records), trace/cluster,
 spans, events (``?follow=1``, ``?cluster=1``), incidents, slo, consolelog
-and profiling/start, profiling/stop. Beside them,
+and profiling/start, profiling/stop; the gray-failure plane's drivehealth
+(tracked latencies, quarantine states, the disk monitor's recent
+transitions and the journal's ``drive.*`` / ``health.*`` records) and
+obdinfo (every node's OBD bundle, utils/obd.py, and the internode net
+probes). Beside them,
 upstream's update-group-members (the reference's router has no route that
 fills a group; its IAMSys has the verbs). The routes of the
 planes not ported answer a JSON NotImplemented that names the plane
@@ -60,8 +64,6 @@ _SCRAPE_FAILED = telemetry.REGISTRY.counter(
 # (method, route) -> the unported plane that serves it in the reference
 _UNPORTED = {
     ("GET", "bandwidth"): "bandwidth",
-    ("GET", "drivehealth"): "drive health",
-    ("GET", "obdinfo"): "OBD",
     ("POST", "naughtynet"): "naughtynet",
     ("GET", "qos"): "QoS",
     ("PUT", "qos"): "QoS",
@@ -240,6 +242,48 @@ class AdminHandlers:
                 entries.extend(self.node.notification.console_log_all(n))
             entries.sort(key=lambda e: e.get("ts", 0))
             return self._json({"entries": entries[-1000:]})
+        if sub == "drivehealth" and m == "GET":
+            # the gray-failure plane's state: per-drive / per-peer latency
+            # summaries, quarantine states, recent transitions
+            self._auth(ctx, "admin:OBDInfo")
+            from ..utils import eventlog, healthtrack
+            events: list = []
+            mon = getattr(self.node, "disk_monitor", None) \
+                if self.node is not None else None
+            if mon is not None:
+                events = [{"drive": k, "event": e}
+                          for k, e in list(mon.quarantine_events)[-100:]]
+            return self._json({
+                "drives": healthtrack.TRACKER.snapshot("drive"),
+                "peers": healthtrack.TRACKER.snapshot("peer"),
+                "events": events,
+                # journal-backed transition history: replayed from the
+                # persisted segments at boot, so convictions survive a
+                # restart (the in-memory deque above does not)
+                "journal": eventlog.JOURNAL.recent(
+                    100, subsystems={"drive", "health"})})
+        if sub == "obdinfo" and m == "GET":
+            self._auth(ctx, "admin:OBDInfo")
+            from ..utils.obd import local_obd
+            drives = list(self.node.spec.drives) \
+                if self.node is not None else []
+            # live StorageAPI objects (any wrapper depth) for the per-drive
+            # fault counters; FS layers have no erasure sets and report none
+            storage_drives: list = []
+            layers = getattr(self.api.obj, "server_sets", None) \
+                or [self.api.obj]
+            for layer in layers:
+                for eng in getattr(layer, "sets", None) or []:
+                    storage_drives.extend(eng.disks)
+            nodes = [local_obd(drives,
+                               storage_drives=storage_drives or None)]
+            net: list = []
+            if self.node is not None:
+                nodes[0]["node"] = self.node.spec.addr
+                nodes.extend(self.node.notification.obd_all())
+                # internode throughput/RTT from this node's viewpoint
+                net = self.node.notification.net_obd(size=1 << 20)
+            return self._json({"nodes": nodes, "net": net})
         if sub == "trace/cluster" and m == "GET":
             self._auth(ctx, "admin:ServerTrace")
             entries = list(self.api.trace.recent)

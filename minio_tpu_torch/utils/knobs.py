@@ -4,11 +4,11 @@ Counterpart of minio_tpu/utils/knobs.py, trimmed to the knobs of the
 pipelined data path, the batch former, heal, the MRF queue, the disk
 monitor, the SSE cipher choice, the scan plane, the tier plane, the
 bucket metacache, the hot-object read cache, the admission gate, the
-HTTP edge, the internode RPC transport, the IAM refresh, the federated
-metrics scrape, and the tracing and incident planes, with the reference's
-names, types and defaults (minio_tpu/utils/knobs.py:160-197, :203-206,
-:220-235, :261-281, :284-306, :310-331, :356-359, :370-383, :403-410,
-:434-435, :438-485, :535-586).
+HTTP edge, the internode RPC transport, the gray-failure plane, the IAM
+refresh, the federated metrics scrape, and the tracing and incident
+planes, with the reference's names, types and defaults
+(minio_tpu/utils/knobs.py:160-197, :203-206, :220-235, :261-281, :284-306,
+:310-346, :356-359, :370-383, :403-410, :434-435, :438-485, :535-586).
 Left out:
 the README table renderer and every knob no ported module reads. No knob here is one the reference lacks.
 
@@ -145,8 +145,46 @@ define("MINIO_TPU_MRF_BACKOFF_MAX", "float", 15.0,
 
 # -- disk monitor ------------------------------------------------------------
 define("MINIO_TPU_DISK_PROBE_S", "float", 10.0,
-       "DiskMonitor scan interval: dead-slot re-probes run on this "
-       "cadence")
+       "DiskMonitor scan interval: dead-slot re-probes AND slow-drive "
+       "health evaluation run on this cadence")
+
+# -- gray-failure plane (minio_tpu/utils/knobs.py:310-346) --------------------
+define("MINIO_TPU_LAT_WINDOW", "int", 64,
+       "latency samples retained per (drive/peer, verb) window")
+define("MINIO_TPU_HEDGE", "bool", True,
+       "`off` disables latency-hedged shard reads (error-triggered "
+       "hedging stays)")
+define("MINIO_TPU_HEDGE_K", "float", 3.0,
+       "hedge deadline = healthy read p95 x this")
+define("MINIO_TPU_HEDGE_FLOOR_S", "float", 0.05,
+       "hedge deadline floor, seconds")
+define("MINIO_TPU_HEDGE_CEIL_S", "float", 2.0,
+       "hedge deadline ceiling, seconds (also the cold-start value "
+       "before any latency samples exist)")
+define("MINIO_TPU_QUORUM_ACK", "bool", True,
+       "`off` makes every shard-write fan-out wait for ALL drives "
+       "again instead of acking at write quorum and abandoning "
+       "laggards to the MRF-fed background lane")
+define("MINIO_TPU_WRITE_STALL_K", "float", 4.0,
+       "write-straggler grace = healthy write p95 x this")
+define("MINIO_TPU_WRITE_STALL_FLOOR_S", "float", 0.5,
+       "write-straggler grace floor, seconds")
+define("MINIO_TPU_WRITE_STALL_CEIL_S", "float", 10.0,
+       "write-straggler grace ceiling, seconds (cold-start value)")
+define("MINIO_TPU_QUARANTINE", "bool", True,
+       "`off` disables the slow-drive suspect/probation state machine")
+define("MINIO_TPU_QUAR_LATENCY_S", "float", 0.25,
+       "absolute p95 latency above which a drive turns suspect")
+define("MINIO_TPU_QUAR_RATIO", "float", 8.0,
+       "relative conviction bar: suspect needs p95 above healthy-peer "
+       "p95 x this too (uniformly slow media quarantine nothing)")
+define("MINIO_TPU_QUAR_MIN_SAMPLES", "int", 8,
+       "read/write samples required before a drive can be convicted")
+define("MINIO_TPU_QUAR_PROBATION_S", "float", 15.0,
+       "suspect dwell before probation re-probes begin")
+define("MINIO_TPU_QUAR_PROBES", "int", 3,
+       "consecutive healthy probation probes before the heal-verified "
+       "re-admission")
 
 # -- SSE -------------------------------------------------------------------
 define("MINIO_TPU_SSE_CIPHER", "str", "aes-gcm",

@@ -238,6 +238,115 @@ def test_twin_admin_json_answers_as_reference(tmp_path, monkeypatch):
             layer.close()
 
 
+# -- the gray-failure plane's routes -------------------------------------------
+
+# timings and host facts: masked in the drivehealth and obdinfo answers
+_GRAY_VOLATILE = {"p50_ms", "p95_ms", "ewma_ms", "state_age_s", "ts",
+                  "seq", "time", "load1", "load5", "load15", "available",
+                  "rss_bytes", "threads", "open_fds",
+                  "write_latency_us", "read_latency_us"}
+
+
+def _gray_mask(v, root: str):
+    """Timings masked, this package's drive root named alike."""
+    if isinstance(v, dict):
+        return {k.replace(root, "<root>"):
+                ("*" if k in _GRAY_VOLATILE else _gray_mask(x, root))
+                for k, x in v.items()}
+    if isinstance(v, list):
+        return [_gray_mask(x, root) for x in v]
+    if isinstance(v, str):
+        return v.replace(root, "<root>")
+    return v
+
+
+def _gray_twins(tmp_path, monkeypatch):
+    """Twin servers after one PUT and GET, each package's tracker reset
+    just before, and drive 0 of each set turned suspect."""
+    pin_both(monkeypatch)
+    servers = _twin_servers(tmp_path)
+    for pkg in ("minio_tpu", "minio_tpu_torch"):
+        importlib.import_module(f"{pkg}.utils.healthtrack").TRACKER.reset()
+    for srv, layer in servers:
+        p = srv.port
+        assert _send(p, TWIN_CREDS, "PUT", "/gray")[0] == 200
+        assert _send(p, TWIN_CREDS, "PUT", "/gray/o",
+                     body=b"g" * 70_000)[0] == 200
+        assert _send(p, TWIN_CREDS, "GET", "/gray/o")[1] is not None
+        ht = importlib.import_module(
+            type(layer).__module__.split(".")[0] + ".utils.healthtrack")
+        ht.TRACKER.set_state("drive", ht.disk_key(layer.sets[0].disks[0]),
+                             ht.STATE_SUSPECT, event="suspect")
+    return servers
+
+
+def test_twin_drivehealth(tmp_path, monkeypatch):
+    """drivehealth on twin servers: the tracked drives with their verbs'
+    sample counts and states, no monitor events (no node), and the
+    journal's health.transition record of the suspect drive, equal with
+    timings masked."""
+    servers = _gray_twins(tmp_path, monkeypatch)
+    got = []
+    try:
+        for (srv, _layer), tag in zip(servers, ("ref", "port")):
+            root = str(tmp_path / tag)
+            st, _h, body = _admin(srv.port, "GET", "drivehealth")
+            assert st == 200
+            out = json.loads(body)
+            out["drives"] = [d for d in out["drives"]
+                             if d["key"].startswith(root)]
+            out["journal"] = [e for e in out["journal"] if str(
+                e["attrs"].get("target", "")).startswith(root)]
+            out["peers"] = "*"     # the process's peers, not these servers'
+            got.append(_gray_mask(out, root))
+    finally:
+        for srv, layer in servers:
+            srv.stop()
+            layer.close()
+        for pkg in ("minio_tpu", "minio_tpu_torch"):
+            importlib.import_module(f"{pkg}.utils.healthtrack").TRACKER \
+                .reset()
+    assert got[0] == got[1]
+    drives = got[1]["drives"]
+    assert len(drives) == 4 and drives[0]["state"] == "suspect"
+    assert all(d["verbs"]["write"]["n"] >= 1 for d in drives)
+    assert got[1]["events"] == []
+    assert [(e["class"], e["attrs"]) for e in got[1]["journal"]] == [
+        ("health.transition", {"kind": "drive", "target": "<root>/d0",
+                               "state": "suspect", "event": "suspect"})]
+
+
+def test_twin_obdinfo(tmp_path, monkeypatch):
+    """obdinfo on twin servers: one node (no cluster), its cpu, memory and
+    process facts and each drive's identity, online flag, health state
+    and tracked verbs, equal with timings and host counters masked."""
+    servers = _gray_twins(tmp_path, monkeypatch)
+    got = []
+    try:
+        for (srv, _layer), tag in zip(servers, ("ref", "port")):
+            st, _h, body = _admin(srv.port, "GET", "obdinfo")
+            assert st == 200
+            got.append(_gray_mask(json.loads(body),
+                                  str(tmp_path / tag)))
+    finally:
+        for srv, layer in servers:
+            srv.stop()
+            layer.close()
+        for pkg in ("minio_tpu", "minio_tpu_torch"):
+            importlib.import_module(f"{pkg}.utils.healthtrack").TRACKER \
+                .reset()
+    assert got[0] == got[1]
+    node = got[1]["nodes"][0]
+    assert got[1]["net"] == [] and len(got[1]["nodes"]) == 1
+    assert sorted(node) == ["cpu", "drive_faults", "drives", "hostname",
+                            "mem", "peer_health", "process", "time"]
+    faults = node["drive_faults"]
+    assert [f["index"] for f in faults] == [0, 1, 2, 3]
+    assert all(f["online"] for f in faults)
+    assert faults[0]["health"]["state"] == "suspect"
+    assert {f["health"]["state"] for f in faults[1:]} == {"ok"}
+
+
 # -- Prometheus families ------------------------------------------------------
 
 # families only the port exports: its own counters of earlier slices
@@ -270,15 +379,24 @@ def test_prometheus_families_agree(tmp_path, monkeypatch):
     servers = _twin_servers(tmp_path)
     texts = []
     try:
-        for srv, _layer in servers:
+        for srv, layer in servers:
             p = srv.port
             assert _send(p, TWIN_CREDS, "PUT", "/prom")[0] == 200
             assert _send(p, TWIN_CREDS, "PUT", "/prom/o", body=b"m" * 999)[0] \
                 == 200
             assert _send(p, TWIN_CREDS, "GET", "/prom/o")[0] == 200
+            # the gray-failure plane's counters, once each: a latency
+            # hedge and a quarantine transition of drive 0
+            ht = importlib.import_module(
+                type(layer).__module__.split(".")[0] + ".utils.healthtrack")
+            key = ht.disk_key(layer.sets[0].disks[0])
+            ht.note_hedge("latency")
+            ht.TRACKER.set_state("drive", key, ht.STATE_SUSPECT,
+                                 event="suspect")
             c = Client(p, TWIN_CREDS)
             st, body = c.request("GET", "/minio/prometheus/metrics",
                                  sign=False)
+            ht.TRACKER.set_state("drive", key, ht.STATE_OK)
             assert st == 200
             texts.append(body.decode())
     finally:
@@ -286,6 +404,11 @@ def test_prometheus_families_agree(tmp_path, monkeypatch):
             srv.stop()
             layer.close()
     ref, port = (promfed.parse_exposition(t) for t in texts)
+    for name in ("minio_tpu_drive_latency_seconds",
+                 "minio_tpu_hedged_reads_total",
+                 "minio_tpu_drive_quarantine_total",
+                 "minio_tpu_drive_health"):
+        assert port[name].samples and ref[name].samples, name
     assert port["minio_disks_online"].samples[
         ("minio_disks_online", ())] == 4
     # a family the reference registers only when its code first runs

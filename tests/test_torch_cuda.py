@@ -696,6 +696,44 @@ def test_server_put_and_degraded_get_launch_kernels(dev, tmp_path,
         node.shutdown()
 
 
+def test_server_hedged_degraded_get_launches_kernels(dev, tmp_path,
+                                                    monkeypatch):
+    """A drive holding a data shard stalls every read 0.5 s: the GET's
+    latency hedge races a parity read past it, the group missing that
+    data shard is reconstructed by get_step on the card (gf_matmul and
+    hh256 launches), the bytes match, and nothing is queued for heal."""
+    from minio_tpu_torch.storage.naughty import NaughtyDisk
+    from minio_tpu_torch.utils import telemetry
+    monkeypatch.setenv("MINIO_TPU_HEDGE_CEIL_S", "0.1")
+    node, c = _server_on_card(tmp_path, monkeypatch)
+    try:
+        data = np.random.default_rng(23).bytes(16 << 20)
+        assert c.send("PUT", "/cuda/h", body=data)[0] == 200
+        layer = node.object_layer
+        pool = getattr(layer, "server_sets", [layer])[0]
+        eng = pool.sets[0]
+        slow = next(d for d in eng.disks
+                    if d.read_version("cuda", "h").erasure.index <= 12)
+        inner = slow.inner
+        nd = NaughtyDisk(inner, enabled=True)
+        nd.stall_verbs = {"read_file_stream": 0.5, "read_file": 0.5}
+        hedged = telemetry.REGISTRY.counter("minio_tpu_hedged_reads_total")
+        before = hedged.value(trigger="latency")
+        gf, hh = rs_cuda.gf_matmul.launches, highwayhash_cuda.hh256.launches
+        slow.inner = nd
+        try:
+            assert c.send("GET", "/cuda/h")[2] == data
+        finally:
+            slow.inner = inner
+        assert nd.stats.stalls >= 1
+        assert hedged.value(trigger="latency") > before
+        assert rs_cuda.gf_matmul.launches > gf
+        assert highwayhash_cuda.hh256.launches > hh
+        assert pool.mrf_stats()["queued"] == 0
+    finally:
+        node.shutdown()
+
+
 def test_server_sse_put_and_get_launch_chacha20(dev, tmp_path, monkeypatch):
     """An SSE-S3 PUT takes the fused cipher+encode step on the card and
     its GET deciphers there, whole and in a range."""

@@ -289,13 +289,19 @@ def test_twin_boot_and_peer_plane(twins):
     rc = port_transport.RestClient("127.0.0.1", port[1].s3.port,
                                    "/minio/peer/v1", CREDS.access_key,
                                    CREDS.secret_key)
-    for verb in ("metrics", "obd"):
-        with pytest.raises(port_transport.RPCError) as ei:
-            rc.call(verb)
-        assert ei.value.kind == "unknown-verb"
-    # the identity and metrics verbs are served
+    with pytest.raises(port_transport.RPCError) as ei:
+        rc.call("metrics")
+    assert ei.value.kind == "unknown-verb"
+    # the identity, metrics and OBD verbs are served
     rc.call("reload-iam")
     assert b"minio_disks_online" in rc.call("metrics-text")
+    obd = rc.call_json("obd")
+    assert obd["node"] == port[1].spec.addr
+    assert sorted(d["path"] for d in obd["drives"]) == \
+        sorted(port[1].spec.drives)
+    assert all(d["ok"] for d in obd["drives"]), obd["drives"]
+    assert [o["node"] for o in p0.notification.obd_all()] == \
+        [n.spec.addr for n in port[1:]]
     rc.close()
 
 
@@ -314,6 +320,13 @@ def test_twin_put_get_across_nodes(twins):
     t.same_files("after the PUTs")
 
 
+def _wait_ring(node, pred, n: int) -> None:
+    deadline = time.monotonic() + 10
+    while sum(map(pred, list(node.s3.api.trace.recent))) < n and \
+            time.monotonic() < deadline:
+        time.sleep(0.02)
+
+
 def test_twin_trace_and_events_verbs(twins):
     """The tracing plane's peer verbs answer alike on twin clusters:
     node 1's ``trace`` ring after one signed sequence through it (times,
@@ -325,11 +338,21 @@ def test_twin_trace_and_events_verbs(twins):
     import minio_tpu_torch.utils.eventlog as port_eventlog
     ref, port, _ = twins
     t = Twin(twins)
+    mine = lambda e: e["path"].startswith("/twin/")     # noqa: E731
+    # a record lands a hair after its response: once a request's record
+    # is in, the earlier tests' records are in too, and each request
+    # below waits for the last one's record, so that a loaded worker
+    # cannot leave a record behind the clear or reorder the ring
+    t.both(1, "GET", "/twin-sync")
     for nodes in (ref, port):
+        _wait_ring(nodes[1], lambda e: e["path"] == "/twin-sync", 1)
         nodes[1].s3.api.trace.recent.clear()
-    t.both(1, "GET", "/twin/small")
-    t.both(1, "HEAD", "/twin/big")
-    t.both(1, "GET", "/twin/nosuch")
+    for i, (method, path) in enumerate((("GET", "/twin/small"),
+                                        ("HEAD", "/twin/big"),
+                                        ("GET", "/twin/nosuch")), 1):
+        t.both(1, method, path)
+        for nodes in (ref, port):
+            _wait_ring(nodes[1], mine, i)
     for ev in (ref_eventlog, port_eventlog):
         ev.emit("rebalance.checkpoint", pool=0, objects=7)
     answers = []

@@ -59,7 +59,7 @@ from minio_tpu_torch.storage.xl_storage import MINIO_META_BUCKET
 from minio_tpu_torch.tier.config import TierManager
 from minio_tpu_torch.utils import atomicfile, crashpoint, telemetry
 from tests.test_s3 import CREDS
-from tests.test_torch_s3 import _Pinned, drive_files
+from tests.test_torch_s3 import _Pinned, drive_files, pin_deadlines
 
 K, M, NDISKS = 4, 2, 6
 BLOCK = 1 << 16
@@ -766,6 +766,7 @@ def test_twin_trees_audited_and_repaired_alike(tmp_path, monkeypatch, cls):
         for mod in mods:
             monkeypatch.setattr(mod, "_uuid", p)
             monkeypatch.setattr(mod, "now", p.now)
+    pin_deadlines(monkeypatch)
     try:
         reports = {}
         for side, layer in layers.items():

@@ -19,7 +19,6 @@ import pytest
 import minio_tpu.object.engine as ref_engine
 import minio_tpu.object.multipart as ref_multipart
 import minio_tpu.storage.format as ref_format
-import minio_tpu.utils.healthtrack as ref_healthtrack
 from minio_tpu.bitrot import BitrotAlgorithm as RefAlgo
 from minio_tpu.object.multipart import CompletePart as RefPart
 from minio_tpu.object.sets import ErasureSets as RefSets
@@ -32,6 +31,7 @@ from minio_tpu_torch.parallel.scheduler import BatchScheduler
 from minio_tpu_torch.storage import format as port_format
 from minio_tpu_torch.storage.xl_storage import XLStorage
 from minio_tpu_torch.utils import crashpoint, healthtrack
+from tests.test_torch_s3 import pin_deadlines
 
 K, M, BS = 4, 2, 1 << 14
 PARTS = [3 * BS + 5, 2 * BS, 777]
@@ -57,18 +57,13 @@ class _Pinned:
         return self.t
 
 
-def _cold_stall_s():
-    """Both packages' quorum-ack grace at its cold-start ceiling: a part
-    upload waits for every drive's close, whatever latencies earlier
-    tests in this worker fed the process-wide trackers."""
-    return healthtrack.WRITE_STALL_CEIL_S
-
-
 @pytest.fixture
 def pinned(monkeypatch):
     ref, port = _Pinned(), _Pinned()
-    monkeypatch.setattr(healthtrack, "write_stall_s", _cold_stall_s)
-    monkeypatch.setattr(ref_healthtrack, "write_stall_s", _cold_stall_s)
+    # both packages' gray-failure deadlines at their cold-start ceilings:
+    # a part upload waits for every drive's close, whatever latencies
+    # earlier tests in this worker fed the process-wide trackers
+    pin_deadlines(monkeypatch)
     for mod in (ref_engine, ref_multipart, ref_format):
         monkeypatch.setattr(mod, "_uuid", ref)
     for mod in (engine, multipart, port_format):

@@ -19,6 +19,7 @@ from minio_tpu.object.sets import ErasureSets as RefSets
 from minio_tpu_torch.object import api_errors, engine
 from minio_tpu_torch.object.engine import PutOptions
 from minio_tpu_torch.object.sets import ErasureSets
+from tests.test_torch_s3 import pin_deadlines
 
 N, M, BS = 6, 2, 1 << 14
 NAMES = ["a", "a/b", "a/b/c", "a/c", "ab", "b/x", "b/y/z", "c", "d/e/f/g",
@@ -50,6 +51,7 @@ def twins(tmp_path, monkeypatch):
     monkeypatch.setattr(ref_engine, "now", rp.now)
     monkeypatch.setattr(engine, "_uuid", pp)
     monkeypatch.setattr(engine, "now", pp.now)
+    pin_deadlines(monkeypatch)
     ref = RefSets.from_drives([str(tmp_path / f"r{i}") for i in range(N)],
                               1, N, M, block_size=BS, enable_mrf=False)
     port = ErasureSets.from_drives(

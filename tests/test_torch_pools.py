@@ -47,7 +47,7 @@ from minio_tpu_torch.object.topology import (POOL_ACTIVE, POOL_DRAINING,
                                              POOL_SUSPENDED, TopologyError)
 from minio_tpu_torch.storage.xl_storage import MINIO_META_BUCKET
 from minio_tpu_torch.utils import telemetry
-from tests.test_torch_s3 import _Pinned, drive_files
+from tests.test_torch_s3 import _Pinned, drive_files, pin_deadlines
 
 BLOCK = 1 << 16
 NEVER_BUSY = dict(busy_fn=lambda: False, throttle_s=0.001)
@@ -561,7 +561,8 @@ def pin_pools(monkeypatch):
     """Identity sources of a drain in both packages: one uuid/now counter
     per package shared by its engine and multipart modules (the call
     sequences line up), and fixed clocks for the rebalancer's checkpoint
-    stamps and the topology doc's `updated`."""
+    stamps and the topology doc's `updated`; and both packages'
+    gray-failure deadlines (tests/test_torch_s3.pin_deadlines)."""
     for eng, mp, reb, topo in ((ref_engine, ref_multipart, ref_rebalance,
                                 ref_topology),
                                (port_engine, port_multipart,
@@ -572,6 +573,7 @@ def pin_pools(monkeypatch):
             monkeypatch.setattr(mod, "now", p.now)
         monkeypatch.setattr(reb, "time", p)
         monkeypatch.setattr(topo, "time", p)
+    pin_deadlines(monkeypatch)
 
 
 def _seed_two_pools(root):
@@ -619,7 +621,13 @@ def _port_layer(root):
 def _drain(layer, **kw):
     layer.start_decommission(0, checkpoint_every=3, busy_fn=lambda: False,
                              throttle_s=0.001, **kw)
-    return wait_status(layer, "complete")
+    st = wait_status(layer, "complete")
+    # the drain saves its last checkpoint after it reports complete: wait
+    # for that write, so the trees compared hold no write in flight
+    thread = layer._rebalancer._thread
+    thread.join(timeout=60)
+    assert not thread.is_alive()
+    return st
 
 
 def test_drained_trees_equal_the_references(tmp_path, monkeypatch):

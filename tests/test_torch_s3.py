@@ -115,6 +115,7 @@ SSEC = {
 SSE_S3 = {"x-amz-server-side-encryption": "AES256"}
 TEST_SECONDS = 240
 STALL_CEIL_S = 10.0     # both packages' MINIO_TPU_WRITE_STALL_CEIL_S
+HEDGE_CEIL_S = 2.0      # both packages' MINIO_TPU_HEDGE_CEIL_S
 
 
 @pytest.fixture(autouse=True)
@@ -185,10 +186,13 @@ class _Pinned:
 
 def pin(monkeypatch, engine, multipart, bmeta, handlers, crypto):
     """Pin one package's identity sources (see _Pinned), and its
-    quorum-ack grace at the cold-start ceiling: a shard write that lags
-    under the suite's load is waited for, whatever latencies earlier
-    tests in the worker fed that package's tracker, so that both
-    packages leave the same files."""
+    quorum-ack grace and read-hedge deadline at their cold-start
+    ceilings: a shard write that lags under the suite's load is waited
+    for, and a shard read that lags is not raced by a spare read,
+    whatever latencies earlier tests in the worker fed that package's
+    tracker, so that both packages leave the same files and the same span
+    trees (a warm tracker's hedge deadline is 50 ms, which a loaded
+    worker's tmpfs read can pass)."""
     p = _Pinned()
     for mod in (engine, multipart):
         monkeypatch.setattr(mod, "_uuid", p)
@@ -196,9 +200,19 @@ def pin(monkeypatch, engine, multipart, bmeta, handlers, crypto):
     monkeypatch.setattr(bmeta, "time", p)
     monkeypatch.setattr(handlers, "uuid", p)
     monkeypatch.setattr(crypto, "secrets", p)
-    package = engine.__name__.split(".")[0]
-    healthtrack = importlib.import_module(f"{package}.utils.healthtrack")
-    monkeypatch.setattr(healthtrack, "write_stall_s", lambda: STALL_CEIL_S)
+    pin_deadlines(monkeypatch, engine.__name__.split(".")[0])
+
+
+def pin_deadlines(monkeypatch, *packages: str) -> None:
+    """Pin the gray-failure deadlines of each named package (default:
+    both) at their cold-start ceilings: the quorum-ack grace and the
+    read-hedge deadline (see pin)."""
+    for package in packages or ("minio_tpu", "minio_tpu_torch"):
+        healthtrack = importlib.import_module(f"{package}.utils.healthtrack")
+        monkeypatch.setattr(healthtrack, "write_stall_s",
+                            lambda: STALL_CEIL_S)
+        monkeypatch.setattr(healthtrack, "read_hedge_s",
+                            lambda: HEDGE_CEIL_S)
 
 
 @pytest.fixture

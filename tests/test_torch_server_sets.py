@@ -33,6 +33,7 @@ from minio_tpu_torch.object.server_sets import (ErasureServerSets,
 from minio_tpu_torch.object.topology import (POOL_ACTIVE, POOL_SUSPENDED,
                                              TopologyError)
 from minio_tpu_torch.storage import format as port_format
+from tests.test_torch_s3 import pin_deadlines
 
 N, M, BS = 6, 2, 1 << 14
 
@@ -214,6 +215,7 @@ def test_two_pool_multipart_trees_equal_reference(tmp_path, monkeypatch):
         monkeypatch.setattr(mod, "now", port_pin.now)
     for mod in (ref_multipart, multipart):
         monkeypatch.setattr(mod, "MIN_PART_SIZE", BS)
+    pin_deadlines(monkeypatch)
     ref_pools, port_pools = _pools(tmp_path, "r"), _pools(tmp_path, "p")
     ref, port = _ref(ref_pools), _port(port_pools)
     rng = np.random.default_rng(21)

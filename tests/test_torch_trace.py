@@ -41,6 +41,7 @@ import minio_tpu.object.multipart as ref_multipart
 import minio_tpu.s3.handlers as ref_handlers
 import minio_tpu.utils.console as ref_console
 import minio_tpu.utils.eventlog as ref_eventlog
+import minio_tpu.utils.healthtrack as ref_ht
 import minio_tpu.utils.incidents as ref_incidents
 import minio_tpu.utils.slo as ref_slo
 import minio_tpu.utils.telemetry as ref_tel
@@ -51,6 +52,7 @@ import minio_tpu_torch.object.multipart as port_multipart
 import minio_tpu_torch.s3.handlers as port_handlers
 import minio_tpu_torch.utils.console as port_console
 import minio_tpu_torch.utils.eventlog as port_eventlog
+import minio_tpu_torch.utils.healthtrack as port_ht
 import minio_tpu_torch.utils.incidents as port_incidents
 import minio_tpu_torch.utils.slo as port_slo
 import minio_tpu_torch.utils.telemetry as port_tel
@@ -58,10 +60,12 @@ from minio_tpu.madmin import AdminClient as RefAdmin
 from minio_tpu.object.sets import ErasureSets as RefSets
 from minio_tpu.s3.admin import mount_admin as ref_mount_admin
 from minio_tpu.s3.server import S3Server as RefServer
+from minio_tpu.storage.naughty import NaughtyDisk as RefNaughty
 from minio_tpu_torch.madmin import AdminClient
 from minio_tpu_torch.object.sets import ErasureSets
 from minio_tpu_torch.s3.admin import mount_admin
 from minio_tpu_torch.s3.server import S3Server
+from minio_tpu_torch.storage.naughty import NaughtyDisk
 from tests.test_s3 import CREDS, REGION, S3TestClient
 from tests.test_torch_s3 import _mp_complete_xml, _upload_id, pin
 
@@ -198,6 +202,87 @@ def test_twin_trace_records_and_span_trees(twins):
             "disk.shard_read", "pipeline.verify_decode"} <= names
 
 
+# each package's read_hedge_s as its module defines it (the twin pin
+# replaces it for the module's tests)
+_LIVE_HEDGE = {ref_ht.__name__: ref_ht.read_hedge_s,
+               port_ht.__name__: port_ht.read_hedge_s}
+
+
+# the live pass's deadline, from the knobs, and the slowed drive's stall
+HEDGE_S, STALL_S = 0.15, 0.6
+
+
+def _shard_reads(tel, trace_id: str) -> int:
+    kept = {t["trace_id"]: t for t in tel.SPANS.dump(500)}
+    return sum(1 for s in _flatten(_span_shape(kept[trace_id]))
+               if s[0] == "disk.shard_read")
+
+
+def test_twin_read_hedge_pin_and_what_it_hides(twins, monkeypatch):
+    """What the twin pin's read-hedge half hides: with each package's own
+    deadline live (its tracker warm, the floor and ceiling both set to
+    HEDGE_S, so that the deadline does not hang on how fast the worker's
+    reads run), one drive holding a data shard stalled well past it makes
+    a GET race a spare shard read, in both packages alike: its tree holds
+    a spare ``disk.shard_read`` span and
+    ``minio_tpu_hedged_reads_total{trigger="latency"}`` rises by one.
+    Under the pin (the deadline at its 2 s ceiling) the same slowed GET
+    waits for the drive: k spans, no hedge."""
+    servers, edge = twins
+    bucket = f"hdg{edge}"
+    for s in servers:
+        c = S3TestClient("127.0.0.1", s.port)
+        assert c.request("PUT", f"/{bucket}")[0] == 200
+        assert c.request("PUT", f"/{bucket}/k", body=BODY["one"])[0] == 200
+    got = []
+    for s, tel, naughty, ht in zip(servers, TELS, (RefNaughty, NaughtyDisk),
+                                   (ref_ht, port_ht)):
+        ht.TRACKER.reset()
+        slow = next(d for d in s.api.obj.sets[0].disks
+                    if d.read_version(bucket, "k").erasure.index <= 2)
+        inner = slow.inner
+        c = S3TestClient("127.0.0.1", s.port)
+        hedged = tel.REGISTRY.counter("minio_tpu_hedged_reads_total")
+        row = []
+        try:
+            for pinned in (True, False):
+                if not pinned:
+                    # the package's own deadline, its tracker warmed by
+                    # fast reads (the pinned pass's slow sample dropped)
+                    # and clamped to HEDGE_S by the knobs
+                    monkeypatch.setattr(ht, "read_hedge_s",
+                                        _LIVE_HEDGE[ht.__name__])
+                    ht.TRACKER.reset()
+                    for _ in range(8):
+                        assert c.request("GET", f"/{bucket}/k")[0] == 200
+                    monkeypatch.setenv("MINIO_TPU_HEDGE_FLOOR_S",
+                                       str(HEDGE_S))
+                    monkeypatch.setenv("MINIO_TPU_HEDGE_CEIL_S",
+                                       str(HEDGE_S))
+                    assert ht.read_hedge_s() == pytest.approx(HEDGE_S)
+                nd = naughty(inner, enabled=True)
+                nd.stall_verbs = {"read_file_stream": STALL_S,
+                                  "read_file": STALL_S}
+                slow.inner = nd
+                before = hedged.value(trigger="latency")
+                assert c.request("GET", f"/{bucket}/k")[0] == 200
+                time.sleep(STALL_S + 0.1)   # the stalled read settles
+                slow.inner = inner
+                rec = _wait_records(s, bucket, 0)[-1]
+                assert rec["api"] == "GetObject"
+                row.append((_shard_reads(tel, rec["trace_id"]),
+                            hedged.value(trigger="latency") - before,
+                            nd.stats.stalls))
+        finally:
+            slow.inner = inner
+            ht.TRACKER.reset()
+        got.append(row)
+    assert got[0] == got[1]
+    pinned_row, live_row = got[1]
+    assert pinned_row[1:] == (0, 1) and live_row[1:] == (1, 1), got
+    assert live_row[0] == pinned_row[0] + 1, got
+
+
 def _flatten(shape: tuple):
     yield shape
     for c in shape[2]:
@@ -254,6 +339,13 @@ class _Receiver:
         self.srv.server_close()
 
 
+def _wait_audit(rx: _Receiver, bucket: str, n: int) -> None:
+    deadline = time.monotonic() + 10
+    while sum(e["path"].startswith(f"/{bucket}") for e in rx.got) < n \
+            and time.monotonic() < deadline:
+        time.sleep(0.02)
+
+
 def test_twin_audit_webhook_through_config_kv(twins):
     servers, edge = twins
     bucket = f"aud{edge}"
@@ -271,13 +363,15 @@ def test_twin_audit_webhook_through_config_kv(twins):
             adm.set_config("audit_webhook", enable="on", endpoint=rx.url)
             assert s.api.trace.audit_webhook == rx.url
             c = S3TestClient("127.0.0.1", s.port)
+            # a record ships a hair after its response, and the receiver
+            # serves each POST on a thread of its own: the next request
+            # goes only once the last one's record is in, so that a loaded
+            # worker cannot reorder the two
             assert c.request("PUT", f"/{bucket}")[0] == 200
+            _wait_audit(rx, bucket, 1)
             assert c.request("PUT", f"/{bucket}/k",
                              body=BODY["one"])[0] == 200
-            deadline = time.monotonic() + 10
-            while sum(e["path"].startswith(f"/{bucket}")
-                      for e in rx.got) < 2 and time.monotonic() < deadline:
-                time.sleep(0.05)
+            _wait_audit(rx, bucket, 2)
             adm.set_config("audit_webhook", enable="off")
             assert s.api.trace.audit_webhook == ""
             mine = [{k: v for k, v in e.items() if k not in _MASKED}
@@ -397,23 +491,37 @@ def test_twin_profiling_routes(twins):
     "minio_tpu_slo_burn_rate", "minio_tpu_slo_error_budget_ratio"])
 def test_plane_families_exported_alike(family):
     """The four families this plane adds: one type and one label-name
-    set in both packages' expositions, once each has a series."""
+    set in both packages' expositions, each with a series of its own.
+    The family's series left by earlier tests in the process (a booted
+    node's SLO loop sets them in one package's registry at its own pace)
+    are cleared first; one SLO engine per package then evaluates twice, a
+    window apart, so that a baseline exists and the burn-rate series are
+    set in both."""
     import minio_tpu.s3.trace  # noqa: F401 — registers the audit family
     import minio_tpu.utils.profiling  # noqa: F401
     import minio_tpu_torch.s3.trace  # noqa: F401
     import minio_tpu_torch.utils.profiling  # noqa: F401
     seen = []
     for tel, sl in zip(TELS, (ref_slo, port_slo)):
-        sl.SLOEngine().evaluate_once(now=0.0)
-        sl.SLOEngine().evaluate_once(now=1e9)
+        if family in tel.REGISTRY._families:
+            tel.REGISTRY._families[family].clear()
+        engine = sl.SLOEngine()
+        engine.evaluate_once(now=0.0)
+        engine.evaluate_once(now=1e9)
         tel.REGISTRY.counter("minio_tpu_audit_dropped_total").inc(0)
-        fam = tel.REGISTRY._families[family]
         text = tel.REGISTRY.render()
+        fam = tel.REGISTRY._families[family]
         labels = set()
+        series = 0
         for line in text.splitlines():
             if line.startswith(family + "{"):
                 inner = line[len(family) + 1:line.index("}")]
                 labels.add(tuple(sorted(p.split("=", 1)[0]
                                         for p in inner.split(","))))
+                series += 1
+            elif line.startswith(family + " "):
+                labels.add(())
+                series += 1
+        assert series, f"{family}: no series in {tel.__name__}"
         seen.append((fam.kind, labels))
     assert seen[0] == seen[1]

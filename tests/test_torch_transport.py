@@ -361,13 +361,15 @@ def test_generation_change_fences_peer_state():
     c = port_transport.RestClient("127.0.0.1", 1, "/t/v1", AK, SK)
     c._online = False
     healthtrack.observe_peer(peer, "readall", 0.5)
+    assert healthtrack.TRACKER.percentile("peer", peer, 0.5) == 0.5
     seen = []
     tracker.add_listener(lambda p, o, n: seen.append((p, o, n)))
     assert not tracker.observe(peer, 111, peer)      # first sight
     assert tracker.observe(peer, 222, peer)          # a new incarnation
     assert (peer, 111, 222) in seen
-    assert not [w for w in healthtrack.TRACKER._windows
-                if w[:2] == ("peer", peer)]
+    assert healthtrack.TRACKER.percentile("peer", peer, 0.5) is None
+    assert [e["verbs"] for e in healthtrack.TRACKER.snapshot("peer")
+            if e["key"] == peer] in ([], [{}])
     assert c.online
     c.close()
 
