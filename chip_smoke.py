@@ -84,7 +84,8 @@ non-zero:
                 nothing and routed nothing to the host, and each kernel's
                 launches equal the encode dispatches exactly. Prints the
                 aggregate GiB/s, the stage report (seconds, p50/p99, the
-                pipeline overlap) and the codec's stage seconds.
+                pipeline overlap) and the codec's stage seconds. Runs
+                under the lock-order watchdog (see Watchdog).
   6. heal     — BASELINE.json config 4 on the phase-3 set: one drive's
                 bucket dir deleted (format.json kept), every object healed
                 through the former's recover verb; rebuilt part and xl.meta
@@ -329,6 +330,7 @@ non-zero:
                 through disk_monitor.scan_once and drivehealth's drive.*
                 journal records; the drive disarmed, MRF drained, every
                 object read back byte- and ETag-equal (lost_after_mrf 0).
+                Runs under the lock-order watchdog (see Watchdog).
   4. timings  — (continued) chacha20 at the encode launch (8 rows, 1 MiB
                 span in 1,048,584-byte rows) and at GET's 64 x 65,536:
                 CUDA events around back-to-back wrapper calls, the kernel's
@@ -604,6 +606,56 @@ class PlaneWatch:
                "read_hedge_s": healthtrack.read_hedge_s(), "card": card}
         emit(out)
         return out
+
+
+class Watchdog:
+    """The lock-order watchdog (minio_tpu_torch/utils/lockcheck.py) on, in
+    raise mode (MINIO_TPU_LOCKCHECK_RAISE's default), around one phase;
+    off in every other phase, as a served path runs it. After the phase
+    it prints {"phase": "lockcheck", "after": <phase>, "lockcheck":
+    {"roles": the roles taken, "edges": the nested orders recorded,
+    "cycles", "held_while_blocking", "long_hold": violations by kind},
+    "seconds": the phase's wall time}. A cycle fails the run;
+    held-while-blocking and long holds are recorded only, as in the
+    reference's suites, their details on stderr."""
+
+    def __init__(self, phase: str, card: str):
+        self.phase, self.card = phase, card
+
+    def __enter__(self) -> "Watchdog":
+        from minio_tpu_torch.utils import lockcheck
+        self.saved = os.environ.get("MINIO_TPU_LOCKCHECK")
+        os.environ["MINIO_TPU_LOCKCHECK"] = "on"
+        lockcheck.refresh()
+        lockcheck.reset()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from minio_tpu_torch.utils import lockcheck
+        seconds = time.perf_counter() - self.t0
+        found, graph, roles = (lockcheck.violations(), lockcheck.graph(),
+                               lockcheck.roles())
+        if self.saved is None:
+            os.environ.pop("MINIO_TPU_LOCKCHECK", None)
+        else:
+            os.environ["MINIO_TPU_LOCKCHECK"] = self.saved
+        lockcheck.refresh()
+        lockcheck.reset()
+        by_kind = {kind: [v for v in found if v.kind == kind]
+                   for kind in ("cycle", "held-while-blocking", "long-hold")}
+        for v in found:
+            print(f"[lockcheck {self.phase}] {v.kind}: {v.detail}",
+                  file=sys.stderr, flush=True)
+        emit({"phase": "lockcheck", "after": self.phase, "lockcheck": {
+            "roles": roles, "edges": sum(len(d) for d in graph.values()),
+            "cycles": len(by_kind["cycle"]),
+            "held_while_blocking": len(by_kind["held-while-blocking"]),
+            "long_hold": len(by_kind["long-hold"])},
+            "seconds": round(seconds, 3), "card": self.card})
+        if by_kind["cycle"]:
+            fail(f"{self.phase}: lock-order cycle(s): "
+                 + "; ".join(v.detail for v in by_kind["cycle"]))
 
 
 def heal_left_behind(eng, left: list) -> dict:
@@ -895,8 +947,9 @@ def main() -> int:
         # closed former would send its waiters to the host
         sched = BatchScheduler()
         try:
-            concurrent = run_concurrent_put(eng_mod, sched, stagetimer,
-                                            tmp, card, counts, np)
+            with Watchdog("concurrent_put", card):
+                concurrent = run_concurrent_put(eng_mod, sched, stagetimer,
+                                                tmp, card, counts, np)
             plane.emit("concurrent_put", card)
             heal = run_heal(sched, state, tmp, card, counts, np)
             plane.emit("heal", card)
@@ -959,7 +1012,8 @@ def main() -> int:
         obsp = run_obs(tmp, card, counts, stagetimer, np, head, head_q6)
         plane.emit("obs", card)
         # -- 21. the gray-failure plane: its own boot ------------------------
-        grayp = run_gray(tmp, card, counts, np)
+        with Watchdog("gray", card):
+            grayp = run_gray(tmp, card, counts, np)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths_launches = {"main_path": main_path["launches"],

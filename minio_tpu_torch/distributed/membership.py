@@ -21,7 +21,7 @@ checks in cmd/bootstrap-peer-server.go; here the generation is explicit
 and fencing is an event, not a side effect of a failed handshake.
 
 A copy of minio_tpu/distributed/membership.py; a generation change emits
-the ``membership.generation`` journal record. Left out: the tests' reset.
+the ``membership.generation`` journal record.
 """
 
 from __future__ import annotations
@@ -147,6 +147,17 @@ class MembershipTracker:
         raise (exceptions are swallowed)."""
         with self._mu:
             self._listeners.append(fn)
+
+    def reset(self, drop_listeners: bool = False) -> None:
+        """Drop peers and re-mint the local generation (tests simulate
+        a restart with this). Listeners registered at import time (the
+        transport's fencing hook) survive unless explicitly dropped."""
+        with self._mu:
+            self._peers.clear()
+            if drop_listeners:
+                self._listeners.clear()
+            self.local_generation = mint_generation()
+            _GEN_PEERS.set(0)
 
 
 TRACKER = MembershipTracker()

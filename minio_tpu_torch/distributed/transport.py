@@ -35,8 +35,11 @@ and span ids in the trace headers; the serving side runs the verb in a
 ``join``ed ``rpc.server.<verb>`` fragment, which the span sink grafts back
 into the caller's tree. ``readline`` reads the trace and event follow
 streams line by line.
-Left out: the fault-injection hooks (naughtynet) and the OBD bundle's
-per-client counter report.
+The fault-injection hooks (naughtynet.py) sit where the reference's do:
+before the dial, on a server-side drop's error kind, in the offline
+probe, before the verb is served and around a streamed response; each
+is one flag test while the controller is disarmed. Left out: the OBD
+bundle's per-client counter report.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ import urllib.parse
 from typing import Callable, Optional
 
 from ..utils import backoff_delay, healthtrack, knobs, telemetry
-from . import membership
+from . import membership, naughtynet
 
 DEFAULT_TIMEOUT = 30.0
 
@@ -342,6 +345,18 @@ class RestClient:
     def _call_once(self, verb: str, args: Optional[dict], body,
                    stream_response: bool, body_length: Optional[int],
                    timeout: float):
+        if naughtynet.NET.enabled:
+            # deterministic chaos: a partitioned link fails like an
+            # unreachable host (conn failure → retries → offline), an
+            # armed delay schedule sleeps before the dial
+            act = naughtynet.NET.on_call(
+                self.node_id, f"{self.host}:{self.port}", verb)
+            if act.delay > 0:
+                time.sleep(act.delay)
+            if act.blocked:
+                raise NetworkError(
+                    f"naughtynet: link to {self.host}:{self.port} "
+                    "partitioned", conn_failure=True)
         qs = urllib.parse.urlencode(args or {})
         path = f"{self.service_path}/{verb}" + (f"?{qs}" if qs else "")
         if isinstance(body, (bytes, bytearray, memoryview)):
@@ -385,6 +400,13 @@ class RestClient:
                 except ValueError:
                     err = None
                 if isinstance(err, dict):
+                    if err.get("kind") == naughtynet.PARTITIONED_KIND:
+                        # server-side injected drop: surface it exactly
+                        # like an unreachable host
+                        raise NetworkError(
+                            f"naughtynet: {self.host}:{self.port} "
+                            "dropped the call (partitioned)",
+                            conn_failure=True)
                     raise RPCError(err.get("kind", "error"),
                                    err.get("message", ""))
                 raise RPCError("http", f"status {resp.status}")
@@ -465,6 +487,12 @@ class RestClient:
                 delay = self._probe_delay
                 self._probe_delay = min(delay * 2, HEALTH_PROBE_MAX)
             time.sleep(delay * (0.75 + random.random() / 2))
+            if naughtynet.NET.enabled and naughtynet.NET.blocked(
+                    self.node_id or membership.local_node(),
+                    f"{self.host}:{self.port}"):
+                # the link is (chaos-)partitioned: the probe must not
+                # re-admit a host we cannot actually reach
+                continue
             try:
                 conn = http.client.HTTPConnection(self.host, self.port,
                                                   timeout=2.0)
@@ -601,6 +629,20 @@ class RPCHandler:
         verb = path[len(self.prefix):].lstrip("/")
         ident = self._identity_headers()
         peer_id = ctx.header(membership.NODE_HEADER)
+        if naughtynet.NET.enabled:
+            # inbound chaos: a partitioned caller's verbs (health
+            # probes included) are dropped BEFORE dispatch — the
+            # PARTITIONED_KIND payload maps back to an unreachable-host
+            # failure on the calling side
+            act = naughtynet.NET.on_serve(
+                peer_id, self.node_id or membership.local_node(), verb)
+            if act.delay > 0:
+                time.sleep(act.delay)
+            if act.blocked:
+                return HTTPResponse(status=503, body=json.dumps(
+                    {"kind": naughtynet.PARTITIONED_KIND,
+                     "message": "inbound link partitioned"}).encode(),
+                    headers=ident)
         if verb == "health":
             return HTTPResponse(body=b"OK", headers=ident)
         auth = ctx.header("authorization")
@@ -664,6 +706,12 @@ class RPCHandler:
                         if close is not None:
                             close()
                 out = gen()
+            if naughtynet.NET.enabled:
+                # chaos may reset the stream after the first chunk or
+                # go silent when a partition opens mid-stream
+                out = naughtynet.NET.wrap_stream(
+                    peer_id, self.node_id or membership.local_node(),
+                    verb, out)
             return HTTPResponse(stream=out, headers=ident)
         headers = {"Content-Type": "application/json"}
         headers.update(ident)

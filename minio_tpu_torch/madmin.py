@@ -6,11 +6,12 @@ Counterpart of minio_tpu/madmin.py for the routes the port's admin router
 serves (s3/admin.py), the tracing plane's among them (trace and
 trace_follow, cluster_trace, events and events_follow, incidents and
 incident, slo, spans, profiling_start and profiling_stop, console_log) and
-the gray-failure plane's (obd_info, drive_health).
+the gray-failure plane's (obd_info, drive_health) and the checking
+plane's naughtynet.
 ``update_group_members`` drives a route the reference's router lacks
 (upstream's update-group-members); the other calls are the reference's.
-Left out with their planes: naughtynet, QoS, replication, notify, remote
-targets and bandwidth."""
+Left out with their planes: QoS, replication, notify, remote targets
+and bandwidth."""
 
 from __future__ import annotations
 
@@ -127,6 +128,14 @@ class AdminClient:
         if tmp_age_s is not None:
             q["tmp_age"] = str(tmp_age_s)
         return self._json("POST" if repair else "GET", "fsck", query=q)
+
+    def naughtynet(self, payload: dict) -> dict:
+        """Drive the node's network chaos injector (test-only; the node
+        must run with MINIO_TPU_NAUGHTYNET=on). ``payload`` is the
+        distributed/naughtynet admin op: {"op": "partition"|"heal"|
+        "configure"|"arm"|"disarm"|"status"|"reset", ...}."""
+        return self._json("POST", "naughtynet",
+                          body=json.dumps(payload).encode())
 
     def heal_start(self, bucket: str = "", prefix: str = "") -> str:
         out = self._json("POST", "heal",

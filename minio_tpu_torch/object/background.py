@@ -41,8 +41,8 @@ state machine: ok -> suspect -> probation -> heal-verified re-admission)
 with its ``drive.suspect``, ``drive.probation``, ``drive.reconvict`` and
 ``drive.readmit`` journal records.
 
-Left out: the reference's crash points. The MRF lock is a plain threading.Condition
-(lockcheck is not ported).
+Left out: the reference's crash points. The MRF lock is the watchdog's
+``mrf.queue`` condition (utils/lockcheck.py), as in the reference.
 
 Knobs: MINIO_TPU_MRF_QUEUE_SIZE, MINIO_TPU_MRF_MAX_RETRIES,
 MINIO_TPU_MRF_BACKOFF_BASE, MINIO_TPU_MRF_BACKOFF_MAX (the retry schedule
@@ -65,7 +65,8 @@ from ..storage import errors as serr
 from ..storage.format import (MINIO_META_BUCKET, read_format_from,
                               write_format_to)
 from ..storage.xl_storage import XLStorage
-from ..utils import backoff_delay, crashpoint, eventlog, healthtrack, knobs
+from ..utils import (backoff_delay, crashpoint, eventlog, healthtrack, knobs,
+                     lockcheck)
 from . import api_errors
 
 if TYPE_CHECKING:  # sets.py imports MRFHealer: no cycle at runtime
@@ -128,7 +129,7 @@ class MRFHealer:
                              else backoff_base)
         self.backoff_max = (MRF_BACKOFF_MAX if backoff_max is None
                             else backoff_max)
-        self._cond = threading.Condition()
+        self._cond = lockcheck.condition("mrf.queue")
         self._heap: list[tuple] = []   # (ready_at, seq, b, o, v, attempt)
         self._seq = 0
         # keys currently queued in the heap (dedup)

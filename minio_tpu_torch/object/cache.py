@@ -46,8 +46,9 @@ an overwrite that landed meanwhile gets spliced into the response under
 the old ETag and length. Here the fallback reads with the GET's options
 and aborts the stream (``ObjectApiError``) when the read's ETag is not
 the one the response started with, as the fill paths already refuse a
-changed generation. Left out: the reference's lockcheck wrappers (the
-locks are plain ``threading.Lock``).
+changed generation. The locks are the watchdog's ``cache.tracker``,
+``cache.meta`` and ``cache.purge`` (utils/lockcheck.py), as in the
+reference.
 
 Env (cluster boot; constructor args override):
   MINIO_TPU_CACHE=on|off            master switch (default off)
@@ -71,7 +72,7 @@ from typing import Iterator, Optional
 
 from .. import bitrot as bitrot_mod
 from ..storage.datatypes import is_restored, is_transitioned
-from ..utils import knobs, telemetry
+from ..utils import knobs, lockcheck, telemetry
 from . import api_errors
 from .engine import GetOptions, PutOptions
 
@@ -123,7 +124,7 @@ class AccessTracker:
     def __init__(self, admit_hits: int, window_s: float):
         self.admit_hits = max(1, admit_hits)
         self.window_s = window_s
-        self._mu = threading.Lock()
+        self._mu = lockcheck.mutex("cache.tracker")
         self._t: dict[tuple[str, str], tuple[int, float]] = {}
 
     def record(self, bucket: str, key: str) -> int:
@@ -180,8 +181,8 @@ class CacheObjects:
         self.admit_rejects = 0
         self.tracker = AccessTracker(admit_hits, admit_window_s)
         self._m = _metrics()
-        self._mu = threading.Lock()
-        self._purge_mu = threading.Lock()
+        self._mu = lockcheck.mutex("cache.meta")
+        self._purge_mu = lockcheck.mutex("cache.purge")
 
     @classmethod
     def from_env(cls, inner, default_dir: str) -> "CacheObjects":

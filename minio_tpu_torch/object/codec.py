@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import contextlib
 import queue
-import threading
 import time
 from typing import Optional
 
@@ -51,7 +50,7 @@ from .. import bitrot as bitrot_mod
 from .. import device as device_mod
 from ..ops import chacha20_cuda, gf256, rs_cuda, rs_matrix
 from ..parallel import bpool
-from ..utils import knobs, native
+from ..utils import knobs, lockcheck, native
 from . import api_errors
 
 # Batches at least this large go to the device.
@@ -70,7 +69,7 @@ INFLIGHT = max(1, knobs.get_int("MINIO_TPU_SCHED_INFLIGHT"))
 # the copy back plus the host's copy out of pinned memory. On CPU tensors
 # they are host wall time.
 STEP_STAGES = ("transfer_span_s", "compute_span_s", "fetch_span_s")
-_steps_mu = threading.Lock()
+_steps_mu = lockcheck.mutex("codec.steps")
 STEP_SECONDS: dict[str, dict] = {}
 
 
@@ -119,7 +118,7 @@ class _Slot:
 
 
 _slots: dict[torch.device, "queue.Queue[_Slot]"] = {}
-_slots_mu = threading.Lock()
+_slots_mu = lockcheck.mutex("codec.slots")
 
 
 @contextlib.contextmanager

@@ -45,8 +45,8 @@ read can install over a newer one. Here (the guarded drain):
 
 A build and a reconcile are each the root of a trace of their own
 (``metacache.build``, ``metacache.reconcile``); a served page runs in a
-``metacache.serve`` span of the listing's request. The lock is a plain
-``threading.Condition`` (lockcheck is not ported).
+``metacache.serve`` span of the listing's request. The lock is the
+watchdog's ``metacache.cond`` (utils/lockcheck.py), as in the reference.
 
 Knobs (README "Listing and the bucket metacache"):
 
@@ -75,7 +75,7 @@ from typing import Iterator, Optional
 
 from ..storage.datatypes import ObjectInfo, ObjectPartInfo
 from ..storage.xl_storage import MINIO_META_BUCKET
-from ..utils import crashpoint, knobs, telemetry
+from ..utils import crashpoint, knobs, lockcheck, telemetry
 from . import api_errors
 from .engine import paginate_objects, paginate_versions
 
@@ -289,7 +289,7 @@ class MetacacheManager:
         self._reconcile_s = reconcile_s
         self._segment_keys = segment_keys
         self._journal_max = journal_max
-        self._cond = threading.Condition()
+        self._cond = lockcheck.condition("metacache.cond")
         # metric families resolved ONCE — record() runs per PUT/DELETE
         # and must not pay seven registry-lock lookups each call
         self._m = _metrics()

@@ -17,8 +17,9 @@ import os
 import re
 import shutil
 import subprocess
-import threading
 import time
+
+from ..utils import lockcheck
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -43,7 +44,7 @@ def _scan_eval_flags() -> list[str]:
 # flags of one source only, after NVCC_FLAGS, made when it is built
 SOURCE_FLAGS = {"scan_eval": _scan_eval_flags}
 
-_lock = threading.Lock()
+_lock = lockcheck.mutex("kernels.build")
 _libs: dict[str, ctypes.CDLL] = {}
 # nvcc's -Xptxas -v report (registers, shared memory, spills) per kernel
 BUILD_LOG: dict[str, str] = {}
@@ -168,7 +169,7 @@ def library(name: str) -> str:
     return _target(name)
 
 
-_count_mu = threading.Lock()
+_count_mu = lockcheck.mutex("kernels.count")
 
 
 def count_launch(wrapper) -> None:

@@ -19,11 +19,12 @@ ring. On a CPU engine the buffers are ordinary memory.
 from __future__ import annotations
 
 import queue
-import threading
 from typing import Optional
 
 import numpy as np
 import torch
+
+from ..utils import lockcheck
 
 
 class BytePoolExhausted(Exception):
@@ -35,7 +36,7 @@ class BytePoolExhausted(Exception):
 # host address -> CUDA event recorded after an asynchronous copy that
 # reads the memory there (see after_copy)
 _copies: dict[int, object] = {}
-_copies_mu = threading.Lock()
+_copies_mu = lockcheck.mutex("bpool.copies")
 
 
 def _addr(arr: np.ndarray) -> int:
@@ -68,7 +69,7 @@ class BytePool:
         self.pinned = pinned
         self.waits = 0          # get() calls that had to block
         self.exhausted = 0      # get() calls that timed out
-        self._mu = threading.Lock()
+        self._mu = lockcheck.mutex("bpool.created")
         self._created = 0       # buffers allocated so far (<= capacity)
         self._q: "queue.Queue[np.ndarray]" = queue.Queue(maxsize=capacity)
 

@@ -85,7 +85,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..utils import eventlog, knobs, telemetry
+from ..utils import eventlog, knobs, lockcheck, telemetry
 
 MAX_BATCH_BLOCKS = knobs.get_int("MINIO_TPU_SCHED_MAX_BATCH")
 MAX_WAIT_S = knobs.get_float("MINIO_TPU_SCHED_MAX_WAIT_MS") / 1e3
@@ -211,7 +211,7 @@ class BatchScheduler:
                  inflight: int = INFLIGHT):
         self.max_batch = max_batch
         self.max_wait = max_wait
-        self._mu = threading.Lock()
+        self._mu = lockcheck.mutex("sched.buckets")
         # (verb, device, k, m, S, algo value, extra) -> [_Pending]: no
         # codec identity, so groups of different engines (erasure sets,
         # pools) of one geometry share a dispatch (reference

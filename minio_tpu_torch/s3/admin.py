@@ -22,7 +22,8 @@ and profiling/start, profiling/stop; the gray-failure plane's drivehealth
 (tracked latencies, quarantine states, the disk monitor's recent
 transitions and the journal's ``drive.*`` / ``health.*`` records) and
 obdinfo (every node's OBD bundle, utils/obd.py, and the internode net
-probes). Beside them,
+probes); the checking plane's test-only naughtynet (POST, answered only
+with MINIO_TPU_NAUGHTYNET=on). Beside them,
 upstream's update-group-members (the reference's router has no route that
 fills a group; its IAMSys has the verbs). The routes of the
 planes not ported answer a JSON NotImplemented that names the plane
@@ -64,7 +65,6 @@ _SCRAPE_FAILED = telemetry.REGISTRY.counter(
 # (method, route) -> the unported plane that serves it in the reference
 _UNPORTED = {
     ("GET", "bandwidth"): "bandwidth",
-    ("POST", "naughtynet"): "naughtynet",
     ("GET", "qos"): "QoS",
     ("PUT", "qos"): "QoS",
     ("DELETE", "qos"): "QoS",
@@ -500,6 +500,24 @@ class AdminHandlers:
                               buckets=[bucket] if bucket else None,
                               tmp_age_s=age if age >= 0 else None)
             return self._json(report.to_dict())
+        if sub == "naughtynet" and m == "POST":
+            # test-only network chaos control (distributed/naughtynet):
+            # a harness partitions/heals/configures a LIVE node's fault
+            # injector from outside the process. Gated off by default —
+            # a production node must not expose a verb that severs its
+            # own links
+            self._auth(ctx, "admin:ServerUpdate")
+            if not knobs.get_bool("MINIO_TPU_NAUGHTYNET"):
+                raise S3Error(
+                    "NotImplemented",
+                    "network chaos is disabled "
+                    "(MINIO_TPU_NAUGHTYNET=on enables this verb)")
+            from ..distributed import naughtynet
+            try:
+                payload = json.loads(ctx.read_body().decode() or "{}")
+                return self._json(naughtynet.handle_admin(payload))
+            except (ValueError, TypeError) as e:
+                raise S3Error("AdminInvalidArgument", str(e)) from None
         if sub == "metacache" and m == "GET":
             # bucket metacache visibility (ROADMAP item 2 `mc.stats()`
             # remainder): per-bucket index state (entries, building/

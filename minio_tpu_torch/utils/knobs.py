@@ -8,9 +8,10 @@ HTTP edge, the internode RPC transport, the gray-failure plane, the IAM
 refresh, the federated metrics scrape, and the tracing and incident
 planes, with the reference's names, types and defaults
 (minio_tpu/utils/knobs.py:160-197, :203-206, :220-235, :261-281, :284-306,
-:310-346, :356-359, :370-383, :403-410, :434-435, :438-485, :535-586).
-Left out:
-the README table renderer and every knob no ported module reads. No knob here is one the reference lacks.
+:310-346, :356-359, :370-383, :403-410, :434-435, :438-485, :535-586),
+and the checking plane's naughtynet and lock-order watchdog (:350-353,
+:590-600). Left out: the README table renderer and every knob no ported
+module reads. No knob here is one the reference lacks.
 
 Getters read the environment at call time: tests flip knobs with
 ``monkeypatch.setenv`` and modules that want an import-time snapshot call
@@ -319,6 +320,12 @@ define("MINIO_TPU_RPC_RETRY_BACKOFF_MAX", "float", 2.0,
 define("MINIO_TPU_PEER_PROBE_S", "float", 30.0,
        "offline peer health-probe backoff cap, seconds (any "
        "successful direct call re-admits the host immediately)")
+define("MINIO_TPU_NAUGHTYNET", "bool", False,
+       "`on` exposes the test-only naughtynet admin verb so harnesses "
+       "can partition a live node's internode transport")
+define("MINIO_TPU_NAUGHTYNET_SEED", "int", 0,
+       "default seed for the naughtynet fault schedule (chaos tests "
+       "print the seed they armed)")
 define("MINIO_TPU_RPC_STREAM_READ_S", "float", 30.0,
        "per-read socket deadline on streamed RPC responses: a peer "
        "that goes silent mid-stream fails the reader instead of "
@@ -397,3 +404,17 @@ define("MINIO_TPU_CLUSTER_SCRAPE_S", "float", 2.0,
        "per-peer deadline for the federated metrics scrape "
        "(?cluster=1); a peer past it degrades the scrape and counts in "
        "minio_tpu_cluster_scrape_failed_total")
+
+# -- the checking plane (minio_tpu/utils/knobs.py:590-600) ---------------------
+define("MINIO_TPU_LOCKCHECK", "bool", False,
+       "instrument named locks: record the cross-thread acquisition "
+       "graph, fail on order cycles (on under the chaos/concurrency "
+       "suites)")
+define("MINIO_TPU_LOCKCHECK_RAISE", "bool", True,
+       "raise LockOrderError at the acquire that closes a cycle "
+       "(off = record only)")
+define("MINIO_TPU_LOCKCHECK_BLOCK_MS", "float", 200.0,
+       "acquire wait above this while holding another lock is flagged "
+       "held-while-blocking")
+define("MINIO_TPU_LOCKCHECK_HELD_MS", "float", 1000.0,
+       "hold duration above this is flagged as a long hold")

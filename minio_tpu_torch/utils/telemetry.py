@@ -25,8 +25,9 @@ Counterpart of minio_tpu/utils/telemetry.py. Two halves:
   ``SPANS.dump()`` grafts back into its parent tree.
 
 Knobs: MINIO_TPU_TRACE_SLOW_MS, MINIO_TPU_TRACE_SAMPLE,
-MINIO_TPU_TRACE_KEEP, MINIO_TPU_TRACE_MAX_SPANS. Locks are plain
-``threading.Lock`` (the reference's lockcheck wrappers are not ported).
+MINIO_TPU_TRACE_KEEP, MINIO_TPU_TRACE_MAX_SPANS. The registry's and the
+span sink's locks are the watchdog's ``telemetry.registry`` and
+``telemetry.spans`` (utils/lockcheck.py), as in the reference.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ import uuid
 from collections import deque
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
-from . import knobs
+from . import knobs, lockcheck
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
@@ -238,7 +239,7 @@ class MetricsRegistry:
     catch)."""
 
     def __init__(self) -> None:
-        self._mu = threading.Lock()
+        self._mu = lockcheck.mutex("telemetry.registry")
         self._families: Dict[str, _Family] = {}
         self._collectors: List[Callable[[], None]] = []
 
@@ -618,7 +619,7 @@ class SpanSink:
 
     def __init__(self, capacity: int = KEEP,
                  slow_s: float = SLOW_S, sample: float = SAMPLE):
-        self._mu = threading.Lock()
+        self._mu = lockcheck.mutex("telemetry.spans")
         self.capacity = capacity
         self.slow_s = slow_s
         self.sample = sample

@@ -10,7 +10,9 @@ held against minio_tpu's.
     rebalance surface; the quota half of the quota / remote-target case
     (remote targets wait for the replication plane);
   * every admin route of a plane the port has not got answers a JSON
-    NotImplemented that names the plane;
+    NotImplemented that names the plane; the test-only naughtynet route
+    refuses as the reference's does with its knob off, and answers the
+    reference's status with it on;
   * upstream's update-group-members, which the reference's router lacks;
   * twin servers (reference and port, identities pinned) answer the
     admin GETs and a heal with equal JSON, volatile fields masked;
@@ -133,6 +135,42 @@ def test_unported_routes_answer_not_implemented(client, route):
     out = json.loads(body)
     assert out["Code"] == "NotImplemented"
     assert f"the {_UNPORTED[route]} plane" in out["Message"]
+
+
+@pytest.mark.parametrize("knob", ["off", "on"])
+def test_naughtynet_route_answers_as_the_references(tmp_path, monkeypatch,
+                                                    knob):
+    """POST naughtynet on twin servers: with MINIO_TPU_NAUGHTYNET off both
+    refuse alike (NotImplemented, the same message); with it on,
+    {"op": "status"} gives the same status from both, each from its own
+    package's controller."""
+    from minio_tpu.distributed import membership as ref_membership
+    from minio_tpu_torch.distributed import membership
+    monkeypatch.setenv("MINIO_TPU_NAUGHTYNET", knob)
+    servers = _twin_servers(tmp_path)
+    got = []
+    try:
+        for srv, _layer in servers:
+            st, _h, body = _admin(srv.port, "POST", "naughtynet",
+                                  body=json.dumps({"op": "status"}).encode())
+            got.append((st, json.loads(body)))
+    finally:
+        for srv, layer in servers:
+            srv.stop()
+            layer.close()
+    (ref_st, ref_out), (st, out) = got
+    assert st == ref_st
+    if knob == "off":
+        assert st == 501 and out["Code"] == ref_out["Code"] == \
+            "NotImplemented"
+        assert out["Message"] == ref_out["Message"]
+        assert "MINIO_TPU_NAUGHTYNET=on" in out["Message"]
+        return
+    assert st == 200
+    assert out.pop("local_node") == membership.local_node()
+    assert ref_out.pop("local_node") == ref_membership.local_node()
+    assert out == ref_out
+    assert out["enabled"] is False and out["rules"] == []
 
 
 def test_update_group_members(server):
@@ -356,6 +394,22 @@ PORT_ONLY = {"minio_tpu_erasure_get_streams_total",
              "minio_tpu_rpc_verb_sent_bytes_total"}
 
 
+def _naughtynet_traffic(nn) -> None:
+    """One partition drop, one scheduled delay and one mid-stream reset
+    through a package's naughtynet controller, which is left reset."""
+    try:
+        nn.NET.partition("a", "b", oneway=True)
+        assert nn.NET.on_call("a", "b", "probe").blocked
+        nn.NET.heal()
+        nn.NET.arm(nn.NetSchedule(seed=1, delay_rate=1.0, delay_s=1e-6,
+                                  reset_rate=1.0))
+        assert nn.NET.on_call("a", "b", "probe").delay > 0
+        with pytest.raises(ConnectionResetError):
+            list(nn.NET.wrap_stream("a", "b", "probe", iter([b"x", b"y"])))
+    finally:
+        nn.NET.reset()
+
+
 def _label_names(fam) -> set:
     return {k for (_n, labels) in fam.samples for k, _v in labels
             if k != "le"}
@@ -393,6 +447,9 @@ def test_prometheus_families_agree(tmp_path, monkeypatch):
             ht.note_hedge("latency")
             ht.TRACKER.set_state("drive", key, ht.STATE_SUSPECT,
                                  event="suspect")
+            _naughtynet_traffic(importlib.import_module(
+                type(layer).__module__.split(".")[0]
+                + ".distributed.naughtynet"))
             c = Client(p, TWIN_CREDS)
             st, body = c.request("GET", "/minio/prometheus/metrics",
                                  sign=False)
@@ -407,7 +464,10 @@ def test_prometheus_families_agree(tmp_path, monkeypatch):
     for name in ("minio_tpu_drive_latency_seconds",
                  "minio_tpu_hedged_reads_total",
                  "minio_tpu_drive_quarantine_total",
-                 "minio_tpu_drive_health"):
+                 "minio_tpu_drive_health",
+                 "minio_tpu_net_partition_drops_total",
+                 "minio_tpu_net_chaos_delays_total",
+                 "minio_tpu_net_chaos_resets_total"):
         assert port[name].samples and ref[name].samples, name
     assert port["minio_disks_online"].samples[
         ("minio_disks_online", ())] == 4

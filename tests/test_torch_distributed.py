@@ -446,23 +446,53 @@ def test_twin_iam_across_nodes(twins):
     assert b"InvalidAccessKeyId" in outs[1][2]
 
 
-def test_twin_cluster_scrape_merges_every_node(twins):
+def _peer_state(node) -> list:
+    """Node 1's peer clients as a scrape leaves them: address, online,
+    offline trips, network errors and fan-out sheds (the failure message
+    of a scrape that dropped a node)."""
+    import minio_tpu.distributed.peer_rpc as ref_peer
+    import minio_tpu_torch.distributed.peer_rpc as port_peer
+    shed = (port_peer if type(node).__module__.startswith("minio_tpu_torch")
+            else ref_peer)._PARTITION_SHED
+    return [(p.addr, p.rc.online, p.rc.offline_trips, p.rc.net_errors,
+             shed.value(peer=p.addr)) for p in node.notification.peers]
+
+
+def test_twin_cluster_scrape_merges_every_node(twins, monkeypatch):
     """?cluster=1 through node 1: one exposition carrying all four
-    nodes, as the reference's cluster gives it."""
+    nodes, as the reference's cluster gives it.
+
+    A peer that misses its pull's deadline is dropped from the merge by
+    design. The reference bounds each pull by four times the peer's
+    observed p99, floored at 0.5 s (MINIO_TPU_PEER_SHED_DEADLINE_X, a
+    tightening the port does not have), and a peer's render (the
+    process's registry and its 16 drives' disk info, 12 of them over
+    storage RPC) passes that on a loaded worker: the reference then
+    drops the peer where the port keeps it. So the deadline is pinned
+    alike in both: the reference's tightening off, and
+    MINIO_TPU_CLUSTER_SCRAPE_S at 8 s, below the 10 s the fan-out waits
+    for its threads."""
     from minio_tpu_torch.utils import promfed
+    monkeypatch.setenv("MINIO_TPU_CLUSTER_SCRAPE_S", "8")
+    monkeypatch.setenv("MINIO_TPU_PEER_SHED_DEADLINE_X", "0")
     t = Twin(twins)
-    texts = [S3TestClient("127.0.0.1", c[1].s3.port).request(
-        "GET", "/minio/admin/v3/metrics", query={"cluster": "1"})
-        for c in (t.ref, t.port)]
     merged = []
-    for (st, _h, body), nodes in zip(texts, (t.ref, t.port)):
+    for nodes in (t.ref, t.port):
+        before = _peer_state(nodes[1])
+        t0 = time.monotonic()
+        st, _h, body = S3TestClient("127.0.0.1", nodes[1].s3.port).request(
+            "GET", "/minio/admin/v3/metrics", query={"cluster": "1"})
+        took = time.monotonic() - t0
         assert st == 200
         fam = promfed.parse_exposition(body.decode())["minio_disks_online"]
         merged.append(sorted(
             (dict(labels)["node"], v)
             for (_n, labels), v in fam.samples.items()))
         assert [a for a, _v in merged[-1]] == \
-            sorted(n.spec.addr for n in nodes)
+            sorted(n.spec.addr for n in nodes), (
+            f"{type(nodes[1]).__module__}: scrape took {took:.3f} s; "
+            f"peers (addr, online, offline trips, net errors, sheds) "
+            f"before {before} after {_peer_state(nodes[1])}")
     assert [v for _a, v in merged[0]] == [v for _a, v in merged[1]] \
         == [16] * NODES
 

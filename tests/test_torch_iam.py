@@ -100,14 +100,15 @@ def _import(name, globals=None, locals=None, fromlist=(), level=0):
 def rebound(fn, **subs):
     """`fn` (a function of a reference test module) with every global it
     reads, and every import it runs, bound to the port; the module's own
-    helper functions are rebound alike. `subs` overrides globals."""
+    helper functions are rebound alike. `subs` overrides globals; a name
+    in `subs` is not looked up in the port (it may have no counterpart)."""
     def rebind(f, g):
         out = types.FunctionType(f.__code__, g, f.__name__, f.__defaults__,
                                  f.__closure__)
         out.__kwdefaults__ = f.__kwdefaults__
         return out
 
-    g = {k: port_of(v) for k, v in fn.__globals__.items()}
+    g = {k: port_of(v) for k, v in fn.__globals__.items() if k not in subs}
     g["__builtins__"] = dict(vars(builtins), __import__=_import)
     for k, v in list(g.items()):
         if isinstance(v, types.FunctionType) and \

@@ -8,6 +8,7 @@ JAX nor minio_tpu."""
 import ast
 import os
 import pathlib
+import re
 import uuid
 
 import numpy as np
@@ -225,7 +226,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "tier/client.py", "tier/config.py", "tier/transition.py",
                 "object/faithful.py", "utils/pressure.py",
                 "utils/bandwidth.py", "object/rebalance.py",
-                "object/fsck.py", "object/fs.py", "utils/regfence.py"):
+                "object/fsck.py", "object/fs.py", "utils/regfence.py",
+                "utils/lockcheck.py", "distributed/naughtynet.py"):
         assert f"minio_tpu_torch/{mod}" in names, mod
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
@@ -240,3 +242,37 @@ def test_port_imports_neither_jax_nor_the_reference():
                 top = mod.split(".")[0]
                 assert top not in ("jax", "jaxlib", "minio_tpu"), \
                     f"{os.path.relpath(path, root)} imports {mod}"
+
+
+# the card path's roles, which the reference's dispatch has no name for
+_DEVICE_ROLES = {"codec.steps", "codec.slots", "bpool.copies",
+                 "kernels.build", "kernels.count"}
+_ROLE = re.compile(r"lockcheck\.(?:mutex|rlock|condition)\(\s*\"([^\"]+)\"")
+
+
+def _roles(package: str) -> dict:
+    root = pathlib.Path(__file__).resolve().parent.parent / package
+    out: dict = {}
+    for path in sorted(root.rglob("*.py")):
+        if path.name == "lockcheck.py":
+            continue
+        for role in _ROLE.findall(path.read_text()):
+            out.setdefault(role, []).append(path.relative_to(root).as_posix())
+    return out
+
+
+def test_every_reference_lock_role_is_named_in_the_port():
+    """Each role the reference names through lockcheck is named in the
+    port (mesh.dispatch waits for the multi-card mesh), and so are the
+    card path's own roles; no port role is named twice."""
+    ref, port = _roles("minio_tpu"), _roles("minio_tpu_torch")
+    ref_sites = sum(len(v) for v in ref.values())
+    assert ref_sites == 10 and "mesh.dispatch" in ref, ref
+    assert set(ref) - {"mesh.dispatch"} <= set(port), \
+        sorted(set(ref) - set(port))
+    assert _DEVICE_ROLES <= set(port)
+    assert set(port) == set(ref) - {"mesh.dispatch"} | _DEVICE_ROLES
+    assert all(len(v) == 1 for v in port.values()), port
+    for role in ("sched.buckets", "bpool.created", "metacache.cond",
+                 "mrf.queue", "telemetry.registry"):
+        assert port[role] == ref[role], role

@@ -303,14 +303,21 @@ def test_root_span_covers_request_on_both_transports(cpu_default,
             assert c.request("PUT", f"/rtspan{edge}")[0] == 200
             assert c.request("PUT", f"/rtspan{edge}/k",
                              body=b"z" * 200_000)[0] == 200
-            trees = [t for t in port_tel.SPANS.dump(50, name="PutObject")
-                     if t["attrs"]["path"] == f"/rtspan{edge}/k"]
+            # the root span and the trace record close after the response
+            # is flushed: wait for both to land
+            deadline = time.monotonic() + 10
+            while True:
+                trees = [t for t in port_tel.SPANS.dump(50, name="PutObject")
+                         if t["attrs"]["path"] == f"/rtspan{edge}/k"]
+                rec = [e for e in srv.api.trace.recent
+                       if e["path"] == f"/rtspan{edge}/k"]
+                if trees and rec or time.monotonic() > deadline:
+                    break
+                time.sleep(0.05)
             assert trees, edge
             t = trees[0]
             assert t["attrs"]["method"] == "PUT"
             names.append(sorted(c["name"] for c in t["children"]))
-            rec = [e for e in srv.api.trace.recent
-                   if e["path"] == f"/rtspan{edge}/k"]
             assert rec and rec[-1]["trace_id"] == t["trace_id"]
         finally:
             srv.stop()
