@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-About 14-18 minutes on one H100 (863.0-1,073.0 s with phase 21, PERF.md §5;
-the host's speed moves it by a third either way), the kernels' builds
-included. Phases, each printing one JSON line; any failure exits
+About 12-18 minutes on one H100 (719-933 s with phase 21, 926.3 s with
+phase 22, PERF.md §5; the host's speed moves it by a third either way),
+the kernels' builds included. Phases, each printing one JSON line; any failure exits
 non-zero:
 
   1. build    — compile every hand-written kernel (csrc/*.cu, one nvcc per
@@ -331,6 +331,23 @@ non-zero:
                 journal records; the drive disarmed, MRF drained, every
                 object read back byte- and ETag-equal (lost_after_mrf 0).
                 Runs under the lock-order watchdog (see Watchdog).
+  22. admission — the admission plane (see run_admission), the reference
+                bench's bench_tenants_ab on the card's path: a fresh
+                16-drive 12+4 node with MINIO_TPU_EDGE_WORKERS=4 (one
+                SO_REUSEPORT listener a loop), the gate at 8, two IAM
+                users at equal QoS shares; a noisy tenant's 8 streams of
+                16 MiB PUTs beside a polite tenant's 4 sequential PUTs with
+                the plane off, then on (polite p50/p99, isolation_p99_x,
+                the noisy tenant's sheds under reason=tenant, the polite
+                tenant's: 0); one round of 8 lone-tenant PUTs a mode
+                (put_p99_overhead_x, printed, not a verdict); each loop's
+                accepts (all four above 0), the edge's counters, pool
+                gauges and loop lag; an object-lock bucket with a default
+                COMPLIANCE retention (a 16 MiB PUT, its version delete
+                refused, a legal hold, a GOVERNANCE object deleted with the
+                bypass header) and a 16 MiB post-policy upload; every
+                acknowledged PUT read back, bytes and ETag; gf_matmul and
+                hh256 launches and encode dispatches on the card.
   4. timings  — (continued) chacha20 at the encode launch (8 rows, 1 MiB
                 span in 1,048,584-byte rows) and at GET's 64 x 65,536:
                 CUDA events around back-to-back wrapper calls, the kernel's
@@ -539,6 +556,26 @@ GRAY_QUAR_RATIO = "2"               # the ON pass's slow-drive bar over the
 #                                     a 0.5 s drive only while that p95 is
 #                                     under 62 ms)
 GRAY_SHM_MIN_BYTES = 2 << 30        # tmpfs room the phase's drives need
+# phase 22, the admission plane (the reference bench's bench_tenants_ab on
+# the card's path: 16 drives, 12+4, 1 MiB blocks, four edge loops)
+ADM_OBJECT = 16 << 20               # bytes each PUT (the bench's 1 MiB falls
+#                                     under the codec's 8 MiB gate: host)
+ADM_NOISY_STREAMS = 8               # the noisy tenant's concurrent PUTs
+ADM_POLITE_OPS = 4                  # the polite tenant's sequential PUTs a
+#                                     mode (the bench's 24, cut for the
+#                                     phase's 40 s: on an H100 80GB HBM3
+#                                     at 700 W the phase took 53.6 s at 8,
+#                                     21.1 of them reading back 165 PUTs,
+#                                     and 39.3 s at 5)
+ADM_OVERHEAD_ROUNDS = 1             # lone-tenant rounds of 8 PUTs a mode
+#                                     (the bench's 4, cut for the phase's
+#                                     40 s: 2 rounds took 7.0 s and 32
+#                                     read-backs of the 39.5 s phase on an
+#                                     H100 80GB HBM3 at 700 W)
+ADM_MAX_CLIENTS = 8                 # the admission gate (the bench's)
+ADM_EDGE_WORKERS = 4                # edge loops, one SO_REUSEPORT listener
+ADM_PAYLOADS = 4                    # distinct bodies the PUTs rotate
+ADM_SHM_MIN_BYTES = 4 << 30         # tmpfs room the phase's drives need
 # the gray-failure plane's switches, all off: phase 21's OFF pass (every
 # other phase runs the plane as a server boots it, on)
 PLANE_OFF = {"MINIO_TPU_HEDGE": "off", "MINIO_TPU_QUORUM_ACK": "off",
@@ -1014,6 +1051,8 @@ def main() -> int:
         # -- 21. the gray-failure plane: its own boot ------------------------
         with Watchdog("gray", card):
             grayp = run_gray(tmp, card, counts, np)
+        # -- 22. the admission plane: its own boot, four edge loops -----
+        admp = run_admission(tmp, card, counts, np)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths_launches = {"main_path": main_path["launches"],
@@ -1031,7 +1070,8 @@ def main() -> int:
                       "distributed": distp["launches"],
                       "iam_admin": iamp["launches"],
                       "obs": obsp["launches"],
-                      "gray": grayp["launches"]}
+                      "gray": grayp["launches"],
+                      "admission": admp["launches"]}
 
     # -- 4. timings -------------------------------------------------------
     b, s = 32, -(-(1 << 20) // k)
@@ -6026,12 +6066,12 @@ def run_distributed(tmp, card, counts, stagetimer, np) -> dict:
         # each node's event loop parses S3 and RPC headers alike: its lag
         # (the sampler's ticks since the node's boot) says whether a
         # callback blocked it
+        lags = [list(nodes[i].s3._edge.loops[0].lag_samples)
+                for i in range(n_nodes)]
         summary["edge_loop_lag"] = {
-            str(i): {**pct_ms(list(nodes[i].s3._edge.loop.lag_samples)),
-                     "max_ms": round(max(
-                         nodes[i].s3._edge.loop.lag_samples,
-                         default=0.0) * 1e3, 3),
-                     "ticks": len(nodes[i].s3._edge.loop.lag_samples)}
+            str(i): {**pct_ms(lags[i]),
+                     "max_ms": round(max(lags[i], default=0.0) * 1e3, 3),
+                     "ticks": len(lags[i])}
             for i in range(n_nodes)}
         summary["launches"] = launches
         summary["dispatches"] = dispatches()
@@ -7561,6 +7601,452 @@ def run_gray(tmp, card, counts, np) -> dict:
         if node is not None:
             node.shutdown()
         healthtrack.TRACKER.reset()
+        for v, old in saved_env.items():
+            if old is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = old
+        shutil.rmtree(root, ignore_errors=True)
+    summary["seconds"] = round(time.perf_counter() - t_phase, 3)
+    summary["card"] = card
+    emit(summary)
+    return summary
+
+
+def run_admission(tmp, card, counts, np) -> dict:
+    """Phase 22: the admission plane on the card, modelled on the
+    reference bench's bench_tenants_ab. A fresh node as `python -m
+    minio_tpu_torch server /d{1...16}` boots it (cluster.start_single,
+    12+4, 1 MiB blocks, tmpfs where /dev/shm has ADM_SHM_MIN_BYTES free)
+    with MINIO_TPU_EDGE_WORKERS=ADM_EDGE_WORKERS edge loops, each with its
+    own SO_REUSEPORT listener; its heal scanner, crawler, transition
+    worker and disk monitor loops stopped; the admission gate at
+    ADM_MAX_CLIENTS; two IAM users with `readwrite` at equal QoS shares.
+    The launch counts are set to 0 just before the traffic and read just
+    after:
+      * isolation, MINIO_TPU_QOS off then on: the noisy tenant runs
+        ADM_NOISY_STREAMS streams of signed ADM_OBJECT PUTs while the
+        polite tenant issues ADM_POLITE_OPS PUTs one at a time (each
+        retried until it lands); polite p50/p99 per mode and
+        isolation_p99_x (off over on), the noisy tenant's sheds under
+        reason=tenant (a refusal the client sees as a reset mid-body
+        counts too) and the polite tenant's tenant sheds (must be 0);
+      * the lone tenant's overhead: ADM_OVERHEAD_ROUNDS rounds of 8
+        concurrent root PUTs a mode, put_p99_overhead_x (on over off; 8
+        samples a mode: printed, not a verdict);
+      * the edge loops: each loop's own accepts (every loop above 0),
+        minio_tpu_edge_accepted_total and _requests_total, the pool
+        gauges, each loop's lag p99;
+      * object lock and POST: a bucket made with object lock and a
+        default COMPLIANCE retention of one day takes an ADM_OBJECT PUT,
+        whose version delete is refused (ObjectLocked); a legal hold set
+        and read back; a GOVERNANCE object deleted with the bypass
+        header; one ADM_OBJECT post-policy upload read back;
+      * every acknowledged PUT read back, bytes and ETag; gf_matmul and
+        hh256 launches above 0 and encode dispatches on the card."""
+    import base64
+    import concurrent.futures
+    import datetime
+    import hmac
+    import http.client
+    import urllib.parse
+
+    from minio_tpu_torch import cluster
+    from minio_tpu_torch.features import objectlock as olock
+    from minio_tpu_torch.s3 import signature as sig
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.s3.credentials import Credentials
+    from minio_tpu_torch.s3.qos import Budget
+    from minio_tpu_torch.utils import telemetry
+    k, m, bs = 12, 4, 1 << 20
+    size = ADM_OBJECT
+    region = "us-east-1"
+    rng = np.random.default_rng(SEED + 122)
+    t_phase = time.perf_counter()
+
+    def note(msg: str) -> None:
+        print(f"[admission {time.perf_counter() - t_phase:.1f} s] {msg}",
+              file=sys.stderr, flush=True)
+
+    def md5(b: bytes) -> str:
+        return hashlib.md5(b).hexdigest()
+
+    def pct(xs: list) -> dict:
+        s_ = sorted(xs)
+        return {"p50_ms": round(s_[len(s_) // 2] * 1e3, 2),
+                "p99_ms": round(s_[min(int(len(s_) * .99), len(s_) - 1)]
+                                * 1e3, 2), "n": len(s_)}
+
+    creds = Credentials("smokeadmroot", "smokeadmrootsecret")
+    noisy = Credentials("noisytenant123", "noisysecret1234")
+    polite = Credentials("politetenant12", "politesecret123")
+    env = {"MINIO_TPU_EDGE_WORKERS": str(ADM_EDGE_WORKERS),
+           "MINIO_TPU_EDGE": "on"}
+    saved_env = {v: os.environ.get(v) for v in
+                 list(env) + ["MINIO_TPU_QOS"]}
+    shm = "/dev/shm"
+    on_shm = os.path.isdir(shm) and \
+        shutil.disk_usage(shm).free >= ADM_SHM_MIN_BYTES
+    root = tempfile.mkdtemp(prefix="chip_smoke_adm_",
+                            dir=shm if on_shm else tmp)
+    drives = [os.path.join(root, f"d{i}") for i in range(k + m)]
+    payloads = [rng.bytes(size) for _ in range(ADM_PAYLOADS)]
+    hashes = [hashlib.sha256(p).hexdigest() for p in payloads]
+    etags = [f'"{md5(p)}"' for p in payloads]
+    shed = telemetry.REGISTRY.counter("minio_tpu_requests_shed_total")
+    tenant_shed = telemetry.REGISTRY.counter(
+        "minio_tpu_qos_tenant_shed_total")
+    accepted_c = telemetry.REGISTRY.counter("minio_tpu_edge_accepted_total")
+    requests_c = telemetry.REGISTRY.counter("minio_tpu_edge_requests_total")
+    summary = {"phase": "admission", "step": "summary", "drives": k + m,
+               "ec": f"{k}+{m}", "block_size": bs,
+               "drives_on": "tmpfs (/dev/shm)" if on_shm
+               else "the disk (tmp)", "object_bytes": size,
+               "edge_workers": ADM_EDGE_WORKERS,
+               "max_clients": ADM_MAX_CLIENTS,
+               "noisy_streams": ADM_NOISY_STREAMS,
+               "polite_ops": ADM_POLITE_OPS,
+               "overhead_rounds": ADM_OVERHEAD_ROUNDS}
+    acked: dict = {}                       # (bucket, key) -> payload index
+    acked_mu = threading.Lock()
+    node = None
+    try:
+        os.environ.update(env)
+        node = cluster.start_single(drives, creds=creds, parity=m,
+                                    set_drive_count=k + m, block_size=bs)
+        node._iam_refresh_stop.set()
+        for loop in (node.disk_monitor, node.heal_scanner, node.crawler,
+                     node.transition_worker):
+            loop.close()
+            if getattr(loop, "_thread", None) is not None:
+                loop._thread.join(timeout=120)
+                if loop._thread.is_alive():
+                    fail("admission: a background loop did not stop")
+        edge = node.s3._edge
+        if edge is None or len(edge.loops) != ADM_EDGE_WORKERS:
+            fail("admission: the edge did not start "
+                 f"{ADM_EDGE_WORKERS} loops")
+        api = node.s3.api
+        api.set_max_clients(ADM_MAX_CLIENTS)
+        for c in (noisy, polite):
+            node.iam.add_user(c.access_key, c.secret_key)
+            node.iam.attach_policy("readwrite", user=c.access_key)
+        api.qos.registry.set_budget("tenant",
+                                    Budget(noisy.access_key, share=1.0))
+        api.qos.registry.set_budget("tenant",
+                                    Budget(polite.access_key, share=1.0))
+        port = node.s3.port
+        sched = node.scheduler
+        root_c = S3Client(port, creds, timeout=600)
+
+        def put(cred, path, i, headers=None):
+            """One signed PUT of payload i (its hash signed, not
+            recomputed): (status, headers, body); a reset mid-body is
+            a 503 the gate sent before reading the body."""
+            hdrs = {"host": f"127.0.0.1:{port}"}
+            hdrs.update(headers or {})
+            signed = sig.sign_v4("PUT", urllib.parse.quote(path), {},
+                                 hdrs, hashes[i], cred, region)
+            try:
+                st, h, body = S3Client(port, cred, timeout=600).send(
+                    "PUT", path, body=payloads[i], signed=signed)
+            except (OSError, http.client.HTTPException):
+                return 503, {}, b""
+            if st == 200:
+                if h.get("etag") != etags[i]:
+                    fail(f"admission: PUT {path}: ETag {h.get('etag')}")
+                b_, _, key = path.lstrip("/").partition("/")
+                with acked_mu:
+                    acked[(b_, key, h.get("x-amz-version-id", ""))] = i
+            return st, h, body
+
+        for b_ in ("adm", "adm-lone"):
+            if root_c.send("PUT", f"/{b_}")[0] != 200:
+                fail(f"admission: make bucket {b_}")
+        if put(creds, "/adm/warm", 0)[0] != 200:
+            fail("admission: the warm-up PUT")
+        note("booted")
+        before = sched.stats()
+        acc0, req0 = accepted_c.value(), requests_c.value()
+        loop_acc0 = [lp.accepted for lp in edge.loops]
+        counts.zero()
+        t_traffic = time.perf_counter()
+
+        # -- isolation, QoS off then on ------------------------------------
+        def isolation(mode: str) -> dict:
+            os.environ["MINIO_TPU_QOS"] = mode
+            shed0 = shed.value(reason="tenant")
+            polite0 = sum(tenant_shed.value(tenant=polite.access_key,
+                                            kind=kd)
+                          for kd in ("share", "rate", "bytes"))
+            stop = threading.Event()
+            mu = threading.Lock()
+            tally = {"ok": 0, "shed": 0}
+
+            def noisy_worker(w: int) -> None:
+                i = 0
+                while not stop.is_set():
+                    st = put(noisy, f"/adm/n-{mode}-{w}-{i}",
+                             (w + i) % ADM_PAYLOADS)[0]
+                    with mu:
+                        if st == 200:
+                            tally["ok"] += 1
+                        elif st == 503:
+                            tally["shed"] += 1
+                        else:
+                            tally.setdefault(str(st), 0)
+                            tally[str(st)] += 1
+                    i += 1
+
+            threads = [threading.Thread(target=noisy_worker, args=(w,),
+                                        daemon=True)
+                       for w in range(ADM_NOISY_STREAMS)]
+            for t in threads:
+                t.start()
+            lat, retries = [], 0
+            for i in range(ADM_POLITE_OPS):
+                t0 = time.perf_counter()
+                while True:
+                    st = put(polite, f"/adm/p-{mode}-{i}",
+                             i % ADM_PAYLOADS)[0]
+                    if st == 200:
+                        break
+                    if st != 503:
+                        fail(f"admission {mode}: polite PUT HTTP {st}")
+                    retries += 1
+                    time.sleep(0.002)
+                lat.append(time.perf_counter() - t0)
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+            return {"polite": pct(lat), "polite_retries": retries,
+                    "polite_tenant_sheds": int(sum(
+                        tenant_shed.value(tenant=polite.access_key, kind=kd)
+                        for kd in ("share", "rate", "bytes")) - polite0),
+                    "noisy_ok": tally["ok"], "noisy_shed": tally["shed"],
+                    "noisy_other": {k_: v for k_, v in tally.items()
+                                    if k_ not in ("ok", "shed")},
+                    "shed_tenant_delta": int(shed.value(reason="tenant")
+                                             - shed0)}
+
+        iso = {}
+        for mode in ("off", "on"):
+            iso[mode] = isolation(mode)
+            note(f"isolation {mode}")
+        summary["isolation"] = iso
+        summary["isolation_p99_x"] = round(
+            iso["off"]["polite"]["p99_ms"]
+            / max(iso["on"]["polite"]["p99_ms"], 1e-9), 3)
+        summary["noisy_sheds"] = iso["on"]["shed_tenant_delta"]
+        summary["polite_sheds"] = iso["on"]["polite_tenant_sheds"]
+        summary["tenant_stats"] = {
+            t: {"requests": v["requests"], "shed": v["shed"]}
+            for t, v in api.qos.stats().items()}
+
+        # -- the lone tenant's overhead -------------------------------------
+        def overhead(mode: str) -> dict:
+            os.environ["MINIO_TPU_QOS"] = mode
+            lat, mu = [], threading.Lock()
+
+            def one(i: int) -> None:
+                t0 = time.perf_counter()
+                while True:
+                    st = put(creds, f"/adm-lone/o-{mode}-{i}",
+                             i % ADM_PAYLOADS)[0]
+                    if st == 200:
+                        break
+                    if st != 503:
+                        fail(f"admission overhead {mode}: HTTP {st}")
+                    time.sleep(0.01)
+                with mu:
+                    lat.append(time.perf_counter() - t0)
+
+            for r in range(ADM_OVERHEAD_ROUNDS):
+                with concurrent.futures.ThreadPoolExecutor(8) as ex:
+                    list(ex.map(one, range(r * 8, (r + 1) * 8)))
+            return pct(lat)
+
+        summary["overhead"] = {mode: overhead(mode)
+                               for mode in ("off", "on")}
+        summary["put_p99_overhead_x"] = round(
+            summary["overhead"]["on"]["p99_ms"]
+            / max(summary["overhead"]["off"]["p99_ms"], 1e-9), 3)
+        note("overhead")
+
+        # -- object lock and POST --------------------------------------------
+        os.environ["MINIO_TPU_QOS"] = "on"
+        lock = {}
+        if root_c.send("PUT", "/adm-lock", headers={
+                "x-amz-bucket-object-lock-enabled": "true"})[0] != 200:
+            fail("admission: make the object-lock bucket")
+        cfg = (b"<ObjectLockConfiguration><ObjectLockEnabled>Enabled"
+               b"</ObjectLockEnabled><Rule><DefaultRetention><Mode>"
+               b"COMPLIANCE</Mode><Days>1</Days></DefaultRetention></Rule>"
+               b"</ObjectLockConfiguration>")
+        lock["config"] = root_c.send("PUT", "/adm-lock",
+                                     query={"object-lock": ""},
+                                     body=cfg)[0]
+        st, h, _ = put(creds, "/adm-lock/comp", 1)
+        vid = h.get("x-amz-version-id", "")
+        lock["put"] = st
+        st, _, body = root_c.send("GET", "/adm-lock/comp",
+                                  query={"retention": "", "versionId": vid})
+        lock["retention"] = (st, b"COMPLIANCE" in body)
+        st, _, body = root_c.send("DELETE", "/adm-lock/comp",
+                                  query={"versionId": vid})
+        lock["version_delete"] = (st, b"<Code>ObjectLocked</Code>" in body)
+        lock["legal_hold_set"] = root_c.send(
+            "PUT", "/adm-lock/comp",
+            query={"legal-hold": "", "versionId": vid},
+            body=b"<LegalHold><Status>ON</Status></LegalHold>")[0]
+        st, _, body = root_c.send("GET", "/adm-lock/comp",
+                                  query={"legal-hold": "", "versionId": vid})
+        lock["legal_hold_read"] = (st, b"<Status>ON</Status>" in body)
+        until = olock.iso(time.time() + 86400)
+        st, h, _ = put(creds, "/adm-lock/gov", 2, headers={
+            "x-amz-object-lock-mode": "GOVERNANCE",
+            "x-amz-object-lock-retain-until-date": until})
+        gvid = h.get("x-amz-version-id", "")
+        lock["governance_put"] = st
+        st, _, body = root_c.send("DELETE", "/adm-lock/gov",
+                                  query={"versionId": gvid})
+        lock["governance_delete"] = (st, b"<Code>ObjectLocked</Code>"
+                                     in body)
+        st = root_c.send("DELETE", "/adm-lock/gov",
+                         query={"versionId": gvid}, headers={
+                             "x-amz-bypass-governance-retention":
+                             "true"})[0]
+        lock["governance_bypass_delete"] = st
+        if st == 204:
+            with acked_mu:
+                acked.pop(("adm-lock", "gov", gvid), None)
+        if lock["config"] != 200 or lock["put"] != 200 or \
+                lock["retention"] != (200, True) or \
+                lock["version_delete"] != (400, True) or \
+                lock["legal_hold_set"] != 200 or \
+                lock["legal_hold_read"] != (200, True) or \
+                lock["governance_put"] != 200 or \
+                lock["governance_delete"] != (400, True) or \
+                lock["governance_bypass_delete"] != 204:
+            fail(f"admission: the object-lock verbs answered {lock}")
+        # one post-policy upload of ADM_OBJECT bytes
+        if root_c.send("PUT", "/adm-post")[0] != 200:
+            fail("admission: make the POST bucket")
+        t = datetime.datetime.now(datetime.timezone.utc)
+        datestamp, amz_date = t.strftime("%Y%m%d"), \
+            t.strftime("%Y%m%dT%H%M%SZ")
+        credential = f"{creds.access_key}/{datestamp}/{region}/s3/" \
+            "aws4_request"
+        policy = base64.b64encode(json.dumps({
+            "expiration": (t + datetime.timedelta(hours=1)).strftime(
+                "%Y-%m-%dT%H:%M:%SZ"),
+            "conditions": [{"bucket": "adm-post"},
+                           ["starts-with", "$key", "up/"],
+                           ["content-length-range", 1, 2 * size],
+                           {"x-amz-credential": credential},
+                           {"x-amz-date": amz_date}]}).encode()).decode()
+        skey = sig.signing_key(creds.secret_key, datestamp, region)
+        fields = {"key": "up/${filename}", "policy": policy,
+                  "x-amz-credential": credential, "x-amz-date": amz_date,
+                  "x-amz-signature": hmac.new(skey, policy.encode(),
+                                              hashlib.sha256).hexdigest()}
+        boundary = "admboundary22"
+        form = b"".join(
+            f"--{boundary}\r\nContent-Disposition: form-data; "
+            f'name="{k_}"\r\n\r\n{v}\r\n'.encode()
+            for k_, v in fields.items()) + (
+            f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\";"
+            f' filename="post.bin"\r\nContent-Type: '
+            "application/octet-stream\r\n\r\n").encode() + payloads[3] + \
+            f"\r\n--{boundary}--\r\n".encode()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request("POST", "/adm-post", body=form, headers={
+            "Content-Type": f"multipart/form-data; boundary={boundary}",
+            "Content-Length": str(len(form))})
+        resp = conn.getresponse()
+        resp.read()
+        post_etag = resp.getheader("ETag")
+        conn.close()
+        lock["post_upload"] = resp.status
+        if resp.status != 204 or post_etag != etags[3]:
+            fail(f"admission: the POST upload answered {resp.status} "
+                 f"{post_etag}")
+        acked[("adm-post", "up/post.bin", "")] = 3
+        summary["lock_and_post"] = lock
+        note("object lock and POST")
+        traffic_s = time.perf_counter() - t_traffic
+
+        # -- read just after -------------------------------------------------
+        launched = counts.read()
+        after = sched.stats()
+        summary["launches"] = launched
+        summary["dispatches_on_card"] = {
+            v: (after["verbs"][v]["batches"] - before["verbs"][v]["batches"])
+            - (after["verbs"][v]["host_routed"]
+               - before["verbs"][v]["host_routed"])
+            for v in ("encode", "decode", "recover")}
+        per_loop = [lp.accepted - a for lp, a in zip(edge.loops, loop_acc0)]
+        telemetry.REGISTRY.render()          # runs the gauges' collector
+        summary["edge"] = {
+            "accepted_per_loop": per_loop,
+            "requests_per_loop": [lp.requests for lp in edge.loops],
+            "accepted_total_delta": int(accepted_c.value() - acc0),
+            "requests_total_delta": int(requests_c.value() - req0),
+            "gauges": {g: telemetry.REGISTRY.gauge(
+                f"minio_tpu_edge_{g}").value()
+                for g in ("open_conns", "pool_size", "pool_busy",
+                          "pool_idle", "pool_pending")},
+            "loop_lag": {lp.label: pct_ms(list(lp.lag_samples))
+                         for lp in edge.loops}}
+        if min(per_loop) <= 0:
+            fail(f"admission: a loop accepted nothing: {per_loop}")
+        if summary["edge"]["accepted_total_delta"] != sum(per_loop):
+            fail(f"admission: minio_tpu_edge_accepted_total moved "
+                 f"{summary['edge']['accepted_total_delta']}, the loops "
+                 f"{per_loop}")
+
+        # -- every acknowledged PUT read back (the plane off: 8 readers of
+        # one tenant would pass its share while the others stay active) --
+        os.environ["MINIO_TPU_QOS"] = "off"
+        t1 = time.perf_counter()
+
+        def read_one(item) -> list:
+            (b_, key, vid_), i = item
+            st, h, got = S3Client(port, creds, timeout=600).send(
+                "GET", f"/{b_}/{key}",
+                query={"versionId": vid_} if vid_ else None)
+            if st == 200 and got == payloads[i] and \
+                    h.get("etag") == etags[i]:
+                return []
+            return [{"object": f"{b_}/{key}", "version": vid_,
+                     "status": st, "bytes": len(got),
+                     "etag": h.get("etag"),
+                     "body": got[:300].decode("latin-1")
+                     if st != 200 else ""}]
+
+        with concurrent.futures.ThreadPoolExecutor(8) as ex:
+            bad = [x for r in ex.map(read_one, sorted(acked.items()))
+                   for x in r]
+        lost = len(bad)
+        summary["read_back"] = {"objects": len(acked), "lost": lost,
+                                "seconds": round(time.perf_counter() - t1,
+                                                 3), "first_lost": bad[:3]}
+        summary["traffic_s"] = round(traffic_s, 3)
+        if lost:
+            fail(f"admission: {lost} of {len(acked)} acknowledged PUTs "
+                 f"did not read back, e.g. {bad[:3]}")
+        if summary["noisy_sheds"] <= 0:
+            fail(f"admission: the noisy tenant was never shed under "
+                 f"reason=tenant: {iso['on']}")
+        if summary["polite_sheds"] != 0:
+            fail(f"admission: the polite tenant was shed: {iso['on']}")
+        if min(launched["gf_matmul"], launched["hh256"]) <= 0 or \
+                summary["dispatches_on_card"]["encode"] <= 0:
+            fail(f"admission: launched {launched}, dispatched "
+                 f"{summary['dispatches_on_card']} on the card")
+    finally:
+        if node is not None:
+            node.shutdown()
         for v, old in saved_env.items():
             if old is None:
                 os.environ.pop(v, None)

@@ -1,7 +1,7 @@
 """CLI — `python -m minio_tpu_torch server ...` process bootstrap, and
 the admin verbs that drive a running node.
 
-Counterpart of the `server`, `fsck`, `decommission` and `tier`
+Counterpart of the `server`, `fsck`, `decommission`, `tier` and `qos`
 subcommands of minio_tpu/cli.py (the reference's main.go +
 cmd/server-main.go): parse args, boot the node, print the startup banner,
 block on SIGTERM/SIGINT. The admin verbs sign with the root credential
@@ -10,6 +10,8 @@ block on SIGTERM/SIGINT. The admin verbs sign with the root credential
     python -m minio_tpu_torch fsck --url 127.0.0.1:9000 [--repair]
     python -m minio_tpu_torch decommission --url ... --pool 0 | --status
     python -m minio_tpu_torch tier add|ls|rm|stats --url ...
+    python -m minio_tpu_torch qos get|set|rm --url ... [--scope tenant|tier
+        --name NAME --share W --rps R --rx-bps B --tx-bps B]
 
     python -m minio_tpu_torch server /data/d{1...16} --address :9000
 
@@ -114,6 +116,29 @@ def _parse(argv: list[str]) -> argparse.Namespace:
                    help="add: update an existing tier in place; "
                    "rm: remove even when lifecycle rules reference it")
     t.add_argument("--region", default=os.environ.get(
+        "MINIO_REGION", "us-east-1"))
+
+    q = sub.add_parser("qos", help="manage per-tenant/per-tier QoS "
+                       "budgets (admission shares, request/byte rates)")
+    q.add_argument("action", choices=("get", "set", "rm"))
+    q.add_argument("--url", default="127.0.0.1:9000",
+                   help="server admin endpoint host:port")
+    q.add_argument("--scope", default="tenant",
+                   choices=("tenant", "tier"),
+                   help="budget scope (set/rm)")
+    q.add_argument("--name", default="",
+                   help="tenant account or tier name (set/rm)")
+    q.add_argument("--share", type=float, default=0.0,
+                   help="admission-share weight (0 = default)")
+    q.add_argument("--rps", type=float, default=0.0,
+                   help="request-rate budget, req/s (0 = unlimited)")
+    q.add_argument("--rx-bps", type=float, default=0.0,
+                   help="request-body byte budget, bytes/s "
+                   "(0 = unlimited)")
+    q.add_argument("--tx-bps", type=float, default=0.0,
+                   help="response/push byte budget, bytes/s "
+                   "(0 = unlimited)")
+    q.add_argument("--region", default=os.environ.get(
         "MINIO_REGION", "us-east-1"))
 
     f = sub.add_parser("fsck", help="run the crash-consistency "
@@ -233,6 +258,37 @@ def _run_tier(args, creds: Credentials) -> int:
     return 0
 
 
+def _run_qos(args, creds: Credentials) -> int:
+    """`minio_tpu qos get|set|rm` — drive the admin QoS budget
+    registry against a running node."""
+    import json as _json
+    from .madmin import AdminClient, AdminClientError
+    from .utils import host_port
+    h, p = host_port(args.url, 9000)
+    cli = AdminClient(h, p, creds.access_key, creds.secret_key,
+                      region=args.region)
+    try:
+        if args.action == "get":
+            out = cli.qos_get()
+        elif args.action == "rm":
+            if not args.name:
+                print("qos rm needs --name", file=sys.stderr)
+                return 2
+            out = cli.qos_remove(args.name, scope=args.scope)
+        else:
+            if not args.name:
+                print("qos set needs --name", file=sys.stderr)
+                return 2
+            out = cli.qos_set(args.name, scope=args.scope,
+                              share=args.share, rps=args.rps,
+                              rx_bps=args.rx_bps, tx_bps=args.tx_bps)
+    except AdminClientError as e:
+        print(f"qos {args.action} failed: {e}", file=sys.stderr)
+        return 1
+    print(_json.dumps(out, indent=2, sort_keys=True))
+    return 0
+
+
 def _run_fsck(args, creds: Credentials) -> int:
     """`minio_tpu fsck` — drive the admin consistency auditor. Exit 0
     when the tree is clean (or everything repairable was repaired),
@@ -262,6 +318,8 @@ def main(argv: list[str] | None = None) -> int:
         return _run_decommission(args, creds)
     if args.cmd == "tier":
         return _run_tier(args, creds)
+    if args.cmd == "qos":
+        return _run_qos(args, creds)
     if args.node:
         return _serve_node(args, creds)
     if not args.drives:

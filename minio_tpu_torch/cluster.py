@@ -76,11 +76,14 @@ carry each node's address; the journal is process-global, and its records
 carry the address of the first node that booted in the process, as in the
 reference.
 
+The boot loads the QoS plane's budget registry (s3/qos.py) from every
+pool, and the transition worker paces its pushes by the registry's
+per-tier budgets.
+
 Left out: the etcd IAM store and federation, bucket event notification,
-replication, the QoS registry (the transition worker's per-tier budgets),
-the web router, the admin routes of those planes and of OBD, bandwidth
-and drive health (they answer NotImplemented), and the peer verbs of
-those planes.
+replication, the web router, the admin routes of those planes and
+bandwidth (they answer NotImplemented), and the peer verbs of those
+planes.
 """
 
 from __future__ import annotations
@@ -400,6 +403,14 @@ class ClusterNode:
         except TierClientError:
             pass    # loaded; its gateway-typed tiers cannot be served
         self.s3.api.tiers = self.tiers
+        # -- QoS budget registry (s3/qos.py) -------------------------------
+        # the tiers' every-pool persistence rule: recover the newest budget
+        # doc; a missing or torn doc means default budgets
+        self.s3.api.qos.registry.obj = self.object_layer
+        try:
+            self.s3.api.qos.registry.load()
+        except Exception:  # noqa: BLE001 — boot proceeds on defaults
+            pass
         # -- boot-time crash-consistency audit (object/fsck.py) ------------
         # MINIO_TPU_FSCK_BOOT=on: the first node audits the boot's pools
         # (add_pool's come later, as in the reference) and repairs what
@@ -446,7 +457,12 @@ class ClusterNode:
         # one transition worker, on the raw layer and throttled off the
         # foreground; the async RestoreObject pulls ride it too
         self.transition_worker = TransitionWorker(self.object_layer,
-                                                  self.tiers).start()
+                                                  self.tiers)
+        # per-tier push budgets come from the QoS registry's "tier" scope
+        # (the doc shape the tenant budgets use)
+        self.transition_worker.budget_lookup = \
+            lambda name: self.s3.api.qos.registry.get("tier", name)
+        self.transition_worker.start()
         self.s3.api.restore_worker = self.transition_worker
         self.crawler = DataUsageCrawler(
             self.object_layer,

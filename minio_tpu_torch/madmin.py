@@ -6,12 +6,12 @@ Counterpart of minio_tpu/madmin.py for the routes the port's admin router
 serves (s3/admin.py), the tracing plane's among them (trace and
 trace_follow, cluster_trace, events and events_follow, incidents and
 incident, slo, spans, profiling_start and profiling_stop, console_log) and
-the gray-failure plane's (obd_info, drive_health) and the checking
-plane's naughtynet.
+the gray-failure plane's (obd_info, drive_health), the checking
+plane's naughtynet and the QoS plane's qos_get, qos_set and qos_remove.
 ``update_group_members`` drives a route the reference's router lacks
 (upstream's update-group-members); the other calls are the reference's.
-Left out with their planes: QoS, replication, notify, remote targets
-and bandwidth."""
+Left out with their planes: replication, notify, remote targets and
+bandwidth."""
 
 from __future__ import annotations
 
@@ -207,6 +207,28 @@ class AdminClient:
     def tier_stats(self) -> dict:
         """Transition-worker queue/throughput counters."""
         return self._json("GET", "tier/stats")
+
+    # -- multi-tenant QoS --------------------------------------------------
+
+    def qos_get(self) -> dict:
+        """QoS plane state: enabled flag, registry epoch, tenant/tier
+        budgets, and live per-tenant stats."""
+        return self._json("GET", "qos")
+
+    def qos_set(self, name: str, scope: str = "tenant",
+                share: float = 0.0, rps: float = 0.0,
+                rx_bps: float = 0.0, tx_bps: float = 0.0) -> dict:
+        """Set (or replace) one tenant/tier budget; 0 means
+        default/unlimited for that dimension."""
+        return self._json("PUT", "qos", None,
+                          json.dumps({"scope": scope, "name": name,
+                                      "share": share, "rps": rps,
+                                      "rx_bps": rx_bps,
+                                      "tx_bps": tx_bps}).encode())
+
+    def qos_remove(self, name: str, scope: str = "tenant") -> dict:
+        return self._json("DELETE", "qos",
+                          {"scope": scope, "name": name})
 
     # -- IAM ---------------------------------------------------------------
 

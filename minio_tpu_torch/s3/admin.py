@@ -12,7 +12,8 @@ The routes of the planes the port has: info, storageinfo, datausageinfo,
 top/locks; heal and heal/status (the heal sequence heals object by object
 through the layer, so each heal's recovery runs ``heal_step`` on the
 card), mrf, fsck, metacache; rebalance (POST, GET, DELETE) and topology
-(GET, POST); tier and tier/stats; metrics (``?cluster=1`` merges every
+(GET, POST); tier and tier/stats; qos (GET, PUT, DELETE: the QoS
+plane's budget registry, s3/qos.py); metrics (``?cluster=1`` merges every
 node's exposition, utils/promfed.py); get-config, set-config,
 config-history, restore-config; the user, policy and service-account
 routes; service, set-bucket-quota and get-bucket-quota; and the tracing
@@ -65,9 +66,6 @@ _SCRAPE_FAILED = telemetry.REGISTRY.counter(
 # (method, route) -> the unported plane that serves it in the reference
 _UNPORTED = {
     ("GET", "bandwidth"): "bandwidth",
-    ("GET", "qos"): "QoS",
-    ("PUT", "qos"): "QoS",
-    ("DELETE", "qos"): "QoS",
     ("GET", "replicate"): "replication",
     ("GET", "replicate/key"): "replication",
     ("PUT", "replicate/target"): "replication",
@@ -625,6 +623,41 @@ class AdminHandlers:
                 if self.node is not None else None
             return self._json(worker.stats() if worker is not None
                               else {})
+
+        # -- multi-tenant QoS plane: budget registry (s3/qos.py) -----------
+        if sub == "qos" and m == "GET":
+            self._auth(ctx, "admin:ListQoS")
+            qos = self.api.qos
+            return self._json({
+                "enabled": qos.enabled(),
+                "epoch": qos.registry.epoch,
+                "tenants": qos.registry.list("tenant"),
+                "tiers": qos.registry.list("tier"),
+                "stats": qos.stats()})
+        if sub == "qos" and m == "PUT":
+            # set (or replace) one tenant/tier budget
+            self._auth(ctx, "admin:SetQoS")
+            from .qos import Budget, QoSConfigError
+            try:
+                body = json.loads(ctx.read_body().decode() or "{}")
+                scope = str(body.pop("scope", "tenant"))
+                budget = Budget.from_dict(body)
+                epoch = self.api.qos.registry.set_budget(scope, budget)
+            except (ValueError, QoSConfigError) as e:
+                raise S3Error("AdminInvalidArgument", str(e)) from None
+            return self._json({"scope": scope, "name": budget.name,
+                               "epoch": epoch})
+        if sub == "qos" and m == "DELETE":
+            self._auth(ctx, "admin:SetQoS")
+            from .qos import QoSConfigError
+            scope = ctx.query1("scope", "tenant")
+            name = ctx.query1("name", "")
+            try:
+                epoch = self.api.qos.registry.remove_budget(scope, name)
+            except QoSConfigError as e:
+                raise S3Error("AdminInvalidArgument", str(e)) from None
+            return self._json({"scope": scope, "name": name,
+                               "epoch": epoch})
 
         # -- config KV (cmd/admin-handlers-config-kv.go) -------------------
         if sub == "get-config" and m == "GET":

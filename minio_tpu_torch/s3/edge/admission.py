@@ -14,7 +14,11 @@ read:
     cmd/handler-api.go:46-57) is exhausted and no slot freed within
     ``MINIO_TPU_REQUEST_DEADLINE``;
   * **conns** / **deadline** — edge-only signals (connection budget,
-    slowloris header deadline) recorded through the same counter.
+    slowloris header deadline) recorded through the same counter;
+  * **tenant** — the multi-tenant QoS plane (``s3/qos.py``, attached by
+    the handlers that build it) found the request's tenant over one of
+    its budgets: request rate, byte budget, or weighted admission share.
+    Off by default; when off the probe is never consulted.
 
 Every shed lands in ``minio_tpu_requests_shed_total{reason}``. Shed
 responses are built here too: 503 ``SlowDown`` with a ``Retry-After``
@@ -23,8 +27,7 @@ hint and ``Connection: close``.
 The exposition-time gauges of the most recently built gate
 (``minio_tpu_admission_capacity`` and ``_in_use``) are the reference's.
 Each shed emits an ``admission.shed`` journal record and rides its reason
-on the response (``shed_reason``) into the request's trace record. Left
-out: the multi-tenant QoS probe.
+on the response (``shed_reason``) into the request's trace record.
 """
 
 from __future__ import annotations
@@ -109,17 +112,24 @@ class AdmissionTicket:
     admit time: ``resize()`` may swap the controller's gate mid-request
     and acquire/release must hit the same object."""
 
-    __slots__ = ("_sem", "_released")
+    __slots__ = ("_sem", "_released", "_qos", "tenant")
 
-    def __init__(self, sem: Optional[threading.BoundedSemaphore]):
+    def __init__(self, sem: Optional[threading.BoundedSemaphore],
+                 qos=None, tenant: str = ""):
         self._sem = sem
         self._released = False
+        # the QoS slot rides the same ticket: release() returns the
+        # tenant's in-flight share exactly once, alongside the budget
+        self._qos = qos
+        self.tenant = tenant
 
     def release(self) -> None:
         if not self._released:
             self._released = True
             if self._sem is not None:
                 self._sem.release()
+            if self._qos is not None and self.tenant:
+                self._qos.release(self.tenant)
 
 
 class AdmissionController:
@@ -161,6 +171,9 @@ class AdmissionController:
         self.sched_queue_limit = knobs.get_int(
             "MINIO_TPU_ADMIT_SCHED_QUEUE")
         self.layer = None
+        # the multi-tenant QoS plane (s3/qos.py), attached by the
+        # handlers that own this gate; None = no tenant enforcement
+        self.qos = None
         _LIVE[0] = self
 
     # -- sizing ----------------------------------------------------------
@@ -226,6 +239,11 @@ class AdmissionController:
         """The non-blocking half: load-pressure signals that refuse a
         request with ZERO body bytes read and no budget slot taken.
         Cheap enough for the event loop to run inline."""
+        if self.qos is not None:
+            refusal = self.qos.pre_check(method, path, query, headers)
+            if refusal is not None:
+                return self.shed("tenant", refusal.message,
+                                 refusal.retry_after)
         if not self.is_data_write(method, path, query, headers):
             return None
         if self._staging_stalled():
@@ -249,11 +267,21 @@ class AdmissionController:
             shed = self.pre_admit(method, path, query, headers)
             if shed is not None:
                 return shed
+        tenant = ""
+        if self.qos is not None:
+            got = self.qos.admit_slot(method, path, query, headers,
+                                      self.capacity)
+            if not isinstance(got, str):
+                return self.shed("tenant", got.message, got.retry_after)
+            tenant = got
         sem = self._sem
         if not sem.acquire(timeout=self.deadline):
+            if tenant:
+                self.qos.release(tenant)
             return self.shed("admission",
                              "server is busy, retry the request")
-        return AdmissionTicket(sem)
+        return AdmissionTicket(sem, qos=self.qos if tenant else None,
+                               tenant=tenant)
 
     def shed(self, reason: str, message: str,
              retry_after: int = 1) -> ShedDecision:

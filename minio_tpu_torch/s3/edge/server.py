@@ -4,20 +4,30 @@ Counterpart of minio_tpu/s3/edge/server.py. The extra routers (the
 internode RPC a distributed node mounts) bypass both halves of admission,
 and a saturated worker pool gives a job a one-shot overflow thread rather
 than queueing it, so a peer's storage or lock verb is never starved by
-S3 requests that themselves wait on peers. The loop-lag sampler is the
-reference's (``minio_tpu_edge_loop_lag_seconds``, labelled by the
-listener's port here, where several nodes may share a process), ticking
-every ``LAG_INTERVAL_S`` rather than at the reference's
+S3 requests that themselves wait on peers. The reference's counters
+(``minio_tpu_edge_accepted_total``, ``_requests_total``) and
+exposition-time gauges of the last edge built (``open_conns`` and the
+worker pool's ``pool_size``, ``pool_busy``, ``pool_idle``,
+``pool_pending``) are exported; each loop also counts its own accepts and
+requests (``accepted``, ``requests``). The loop-lag sampler is the
+reference's (``minio_tpu_edge_loop_lag_seconds``), with the ``loop``
+label's value ``<listener port>:<loop index>`` (the reference's is the
+index alone) so that the loops of several nodes in one process stay
+apart, ticking every ``LAG_INTERVAL_S`` rather than at the reference's
 ``MINIO_TPU_EDGE_LAG_S`` (one value in use); each loop also keeps its
 recent samples (``lag_samples``).
-Left out: the exposition-time gauges and counters of the loop and its
-pool, and
-``MINIO_TPU_EDGE_WORKERS`` (the reference's default of one loop is the
-only one).
 
-One asyncio loop owns every connection: it accepts, parses request
-lines + headers, and holds idle keep-alive connections for the cost of a
-socket + a small state object — no thread per connection, so tens of thousands of
+``stop()`` returns only once no loop accepts or serves and no worker runs
+a request: it shuts down the sockets of requests in flight (a worker
+blocked in a body read or a response write wakes at once) and waits for
+their workers, where the reference's stop closes those sockets and joins
+its pool for at most two seconds a thread, so that a request it stopped
+could still commit after it returned.
+
+One (or ``MINIO_TPU_EDGE_WORKERS``, via ``SO_REUSEPORT``) asyncio loop
+owns every connection: it accepts, parses request lines + headers, and
+holds idle keep-alive connections for the cost of a socket + a small
+state object — no thread per connection, so tens of thousands of
 mostly-idle clients fit where the threaded frontend held hundreds.
 
 The loop never blocks and never reads a body byte:
@@ -64,7 +74,15 @@ SERVER_NAME = "MinIO-TPU"
 MAX_HEADER_BYTES = 64 << 10        # request line + headers cap
 MAX_HEADER_COUNT = 100             # http.server's _MAXHEADERS parity
 _RECV = 1 << 16
+# how long stop() waits for the workers of requests in flight
+STOP_WAIT_S = 30.0
 
+_ACCEPTED_TOTAL = telemetry.REGISTRY.counter(
+    "minio_tpu_edge_accepted_total",
+    "Connections accepted by the event-loop frontend")
+_REQUESTS_TOTAL = telemetry.REGISTRY.counter(
+    "minio_tpu_edge_requests_total",
+    "Requests parsed and dispatched by the event-loop frontend")
 
 # the lag sampler's tick, seconds
 LAG_INTERVAL_S = 1.0
@@ -76,6 +94,32 @@ _LOOP_LAG_SECONDS = telemetry.REGISTRY.histogram(
     "Event-loop timer lag per loop (scheduled vs actual fire time)",
     buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
              0.25, 0.5, 1.0, 2.5))
+
+
+def _collect_edge_metrics() -> None:
+    srv = _LIVE[0]
+    if srv is None:
+        return
+    g = telemetry.REGISTRY.gauge
+    g("minio_tpu_edge_open_conns",
+      "Connections currently held by the event-loop frontend").set(
+        srv.conn_count())
+    st = srv.pool.stats()
+    g("minio_tpu_edge_pool_size",
+      "Bounded worker-pool capacity behind the event loop").set(
+        st["size"])
+    g("minio_tpu_edge_pool_busy",
+      "Edge worker threads currently running a request").set(
+        st["busy"])
+    g("minio_tpu_edge_pool_idle",
+      "Edge worker threads parked waiting for work").set(st["idle"])
+    g("minio_tpu_edge_pool_pending",
+      "Jobs queued for the edge worker pool, not yet picked up").set(
+        st["pending"])
+
+
+_LIVE: list = [None]
+telemetry.REGISTRY.register_collector(_collect_edge_metrics)
 
 
 def _http_date() -> str:
@@ -154,6 +198,14 @@ class _WorkerPool:
                 fn(*args)
             except Exception:  # noqa: BLE001 — per-request isolation;
                 pass           # the request's own error paths answered
+
+    def stats(self) -> dict:
+        """Live pool occupancy for the exposition-time collector."""
+        with self._mu:
+            threads = len(self._threads)
+            return {"size": self.size, "threads": threads,
+                    "idle": self._idle, "pending": self._pending,
+                    "busy": max(threads - self._idle, 0)}
 
     def close(self, join_s: float = 2.0) -> None:
         with self._mu:
@@ -251,12 +303,19 @@ class _Conn:
 
 
 class _EdgeLoop(threading.Thread):
-    """The event loop + its listener."""
+    """One event loop + its listener (SO_REUSEPORT shards accepts across
+    loops when MINIO_TPU_EDGE_WORKERS > 1)."""
 
-    def __init__(self, edge: "EdgeServer", lsock: socket.socket):
-        super().__init__(daemon=True, name="edge-loop")
+    def __init__(self, edge: "EdgeServer", lsock: socket.socket,
+                 idx: int):
+        super().__init__(daemon=True, name=f"edge-loop-{idx}")
         self.edge = edge
         self.lsock = lsock
+        self.idx = idx
+        self.label = f"{lsock.getsockname()[1]}:{idx}"
+        # this loop's own counts (the families above sum every loop)
+        self.accepted = 0
+        self.requests = 0
         self.loop = asyncio.new_event_loop()
         self.conns: set = set()
         self._started = threading.Event()
@@ -269,7 +328,7 @@ class _EdgeLoop(threading.Thread):
         the loop ran it. A blocking call on the loop, GC pauses and CPU
         starvation all show up as lag here."""
         interval = LAG_INTERVAL_S
-        label = str(self.lsock.getsockname()[1])
+        label = self.label
 
         def tick() -> None:
             if self.edge.closed:
@@ -351,6 +410,8 @@ class _EdgeLoop(threading.Thread):
             conn = _Conn(sock, addr)
             self.conns.add(conn)
             self.edge.track(conn, +1)
+            self.accepted += 1
+            _ACCEPTED_TOTAL.inc()
             self._arm(conn, b"")
 
     # -- header read state machine ---------------------------------------
@@ -480,6 +541,8 @@ class _EdgeLoop(threading.Thread):
                                      self.edge.render_response(resp))
                 return
         self.conns.discard(conn)
+        self.requests += 1
+        _REQUESTS_TOTAL.inc()
         self.edge.pool.submit(
             self.edge.serve_request, self, conn, method, target, path,
             split.query, query, headers, version, length, rest)
@@ -529,7 +592,7 @@ class _EdgeLoop(threading.Thread):
 
 
 class EdgeServer:
-    """The asyncio frontend: listener + loop + the worker pool."""
+    """The asyncio frontend: listeners + loops + the worker pool."""
 
     def __init__(self, api, extra_routers, address: str = "127.0.0.1",
                  port: int = 0):
@@ -548,13 +611,26 @@ class EdgeServer:
         self._conn_mu = threading.Lock()
         self._conns = 0
         self._live_conns: set = set()
+        # requests a worker is serving: stop() waits for them
+        self._serving = 0
+        self._serving_cv = threading.Condition()
 
-        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._sock.bind((address, port))
-        self._addr = self._sock.getsockname()
-        self._sock.listen(knobs.get_int("MINIO_TPU_REQUEST_QUEUE"))
-        self.loop = _EdgeLoop(self, self._sock)
+        workers = max(1, knobs.get_int("MINIO_TPU_EDGE_WORKERS"))
+        self._socks: list[socket.socket] = []
+        for i in range(workers):
+            s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            if workers > 1:
+                # one listener per loop: the kernel shards accepts
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+            s.bind((address, port if i == 0 else self.port))
+            if i == 0:
+                self._addr = s.getsockname()
+            s.listen(knobs.get_int("MINIO_TPU_REQUEST_QUEUE"))
+            self._socks.append(s)
+        self.loops = [_EdgeLoop(self, s, i)
+                      for i, s in enumerate(self._socks)]
+        _LIVE[0] = self
 
     # -- lifecycle -------------------------------------------------------
 
@@ -563,26 +639,49 @@ class EdgeServer:
         return self._addr[1]
 
     def start(self) -> "EdgeServer":
-        self.loop.start_and_wait()
+        for lp in self.loops:
+            lp.start_and_wait()
         return self
 
     def stop(self) -> None:
+        """Returns once no loop accepts or serves and no worker runs a
+        request (bounded by STOP_WAIT_S)."""
         self.closed = True
-        self.loop.stop()           # removes the accept reader first
-        try:
-            self._sock.close()
-        except OSError:
-            pass
-        # force-break any worker still blocked on a socket (half-open
-        # bodies)
+        for lp in self.loops:
+            lp.stop()              # removes the accept reader first
+        for s in self._socks:
+            try:
+                s.close()
+            except OSError:
+                pass
+        # the requests in flight: shutdown (not close) wakes a worker
+        # blocked in recv or send on the socket and ends the peer's
+        # stream; the worker's _finish then closes it
         with self._conn_mu:
             live = list(self._live_conns)
         for conn in live:
+            try:
+                conn.sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        with self._serving_cv:
+            self._serving_cv.wait_for(lambda: self._serving == 0,
+                                      timeout=STOP_WAIT_S)
+        with self._conn_mu:
+            live = list(self._live_conns)
+        for conn in live:
+            # a connection a worker handed back to a loop that had
+            # already stopped
             try:
                 conn.sock.close()
             except OSError:
                 pass
         self.pool.close()
+
+    def serving(self) -> int:
+        """Requests a worker is serving now."""
+        with self._serving_cv:
+            return self._serving
 
     def is_router_path(self, path: str) -> bool:
         return any(path.startswith(prefix)
@@ -674,7 +773,30 @@ class EdgeServer:
                       length: int, rest: bytes) -> None:
         """Blocking half of one request: budget admission, body,
         handler, response — then back to the loop (keep-alive) or
-        close."""
+        close. Counted in ``serving()`` from here to the end, unless
+        stop() began first."""
+        with self._serving_cv:
+            if self.closed:
+                refused = True
+            else:
+                refused = False
+                self._serving += 1
+        if refused:
+            # stop() began after the loop handed this request over
+            self._finish(lp, conn, None, True)
+            return
+        try:
+            self._serve(lp, conn, method, target, path, raw_query, query,
+                        headers, version, length, rest)
+        finally:
+            with self._serving_cv:
+                self._serving -= 1
+                self._serving_cv.notify_all()
+
+    def _serve(self, lp: _EdgeLoop, conn: _Conn, method: str,
+               target: str, path: str, raw_query: str, query: dict,
+               headers: dict, version: str, length: int,
+               rest: bytes) -> None:
         from .. import signature as sig
         from ..handlers import HTTPResponse, RequestContext
         from .admission import AdmissionTicket

@@ -38,16 +38,27 @@ is STS (:396-520): AssumeRole signed by a user, and the web-identity,
 client-grants and LDAP federation where ``identity_openid`` /
 ``identity_ldap`` are configured (``config``, a ConfigSys). Without IAM
 the root credential alone serves, anonymous requests are refused and STS
-answers NotImplemented, as in the reference. Verbs of planes not ported
-yet answer NotImplemented: object lock (bucket config, retention, legal hold,
-and the lock headers of a PUT or a locked bucket's deletes), replication
-and notification configs, ListenBucketNotification, browser POST uploads
-and the internal replication headers; RestoreObject answers it too when
-no tier manager is attached (``tiers``, as in the reference).
+answers NotImplemented, as in the reference. Object lock (the bucket's
+``?object-lock`` config, a bucket created with
+``x-amz-bucket-object-lock-enabled``, a PUT's lock headers and the
+bucket's default retention, ``?retention`` and ``?legal-hold``, and WORM
+enforcement on deletes) and browser POST uploads (s3/postpolicy.py) are
+the reference's; a locked or POSTed object encodes on the card as any PUT.
+Departure: DeleteObjects holds each key to the lock as the single DELETE
+does (the reference's removes a locked version). Verbs of planes not
+ported yet answer NotImplemented: replication and notification configs,
+ListenBucketNotification and the internal replication headers;
+RestoreObject answers it too when no tier manager is attached (``tiers``,
+as in the reference).
+
+The QoS plane (s3/qos.py, off by default) resolves each request's tenant
+at the admission gate, confirms it from the verified credential
+(``ctx.tenant``, which the trace record carries) and paces the admitted
+body and the response stream through the tenant's byte budgets.
 Each request's trace record goes to ``trace`` (s3/trace.TraceSys) from
-the edge middleware. Left out with the unported planes: QoS pacing,
-bandwidth accounting,
-event notification, bucket federation and storage-class parity.
+the edge middleware. Left out with the unported planes: bandwidth
+accounting, event notification, bucket federation and storage-class
+parity.
 
 The tier plane (tier/): a transitioned object's HEAD and GET carry the
 tier as ``x-amz-storage-class`` and its ``x-amz-restore`` state, a GET
@@ -83,6 +94,7 @@ from email.utils import formatdate, parsedate_to_datetime
 from typing import Iterator, Optional
 
 from ..features import crypto as sse
+from ..features import objectlock as olock
 from ..object import api_errors as oerr
 from ..object.bucket_metadata import BucketMetadataSys
 from ..object.engine import GetOptions, PutOptions
@@ -95,6 +107,7 @@ from ..storage.datatypes import ObjectInfo
 from ..tier import transition as tier_transition
 from ..utils import knobs, stagetimer
 from ..utils.streams import IterStream as _IterStream
+from . import postpolicy as pp
 from . import signature as sig
 from . import xmlgen
 from .credentials import Credentials, global_credentials
@@ -106,10 +119,6 @@ MIN_PART_SIZE = 5 * (1 << 20)            # 5 MiB
 MAX_PARTS = 10000
 _BUCKET_RE = re.compile(r"^[a-z0-9][a-z0-9.\-]{1,61}[a-z0-9]$")
 
-# object-lock request headers (features/objectlock.py)
-_LOCK_HEADERS = ("x-amz-object-lock-mode",
-                 "x-amz-object-lock-retain-until-date",
-                 "x-amz-object-lock-legal-hold")
 # internal metadata a re-transforming copy drops before it seals anew, and,
 # with the cipher record, a verbatim copy keeps
 _SEAL_KEYS = (sse.MK_SSE, sse.MK_SEALED, sse.MK_IV, sse.MK_KEYMD5,
@@ -153,6 +162,9 @@ class RequestContext:
         # hex digest the client signed over (x-amz-content-sha256);
         # enforced when the body is consumed (isReqAuthenticated analog)
         self.expect_body_sha = ""
+        # QoS tenant the admission ticket resolved ("" = plane off);
+        # confirmed from the verified credential post-auth
+        self.tenant = ""
 
     def query1(self, name: str, default: str = "") -> str:
         v = self.req.query.get(name)
@@ -300,6 +312,15 @@ class S3ApiHandlers:
         # set_max_clients()
         from .edge.admission import AdmissionController
         self.admission = AdmissionController(max_clients)
+        # the multi-tenant QoS plane (s3/qos.py): per-tenant shares and
+        # budgets enforced at the admission gate. The iam lookup is
+        # late-bound (the cluster boot sets self.iam after this
+        # constructor runs). Off by default (MINIO_TPU_QOS).
+        from .qos import QoSPlane, QoSRegistry
+        self.qos = QoSPlane(QoSRegistry(object_layer),
+                            iam_lookup=lambda: self.iam,
+                            root_access_key=self.root_cred.access_key)
+        self.admission.qos = self.qos
         # upload-session metadata cache: immutable after create, so part
         # uploads don't re-read the session journal per part
         self._mpu_meta: "OrderedDict[str, dict]" = OrderedDict()
@@ -341,6 +362,8 @@ class S3ApiHandlers:
         # layer's batch formers
         self.admission.layer = object_layer
         self.scan.device = getattr(object_layer, "device", None)
+        # the QoS budget registry persists to the live layer's pools
+        self.qos.registry.obj = object_layer
 
     # ------------------------------------------------------------------
     # auth
@@ -397,6 +420,8 @@ class S3ApiHandlers:
                                            object_name):
                 raise S3Error("AccessDenied")
             ctx.cred = Credentials()
+            if self.qos.enabled():
+                ctx.tenant = self.qos.tenant_for_cred(None)
             return
         else:
             raise S3Error("SignatureVersionNotSupported")
@@ -414,6 +439,11 @@ class S3ApiHandlers:
                                        object_name,
                                        self._policy_conditions(ctx)):
                 raise S3Error("AccessDenied")
+        # confirm the tenant from the verified credential (the admission
+        # gate charged the budget of the *claimed* key; a forged claim
+        # never reaches here)
+        if self.qos.enabled():
+            ctx.tenant = self.qos.tenant_for_cred(ctx.cred)
 
     @staticmethod
     def _policy_conditions(ctx: "RequestContext") -> dict:
@@ -594,6 +624,16 @@ class S3ApiHandlers:
                 # shed: 503 SlowDown + Retry-After + Connection: close
                 return got.response(ctx.req.path)
             ticket = got
+        # QoS data-path metering: the ticket carries the tenant the
+        # admission gate resolved; its rx/tx buckets pace the admitted
+        # body (which the PUT loop reads into its pinned staging ring
+        # through PacedReader.readinto) and the response stream
+        tenant = getattr(ticket, "tenant", "")
+        if tenant:
+            ctx.tenant = tenant
+            if ctx.content_length > 0 and ctx.body_stream is not None:
+                ctx.body_stream = self.qos.paced_body(tenant,
+                                                      ctx.body_stream)
         release = True
         try:
             try:
@@ -601,6 +641,9 @@ class S3ApiHandlers:
             except Exception as e:  # noqa: BLE001 — map to S3 error XML
                 return self._error_response(ctx, api_error_from(e))
             if resp.stream is not None:
+                if tenant and not resp.long_poll:
+                    resp.stream = self.qos.paced_stream(tenant,
+                                                        resp.stream)
                 resp.stream = _ReleasingStream(resp.stream, ticket)
                 release = False
             return resp
@@ -651,8 +694,9 @@ class S3ApiHandlers:
                 return self.get_bucket_lifecycle(ctx, bucket)
             if ctx.has_query("encryption"):
                 return self.get_bucket_encryption(ctx, bucket)
-            for q in ("object-lock", "replication", "notification",
-                      "events"):
+            if ctx.has_query("object-lock"):
+                return self.get_object_lock_config(ctx, bucket)
+            for q in ("replication", "notification", "events"):
                 if ctx.has_query(q):
                     raise _not_ported(f"GET ?{q}")
             if ctx.query1("list-type") == "2":
@@ -669,7 +713,9 @@ class S3ApiHandlers:
                 return self.put_bucket_lifecycle(ctx, bucket)
             if ctx.has_query("encryption"):
                 return self.put_bucket_encryption(ctx, bucket)
-            for q in ("object-lock", "replication", "notification"):
+            if ctx.has_query("object-lock"):
+                return self.put_object_lock_config(ctx, bucket)
+            for q in ("replication", "notification"):
                 if ctx.has_query(q):
                     raise _not_ported(f"PUT ?{q}")
             return self.make_bucket(ctx, bucket)
@@ -691,8 +737,63 @@ class S3ApiHandlers:
             if ctx.has_query("delete"):
                 return self.delete_multiple_objects(ctx, bucket)
             if "multipart/form-data" in ctx.header("content-type"):
-                raise _not_ported("POST policy upload")
+                return self.post_policy_upload(ctx, bucket)
         raise S3Error("MethodNotAllowed")
+
+    def post_policy_upload(self, ctx, bucket) -> HTTPResponse:
+        """Browser form upload (PostPolicyBucketHandler,
+        cmd/bucket-handlers.go)."""
+        body = ctx.read_body()
+        fields, file_bytes, file_name = pp.parse_multipart_form(
+            body, ctx.header("content-type"))
+        cred = pp.verify_post_signature(fields, self._cred_lookup,
+                                        self.region)
+        lower = {k.lower(): v for k, v in fields.items()}
+        if cred.is_temp() and \
+                lower.get("x-amz-security-token") != cred.session_token:
+            raise S3Error("InvalidTokenId")
+        key = lower.get("key", "")
+        if not key:
+            raise S3Error("MalformedPOSTRequest", "missing key field")
+        key = key.replace("${filename}", file_name)
+        # Bind the policy check to the REQUEST's bucket, not a client-
+        # supplied form field (PostPolicyBucketHandler does the same) —
+        # otherwise a policy signed for bucket A replays against bucket B.
+        fields = {k: v for k, v in fields.items()
+                  if k.lower() != "bucket"}
+        fields["bucket"] = bucket
+        pp.check_post_policy(lower.get("policy", ""), fields,
+                             len(file_bytes))
+        if self.iam is not None and not self._is_owner(cred):
+            if not self.iam.is_allowed(cred, "s3:PutObject", bucket, key,
+                                       self._policy_conditions(ctx)):
+                raise S3Error("AccessDenied")
+        self.obj.get_bucket_info(bucket)
+        self._enforce_quota(bucket, len(file_bytes))
+        metadata = {"content-type": lower.get(
+            "content-type", "application/octet-stream")}
+        for k, v in fields.items():
+            if k.lower().startswith("x-amz-meta-"):
+                metadata["X-Amz-Meta-" +
+                         k[len("x-amz-meta-"):].title()] = v
+        versioned = self.bucket_meta.versioning_enabled(bucket)
+        info = self.obj.put_object(
+            bucket, key, file_bytes,
+            opts=PutOptions(metadata=metadata, versioned=versioned))
+        self._mark(bucket, key)
+        status = int(lower.get("success_action_status", "204"))
+        if status not in (200, 201, 204):
+            status = 204
+        headers = {"ETag": f'"{info.etag}"',
+                   "Location": f"/{bucket}/{key}"}
+        if status == 201:
+            xml = (f'<?xml version="1.0" encoding="UTF-8"?>'
+                   f"<PostResponse><Location>/{bucket}/{key}</Location>"
+                   f"<Bucket>{bucket}</Bucket><Key>{key}</Key>"
+                   f'<ETag>"{info.etag}"</ETag></PostResponse>')
+            return HTTPResponse(status=201, headers=headers,
+                                body=xml.encode())
+        return HTTPResponse(status=status, headers=headers)
 
     def _route_object(self, ctx, m, bucket, key) -> HTTPResponse:
         if m == "GET":
@@ -700,9 +801,10 @@ class S3ApiHandlers:
                 return self.list_object_parts(ctx, bucket, key)
             if ctx.has_query("tagging"):
                 return self.get_object_tagging(ctx, bucket, key)
-            for q in ("retention", "legal-hold"):
-                if ctx.has_query(q):
-                    raise _not_ported(f"GET ?{q}")
+            if ctx.has_query("retention"):
+                return self.get_object_retention(ctx, bucket, key)
+            if ctx.has_query("legal-hold"):
+                return self.get_object_legal_hold(ctx, bucket, key)
             return self.get_object(ctx, bucket, key)
         if m == "HEAD":
             return self.head_object(ctx, bucket, key)
@@ -713,9 +815,10 @@ class S3ApiHandlers:
                 return self.put_object_part(ctx, bucket, key)
             if ctx.has_query("tagging"):
                 return self.put_object_tagging(ctx, bucket, key)
-            for q in ("retention", "legal-hold"):
-                if ctx.has_query(q):
-                    raise _not_ported(f"PUT ?{q}")
+            if ctx.has_query("retention"):
+                return self.put_object_retention(ctx, bucket, key)
+            if ctx.has_query("legal-hold"):
+                return self.put_object_legal_hold(ctx, bucket, key)
             if ctx.header("x-amz-copy-source"):
                 return self.copy_object(ctx, bucket, key)
             return self.put_object(ctx, bucket, key)
@@ -762,9 +865,13 @@ class S3ApiHandlers:
                                   f"region must be {self.region}")
             except ET.ParseError:
                 raise S3Error("MalformedXML")
-        if ctx.header("x-amz-bucket-object-lock-enabled") == "true":
-            raise _not_ported("object lock")
         self.obj.make_bucket(bucket)
+        if ctx.header("x-amz-bucket-object-lock-enabled") == "true":
+            self.bucket_meta.update(
+                bucket, versioning="Enabled",
+                object_lock_xml="<ObjectLockConfiguration>"
+                "<ObjectLockEnabled>Enabled</ObjectLockEnabled>"
+                "</ObjectLockConfiguration>")
         self._mark(bucket)
         return HTTPResponse(headers={"Location": f"/{bucket}"})
 
@@ -859,6 +966,15 @@ class S3ApiHandlers:
         self.obj.get_bucket_info(bucket)
         self.bucket_meta.update(bucket, tagging={})
         return HTTPResponse(status=204)
+
+    def get_object_lock_config(self, ctx, bucket):
+        return self._xml_config(ctx, bucket, "object_lock_xml",
+                                "s3:GetBucketObjectLockConfiguration",
+                                "NoSuchObjectLockConfiguration")
+
+    def put_object_lock_config(self, ctx, bucket):
+        return self._put_xml_config(ctx, bucket, "object_lock_xml",
+                                    "s3:PutBucketObjectLockConfiguration")
 
     def _xml_config(self, ctx, bucket, field: str, action: str,
                     missing_code: str) -> HTTPResponse:
@@ -991,7 +1107,6 @@ class S3ApiHandlers:
     def delete_multiple_objects(self, ctx, bucket) -> HTTPResponse:
         self.authenticate(ctx, "s3:DeleteObject", bucket)
         self.obj.get_bucket_info(bucket)  # missing bucket -> 404, not 200
-        self._refuse_object_lock(bucket)
         body = ctx.read_body()
         try:
             root = ET.fromstring(body)
@@ -1033,6 +1148,9 @@ class S3ApiHandlers:
                 except oerr.ObjectApiError:
                     pass
             try:
+                # a locked version fails its own entry (departure: the
+                # reference's DeleteObjects removes it)
+                self._enforce_object_lock(ctx, bucket, key, vid, versioned)
                 res = self.obj.delete_object(bucket, key, version_id=vid,
                                              versioned=versioned)
                 entry = {"key": key, "version_id": vid}
@@ -1119,9 +1237,6 @@ class S3ApiHandlers:
         self.obj.get_bucket_info(bucket)
         if ctx.header("x-minio-tpu-repl-spec"):
             raise _not_ported("replication apply")
-        if any(ctx.header(h) for h in _LOCK_HEADERS) or \
-                self.bucket_meta.get(bucket).object_lock_xml:
-            raise _not_ported("object lock")
         # _put_reader resolves the true payload size (including
         # x-amz-decoded-content-length for aws-chunked streams, where
         # Content-Length covers the chunk framing) — quota must gate on
@@ -1133,6 +1248,12 @@ class S3ApiHandlers:
             metadata["X-Amz-Tagging"] = ctx.header("x-amz-tagging")
         reader, size, sse_headers, sse_spec = self._apply_put_transforms(
             ctx, key, reader, size, metadata)
+        # object lock: explicit headers win; else the bucket default
+        olock.retention_headers_from_request(ctx.header, metadata)
+        lock_cfg = self.bucket_meta.get(bucket).object_lock_xml
+        if lock_cfg and olock.MD_MODE not in metadata:
+            olock.DefaultRetention.from_config_xml(lock_cfg).apply_to(
+                metadata)
         versioned = self.bucket_meta.versioning_enabled(bucket)
         info = self.obj.put_object(
             bucket, key, reader, size,
@@ -1550,21 +1671,14 @@ class S3ApiHandlers:
             return HTTPResponse(status=short, headers=headers)
         return HTTPResponse(headers=headers)
 
-    def _refuse_object_lock(self, bucket: str) -> None:
-        """A bucket with an object-lock config (written by the reference)
-        keeps its WORM guarantee: the port cannot evaluate retention, so
-        it deletes nothing there."""
-        if self.bucket_meta.get(bucket).object_lock_xml:
-            raise _not_ported("object lock")
-
     def delete_object(self, ctx, bucket, key) -> HTTPResponse:
         self.authenticate(ctx, "s3:DeleteObject", bucket, key)
         self.obj.get_bucket_info(bucket)
         if ctx.header("x-minio-tpu-repl-purge"):
             raise _not_ported("replica prune")
-        self._refuse_object_lock(bucket)
         vid = ctx.query1("versionId")
         versioned = self.bucket_meta.versioning_enabled(bucket)
+        self._enforce_object_lock(ctx, bucket, key, vid, versioned)
         # "null" targets the pre-versioning null version, which this
         # stack stores under the empty version id: normalized once, so
         # that the tier gate below and delete_object agree on whether
@@ -2001,6 +2115,103 @@ class S3ApiHandlers:
     # ------------------------------------------------------------------
     # the data-update tracker
     # ------------------------------------------------------------------
+
+    def _enforce_object_lock(self, ctx, bucket: str, key: str,
+                             version_id: str, versioned: bool) -> None:
+        """WORM enforcement on deletion (enforceRetentionForDeletion,
+        cmd/bucket-object-lock.go): only the removal of an actual
+        VERSION is gated — a versioned delete without versionId just
+        writes a marker."""
+        if not self.bucket_meta.get(bucket).object_lock_xml:
+            return
+        if versioned and not version_id:
+            return                        # delete marker: always allowed
+        try:
+            info = self.obj.get_object_info(
+                bucket, key, GetOptions(version_id=version_id))
+        except oerr.ObjectApiError:
+            return
+        bypass = self._governance_bypass(ctx, bucket, key)
+        reason = olock.check_deletable(info.user_defined or {}, bypass)
+        if reason is not None:
+            raise S3Error("ObjectLocked", reason)
+
+    def _governance_bypass(self, ctx, bucket: str, key: str) -> bool:
+        """True when the request carries the governance-bypass header AND
+        the caller holds s3:BypassGovernanceRetention (root implicit)."""
+        if ctx.header("x-amz-bypass-governance-retention") != "true":
+            return False
+        if self.iam is not None and ctx.cred and \
+                not self._is_owner(ctx.cred):
+            return self.iam.is_allowed(
+                ctx.cred, "s3:BypassGovernanceRetention", bucket, key,
+                self._policy_conditions(ctx))
+        return True
+
+    # --- ?retention / ?legal-hold subresources --------------------------
+
+    def get_object_retention(self, ctx, bucket, key) -> HTTPResponse:
+        self.authenticate(ctx, "s3:GetObjectRetention", bucket, key)
+        info = self.obj.get_object_info(
+            bucket, key, GetOptions(version_id=ctx.query1("versionId")))
+        xml = olock.retention_xml(info.user_defined or {})
+        if not xml:
+            raise S3Error("NoSuchObjectLockConfiguration")
+        return HTTPResponse().with_xml(
+            b'<?xml version="1.0" encoding="UTF-8"?>' + xml.encode())
+
+    def put_object_retention(self, ctx, bucket, key) -> HTTPResponse:
+        self.authenticate(ctx, "s3:PutObjectRetention", bucket, key)
+        if not self.bucket_meta.get(bucket).object_lock_xml:
+            raise S3Error("InvalidRequest",
+                          "bucket is missing ObjectLockConfiguration")
+        mode, until = olock.parse_retention_xml(ctx.read_body())
+        if mode not in ("GOVERNANCE", "COMPLIANCE") or not until:
+            raise S3Error("InvalidArgument", "bad retention document")
+        vid = ctx.query1("versionId")
+        info = self.obj.get_object_info(bucket, key,
+                                        GetOptions(version_id=vid))
+        md = dict(info.user_defined or {})
+        try:
+            olock.parse_iso(until)
+        except ValueError:
+            raise S3Error("InvalidArgument", "bad date") from None
+        reason = olock.check_retention_update(
+            md, mode, until, self._governance_bypass(ctx, bucket, key))
+        if reason is not None:          # date is pre-validated above, so
+            raise S3Error("ObjectLocked", reason)   # always a lock denial
+        md[olock.MD_MODE] = mode
+        md[olock.MD_RETAIN] = until
+        md["content-type"] = info.content_type
+        self.obj.update_object_metadata(bucket, key, md,
+                                        vid or info.version_id)
+        return HTTPResponse()
+
+    def get_object_legal_hold(self, ctx, bucket, key) -> HTTPResponse:
+        self.authenticate(ctx, "s3:GetObjectLegalHold", bucket, key)
+        info = self.obj.get_object_info(
+            bucket, key, GetOptions(version_id=ctx.query1("versionId")))
+        return HTTPResponse().with_xml(
+            b'<?xml version="1.0" encoding="UTF-8"?>' +
+            olock.legal_hold_xml(info.user_defined or {}).encode())
+
+    def put_object_legal_hold(self, ctx, bucket, key) -> HTTPResponse:
+        self.authenticate(ctx, "s3:PutObjectLegalHold", bucket, key)
+        if not self.bucket_meta.get(bucket).object_lock_xml:
+            raise S3Error("InvalidRequest",
+                          "bucket is missing ObjectLockConfiguration")
+        status = olock.parse_legal_hold_xml(ctx.read_body())
+        if status not in ("ON", "OFF"):
+            raise S3Error("InvalidArgument", "bad legal hold document")
+        vid = ctx.query1("versionId")
+        info = self.obj.get_object_info(bucket, key,
+                                        GetOptions(version_id=vid))
+        md = dict(info.user_defined or {})
+        md[olock.MD_HOLD] = status
+        md["content-type"] = info.content_type
+        self.obj.update_object_metadata(bucket, key, md,
+                                        vid or info.version_id)
+        return HTTPResponse()
 
     def _mark(self, bucket: str, key: str = "") -> None:
         """Mark a mutation in the data-update tracker, where the

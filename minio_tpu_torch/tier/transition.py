@@ -30,9 +30,9 @@ restore-expiry sweep reclaims that copy.
 A transition, a reclaim and a restore are each the root of a trace of
 their own (``tier.transition``, ``tier.reclaim``, ``tier.restore``).
 
-Left out: per-tier QoS budgets:
-``budget_lookup`` stays None until the QoS registry is ported, so the
-byte pacing below never engages at the boot.
+Per-tier QoS budgets: the boot sets ``budget_lookup`` to the QoS
+registry's ``tier`` scope (s3/qos.py), so a tier with a budget paces its
+pushes by request rate and bytes.
 """
 
 from __future__ import annotations
@@ -164,8 +164,8 @@ class TransitionWorker:
         self._inflight = 0
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        # per-tier QoS budgets: name -> Budget or None (None until the
-        # QoS registry is ported); pushes pace through per-tier buckets
+        # per-tier QoS budgets: name -> Budget or None (the boot sets it
+        # from the QoS registry); pushes pace through per-tier buckets
         self.budget_lookup = None
         self._tier_buckets: dict = {}   # tier -> (rps, bps, rps_b, byte_b)
         self.queued = 0

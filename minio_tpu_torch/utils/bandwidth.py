@@ -1,10 +1,13 @@
 """Byte pacing: a token bucket and a reader paced through it.
 
 Counterpart of the TokenBucket and PacedReader of
-minio_tpu/utils/bandwidth.py, the two pieces the tier transition
-worker's per-tier byte pacing uses. Left out: the per-bucket bandwidth
-monitor and its admin report, and the bucket's non-blocking probes
-(``try_take``, ``peek``) of the admission plane's QoS budgets.
+minio_tpu/utils/bandwidth.py: the tier transition worker's per-tier byte
+pacing and the QoS plane's tenant budgets (s3/qos.py), with the bucket's
+non-blocking probes (``try_take``, ``peek``) that the admission gate
+refuses with. ``PacedReader.readinto`` is a port addition: the PUT loop
+reads a paced body straight into its pinned staging ring through it
+(object/hash_reader.py ``readinto_full``), charged as ``read()`` charges.
+Left out: the per-bucket bandwidth monitor and its admin report.
 """
 
 from __future__ import annotations
@@ -59,6 +62,61 @@ class TokenBucket:
             waited += wait
         return waited
 
+    def _refill_locked(self) -> None:
+        now = time.monotonic()
+        self._tokens = min(self.burst,
+                           self._tokens + (now - self._last) * self.rate)
+        self._last = now
+
+    def try_take(self, n: int) -> float:
+        """Non-blocking take: consume one burst-capped installment of `n`
+        tokens if available now and return 0.0; otherwise consume nothing
+        and return the seconds until that installment accrues (the
+        Retry-After hint). Only the admission gate and the QoS plane
+        call it."""
+        if n <= 0:
+            return 0.0
+        with self._mu:
+            if self.rate <= 0:
+                return 0.0
+            self._refill_locked()
+            want = min(n, self.burst)
+            if self._tokens >= want:
+                self._tokens -= want
+                return 0.0
+            return (want - self._tokens) / self.rate
+
+    def peek(self, n: int) -> float:
+        """Like try_take but consumes nothing either way: 0.0 when one
+        burst-capped installment of `n` is available now, else the
+        seconds until it accrues. Admission refuses a payload whose byte
+        budget is exhausted without double-charging the pacer that meters
+        the admitted bytes."""
+        if n <= 0:
+            return 0.0
+        with self._mu:
+            if self.rate <= 0:
+                return 0.0
+            self._refill_locked()
+            want = min(n, self.burst)
+            if self._tokens >= want:
+                return 0.0
+            return (want - self._tokens) / self.rate
+
+    def paced(self, stream, on_bytes=None, on_wait=None):
+        """Wrap a chunk iterator: each chunk waits for budget before it
+        flows; `on_bytes(n)` observes the paced bytes, `on_wait(seconds)`
+        the throttle stalls."""
+        def gen():
+            for chunk in stream:
+                waited = self.take(len(chunk))
+                if waited > 0 and on_wait is not None:
+                    on_wait(waited)
+                if on_bytes is not None:
+                    on_bytes(len(chunk))
+                yield chunk
+        return gen()
+
 
 class PacedReader:
     """File-like wrapper pacing ``read()`` through a TokenBucket: bytes
@@ -77,12 +135,30 @@ class PacedReader:
     def read(self, n: int = -1) -> bytes:
         data = self._inner.read(n)
         if data:
-            waited = self._bucket.take(len(data))
-            if waited > 0 and self._on_wait is not None:
-                self._on_wait(waited)
-            if self._on_bytes is not None:
-                self._on_bytes(len(data))
+            self._charge(len(data))
         return data
+
+    def readinto(self, b) -> int:
+        """Fill the caller's buffer from the inner stream (its own
+        ``readinto`` where it has one, else one ``read`` and a copy), then
+        pay for the bytes delivered, as ``read`` does."""
+        inner = getattr(self._inner, "readinto", None)
+        if inner is not None:
+            n = inner(b) or 0
+        else:
+            data = self._inner.read(len(b))
+            n = len(data)
+            memoryview(b)[:n] = data
+        if n:
+            self._charge(n)
+        return n
+
+    def _charge(self, n: int) -> None:
+        waited = self._bucket.take(n)
+        if waited > 0 and self._on_wait is not None:
+            self._on_wait(waited)
+        if self._on_bytes is not None:
+            self._on_bytes(n)
 
     def close(self) -> None:
         close = getattr(self._inner, "close", None)

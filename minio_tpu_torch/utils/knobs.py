@@ -4,11 +4,11 @@ Counterpart of minio_tpu/utils/knobs.py, trimmed to the knobs of the
 pipelined data path, the batch former, heal, the MRF queue, the disk
 monitor, the SSE cipher choice, the scan plane, the tier plane, the
 bucket metacache, the hot-object read cache, the admission gate, the
-HTTP edge, the internode RPC transport, the gray-failure plane, the IAM
+multi-tenant QoS plane, the HTTP edge, the internode RPC transport, the gray-failure plane, the IAM
 refresh, the federated metrics scrape, and the tracing and incident
 planes, with the reference's names, types and defaults
 (minio_tpu/utils/knobs.py:160-197, :203-206, :220-235, :261-281, :284-306,
-:310-346, :356-359, :370-383, :403-410, :434-435, :438-485, :535-586),
+:238-264, :310-346, :356-359, :370-383, :403-410, :434-435, :438-485, :535-586),
 and the checking plane's naughtynet and lock-order watchdog (:350-353,
 :590-600). Left out: the README table renderer and every knob no ported
 module reads. No knob here is one the reference lacks.
@@ -294,10 +294,36 @@ define("MINIO_TPU_REQUEST_QUEUE", "int", 128,
        "threaded-listener accept backlog (socketserver "
        "request_queue_size)")
 
+# -- multi-tenant QoS ----------------------------------------------------------
+define("MINIO_TPU_QOS", "bool", False,
+       "enforce per-tenant admission shares and budgets at the "
+       "admission gate (off = byte-identical legacy behavior)")
+define("MINIO_TPU_QOS_DEFAULT_SHARE", "float", 1.0,
+       "admission-share weight for tenants without a registered "
+       "budget")
+define("MINIO_TPU_QOS_DEFAULT_RPS", "float", 0.0,
+       "default per-tenant request-rate budget (requests/s); "
+       "0 = unlimited")
+define("MINIO_TPU_QOS_DEFAULT_RX_BPS", "float", 0.0,
+       "default per-tenant request-body byte budget (bytes/s); "
+       "0 = unlimited")
+define("MINIO_TPU_QOS_DEFAULT_TX_BPS", "float", 0.0,
+       "default per-tenant response-body byte budget (bytes/s); "
+       "0 = unlimited")
+define("MINIO_TPU_QOS_ACTIVE_S", "float", 2.0,
+       "seconds since last request a tenant stays in the active set "
+       "the share math divides the gate across")
+define("MINIO_TPU_QOS_SHED_WINDOW_S", "float", 5.0,
+       "debounce window for tenant.shed journal events (first shed "
+       "per tenant per window)")
+
 # -- HTTP edge ---------------------------------------------------------------
 define("MINIO_TPU_EDGE", "bool", True,
        "`off` selects the threaded frontend (escape hatch and "
        "correctness oracle; TLS listeners always use it)")
+define("MINIO_TPU_EDGE_WORKERS", "int", 1,
+       "event-loop threads; >1 binds one SO_REUSEPORT listener per "
+       "loop")
 define("MINIO_TPU_EDGE_MAX_CONNS", "int", 8192,
        "open-connection budget per edge server; beyond it new "
        "connections shed 503 before any read")

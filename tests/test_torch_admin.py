@@ -467,8 +467,17 @@ def test_prometheus_families_agree(tmp_path, monkeypatch):
                  "minio_tpu_drive_health",
                  "minio_tpu_net_partition_drops_total",
                  "minio_tpu_net_chaos_delays_total",
-                 "minio_tpu_net_chaos_resets_total"):
+                 "minio_tpu_net_chaos_resets_total",
+                 "minio_tpu_edge_accepted_total",
+                 "minio_tpu_edge_requests_total",
+                 "minio_tpu_edge_open_conns", "minio_tpu_edge_pool_size",
+                 "minio_tpu_edge_pool_busy", "minio_tpu_edge_pool_idle",
+                 "minio_tpu_edge_pool_pending"):
         assert port[name].samples and ref[name].samples, name
+    # the edge's and the QoS plane's families are no longer the
+    # reference's alone
+    assert {n for n in set(ref) - set(port)
+            if n.startswith(("minio_tpu_edge_", "minio_tpu_qos_"))} == set()
     assert port["minio_disks_online"].samples[
         ("minio_disks_online", ())] == 4
     # a family the reference registers only when its code first runs

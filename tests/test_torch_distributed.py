@@ -171,7 +171,8 @@ def _one_torch_thread():
 def twins(tmp_path_factory):
     """(ref nodes, port nodes, roots): the twin clusters, booted with
     peer probes capped at 1 s (a returning listener is found within a
-    second), their node-0 scanners and crawler stopped (their
+    second) and the slow-drive quarantine off in both packages, their
+    node-0 scanners and crawler stopped (their
     writes would interleave with the pinned request sequence), and every
     identity source pinned in both packages."""
     mp = pytest.MonkeyPatch()
@@ -182,6 +183,14 @@ def twins(tmp_path_factory):
         mp.setattr(mod, "MIN_PART_SIZE", 256 << 10)
     mp.setenv("MINIO_SSE_MASTER_KEY", MASTER)
     mp.setenv("MINIO_TPU_SSE_CIPHER", "chacha20")
+    # no slow-drive quarantine in either package: the latency tracker is
+    # process-global, so under the suite's load a drive may be convicted
+    # and, once re-admitted, every node's disk monitor sweeps the set. A
+    # node whose listener is "stopped" here still runs its monitor, and
+    # its sweep writes the objects PUT during its loss onto its own
+    # drives (a real node loss stops the monitor too); a convicted drive
+    # also drops out of the read and write plans of one package only
+    mp.setenv("MINIO_TPU_QUARANTINE", "off")
     roots = {w: tmp_path_factory.mktemp(w) for w in ("ref", "port")}
     ref = boot(ref_cluster, roots["ref"])
     try:

@@ -227,7 +227,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "object/faithful.py", "utils/pressure.py",
                 "utils/bandwidth.py", "object/rebalance.py",
                 "object/fsck.py", "object/fs.py", "utils/regfence.py",
-                "utils/lockcheck.py", "distributed/naughtynet.py"):
+                "utils/lockcheck.py", "distributed/naughtynet.py",
+                "s3/qos.py", "s3/postpolicy.py", "features/objectlock.py"):
         assert f"minio_tpu_torch/{mod}" in names, mod
     for path in files:
         tree = ast.parse(path.read_text(), str(path))

@@ -590,13 +590,9 @@ def test_objects_cross_between_servers(tmp_path, sse_env, writer):
 
 def test_unported_verbs_answer_not_implemented(client, bucket):
     for method, path, query, hdrs in (
-            ("GET", f"/{bucket}", {"object-lock": ""}, None),
             ("PUT", f"/{bucket}", {"replication": ""}, None),
             ("GET", f"/{bucket}", {"notification": ""}, None),
             ("POST", f"/{bucket}/o", {"restore": ""}, None),
-            ("GET", f"/{bucket}/o", {"retention": ""}, None),
-            ("PUT", f"/{bucket}/o", None,
-             {"x-amz-object-lock-mode": "GOVERNANCE"}),
             ("POST", "/", None, None)):
         status, _, body = client.request(method, path, query=query,
                                          headers=hdrs)
