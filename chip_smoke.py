@@ -348,6 +348,26 @@ non-zero:
                 bypass header) and a 16 MiB post-policy upload; every
                 acknowledged PUT read back, bytes and ETag; gf_matmul and
                 hh256 launches and encode dispatches on the card.
+  23. notify  — bucket event notification (see run_notify), the reference
+                bench's bench_notify_ab on the card's path: a fresh
+                16-drive 12+4 node, a webhook receiver in this process
+                stalling 50 ms a POST, added with madmin; a warm round, 2
+                rounds with no configuration and 2 wired to the webhook by
+                a signed PUT ?notification, each 8 signed 16 MiB PUTs at
+                once with no encode routed to the host (p50/p99 a mode,
+                put_p99_degradation_x printed, not a verdict); every key of
+                the wired rounds delivered, size and eTag the PUT's, the
+                plane's pending, backlog and dropped 0, the delivery-lag
+                histogram; a ListenBucketNotification subscriber hearing the
+                last round; a DELETE, a delete marker, a multipart
+                complete; an fs tier: a crawler pass transitions one object
+                and expires another (s3:ObjectRemoved:Lifecycle through a
+                config-KV notify_webhook), a restore over HTTP on the tier
+                worker (s3:ObjectRestore:Post; the plane's stub and
+                restored-copy records); the receiver down for 3 PUTs, the
+                node rebooted, the durable backlog delivered after it;
+                every PUT read back; gf_matmul and hh256 launches beside
+                the encode dispatches.
   4. timings  — (continued) chacha20 at the encode launch (8 rows, 1 MiB
                 span in 1,048,584-byte rows) and at GET's 64 x 65,536:
                 CUDA events around back-to-back wrapper calls, the kernel's
@@ -371,7 +391,7 @@ non-zero:
                 card.
 
 Phases run in the order 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
-16, 17, 18, 19, 20, 21, 4. Phases 3-20 run the gray-failure plane as a
+16, 17, 18, 19, 20, 21, 22, 23, 4. Phases 3-20 run the gray-failure plane as a
 server boots it (hedged reads, the PUT's quorum-ack lane, quarantine, all
 on): a phase that takes drives away after its PUTs first drains its MRF
 queue, or heals what the quorum-ack lane left behind where it has none, so
@@ -576,6 +596,18 @@ ADM_MAX_CLIENTS = 8                 # the admission gate (the bench's)
 ADM_EDGE_WORKERS = 4                # edge loops, one SO_REUSEPORT listener
 ADM_PAYLOADS = 4                    # distinct bodies the PUTs rotate
 ADM_SHM_MIN_BYTES = 4 << 30         # tmpfs room the phase's drives need
+# phase 23, bucket event notification (the reference bench's
+# bench_notify_ab on the card's path: 16 drives, 12+4, 1 MiB blocks, a
+# webhook stalling 50 ms a POST)
+NOTIFY_OBJECT = 16 << 20            # bytes each PUT (the bench's 4 MiB falls
+#                                     under the codec's 8 MiB gate: host)
+NOTIFY_STREAMS = 8                  # concurrent PUTs a round (the bench's)
+NOTIFY_BASE_ROUNDS = 2              # rounds with no configuration (bench)
+NOTIFY_ON_ROUNDS = 2                # rounds wired to the webhook (bench)
+NOTIFY_WEBHOOK_DELAY_S = 0.05       # the webhook's stall a POST (bench)
+NOTIFY_OUTAGE_PUTS = 3              # PUTs while the receiver is down
+NOTIFY_PAYLOADS = 4                 # distinct bodies the PUTs rotate
+NOTIFY_SHM_MIN_BYTES = 4 << 30      # tmpfs room the phase's drives need
 # the gray-failure plane's switches, all off: phase 21's OFF pass (every
 # other phase runs the plane as a server boots it, on)
 PLANE_OFF = {"MINIO_TPU_HEDGE": "off", "MINIO_TPU_QUORUM_ACK": "off",
@@ -1053,6 +1085,8 @@ def main() -> int:
             grayp = run_gray(tmp, card, counts, np)
         # -- 22. the admission plane: its own boot, four edge loops -----
         admp = run_admission(tmp, card, counts, np)
+        # -- 23. bucket event notification: its own boot, a slow webhook
+        ntfp = run_notify(tmp, card, counts, np)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths_launches = {"main_path": main_path["launches"],
@@ -1071,7 +1105,8 @@ def main() -> int:
                       "iam_admin": iamp["launches"],
                       "obs": obsp["launches"],
                       "gray": grayp["launches"],
-                      "admission": admp["launches"]}
+                      "admission": admp["launches"],
+                      "notify": ntfp["launches"]}
 
     # -- 4. timings -------------------------------------------------------
     b, s = 32, -(-(1 << 20) // k)
@@ -8047,6 +8082,580 @@ def run_admission(tmp, card, counts, np) -> dict:
     finally:
         if node is not None:
             node.shutdown()
+        for v, old in saved_env.items():
+            if old is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = old
+        shutil.rmtree(root, ignore_errors=True)
+    summary["seconds"] = round(time.perf_counter() - t_phase, 3)
+    summary["card"] = card
+    emit(summary)
+    return summary
+
+
+def run_notify(tmp, card, counts, np) -> dict:
+    """Phase 23: bucket event notification on the card's path, the
+    reference bench's bench_notify_ab with every PUT encoding on the card.
+    A fresh node as `python -m minio_tpu_torch server /d{1...16}` boots it
+    (cluster.start_single, 12+4, 1 MiB blocks, tmpfs where /dev/shm has
+    NOTIFY_SHM_MIN_BYTES free; its disk monitor, heal scanner and crawler
+    loops stopped, the transition worker running). A webhook receiver in
+    this process stalls every POST NOTIFY_WEBHOOK_DELAY_S; it is added with
+    madmin.add_notify_target. The launch counts are set to 0 just before
+    the traffic and read just after:
+      * one warm round, NOTIFY_BASE_ROUNDS rounds with no notification
+        configuration, a signed PUT ?notification wiring
+        s3:ObjectCreated:* and s3:ObjectRemoved:* to the webhook, then
+        NOTIFY_ON_ROUNDS rounds; each round NOTIFY_STREAMS concurrent
+        signed NOTIFY_OBJECT PUTs over HTTP, no encode dispatch routed to
+        the host in its window; p50/p99 per mode and
+        put_p99_degradation_x (printed, not a verdict: 16 PUTs a mode);
+      * after the plane's drain every key of the configured rounds at the
+        webhook, each record's size and eTag the PUT's, duplicates
+        printed; the plane's pending, backlog and dropped 0; the
+        minio_tpu_notify_lag_seconds histogram;
+      * a ListenBucketNotification subscriber over HTTP during the last
+        round: one s3:ObjectCreated:Put record for each of its keys (the
+        legacy notifier's records, which carry no size or eTag, as the
+        reference's do);
+      * a DELETE, a delete marker in a versioned bucket, a multipart
+        complete of two 8 MiB parts; an fs tier on tmpfs, one object
+        transitioned by a crawler pass and restored over HTTP (on the
+        tier worker: MINIO_TPU_RESTORE_ASYNC_BYTES at the object's size),
+        the restore's s3:ObjectRestore:Post from the handler, the plane's
+        s3:ObjectTransition:Complete (the stub) and
+        s3:ObjectRestore:Completed (the restored copy); the same pass
+        expiring one object, its s3:ObjectRemoved:Lifecycle through a
+        config-KV notify_webhook;
+      * the receiver stopped for NOTIFY_OUTAGE_PUTS PUTs whose records
+        wait in the plane's durable queue, the node rebooted on its
+        drives, the receiver back: the backlog reaches it after the
+        reboot;
+      * every acknowledged PUT read back (bytes and ETag); gf_matmul and
+        hh256 launches and the encode dispatches on the card."""
+    import concurrent.futures
+    import http.client
+    import http.server
+    import urllib.parse
+
+    from minio_tpu_torch import cluster, madmin
+    from minio_tpu_torch.s3 import signature as sig
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.s3.credentials import Credentials
+    from minio_tpu_torch.tier.config import TierConfig
+    from minio_tpu_torch.utils import telemetry
+    k, m, bs = 12, 4, 1 << 20
+    size = NOTIFY_OBJECT
+    region = "us-east-1"
+    rng = np.random.default_rng(SEED + 123)
+    t_phase = time.perf_counter()
+
+    def note(msg: str) -> None:
+        print(f"[notify {time.perf_counter() - t_phase:.1f} s] {msg}",
+              file=sys.stderr, flush=True)
+
+    creds = Credentials("smokentfroot", "smokentfrootsecret")
+    shm = "/dev/shm"
+    on_shm = os.path.isdir(shm) and \
+        shutil.disk_usage(shm).free >= NOTIFY_SHM_MIN_BYTES
+    root = tempfile.mkdtemp(prefix="chip_smoke_ntf_",
+                            dir=shm if on_shm else tmp)
+    drives = [os.path.join(root, f"d{i}") for i in range(k + m)]
+    payloads = [rng.bytes(size) for _ in range(NOTIFY_PAYLOADS)]
+    half = [rng.bytes(size // 2) for _ in range(2)]
+    hashes = [hashlib.sha256(p).hexdigest() for p in payloads]
+    etags = [hashlib.md5(p).hexdigest() for p in payloads]
+
+    # -- the webhook receiver ----------------------------------------------
+    got: list = []                   # (path, eventName, key, size, eTag)
+    got_mu = threading.Lock()
+
+    class Hook(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):
+            body = self.rfile.read(int(self.headers.get("Content-Length",
+                                                        0)))
+            time.sleep(NOTIFY_WEBHOOK_DELAY_S)
+            rec = json.loads(body)["Records"][0]
+            obj = rec["s3"]["object"]
+            with got_mu:
+                got.append((self.path, rec["eventName"],
+                            urllib.parse.unquote(obj["key"]),
+                            obj.get("size"), obj.get("eTag")))
+            self.send_response(200)
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+
+    def serve(port: int = 0):
+        srv = http.server.ThreadingHTTPServer(("127.0.0.1", port), Hook)
+        srv.daemon_threads = True
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        return srv
+
+    hook = serve()
+    hook_live = True
+    hook_port = hook.server_address[1]
+    url = f"http://127.0.0.1:{hook_port}"
+    saved_env = {v: os.environ.get(v)
+                 for v in ("MINIO_TPU_RESTORE_ASYNC_BYTES",
+                           "MINIO_TPU_METACACHE_PERSIST_S")}
+    # the metacache's segment writes (small objects, encoded on the host,
+    # every MINIO_TPU_METACACHE_PERSIST_S) held off for the phase, so
+    # that a window's encode dispatches are its PUTs' alone
+    os.environ["MINIO_TPU_METACACHE_PERSIST_S"] = "3600"
+    summary = {"phase": "notify", "step": "summary", "drives": k + m,
+               "ec": f"{k}+{m}", "block_size": bs,
+               "drives_on": "tmpfs (/dev/shm)" if on_shm
+               else "the disk (tmp)", "object_bytes": size,
+               "streams": NOTIFY_STREAMS,
+               "base_rounds": NOTIFY_BASE_ROUNDS,
+               "on_rounds": NOTIFY_ON_ROUNDS,
+               "webhook_delay_s": NOTIFY_WEBHOOK_DELAY_S}
+    acked: dict = {}                 # (bucket, key) -> body
+    gone: set = set()
+    acked_mu = threading.Lock()
+    dispatch = {"batches": 0, "host_routed": 0, "blocks": 0}
+    node = None
+
+    def boot():
+        n = cluster.start_single(drives, creds=creds, parity=m,
+                                 set_drive_count=k + m, block_size=bs)
+        n._iam_refresh_stop.set()
+        for loop in (n.disk_monitor, n.heal_scanner, n.crawler):
+            loop.close()
+            if getattr(loop, "_thread", None) is not None:
+                loop._thread.join(timeout=120)
+                if loop._thread.is_alive():
+                    fail("notify: a background loop did not stop")
+        return n
+
+    def encodes(n) -> dict:
+        return dict(n.scheduler.stats()["verbs"]["encode"])
+
+    def on_card(n, before: dict, what: str, blocks: int) -> None:
+        """No encode dispatch of the window `what` went to the host, and
+        the window's encode blocks cover its PUTs' blocks."""
+        after = encodes(n)
+        d = {key: after[key] - before[key]
+             for key in ("batches", "host_routed", "blocks")}
+        for key in d:
+            dispatch[key] += d[key]
+        if d["host_routed"] or d["batches"] <= d["host_routed"] or \
+                d["blocks"] < blocks:
+            fail(f"notify {what}: encode dispatches {d}, want {blocks} "
+                 "blocks on the card")
+
+    def put(c, port, path, body, digest=None):
+        hdrs = {"host": f"127.0.0.1:{port}"}
+        signed = sig.sign_v4("PUT", urllib.parse.quote(path), {}, hdrs,
+                             digest or hashlib.sha256(body).hexdigest(),
+                             creds, region)
+        st, h, _ = c.send("PUT", path, body=body, signed=signed)
+        if st != 200 or h.get("etag") != f'"{hashlib.md5(body).hexdigest()}"':
+            fail(f"notify: PUT {path}: HTTP {st} {h.get('etag')}")
+        b_, _, key = path.lstrip("/").partition("/")
+        with acked_mu:
+            acked[(b_, key)] = body
+        return h
+
+    def webhook(path_: str) -> list:
+        with got_mu:
+            return [g for g in got if g[0] == path_]
+
+    try:
+        node = boot()
+        port = node.s3.port
+        plane = node.notify_plane
+        c = S3Client(port, creds, timeout=600)
+        mc = madmin.AdminClient("127.0.0.1", port, creds.access_key,
+                                creds.secret_key)
+        arn = mc.add_notify_target(endpoint=url + "/plane", name="smoke",
+                                   timeout=5.0)
+        # the legacy notifier's config-KV webhook (its ARN is fixed)
+        mc.set_config("notify_webhook", enable="on",
+                      endpoint=url + "/legacy")
+        legacy_arn = node.config.CONFIG_WEBHOOK_ARN
+        if legacy_arn not in node.events.targets:
+            fail("notify: the config-KV notify_webhook was not registered")
+        for b_ in ("ntf", "ntf-ver", "ntf-tier"):
+            if c.send("PUT", f"/{b_}")[0] != 200:
+                fail(f"notify: make bucket {b_}")
+        note("booted")
+
+        def put_round(prefix: str) -> list:
+            lat, mu = [], threading.Lock()
+            before = encodes(node)
+
+            def one(i: int) -> None:
+                t0 = time.perf_counter()
+                put(S3Client(port, creds, timeout=600), port,
+                    f"/ntf/{prefix}{i}", payloads[i % NOTIFY_PAYLOADS],
+                    hashes[i % NOTIFY_PAYLOADS])
+                with mu:
+                    lat.append(time.perf_counter() - t0)
+
+            with concurrent.futures.ThreadPoolExecutor(NOTIFY_STREAMS) as ex:
+                list(ex.map(one, range(NOTIFY_STREAMS)))
+            on_card(node, before, f"round {prefix}",
+                    NOTIFY_STREAMS * -(-size // bs))
+            return lat
+
+        counts.zero()
+        sched_before = encodes(node)
+        t_traffic = time.perf_counter()
+        put_round("warm-")
+        base = []
+        for r in range(NOTIFY_BASE_ROUNDS):
+            base += put_round(f"base{r}-")
+        doc = ("<NotificationConfiguration><QueueConfiguration>"
+               f"<Queue>{arn}</Queue><Event>s3:ObjectCreated:*</Event>"
+               "<Event>s3:ObjectRemoved:*</Event></QueueConfiguration>"
+               "</NotificationConfiguration>").encode()
+        if c.send("PUT", "/ntf", query={"notification": ""},
+                  body=doc)[0] != 200:
+            fail("notify: PUT ?notification")
+        st, _, body = c.send("GET", "/ntf", query={"notification": ""})
+        if st != 200 or arn.encode() not in body:
+            fail(f"notify: GET ?notification: HTTP {st}")
+        during, listened = [], {}
+        for r in range(NOTIFY_ON_ROUNDS):
+            last = r == NOTIFY_ON_ROUNDS - 1
+            if last:                 # a listener over the last round
+                def listen():
+                    """ND-JSON lines until the round's PUTs are all
+                    heard (or the stream's idle window ends it; the
+                    server's side ends at the node's shutdown, which
+                    closes the event notifier's hub)."""
+                    hdrs = {"host": f"127.0.0.1:{port}"}
+                    q = {"events": ["s3:ObjectCreated:*"],
+                         "prefix": [f"on{r}-"], "idle": ["60"]}
+                    signed = sig.sign_v4(
+                        "GET", "/ntf", q, hdrs,
+                        hashlib.sha256(b"").hexdigest(), creds, region)
+                    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                      timeout=120)
+                    conn.request("GET", "/ntf?" + urllib.parse.urlencode(
+                        {k_: v[0] for k_, v in q.items()}), headers=signed)
+                    resp = conn.getresponse()
+                    listened["status"] = resp.status
+                    lines = listened["lines"] = []
+                    while len(lines) < NOTIFY_STREAMS:
+                        line = resp.readline()
+                        if not line:
+                            break
+                        if line.strip():
+                            lines.append(line)
+                    conn.close()
+
+                lt = threading.Thread(target=listen, daemon=True)
+                lt.start()
+                deadline = time.monotonic() + 30
+                while node.events.hub.subscriber_count == 0 and \
+                        time.monotonic() < deadline:
+                    time.sleep(0.01)
+                if node.events.hub.subscriber_count == 0:
+                    fail("notify: the listener never subscribed")
+            during += put_round(f"on{r}-")
+        summary["plane_at_measure"] = plane.stats()
+        t_drain = time.perf_counter()
+        if not plane.drain(180):
+            fail(f"notify: the plane did not drain: {plane.stats()}")
+        summary["drain_s"] = round(time.perf_counter() - t_drain, 3)
+        lt.join(60)
+        note("rounds")
+        summary["baseline"] = pct_ms(base)
+        summary["during_notify"] = pct_ms(during)
+        summary["put_p99_degradation_x"] = round(
+            summary["during_notify"]["p99_ms"]
+            / max(summary["baseline"]["p99_ms"], 1e-9), 3)
+        want = {f"on{r}-{i}": i % NOTIFY_PAYLOADS
+                for r in range(NOTIFY_ON_ROUNDS)
+                for i in range(NOTIFY_STREAMS)}
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and \
+                not set(want) <= {g[2] for g in webhook("/plane")}:
+            time.sleep(0.05)
+        hits = [g for g in webhook("/plane") if g[2] in want]
+        keys = [g[2] for g in hits]
+        summary["webhook"] = {
+            "received": len(webhook("/plane")),
+            "configured_keys": len(want),
+            "delivered_keys": len(set(keys)),
+            "duplicates": sorted({x for x in keys if keys.count(x) > 1})}
+        if set(keys) != set(want):
+            fail(f"notify: keys never delivered: "
+                 f"{sorted(set(want) - set(keys))[:5]}")
+        if any(g[1] != "s3:ObjectCreated:Put" or g[3] != size or
+               g[4] != etags[want[g[2]]] for g in hits):
+            fail(f"notify: a webhook record's name, size or eTag is not "
+                 f"the PUT's: {hits[:2]}")
+        if [g for g in webhook("/plane") if g[2].startswith(
+                ("warm-", "base"))]:
+            fail("notify: a PUT before the configuration was delivered")
+        final = plane.stats()
+        summary["plane_final"] = final
+        if (final["pending"], final["backlog"], final["dropped"]) != \
+                (0, 0, 0):
+            fail(f"notify: pending/backlog/dropped after the drain: {final}")
+        lag = telemetry.REGISTRY.histogram("minio_tpu_notify_lag_seconds")
+        series = lag.series_snapshot()
+        snap = series.get(tuple(sorted({"target": arn}.items())))
+        if snap is None:
+            snap = next(iter(series.values()), None)
+        summary["lag_seconds"] = None if snap is None else {
+            "buckets_s": list(lag.buckets), "counts": snap[0],
+            "count": snap[2],
+            "mean_s": round(snap[1] / max(snap[2], 1), 4)}
+        lines = [json.loads(x) for x in listened.get("lines", [])]
+        heard = [(d["Records"][0]["eventName"],
+                  d["Records"][0]["s3"]["object"]["key"],
+                  d["Records"][0]["s3"]["object"]["size"],
+                  d["Records"][0]["s3"]["object"]["eTag"]) for d in lines]
+        last_keys = {f"on{NOTIFY_ON_ROUNDS - 1}-{i}"
+                     for i in range(NOTIFY_STREAMS)}
+        summary["listener"] = {"status": listened.get("status"),
+                               "records": len(heard),
+                               "first": heard[:1]}
+        if listened.get("status") != 200 or \
+                sorted(h[1] for h in heard) != sorted(last_keys) or \
+                {h[0] for h in heard} != {"s3:ObjectCreated:Put"}:
+            fail(f"notify: the listener heard {heard[:3]} "
+                 f"({len(heard)} records) for {len(last_keys)} PUTs")
+        note("delivered")
+
+        # -- the tail ----------------------------------------------------
+        tail = {}
+        if c.send("DELETE", "/ntf/on0-0")[0] != 204:
+            fail("notify: DELETE")
+        gone.add(("ntf", "on0-0"))
+        vdoc = (b"<VersioningConfiguration><Status>Enabled</Status>"
+                b"</VersioningConfiguration>")
+        if c.send("PUT", "/ntf-ver", query={"versioning": ""},
+                  body=vdoc)[0] != 200:
+            fail("notify: versioning")
+        if c.send("PUT", "/ntf-ver", query={"notification": ""},
+                  body=doc)[0] != 200:
+            fail("notify: PUT ?notification on the versioned bucket")
+        # the window holds the PUTs' encodes only (a bucket's config is a
+        # small object of its own, encoded on the host)
+        before = encodes(node)
+        vh = put(c, port, "/ntf-ver/doc", payloads[1], hashes[1])
+        # the plane coalesces a key's pending events: the PUT's is
+        # delivered before the marker's mutation
+        if not plane.drain(180):
+            fail(f"notify: the plane did not drain: {plane.stats()}")
+        st, dh, _ = c.send("DELETE", "/ntf-ver/doc")
+        if st != 204 or dh.get("x-amz-delete-marker") != "true":
+            fail(f"notify: the delete marker: HTTP {st}")
+        with acked_mu:        # the data version, read back by its id
+            acked.pop(("ntf-ver", "doc"))
+            acked[("ntf-ver", "doc", vh.get("x-amz-version-id"))] = \
+                payloads[1]
+        st, _, body = c.send("POST", "/ntf/mp", query={"uploads": ""})
+        up = re.search(rb"<UploadId>([^<]+)</UploadId>", body)
+        if st != 200 or up is None:
+            fail(f"notify: create multipart: HTTP {st}")
+        upload = up.group(1).decode()
+        parts = []
+        for pn, part in enumerate(half, 1):
+            st, h, _ = c.send("PUT", "/ntf/mp", body=part, query={
+                "partNumber": str(pn), "uploadId": upload})
+            if st != 200:
+                fail(f"notify: part {pn}: HTTP {st}")
+            parts.append(h.get("etag"))
+        cdoc = ("<CompleteMultipartUpload>" + "".join(
+            f"<Part><PartNumber>{pn}</PartNumber><ETag>{e}</ETag></Part>"
+            for pn, e in enumerate(parts, 1))
+            + "</CompleteMultipartUpload>").encode()
+        st, _, body = c.send("POST", "/ntf/mp", query={"uploadId": upload},
+                             body=cdoc)
+        if st != 200:
+            fail(f"notify: complete multipart: HTTP {st}")
+        with acked_mu:
+            acked[("ntf", "mp")] = half[0] + half[1]
+        on_card(node, before, "tail", -(-size // bs) * 2)
+        # the tier bucket: both webhooks, the plane's every class
+        tdoc = ("<NotificationConfiguration><QueueConfiguration>"
+                f"<Queue>{arn}</Queue><Event>s3:ObjectCreated:*</Event>"
+                "<Event>s3:ObjectRemoved:*</Event>"
+                "<Event>s3:ObjectRestore:*</Event>"
+                "<Event>s3:ObjectTransition:*</Event></QueueConfiguration>"
+                f"<QueueConfiguration><Queue>{legacy_arn}</Queue>"
+                "<Event>s3:ObjectRemoved:*</Event>"
+                "<Event>s3:ObjectRestore:*</Event></QueueConfiguration>"
+                "</NotificationConfiguration>").encode()
+        if c.send("PUT", "/ntf-tier", query={"notification": ""},
+                  body=tdoc)[0] != 200:
+            fail("notify: PUT ?notification on the tier bucket")
+        node.tiers.add(TierConfig("cold", "fs",
+                                  {"path": os.path.join(root, "tier")}))
+        before = encodes(node)
+        put(c, port, "/ntf-tier/cold/x", payloads[2], hashes[2])
+        put(c, port, "/ntf-tier/exp/one", payloads[3 % NOTIFY_PAYLOADS],
+            hashes[3 % NOTIFY_PAYLOADS])
+        gone.add(("ntf-tier", "exp/one"))
+        on_card(node, before, "tier PUTs", 2 * -(-size // bs))
+        lc = ("<LifecycleConfiguration><Rule><ID>t</ID><Status>Enabled"
+              "</Status><Filter><Prefix>cold/</Prefix></Filter><Transition>"
+              "<Date>2020-01-01T00:00:00Z</Date><StorageClass>cold"
+              "</StorageClass></Transition></Rule><Rule><ID>x</ID><Status>"
+              "Enabled</Status><Filter><Prefix>exp/</Prefix></Filter>"
+              "<Expiration><Date>2020-01-01T00:00:00Z</Date></Expiration>"
+              "</Rule></LifecycleConfiguration>").encode()
+        if c.send("PUT", "/ntf-tier", query={"lifecycle": ""},
+                  body=lc)[0] != 200:
+            fail("notify: PUT ?lifecycle")
+        if not plane.drain(180):
+            fail(f"notify: the plane did not drain: {plane.stats()}")
+        if node.metacache is not None and not node.metacache.drain(30):
+            fail("notify: the metacache did not drain")
+        node.crawler.scan_once()
+        if not node.transition_worker.drain(120):
+            fail(f"notify: transitions {node.transition_worker.stats()}")
+        if not plane.drain(180):
+            fail(f"notify: the plane did not drain: {plane.stats()}")
+        st, _, _ = c.send("GET", "/ntf-tier/cold/x")
+        if st != 403:
+            fail(f"notify: GET of the stub: HTTP {st}")
+        os.environ["MINIO_TPU_RESTORE_ASYNC_BYTES"] = str(size)
+        before = encodes(node)
+        st = c.send("POST", "/ntf-tier/cold/x", query={"restore": ""},
+                    body=b"<RestoreRequest><Days>1</Days></RestoreRequest>"
+                    )[0]
+        if st != 202:
+            fail(f"notify: restore: HTTP {st}")
+        if not node.transition_worker.drain(120):
+            fail(f"notify: restore {node.transition_worker.stats()}")
+        on_card(node, before, "restore", -(-size // bs))
+        node.events.drain(30)
+        if not plane.drain(180):
+            fail(f"notify: the plane did not drain: {plane.stats()}")
+        want_plane = {("s3:ObjectRemoved:Delete", "on0-0"),
+                      ("s3:ObjectRemoved:DeleteMarkerCreated", "doc"),
+                      ("s3:ObjectCreated:Put", "doc"),
+                      ("s3:ObjectCreated:CompleteMultipartUpload", "mp"),
+                      ("s3:ObjectCreated:Put", "cold/x"),
+                      ("s3:ObjectTransition:Complete", "cold/x"),
+                      ("s3:ObjectRestore:Completed", "cold/x"),
+                      ("s3:ObjectRemoved:Delete", "exp/one")}
+        want_legacy = {("s3:ObjectRemoved:Lifecycle", "exp/one"),
+                       ("s3:ObjectRestore:Post", "cold/x")}
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not (
+                want_plane <= {g[1:3] for g in webhook("/plane")}
+                and want_legacy <= {g[1:3] for g in webhook("/legacy")}):
+            time.sleep(0.05)
+        tail["plane"] = sorted({g[1:3] for g in webhook("/plane")
+                                if g[1] != "s3:ObjectCreated:Put"
+                                or not g[2].startswith(("on", "warm",
+                                                        "base"))})
+        tail["legacy"] = sorted({g[1:3] for g in webhook("/legacy")})
+        summary["tail"] = tail
+        if not want_plane <= set(map(tuple, tail["plane"])) or \
+                not want_legacy <= set(map(tuple, tail["legacy"])):
+            fail(f"notify: the tail's records: {tail}; want plane "
+                 f"{sorted(want_plane)}, legacy {sorted(want_legacy)}")
+        note("tail")
+
+        # -- the receiver down, the node rebooted --------------------------
+        hook.shutdown()
+        hook.server_close()
+        hook_live = False
+        before = encodes(node)
+        outage = [f"down-{i}" for i in range(NOTIFY_OUTAGE_PUTS)]
+        for i, key in enumerate(outage):
+            put(c, port, f"/ntf/{key}", payloads[i % NOTIFY_PAYLOADS],
+                hashes[i % NOTIFY_PAYLOADS])
+        on_card(node, before, "outage PUTs",
+                NOTIFY_OUTAGE_PUTS * -(-size // bs))
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and \
+                plane.stats()["backlog"] < NOTIFY_OUTAGE_PUTS:
+            time.sleep(0.05)
+        summary["outage"] = {"backlog_before_reboot":
+                             plane.stats()["backlog"]}
+        if plane.stats()["backlog"] < NOTIFY_OUTAGE_PUTS:
+            fail(f"notify: the outage's records are not queued: "
+                 f"{plane.stats()}")
+        note("outage queued")
+        launched = counts.read()
+        first = encodes(node)
+        node.shutdown()
+        node = None
+        note("node down")
+        hook = serve(hook_port)
+        hook_live = True
+        t_reboot = time.perf_counter()
+        node = boot()
+        note("rebooted")
+        port = node.s3.port
+        c = S3Client(port, creds, timeout=600)
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and not set(outage) <= \
+                {g[2] for g in webhook("/plane")}:
+            time.sleep(0.05)
+        summary["outage"]["delivered_after_reboot_s"] = round(
+            time.perf_counter() - t_reboot, 3)
+        if not set(outage) <= {g[2] for g in webhook("/plane")}:
+            fail(f"notify: the backlog did not reach the receiver after "
+                 f"the reboot: {node.notify_plane.stats()}")
+        if not node.notify_plane.drain(60) or \
+                node.notify_plane.stats()["backlog"]:
+            fail(f"notify: backlog after the reboot: "
+                 f"{node.notify_plane.stats()}")
+        summary["outage"]["plane_after"] = node.notify_plane.stats()
+        traffic_s = time.perf_counter() - t_traffic
+        note("reboot")
+        summary["launches"] = launched
+        summary["dispatches_on_card"] = {
+            "encode": first["batches"] - sched_before["batches"]
+            - (first["host_routed"] - sched_before["host_routed"]),
+            "encode_host_routed": first["host_routed"]
+            - sched_before["host_routed"],
+            "encode_blocks": first["blocks"] - sched_before["blocks"],
+            "in_put_windows": dict(dispatch)}
+        if min(launched["gf_matmul"], launched["hh256"]) <= 0 or \
+                summary["dispatches_on_card"]["encode"] <= 0:
+            fail(f"notify: launched {launched}, dispatched "
+                 f"{summary['dispatches_on_card']} on the card")
+
+        # -- every acknowledged PUT read back --------------------------------
+        t1 = time.perf_counter()
+
+        def read_one(item) -> list:
+            ident, want_body = item
+            b_, key = ident[0], ident[1]
+            q = {"versionId": ident[2]} if len(ident) > 2 else None
+            st, h, body = S3Client(port, creds, timeout=600).send(
+                "GET", f"/{b_}/{key}", query=q)
+            etag = h.get("etag", "").strip('"')
+            want_etag = hashlib.md5(want_body).hexdigest() if \
+                key != "mp" else None
+            if st == 200 and body == want_body and \
+                    (want_etag is None or etag == want_etag):
+                return []
+            return [{"object": f"{b_}/{key}", "status": st,
+                     "bytes": len(body), "etag": etag}]
+
+        items = [(i, b_) for i, b_ in acked.items()
+                 if (i[0], i[1]) not in gone]
+        with concurrent.futures.ThreadPoolExecutor(8) as ex:
+            bad = [x for r in ex.map(read_one, items) for x in r]
+        summary["read_back"] = {"objects": len(items), "lost": len(bad),
+                                "seconds": round(time.perf_counter() - t1,
+                                                 3), "first_lost": bad[:3]}
+        summary["traffic_s"] = round(traffic_s, 3)
+        if bad:
+            fail(f"notify: {len(bad)} of {len(items)} acknowledged PUTs "
+                 f"did not read back, e.g. {bad[:3]}")
+    finally:
+        if node is not None:
+            node.shutdown()
+        if hook_live:
+            hook.shutdown()
+            hook.server_close()
         for v, old in saved_env.items():
             if old is None:
                 os.environ.pop(v, None)

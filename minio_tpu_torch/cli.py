@@ -1,8 +1,8 @@
 """CLI — `python -m minio_tpu_torch server ...` process bootstrap, and
 the admin verbs that drive a running node.
 
-Counterpart of the `server`, `fsck`, `decommission`, `tier` and `qos`
-subcommands of minio_tpu/cli.py (the reference's main.go +
+Counterpart of the `server`, `fsck`, `decommission`, `tier`, `qos` and
+`notify` subcommands of minio_tpu/cli.py (the reference's main.go +
 cmd/server-main.go): parse args, boot the node, print the startup banner,
 block on SIGTERM/SIGINT. The admin verbs sign with the root credential
 (MINIO_ROOT_USER / MINIO_ROOT_PASSWORD) through madmin.AdminClient:
@@ -12,6 +12,8 @@ block on SIGTERM/SIGINT. The admin verbs sign with the root credential
     python -m minio_tpu_torch tier add|ls|rm|stats --url ...
     python -m minio_tpu_torch qos get|set|rm --url ... [--scope tenant|tier
         --name NAME --share W --rps R --rx-bps B --tx-bps B]
+    python -m minio_tpu_torch notify status|add|rm --url ... [--type
+        webhook|queue|log --name N --endpoint URL --path FILE --arn ARN]
 
     python -m minio_tpu_torch server /data/d{1...16} --address :9000
 
@@ -141,6 +143,32 @@ def _parse(argv: list[str]) -> argparse.Namespace:
     q.add_argument("--region", default=os.environ.get(
         "MINIO_REGION", "us-east-1"))
 
+    n = sub.add_parser("notify", help="manage bucket event "
+                       "notification targets (webhook/queue/log)")
+    n.add_argument("action", choices=("status", "add", "rm"))
+    n.add_argument("--url", default="127.0.0.1:9000",
+                   help="server admin endpoint host:port")
+    n.add_argument("--type", default="webhook",
+                   choices=("webhook", "queue", "log"),
+                   help="target type (add)")
+    n.add_argument("--name", default="",
+                   help="ARN id segment (add; random when empty)")
+    n.add_argument("--arn", default="",
+                   help="target ARN (rm, or add --force to update)")
+    n.add_argument("--endpoint", default="",
+                   help="webhook POST URL (add --type webhook)")
+    n.add_argument("--auth-token", default="",
+                   help="webhook bearer token (add --type webhook)")
+    n.add_argument("--timeout", type=float, default=0.0,
+                   help="webhook send timeout, seconds (0 = default)")
+    n.add_argument("--path", default="",
+                   help="event log file (add --type log)")
+    n.add_argument("--force", action="store_true",
+                   help="add: update an existing target in place "
+                   "(needs --arn)")
+    n.add_argument("--region", default=os.environ.get(
+        "MINIO_REGION", "us-east-1"))
+
     f = sub.add_parser("fsck", help="run the crash-consistency "
                        "auditor against a running node")
     f.add_argument("--url", default="127.0.0.1:9000",
@@ -168,18 +196,26 @@ def _creds() -> Credentials:
     return global_credentials()
 
 
+_STOP: list = []         # a SIGTERM/SIGINT seen since _trap_signals
+
+
+def _trap_signals() -> dict:
+    """Catch SIGTERM/SIGINT from here on; returns the handlers it
+    replaced. The handler only appends to a list (no lock a signal
+    could land inside)."""
+    return {s: signal.signal(s, lambda *a: _STOP.append(1))
+            for s in (signal.SIGTERM, signal.SIGINT)}
+
+
 def _serve_until_signal(cleanup) -> int:
-    """Block until SIGTERM/SIGINT, then run cleanup. The handler only
-    appends to a list (no lock a signal could land inside), and the main
-    thread looks at it every 0.2 s: a signal the kernel delivers to
-    another thread (the server runs many) only sets a flag that the main
-    thread reads when it next runs, so an untimed wait might never run
-    the handler."""
-    stop: list = []
-    signal.signal(signal.SIGTERM, lambda *a: stop.append(1))
-    signal.signal(signal.SIGINT, lambda *a: stop.append(1))
+    """Block until SIGTERM/SIGINT, then run cleanup. The main thread
+    looks at the signal list every 0.2 s: a signal the kernel delivers
+    to another thread (the server runs many) only sets a flag that the
+    main thread reads when it next runs, so an untimed wait might never
+    run the handler."""
+    _trap_signals()
     try:
-        while not stop:
+        while not _STOP:
             time.sleep(0.2)
     finally:
         cleanup()
@@ -289,6 +325,45 @@ def _run_qos(args, creds: Credentials) -> int:
     return 0
 
 
+def _run_notify(args, creds: Credentials) -> int:
+    """`minio_tpu notify status|add|rm` — drive the admin
+    notification-target registry against a running node."""
+    import json as _json
+    from .madmin import AdminClient, AdminClientError
+    from .utils import host_port
+    h, p = host_port(args.url, 9000)
+    cli = AdminClient(h, p, creds.access_key, creds.secret_key,
+                      region=args.region)
+    try:
+        if args.action == "status":
+            out = cli.notify_status()
+        elif args.action == "rm":
+            if not args.arn:
+                print("notify rm needs --arn", file=sys.stderr)
+                return 2
+            cli.remove_notify_target(args.arn)
+            out = {"removed": args.arn}
+        else:
+            params = {}
+            if args.endpoint:
+                params["endpoint"] = args.endpoint
+            if args.auth_token:
+                params["auth_token"] = args.auth_token
+            if args.timeout:
+                params["timeout"] = args.timeout
+            if args.path:
+                params["path"] = args.path
+            arn = cli.add_notify_target(
+                type=args.type, name=args.name, arn=args.arn,
+                update=args.force, **params)
+            out = {"arn": arn}
+    except AdminClientError as e:
+        print(f"notify {args.action} failed: {e}", file=sys.stderr)
+        return 1
+    print(_json.dumps(out, indent=2, sort_keys=True))
+    return 0
+
+
 def _run_fsck(args, creds: Credentials) -> int:
     """`minio_tpu fsck` — drive the admin consistency auditor. Exit 0
     when the tree is clean (or everything repairable was repaired),
@@ -320,6 +395,8 @@ def main(argv: list[str] | None = None) -> int:
         return _run_tier(args, creds)
     if args.cmd == "qos":
         return _run_qos(args, creds)
+    if args.cmd == "notify":
+        return _run_notify(args, creds)
     if args.node:
         return _serve_node(args, creds)
     if not args.drives:
@@ -374,6 +451,10 @@ def _serve_node(args: argparse.Namespace, creds: Credentials) -> int:
         return _refuse("--pool expansion is single-node only; distributed "
                        "pools join via their own --node lists")
     from .cluster import parse_node_arg, start_node
+    # a node's listener answers before its boot ends (its peers need its
+    # RPC): a stop signal that lands in between waits for the boot
+    # instead of killing the process mid-boot
+    saved = _trap_signals()
     try:
         nodes = [parse_node_arg(n) for n in args.node]
         node = start_node(
@@ -382,6 +463,8 @@ def _serve_node(args: argparse.Namespace, creds: Credentials) -> int:
             certfile=args.cert or None, keyfile=args.key or None,
             device=args.device)
     except (RuntimeError, ValueError) as e:
+        for sig_, handler in saved.items():
+            signal.signal(sig_, handler)
         return _refuse(f"boot refused: {e}")
     return _banner_and_serve(node, creds)
 

@@ -80,10 +80,20 @@ The boot loads the QoS plane's budget registry (s3/qos.py) from every
 pool, and the transition worker paces its pushes by the registry's
 per-tier budgets.
 
-Left out: the etcd IAM store and federation, bucket event notification,
-replication, the web router, the admin routes of those planes and
-bandwidth (they answer NotImplemented), and the peer verbs of those
-planes.
+Bucket event notification (minio_tpu/cluster.py:389-400, :455-481): the
+legacy event notifier (features/events.py) with its durable queue under
+``<drive 1>/.minio.sys/events`` and the config-KV notify targets; the
+notification plane (notify/) with its target registry loaded from every
+pool, its per-target queue under ``.minio.sys/notify/queue``, owner
+routing over the peers' ``notify-event`` verb and registry reloads over
+``notify-reload``; the crawler's lifecycle expiry sends
+s3:ObjectRemoved:Lifecycle. The plane's site id comes from the
+replication target registry (replicate/targets.py), which the boot loads
+and, on a first boot, saves; the replication plane itself is not ported.
+
+Left out: the etcd IAM store and federation, replication, the web
+router, the admin routes of those planes and bandwidth (they answer
+NotImplemented), and the peer verbs of those planes.
 """
 
 from __future__ import annotations
@@ -219,6 +229,10 @@ class ClusterNode:
         self.tiers: Optional[TierManager] = None
         self.transition_worker: Optional[TransitionWorker] = None
         self.notification: Optional[NotificationSys] = None
+        self.events = None           # the legacy EventNotifier
+        self.repl_targets = None     # replicate.TargetRegistry (site id)
+        self.notify_targets = None   # notify.NotifyTargetRegistry
+        self.notify_plane = None     # notify.NotificationPlane
         self.iam: Optional[IAMSys] = None
         self.config: Optional[ConfigSys] = None
         self.admin = None            # the AdminHandlers mount_admin made
@@ -395,7 +409,56 @@ class ClusterNode:
         # -- config KV (newAllSubsystems ConfigSys + lookupConfigs) --------
         self.config = ConfigSys(self.object_layer, secret=sk)
         self.s3.api.config = self.config
-        self.config.apply(self.s3.api, trace=self.s3.api.trace)
+        # -- live bucket events (the legacy notifier) ----------------------
+        # the durable event backlog lives under the node's first local
+        # drive (queuestore.go: pending events survive a restart)
+        from .features import EventNotifier
+        evq = os.path.join(self.spec.drives[0], ".minio.sys", "events") \
+            if self.spec.drives else None
+        self.events = EventNotifier(self.s3.api.bucket_meta, queue_dir=evq)
+        self.s3.api.events = self.events
+        # the replication target registry carries this site's id, which
+        # the notification plane stamps on its records; a first boot
+        # persists the minted id so that it survives a restart
+        from .replicate import TargetRegistry
+        self.repl_targets = TargetRegistry(self.object_layer)
+        try:
+            if not self.repl_targets.load():
+                self.repl_targets.save()
+        except Exception:  # noqa: BLE001 — boot proceeds; admin re-adds
+            pass
+        self.config.apply(self.s3.api, events=self.events,
+                          trace=self.s3.api.trace)
+        # -- bucket event notification plane (notify/) ---------------------
+        # the every-pool registry rule of the tiers; the plane rides the
+        # layer's namespace feed, so every mutation verb reaches its
+        # queue, and its per-target backlog lives beside the legacy
+        # queue on the first local drive
+        from .notify import NotificationPlane, NotifyTargetRegistry
+        self.notify_targets = NotifyTargetRegistry(self.object_layer)
+        try:
+            self.notify_targets.load()
+        except Exception:  # noqa: BLE001 — boot proceeds; admin re-adds
+            pass
+        nq = os.path.join(self.spec.drives[0], ".minio.sys", "notify",
+                          "queue") if self.spec.drives else None
+        self.notify_plane = NotificationPlane(
+            self.object_layer, self.notify_targets,
+            bucket_meta=self.s3.api.bucket_meta, queue_dir=nq,
+            node=self.spec.addr, nodes=[n.addr for n in nodes],
+            site_id=self.repl_targets.site_id)
+        # owner-node delivery: a non-owner hands the event to the
+        # bucket's owner over the peer plane (no double fire), and the
+        # peers' registries reload on an admin target mutation
+        npeers = {p.addr: p for p in self._peer_clients}
+        self.notify_plane.forward_fn = \
+            lambda addr, b, k: (addr in npeers
+                                and npeers[addr].notify_event(b, k))
+        self._peer_rpc.notify_event = self.notify_plane.ingest
+        self._peer_rpc.notify_reload = self.notify_targets.load
+        self.notify_plane.reload_peers = self.notification.notify_reload
+        self.object_layer.attach_notifications(self.notify_plane)
+        self.s3.api.notify = self.notify_plane
         # -- tier plane (remote tiers + ILM transitions) --------------------
         self.tiers = TierManager(self.object_layer)
         try:
@@ -467,7 +530,7 @@ class ClusterNode:
         self.crawler = DataUsageCrawler(
             self.object_layer,
             actions=[crawler_action(bmeta, self.object_layer,
-                                    tiers=self.tiers),
+                                    self.events, tiers=self.tiers),
                      transition_action(bmeta, self.transition_worker),
                      restore_reclaim_action(self.object_layer,
                                             self.tiers)],
@@ -637,7 +700,8 @@ class ClusterNode:
     def shutdown(self) -> None:
         """Idempotent; safe on a partially-booted node. The background
         loops and the transition worker close, the metacache closes
-        (persisting what is dirty) and the tracker flushes first, then
+        (persisting what is dirty), the tracker flushes and the event
+        notifier and notification plane close first, then
         the server stops, then a running drain, then the pools, then the
         former, then the RPC clients. The IAM refresh loop stops first,
         and the tracing plane's journal persists its tail (the last node
@@ -658,6 +722,12 @@ class ClusterNode:
             except Exception:  # noqa: BLE001 — hints only
                 pass
             self.update_tracker = None
+        if self.events is not None:
+            self.events.close()
+            self.events = None
+        if self.notify_plane is not None:
+            self.notify_plane.close()
+            self.notify_plane = None
         if self.s3 is not None:
             self.s3.stop()
             self.s3 = None

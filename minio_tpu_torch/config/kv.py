@@ -8,9 +8,9 @@ associated data, so a config either package stored loads in the other.
 The stored blob is an erasure-coded object of the port's layer. ``apply``
 pushes what the port has into the handlers (region, CORS origin,
 compression, the request cap, the static KMS and KES) and the audit
-webhook into the trace plane (s3/trace.TraceSys); the notify subsystems
-are stored and validated only, as in the reference without its event
-plane. Departure: MINIO_COMPRESS and
+webhook into the trace plane (s3/trace.TraceSys) and the notify
+subsystems' targets into the legacy event notifier
+(features/events.EventNotifier). Departure: MINIO_COMPRESS and
 MINIO_COMPRESS_ALGORITHM overlay the compression keys (``_LEGACY_ENV``);
 the reference's apply at boot turns off the compression those two env
 names turned on. Departures too: with nothing stored yet the env overlay
@@ -319,17 +319,26 @@ class ConfigSys:
 
     # -- live application (lookupConfigs, cmd/config-current.go:323) -------
 
+    CONFIG_WEBHOOK_ARN = "arn:minio:sqs::_:webhook"
+    CONFIG_REDIS_ARN = "arn:minio:sqs::_:redis"
+    CONFIG_KAFKA_ARN = "arn:minio:sqs::_:kafka"
+    CONFIG_MQTT_ARN = "arn:minio:sqs::_:mqtt"
+    CONFIG_NATS_ARN = "arn:minio:sqs::_:nats"
+    CONFIG_NSQ_ARN = "arn:minio:sqs::_:nsq"
+    CONFIG_AMQP_ARN = "arn:minio:sqs::_:amqp"
+    CONFIG_POSTGRES_ARN = "arn:minio:sqs::_:postgresql"
+    CONFIG_MYSQL_ARN = "arn:minio:sqs::_:mysql"
+    CONFIG_ELASTIC_ARN = "arn:minio:sqs::_:elasticsearch"
+
     def apply(self, api, events=None, trace=None) -> None:
         """Push config into a running S3ApiHandlers: region, the CORS
         origin, compression, the API's request cap and the KMS.
         Off-transitions are applied too: resetting requests_max restores
-        the default cap, and an audit webhook turned off stops shipping.
-        ``trace`` (s3/trace.TraceSys) takes the audit webhook. The notify
-        subsystems are stored and validated; their live effect waits for
-        the event plane, as the reference behaves when ``events`` is None,
-        which is all a caller of the port can pass."""
-        if events is not None:
-            raise ConfigError("the event plane is not ported")
+        the default cap, an audit webhook turned off stops shipping, and
+        a notify target turned off is unregistered. ``trace``
+        (s3/trace.TraceSys) takes the audit webhook; ``events``
+        (features/events.EventNotifier) takes the notify subsystems'
+        targets."""
         api.region = self.get("region", "name")
         api.cors_allow_origin = self.get("api", "cors_allow_origin")
         api.compression_enabled = \
@@ -371,3 +380,110 @@ class ConfigSys:
                 trace.audit_webhook = self.get("audit_webhook", "endpoint")
             else:
                 trace.audit_webhook = ""
+        if events is not None:
+            def _on(subsys: str) -> bool:
+                return self.get(subsys, "enable").lower() in ("on",
+                                                              "true", "1")
+
+            def _register(target_factory) -> None:
+                # a malformed notify config (e.g. bad NATS subject)
+                # must not crash boot/apply: log and leave the target
+                # unregistered
+                try:
+                    events.register_target(target_factory())
+                except Exception as e:  # noqa: BLE001
+                    from ..utils.console import get_console
+                    get_console().log_line(
+                        "ERROR", f"notify target rejected: {e}")
+            from ..features.events import (KafkaTarget, MQTTTarget,
+                                           RedisTarget, WebhookTarget)
+            if _on("notify_webhook"):
+                _register(lambda: WebhookTarget(
+                    self.CONFIG_WEBHOOK_ARN,
+                    self.get("notify_webhook", "endpoint")))
+            else:
+                events.unregister_target(self.CONFIG_WEBHOOK_ARN)
+            if _on("notify_redis"):
+                _register(lambda: RedisTarget(
+                    self.CONFIG_REDIS_ARN,
+                    self.get("notify_redis", "address"),
+                    self.get("notify_redis", "key"),
+                    format=self.get("notify_redis", "format"),
+                    password=self.get("notify_redis", "password")))
+            else:
+                events.unregister_target(self.CONFIG_REDIS_ARN)
+            if _on("notify_kafka"):
+                _register(lambda: KafkaTarget(
+                    self.CONFIG_KAFKA_ARN,
+                    [b.strip() for b in
+                     self.get("notify_kafka", "brokers").split(",")
+                     if b.strip()],
+                    self.get("notify_kafka", "topic")))
+            else:
+                events.unregister_target(self.CONFIG_KAFKA_ARN)
+            if _on("notify_mqtt"):
+                _register(lambda: MQTTTarget(
+                    self.CONFIG_MQTT_ARN,
+                    self.get("notify_mqtt", "broker"),
+                    self.get("notify_mqtt", "topic")))
+            else:
+                events.unregister_target(self.CONFIG_MQTT_ARN)
+            from ..features.events import (ElasticsearchTarget,
+                                           NATSTarget)
+            if _on("notify_nats"):
+                _register(lambda: NATSTarget(
+                    self.CONFIG_NATS_ARN,
+                    self.get("notify_nats", "address"),
+                    self.get("notify_nats", "subject")))
+            else:
+                events.unregister_target(self.CONFIG_NATS_ARN)
+            from ..features.events import AMQPTarget, NSQTarget
+            if _on("notify_amqp"):
+                _register(lambda: AMQPTarget(
+                    self.CONFIG_AMQP_ARN,
+                    self.get("notify_amqp", "address"),
+                    exchange=self.get("notify_amqp", "exchange"),
+                    routing_key=self.get("notify_amqp", "routing_key"),
+                    user=self.get("notify_amqp", "user"),
+                    password=self.get("notify_amqp", "password"),
+                    vhost=self.get("notify_amqp", "vhost")))
+            else:
+                events.unregister_target(self.CONFIG_AMQP_ARN)
+            if _on("notify_nsq"):
+                _register(lambda: NSQTarget(
+                    self.CONFIG_NSQ_ARN,
+                    self.get("notify_nsq", "address"),
+                    self.get("notify_nsq", "topic")))
+            else:
+                events.unregister_target(self.CONFIG_NSQ_ARN)
+            from ..features.events import MySQLTarget, PostgresTarget
+            if _on("notify_mysql"):
+                _register(lambda: MySQLTarget(
+                    self.CONFIG_MYSQL_ARN,
+                    self.get("notify_mysql", "address"),
+                    self.get("notify_mysql", "database"),
+                    self.get("notify_mysql", "table"),
+                    user=self.get("notify_mysql", "user"),
+                    password=self.get("notify_mysql", "password"),
+                    format=self.get("notify_mysql", "format")))
+            else:
+                events.unregister_target(self.CONFIG_MYSQL_ARN)
+            if _on("notify_postgres"):
+                _register(lambda: PostgresTarget(
+                    self.CONFIG_POSTGRES_ARN,
+                    self.get("notify_postgres", "address"),
+                    self.get("notify_postgres", "database"),
+                    self.get("notify_postgres", "table"),
+                    user=self.get("notify_postgres", "user"),
+                    password=self.get("notify_postgres", "password"),
+                    format=self.get("notify_postgres", "format")))
+            else:
+                events.unregister_target(self.CONFIG_POSTGRES_ARN)
+            if _on("notify_elasticsearch"):
+                _register(lambda: ElasticsearchTarget(
+                    self.CONFIG_ELASTIC_ARN,
+                    self.get("notify_elasticsearch", "url"),
+                    self.get("notify_elasticsearch", "index"),
+                    format=self.get("notify_elasticsearch", "format")))
+            else:
+                events.unregister_target(self.CONFIG_ELASTIC_ARN)

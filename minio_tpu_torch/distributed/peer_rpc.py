@@ -14,10 +14,12 @@ planes the port has: ``server-info``, ``locks``,
 ``trace-stream``, ``events``, ``event-stream``, ``incidents``,
 ``incident``, ``profiling-start``, ``profiling-stop`` and
 ``console-log``, the gray-failure plane's ``obd`` (utils/obd.py over
-``obd_drive_paths``), their client calls and NotificationSys fan-outs
-(``obd_all``, ``net_obd``), and the bootstrap verify whole. The
-JSON-metrics, bandwidth and notification verbs are not registered: a peer asking for one gets the transport's own
-404 ``unknown-verb``. Departure: the federated scrape's
+``obd_drive_paths``), the notification plane's ``notify-event`` (a
+non-owner's namespace event handed to the bucket's owner) and
+``notify-reload``, their client calls and NotificationSys fan-outs
+(``obd_all``, ``net_obd``, ``notify_reload``), and the bootstrap verify
+whole. The JSON-metrics and bandwidth verbs are not registered: a peer
+asking for one gets the transport's own 404 ``unknown-verb``. Departure: the federated scrape's
 per-peer pull waits its whole deadline (``MINIO_TPU_CLUSTER_SCRAPE_S``);
 the reference tightens it from the peer's observed latency under
 ``MINIO_TPU_PEER_SHED_DEADLINE_X``, which is not ported.
@@ -83,6 +85,11 @@ class PeerRPCServer:
             lambda inc_id: None
         # the drive paths the OBD verb probes (the cluster sets them)
         self.obd_drive_paths: list[str] = []
+        # bucket event notification plane: owner-node delivery hand-off
+        # (a non-owner forwards the namespace event here) and registry
+        # reload after an admin target mutation elsewhere
+        self.notify_event: Callable[[str, str], None] = lambda b, k: None
+        self.notify_reload: Callable[[], object] = lambda: None
 
         h = self.handler
         h.register("server-info", lambda a, b: {
@@ -116,6 +123,8 @@ class PeerRPCServer:
         h.register("profiling-stop", self._profiling_stop)
         h.register("console-log", self._console_log)
         h.register("obd", self._obd)
+        h.register("notify-event", self._notify_event)
+        h.register("notify-reload", lambda a, b: self.notify_reload())
 
     def _trace_stream(self, args, body):
         """Live trace subscription (the peer half of a cluster-wide
@@ -231,6 +240,9 @@ class PeerRPCServer:
     def _reload_bm(self, args, body):
         self.reload_bucket_metadata(args.get("bucket", ""))
 
+    def _notify_event(self, args, body):
+        self.notify_event(args.get("bucket", ""), args.get("key", ""))
+
     def _signal(self, args, body):
         self.signal_service(args.get("sig", ""))
 
@@ -280,6 +292,24 @@ class PeerRPCClient:
     def reload_iam(self) -> bool:
         try:
             self.rc.call("reload-iam")
+            return True
+        except (NetworkError, RPCError):
+            return False
+
+    def notify_event(self, bucket: str, key: str) -> bool:
+        """Hand one namespace event to this peer (the bucket's owner)
+        for notification delivery."""
+        if self._shed():
+            return False
+        try:
+            self.rc.call("notify-event", {"bucket": bucket, "key": key})
+            return True
+        except (NetworkError, RPCError):
+            return False
+
+    def notify_reload(self) -> bool:
+        try:
+            self.rc.call("notify-reload")
             return True
         except (NetworkError, RPCError):
             return False
@@ -550,6 +580,11 @@ class NotificationSys:
 
     def reload_iam(self) -> list:
         return self._broadcast(lambda p: p.reload_iam())
+
+    def notify_reload(self) -> list:
+        """Reload every peer's notification-target registry (after an
+        admin target mutation here — their boot-time loads are stale)."""
+        return self._broadcast(lambda p: p.notify_reload())
 
     def iam_delta(self, pairs: list) -> list:
         """Per-entity IAM propagation: one small RPC per peer carrying

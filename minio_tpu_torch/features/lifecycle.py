@@ -17,9 +17,9 @@ ILM tiering, pkg/bucket/lifecycle/transition.go): the crawler's tier
 actions (tier/transition.py) act on them, and expiry always wins over
 transition when both are due. With a tier manager (``tiers=``), the
 expiry actions here also free a transitioned version's remote copy.
-``crawler_action`` sends its s3:ObjectRemoved:Lifecycle event only to a
-``notifier`` the caller passes; the boot passes none (the event plane is
-not ported).
+``crawler_action`` sends its s3:ObjectRemoved:Lifecycle event to the
+``notifier`` the caller passes; the boot passes its legacy event
+notifier (features/events.EventNotifier), as in the reference.
 """
 
 from __future__ import annotations

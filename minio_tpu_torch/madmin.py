@@ -7,11 +7,12 @@ serves (s3/admin.py), the tracing plane's among them (trace and
 trace_follow, cluster_trace, events and events_follow, incidents and
 incident, slo, spans, profiling_start and profiling_stop, console_log) and
 the gray-failure plane's (obd_info, drive_health), the checking
-plane's naughtynet and the QoS plane's qos_get, qos_set and qos_remove.
-``update_group_members`` drives a route the reference's router lacks
-(upstream's update-group-members); the other calls are the reference's.
-Left out with their planes: replication, notify, remote targets and
-bandwidth."""
+plane's naughtynet, the QoS plane's qos_get, qos_set and qos_remove,
+and the notification plane's notify_status, add_notify_target and
+remove_notify_target. ``update_group_members`` drives a route the
+reference's router lacks (upstream's update-group-members); the other
+calls are the reference's. Left out with their planes: replication,
+remote targets and bandwidth."""
 
 from __future__ import annotations
 
@@ -229,6 +230,35 @@ class AdminClient:
     def qos_remove(self, name: str, scope: str = "tenant") -> dict:
         return self._json("DELETE", "qos",
                           {"scope": scope, "name": name})
+
+    # -- bucket event notification plane -----------------------------------
+
+    def notify_status(self) -> dict:
+        """Notification target registry, plane stats, and per-target
+        delivery health under ``targets_status`` (backlog depth,
+        offline window, last delivery lag)."""
+        return self._json("GET", "notify")
+
+    def add_notify_target(self, type: str = "webhook", name: str = "",
+                          arn: str = "", update: bool = False,
+                          **params) -> str:
+        """Register an event notification target; returns its ARN.
+        ``params`` is the type-specific config — ``endpoint`` (and
+        optional ``auth_token``, ``timeout``) for webhooks, ``path``
+        for log targets. Updating an existing target requires passing
+        its ``arn`` back (the server mints a fresh one otherwise)."""
+        doc = {"type": type, "params": params}
+        if name:
+            doc["name"] = name
+        if arn:
+            doc["arn"] = arn
+        out = self._json("PUT", "notify/target",
+                         {"update": "true"} if update else None,
+                         json.dumps(doc).encode())
+        return out["arn"]
+
+    def remove_notify_target(self, arn: str) -> None:
+        self._request("DELETE", "notify/target", {"arn": arn})
 
     # -- IAM ---------------------------------------------------------------
 

@@ -13,7 +13,8 @@ top/locks; heal and heal/status (the heal sequence heals object by object
 through the layer, so each heal's recovery runs ``heal_step`` on the
 card), mrf, fsck, metacache; rebalance (POST, GET, DELETE) and topology
 (GET, POST); tier and tier/stats; qos (GET, PUT, DELETE: the QoS
-plane's budget registry, s3/qos.py); metrics (``?cluster=1`` merges every
+plane's budget registry, s3/qos.py); notify (GET) and notify/target (PUT,
+DELETE: the notification plane's target registry, notify/); metrics (``?cluster=1`` merges every
 node's exposition, utils/promfed.py); get-config, set-config,
 config-history, restore-config; the user, policy and service-account
 routes; service, set-bucket-quota and get-bucket-quota; and the tracing
@@ -73,9 +74,6 @@ _UNPORTED = {
     ("POST", "replicate/resync"): "replication",
     ("GET", "replicate/resync"): "replication",
     ("DELETE", "replicate/resync"): "replication",
-    ("GET", "notify"): "notify",
-    ("PUT", "notify/target"): "notify",
-    ("DELETE", "notify/target"): "notify",
     ("PUT", "set-remote-target"): "remote targets",
     ("GET", "list-remote-targets"): "remote targets",
     ("DELETE", "remove-remote-target"): "remote targets",
@@ -659,6 +657,48 @@ class AdminHandlers:
             return self._json({"scope": scope, "name": name,
                                "epoch": epoch})
 
+        # -- bucket event notification plane (notify/) -----------------------
+        if sub == "notify" and m == "GET":
+            self._auth(ctx, "admin:ServerInfo")
+            plane = self._notify_plane()
+            return self._json(
+                {"epoch": plane.registry.epoch,
+                 "targets": plane.registry.list(redact=True),
+                 "stats": plane.stats(),
+                 # per-target delivery state: backlog depth, offline
+                 # window, last delivery lag — the JSON twin of
+                 # minio_tpu_notify_lag_seconds{target}
+                 "targets_status": plane.target_status()})
+        if sub == "notify/target" and m == "PUT":
+            self._auth(ctx, "admin:SetBucketTarget")
+            from ..notify.targets import (NotifyTarget, NotifyTargetError,
+                                          new_arn)
+            plane = self._notify_plane()
+            body = json.loads(ctx.read_body().decode() or "{}")
+            body.setdefault("arn", new_arn(body.pop("name", ""),
+                                           body.get("type", "webhook")))
+            try:
+                target = NotifyTarget.from_dict(body)
+                plane.registry.add(
+                    target, update=ctx.query1("update") == "true")
+            except NotifyTargetError as e:
+                raise S3Error("AdminInvalidArgument", str(e)) from None
+            if plane.reload_peers is not None:
+                plane.reload_peers()
+            return self._json({"arn": target.arn,
+                               "epoch": plane.registry.epoch})
+        if sub == "notify/target" and m == "DELETE":
+            self._auth(ctx, "admin:SetBucketTarget")
+            from ..notify.targets import NotifyTargetError
+            plane = self._notify_plane()
+            try:
+                plane.registry.remove(ctx.query1("arn", ""))
+            except NotifyTargetError as e:
+                raise S3Error("AdminInvalidArgument", str(e)) from None
+            if plane.reload_peers is not None:
+                plane.reload_peers()
+            return self._json({})
+
         # -- config KV (cmd/admin-handlers-config-kv.go) -------------------
         if sub == "get-config" and m == "GET":
             self._auth(ctx, "admin:ConfigUpdate")
@@ -673,7 +713,8 @@ class AdminHandlers:
                 cfg.set_kv(subsys, **{k: str(v) for k, v in kv.items()})
             except _kvmod.ConfigError as e:
                 raise S3Error("AdminInvalidArgument", str(e)) from None
-            cfg.apply(self.api, trace=self.api.trace)
+            cfg.apply(self.api, events=self.api.events,
+                      trace=self.api.trace)
             return self._json({})
         if sub == "config-history" and m == "GET":
             self._auth(ctx, "admin:ConfigUpdate")
@@ -682,7 +723,8 @@ class AdminHandlers:
             self._auth(ctx, "admin:ConfigUpdate")
             cfg = self._config()
             cfg.restore(ctx.query1("entry"))
-            cfg.apply(self.api, trace=self.api.trace)
+            cfg.apply(self.api, events=self.api.events,
+                      trace=self.api.trace)
             return self._json({})
 
         # -- IAM management (cmd/admin-handlers-users.go) ------------------
@@ -795,6 +837,15 @@ class AdminHandlers:
         if self.api.iam is None:
             raise S3Error("NotImplemented", "IAM is not configured")
         return self.api.iam
+
+    def _notify_plane(self):
+        """The bucket event notification plane (notify/); the legacy
+        config-driven notifier has no target registry."""
+        plane = self.api.notify
+        if plane is None:
+            raise S3Error("NotImplemented",
+                          "no notification plane")
+        return plane
 
     def _tiers(self):
         if self.api.tiers is None:

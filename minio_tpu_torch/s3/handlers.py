@@ -45,11 +45,16 @@ bucket's default retention, ``?retention`` and ``?legal-hold``, and WORM
 enforcement on deletes) and browser POST uploads (s3/postpolicy.py) are
 the reference's; a locked or POSTed object encodes on the card as any PUT.
 Departure: DeleteObjects holds each key to the lock as the single DELETE
-does (the reference's removes a locked version). Verbs of planes not
-ported yet answer NotImplemented: replication and notification configs,
-ListenBucketNotification and the internal replication headers;
-RestoreObject answers it too when no tier manager is attached (``tiers``,
-as in the reference).
+does (the reference's removes a locked version). Bucket notification
+is the reference's: ``?notification`` configs (a PUT validated by the
+notification plane, ``notify``), ListenBucketNotification's ND-JSON
+stream over the legacy notifier's hub (``events``), and ``_notify`` at
+each of the reference's event sites (the tracker marked for every event
+but ``s3:ObjectAccessed:*``). Verbs of planes not ported yet answer
+NotImplemented: replication configs and the internal replication
+headers (the replication-apply and replica-prune branches, the two
+event sites the port lacks); RestoreObject answers it too when no tier
+manager is attached (``tiers``, as in the reference).
 
 The QoS plane (s3/qos.py, off by default) resolves each request's tenant
 at the admission gate, confirms it from the verified credential
@@ -57,8 +62,7 @@ at the admission gate, confirms it from the verified credential
 body and the response stream through the tenant's byte budgets.
 Each request's trace record goes to ``trace`` (s3/trace.TraceSys) from
 the edge middleware. Left out with the unported planes: bandwidth
-accounting, event notification, bucket federation and storage-class
-parity.
+accounting, bucket federation and storage-class parity.
 
 The tier plane (tier/): a transitioned object's HEAD and GET carry the
 tier as ``x-amz-storage-class`` and its ``x-amz-restore`` state, a GET
@@ -334,6 +338,9 @@ class S3ApiHandlers:
         # or "zstd" (better ratio, no cross-binary interop)
         self.compression_algorithm = os.environ.get(
             "MINIO_COMPRESS_ALGORITHM", "s2").lower()
+        self.events = None         # optional EventNotifier (legacy hook)
+        self.notify = None         # optional NotificationPlane
+                                   # (notify/, feed-driven)
         self.usage = None          # optional DataUsageCrawler (quota cache)
         self.tiers = None          # optional TierManager (ILM tiering)
         # optional TransitionWorker: the async RestoreObject pulls
@@ -640,8 +647,10 @@ class S3ApiHandlers:
                 resp = self._route(ctx)
             except Exception as e:  # noqa: BLE001 — map to S3 error XML
                 return self._error_response(ctx, api_error_from(e))
-            if resp.stream is not None:
-                if tenant and not resp.long_poll:
+            # a long_poll stream (ListenBucketNotification) mostly
+            # idles: it gives its admission slot back at once
+            if resp.stream is not None and not resp.long_poll:
+                if tenant:
                     resp.stream = self.qos.paced_stream(tenant,
                                                         resp.stream)
                 resp.stream = _ReleasingStream(resp.stream, ticket)
@@ -696,9 +705,12 @@ class S3ApiHandlers:
                 return self.get_bucket_encryption(ctx, bucket)
             if ctx.has_query("object-lock"):
                 return self.get_object_lock_config(ctx, bucket)
-            for q in ("replication", "notification", "events"):
-                if ctx.has_query(q):
-                    raise _not_ported(f"GET ?{q}")
+            if ctx.has_query("replication"):
+                raise _not_ported("GET ?replication")
+            if ctx.has_query("notification"):
+                return self.get_bucket_notification(ctx, bucket)
+            if ctx.has_query("events"):
+                return self.listen_bucket_notification(ctx, bucket)
             if ctx.query1("list-type") == "2":
                 return self.list_objects_v2(ctx, bucket)
             return self.list_objects_v1(ctx, bucket)
@@ -715,9 +727,10 @@ class S3ApiHandlers:
                 return self.put_bucket_encryption(ctx, bucket)
             if ctx.has_query("object-lock"):
                 return self.put_object_lock_config(ctx, bucket)
-            for q in ("replication", "notification"):
-                if ctx.has_query(q):
-                    raise _not_ported(f"PUT ?{q}")
+            if ctx.has_query("replication"):
+                raise _not_ported("PUT ?replication")
+            if ctx.has_query("notification"):
+                return self.put_bucket_notification(ctx, bucket)
             return self.make_bucket(ctx, bucket)
         if m == "HEAD":
             return self.head_bucket(ctx, bucket)
@@ -780,7 +793,7 @@ class S3ApiHandlers:
         info = self.obj.put_object(
             bucket, key, file_bytes,
             opts=PutOptions(metadata=metadata, versioned=versioned))
-        self._mark(bucket, key)
+        self._notify("s3:ObjectCreated:Post", bucket, key)
         status = int(lower.get("success_action_status", "204"))
         if status not in (200, 201, 204):
             status = 204
@@ -872,7 +885,7 @@ class S3ApiHandlers:
                 object_lock_xml="<ObjectLockConfiguration>"
                 "<ObjectLockEnabled>Enabled</ObjectLockEnabled>"
                 "</ObjectLockConfiguration>")
-        self._mark(bucket)
+        self._notify("s3:BucketCreated:*", bucket, "")
         return HTTPResponse(headers={"Location": f"/{bucket}"})
 
     def head_bucket(self, ctx, bucket) -> HTTPResponse:
@@ -885,7 +898,7 @@ class S3ApiHandlers:
         force = ctx.header("x-minio-force-delete") == "true"
         self.obj.delete_bucket(bucket, force=force)
         self.bucket_meta.delete(bucket)
-        self._mark(bucket)
+        self._notify("s3:BucketRemoved:*", bucket, "")
         return HTTPResponse(status=204)
 
     def get_bucket_location(self, ctx, bucket) -> HTTPResponse:
@@ -1031,6 +1044,99 @@ class S3ApiHandlers:
         return self._del_xml_config(ctx, bucket, "sse_config_xml",
                                     "s3:PutEncryptionConfiguration")
 
+    # --- bucket notification --------------------------------------------
+
+    def listen_bucket_notification(self, ctx, bucket) -> HTTPResponse:
+        """Live event stream for one bucket (ListenBucketNotification,
+        cmd/listen-notification-handlers.go): ND-JSON event records,
+        filtered by prefix/suffix/event-name query params, ends after an
+        idle window."""
+        import fnmatch as _fn
+        import json as _json
+        self.authenticate(ctx, "s3:ListenBucketNotification", bucket)
+        self.obj.get_bucket_info(bucket)
+        if self.events is None:
+            raise S3Error("NotImplemented", "event system not running")
+        prefix = ctx.query1("prefix")
+        suffix = ctx.query1("suffix")
+        patterns = ctx.req.query.get("events") or ["*"]
+        try:
+            idle = float(ctx.query1("idle", "10") or 10)
+        except ValueError:
+            raise S3Error("InvalidArgument", "bad idle value") from None
+        idle = min(max(idle, 1.0), 3600.0)
+        hub = self.events.hub
+
+        def stream():
+            with hub.subscribe() as sub:
+                while True:
+                    item = sub.get(timeout=idle)
+                    if item is None:
+                        return
+                    b, record = item
+                    if b != bucket:
+                        continue
+                    rec = record["Records"][0]
+                    key = rec["s3"]["object"]["key"]
+                    if prefix and not key.startswith(prefix):
+                        continue
+                    if suffix and not key.endswith(suffix):
+                        continue
+                    if not any(_fn.fnmatchcase(rec["eventName"], p)
+                               or p == "*"
+                               for p in patterns):
+                        continue
+                    yield (_json.dumps(record) + "\n").encode()
+
+        return HTTPResponse(
+            headers={"Content-Type": "application/x-ndjson"},
+            stream=stream(), long_poll=True)
+
+    def get_bucket_notification(self, ctx, bucket):
+        self.authenticate(ctx, "s3:GetBucketNotification", bucket)
+        self.obj.get_bucket_info(bucket)
+        doc = self.bucket_meta.get(bucket).notification_xml
+        if not doc:
+            doc = ('<?xml version="1.0" encoding="UTF-8"?>'
+                   f'<NotificationConfiguration xmlns="{xmlgen.S3_XMLNS}"/>')
+        return HTTPResponse(headers={"Content-Type": "application/xml"},
+                            body=doc.encode())
+
+    def put_bucket_notification(self, ctx, bucket):
+        self.authenticate(ctx, "s3:PutBucketNotification", bucket)
+        self.obj.get_bucket_info(bucket)
+        body = ctx.read_body()
+        try:
+            ET.fromstring(body)
+        except ET.ParseError:
+            raise S3Error("MalformedXML")
+        if self.notify is not None:
+            # configs naming unknown target ARNs or event names are
+            # refused at PUT time (ErrARNNotification /
+            # ErrEventNotification): a rule that can never fire is a
+            # config error, not a silent no-op. The legacy notifier's
+            # config-driven targets stay valid.
+            from ..notify.rules import BucketNotifyConfig, NotifyRuleError
+            try:
+                cfg = BucketNotifyConfig.from_xml(body)
+            except NotifyRuleError as e:
+                raise S3Error("MalformedXML", str(e)) from None
+            known = self.notify.registry.arns()
+            legacy = getattr(self.events, "targets", None) or {}
+            for rule in cfg.rules:
+                if rule.arn not in known and rule.arn not in legacy:
+                    raise S3Error(
+                        "InvalidArgument",
+                        f"unknown notification target ARN {rule.arn}")
+            bad = cfg.unknown_events()
+            if bad:
+                raise S3Error(
+                    "InvalidArgument",
+                    f"unsupported notification event(s): "
+                    f"{', '.join(sorted(set(bad)))}")
+        self.bucket_meta.update(bucket, notification_xml=body.decode())
+        return HTTPResponse()
+
     # --- listings -------------------------------------------------------
 
     def list_objects_v1(self, ctx, bucket) -> HTTPResponse:
@@ -1160,7 +1266,7 @@ class S3ApiHandlers:
                 deleted.append(entry)
                 if tiered_md is not None:
                     tier_transition.free_remote(self.tiers, tiered_md)
-                self._mark(bucket, key)
+                self._notify("s3:ObjectRemoved:Delete", bucket, key)
             except oerr.ObjectNotFound:
                 deleted.append({"key": key, "version_id": vid})
             except Exception as e:  # noqa: BLE001 — per-key error entry
@@ -1262,7 +1368,7 @@ class S3ApiHandlers:
         headers = {"ETag": f'"{info.etag}"', **sse_headers}
         if info.version_id and info.version_id != "null":
             headers["x-amz-version-id"] = info.version_id
-        self._mark(bucket, key)
+        self._notify("s3:ObjectCreated:Put", bucket, key)
         return HTTPResponse(headers=headers)
 
     def _apply_put_transforms(self, ctx, key, reader, size, metadata
@@ -1392,6 +1498,7 @@ class S3ApiHandlers:
                        ("response-content-language", "Content-Language")):
             if ctx.query1(qk):
                 headers[hk] = ctx.query1(qk)
+        self._notify("s3:ObjectAccessed:Get", bucket, key)
         return HTTPResponse(status=status, headers=headers, stream=stream)
 
     def _compress_algo(self) -> str:
@@ -1456,6 +1563,7 @@ class S3ApiHandlers:
             status = 206
             headers["Content-Range"] = (
                 f"bytes {offset}-{offset + length - 1}/{actual}")
+        self._notify("s3:ObjectAccessed:Get", bucket, key)
         return HTTPResponse(status=status, headers=headers, stream=stream)
 
     def _multipart_meta(self, bucket: str, key: str,
@@ -1669,6 +1777,7 @@ class S3ApiHandlers:
             headers["Content-Length"] = str(info.size)
         if short is not None:
             return HTTPResponse(status=short, headers=headers)
+        self._notify("s3:ObjectAccessed:Head", bucket, key)
         return HTTPResponse(headers=headers)
 
     def delete_object(self, ctx, bucket, key) -> HTTPResponse:
@@ -1712,7 +1821,7 @@ class S3ApiHandlers:
                 tier_transition.free_remote(self.tiers, tiered_md)
         except oerr.ObjectNotFound:
             pass  # S3 DELETE of a missing key is 204
-        self._mark(bucket, key)
+        self._notify("s3:ObjectRemoved:Delete", bucket, key)
         return HTTPResponse(status=204, headers=headers)
 
     def restore_object(self, ctx, bucket, key) -> HTTPResponse:
@@ -1758,7 +1867,7 @@ class S3ApiHandlers:
                                                  eff_vid)
             if self.restore_worker.enqueue_restore(
                     bucket, key, eff_vid or info.version_id, days):
-                self._mark(bucket, key)
+                self._notify("s3:ObjectRestore:Post", bucket, key)
                 return HTTPResponse(status=202)
             # the worker's queue is full or stopping: nothing would ever
             # clear the marker, so undo it and restore synchronously
@@ -1767,7 +1876,7 @@ class S3ApiHandlers:
         out = tier_transition.restore_object(self.obj, self.tiers, bucket,
                                              key, version_id=eff_vid,
                                              days=days)
-        self._mark(bucket, key)
+        self._notify("s3:ObjectRestore:Completed", bucket, key)
         return HTTPResponse(
             status=202 if out["status"] == "restored" else 200)
 
@@ -1851,7 +1960,7 @@ class S3ApiHandlers:
             headers = {}
             if info.version_id and info.version_id != "null":
                 headers["x-amz-version-id"] = info.version_id
-            self._mark(bucket, key)
+            self._notify("s3:ObjectCreated:Copy", bucket, key)
             return HTTPResponse(headers=headers).with_xml(
                 xmlgen.copy_object_response(info.etag, info.mod_time))
 
@@ -1872,7 +1981,7 @@ class S3ApiHandlers:
         headers = {}
         if info.version_id and info.version_id != "null":
             headers["x-amz-version-id"] = info.version_id
-        self._mark(bucket, key)
+        self._notify("s3:ObjectCreated:Copy", bucket, key)
         return HTTPResponse(headers=headers).with_xml(
             xmlgen.copy_object_response(info.etag, info.mod_time))
 
@@ -1990,7 +2099,8 @@ class S3ApiHandlers:
             raise S3Error("InvalidPartOrder")
         info = self.obj.complete_multipart_upload(bucket, key, upload_id,
                                                   parts)
-        self._mark(bucket, key)
+        self._notify("s3:ObjectCreated:CompleteMultipartUpload", bucket,
+                     key)
         host = ctx.header("host", "")
         return HTTPResponse().with_xml(xmlgen.complete_multipart_response(
             f"http://{host}/{bucket}/{key}", bucket, key, info.etag))
@@ -2213,12 +2323,17 @@ class S3ApiHandlers:
                                         vid or info.version_id)
         return HTTPResponse()
 
-    def _mark(self, bucket: str, key: str = "") -> None:
-        """Mark a mutation in the data-update tracker, where the
-        reference's _notify marks it for every event but s3:ObjectAccessed
-        (cmd/data-update-tracker.go marks its bloom on object writes)."""
+    def _notify(self, event_name: str, bucket: str, key: str) -> None:
+        if self.events is not None:
+            try:
+                self.events.send(event_name, bucket, key)
+            except Exception:  # noqa: BLE001 — events are best-effort
+                pass
+        # the data-update tracker rides every mutation signal (reference
+        # cmd/data-update-tracker.go marks its bloom on object writes)
         tracker = self.update_tracker
-        if tracker is not None:
+        if tracker is not None and \
+                not event_name.startswith("s3:ObjectAccessed"):
             try:
                 tracker.mark(bucket, key)
             except Exception:  # noqa: BLE001 — hints are best-effort

@@ -431,6 +431,33 @@ define("MINIO_TPU_CLUSTER_SCRAPE_S", "float", 2.0,
        "(?cluster=1); a peer past it degrades the scrape and counts in "
        "minio_tpu_cluster_scrape_failed_total")
 
+# -- events and notifications (minio_tpu/utils/knobs.py:488-512) --------------
+define("MINIO_TPU_QUEUE_FSYNC", "bool", False,
+       "fsync durable event-queue writes (survives power loss)")
+define("MINIO_TPU_NOTIFY_WORKERS", "int", 2,
+       "delivery workers draining the notification queue")
+define("MINIO_TPU_NOTIFY_QUEUE", "int", 10000,
+       "max queued (bucket, key) namespace events (overflow drops + "
+       "counts; delivery never blocks a mutation)")
+define("MINIO_TPU_NOTIFY_BACKOFF_S", "float", 0.05,
+       "first delivery backoff when the foreground is busy")
+define("MINIO_TPU_NOTIFY_BACKOFF_MAX_S", "float", 1.0,
+       "delivery backoff cap, seconds")
+define("MINIO_TPU_NOTIFY_BACKOFF_TRIES", "int", 8,
+       "busy polls before a delivery proceeds anyway")
+define("MINIO_TPU_NOTIFY_STORE_LIMIT", "int", 10000,
+       "per-target delivery backlog cap (overflow drops + counts — "
+       "bounded memory/disk against a dead target)")
+define("MINIO_TPU_NOTIFY_OFFLINE_S", "float", 2.0,
+       "offline window after a failed delivery: new events for that "
+       "target queue without burning a send timeout each")
+define("MINIO_TPU_NOTIFY_REDRIVE_S", "float", 5.0,
+       "periodic backlog redrive cadence, seconds")
+define("MINIO_TPU_NOTIFY_REPLICA_EVENTS", "bool", False,
+       "`on` = replica-apply writes fire bucket notifications too "
+       "(reference parity keeps them suppressed: replication does not "
+       "re-fire source events)")
+
 # -- the checking plane (minio_tpu/utils/knobs.py:590-600) ---------------------
 define("MINIO_TPU_LOCKCHECK", "bool", False,
        "instrument named locks: record the cross-thread acquisition "

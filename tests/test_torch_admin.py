@@ -14,6 +14,9 @@ held against minio_tpu's.
     refuses as the reference's does with its knob off, and answers the
     reference's status with it on;
   * upstream's update-group-members, which the reference's router lacks;
+  * the notification plane's routes (GET notify, PUT and DELETE
+    notify/target) through each package's madmin on twin servers, equal
+    answers and refusals;
   * twin servers (reference and port, identities pinned) answer the
     admin GETs and a heal with equal JSON, volatile fields masked;
   * the Prometheus families both packages export after the same traffic
@@ -427,6 +430,128 @@ def _import_counterparts() -> None:
                 pass            # a port-only module (kernels, scripts)
 
 
+def _notify_plane(layer):
+    """A notification plane of the layer's package over its layer, as the
+    boot attaches one, with no target yet."""
+    notify = importlib.import_module(
+        type(layer).__module__.split(".")[0] + ".notify")
+    reg = notify.NotifyTargetRegistry(layer)
+    return notify.NotificationPlane(layer, reg, node="n1", site_id="twin",
+                                    busy_fn=lambda: False)
+
+
+def _notify_traffic(layer, monkeypatch) -> None:
+    """One delivery, one failed send and one drop through the layer's
+    package's notification plane (each of the four minio_tpu_notify_*
+    families takes a sample)."""
+    notify = importlib.import_module(
+        type(layer).__module__.split(".")[0] + ".notify")
+    ok, bad = "arn:minio:sqs::ok:queue", "arn:minio:sqs::bad:queue"
+
+    class Failing:
+        def send(self, record):
+            raise ConnectionError("down")
+
+    reg = notify.NotifyTargetRegistry()
+    for arn in (ok, bad):
+        reg.add(notify.NotifyTarget(arn=arn, type="queue"))
+    sink = importlib.import_module(notify.__name__ + ".targets").QueueSender(ok)
+    reg.set_sender(ok, sink)
+    reg.set_sender(bad, Failing())
+    doc = "<NotificationConfiguration>" + "".join(
+        f"<QueueConfiguration><Queue>{a}</Queue>"
+        "<Event>s3:ObjectCreated:*</Event></QueueConfiguration>"
+        for a in (ok, bad)) + "</NotificationConfiguration>"
+    plane = notify.NotificationPlane(layer, reg, busy_fn=lambda: False)
+    with monkeypatch.context() as mp:       # every record drops
+        mp.setenv("MINIO_TPU_NOTIFY_STORE_LIMIT", "0")
+        full = notify.NotificationPlane(layer, reg, busy_fn=lambda: False)
+    try:
+        for p in (plane, full):
+            p.set_config("prom", doc)
+            p.on_namespace_change("prom", "o")
+        assert sink.wait_for(1, 30)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and \
+                (plane.stats()["failed"] < 1
+                 or full.stats()["dropped"] < 1):
+            time.sleep(0.02)
+        assert plane.stats()["failed"] >= 1, plane.stats()
+        assert full.stats()["dropped"] >= 1, full.stats()
+    finally:
+        plane.close()
+        full.close()
+
+
+def _mask_notify(doc):
+    """The notify answers' fields that differ between twin servers: the
+    registry's lineage and its update time, and the plane's clocks."""
+    if isinstance(doc, dict):
+        return {k: ("*" if k in ("lineage", "updated", "last_delivery",
+                                 "last_lag_s", "offline_until")
+                    else _mask_notify(v)) for k, v in doc.items()}
+    if isinstance(doc, list):
+        return [_mask_notify(v) for v in doc]
+    return doc
+
+
+def test_twin_notify_routes(tmp_path, monkeypatch):
+    """GET notify and PUT / DELETE notify/target on twin servers through
+    each package's madmin (add, update, a bad spec, an unknown ARN,
+    remove), and GET notify with no plane attached: equal answers and
+    statuses, clocks and lineage masked."""
+    pin_both(monkeypatch)
+    servers = _twin_servers(tmp_path)
+    out = []
+    try:
+        for (srv, layer), mad in zip(servers, ("minio_tpu.madmin",
+                                               "minio_tpu_torch.madmin")):
+            mod = importlib.import_module(mad)
+            mc = mod.AdminClient("127.0.0.1", srv.port,
+                                 TWIN_CREDS.access_key,
+                                 TWIN_CREDS.secret_key)
+            got = []
+
+            def call(fn, *a, **kw):
+                try:
+                    got.append(("ok", _mask_notify(fn(*a, **kw))))
+                except mod.AdminClientError as e:
+                    got.append(("err", e.status, str(e)))
+
+            call(mc.notify_status)                  # no plane: 501
+            srv.api.notify = _notify_plane(layer)
+            try:
+                call(mc.notify_status)
+                arn = "arn:minio:sqs::hook:webhook"
+                call(mc.add_notify_target, endpoint="http://127.0.0.1:1/h",
+                     auth_token="tok", arn=arn)
+                call(mc.add_notify_target, endpoint="http://127.0.0.1:1/h",
+                     arn=arn)                       # exists: refused
+                call(mc.add_notify_target, endpoint="http://127.0.0.1:2/h",
+                     arn=arn, update=True)
+                call(mc.add_notify_target, type="log", arn="arn:l",
+                     path=str(tmp_path / "ev.log"))
+                call(mc.add_notify_target, type="bogus", arn="arn:b")
+                call(mc.add_notify_target, endpoint="", arn="arn:e")
+                call(mc.notify_status)
+                call(mc.remove_notify_target, "arn:minio:sqs::ghost:x")
+                call(mc.remove_notify_target, arn)
+                call(mc.notify_status)
+            finally:
+                srv.api.notify.close()
+            out.append(got)
+    finally:
+        for srv, layer in servers:
+            srv.stop()
+            layer.close()
+    ref, port = out
+    assert port[0][:2] == ("err", 501)
+    assert port[2] == ("ok", "arn:minio:sqs::hook:webhook")
+    assert [g[0] for g in port] == ["err", "ok", "ok", "err", "ok", "ok",
+                                    "err", "err", "ok", "err", "ok", "ok"]
+    assert port == ref
+
+
 def test_prometheus_families_agree(tmp_path, monkeypatch):
     _import_counterparts()
     pin_both(monkeypatch)
@@ -450,6 +575,7 @@ def test_prometheus_families_agree(tmp_path, monkeypatch):
             _naughtynet_traffic(importlib.import_module(
                 type(layer).__module__.split(".")[0]
                 + ".distributed.naughtynet"))
+            _notify_traffic(layer, monkeypatch)
             c = Client(p, TWIN_CREDS)
             st, body = c.request("GET", "/minio/prometheus/metrics",
                                  sign=False)
@@ -472,12 +598,17 @@ def test_prometheus_families_agree(tmp_path, monkeypatch):
                  "minio_tpu_edge_requests_total",
                  "minio_tpu_edge_open_conns", "minio_tpu_edge_pool_size",
                  "minio_tpu_edge_pool_busy", "minio_tpu_edge_pool_idle",
-                 "minio_tpu_edge_pool_pending"):
+                 "minio_tpu_edge_pool_pending",
+                 "minio_tpu_notify_sent_total",
+                 "minio_tpu_notify_failed_total",
+                 "minio_tpu_notify_dropped_total",
+                 "minio_tpu_notify_lag_seconds"):
         assert port[name].samples and ref[name].samples, name
-    # the edge's and the QoS plane's families are no longer the
-    # reference's alone
+    # the edge's, the QoS plane's and the notification plane's families
+    # are no longer the reference's alone
     assert {n for n in set(ref) - set(port)
-            if n.startswith(("minio_tpu_edge_", "minio_tpu_qos_"))} == set()
+            if n.startswith(("minio_tpu_edge_", "minio_tpu_qos_",
+                             "minio_tpu_notify_"))} == set()
     assert port["minio_disks_online"].samples[
         ("minio_disks_online", ())] == 4
     # a family the reference registers only when its code first runs

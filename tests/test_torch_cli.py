@@ -13,7 +13,9 @@ heal scanner, crawler) is wired and closes on shutdown. The admin verbs
 run as subprocesses against a port node over its admin router: `fsck`
 audits and, with `--repair`, reaps a planted stale tmp file;
 `decommission --status`, `tier ls` and `tier stats` print JSON, and their
-refusals exit 2 (bad arguments) or 1 (the server's refusal). Every test is
+refusals exit 2 (bad arguments) or 1 (the server's refusal); `notify
+add|status|rm` manage the notification plane's targets, a log target
+added by it taking a PUT's event. Every test is
 bounded: subprocesses by their own timeouts, the rest by an alarm.
 """
 
@@ -332,3 +334,44 @@ def test_cli_admin_verbs_refuse(admin_node):
     assert _verb(node.s3.port, "tier", "rm").returncode == 2
     bad = _verb(node.s3.port, "decommission", "--pool", "7")
     assert bad.returncode == 1 and "decommission failed" in bad.stderr
+
+
+def test_cli_notify_verb(admin_node, tmp_path):
+    """`notify add|status|rm` over the admin router of a booted node: a
+    log target added (its ARN printed), listed by status, a PUT's
+    s3:ObjectCreated:Put record written to its file once a signed PUT
+    ?notification wires the bucket, removed; `rm` without --arn exits 2
+    and an unknown ARN 1."""
+    import json
+    node, _root = admin_node
+    port = node.s3.port
+    log = tmp_path / "events.log"
+    add = _verb(port, "notify", "add", "--type", "log", "--name", "cli",
+                "--path", str(log))
+    assert add.returncode == 0, add.stderr
+    arn = json.loads(add.stdout)["arn"]
+    assert arn.startswith("arn:minio:sqs::cli:log")
+    status = _verb(port, "notify", "status")
+    assert status.returncode == 0, status.stderr
+    assert arn in [t["arn"] for t in json.loads(status.stdout)["targets"]]
+    c = S3TestClient("127.0.0.1", port)
+    assert c.request("PUT", "/clinotify")[0] == 200
+    doc = ("<NotificationConfiguration><QueueConfiguration>"
+           f"<Queue>{arn}</Queue><Event>s3:ObjectCreated:*</Event>"
+           "</QueueConfiguration></NotificationConfiguration>").encode()
+    assert c.request("PUT", "/clinotify", query={"notification": ""},
+                     body=doc)[0] == 200
+    assert c.request("PUT", "/clinotify/k", body=b"v" * 10)[0] == 200
+    assert node.notify_plane.drain(30), node.notify_plane.stats()
+    recs = [json.loads(x) for x in log.read_text().splitlines()]
+    assert [(r["Records"][0]["eventName"],
+             r["Records"][0]["s3"]["object"]["key"],
+             r["Records"][0]["s3"]["object"]["size"]) for r in recs] == \
+        [("s3:ObjectCreated:Put", "k", 10)]
+    assert _verb(port, "notify", "rm").returncode == 2
+    ghost = _verb(port, "notify", "rm", "--arn", "arn:minio:sqs::no:log")
+    assert ghost.returncode == 1 and "notify rm failed" in ghost.stderr
+    rm = _verb(port, "notify", "rm", "--arn", arn)
+    assert rm.returncode == 0, rm.stderr
+    assert json.loads(_verb(port, "notify", "status").stdout)[
+        "targets"] == []

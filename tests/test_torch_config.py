@@ -6,15 +6,16 @@ minio_tpu's.
     secret refused, unknown keys, env overrides, history and rollback,
     the AES-256-GCM seal, and the admin get-config / set-config /
     config-history routes over HTTP; the live apply restated for what the
-    port applies (its trace plane is not ported: the audit webhook is
-    stored and validated, and an apply handed a trace hub is refused);
+    port applies (the audit webhook goes to the trace plane, a
+    notify_webhook turned on and off registers and unregisters its
+    target with the event notifier), the reference's live apply and
+    ListenBucketNotification over an FS server;
   * a config stored by either package over the same drives loads in the
     other, history and rollback included, and with the seal's nonce,
     the history names and the clock pinned both packages leave the same
     drive files;
   * the seal itself: the port's blob under a pinned nonce equals the
     reference's byte for byte, and each opens the other's.
-The listen cases (ListenBucketNotification) wait for the event plane.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from minio_tpu.config import ConfigSys as RefConfigSys
 from minio_tpu_torch import device as device_mod
 from minio_tpu_torch.config import ConfigSys
 from minio_tpu_torch.config.kv import ConfigError
+from minio_tpu_torch.features.events import EventNotifier
 from minio_tpu_torch.object.fs import FSObjects
 from minio_tpu_torch.s3.handlers import S3ApiHandlers
 from tests.test_torch_iam import CREDS, _ref_sets, _sets, rebound
@@ -48,7 +50,8 @@ def cpu_default(monkeypatch):
 
 @pytest.mark.parametrize("name", [
     "test_config_defaults_and_set", "test_config_unknown_keys_rejected",
-    "test_config_history_rollback", "test_admin_config_endpoints"])
+    "test_config_history_rollback", "test_admin_config_endpoints",
+    "test_config_apply_live", "test_listen_bucket_notification"])
 def test_reference_config_cases(tmp_path, cpu_default, name):
     rebound(getattr(ref_cases, name))(tmp_path)
 
@@ -62,9 +65,10 @@ def test_reference_encryption_case():
 
 
 def test_apply_live(tmp_path):
-    """tests/test_config_listen.py::test_config_apply_live for what the
-    port applies: region, compression, the request cap and the static
-    KMS go live; the audit webhook is stored and validated."""
+    """tests/test_config_listen.py::test_config_apply_live restated for
+    more of what the port applies: region, compression, the request cap
+    and the static KMS go live, the audit webhook goes to the trace
+    plane, and a notify_webhook's target to the event notifier."""
     fs = FSObjects(str(tmp_path / "a"), device="cpu")
     api = S3ApiHandlers(fs, creds=CREDS)
     cfg = ConfigSys(fs, secret=CREDS.secret_key)
@@ -92,8 +96,21 @@ def test_apply_live(tmp_path):
     cfg.set_kv("audit_webhook", enable="off")
     cfg.apply(api, trace=trace)
     assert trace.audit_webhook == ""
-    with pytest.raises(ConfigError):
-        cfg.apply(api, events=object())
+    # a notify_webhook turned on registers its target with the event
+    # notifier; turned off, it is unregistered
+    events = EventNotifier(api.bucket_meta)
+    try:
+        cfg.set_kv("notify_webhook", enable="on",
+                   endpoint="http://127.0.0.1:1/hook")
+        cfg.apply(api, events=events)
+        hook = events.targets[cfg.CONFIG_WEBHOOK_ARN]
+        assert type(hook).__name__ == "WebhookTarget"
+        assert hook.endpoint == "http://127.0.0.1:1/hook"
+        cfg.set_kv("notify_webhook", enable="off")
+        cfg.apply(api, events=events)
+        assert cfg.CONFIG_WEBHOOK_ARN not in events.targets
+    finally:
+        events.close()
     # requests_max back to 0: the gate the boot sized comes back
     api.requests_budget = 40
     cfg.set_kv("api", requests_max="0")

@@ -22,6 +22,11 @@ set, 64 KiB blocks (tests/test_cluster.py:48-91).
   * the boot: the topology and one deployment id everywhere, the peer
     verbs the port serves (and the reference's 404 for the rest); the
     ``trace`` and ``events`` verbs answering alike;
+  * bucket notification across nodes: a webhook target added through
+    node 0 (``notify-reload`` on the peers), PUTs through the two nodes
+    that do not own the bucket forwarded to its owner (``notify-event``):
+    each key delivered once, by one node, the forwarded counts equal in
+    both clusters;
   * IAM across nodes: a user added through node 0's admin router signs a
     PUT through node 2 (the iam-delta verb), and removed through node 1
     is refused on node 3; a ``?cluster=1`` scrape through node 1 carries
@@ -421,6 +426,105 @@ def test_twin_listings(twins):
     t.both(3, "GET", "/twin", query={"list-type": "2", "max-keys": "2"})
     t.both(0, "GET", "/twin", query={"versions": ""})
     t.both(1, "GET", "/twin", query={"prefix": "s", "delimiter": "/"})
+
+
+class _Hook:
+    """A webhook receiver: the keys of the records POSTed to it."""
+
+    def __init__(self):
+        import http.server
+        import json
+        keys = self.keys = []
+
+        class H(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                keys.append(json.loads(body)["Records"][0]["s3"][
+                    "object"]["key"])
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), H)
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}/"
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+def test_twin_bucket_notification_one_deliverer(twins):
+    """A webhook target added through node 0's admin router reaches every
+    node (notify-reload), a PUT ?notification through node 0 wires the
+    bucket, and PUTs through the two nodes that do not own the bucket
+    are forwarded to its owner (notify-event): each key reaches the
+    webhook once, exactly one node delivers, and the forwarded counts
+    are equal in both clusters. The port's peer server answers both
+    verbs directly too."""
+    import importlib
+    ref, port, _ = twins
+    keys = [f"k{i}" for i in range(6)]
+    seen = {}
+    for tag, nodes in (("ref", ref), ("port", port)):
+        madmin = importlib.import_module(
+            type(nodes[0]).__module__.split(".")[0] + ".madmin")
+        hook = _Hook()
+        before = [n.notify_plane.stats() for n in nodes]
+        try:
+            mc = madmin.AdminClient("127.0.0.1", nodes[0].s3.port,
+                                    CREDS.access_key, CREDS.secret_key)
+            arn = mc.add_notify_target(endpoint=hook.url, name="dist")
+            assert all(arn in n.notify_targets.arns() for n in nodes), tag
+            c0 = S3TestClient("127.0.0.1", nodes[0].s3.port)
+            assert c0.request("PUT", "/notifd")[0] == 200
+            doc = ("<NotificationConfiguration><QueueConfiguration>"
+                   f"<Queue>{arn}</Queue><Event>s3:ObjectCreated:*</Event>"
+                   "</QueueConfiguration></NotificationConfiguration>")
+            assert c0.request("PUT", "/notifd", query={"notification": ""},
+                              body=doc.encode())[0] == 200
+            owner = nodes[0].notify_plane.owner_of("notifd")
+            writers = [n for n in nodes if n.spec.addr != owner][:2]
+            for i, key in enumerate(keys):
+                w = S3TestClient("127.0.0.1", writers[i % 2].s3.port)
+                assert w.request("PUT", f"/notifd/{key}",
+                                 body=key.encode() * 100)[0] == 200
+            wait_for(lambda: len(hook.keys) >= len(keys), 60,
+                     f"{tag}: the webhook's records")
+            assert all(n.notify_plane.drain(30) for n in nodes), tag
+            time.sleep(0.3)                 # no duplicate may follow
+            after = [n.notify_plane.stats() for n in nodes]
+            delivered = [a["delivered"] - b["delivered"]
+                         for a, b in zip(after, before)]
+            forwarded = [a["forwarded"] - b["forwarded"]
+                         for a, b in zip(after, before)]
+            mc.remove_notify_target(arn)
+            seen[tag] = {"keys": sorted(hook.keys),
+                         "deliverers": sum(1 for d in delivered if d),
+                         "delivered": sum(delivered),
+                         "forwarded": sum(forwarded),
+                         "fallback": sum(a["fallback_local"]
+                                         - b["fallback_local"]
+                                         for a, b in zip(after, before))}
+            assert delivered[[n.spec.addr for n in nodes].index(owner)] \
+                == len(keys), (tag, delivered)
+        finally:
+            hook.close()
+    assert seen["port"] == {"keys": keys, "deliverers": 1,
+                            "delivered": len(keys),
+                            "forwarded": len(keys), "fallback": 0}
+    assert seen["port"] == seen["ref"]
+    # the peer verbs answer on the port's peer server
+    rc = port_transport.RestClient("127.0.0.1", port[1].s3.port,
+                                   "/minio/peer/v1", CREDS.access_key,
+                                   CREDS.secret_key)
+    try:
+        rc.call("notify-reload")
+        rc.call("notify-event", {"bucket": "notifd", "key": "k0"})
+    finally:
+        rc.close()
 
 
 def _as(node, creds, method, path, **kw):

@@ -17,6 +17,8 @@ and NoncurrentVersionTransition parser); then:
     actions (expiry, noncurrent sweep, multipart abort) at the same
     clock: the same versions deleted, the same markers laid, the same
     uploads aborted;
+  * twin crawlers handed their package's event notifier send equal
+    s3:ObjectRemoved:Lifecycle records (eventTime aside);
   * a booted node: a lifecycle document PUT over HTTP, one crawler pass,
     the expired objects answer 404 and the index lists the others;
   * tests/test_tier.py's ``tiers=`` expiry cases: expiring a transitioned
@@ -515,6 +517,53 @@ def test_twin_crawlers_delete_the_same_versions(tmp_path):
     finally:
         for s in stacks.values():
             s[0].close()
+
+
+def test_twin_crawlers_send_equal_lifecycle_events(tmp_path):
+    """Each package's crawler, its expiry action handed that package's
+    event notifier (as the boot hands it), sends the same
+    s3:ObjectRemoved:Lifecycle records for the same expired objects,
+    eventTime aside."""
+    import minio_tpu.features.events as ref_events
+    import minio_tpu_torch.features.events as port_events
+    arn = "arn:minio:sqs::lc:webhook"
+    doc = ("<NotificationConfiguration><QueueConfiguration>"
+           f"<Queue>{arn}</Queue><Event>s3:ObjectRemoved:*</Event>"
+           "</QueueConfiguration></NotificationConfiguration>")
+    future = time.time() + 3 * 86400
+    got = {}
+    for who, open_, lc, bg, meta_cls, ev in (
+            ("ref", _ref_zones, ref_lc, ref_bg, RefMeta, ref_events),
+            ("port", _port_zones, port_lc, port_bg, BucketMetadataSys,
+             port_events)):
+        zz = open_(tmp_path / who, n=4)
+        zz.make_bucket("lcev")
+        for i in range(6):
+            zz.put_object("lcev", f"tmp/{i}" if i % 2 else f"keep/{i}",
+                          b"e" * (i + 1))
+        meta = meta_cls(zz)
+        meta.update("lcev", lifecycle_xml=LC_XML, notification_xml=doc)
+        notifier = ev.EventNotifier(meta)
+        sink = ev.MemoryTarget(arn)
+        notifier.register_target(sink)
+        try:
+            bg.DataUsageCrawler(zz, persist=False, actions=[
+                lc.crawler_action(meta, zz, notifier,
+                                  now_fn=lambda: future)]).scan_once()
+            assert sink.wait_for(3, 10), sink.records
+            notifier.drain()
+            recs = sorted(sink.records, key=lambda r: r["Records"][0][
+                "s3"]["object"]["key"])
+            for r in recs:
+                r["Records"][0]["eventTime"] = "*"
+            got[who] = recs
+        finally:
+            notifier.close()
+            zz.close()
+    assert [(r["Records"][0]["eventName"],
+             r["Records"][0]["s3"]["object"]["key"]) for r in got["port"]] \
+        == [("s3:ObjectRemoved:Lifecycle", f"tmp/{i}") for i in (1, 3, 5)]
+    assert got["port"] == got["ref"]
 
 
 # ---------------------------------------------------------------------------

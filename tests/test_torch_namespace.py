@@ -228,7 +228,11 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "utils/bandwidth.py", "object/rebalance.py",
                 "object/fsck.py", "object/fs.py", "utils/regfence.py",
                 "utils/lockcheck.py", "distributed/naughtynet.py",
-                "s3/qos.py", "s3/postpolicy.py", "features/objectlock.py"):
+                "s3/qos.py", "s3/postpolicy.py", "features/objectlock.py",
+                "features/events.py", "notify/__init__.py",
+                "notify/rules.py", "notify/targets.py", "notify/chaos.py",
+                "notify/plane.py", "replicate/__init__.py",
+                "replicate/targets.py"):
         assert f"minio_tpu_torch/{mod}" in names, mod
     for path in files:
         tree = ast.parse(path.read_text(), str(path))

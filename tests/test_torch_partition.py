@@ -2,16 +2,17 @@
 naughtynet (minio_tpu_torch/distributed/naughtynet.py) and its hooks in
 the internode transport.
 
-  * every non-slow case of tests/test_partition.py that needs no
-    replication target registry, rebound to the port
+  * every non-slow case of tests/test_partition.py, rebound to the port
     (tests/test_torch_iam.rebound): schedule replay and its verb filter,
     timed partition windows, the admin ops, a partitioned dial that heals
     through the offline probe, a one-way partition, an inbound drop seen
     as an unreachable host, the federated scrape degrading and healing,
     a mid-stream partition bounded by the streamed-read deadline,
     generation fencing and the generation on the wire, and a partitioned
-    lock holder fenced on return. The four registry cases wait for the
-    replication plane;
+    lock holder fenced on return, and the four registry cases on the
+    port's replication target registry (replicate/targets.py: the write
+    quorum refusing a minority commit and its legacy default, an epoch
+    fork detected and repaired by fsck, never merged);
   * the schedules and the admin ops held against the reference's: the
     same seed gives the same delays and resets, the same ops the same
     status;
@@ -43,19 +44,31 @@ from minio_tpu_torch.distributed.naughtynet import (NET, NetSchedule,
 from minio_tpu_torch.distributed.peer_rpc import PeerRPCClient, PeerRPCServer
 from minio_tpu_torch.distributed.transport import (NetworkError, RPCHandler,
                                                    RPCServer, RestClient)
+from minio_tpu_torch.object.sets import ErasureSets
 from tests.test_torch_iam import rebound
 
 pytestmark = pytest.mark.chaos
 
 AK, SK = ref_cases.AK, ref_cases.SK
 
-# the replication plane's TargetRegistry is not ported yet
-_WAITING = ("test_registry_write_quorum_refuses_minority_commit",
-            "test_registry_write_quorum_default_keeps_legacy_behavior",
-            "test_registry_fork_detected_and_repaired_never_merged",
-            "test_fork_audit_ignores_legacy_and_agreeing_docs")
-_NOT_PORTED = {"TargetRegistry": None, "ReplTargetError": None,
-               "SiteTarget": None, "new_arn": None, "NET": NET}
+# the registry cases run on the port's replication target registry
+_REGISTRY = ("test_registry_write_quorum_refuses_minority_commit",
+             "test_registry_write_quorum_default_keeps_legacy_behavior",
+             "test_registry_fork_detected_and_repaired_never_merged",
+             "test_fork_audit_ignores_legacy_and_agreeing_docs")
+
+
+class _CpuSets:
+    """The port's ErasureSets as tests/test_partition.py calls it, on the
+    CPU."""
+
+    @staticmethod
+    def from_drives(*args, **kw):
+        return ErasureSets.from_drives(*args, device="cpu", **kw)
+
+
+# NET is an instance (rebound maps modules, classes and functions)
+_SUBS = {"NET": NET, "ErasureSets": _CpuSets}
 
 
 @pytest.fixture(autouse=True)
@@ -99,19 +112,19 @@ _ALL = sorted(name for name, fn in vars(ref_cases).items()
               if name.startswith("test_") and inspect.isfunction(fn)
               and not any(m.name == "slow" for m in
                           getattr(fn, "pytestmark", ())))
-_CASES = [n for n in _ALL if n not in _WAITING]
+_CASES = _ALL
 
 
 def test_every_reference_case_is_rebound():
     assert len(_ALL) == 16, _ALL
-    assert set(_WAITING) <= set(_ALL)
+    assert set(_REGISTRY) <= set(_ALL)
 
 
 @pytest.mark.parametrize("name", _CASES)
-def test_reference_partition_cases(request, monkeypatch, name):
-    fn = rebound(getattr(ref_cases, name), **_NOT_PORTED)
+def test_reference_partition_cases(request, monkeypatch, tmp_path, name):
+    fn = rebound(getattr(ref_cases, name), **_SUBS)
     params = inspect.signature(fn).parameters
-    given = {"monkeypatch": monkeypatch}
+    given = {"monkeypatch": monkeypatch, "tmp_path": tmp_path}
     if "duo" in params:
         given["duo"] = request.getfixturevalue("duo")
     fn(**{p: given[p] for p in params})

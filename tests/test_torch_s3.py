@@ -19,7 +19,12 @@ Three parts, all on the host (device="cpu") over 8 drives at 6+2 with
   * objects written through one package's server read back byte for byte
     through the other's over the same drives, SSE objects included;
   * the reference's own HTTP cases (tests/test_s3.py) against the port's
-    server, every case but the one that needs the notification plane;
+    server, the notification plane's PUT ?notification validation among
+    them;
+  * twin servers with the notification wiring of a boot: PUT and GET
+    ?notification (malformed XML, an unknown ARN and an unknown event
+    refused alike) and a ListenBucketNotification stream each, equal
+    records (eventTime aside) under both transports;
   * the port's own: the admission gate's scheduler-occupancy and
     client-budget sheds (503 SlowDown before any body byte), a bucket
     quota written by the reference honoured by the port, encrypted GETs
@@ -39,10 +44,12 @@ import gzip
 import hashlib
 import http.client
 import importlib
+import json
 import os
 import random
 import re
 import signal
+import threading
 import time
 import uuid
 
@@ -95,6 +102,7 @@ from tests.test_s3 import (CREDS, REGION, S3TestClient,  # noqa: F401
                            test_multipart_roundtrip,
                            test_object_tagging_cycle,
                            test_presigned_get,
+                           test_put_bucket_notification_validated_by_plane,
                            test_put_get_object_roundtrip,
                            test_ranged_get,
                            test_signed_body_sha_mismatch_rejected,
@@ -588,10 +596,111 @@ def test_objects_cross_between_servers(tmp_path, sse_env, writer):
         port_sets.close()
 
 
+def _notify_wiring(srv, notify_pkg, events_pkg):
+    """One package's server wired as the boot wires it: the legacy event
+    notifier (ListenBucketNotification's hub) and a notification plane
+    whose registry holds one queue target (the PUT ?notification
+    validation)."""
+    srv.api.events = events_pkg.EventNotifier(srv.api.bucket_meta)
+    reg = notify_pkg.NotifyTargetRegistry()
+    reg.add(notify_pkg.NotifyTarget(arn=NOTIFY_ARN, type="queue"))
+    plane = notify_pkg.NotificationPlane(
+        srv.api.obj, reg, bucket_meta=srv.api.bucket_meta, node="n1",
+        site_id="twin", busy_fn=lambda: False)
+    srv.api.notify = plane
+    return plane
+
+
+NOTIFY_ARN = "arn:minio:sqs::twin:queue"
+
+
+def _notify_doc(arn=NOTIFY_ARN, event="s3:ObjectCreated:*") -> bytes:
+    return ("<NotificationConfiguration><QueueConfiguration>"
+            f"<Queue>{arn}</Queue><Event>{event}</Event>"
+            "<Event>s3:ObjectRemoved:*</Event>"
+            "</QueueConfiguration></NotificationConfiguration>").encode()
+
+
+@pytest.mark.parametrize("edge", ["on", "off"])
+def test_twin_bucket_notification(tmp_path, monkeypatch, edge):
+    """PUT and GET ?notification (the three refusals included) answer
+    alike on twin servers, and a ListenBucketNotification subscriber of
+    each (prefix and event filters, an idle window) streams the same
+    ND-JSON records, eventTime aside, under both transports."""
+    import minio_tpu.features.events as ref_events
+    import minio_tpu.notify as ref_notify
+    import minio_tpu_torch.features.events as port_events
+    import minio_tpu_torch.notify as port_notify
+    monkeypatch.setenv("MINIO_TPU_EDGE", edge)
+    pin(monkeypatch, ref_engine, ref_multipart, ref_bmeta, ref_handlers,
+        ref_crypto)
+    pin(monkeypatch, port_engine, port_multipart, port_bmeta,
+        port_handlers, port_crypto)
+    out = {}
+    for tag, mk, npkg, epkg in (("ref", _ref_server, ref_notify, ref_events),
+                                ("port", _port_server, port_notify,
+                                 port_events)):
+        (tmp_path / tag).mkdir()
+        srv, sets = mk(tmp_path / tag)
+        plane = _notify_wiring(srv, npkg, epkg)
+        c = S3TestClient("127.0.0.1", srv.port)
+        got = []
+        try:
+            got.append(c.request("PUT", "/nbkt"))
+            got.append(c.request("GET", "/nbkt", query={"notification": ""}))
+            for body in (b"<NotificationConfiguration",
+                         _notify_doc(arn="arn:minio:sqs::ghost:webhook"),
+                         _notify_doc(event="s3:ObjectTypo:*"),
+                         _notify_doc()):
+                got.append(c.request("PUT", "/nbkt",
+                                     query={"notification": ""},
+                                     body=body))
+            got.append(c.request("GET", "/nbkt", query={"notification": ""}))
+            stream = {}
+
+            def listen():
+                stream["resp"] = c.request(
+                    "GET", "/nbkt", query={"events": "s3:ObjectCreated:*",
+                                         "prefix": "p/", "idle": "1"})
+
+            t = threading.Thread(target=listen, daemon=True)
+            t.start()
+            deadline = time.monotonic() + 10
+            while srv.api.events.hub.subscriber_count == 0 and \
+                    time.monotonic() < deadline:
+                time.sleep(0.01)
+            got.append(c.request("PUT", "/nbkt/p/one", body=b"1" * 100))
+            got.append(c.request("PUT", "/nbkt/q/miss", body=b"2"))
+            got.append(c.request("PUT", "/nbkt/p/two", body=b"3" * 7))
+            got.append(c.request("DELETE", "/nbkt/p/one"))
+            got.append(c.request("GET", "/nbkt/p/two"))
+            t.join(30)
+            assert not t.is_alive()
+            st, hdrs, body = stream["resp"]
+            assert st == 200, (tag, st, body[:500])
+            lines = [json.loads(x) for x in body.split(b"\n") if x]
+            for doc in lines:
+                doc["Records"][0]["eventTime"] = "*"
+            got.append((st, hdrs.get("content-type"), lines))
+            out[tag] = got
+        finally:
+            plane.close()
+            srv.api.events.close()
+            srv.stop()
+            sets.close()
+    keys = [d["Records"][0]["s3"]["object"]["key"]
+            for d in out["port"][-1][2]]
+    assert out["port"][-1][0] == 200 and keys == ["p/one", "p/two"]
+    assert [g[0] for g in out["port"][:6]] == [200, 200, 400, 400, 400,
+                                              200]
+    assert out["port"][-1] == out["ref"][-1]
+    for want, have in zip(out["ref"][:-1], out["port"][:-1]):
+        assert _norm(have) == _norm(want)
+
+
 def test_unported_verbs_answer_not_implemented(client, bucket):
     for method, path, query, hdrs in (
             ("PUT", f"/{bucket}", {"replication": ""}, None),
-            ("GET", f"/{bucket}", {"notification": ""}, None),
             ("POST", f"/{bucket}/o", {"restore": ""}, None),
             ("POST", "/", None, None)):
         status, _, body = client.request(method, path, query=query,
