@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 About 12-18 minutes on one H100 (719-933 s with phase 21, 926.3 s with
-phase 22, PERF.md §5; the host's speed moves it by a third either way),
+phase 22, 940.8 s with phase 23, PERF.md §5; the host's speed moves it by
+a third either way),
 the kernels' builds included. Phases, each printing one JSON line; any failure exits
 non-zero:
 
@@ -368,6 +369,24 @@ non-zero:
                 node rebooted, the durable backlog delivered after it;
                 every PUT read back; gf_matmul and hh256 launches beside
                 the encode dispatches.
+  24. replicate — active-active replication (see run_replicate), the
+                reference bench's bench_replicate_ab on the card's path:
+                three fresh 16-drive 12+4 nodes in this process; 16
+                versions of 16 MiB preloaded at A, a warm and a baseline
+                round of 8 signed 16 MiB PUTs; A->B and B->A registered
+                through madmin as wire targets, A's resync to B started,
+                2 rounds while it runs (p50/p99 a mode,
+                put_p99_degradation_x printed, not a verdict); A's and B's
+                listings equal, B serving every preloaded and resync-time
+                version's bytes and ETag, a PUT at B reaching A, no replica
+                written in a further sync cycle, a marker replicated, each
+                plane's pending, dropped and retry queue 0, the lag
+                histogram and target_status(); 3 of A's drives offline to
+                its set, C reseeded with cold-* through A's degraded GETs
+                (decode on the card) and C's applies (encode on the card),
+                equal to A's; the drives back and A's MRF drained; every
+                node's dispatches by verb, none at or past the codec's gate
+                on the host, beside the gf_matmul and hh256 launches.
   4. timings  — (continued) chacha20 at the encode launch (8 rows, 1 MiB
                 span in 1,048,584-byte rows) and at GET's 64 x 65,536:
                 CUDA events around back-to-back wrapper calls, the kernel's
@@ -608,6 +627,21 @@ NOTIFY_WEBHOOK_DELAY_S = 0.05       # the webhook's stall a POST (bench)
 NOTIFY_OUTAGE_PUTS = 3              # PUTs while the receiver is down
 NOTIFY_PAYLOADS = 4                 # distinct bodies the PUTs rotate
 NOTIFY_SHM_MIN_BYTES = 4 << 30      # tmpfs room the phase's drives need
+# phase 24, active-active replication (the reference bench's
+# bench_replicate_ab on the card's path: 16 drives, 12+4, 1 MiB blocks)
+REPL_OBJECT = 16 << 20              # bytes each version (the bench's 2 MiB
+#                                     falls under the codec's 8 MiB gate)
+REPL_PRELOAD = 16                   # cold-* versions of resync inventory
+#                                     (the bench's 48 of 2 MiB)
+REPL_STREAMS = 8                    # concurrent PUTs a round (the bench's)
+REPL_BASE_ROUNDS = 1                # rounds before the pair (the bench's 2,
+#                                     cut: the phase took 37.0 s at 2 on an
+#                                     H100 80GB HBM3 at 700 W)
+REPL_ON_ROUNDS = 2                  # rounds while A's resync runs
+REPL_PAYLOADS = 4                   # distinct bodies the PUTs rotate
+REPL_GONE = 3                       # A's drives taken offline for the
+#                                     degraded reseed
+REPL_SHM_MIN_BYTES = 6 << 30        # tmpfs room the three nodes' drives need
 # the gray-failure plane's switches, all off: phase 21's OFF pass (every
 # other phase runs the plane as a server boots it, on)
 PLANE_OFF = {"MINIO_TPU_HEDGE": "off", "MINIO_TPU_QUORUM_ACK": "off",
@@ -1087,6 +1121,8 @@ def main() -> int:
         admp = run_admission(tmp, card, counts, np)
         # -- 23. bucket event notification: its own boot, a slow webhook
         ntfp = run_notify(tmp, card, counts, np)
+        # -- 24. active-active replication: three boots of its own
+        replp = run_replicate(tmp, card, counts, np)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths_launches = {"main_path": main_path["launches"],
@@ -1106,7 +1142,8 @@ def main() -> int:
                       "obs": obsp["launches"],
                       "gray": grayp["launches"],
                       "admission": admp["launches"],
-                      "notify": ntfp["launches"]}
+                      "notify": ntfp["launches"],
+                      "replicate": replp["launches"]}
 
     # -- 4. timings -------------------------------------------------------
     b, s = 32, -(-(1 << 20) // k)
@@ -8656,6 +8693,433 @@ def run_notify(tmp, card, counts, np) -> dict:
         if hook_live:
             hook.shutdown()
             hook.server_close()
+        for v, old in saved_env.items():
+            if old is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = old
+        shutil.rmtree(root, ignore_errors=True)
+    summary["seconds"] = round(time.perf_counter() - t_phase, 3)
+    summary["card"] = card
+    emit(summary)
+    return summary
+
+
+def run_replicate(tmp, card, counts, np) -> dict:
+    """Phase 24: active-active replication on the card's path, the
+    reference bench's bench_replicate_ab with every version crossing the
+    codec's size gate. Three port nodes are booted in this process as
+    `python -m minio_tpu_torch server /d{1...16}` boots one
+    (cluster.start_single, 12+4, 1 MiB blocks, tmpfs where /dev/shm has
+    REPL_SHM_MIN_BYTES free; their disk monitor, heal scanner and crawler
+    loops stopped), each with one versioned bucket; they share the card.
+    The launch counts are set to 0 just before the traffic and read just
+    after it:
+      * site A takes REPL_PRELOAD versions of REPL_OBJECT bytes (cold-*,
+        the resync's inventory), a warm round and REPL_BASE_ROUNDS
+        baseline rounds of REPL_STREAMS concurrent signed PUTs over HTTP;
+        then A->B and B->A are registered with madmin.add_replicate_target
+        (wire targets: HTTPReplClient pushing into the peer's
+        replication-apply branch), A's resync to B is started with
+        madmin.start_replicate_resync, and REPL_ON_ROUNDS rounds run while
+        it does; p50/p99 a mode and put_p99_degradation_x (printed, not a
+        verdict: 16 PUTs a mode);
+      * after the resync completes and both planes drain: A's and B's
+        version listings equal (name, version id, mod time, ETag, delete
+        marker); B serves the bytes and ETag of every preloaded version
+        and of every PUT made during the resync; one PUT at B reaches A;
+        a further sync cycle over every key writes no replica at either
+        site (no ping-pong); a versioned DELETE at A leaves the same
+        marker at B; each plane's pending, dropped and retry queue 0;
+        the minio_tpu_repl_lag_seconds histogram and target_status();
+      * the degraded reseed: REPL_GONE of A's drives taken away as phase
+        3 takes them (offline to the set's engine), a third node C is
+        registered as A's target for cold-* and resynced: every push
+        reads through A's degraded GET (a version with a data shard on a
+        gone drive decodes on the card), every replica write at C encodes
+        on the card; C's cold-* listing and bytes equal A's; the drives
+        back, what was written while they were gone healed through A's
+        MRF queue;
+      * each node's encode, decode and recover dispatches (on the card,
+        host-routed, and host-routed dispatches at or past the codec's
+        gate, which must be 0) beside the gf_matmul and hh256 launches."""
+    import concurrent.futures
+    import urllib.parse
+
+    from minio_tpu_torch import cluster, madmin
+    from minio_tpu_torch.object import codec
+    from minio_tpu_torch.replicate import replica_writes_counter
+    from minio_tpu_torch.storage.datatypes import hash_order
+    from minio_tpu_torch.s3 import signature as sig
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.s3.credentials import Credentials
+    from minio_tpu_torch.utils import telemetry
+    k, m, bs = 12, 4, 1 << 20
+    size = REPL_OBJECT
+    blocks_each = -(-size // bs)
+    region = "us-east-1"
+    bucket = "repl"
+    rng = np.random.default_rng(SEED + 124)
+    t_phase = time.perf_counter()
+
+    def note(msg: str) -> None:
+        print(f"[replicate {time.perf_counter() - t_phase:.1f} s] {msg}",
+              file=sys.stderr, flush=True)
+
+    creds = Credentials("smokereplroot", "smokereplrootsecret")
+    shm = "/dev/shm"
+    on_shm = os.path.isdir(shm) and \
+        shutil.disk_usage(shm).free >= REPL_SHM_MIN_BYTES
+    root = tempfile.mkdtemp(prefix="chip_smoke_repl_",
+                            dir=shm if on_shm else tmp)
+    payloads = [rng.bytes(size) for _ in range(REPL_PAYLOADS)]
+    hashes = [hashlib.sha256(p).hexdigest() for p in payloads]
+    saved_env = {"MINIO_TPU_METACACHE_PERSIST_S":
+                 os.environ.get("MINIO_TPU_METACACHE_PERSIST_S")}
+    # the metacache's segment writes held off for the phase (gotcha 28)
+    os.environ["MINIO_TPU_METACACHE_PERSIST_S"] = "3600"
+    summary = {"phase": "replicate", "step": "summary", "drives": k + m,
+               "ec": f"{k}+{m}", "block_size": bs,
+               "drives_on": "tmpfs (/dev/shm)" if on_shm
+               else "the disk (tmp)", "object_bytes": size,
+               "preload": REPL_PRELOAD, "streams": REPL_STREAMS,
+               "base_rounds": REPL_BASE_ROUNDS,
+               "on_rounds": REPL_ON_ROUNDS, "drives_gone": REPL_GONE}
+    nodes: dict = {}
+    dispatch: dict = {}
+    gate = codec.DEVICE_MIN_BYTES
+
+    def boot(tag: str):
+        drives = [os.path.join(root, tag, f"d{i}") for i in range(k + m)]
+        n = cluster.start_single(drives, creds=creds, parity=m,
+                                 set_drive_count=k + m, block_size=bs)
+        n._iam_refresh_stop.set()
+        for loop in (n.disk_monitor, n.heal_scanner, n.crawler):
+            loop.close()
+            if getattr(loop, "_thread", None) is not None:
+                loop._thread.join(timeout=120)
+                if loop._thread.is_alive():
+                    fail("replicate: a background loop did not stop")
+        # every erasure dispatch of the node's former, by verb: on the
+        # card, host-routed, and host-routed at or past the size gate
+        stats = {v: {"batches": 0, "blocks": 0, "host_routed": 0,
+                     "host_routed_blocks": 0, "gated_host_routed": 0}
+                 for v in ("encode", "decode", "recover")}
+        mu = threading.Lock()
+        sched = n.scheduler
+        inner = sched._run_erasure
+
+        def run(key, group, stage_cb):
+            out = inner(key, group, stage_cb)
+            nb = sum(p.blocks for p in group)
+            with mu:
+                s = stats[key[0]]
+                s["batches"] += 1
+                s["blocks"] += nb
+                if out is None:
+                    s["host_routed"] += 1
+                    s["host_routed_blocks"] += nb
+                    if nb * bs >= gate:
+                        s["gated_host_routed"] += 1
+            return out
+
+        sched._run_erasure = run
+        dispatch[tag] = (stats, mu)
+        nodes[tag] = n
+        c = S3Client(n.s3.port, creds, timeout=600)
+        if c.send("PUT", f"/{bucket}")[0] != 200 or c.send(
+                "PUT", f"/{bucket}", query={"versioning": ""},
+                body=b"<VersioningConfiguration><Status>Enabled</Status>"
+                     b"</VersioningConfiguration>")[0] != 200:
+            fail(f"replicate: bucket on {tag}")
+        return n
+
+    def snap(tag: str) -> dict:
+        stats, mu = dispatch[tag]
+        with mu:
+            return {v: dict(s) for v, s in stats.items()}
+
+    def delta(tag: str, before: dict) -> dict:
+        now = snap(tag)
+        return {v: {x: now[v][x] - before[v][x] for x in now[v]}
+                for v in now}
+
+    def put(port, key, i, lat=None) -> str:
+        body = payloads[i % REPL_PAYLOADS]
+        path = f"/{bucket}/{key}"
+        hdrs = {"host": f"127.0.0.1:{port}"}
+        signed = sig.sign_v4("PUT", urllib.parse.quote(path), {}, hdrs,
+                             hashes[i % REPL_PAYLOADS], creds, region)
+        t0 = time.perf_counter()
+        st, h, _ = S3Client(port, creds, timeout=600).send(
+            "PUT", path, body=body, signed=signed)
+        if lat is not None:
+            lat.append(time.perf_counter() - t0)
+        if st != 200 or h.get("etag") != \
+                f'"{hashlib.md5(body).hexdigest()}"':
+            fail(f"replicate: PUT {path}: HTTP {st} {h.get('etag')}")
+        return h.get("x-amz-version-id", "")
+
+    def put_round(port, prefix: str, n_: int = REPL_STREAMS) -> tuple:
+        lat: list = []
+        with concurrent.futures.ThreadPoolExecutor(REPL_STREAMS) as ex:
+            vids = list(ex.map(lambda i: put(port, f"{prefix}{i}", i, lat),
+                               range(n_)))
+        return lat, {f"{prefix}{i}": (vids[i], i % REPL_PAYLOADS)
+                     for i in range(n_)}
+
+    def versions(n, prefix: str = "") -> list:
+        if n.metacache is not None:
+            n.metacache.drain()
+        out, marker, vmarker = [], "", ""
+        while True:
+            page, _p, marker, vmarker, trunc = \
+                n.object_layer.list_object_versions(bucket, prefix, marker,
+                                                    1000, vmarker)
+            out += [(v.name, v.version_id, v.mod_time, v.etag,
+                     v.delete_marker) for v in page]
+            if not trunc:
+                return out
+
+    def read_back(n, items: dict, what: str) -> dict:
+        """GET every (key -> (version id, payload)) from node n over HTTP:
+        bytes and ETag the PUT's."""
+        port = n.s3.port
+
+        def one(item) -> list:
+            key, (vid, p) = item
+            st, h, body = S3Client(port, creds, timeout=600).send(
+                "GET", f"/{bucket}/{key}", query={"versionId": vid})
+            etag = h.get("etag", "").strip('"')
+            if st == 200 and body == payloads[p] and \
+                    etag == hashlib.md5(payloads[p]).hexdigest():
+                return []
+            return [{"object": key, "status": st, "bytes": len(body),
+                     "etag": etag}]
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(8) as ex:
+            bad = [x for r in ex.map(one, items.items()) for x in r]
+        out = {"versions": len(items), "lost": len(bad),
+               "seconds": round(time.perf_counter() - t0, 3),
+               "first_lost": bad[:3]}
+        if bad:
+            fail(f"replicate: {what}: {len(bad)} of {len(items)} versions "
+                 f"did not read back, e.g. {bad[:3]}")
+        return out
+
+    def drain(*tags, timeout: float = 120.0) -> None:
+        for _ in range(3):      # a replica apply re-fires the peer's feed
+            for tag in tags:
+                plane = nodes[tag].replication
+                if not plane.drain(timeout):
+                    fail(f"replicate: {tag}'s plane did not drain: "
+                         f"{plane.stats()}")
+
+    def admin(tag: str):
+        n = nodes[tag]
+        return madmin.AdminClient("127.0.0.1", n.s3.port, creds.access_key,
+                                  creds.secret_key, timeout=600)
+
+    def resync(tag: str, arn: str) -> dict:
+        mc = admin(tag)
+        mc.start_replicate_resync(arn)
+        return mc
+
+    def resync_done(mc, what: str, timeout: float = 300.0) -> dict:
+        deadline = time.monotonic() + timeout
+        while True:
+            st = mc.replicate_resync_status()
+            if not st.get("running") and st.get("status") != "pending":
+                break
+            if time.monotonic() > deadline:
+                fail(f"replicate: {what} resync still running: {st}")
+            time.sleep(0.05)
+        if st.get("status") != "complete" or st.get("keys_failed"):
+            fail(f"replicate: {what} resync: {st}")
+        return st
+
+    writes = replica_writes_counter()
+    try:
+        for tag in ("A", "B"):
+            boot(tag)
+        A, B = nodes["A"], nodes["B"]
+        site = {t: nodes[t].repl_targets.site_id for t in ("A", "B")}
+        note("booted A and B")
+        counts.zero()
+        before = {t: snap(t) for t in ("A", "B")}
+        t_traffic = time.perf_counter()
+        # -- preload, warm and baseline rounds: no target yet ------------
+        _lat, cold = put_round(A.s3.port, "cold-", REPL_PRELOAD)
+        _lat, warm = put_round(A.s3.port, "warm-")
+        base, base_keys = [], {}
+        for r in range(REPL_BASE_ROUNDS):
+            lat, got = put_round(A.s3.port, f"base{r}-")
+            base += lat
+            base_keys.update(got)
+        note("preload and baseline")
+        # -- the pair, the resync, the rounds during it --------------------
+        arns = {}
+        for src, dst in (("A", "B"), ("B", "A")):
+            arns[src] = admin(src).add_replicate_target(
+                bucket, "127.0.0.1", nodes[dst].s3.port, bucket,
+                creds.access_key, creds.secret_key)
+        mc_a = resync("A", arns["A"])
+        t_resync = time.perf_counter()
+        during, during_keys, progress = [], {}, []
+        for r in range(REPL_ON_ROUNDS):
+            progress.append(mc_a.replicate_resync_status().get(
+                "keys_scanned"))
+            lat, got = put_round(A.s3.port, f"on{r}-")
+            during += lat
+            during_keys.update(got)
+        progress.append(mc_a.replicate_resync_status().get("keys_scanned"))
+        summary["resync_keys_at_each_round"] = progress
+        summary["resync"] = resync_done(mc_a, "A->B")
+        summary["resync_s"] = round(time.perf_counter() - t_resync, 3)
+        t_drain = time.perf_counter()
+        drain("A", "B")
+        summary["drain_s"] = round(time.perf_counter() - t_drain, 3)
+        note("resync and rounds")
+        summary["baseline"] = pct_ms(base)
+        summary["during_resync"] = pct_ms(during)
+        summary["put_p99_degradation_x"] = round(
+            summary["during_resync"]["p99_ms"]
+            / max(summary["baseline"]["p99_ms"], 1e-9), 3)
+        # -- convergence -----------------------------------------------------
+        la, lb = versions(A), versions(B)
+        if la != lb:
+            fail(f"replicate: A's and B's listings differ: "
+                 f"{len(la)} / {len(lb)} versions, first "
+                 f"{[x for x in la if x not in lb][:2]} / "
+                 f"{[x for x in lb if x not in la][:2]}")
+        want = REPL_PRELOAD + REPL_STREAMS * (1 + REPL_BASE_ROUNDS
+                                              + REPL_ON_ROUNDS)
+        if len(la) != want:
+            fail(f"replicate: {len(la)} versions, want {want}")
+        summary["converged_versions"] = len(la)
+        summary["read_back_b"] = read_back(B, {**cold, **during_keys},
+                                           "B's preloaded and resync-time")
+        vid = put(B.s3.port, "from-b", 1)
+        drain("B", "A")
+        summary["read_back_a_of_b"] = read_back(
+            A, {"from-b": (vid, 1)}, "the PUT at B, at A")
+        w0 = {t: writes.value(site=site[t]) for t in ("A", "B")}
+        names = sorted({x[0] for x in versions(A)})
+        for tag in ("A", "B"):
+            for name in names:
+                nodes[tag].replication.on_namespace_change(bucket, name)
+        drain("A", "B")
+        w1 = {t: writes.value(site=site[t]) for t in ("A", "B")}
+        summary["ping_pong"] = {"keys": len(names), "replica_writes":
+                                {t: w1[t] - w0[t] for t in w0}}
+        if w1 != w0:
+            fail(f"replicate: a further sync cycle wrote replicas: "
+                 f"{summary['ping_pong']}")
+        st, h, _ = S3Client(A.s3.port, creds, timeout=600).send(
+            "DELETE", f"/{bucket}/warm-0")
+        if st != 204 or h.get("x-amz-delete-marker") != "true":
+            fail(f"replicate: the versioned DELETE at A: HTTP {st}")
+        drain("A", "B")
+        la, lb = versions(A, "warm-0"), versions(B, "warm-0")
+        marker = [x for x in lb if x[4]]
+        if la != lb or len(marker) != 1 or \
+                marker[0][1] != h.get("x-amz-version-id"):
+            fail(f"replicate: the marker at B: {lb} against {la}")
+        if versions(A) != versions(B):
+            fail("replicate: the listings differ after the marker")
+        planes = {}
+        for tag in ("A", "B"):
+            stt = nodes[tag].replication.stats()
+            planes[tag] = {"stats": stt,
+                           "target_status":
+                               nodes[tag].replication.target_status()}
+            if (stt["pending"], stt["dropped"],
+                    stt["retry"]["pending"]) != (0, 0, 0):
+                fail(f"replicate: {tag}'s plane after the drain: {stt}")
+        summary["planes"] = planes
+        summary["replica_writes"] = {t: writes.value(site=site[t])
+                                     for t in ("A", "B")}
+        lag = telemetry.REGISTRY.histogram("minio_tpu_repl_lag_seconds")
+        summary["lag_seconds"] = {
+            dict(key).get("target", ""): {
+                "buckets_s": list(lag.buckets), "counts": s_[0],
+                "count": s_[2], "mean_s": round(s_[1] / max(s_[2], 1), 4)}
+            for key, s_ in lag.series_snapshot().items()
+            if dict(key).get("target") in arns.values()}
+        summary["pair_dispatches"] = {t: delta(t, before[t])
+                                      for t in ("A", "B")}
+        summary["pair_s"] = round(time.perf_counter() - t_traffic, 3)
+        note("converged")
+        # -- the degraded reseed of C -------------------------------------
+        # A's first REPL_GONE drives taken away as phase 3 takes them: the
+        # set's engine sees them as offline (their files stay), so every
+        # cold-* version whose data shards they hold decodes on the card
+        C = boot("C")
+        before["C"] = snap("C")
+        tail_a = snap("A")
+        eng_a = A.object_layer.server_sets[0].sets[0]
+        gone = list(range(REPL_GONE))
+        saved = [eng_a.disks[i] for i in gone]
+        decoding = sum(1 for key in cold if any(
+            hash_order(f"{bucket}/{key}", k + m)[i] <= k for i in gone))
+        arns["C"] = admin("A").add_replicate_target(
+            bucket, "127.0.0.1", C.s3.port, bucket, creds.access_key,
+            creds.secret_key, prefix="cold-")
+        t_reseed = time.perf_counter()
+        for i in gone:
+            eng_a.disks[i] = None
+        try:
+            summary["reseed"] = resync_done(resync("A", arns["C"]), "A->C")
+            drain("A", "C")
+        finally:
+            for i, d in zip(gone, saved):
+                eng_a.disks[i] = d
+        summary["reseed_s"] = round(time.perf_counter() - t_reseed, 3)
+        lc, la_cold = versions(C, "cold-"), versions(A, "cold-")
+        if lc != la_cold or len(lc) != REPL_PRELOAD:
+            fail(f"replicate: C's cold-* listing ({len(lc)}) is not A's "
+                 f"({len(la_cold)})")
+        summary["read_back_c"] = read_back(C, cold, "C's cold-*")
+        reseed_a, reseed_c = delta("A", tail_a), delta("C", before["C"])
+        summary["reseed_dispatches"] = {"A": reseed_a, "C": reseed_c,
+                                        "versions_decoding": decoding}
+        if reseed_a["decode"]["host_routed"] or \
+                reseed_a["decode"]["blocks"] < decoding * blocks_each:
+            fail(f"replicate: A's degraded reads: {reseed_a['decode']}, "
+                 f"want {decoding * blocks_each} blocks decoded on the "
+                 "card")
+        if reseed_c["encode"]["blocks"] - \
+                reseed_c["encode"]["host_routed_blocks"] < \
+                REPL_PRELOAD * blocks_each:
+            fail(f"replicate: C's replica writes: {reseed_c['encode']}, "
+                 f"want {REPL_PRELOAD * blocks_each} blocks on the card")
+        note("reseed")
+        # -- A's drives back: what was written while they were gone (the
+        # resync's checkpoints) heals through A's MRF queue ----------------
+        t_heal = time.perf_counter()
+        if not A.object_layer.drain_mrf(timeout=120):
+            fail(f"replicate: A's MRF queue did not drain: "
+                 f"{A.object_layer.mrf_stats()}")
+        summary["heal"] = {"mrf": A.object_layer.mrf_stats(),
+                           "seconds": round(time.perf_counter() - t_heal,
+                                            3)}
+        launched = counts.read()
+        summary["traffic_s"] = round(time.perf_counter() - t_traffic, 3)
+        note("A's drives back")
+        summary["launches"] = launched
+        summary["dispatches"] = {t: delta(t, before[t])
+                                 for t in ("A", "B", "C")}
+        gated = {t: sum(d["gated_host_routed"] for d in v.values())
+                 for t, v in summary["dispatches"].items()}
+        if any(gated.values()):
+            fail(f"replicate: dispatches at or past the codec's gate went "
+                 f"to the host: {gated}")
+        if min(launched["gf_matmul"], launched["hh256"]) <= 0:
+            fail(f"replicate: launched {launched}")
+    finally:
+        for n in nodes.values():
+            n.shutdown()
         for v, old in saved_env.items():
             if old is None:
                 os.environ.pop(v, None)

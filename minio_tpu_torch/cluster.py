@@ -88,12 +88,22 @@ pool, its per-target queue under ``.minio.sys/notify/queue``, owner
 routing over the peers' ``notify-event`` verb and registry reloads over
 ``notify-reload``; the crawler's lifecycle expiry sends
 s3:ObjectRemoved:Lifecycle. The plane's site id comes from the
-replication target registry (replicate/targets.py), which the boot loads
-and, on a first boot, saves; the replication plane itself is not ported.
+replication target registry.
 
-Left out: the etcd IAM store and federation, replication, the web
-router, the admin routes of those planes and bandwidth (they answer
-NotImplemented), and the peer verbs of those planes.
+Active-active replication (minio_tpu/cluster.py:401-444, :715-717): the
+target registry (replicate/targets.py) loaded from every pool and, on a
+first boot, saved with the minted site id; the replication plane
+(replicate/plane.py) on the layer's namespace feed with the bucket
+metadata's replication rules; each bucket's legacy remote targets
+mounted into the registry; the plane closed at shutdown before the
+notification plane. Its pushes read through the layer's GET and its
+replica writes go through the layer's PUT, so both run on the card past
+the codec's gate. Departure: the plane's ``bandwidth`` monitor stays
+None (the port has no bandwidth monitor yet).
+
+Left out: the etcd IAM store and federation, the web router, the
+bandwidth admin route (it answers NotImplemented), and the peer verbs of
+those planes.
 """
 
 from __future__ import annotations
@@ -231,6 +241,7 @@ class ClusterNode:
         self.notification: Optional[NotificationSys] = None
         self.events = None           # the legacy EventNotifier
         self.repl_targets = None     # replicate.TargetRegistry (site id)
+        self.replication = None      # replicate.ReplicationPlane
         self.notify_targets = None   # notify.NotifyTargetRegistry
         self.notify_plane = None     # notify.NotificationPlane
         self.iam: Optional[IAMSys] = None
@@ -417,16 +428,44 @@ class ClusterNode:
             if self.spec.drives else None
         self.events = EventNotifier(self.s3.api.bucket_meta, queue_dir=evq)
         self.s3.api.events = self.events
-        # the replication target registry carries this site's id, which
-        # the notification plane stamps on its records; a first boot
-        # persists the minted id so that it survives a restart
-        from .replicate import TargetRegistry
+        # -- active-active replication plane (replicate/) ------------------
+        # the epoch-versioned target registry recovers from every pool
+        # (highest epoch wins: targets survive decommission) and carries
+        # this site's id, which the notification plane stamps on its
+        # records too; the plane rides the layer's namespace feed, so
+        # every mutation verb reaches the replication queue
+        from .replicate import ReplicationPlane, TargetRegistry
         self.repl_targets = TargetRegistry(self.object_layer)
         try:
             if not self.repl_targets.load():
+                # first boot: persist the minted site id so replicas
+                # pushed before and after a restart carry ONE origin
                 self.repl_targets.save()
         except Exception:  # noqa: BLE001 — boot proceeds; admin re-adds
             pass
+        # the port has no bandwidth monitor yet, so the plane's
+        # ``bandwidth`` stays None (no per-bucket egress accounting)
+        self.replication = ReplicationPlane(
+            self.object_layer, self.repl_targets,
+            bucket_meta=self.s3.api.bucket_meta)
+        self.object_layer.attach_replication(self.replication)
+        try:
+            buckets = [v.name for v in self.object_layer.list_buckets()]
+        except Exception as e:  # noqa: BLE001 — boot must proceed, but
+            # an unlistable namespace leaves targets unmounted: say so
+            self.console.log_line(
+                "ERROR", f"replication target mount skipped: {e}")
+            buckets = []
+        # legacy bucket-metadata remote targets mount into the registry
+        for b in buckets:
+            try:
+                for entry in self.s3.api.bucket_meta.get(
+                        b).replication_targets:
+                    entry = dict(entry, source_bucket=b)
+                    self.replication.mount_target_entry(entry)
+            except Exception:  # noqa: BLE001 — per-bucket best effort
+                continue
+        self.s3.api.replication = self.replication
         self.config.apply(self.s3.api, events=self.events,
                           trace=self.s3.api.trace)
         # -- bucket event notification plane (notify/) ---------------------
@@ -725,6 +764,9 @@ class ClusterNode:
         if self.events is not None:
             self.events.close()
             self.events = None
+        if self.replication is not None:
+            self.replication.close()
+            self.replication = None
         if self.notify_plane is not None:
             self.notify_plane.close()
             self.notify_plane = None

@@ -8,11 +8,15 @@ trace_follow, cluster_trace, events and events_follow, incidents and
 incident, slo, spans, profiling_start and profiling_stop, console_log) and
 the gray-failure plane's (obd_info, drive_health), the checking
 plane's naughtynet, the QoS plane's qos_get, qos_set and qos_remove,
-and the notification plane's notify_status, add_notify_target and
-remove_notify_target. ``update_group_members`` drives a route the
-reference's router lacks (upstream's update-group-members); the other
-calls are the reference's. Left out with their planes: replication,
-remote targets and bandwidth."""
+the notification plane's notify_status, add_notify_target and
+remove_notify_target, the replication plane's replicate_status,
+replicate_key_versions, add_replicate_target, remove_replicate_target,
+start_replicate_resync, replicate_resync_status and
+cancel_replicate_resync, and the bucket remote targets' set_remote_target,
+list_remote_targets and remove_remote_target. ``update_group_members``
+drives a route the reference's router lacks (upstream's
+update-group-members); the other calls are the reference's. Left out
+with its plane: bandwidth."""
 
 from __future__ import annotations
 
@@ -231,6 +235,53 @@ class AdminClient:
         return self._json("DELETE", "qos",
                           {"scope": scope, "name": name})
 
+    # -- active-active replication (replicate/) ----------------------------
+
+    def replicate_status(self) -> dict:
+        """Site id, persisted target registry, plane stats, resync —
+        plus per-target health under ``targets_status`` (queue depth,
+        oldest-pending age, last-sync timestamp, last observed lag)."""
+        return self._json("GET", "replicate")
+
+    def replicate_key_versions(self, bucket: str, key: str) -> dict:
+        """Every version of one key as replayable specs (the peer-sync
+        read HTTPReplClient drives)."""
+        return self._json("GET", "replicate/key",
+                          {"bucket": bucket, "key": key})
+
+    def add_replicate_target(self, bucket: str, host: str, port: int,
+                             dest_bucket: str, access_key: str,
+                             secret_key: str, prefix: str = "",
+                             bw_bps: int = 0, arn: str = "",
+                             update: bool = False) -> str:
+        """Register an active-active wire target; returns its ARN.
+        Updating an existing target requires passing its `arn` back
+        (the server mints a fresh one otherwise, which would register
+        a duplicate instead of replacing)."""
+        doc = {"bucket": bucket, "dest_bucket": dest_bucket,
+               "prefix": prefix, "bw_bps": bw_bps, "type": "s3",
+               "params": {"host": host, "port": port,
+                          "access_key": access_key,
+                          "secret_key": secret_key}}
+        if arn:
+            doc["arn"] = arn
+        out = self._json("PUT", "replicate/target",
+                         {"update": "true"} if update else None,
+                         json.dumps(doc).encode())
+        return out["arn"]
+
+    def remove_replicate_target(self, arn: str) -> None:
+        self._request("DELETE", "replicate/target", {"arn": arn})
+
+    def start_replicate_resync(self, arn: str) -> dict:
+        return self._json("POST", "replicate/resync", {"arn": arn})
+
+    def replicate_resync_status(self) -> dict:
+        return self._json("GET", "replicate/resync")
+
+    def cancel_replicate_resync(self) -> dict:
+        return self._json("DELETE", "replicate/resync")
+
     # -- bucket event notification plane -----------------------------------
 
     def notify_status(self) -> dict:
@@ -259,6 +310,29 @@ class AdminClient:
 
     def remove_notify_target(self, arn: str) -> None:
         self._request("DELETE", "notify/target", {"arn": arn})
+
+    # -- bucket remote targets ----------------------------------------------
+
+    def set_remote_target(self, bucket: str, host: str, port: int,
+                          target_bucket: str, access_key: str,
+                          secret_key: str, region: str = "us-east-1"
+                          ) -> str:
+        """Register a replication destination; returns its ARN."""
+        return self._json(
+            "PUT", "set-remote-target", {"bucket": bucket},
+            body=json.dumps({"host": host, "port": port,
+                             "targetbucket": target_bucket,
+                             "accesskey": access_key,
+                             "secretkey": secret_key,
+                             "region": region}).encode())["arn"]
+
+    def list_remote_targets(self, bucket: str) -> list[dict]:
+        return json.loads(self._request(
+            "GET", "list-remote-targets", {"bucket": bucket}))
+
+    def remove_remote_target(self, bucket: str, arn: str) -> None:
+        self._json("DELETE", "remove-remote-target",
+                   {"bucket": bucket, "arn": arn})
 
     # -- IAM ---------------------------------------------------------------
 

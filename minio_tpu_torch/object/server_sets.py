@@ -68,7 +68,7 @@ class ErasureServerSets:
         # invalidated off the same namespace feed
         self.read_cache = None
         # the replication and notification planes: listeners on the same
-        # feed once attached (not ported yet, so nothing attaches them)
+        # feed once attached (the boot attaches both)
         self.replication = None
         self.notifications = None
         self._ns_listeners: list = []

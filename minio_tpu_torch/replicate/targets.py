@@ -13,10 +13,8 @@ identity stamped (as the replica-origin metadata key) onto every
 version this site pushes, which is what makes loop suppression and
 replica pruning possible without any per-version status writes.
 
-The port keeps the registry (load, save, epoch fencing, lineage, the
-site id the first boot persists) but not yet the replication clients
-(``client.py``): a target added or looked up with no injected client
-raises ``ReplTargetError`` where the reference builds its wire client.
+Counterpart of minio_tpu/replicate/targets.py: a target added or looked
+up with no injected client builds its wire client (``client.py``).
 """
 
 from __future__ import annotations
@@ -41,9 +39,6 @@ TARGETS_OBJECT = REPL_PREFIX + "targets.json"
 REPL_ORIGIN_KEY = "X-Minio-Internal-replication-origin"
 
 _SECRET_PARAMS = ("secret_key",)
-
-_NO_CLIENT = ("no injected client, and the replication client "
-              "(replicate/client.py) is not ported")
 
 
 def origin_of(metadata: Optional[dict], self_site: str) -> str:
@@ -148,7 +143,11 @@ class TargetRegistry:
             if target.type == "layer":
                 raise ReplTargetError(
                     "'layer' targets need an injected client")
-            raise ReplTargetError(_NO_CLIENT)
+            from .client import new_repl_client
+            try:
+                client = new_repl_client(target)
+            except (KeyError, ValueError) as e:
+                raise ReplTargetError(f"bad target spec: {e}") from None
         with self._mu:
             if not update and target.arn in self.targets:
                 raise ReplTargetError(
@@ -223,7 +222,11 @@ class TargetRegistry:
             raise ReplTargetError(
                 f"target {arn!r} has no live client (re-inject with "
                 "set_client after a restart)")
-        raise ReplTargetError(_NO_CLIENT)
+        from .client import new_repl_client
+        c = new_repl_client(t)
+        with self._mu:
+            self._clients.setdefault(arn, c)
+        return c
 
     def set_client(self, arn: str, client) -> None:
         """Swap the live client of a registered target (chaos tests

@@ -14,10 +14,14 @@ through the layer, so each heal's recovery runs ``heal_step`` on the
 card), mrf, fsck, metacache; rebalance (POST, GET, DELETE) and topology
 (GET, POST); tier and tier/stats; qos (GET, PUT, DELETE: the QoS
 plane's budget registry, s3/qos.py); notify (GET) and notify/target (PUT,
-DELETE: the notification plane's target registry, notify/); metrics (``?cluster=1`` merges every
-node's exposition, utils/promfed.py); get-config, set-config,
-config-history, restore-config; the user, policy and service-account
-routes; service, set-bucket-quota and get-bucket-quota; and the tracing
+DELETE: the notification plane's target registry, notify/); replicate,
+replicate/key, replicate/target (PUT, DELETE) and replicate/resync (POST,
+GET, DELETE: the active-active replication plane, replicate/); metrics
+(``?cluster=1`` merges every node's exposition, utils/promfed.py);
+get-config, set-config, config-history, restore-config; the user, policy
+and service-account routes; service, set-bucket-quota, get-bucket-quota
+and the bucket remote targets (set-remote-target, list-remote-targets,
+remove-remote-target); and the tracing
 plane's trace (``?follow=1`` grafts every peer's records), trace/cluster,
 spans, events (``?follow=1``, ``?cluster=1``), incidents, slo, consolelog
 and profiling/start, profiling/stop; the gray-failure plane's drivehealth
@@ -27,9 +31,9 @@ obdinfo (every node's OBD bundle, utils/obd.py, and the internode net
 probes); the checking plane's test-only naughtynet (POST, answered only
 with MINIO_TPU_NAUGHTYNET=on). Beside them,
 upstream's update-group-members (the reference's router has no route that
-fills a group; its IAMSys has the verbs). The routes of the
-planes not ported answer a JSON NotImplemented that names the plane
-(``_UNPORTED``), as the port's S3 verbs do.
+fills a group; its IAMSys has the verbs). The one route of a plane not
+ported, bandwidth, answers a JSON NotImplemented that names the plane
+(``_UNPORTED``).
 """
 
 from __future__ import annotations
@@ -67,16 +71,6 @@ _SCRAPE_FAILED = telemetry.REGISTRY.counter(
 # (method, route) -> the unported plane that serves it in the reference
 _UNPORTED = {
     ("GET", "bandwidth"): "bandwidth",
-    ("GET", "replicate"): "replication",
-    ("GET", "replicate/key"): "replication",
-    ("PUT", "replicate/target"): "replication",
-    ("DELETE", "replicate/target"): "replication",
-    ("POST", "replicate/resync"): "replication",
-    ("GET", "replicate/resync"): "replication",
-    ("DELETE", "replicate/resync"): "replication",
-    ("PUT", "set-remote-target"): "remote targets",
-    ("GET", "list-remote-targets"): "remote targets",
-    ("DELETE", "remove-remote-target"): "remote targets",
 }
 
 
@@ -657,6 +651,92 @@ class AdminHandlers:
             return self._json({"scope": scope, "name": name,
                                "epoch": epoch})
 
+        # -- active-active replication plane (replicate/) --------------------
+        if sub == "replicate" and m == "GET":
+            self._auth(ctx, "admin:ReplicationInfo")
+            plane = self._repl_plane()
+            out = {"site": plane.registry.site_id,
+                   "epoch": plane.registry.epoch,
+                   "targets": plane.registry.list(redact=True),
+                   "stats": plane.stats(),
+                   # per-target lag: queue depth, oldest-pending age,
+                   # last-sync timestamp — the JSON twin of
+                   # minio_tpu_repl_lag_seconds{target}
+                   "targets_status": plane.target_status()}
+            rs = plane.resync_status()
+            if rs:
+                out["resync"] = rs
+            return self._json(out)
+        if sub == "replicate/key" and m == "GET":
+            # the peer-sync read: every version of one key as replayable
+            # specs (HTTPReplClient.key_versions' server side)
+            self._auth(ctx, "admin:ReplicationInfo")
+            from ..object import api_errors as oerr
+            from ..object.faithful import spec_of
+            bucket = ctx.query1("bucket", "")
+            key = ctx.query1("key", "")
+            if not bucket or not key:
+                raise S3Error("AdminInvalidArgument",
+                              "bucket and key are required")
+            site = ""
+            repl = self.api.replication
+            if repl is not None and hasattr(repl, "registry"):
+                site = repl.registry.site_id
+            try:
+                versions = self.api.obj.object_versions(bucket, key)
+            except oerr.ObjectApiError:
+                versions = []
+            return self._json({"site": site,
+                               "versions": [spec_of(v).to_dict()
+                                            for v in versions]})
+        if sub == "replicate/target" and m == "PUT":
+            self._auth(ctx, "admin:SetBucketTarget")
+            from ..replicate.targets import (ReplTargetError, SiteTarget,
+                                             new_arn)
+            plane = self._repl_plane()
+            body = json.loads(ctx.read_body().decode() or "{}")
+            if not body.get("bucket"):
+                raise S3Error("AdminInvalidArgument",
+                              "bucket is required")
+            self._require_bucket(body["bucket"])
+            body.setdefault("arn",
+                            new_arn(body.get("dest_bucket")
+                                    or body["bucket"]))
+            try:
+                target = SiteTarget.from_dict(body)
+                plane.registry.add(
+                    target, update=ctx.query1("update") == "true")
+            except ReplTargetError as e:
+                raise S3Error("AdminInvalidArgument", str(e)) from None
+            return self._json({"arn": target.arn,
+                               "epoch": plane.registry.epoch})
+        if sub == "replicate/target" and m == "DELETE":
+            self._auth(ctx, "admin:SetBucketTarget")
+            from ..replicate.targets import ReplTargetError
+            plane = self._repl_plane()
+            try:
+                plane.remove_target(ctx.query1("arn", ""))
+            except ReplTargetError as e:
+                raise S3Error("AdminInvalidArgument", str(e)) from None
+            return self._json({})
+        if sub == "replicate/resync" and m == "POST":
+            self._auth(ctx, "admin:ReplicationResync")
+            from ..replicate.client import ReplClientError
+            from ..replicate.targets import ReplTargetError
+            plane = self._repl_plane()
+            try:
+                r = plane.start_resync(ctx.query1("arn", ""))
+            except (ReplClientError, ReplTargetError) as e:
+                raise S3Error("AdminInvalidArgument", str(e)) from None
+            return self._json(r.status())
+        if sub == "replicate/resync" and m == "GET":
+            self._auth(ctx, "admin:ReplicationInfo")
+            return self._json(self._repl_plane().resync_status() or {})
+        if sub == "replicate/resync" and m == "DELETE":
+            self._auth(ctx, "admin:ReplicationResync")
+            return self._json(
+                {"canceled": self._repl_plane().cancel_resync()})
+
         # -- bucket event notification plane (notify/) -----------------------
         if sub == "notify" and m == "GET":
             self._auth(ctx, "admin:ServerInfo")
@@ -803,6 +883,37 @@ class AdminHandlers:
             bucket = ctx.query1("bucket", "")
             return self._json(
                 self.api.bucket_meta.get(bucket).quota or {})
+        if sub == "set-remote-target" and m == "PUT":
+            self._auth(ctx, "admin:SetBucketTarget")
+            return self._set_remote_target(ctx)
+        if sub == "list-remote-targets" and m == "GET":
+            self._auth(ctx, "admin:GetBucketTarget")
+            bucket = ctx.query1("bucket", "")
+            targets = self.api.bucket_meta.get(
+                bucket).replication_targets
+            return HTTPResponse(
+                body=json.dumps([{k: v for k, v in t.items()
+                                  if k != "secret_key"}
+                                 for t in targets]).encode(),
+                headers={"Content-Type": "application/json"})
+        if sub == "remove-remote-target" and m == "DELETE":
+            self._auth(ctx, "admin:SetBucketTarget")
+            bucket = ctx.query1("bucket", "")
+            arn = ctx.query1("arn", "")
+            targets = [t for t in self.api.bucket_meta.get(
+                bucket).replication_targets if t.get("arn") != arn]
+            self.api.bucket_meta.update(bucket,
+                                        replication_targets=targets)
+            repl = self.api.replication
+            if repl is not None:
+                if hasattr(repl, "remove_target"):
+                    try:
+                        repl.remove_target(arn)
+                    except Exception:  # noqa: BLE001 — already gone
+                        pass
+                else:
+                    repl.targets.pop(arn, None)
+            return self._json({})
         if sub == "update-group-members" and m == "PUT":
             # upstream's route (cmd/admin-handlers-users.go
             # UpdateGroupMembers); the reference's router has none
@@ -837,6 +948,15 @@ class AdminHandlers:
         if self.api.iam is None:
             raise S3Error("NotImplemented", "IAM is not configured")
         return self.api.iam
+
+    def _repl_plane(self):
+        """The active-active plane (replicate/); the legacy
+        pool has no registry and no resync surface."""
+        repl = self.api.replication
+        if repl is None or not hasattr(repl, "registry"):
+            raise S3Error("NotImplemented",
+                          "no active-active replication plane")
+        return repl
 
     def _notify_plane(self):
         """The bucket event notification plane (notify/); the legacy
@@ -899,6 +1019,41 @@ class AdminHandlers:
         except api_errors.BucketNotFound:
             raise S3Error("NoSuchBucket",
                           f"bucket {bucket!r} does not exist") from None
+
+    def _set_remote_target(self, ctx: RequestContext) -> HTTPResponse:
+        """Register a replication destination for a bucket
+        (cmd/admin-bucket-handlers.go SetRemoteTargetHandler +
+        cmd/bucket-targets.go): persisted in bucket metadata, mounted
+        into the live replication pool, ARN returned."""
+        bucket = ctx.query1("bucket", "")
+        body = json.loads(ctx.read_body().decode() or "{}")
+        host = body.get("host") or ""
+        tbucket = body.get("targetbucket") or body.get("bucket") or ""
+        if not bucket or not host or not tbucket:
+            raise S3Error("AdminInvalidArgument",
+                          "bucket, host and targetbucket are required")
+        self._require_bucket(bucket)
+        entry = {
+            "arn": f"arn:minio:replication::{uuid.uuid4().hex[:12]}:"
+                   f"{tbucket}",
+            "host": host, "port": int(body.get("port", 9000)),
+            "bucket": tbucket,
+            "access_key": body.get("accesskey", ""),
+            "secret_key": body.get("secretkey", ""),
+            "region": body.get("region", "us-east-1"),
+            "secure": bool(body.get("secure", False)),
+        }
+        targets = list(self.api.bucket_meta.get(
+            bucket).replication_targets) + [entry]
+        self.api.bucket_meta.update(bucket, replication_targets=targets)
+        if self.api.replication is not None:
+            # the legacy entry's "bucket" is the REMOTE bucket — the
+            # plane's registry needs the SOURCE bucket too, or the
+            # target would watch the wrong namespace (cluster boot's
+            # remount does the same)
+            self.api.replication.mount_target_entry(
+                dict(entry, source_bucket=bucket))
+        return self._json({"arn": entry["arn"]})
 
     def service_action(self, action: str) -> None:
         """Local service restart/stop. Overridable hook; the default
@@ -1107,6 +1262,11 @@ class MetricsHandler:
             bg.clear()          # deleted buckets must drop off
             for b, v in u.get("buckets", {}).items():
                 bg.set(v["size"], bucket=b)
+        if self.api.replication is not None:
+            g("minio_replication_completed_total",
+              "Replicated ops").set(self.api.replication.replicated)
+            g("minio_replication_failed_total",
+              "Failed replication ops").set(self.api.replication.failed)
         # MRF heal queue (degraded reads/writes awaiting re-redundancy)
         mrf_fn = getattr(self.api.obj, "mrf_stats", None)
         if callable(mrf_fn):

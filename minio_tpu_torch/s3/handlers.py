@@ -50,11 +50,15 @@ is the reference's: ``?notification`` configs (a PUT validated by the
 notification plane, ``notify``), ListenBucketNotification's ND-JSON
 stream over the legacy notifier's hub (``events``), and ``_notify`` at
 each of the reference's event sites (the tracker marked for every event
-but ``s3:ObjectAccessed:*``). Verbs of planes not ported yet answer
-NotImplemented: replication configs and the internal replication
-headers (the replication-apply and replica-prune branches, the two
-event sites the port lacks); RestoreObject answers it too when no tier
-manager is attached (``tiers``, as in the reference).
+but ``s3:ObjectAccessed:*``). Replication is the
+reference's: ``?replication`` configs, the owner-gated internal headers
+(the replication-apply branch of PUT, whose version-faithful write
+encodes on the card past the codec's gate, and the replica-prune branch
+of DELETE, bound by object lock), and the legacy pool's ``on_put`` /
+``on_delete`` hooks in ``_notify`` (``replication``; the active-active
+plane rides the namespace feed instead). RestoreObject answers
+NotImplemented when no tier manager is attached (``tiers``, as in the
+reference).
 
 The QoS plane (s3/qos.py, off by default) resolves each request's tenant
 at the admission gate, confirms it from the verified credential
@@ -87,6 +91,8 @@ import base64
 import binascii
 import dataclasses
 import hashlib
+import io
+import json
 import os
 import re
 import urllib.parse
@@ -128,10 +134,6 @@ _BUCKET_RE = re.compile(r"^[a-z0-9][a-z0-9.\-]{1,61}[a-z0-9]$")
 _SEAL_KEYS = (sse.MK_SSE, sse.MK_SEALED, sse.MK_IV, sse.MK_KEYMD5,
               sse.MK_COMPRESS, sse.MK_COMPRESS_LEGACY, sse.MK_ACTUAL,
               sse.MK_SSE_MP)
-
-
-def _not_ported(what: str) -> S3Error:
-    return S3Error("NotImplemented", f"{what} is not served by this port")
 
 
 @dataclasses.dataclass
@@ -342,6 +344,8 @@ class S3ApiHandlers:
         self.notify = None         # optional NotificationPlane
                                    # (notify/, feed-driven)
         self.usage = None          # optional DataUsageCrawler (quota cache)
+        self.replication = None    # optional ReplicationPlane (or the
+        # legacy ReplicationPool: _notify duck-types the difference)
         self.tiers = None          # optional TierManager (ILM tiering)
         # optional TransitionWorker: the async RestoreObject pulls
         self.restore_worker = None
@@ -706,7 +710,7 @@ class S3ApiHandlers:
             if ctx.has_query("object-lock"):
                 return self.get_object_lock_config(ctx, bucket)
             if ctx.has_query("replication"):
-                raise _not_ported("GET ?replication")
+                return self.get_bucket_replication(ctx, bucket)
             if ctx.has_query("notification"):
                 return self.get_bucket_notification(ctx, bucket)
             if ctx.has_query("events"):
@@ -728,7 +732,7 @@ class S3ApiHandlers:
             if ctx.has_query("object-lock"):
                 return self.put_object_lock_config(ctx, bucket)
             if ctx.has_query("replication"):
-                raise _not_ported("PUT ?replication")
+                return self.put_bucket_replication(ctx, bucket)
             if ctx.has_query("notification"):
                 return self.put_bucket_notification(ctx, bucket)
             return self.make_bucket(ctx, bucket)
@@ -744,7 +748,7 @@ class S3ApiHandlers:
             if ctx.has_query("encryption"):
                 return self.delete_bucket_encryption(ctx, bucket)
             if ctx.has_query("replication"):
-                raise _not_ported("DELETE ?replication")
+                return self.delete_bucket_replication(ctx, bucket)
             return self.delete_bucket(ctx, bucket)
         if m == "POST":
             if ctx.has_query("delete"):
@@ -945,7 +949,6 @@ class S3ApiHandlers:
         self.authenticate(ctx, "s3:PutBucketPolicy", bucket)
         self.obj.get_bucket_info(bucket)
         body = ctx.read_body()
-        import json
         try:
             json.loads(body)
         except ValueError:
@@ -988,6 +991,19 @@ class S3ApiHandlers:
     def put_object_lock_config(self, ctx, bucket):
         return self._put_xml_config(ctx, bucket, "object_lock_xml",
                                     "s3:PutBucketObjectLockConfiguration")
+
+    def get_bucket_replication(self, ctx, bucket):
+        return self._xml_config(ctx, bucket, "replication_xml",
+                                "s3:GetReplicationConfiguration",
+                                "ReplicationConfigurationNotFoundError")
+
+    def put_bucket_replication(self, ctx, bucket):
+        return self._put_xml_config(ctx, bucket, "replication_xml",
+                                    "s3:PutReplicationConfiguration")
+
+    def delete_bucket_replication(self, ctx, bucket):
+        return self._del_xml_config(ctx, bucket, "replication_xml",
+                                    "s3:PutReplicationConfiguration")
 
     def _xml_config(self, ctx, bucket, field: str, action: str,
                     missing_code: str) -> HTTPResponse:
@@ -1342,7 +1358,10 @@ class S3ApiHandlers:
         self.authenticate(ctx, "s3:PutObject", bucket, key)
         self.obj.get_bucket_info(bucket)
         if ctx.header("x-minio-tpu-repl-spec"):
-            raise _not_ported("replication apply")
+            # internal replication apply (the reference's
+            # x-minio-source-* peer headers): a version-faithful write
+            # carrying explicit identity — owner credential only
+            return self._repl_apply(ctx, bucket, key)
         # _put_reader resolves the true payload size (including
         # x-amz-decoded-content-length for aws-chunked streams, where
         # Content-Length covers the chunk framing) — quota must gate on
@@ -1370,6 +1389,48 @@ class S3ApiHandlers:
             headers["x-amz-version-id"] = info.version_id
         self._notify("s3:ObjectCreated:Put", bucket, key)
         return HTTPResponse(headers=headers)
+
+    def _repl_apply(self, ctx, bucket, key) -> HTTPResponse:
+        """Apply one replicated version with full fidelity (identity,
+        part boundaries, markers, transitioned stubs as metadata) —
+        the HTTPReplClient's server side. Owner credential only: the
+        spec header carries internal metadata and explicit version
+        identity no ordinary client may set. A data version's body is
+        read whole and replayed through the layer's PUT, so a version
+        past the codec's device gate encodes on the card."""
+        if self.iam is not None and ctx.cred is not None and \
+                not self._is_owner(ctx.cred):
+            raise S3Error("AccessDenied",
+                          "replication apply needs the owner credential")
+        from ..object.faithful import VersionSpec
+        from ..replicate.client import LayerReplClient, ReplClientError
+        try:
+            spec = VersionSpec.from_dict(json.loads(
+                base64.urlsafe_b64decode(
+                    ctx.header("x-minio-tpu-repl-spec").encode())
+                .decode()))
+        except (ValueError, KeyError, TypeError):
+            raise S3Error("InvalidArgument",
+                          "bad replication spec header") from None
+        body = ctx.read_body()
+        if not spec.delete_marker and not spec.transitioned_stub \
+                and len(body) != spec.size:
+            raise S3Error("IncompleteBody")
+        site = ""
+        if self.replication is not None:
+            site = getattr(getattr(self.replication, "registry", None),
+                           "site_id", "")
+        client = LayerReplClient(self.obj, bucket, site)
+        try:
+            result = client.apply_version(
+                key, spec, reader_factory=lambda: io.BytesIO(body))
+        except ReplClientError as e:
+            raise S3Error("InternalError", str(e)) from None
+        if result == "applied":
+            self._notify("s3:ObjectCreated:Replication", bucket, key)
+        return HTTPResponse(
+            body=json.dumps({"result": result}).encode(),
+            headers={"Content-Type": "application/json"})
 
     def _apply_put_transforms(self, ctx, key, reader, size, metadata
                               ) -> tuple:
@@ -1784,7 +1845,31 @@ class S3ApiHandlers:
         self.authenticate(ctx, "s3:DeleteObject", bucket, key)
         self.obj.get_bucket_info(bucket)
         if ctx.header("x-minio-tpu-repl-purge"):
-            raise _not_ported("replica prune")
+            # internal replica prune: remove ONE version outright (no
+            # delete marker), owner credential only — the wire form of
+            # the replication plane's prune step
+            if self.iam is not None and ctx.cred is not None and \
+                    not self._is_owner(ctx.cred):
+                raise S3Error("AccessDenied",
+                              "replica prune needs the owner credential")
+            pvid = ctx.query1("versionId")
+            # object-lock retention binds the prune too: a COMPLIANCE-
+            # locked version must survive replication convergence
+            # exactly like it survives a direct versioned DELETE. The
+            # prune ALWAYS removes a version (never writes a marker),
+            # so the marker exemption must not apply — an empty vid
+            # names the null version explicitly
+            self._enforce_object_lock(ctx, bucket, key, pvid or "null",
+                                      False)
+            try:
+                self.obj.delete_object(
+                    bucket, key,
+                    version_id="" if pvid == "null" else pvid,
+                    versioned=False)
+            except (oerr.ObjectNotFound, oerr.VersionNotFound):
+                pass                    # already converged
+            self._notify("s3:ObjectRemoved:Delete", bucket, key)
+            return HTTPResponse(status=204)
         vid = ctx.query1("versionId")
         versioned = self.bucket_meta.versioning_enabled(bucket)
         self._enforce_object_lock(ctx, bucket, key, vid, versioned)
@@ -2337,6 +2422,20 @@ class S3ApiHandlers:
             try:
                 tracker.mark(bucket, key)
             except Exception:  # noqa: BLE001 — hints are best-effort
+                pass
+        # LEGACY replication pool only: the active-active plane
+        # (replicate/) rides the engine namespace-change feed instead,
+        # so every mutation verb reaches it without per-handler call
+        # sites (the old hooks here missed bulk delete and multipart
+        # commit)
+        if self.replication is not None and key and \
+                hasattr(self.replication, "on_put"):
+            try:
+                if event_name.startswith("s3:ObjectCreated:"):
+                    self.replication.on_put(bucket, key)
+                elif event_name.startswith("s3:ObjectRemoved:"):
+                    self.replication.on_delete(bucket, key)
+            except Exception:  # noqa: BLE001 — replication is async
                 pass
 
 

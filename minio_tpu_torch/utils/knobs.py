@@ -239,6 +239,26 @@ define("MINIO_TPU_RESTORE_ASYNC_BYTES", "int", 64 << 20,
        "RestoreObject switches to 202 + background tier pull at this "
        "size (0 = always synchronous)")
 
+# -- replication plane ----------------------------------------------------------
+define("MINIO_TPU_REPL_WORKERS", "int", 2,
+       "sync workers draining the replication queue")
+define("MINIO_TPU_REPL_QUEUE", "int", 10000,
+       "max queued (bucket, key) sync tasks (overflow drops; the "
+       "resync verb is the backstop)")
+define("MINIO_TPU_REPL_BACKOFF_S", "float", 0.05,
+       "first replication backoff when the foreground is busy")
+define("MINIO_TPU_REPL_BACKOFF_MAX_S", "float", 1.0,
+       "replication backoff cap, seconds")
+define("MINIO_TPU_REPL_BACKOFF_TRIES", "int", 8,
+       "busy polls before a sync proceeds anyway")
+define("MINIO_TPU_REPL_BW_BPS", "int", 0,
+       "default per-target push bandwidth budget, bytes/sec "
+       "(0 = unlimited; a target's own bw_bps wins)")
+define("MINIO_TPU_REPL_RESYNC_CHECKPOINT_EVERY", "int", 16,
+       "keys pushed between resync checkpoints")
+define("MINIO_TPU_REPL_RESYNC_PAGE", "int", 256,
+       "resync listing page size")
+
 # -- registries, topology, durability and fsck ---------------------------------
 define("MINIO_TPU_FSYNC", "bool", False,
        "`on` = fsync barriers on commit paths (fsync before rename, "

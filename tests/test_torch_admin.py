@@ -7,20 +7,27 @@ held against minio_tpu's.
     token, info and storage, MRF stats, the IAM and policy routes, the
     heal sequence, the metrics endpoint, the madmin SDK, the service
     action, the metacache stats (on and off) and the topology and
-    rebalance surface; the quota half of the quota / remote-target case
-    (remote targets wait for the replication plane);
-  * every admin route of a plane the port has not got answers a JSON
-    NotImplemented that names the plane; the test-only naughtynet route
+    rebalance surface; the quota / remote-target case (on a server of
+    its own: the remote target mounts into the port's legacy replication
+    pool and persists in the bucket metadata);
+  * the one admin route of a plane the port has not got (bandwidth)
+    answers a JSON NotImplemented that names the plane; the test-only
+    naughtynet route
     refuses as the reference's does with its knob off, and answers the
     reference's status with it on;
   * upstream's update-group-members, which the reference's router lacks;
   * the notification plane's routes (GET notify, PUT and DELETE
     notify/target) through each package's madmin on twin servers, equal
     answers and refusals;
+  * the replication plane's routes (replicate, replicate/key,
+    replicate/target, replicate/resync with a resync run to its end) and
+    the bucket remote-target routes through each package's madmin on
+    twin servers, equal answers and refusals;
   * twin servers (reference and port, identities pinned) answer the
     admin GETs and a heal with equal JSON, volatile fields masked;
   * the Prometheus families both packages export after the same traffic
-    agree in type and label names; every family the port exports is one
+    (replication's push, failed sync and prune among it) agree in type
+    and label names; every family the port exports is one
     the reference declares, but for the ones listed here (ROADMAP Queue
     C names those only the reference exports);
   * promfed's merge is the reference's on the same expositions.
@@ -31,6 +38,7 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import re
 import sys
 import time
 
@@ -128,6 +136,26 @@ def test_bucket_quota(server):
     with pytest.raises(madmin.AdminClientError) as ei:
         mc.set_bucket_quota("nosuchbucket", 5)
     assert ei.value.status == 404
+
+
+def test_reference_quota_and_remote_targets(tmp_path):
+    """tests/test_admin.py's quota / remote-target case whole, on a server
+    of its own (the module's server already holds its bucket)."""
+    sets = ErasureSets.from_drives([str(tmp_path / f"d{i}")
+                                    for i in range(4)],
+                                   set_count=1, set_drive_count=4,
+                                   parity=2, block_size=1 << 16,
+                                   device="cpu")
+    srv = S3Server(sets, creds=CREDS, region=REGION,
+                   iam=IAMSys(sets, root_cred=CREDS)).start()
+    mount_admin(srv)
+    try:
+        _case("test_admin_bucket_quota_and_remote_targets")(srv)
+    finally:
+        if srv.api.replication is not None:
+            srv.api.replication.close()
+        srv.stop()
+        sets.close()
 
 
 @pytest.mark.parametrize("route", sorted(_UNPORTED))
@@ -552,6 +580,198 @@ def test_twin_notify_routes(tmp_path, monkeypatch):
     assert port == ref
 
 
+_ARN_RE = re.compile(r"arn:minio:replication::[0-9a-f]{12}:")
+
+
+def _mask_repl(doc):
+    """The replicate answers' fields that differ between twin servers:
+    the registry's lineage, the clocks, and the ARNs the servers mint."""
+    if isinstance(doc, dict):
+        return {_mask_repl(k): ("*" if k in ("lineage", "updated", "started",
+                                             "last_sync", "last_lag_s",
+                                             "oldest_pending_s")
+                                else _mask_repl(v))
+                for k, v in doc.items()}
+    if isinstance(doc, list):
+        return [_mask_repl(v) for v in doc]
+    if isinstance(doc, str):
+        return _ARN_RE.sub("arn:minio:replication::*:", doc)
+    return doc
+
+
+def _repl_plane(layer, site, **kw):
+    """A replication plane of the layer's package over its layer, as the
+    boot attaches one, its site id pinned."""
+    repl = importlib.import_module(
+        type(layer).__module__.split(".")[0] + ".replicate")
+    reg = repl.TargetRegistry(layer, site_id=site)
+    return repl, repl.ReplicationPlane(layer, reg, busy_fn=lambda: False,
+                                       **kw)
+
+
+def _sets_like(layer, root):
+    """Fresh sets of the layer's package over four drives under root."""
+    pkg = type(layer).__module__.split(".")[0]
+    sets_cls = importlib.import_module(pkg + ".object.sets").ErasureSets
+    kw = {"device": "cpu"} if pkg == "minio_tpu_torch" else {}
+    return sets_cls.from_drives([str(root / f"d{i}") for i in range(4)],
+                                set_count=1, set_drive_count=4, parity=2,
+                                block_size=1 << 16, **kw)
+
+
+def test_twin_replicate_routes(tmp_path, monkeypatch):
+    """The replication plane's routes and the bucket remote targets on
+    twin servers through each package's madmin: GET replicate with no
+    plane, then with one (its site id pinned); a wire target added,
+    refused (no bucket, a missing bucket, an ARN that exists), updated
+    and removed; GET replicate/key over two versions and a marker; a
+    resync of an unknown ARN refused, one of a layer target run to its
+    end, its status and a cancel; the three remote-target routes. Equal answers and
+    statuses, clocks, lineage and minted ARNs masked."""
+    pin_both(monkeypatch)
+    servers = _twin_servers(tmp_path)
+    out = []
+    try:
+        for (srv, layer), tag in zip(servers, ("ref", "port")):
+            mod = importlib.import_module(
+                type(layer).__module__.split(".")[0] + ".madmin")
+            mc = mod.AdminClient("127.0.0.1", srv.port,
+                                 TWIN_CREDS.access_key,
+                                 TWIN_CREDS.secret_key)
+            got = []
+
+            def call(fn, *a, **kw):
+                try:
+                    got.append(("ok", _mask_repl(fn(*a, **kw))))
+                except mod.AdminClientError as e:
+                    got.append(("err", e.status, str(e)))
+
+            p = srv.port
+            assert _send(p, TWIN_CREDS, "PUT", "/rbk")[0] == 200
+            assert _send(p, TWIN_CREDS, "PUT", "/rbk",
+                         query={"versioning": ""},
+                         body=b"<VersioningConfiguration><Status>Enabled"
+                              b"</Status></VersioningConfiguration>")[0] \
+                == 200
+            for body in (b"one", b"two" * 100):
+                assert _send(p, TWIN_CREDS, "PUT", "/rbk/k", body=body)[0] \
+                    == 200
+            assert _send(p, TWIN_CREDS, "DELETE", "/rbk/k")[0] == 204
+            call(mc.replicate_status)               # no plane: 501
+            repl, plane = _repl_plane(layer, "twin-site")
+            srv.api.replication = plane
+            dst = _sets_like(layer, tmp_path / f"{tag}-dst")
+            try:
+                call(mc.replicate_status)
+                arn = "arn:minio:replication::wire:rbk"
+                wire = dict(host="127.0.0.1", port=1, dest_bucket="rbk",
+                            access_key="ak", secret_key="sk")
+                call(mc.add_replicate_target, "rbk", arn=arn, **wire)
+                call(mc.add_replicate_target, "rbk", arn=arn, **wire)
+                call(mc.add_replicate_target, "", arn="arn:x", **wire)
+                call(mc.add_replicate_target, "nosuchbucket", arn="arn:y",
+                     **wire)
+                call(mc.add_replicate_target, "rbk", arn=arn,
+                     update=True, prefix="k", bw_bps=1 << 20, **wire)
+                call(mc.replicate_status)
+                call(mc.replicate_key_versions, "rbk", "k")
+                call(mc.replicate_key_versions, "rbk", "nokey")
+                call(mc.remove_replicate_target, "arn:ghost")
+                call(mc.remove_replicate_target, arn)
+                seed = "arn:minio:replication::seed:rbk"
+                plane.registry.add(
+                    repl.SiteTarget(arn=seed, bucket="rbk", dest_bucket="rbk",
+                                    site="twin-dst", type="layer"),
+                    client=repl.LayerReplClient(dst, "rbk", "twin-dst"))
+                call(mc.replicate_resync_status)
+                call(mc.start_replicate_resync, "arn:ghost")
+                got.append(("started", mc.start_replicate_resync(seed)
+                            ["arn"]))
+                deadline = time.monotonic() + 30
+                while plane.resync_status()["running"] and \
+                        time.monotonic() < deadline:
+                    time.sleep(0.02)
+                call(mc.replicate_resync_status)
+                call(mc.cancel_replicate_resync)
+                got.append(("dst", [
+                    (v.name, v.version_id, v.etag, v.delete_marker)
+                    for v in dst.list_object_versions("rbk")[0]]))
+                rt = mc.set_remote_target("rbk", "127.0.0.1", 1, "far",
+                                          "rak12345", "rsk1234567")
+                got.append(("remote", _mask_repl(rt)))
+                call(mc.set_remote_target, "nosuchbucket", "127.0.0.1", 1,
+                     "far", "rak12345", "rsk1234567")
+                call(mc.list_remote_targets, "rbk")
+                call(mc.replicate_status)
+                call(mc.remove_remote_target, "rbk", rt)
+                call(mc.list_remote_targets, "rbk")
+                call(mc.replicate_status)
+            finally:
+                plane.close()
+                dst.close()
+            out.append(got)
+    finally:
+        for srv, layer in servers:
+            srv.stop()
+            layer.close()
+    ref, port = out
+    assert port[0][:2] == ("err", 501)
+    assert [g[0] for g in port] == [
+        "err", "ok", "ok", "err", "err", "err", "ok", "ok", "ok", "ok",
+        "err", "ok", "ok", "err", "started", "ok", "ok", "dst", "remote",
+        "err", "ok", "ok", "ok", "ok", "ok"]
+    resync = port[15][1]
+    assert resync["status"] == "complete" and resync["versions_pushed"] == 3
+    assert len(port[17][1]) == 3
+    assert port == ref
+
+
+def _repl_traffic(layer, root) -> None:
+    """One push, one failed sync and one prune through the layer's
+    package's replication plane (each of the four minio_tpu_repl_*
+    families takes a sample): a layer target over fresh sets takes a
+    version, and its replica is pruned once the version is purged here;
+    a second target refuses every apply."""
+    pkg = type(layer).__module__.split(".")[0]
+    put_opts = importlib.import_module(pkg + ".object.engine").PutOptions
+    repl, plane = _repl_plane(layer, "prom-site")
+    dst = _sets_like(layer, root)
+    try:
+        layer.make_bucket("promr")
+        dst.make_bucket("promr")
+        dst.make_bucket("promb")
+        plane.registry.add(
+            repl.SiteTarget(arn="arn:ok", bucket="promr",
+                            dest_bucket="promr", site="prom-dst",
+                            type="layer"),
+            client=repl.LayerReplClient(dst, "promr", "prom-dst"))
+        plane.registry.add(
+            repl.SiteTarget(arn="arn:bad", bucket="promr",
+                            dest_bucket="promb", site="prom-bad",
+                            type="layer"),
+            client=repl.NaughtyReplClient(
+                repl.LayerReplClient(dst, "promb", "prom-bad"),
+                fail_verbs={"apply": repl.ReplClientError("HTTP 503")}))
+        info = layer.put_object("promr", "o", b"r" * 333,
+                                opts=put_opts(versioned=True))
+        plane.on_namespace_change("promr", "o")
+
+        def wait(key):
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline and plane.stats()[key] < 1:
+                time.sleep(0.02)
+            assert plane.stats()[key] >= 1, plane.stats()
+
+        wait("synced")
+        wait("failed")
+        layer.delete_object("promr", "o", version_id=info.version_id)
+        plane.on_namespace_change("promr", "o")
+        wait("pruned")
+    finally:
+        plane.close()
+        dst.close()
+
+
 def test_prometheus_families_agree(tmp_path, monkeypatch):
     _import_counterparts()
     pin_both(monkeypatch)
@@ -576,6 +796,7 @@ def test_prometheus_families_agree(tmp_path, monkeypatch):
                 type(layer).__module__.split(".")[0]
                 + ".distributed.naughtynet"))
             _notify_traffic(layer, monkeypatch)
+            _repl_traffic(layer, tmp_path / f"repl-{p}")
             c = Client(p, TWIN_CREDS)
             st, body = c.request("GET", "/minio/prometheus/metrics",
                                  sign=False)
@@ -602,13 +823,18 @@ def test_prometheus_families_agree(tmp_path, monkeypatch):
                  "minio_tpu_notify_sent_total",
                  "minio_tpu_notify_failed_total",
                  "minio_tpu_notify_dropped_total",
-                 "minio_tpu_notify_lag_seconds"):
+                 "minio_tpu_notify_lag_seconds",
+                 "minio_tpu_repl_synced_total",
+                 "minio_tpu_repl_failed_total",
+                 "minio_tpu_repl_pruned_total",
+                 "minio_tpu_repl_lag_seconds"):
         assert port[name].samples and ref[name].samples, name
-    # the edge's, the QoS plane's and the notification plane's families
-    # are no longer the reference's alone
+    # the edge's, the QoS plane's, the notification plane's and the
+    # replication plane's families are no longer the reference's alone
     assert {n for n in set(ref) - set(port)
             if n.startswith(("minio_tpu_edge_", "minio_tpu_qos_",
-                             "minio_tpu_notify_"))} == set()
+                             "minio_tpu_notify_", "minio_tpu_repl_"))} \
+        == set()
     assert port["minio_disks_online"].samples[
         ("minio_disks_online", ())] == 4
     # a family the reference registers only when its code first runs

@@ -1,10 +1,11 @@
 """The port's legacy event notifier and its wire targets
 (minio_tpu_torch/features/events.py) held against minio_tpu's.
 
-  * every case of tests/test_events_durable.py but
-    test_replication_survives_restart (it needs features/replication.py,
-    which is not ported) rebound to the port (tests/test_torch_iam.rebound):
-    the durable QueueStore, restart and redrive, and each wire target
+  * every case of tests/test_events_durable.py rebound to the port
+    (tests/test_torch_iam.rebound): the durable QueueStore, restart and
+    redrive, the legacy replication pool's durable queue re-driven after
+    a restart (its sets, which it takes from tests/test_features.py, the
+    port's on device="cpu"), and each wire target
     against the reference's in-process brokers (Redis, MQTT, Kafka, NATS,
     Elasticsearch, NSQ, AMQP, Postgres with MD5 and SCRAM-SHA-256, MySQL
     native and caching_sha2); and tests/test_features.py's
@@ -35,19 +36,11 @@ from tests.test_torch_iam import rebound
 # -- the reference's cases, rebound -----------------------------------------------
 
 _CASES = sorted(name for name, fn in vars(ref_cases).items()
-                if name.startswith("test_") and inspect.isfunction(fn)
-                and name != "test_replication_survives_restart")
+                if name.startswith("test_") and inspect.isfunction(fn))
 
 
 def test_every_reference_case_is_rebound():
-    assert len(_CASES) == 19, _CASES
-
-
-@pytest.mark.parametrize("name", _CASES)
-def test_reference_event_cases(tmp_path, name):
-    fn = rebound(getattr(ref_cases, name))
-    given = {"tmp_path": tmp_path}
-    fn(**{p: given[p] for p in inspect.signature(fn).parameters})
+    assert len(_CASES) == 20, _CASES
 
 
 class _CpuSets:
@@ -56,12 +49,20 @@ class _CpuSets:
         return ErasureSets.from_drives(*args, device="cpu", **kw)
 
 
+@pytest.mark.parametrize("name", _CASES)
+def test_reference_event_cases(tmp_path, monkeypatch, name):
+    # a case that imports tests/test_features.py's _mk_sets takes the
+    # port's sets through it
+    monkeypatch.setattr(ref_features, "_mk_sets",
+                        rebound(ref_features._mk_sets, ErasureSets=_CpuSets))
+    fn = rebound(getattr(ref_cases, name))
+    given = {"tmp_path": tmp_path}
+    fn(**{p: given[p] for p in inspect.signature(fn).parameters})
+
+
 def test_reference_event_rules_and_memory_target(tmp_path):
-    # the replication names have no counterpart in the port (replication
-    # is not ported); this case reads none of them
     rebound(ref_features.test_event_rules_and_memory_target,
-            ErasureSets=_CpuSets, ReplicationTarget=None,
-            ReplicationConfig=None, ReplicationPool=None)(tmp_path)
+            ErasureSets=_CpuSets)(tmp_path)
 
 
 # -- wire bytes ---------------------------------------------------------------------

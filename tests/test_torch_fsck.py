@@ -8,9 +8,8 @@ crash plane it repairs, held against minio_tpu's.
     torn-write injector, the MRF drain crash, torn checkpoint and
     registry loaders, the metacache persist crash and half manifest, the
     atomic writer and its fsync knob, atomic temp siblings, and a stub
-    spared on a transient tier error. Left out:
-    test_resync_checkpoint_torn_tolerated, which needs the resync walker
-    of the replication plane (replicate/*, not ported);
+    spared on a transient tier error, a torn resync checkpoint of the
+    replication plane's walker read as absent;
   * for each of the 13 classes: one broken tree built by the reference,
     copied, and audited by each package: the two ``FsckReport.to_dict()``
     results are equal (timings and the copies' roots masked), and after
@@ -55,6 +54,10 @@ from minio_tpu_torch.object.rebalance import _checkpoint_object as reb_ckpt
 from minio_tpu_torch.object.server_sets import ErasureServerSets
 from minio_tpu_torch.object.sets import ErasureSets
 from minio_tpu_torch.object.topology import TopologyStore
+from minio_tpu_torch.replicate.resync import Resyncer
+from minio_tpu_torch.replicate.resync import _checkpoint_object as \
+    _resync_ckpt
+from minio_tpu_torch.replicate.targets import TargetRegistry
 from minio_tpu_torch.storage.xl_storage import MINIO_META_BUCKET
 from minio_tpu_torch.tier.config import TierManager
 from minio_tpu_torch.utils import atomicfile, crashpoint, telemetry
@@ -435,10 +438,22 @@ def test_registry_loads_tolerate_torn_copy(tmp_path):
 
 
 def test_tier_registry_tolerates_torn_doc(zz):
-    """The tier half of test_tier_and_target_registry_tolerate_torn_docs
-    (the replication target registry is not ported)."""
+    """The tier half of test_tier_and_target_registry_tolerate_torn_docs."""
     zz.put_object(MINIO_META_BUCKET, "tier/config.json", b'{"epoch"')
     assert TierManager(zz).load() is False
+
+
+def test_target_registry_tolerates_torn_doc(zz):
+    """The replication half of
+    test_tier_and_target_registry_tolerate_torn_docs."""
+    zz.put_object(MINIO_META_BUCKET, "replicate/targets.json", b"7")
+    assert TargetRegistry(zz).load() is False
+
+
+def test_resync_checkpoint_torn_tolerated(zz):
+    arn = "arn:minio:repl:site:x"
+    zz.put_object(MINIO_META_BUCKET, _resync_ckpt(arn), b'{"to')
+    assert Resyncer.load_checkpoint(zz, arn) is None
 
 
 # ---------------------------------------------------------------------------

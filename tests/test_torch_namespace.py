@@ -232,7 +232,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "features/events.py", "notify/__init__.py",
                 "notify/rules.py", "notify/targets.py", "notify/chaos.py",
                 "notify/plane.py", "replicate/__init__.py",
-                "replicate/targets.py"):
+                "replicate/targets.py", "replicate/client.py",
+                "replicate/plane.py", "replicate/resync.py",
+                "features/replication.py"):
         assert f"minio_tpu_torch/{mod}" in names, mod
     for path in files:
         tree = ast.parse(path.read_text(), str(path))

@@ -25,6 +25,10 @@ Three parts, all on the host (device="cpu") over 8 drives at 6+2 with
     ?notification (malformed XML, an unknown ARN and an unknown event
     refused alike) and a ListenBucketNotification stream each, equal
     records (eventTime aside) under both transports;
+  * twin servers with IAM: ?replication configs and the owner-gated
+    replication-apply and replica-prune branches (a bad spec header, a
+    short body, a data version, a marker, a user that is not the owner)
+    answer alike under both transports, to equal drive files;
   * the port's own: the admission gate's scheduler-occupancy and
     client-budget sheds (503 SlowDown before any body byte), a bucket
     quota written by the reference honoured by the port, encrypted GETs
@@ -698,9 +702,106 @@ def test_twin_bucket_notification(tmp_path, monkeypatch, edge):
         assert _norm(have) == _norm(want)
 
 
+_REPL_XML = (b"<ReplicationConfiguration><Role>r</Role><Rule><ID>all</ID>"
+             b"<Status>Enabled</Status><Filter><Prefix>k</Prefix></Filter>"
+             b"<Destination><Bucket>arn:minio:replication::x:far"
+             b"</Bucket></Destination></Rule></ReplicationConfiguration>")
+
+
+def _repl_spec(**kw) -> str:
+    """An x-minio-tpu-repl-spec header: a VersionSpec's dict, base64 JSON."""
+    doc = {"v": "", "t": 1.7e9 + 3.0, "e": "", "s": 0, "dm": False,
+           "md": {"X-Minio-Internal-replication-origin": "far-site"},
+           "p": []}
+    doc.update(kw)
+    return base64.urlsafe_b64encode(json.dumps(doc).encode()).decode()
+
+
+@pytest.mark.parametrize("edge", ["on", "off"])
+def test_twin_bucket_replication(tmp_path, monkeypatch, edge):
+    """?replication GET, PUT (malformed XML refused) and DELETE, the
+    replication-apply branch of PUT (a bad spec header, a short body, a
+    data version, a delete marker, a repeat) and the replica-prune branch
+    of DELETE (a marker, a version not there), each branch refused to an
+    IAM user that is not the owner, on twin servers with IAM under both
+    transports: equal statuses, masked bodies and headers, and equal
+    drive files."""
+    from tests.test_torch_iam import CREDS as ROOT
+    from tests.test_torch_iam import _admin, _send, _twin_servers, pin_both
+    monkeypatch.setenv("MINIO_TPU_EDGE", edge)
+    pin_both(monkeypatch)
+    servers = _twin_servers(tmp_path)
+    user = type(ROOT)("repluser", "replsecret12")
+    data = b"replica-bytes" * 999
+    vid, mvid = (str(uuid.UUID(int=n)) for n in (0xabc, 0xdef))
+    spec = _repl_spec(v=vid, e=hashlib.md5(data).hexdigest(), s=len(data),
+                      md={"content-type": "text/plain",
+                          "X-Minio-Internal-replication-origin":
+                              "far-site"})
+    marker = _repl_spec(v=mvid, t=1.7e9 + 9.0, dm=True)
+    out = []
+    try:
+        for srv, _layer in servers:
+            p = srv.port
+
+            def r(method, path, creds=ROOT, **kw):
+                got.append(_norm(_send(p, creds, method, path, **kw)))
+
+            got = []
+            r("PUT", "/rpl")
+            r("PUT", "/rpl", query={"versioning": ""},
+              body=b"<VersioningConfiguration><Status>Enabled</Status>"
+                   b"</VersioningConfiguration>")
+            r("GET", "/rpl", query={"replication": ""})
+            r("PUT", "/rpl", query={"replication": ""},
+              body=b"<ReplicationConfiguration")
+            r("PUT", "/rpl", query={"replication": ""}, body=_REPL_XML)
+            r("GET", "/rpl", query={"replication": ""})
+            r("PUT", "/rpl/k", body=data,
+              headers={"x-minio-tpu-repl-spec": "%%not-base64%%"})
+            r("PUT", "/rpl/k", body=data[:-1],
+              headers={"x-minio-tpu-repl-spec": spec})
+            r("PUT", "/rpl/k", body=data,
+              headers={"x-minio-tpu-repl-spec": spec})
+            r("PUT", "/rpl/k", headers={"x-minio-tpu-repl-spec": marker})
+            r("PUT", "/rpl/k", body=data,
+              headers={"x-minio-tpu-repl-spec": spec})
+            _admin(p, "PUT", "add-user", {"accessKey": user.access_key},
+                   json.dumps({"secretKey": user.secret_key}).encode())
+            _admin(p, "PUT", "set-user-or-group-policy",
+                   {"policyName": "readwrite",
+                    "userOrGroup": user.access_key, "isGroup": "false"})
+            r("PUT", "/rpl/k", creds=user, body=data,
+              headers={"x-minio-tpu-repl-spec": spec})
+            r("DELETE", "/rpl/k", creds=user, query={"versionId": vid},
+              headers={"x-minio-tpu-repl-purge": "true"})
+            r("PUT", "/rpl/u", creds=user, body=b"user-write")
+            r("GET", "/rpl/k", query={"versionId": vid})
+            r("GET", "/rpl", query={"versions": ""})
+            r("DELETE", "/rpl/k", query={"versionId": mvid},
+              headers={"x-minio-tpu-repl-purge": "true"})
+            r("DELETE", "/rpl/k", query={"versionId": mvid},
+              headers={"x-minio-tpu-repl-purge": "true"})
+            r("GET", "/rpl", query={"versions": ""})
+            r("DELETE", "/rpl", query={"replication": ""})
+            r("GET", "/rpl", query={"replication": ""})
+            out.append(got)
+    finally:
+        for srv, layer in servers:
+            srv.stop()
+            layer.close()
+    ref, port = out
+    assert [g[0] for g in port] == [200, 200, 404, 400, 200, 200, 400, 400,
+                                    200, 200, 200, 403, 403, 200, 200, 200,
+                                    204, 204, 200, 204, 404]
+    assert port[8][2] == b'{"result": "applied"}'
+    assert port[14][2] == data
+    assert port == ref
+    assert drive_files(tmp_path / "port") == drive_files(tmp_path / "ref")
+
+
 def test_unported_verbs_answer_not_implemented(client, bucket):
     for method, path, query, hdrs in (
-            ("PUT", f"/{bucket}", {"replication": ""}, None),
             ("POST", f"/{bucket}/o", {"restore": ""}, None),
             ("POST", "/", None, None)):
         status, _, body = client.request(method, path, query=query,
